@@ -1,0 +1,35 @@
+// Shared definitions for the port's hand-written Hopper kernels.
+//
+// Every kernel is exported through a plain C entry point that launches on
+// the caller's stream, allocates nothing and returns cudaGetLastError() as
+// an int; the Python wrapper (ops/*.py) raises when it is not 0.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define OMNI_API extern "C" __attribute__((visibility("default")))
+
+namespace omni {
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Round an f32 value to bf16 (round to nearest even) and back: the value a
+// bf16 matmul input holds, kept in f32 for the CUDA-core dot products.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel k, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace omni

@@ -1,0 +1,133 @@
+"""Release checkpoints without JAX.
+
+A release is one float16 ``.npz`` per model, written by the JAX package's
+``models/zoo.py::save_release``. Its keys are ``jax.tree_util.keystr``
+paths such as ``['blocks'][0]['mhsa']['wq']['w']``. This module parses
+them into the port's parameter tree (nested dicts and lists of f32 tensors,
+the JAX package's structure), validates every leaf against the shape tree
+of the configuration, and casts up on load.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import PipelineConfig
+from .conformer import asr_param_shapes
+from .xvector import xvector_param_shapes
+
+_KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def parse_keystr(key: str):
+    """``"['blocks'][0]['w']"`` -> ``("blocks", 0, "w")``."""
+    parts, pos = [], 0
+    for m in _KEY_PART.finditer(key):
+        if m.start() != pos:
+            raise ValueError(f"malformed checkpoint key {key!r}")
+        parts.append(m.group(1) if m.group(1) is not None
+                     else int(m.group(2)))
+        pos = m.end()
+    if pos != len(key) or not parts:
+        raise ValueError(f"malformed checkpoint key {key!r}")
+    return tuple(parts)
+
+
+def keystr(path) -> str:
+    """Inverse of :func:`parse_keystr`."""
+    return "".join(f"[{p}]" if isinstance(p, int) else f"['{p}']"
+                   for p in path)
+
+
+def _build(shapes, fetch, path=()):
+    if isinstance(shapes, dict):
+        return {k: _build(v, fetch, path + (k,)) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_build(v, fetch, path + (i,)) for i, v in enumerate(shapes)]
+    return fetch(path, tuple(shapes))
+
+
+def tree_from_arrays(arrays: dict, shapes, source: str, device="cpu"):
+    """Build a parameter tree from ``{keystr: array}`` against ``shapes``.
+
+    Raises KeyError for a missing leaf and ValueError for a wrong shape.
+    """
+    def fetch(path, shape):
+        key = keystr(path)
+        if key not in arrays:
+            raise KeyError(f"{source} is missing {key}")
+        x = np.asarray(arrays[key])
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{source}: {key} has shape {x.shape}, model "
+                             f"expects {shape}")
+        return torch.from_numpy(x.astype(np.float32)).to(device)
+
+    return _build(shapes, fetch)
+
+
+def load_release(path, shapes, device="cpu"):
+    """Load a release ``.npz`` against a shape tree."""
+    with np.load(Path(path)) as z:
+        arrays = {k: z[k] for k in z.files}
+    for k in arrays:
+        parse_keystr(k)
+    return tree_from_arrays(arrays, shapes, f"release checkpoint {path}",
+                            device)
+
+
+def load_checkpoint(path, cfg: PipelineConfig, device="cpu"):
+    """Load the ASR parameters of a release ``.npz``."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        raise NotImplementedError(
+            f"{path}: only release .npz checkpoints load in the port "
+            f"(Orbax checkpoints need JAX)")
+    return load_release(path, asr_param_shapes(cfg), device)
+
+
+def load_xvector(path, cfg: PipelineConfig, device="cpu"):
+    """Load x-vector embedder parameters from a release ``.npz``."""
+    return load_release(path, xvector_param_shapes(cfg), device)
+
+
+def params_from_jax(tree, device="cpu"):
+    """Carry a JAX parameter tree (nested dicts/lists, leaves convertible
+    with ``numpy.asarray``) across into the port's parameter structure, as
+    f32 tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
+    return torch.from_numpy(
+        np.array(tree, dtype=np.float32, copy=True)).to(device)
+
+
+def tree_to(tree, device):
+    """Move every tensor of a parameter tree to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def default_release_dir() -> Optional[Path]:
+    """The in-repo shipped-checkpoint directory, if present.
+
+    Resolution order: ``$OMNIASR_RELEASE_DIR`` (an empty value disables
+    discovery), then ``checkpoints/release`` next to the package. Returns
+    None when neither exists.
+    """
+    env = os.getenv("OMNIASR_RELEASE_DIR")
+    if env is not None:
+        p = Path(env)
+        return p if env and p.is_dir() else None
+    repo = Path(__file__).resolve().parent.parent.parent
+    p = repo / "checkpoints" / "release"
+    return p if p.is_dir() else None

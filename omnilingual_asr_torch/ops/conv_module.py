@@ -1,0 +1,105 @@
+"""Fused conformer conv module: kernel K3 and its plain PyTorch version.
+
+Port of ``omnilingual_asr_tpu/ops/conv_module.py``: the whole module per
+frame, LN -> pointwise [D, 2D] (bf16 in, f32 accumulation) -> GLU ->
+x mask -> depthwise K taps, SAME (left (K-1)//2) -> LN -> SiLU ->
+pointwise [D, D] (bf16 in, f32 accumulation) -> + the unmasked input.
+
+``fused_conv_module`` launches the CUDA kernel (``csrc/conv_module.cu``)
+for CUDA tensors and runs ``conv_module_plain`` (the twin of the
+reference's ``_conv_module_ref``) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_build
+
+#: Largest depthwise kernel the CUDA kernel's 64-row halo holds (32 output
+#: frames + K - 1 halo rows).
+KERNEL_MAX_TAPS = 33
+
+
+def _ln(x, scale, bias, eps: float = 1e-5):
+    mean = x.mean(dim=-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and back to f32: a bf16 matmul input, held in f32 so
+    that the product accumulates in f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def conv_module_plain(x, mask, ln_scale, ln_bias, pw1, dw, dwln_scale,
+                      dwln_bias, pw2):
+    """x [B, T, D] f32, mask [B, T] bool -> [B, T, D] f32."""
+    xf = x.to(torch.float32)
+    D = xf.shape[-1]
+    T = xf.shape[1]
+    h = _ln(xf, ln_scale, ln_bias)
+    g = _bf16(h) @ _bf16(pw1)
+    glu = g[..., :D] * torch.sigmoid(g[..., D:])
+    glu = glu * mask.to(torch.float32)[:, :, None]
+    K = dw.shape[0]
+    pad_l = (K - 1) // 2
+    padded = torch.nn.functional.pad(glu, (0, 0, pad_l, K - 1 - pad_l))
+    out = torch.zeros_like(glu)
+    for k in range(K):
+        out = out + padded[:, k:k + T, :] * dw[k][None, None, :]
+    out = _ln(out, dwln_scale, dwln_bias)
+    out = torch.nn.functional.silu(out)
+    out = _bf16(out) @ _bf16(pw2)
+    return xf + out
+
+
+def fused_conv_module(x, mask, ln_scale, ln_bias, pw1, dw, dwln_scale,
+                      dwln_bias, pw2):
+    """Fused conv module; see :func:`conv_module_plain`.
+
+    A CUDA tensor goes to kernel K3; a CPU tensor to the plain version.
+    On the card pw1 and pw2 must already be bf16 (the engine keeps them so
+    from load time); the plain version takes them in f32 or bf16 alike.
+    """
+    if not x.is_cuda:
+        return conv_module_plain(x, mask, ln_scale, ln_bias, pw1, dw,
+                                 dwln_scale, dwln_bias, pw2)
+    B, T, D = x.shape
+    K = dw.shape[0]
+    dev = x.device
+    f32 = torch.float32
+    if D % 64 or K > KERNEL_MAX_TAPS:
+        raise ValueError(f"conv-module kernel takes D % 64 == 0 and at most "
+                         f"{KERNEL_MAX_TAPS} taps, got D={D}, K={K}")
+    mask_i = mask.to(torch.int32).contiguous()
+    cuda_build.check_tensor(x, "x", f32, (B, T, D), dev)
+    cuda_build.check_tensor(mask_i, "mask", torch.int32, (B, T), dev)
+    for name, t in (("ln_scale", ln_scale), ("ln_bias", ln_bias),
+                    ("dwln_scale", dwln_scale), ("dwln_bias", dwln_bias)):
+        cuda_build.check_tensor(t, name, f32, (D,), dev)
+    cuda_build.check_tensor(pw1, "pw1", torch.bfloat16, (D, 2 * D), dev)
+    cuda_build.check_tensor(dw, "dw", f32, (K, D), dev)
+    cuda_build.check_tensor(pw2, "pw2", torch.bfloat16, (D, D), dev)
+    out = torch.empty_like(x)
+    lib = cuda_build.library()
+    err = lib.omni_conv_module(
+        x.data_ptr(), mask_i.data_ptr(), ln_scale.data_ptr(),
+        ln_bias.data_ptr(), pw1.data_ptr(), dw.data_ptr(),
+        dwln_scale.data_ptr(), dwln_bias.data_ptr(), pw2.data_ptr(),
+        out.data_ptr(), B, T, D, K, cuda_build.stream_ptr(dev))
+    cuda_build.check(err, "conv-module kernel")
+    fused_conv_module.launches += 1
+    return out
+
+
+fused_conv_module.launches = 0
+
+
+def convmod_apply_fused(p, x, mask):
+    """Drop-in for ``models.layers.convmod_apply`` through the fused path."""
+    return fused_conv_module(
+        x.to(torch.float32).contiguous(), mask,
+        p["ln"]["scale"], p["ln"]["bias"], p["pw1"]["w"], p["dw"],
+        p["dw_ln"]["scale"], p["dw_ln"]["bias"], p["pw2"]["w"])
