@@ -1,10 +1,13 @@
 """omnilingual_asr_torch: the PyTorch/CUDA port of ``omnilingual_asr_tpu``.
 
-This slice serves window-mode transcription (``TranscriptionEngine``) on one
-NVIDIA Hopper card, with hand-written CUDA kernels for the log-mel frontend
-(``ops/mel.py``), flash-attention forward (``ops/attention.py``) and the
-fused conformer conv module (``ops/conv_module.py``). Every kernel has a
-plain PyTorch version beside it, which runs for tensors on the CPU.
+The port serves window-mode transcription (``TranscriptionEngine`` and the
+``GeminiDiarizedTranscriptionPipeline`` facade) on one NVIDIA Hopper card,
+unquantized or in the int8 modes (``quantize=True``, ``"w8"``, ``"a8"``),
+with hand-written CUDA kernels for the log-mel frontend (``ops/mel.py``),
+flash-attention forward (``ops/attention.py``), the fused conformer conv
+module (``ops/conv_module.py``) and the int8 matmuls (``ops/quant.py``).
+Every kernel has a plain PyTorch version beside it, which runs for tensors
+on the CPU.
 """
 
 __version__ = "0.1.0"
@@ -24,6 +27,8 @@ __all__ = [
     "TranscriptionResult",
     "WordTimestamp",
     "TranscriptionEngine",
+    "GeminiDiarizedTranscriptionPipeline",
+    "DiarizedTranscriptSegment",
 ]
 
 
@@ -33,4 +38,9 @@ def __getattr__(name):
         from .engine import TranscriptionEngine
 
         return TranscriptionEngine
+    if name in ("GeminiDiarizedTranscriptionPipeline",
+                "DiarizedTranscriptSegment"):
+        from .diarization import pipeline
+
+        return getattr(pipeline, name)
     raise AttributeError(name)

@@ -11,7 +11,8 @@ Execution model:
   30 s int16 windows;
 - windows are batched to a fixed [B, T] shape and run through the per-batch
   program ``_process``: framing, the log-mel kernel (K1), the conformer with
-  the flash-attention (K2) and fused conv-module (K3) kernels, the heads, the
+  the flash-attention (K2) and fused conv-module (K3) kernels (and, under
+  ``quantize="w8"``/``"a8"``, the int8 matmul kernels K4/K5), the heads, the
   x-vector embedder, argmax, LID confidence and frame energy, all on the card;
 - every batch is enqueued on a CUDA stream before any is collected, so host
   extraction of batch k overlaps the device work of later batches;
@@ -53,8 +54,10 @@ from .models.xvector import xvector_frames
 from .models.zoo import (default_release_dir, load_checkpoint, load_xvector,
                          tree_to)
 from .ops.attention import REFERENCE_BLOCK_Q
+from .ops.conv_module import dense_weight
 from .ops.ctc import segments_from_alignment
 from .ops.mel import BLOCK_T, MelFrontend
+from .ops.quant import add_kernel_layouts, quantize_param_tree
 from .types import EMOTIONS, TranscriptSegment, TranscriptionResult
 from .utils.tracing import StageTrace
 
@@ -169,6 +172,14 @@ class TranscriptionEngine:
     ignored. On CUDA the constructor sets ``torch.backends.cuda.matmul.
     allow_tf32`` and ``torch.backends.cudnn.allow_tf32`` to False for the
     process: the reference accumulates every product in f32.
+
+    ``quantize`` selects int8 serving as in the JAX engine: ``True`` holds
+    every dense weight as int8 with per-channel scales and dequantizes it
+    into the bf16 matmuls; ``"w8"`` and ``"a8"`` also route the layers that
+    the kernels take (in_dim % 128 == 0, out_dim % 512 == 0) through the
+    W8A16 kernel K4 or the W8A8 kernel K5 (``ops/quant.py``). The JAX
+    engine refuses the kernel modes under tensor parallelism; the port runs
+    on one card, so that check has no counterpart here.
     """
 
     def __init__(
@@ -210,8 +221,6 @@ class TranscriptionEngine:
                              f"got {ingress!r}")
         if long_mode == "sequence":
             raise _not_ported("long_mode='sequence'", "Queue A item 10")
-        if quantize is not False:
-            raise _not_ported(f"quantize={quantize!r}", "Queue A item 8")
         if ingress == "mulaw":
             raise _not_ported("ingress='mulaw'", "Queue A item 9")
         if (enable_translation or translator_params is not None
@@ -288,10 +297,24 @@ class TranscriptionEngine:
                     "release discovered): serving RANDOM-INIT weights — "
                     "transcriptions will be noise.", stacklevel=2)
                 params = _init_params(asr_param_shapes(cfg), cfg.seed)
+        # Host copy of the active embedder's pooling projection, taken
+        # before quantization so that the host matmul stays f32.
         pool_src = self._xvector if self._xvector is not None else params
         self._spk_pool = {"spk_proj": {
             k: v.detach().cpu().numpy().astype(np.float32)
             for k, v in pool_src["spk_proj"].items()}}
+        #: Quantized-kernel mode of the dense layers: "a8" (K5), "w8" (K4)
+        #: or None (quantize=True and unquantized serving).
+        self._quant_kernel = quantize if quantize in ("a8", "w8") else None
+        if quantize:
+            # Int8 serving: every dense weight is held as int8 plus a
+            # per-channel scale. quantize=True dequantizes it into the bf16
+            # matmuls; "a8"/"w8" route the layers the kernels take through
+            # K5/K4, which read a K-contiguous copy kept from here on. The
+            # x-vector embedder stays unquantized (it is held apart).
+            params = quantize_param_tree(params)
+            if self._quant_kernel is not None:
+                params = add_kernel_layouts(params)
         self.params = tree_to(params, self.device)
         if self._xvector is not None:
             self._xvector = tree_to(self._xvector, self.device)
@@ -322,11 +345,13 @@ class TranscriptionEngine:
             use_fused_conv=use_fused_conv))
         if use_fused_conv:
             # The fused conv module rounds its pointwise weights to bf16;
-            # hold them so once, rather than cast them on every call.
+            # hold them so once, rather than cast them on every call. A
+            # quantized weight is dequantized in f32 first, as the
+            # reference feeds its kernel.
             for blk in self.params["blocks"]:
                 for name in ("pw1", "pw2"):
-                    w = blk["conv"][name]
-                    w["w"] = w["w"].to(torch.bfloat16)
+                    blk["conv"][name] = {"w": dense_weight(
+                        blk["conv"][name]).to(torch.bfloat16)}
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -354,7 +379,8 @@ class TranscriptionEngine:
         mel = fe.log_mel(frames)[:, :self.window_frames]
         frame_idx = torch.arange(self.window_frames, device=mel.device)
         mask = frame_idx[None, :] < n_valid[:, None]
-        out = asr_forward(self.params, mel, mask, icfg)
+        out = asr_forward(self.params, mel, mask, icfg,
+                          quant=self._quant_kernel)
         # Per-subsampled-frame energy (dB proxy) for host-side pooling.
         e = torch.logsumexp(mel, dim=-1) * (10.0 / math.log(10.0))
         sub = icfg.encoder.subsample_factor

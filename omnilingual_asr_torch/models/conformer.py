@@ -17,6 +17,8 @@ are training or multi-chip features of the JAX package and are not ported.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -98,27 +100,32 @@ def subsampled_mask(mask: torch.Tensor, sub: int) -> torch.Tensor:
     return mask.reshape(B, T // sub, sub)[:, :, 0]
 
 
-def conformer_block_apply(p, x, mask, cos, sin, enc: EncoderConfig, dtype):
-    """One conformer block."""
-    x = L.ffn_apply(p["ffn1"], x, dtype)
+def conformer_block_apply(p, x, mask, cos, sin, enc: EncoderConfig, dtype,
+                          quant: Optional[str] = None):
+    """One conformer block. ``quant`` is the quantized-kernel mode of
+    ``layers.dense_apply``."""
+    x = L.ffn_apply(p["ffn1"], x, dtype, quant=quant)
     x = L.mhsa_apply(p["mhsa"], x, enc.n_heads, mask, cos, sin, dtype,
-                     use_flash=enc.use_flash_attention)
+                     use_flash=enc.use_flash_attention, quant=quant)
     if enc.use_fused_conv:
         x = convmod_apply_fused(p["conv"], x, mask)
     else:
-        x = L.convmod_apply(p["conv"], x, mask, dtype)
-    x = L.ffn_apply(p["ffn2"], x, dtype)
+        x = L.convmod_apply(p["conv"], x, mask, dtype, quant=quant)
+    x = L.ffn_apply(p["ffn2"], x, dtype, quant=quant)
     return L.layernorm_apply(p["ln_out"], x)
 
 
 def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
-                cfg: PipelineConfig):
+                cfg: PipelineConfig, quant: Optional[str] = None):
     """Inference forward pass.
 
     mel [B, T, n_mels] f32 (T a multiple of the subsample factor); mask
     [B, T] bool. Returns the JAX package's output dict: ctc/lid/emotion
     logits, speaker frames and L2-normalised embeddings, encoder states and
-    the subsampled mask.
+    the subsampled mask. ``params`` may hold quantized dense leaves
+    (``ops/quant.py::quantize_param_tree``); ``quant`` (None, "w8" or "a8")
+    routes those the kernels take through K4 or K5, as the JAX engine's
+    ``set_quant_kernel`` mode does.
     """
     enc = cfg.encoder
     if enc.n_experts > 0:
@@ -128,16 +135,16 @@ def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
     sub = enc.subsample_factor
     x = subsample_frames(mel, sub)
     m = subsampled_mask(mask, sub)
-    x = L.dense_apply(params["subsample"], x, dtype)
+    x = L.dense_apply(params["subsample"], x, dtype, quant)
     x = L.layernorm_apply(params["in_ln"], x)
     cos, sin = L.rope_angles(x.shape[1], enc.head_dim, device=x.device)
     for blk in params["blocks"]:
-        x = conformer_block_apply(blk, x, m, cos, sin, enc, dtype)
-    ctc = L.dense_apply(params["ctc_head"], x, dtype)
-    lid = L.dense_apply(params["lid_head"], x, dtype)
-    emo = L.dense_apply(params["emotion_head"], x, dtype)
-    h = torch.relu(L.dense_apply(params["speaker_head"], x, dtype))
-    spk_frames = L.dense_apply(params["spk_head2"], h, dtype)
+        x = conformer_block_apply(blk, x, m, cos, sin, enc, dtype, quant)
+    ctc = L.dense_apply(params["ctc_head"], x, dtype, quant)
+    lid = L.dense_apply(params["lid_head"], x, dtype, quant)
+    emo = L.dense_apply(params["emotion_head"], x, dtype, quant)
+    h = torch.relu(L.dense_apply(params["speaker_head"], x, dtype, quant))
+    spk_frames = L.dense_apply(params["spk_head2"], h, dtype, quant)
     spk = spk_frames * torch.rsqrt(
         (spk_frames * spk_frames).sum(dim=-1, keepdim=True) + 1e-8)
     return {

@@ -16,11 +16,13 @@ matmul with f32 accumulation computes; on a card this needs TF32 off
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ops.attention import flash_attention
+from ..ops.quant import dense_quant_matmul, kernel_shapes_ok
 
 
 def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -28,9 +30,27 @@ def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).to(torch.float32)
 
 
-def dense_apply(p, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """x @ w (+ b): inputs rounded to ``dtype``, f32 accumulation."""
-    y = round_to(x, dtype) @ round_to(p["w"], dtype)
+def dense_apply(p, x: torch.Tensor, dtype=torch.bfloat16,
+                quant: Optional[str] = None) -> torch.Tensor:
+    """x @ w (+ b): inputs rounded to ``dtype``, f32 accumulation.
+
+    A quantized leaf (``{"w_q", "w_scale"}``, ``ops/quant.py``) goes through
+    kernel K5 (``quant="a8"``) or K4 (``quant="w8"``) where the kernels take
+    its shape (``kernel_shapes_ok``). Otherwise, and with ``quant=None``,
+    its weight is dequantized as the reference's XLA path computes it,
+    ``dtype(w_q) * dtype(w_scale)`` rounded once to ``dtype``, and the usual
+    product follows. The mode is an argument, never module state: the
+    reference records a bug that a process-wide flag caused.
+    """
+    if "w_q" in p:
+        if quant is not None and kernel_shapes_ok(*p["w_q"].shape):
+            return dense_quant_matmul(x, p["w_q"], p["w_scale"], quant,
+                                      bias=p.get("b"), w_t=p.get("w_t"))
+        w = round_to(p["w_q"].to(torch.float32) * round_to(p["w_scale"],
+                                                           dtype), dtype)
+    else:
+        w = round_to(p["w"], dtype)
+    y = round_to(x, dtype) @ w
     if "b" in p:
         y = y + p["b"].to(torch.float32)
     return y
@@ -65,7 +85,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 def mhsa_apply(p, x: torch.Tensor, n_heads: int, mask: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor, dtype=torch.bfloat16,
-               use_flash: bool = False) -> torch.Tensor:
+               use_flash: bool = False,
+               quant: Optional[str] = None) -> torch.Tensor:
     """Pre-LN RoPE self-attention with a residual. x [B, T, D]; mask [B, T]
     bool (True = valid key).
 
@@ -75,9 +96,9 @@ def mhsa_apply(p, x: torch.Tensor, n_heads: int, mask: torch.Tensor,
     B, T, D = x.shape
     hd = D // n_heads
     h = layernorm_apply(p["ln"], x)
-    q = dense_apply(p["wq"], h, dtype).reshape(B, T, n_heads, hd)
-    k = dense_apply(p["wk"], h, dtype).reshape(B, T, n_heads, hd)
-    v = dense_apply(p["wv"], h, dtype).reshape(B, T, n_heads, hd)
+    q = dense_apply(p["wq"], h, dtype, quant).reshape(B, T, n_heads, hd)
+    k = dense_apply(p["wk"], h, dtype, quant).reshape(B, T, n_heads, hd)
+    v = dense_apply(p["wv"], h, dtype, quant).reshape(B, T, n_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if use_flash:
@@ -85,7 +106,7 @@ def mhsa_apply(p, x: torch.Tensor, n_heads: int, mask: torch.Tensor,
                                  k.to(dtype).contiguous(),
                                  v.to(dtype).contiguous(), mask)
         out = out.to(torch.float32).reshape(B, T, D)
-        return x + dense_apply(p["wo"], out, dtype)
+        return x + dense_apply(p["wo"], out, dtype, quant)
     scale = 1.0 / math.sqrt(hd)
     logits = torch.einsum("bthd,bshd->bhts", round_to(q, dtype),
                           round_to(k, dtype)) * scale
@@ -95,25 +116,28 @@ def mhsa_apply(p, x: torch.Tensor, n_heads: int, mask: torch.Tensor,
     attn = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhts,bshd->bthd", round_to(attn, dtype),
                        round_to(v, dtype))
-    return x + dense_apply(p["wo"], out.reshape(B, T, D), dtype)
+    return x + dense_apply(p["wo"], out.reshape(B, T, D), dtype,
+                           quant)
 
 
 def ffn_apply(p, x: torch.Tensor, dtype=torch.bfloat16,
-              half_step: bool = True) -> torch.Tensor:
+              half_step: bool = True,
+              quant: Optional[str] = None) -> torch.Tensor:
     h = layernorm_apply(p["ln"], x)
-    h = dense_apply(p["w1"], h, dtype)
+    h = dense_apply(p["w1"], h, dtype, quant)
     h = torch.nn.functional.silu(h)
-    h = dense_apply(p["w2"], h, dtype)
+    h = dense_apply(p["w2"], h, dtype, quant)
     return x + (0.5 * h if half_step else h)
 
 
 def convmod_apply(p, x: torch.Tensor, mask: torch.Tensor,
-                  dtype=torch.bfloat16) -> torch.Tensor:
+                  dtype=torch.bfloat16,
+                  quant: Optional[str] = None) -> torch.Tensor:
     """Pointwise GLU -> depthwise conv over time -> LN -> SiLU -> pointwise,
     the plain (unfused) path of the reference."""
     B, T, D = x.shape
     h = layernorm_apply(p["ln"], x)
-    h = dense_apply(p["pw1"], h, dtype)
+    h = dense_apply(p["pw1"], h, dtype, quant)
     a, g = h[..., :D], h[..., D:]
     h = a * torch.sigmoid(g)
     h = torch.where(mask[:, :, None], h, torch.zeros_like(h))
@@ -125,5 +149,5 @@ def convmod_apply(p, x: torch.Tensor, mask: torch.Tensor,
         hp, kernel.t().unsqueeze(1), groups=D).transpose(1, 2)
     out = layernorm_apply(p["dw_ln"], out)
     out = torch.nn.functional.silu(out)
-    out = dense_apply(p["pw2"], out, dtype)
+    out = dense_apply(p["pw2"], out, dtype, quant)
     return x + out

@@ -98,18 +98,22 @@ def load_xvector(path, cfg: PipelineConfig, device="cpu"):
 
 def params_from_jax(tree, device="cpu"):
     """Carry a JAX parameter tree (nested dicts/lists, leaves convertible
-    with ``numpy.asarray``) across into the port's parameter structure, as
-    f32 tensors on ``device``."""
+    with ``numpy.asarray``) across into the port's parameter structure, on
+    ``device``. Floating leaves become f32 tensors; integer and boolean
+    leaves (a quantized tree's int8 ``w_q``) keep their dtype."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
-    return torch.from_numpy(
-        np.array(tree, dtype=np.float32, copy=True)).to(device)
+    x = np.array(tree, copy=True)
+    if x.dtype.kind not in "iub":
+        x = x.astype(np.float32)
+    return torch.from_numpy(x).to(device)
 
 
 def tree_to(tree, device):
-    """Move every tensor of a parameter tree to ``device``."""
+    """Move every tensor of a parameter tree to ``device``, dtypes
+    unchanged."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):

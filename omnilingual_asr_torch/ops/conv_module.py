@@ -97,9 +97,18 @@ def fused_conv_module(x, mask, ln_scale, ln_bias, pw1, dw, dwln_scale,
 fused_conv_module.launches = 0
 
 
+def dense_weight(leaf) -> torch.Tensor:
+    """A pointwise weight from a plain or quantized leaf: ``f32(w_q) *
+    w_scale`` in f32, as the reference's ``_dense_weight`` (the kernel then
+    rounds it to bf16; the dense layers' dequantization is another one)."""
+    if "w_q" in leaf:
+        return leaf["w_q"].to(torch.float32) * leaf["w_scale"][None, :]
+    return leaf["w"]
+
+
 def convmod_apply_fused(p, x, mask):
     """Drop-in for ``models.layers.convmod_apply`` through the fused path."""
     return fused_conv_module(
         x.to(torch.float32).contiguous(), mask,
-        p["ln"]["scale"], p["ln"]["bias"], p["pw1"]["w"], p["dw"],
-        p["dw_ln"]["scale"], p["dw_ln"]["bias"], p["pw2"]["w"])
+        p["ln"]["scale"], p["ln"]["bias"], dense_weight(p["pw1"]), p["dw"],
+        p["dw_ln"]["scale"], p["dw_ln"]["bias"], dense_weight(p["pw2"]))

@@ -128,6 +128,9 @@ _SIGNATURES = {
     # stream
     "omni_conv_module": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P],
+    # x, w_t, scale, bias (or NULL), out, M, N, K, stream
+    "omni_q_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "omni_q8a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

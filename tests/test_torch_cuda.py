@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from omnilingual_asr_torch.config import FrontendConfig
-from omnilingual_asr_torch.ops import attention, conv_module, mel
+from omnilingual_asr_torch.ops import attention, conv_module, mel, quant
 
 torch.set_num_threads(2)
 
@@ -93,3 +93,69 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         attention.flash_attention(q, q, q, torch.ones(1, 64, dtype=torch.bool,
                                                       device=dev))
+
+
+def _quant_inputs(dev, M, K, N, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(M, K, generator=gen, device=dev)
+    x[0] *= 1000.0                      # an outlier row keeps its own scale
+    x[min(3, M - 1)] = 0.0              # an all-zero row
+    w = 0.05 * torch.randn(K, N, generator=gen, device=dev)
+    w_q, scale = quant.quantize_weight(w)
+    bias = torch.randn(N, generator=gen, device=dev)
+    return x, w_q, scale, bias
+
+
+@pytest.mark.parametrize("M,K,N", [(3072, 256, 1024), (3072, 256, 512),
+                                   (3072, 256, 2048), (70, 128, 128),
+                                   (1, 384, 256)])
+def test_q8a8_kernel_equals_plain(dev, M, K, N):
+    """K5: int32 sums are exact and every other step is the same f32
+    operation, so the kernel equals its plain version bit for bit."""
+    x, w_q, scale, bias = _quant_inputs(dev, M, K, N, M + N)
+    for b in (None, bias):
+        before = quant.quantized_matmul_a8.launches
+        got = quant.quantized_matmul_a8(x, w_q, scale, b)
+        want = quant.quantized_matmul_a8_plain(x, w_q, scale, b)
+        torch.cuda.synchronize()
+        assert quant.quantized_matmul_a8.launches == before + 1
+        assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("M,K,N", [(3072, 256, 1024), (3072, 256, 512),
+                                   (3072, 256, 2048), (70, 128, 128),
+                                   (1, 384, 256)])
+def test_q_matmul_kernel_matches_plain(dev, M, K, N):
+    """K4: the same exact bf16 x int8 products summed in f32 in another
+    order; each element within 2 K 2^-24 sum|terms| * scale (+ one rounding
+    of the bias add)."""
+    x, w_q, scale, bias = _quant_inputs(dev, M, K, N, M * N)
+    xb = x.to(torch.bfloat16).float().abs()
+    tol = (2 * K * 2.0 ** -24 * (xb.double() @ w_q.double().abs())
+           * scale.double()).float()
+    for b in (None, bias):
+        before = quant.quantized_matmul.launches
+        got = quant.quantized_matmul(x, w_q, scale, b)
+        want = quant.quantized_matmul_plain(x, w_q, scale, b)
+        torch.cuda.synchronize()
+        assert quant.quantized_matmul.launches == before + 1
+        extra = 0.0 if b is None else 2.0 ** -23 * want.abs()
+        assert bool(((got - want).abs() <= tol + extra).all())
+
+
+def test_quant_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.randn(64, 256, device=dev)
+    w_q, scale = quant.quantize_weight(torch.randn(256, 512, device=dev))
+    for fn in (quant.quantized_matmul, quant.quantized_matmul_a8):
+        with pytest.raises(TypeError):              # x must be f32
+            fn(x.to(torch.bfloat16), w_q, scale)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(torch.randn(256, 64, device=dev).t(), w_q, scale)
+        w96, s96 = quant.quantize_weight(torch.randn(96, 512, device=dev))
+        with pytest.raises(ValueError, match="K % 128"):
+            fn(torch.randn(64, 96, device=dev), w96, s96)
+        w200, s200 = quant.quantize_weight(torch.randn(256, 200, device=dev))
+        with pytest.raises(ValueError, match="N % 128"):
+            fn(x, w200, s200)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, w_q.cpu(), scale)

@@ -173,6 +173,117 @@ def test_multi_batch_progress(port_engine, long_wav):
 
 
 # ---------------------------------------------------------------------------
+# Int8 serving on tiny_config: both engines on the same random weights
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_weights():
+    """JAX-initialised tiny_config ASR and x-vector weights, in both
+    packages' trees (tiny_config's FFN up-projections, 128 -> 512, are the
+    layers the kernels take)."""
+    from omnilingual_asr_tpu.config import tiny_config as jax_tiny
+    from omnilingual_asr_tpu.models.conformer import asr_init
+    from omnilingual_asr_tpu.models.xvector import xvector_init
+    from omnilingual_asr_torch.models import zoo
+
+    jcfg = jax_tiny()
+    jp = asr_init(jax.random.PRNGKey(0), jcfg)
+    jx = xvector_init(jax.random.PRNGKey(1), jcfg)
+    return jcfg, jp, jx, zoo.params_from_jax(jp), zoo.params_from_jax(jx)
+
+
+def _tiny_engines(tiny_weights, quantize):
+    from omnilingual_asr_tpu.config import MeshConfig
+    from omnilingual_asr_tpu.engine import TranscriptionEngine as JaxEngine
+    from omnilingual_asr_tpu.parallel.mesh import build_mesh
+
+    jcfg, jp, jx, tp, tx = tiny_weights
+    common = dict(quantize=quantize, speaker_mode="inline",
+                  batch_windows_per_device=1)
+    jax_eng = JaxEngine(config=jcfg, params=jp, xvector_params=jx,
+                        mesh=build_mesh(MeshConfig(data=1),
+                                        devices=jax.devices()[:1]), **common)
+    port = TranscriptionEngine(config=tiny_config(), params=tp,
+                               xvector_params=tx, device="cpu", **common)
+    return jax_eng, port
+
+
+@pytest.mark.parametrize("quantize", [True, "w8", "a8"])
+def test_quantized_tiny_engine_matches_jax_engine(tiny_weights, quantize):
+    """Each int8 mode against the JAX engine in the same mode (its Pallas
+    kernels in interpret mode) on the golden audio: the golden criterion
+    on the result, greedy CTC ids on at least 99.5 % of frames."""
+    jax_eng, port = _tiny_engines(tiny_weights, quantize)
+    path = golden.GOLDEN_WAV
+    want = dataclasses.asdict(jax_eng.transcribe(path))
+    got = port.transcribe(path).to_dict()
+    assert len(want["segments"]) >= 2
+    assert golden.result_mismatches(
+        want, got, tone_mass=golden.tone_mass(jax_eng, path)) == []
+    assert golden.ctc_agreement(_ids(jax_eng, path),
+                                _ids(port, path)) >= golden.MIN_CTC_AGREEMENT
+
+
+@pytest.mark.parametrize("quantize", [False, True, "w8", "a8"])
+def test_quantized_engine_parameters(tiny_weights, quantize):
+    """What each mode holds: int8 dense weights with f32 scales; for the
+    kernel modes a K-contiguous copy of the weights the kernels take; the
+    fused conv module's pw1/pw2 in bf16, made from the f32 dequantized
+    weight; the x-vector and the host pooling projection unquantized."""
+    from omnilingual_asr_torch.ops.quant import quantize_weight
+
+    _, _, _, tp, tx = tiny_weights
+    eng = TranscriptionEngine(config=tiny_config(), params=tp,
+                              xvector_params=tx, device="cpu",
+                              speaker_mode="inline", quantize=quantize)
+    kernel = quantize if quantize in ("w8", "a8") else None
+    assert eng._quant_kernel == kernel
+    blk = eng.params["blocks"][0]
+    w1, w2 = blk["ffn1"]["w1"], blk["ffn1"]["w2"]      # 128->512, 512->128
+    pw1 = tp["blocks"][0]["conv"]["pw1"]["w"]
+    if quantize:
+        assert w1["w_q"].dtype == torch.int8 and "w" not in w1
+        assert w1["w_scale"].dtype == torch.float32
+        assert ("w_t" in w1) == (kernel is not None)
+        assert "w_t" not in w2
+        if kernel:
+            assert torch.equal(w1["w_t"], w1["w_q"].t())
+        q, sc = quantize_weight(pw1)
+        want_pw1 = (q.float() * sc[None, :]).to(torch.bfloat16)
+    else:
+        assert "w" in w1 and "w_q" not in w1
+        want_pw1 = pw1.to(torch.bfloat16)
+    assert set(blk["conv"]["pw1"]) == {"w"}
+    assert torch.equal(blk["conv"]["pw1"]["w"], want_pw1)
+    assert eng._xvector["convs"][0]["w"].dtype == torch.float32
+    # the active embedder (the x-vector) pools with its own projection
+    np.testing.assert_array_equal(eng._spk_pool["spk_proj"]["w"],
+                                  tx["spk_proj"]["w"].numpy())
+
+
+def test_quantized_modes_change_the_forward(tiny_weights):
+    """The mode reaches the layers: the three int8 modes give three
+    different forwards, each different from the unquantized one."""
+    samples = np.random.default_rng(3).integers(
+        -3000, 3000, (1, 480_000)).astype(np.int16)
+    outs = {}
+    for q in (False, True, "w8", "a8"):
+        _, _, _, tp, tx = tiny_weights
+        eng = TranscriptionEngine(config=tiny_config(), params=tp,
+                                  xvector_params=tx, device="cpu",
+                                  speaker_mode="inline", quantize=q,
+                                  batch_windows_per_device=1)
+        n_valid = torch.tensor([eng.window_frames], dtype=torch.int32)
+        ctc_mask = torch.zeros(eng.config.vocab.vocab_size)
+        out = eng._process(torch.from_numpy(samples), n_valid, ctc_mask)
+        outs[q] = out["emotion_logits"].float()
+    keys = list(outs)
+    for i, a in enumerate(keys):
+        for b in keys[i + 1:]:
+            assert not torch.equal(outs[a], outs[b]), (a, b)
+
+
+# ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
@@ -199,7 +310,6 @@ def test_cpu_construction_works(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"quantize": True}, {"quantize": "w8"}, {"quantize": "a8"},
     {"long_mode": "sequence"},
     {"speaker_mode": "crop"},
     {"ingress": "mulaw"},
