@@ -4,22 +4,27 @@
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
     python3 chip_smoke.py              # phases 1-5
-    python3 chip_smoke.py --profile    # and, before the report, phase 4b
+    python3 chip_smoke.py --profile    # and, before the report, phase 4c
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
 with no result line:
 
 1. device  - card name and power limit; TF32 off for matmuls and cuDNN.
 2. build   - nvcc builds the kernels from ``omnilingual_asr_torch/csrc``.
-3. kernels - log-mel (K1), flash attention (K2), the fused conv module
-             (K3) and the int8 matmuls W8A16 (K4) and W8A8 (K5, at the
-             three widths of the quantized main path) on seeded inputs with
-             masked rows, each held against its plain PyTorch version, and
-             timed beside its plain version, a PyTorch yardstick where one
-             exists, and the card's bound. Times are device times: 20 calls
-             captured back to back in a CUDA graph, replayed between CUDA
-             events (``call_ms`` adds one eager call's time, host launch
-             included).
+3. kernels - log-mel (K1, at the serving and the training path's
+             frames), flash attention (K2, at head dims 64 and 128 and at
+             the training shape), the fused conv module (K3, at the serving
+             and the training shape), the int8 matmuls W8A16 (K4) and W8A8
+             (K5, at the three widths of the quantized main path) and the
+             flash-attention backward, dQ (K6) and dK/dV (K7), at the
+             training shape and at large_config's head dim 128 (with the o
+             and lse they read held to the plain forward), on seeded inputs
+             with masked rows, each held against its plain
+             PyTorch version, and timed beside its plain version, a PyTorch
+             yardstick where one exists, and the card's bound. Times are
+             device times: 20 calls captured back to back in a CUDA graph,
+             replayed between CUDA events (``call_ms`` adds one eager
+             call's time, host launch included).
 4. e2e     - ``TranscriptionEngine`` on the card with the release weights
              answers three ``transcribe`` requests (the golden fixture, the
              same audio tiled to two minutes = one full batch of 4 windows,
@@ -31,14 +36,29 @@ with no result line:
              and the tiled file, held to the JAX engine's int8 results, with
              10 K5 or K4 launches a batch; ``quantize=True`` answers the
              golden file with neither.
-4b. profile - (``--profile`` only) median request seconds over 3 warm runs
+4b. train  - ``train_synth`` (the port's ``python -m
+             omnilingual_asr_torch.train.synth_train --pallas-kernels``
+             path) runs 4 steps at ``PipelineConfig()`` dims (d_model 512,
+             12 layers, 8 heads), batch 16 of 8 s windows, from a seeded
+             init: per step the loss and metrics, the step's seconds, the
+             host's wait for ``SynthBatcher`` and the kernel launches
+             (exactly K1 1, K2 12, K6 12, K7 12, K3 12, K4/K5 0), then the
+             held-out evaluation. Then a gradient check: one batch of 2
+             windows through the kernels on the card against the same step
+             on the CPU (plain versions), leaf by leaf, beside the card's
+             own floor and a planted fault that must miss the tolerance.
+4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
              engines in 7 turns; then one warm 120 s request of each under
              ``torch.profiler``: device time by kernel and the device's
-             busy share of the request's wall time.
-5. report  - one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
-             power limit, and the result line
+             busy share of the request's wall time. Then a warm
+             kernel-mode training step at ``PipelineConfig()`` dims, batch
+             16: the host's batch wait, upload, forward + loss, backward
+             and optimizer seconds, and one step under the profiler.
+5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
+             over the serving and training paths, by path beside it), the
+             ``nvidia-smi`` name and power limit, and the result line
              ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
@@ -67,6 +87,11 @@ TILED_SECONDS = 120.0
 PROFILE_SECONDS = (30.0, 120.0, 330.0)
 PROFILE_WARM_RUNS = 3
 INT8_ROUNDS = 7
+TRAIN_STEPS = 4          # train_synth steps at PipelineConfig() dims
+TRAIN_BATCH = 16         # 8 s windows a step
+# Valid keys of the attention checks at the training shape (T' 256): 12
+# whole rows, ragged, short, one valid key and a padded batch slot.
+TRAIN_VALID_KEYS = [256] * 12 + [200, 77, 1, 0]
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W): f32 on
 # the CUDA cores, bf16 and int8 on the tensor cores, and HBM3 bandwidth. The
@@ -87,6 +112,29 @@ TOL_K1 = 1e-3   # log-mel, abs: both are f32; the sums run in another order
 TOL_K2_REL = 2.0 ** -7
 TOL_K2_ABS = 1e-4
 TOL_K2_LSE = 1e-3  # logsumexp, abs: f32 online softmax vs one pass
+# Flash backward (K6, K7), per element |g - g_ref| <= ABS * max|g_ref| +
+# 2^-7 |g_ref|: both round an f32 sum to bf16 (one ulp, 2^-8 relative,
+# apart where they straddle a rounding boundary; 2^-7 covers the f32 sums
+# differing on top of that), and the sums of p * (dp - delta) over up to
+# 768 keys, whose terms cancel, are taken in another order, which ABS
+# bounds relative to the largest element. Masked keys and fully-masked
+# rows must be exactly 0. A dropped key or a wrong p moves g by ~|g|.
+TOL_BWD_ABS = 2.0 ** -10
+TOL_BWD_REL = 2.0 ** -7
+# Training-step gradients on the card (K1-K3, K6, K7) against the same step
+# on the CPU (plain versions), per leaf ||g - g_cpu|| / ||g_cpu||: q, k, v,
+# o, dq, dk and dv are rounded to bf16 in both, from f32 sums taken in
+# another order, so single elements differ by a bf16 ulp (2^-8) and the
+# fused conv module's output by up to TOL_K3. Where such a difference flips
+# a ReLU gate or a bf16 rounding of q or k, a gradient jumps: on the CPU
+# tests' model a 1e-6 relative perturbation of the input moves single
+# leaves by more than 1e-2 (tests/test_torch_train.py::
+# test_kernel_mode_gradient_floor), so per-leaf errors of a few 1e-2 are
+# the floor of the comparison, not a fault. The check prints the card's
+# own floor (the same step with the parameters perturbed by 1e-6 relative)
+# beside it, and plants a fault (delta dropped from the flash backward)
+# whose reading must exceed the tolerance, or the check fails.
+TOL_GRAD_REL = 5e-2
 TOL_K3 = 5e-2   # conv module, abs: LN output and SiLU output are rounded to
 #                 bf16 in both; f32 inputs that differ in summation order can
 #                 round one bf16 ulp apart, and one flipped input moves a
@@ -132,14 +180,16 @@ def card_peaks(name: str) -> dict:
     return H100_SXM_PEAKS
 
 
-def time_ms(fn, n: int = N_TIMED, reps: int = 5) -> float:
+def time_ms(fn, n: int = N_TIMED, reps: int = 5, stream=None) -> float:
     """Device milliseconds of one ``fn()``: n calls captured back to back in
     one CUDA graph, so that no host launch time sits between them, and the
     graph replayed ``reps`` times between CUDA events; the median replay
-    over n. Every kernel, plain version and yardstick is timed this way."""
+    over n. Every kernel, plain version and yardstick is timed this way.
+    ``stream``: warm up and capture on it (a backward pass runs on the
+    stream of its forward, so an autograd call is timed on that one)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):          # warm-up off the capture
         for _ in range(3):
@@ -147,7 +197,8 @@ def time_ms(fn, n: int = N_TIMED, reps: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="relaxed"):
         for _ in range(n):
             fn()
     graph.replay()
@@ -201,6 +252,18 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 def check_k1(dev, peaks, cfg):
+    """K1 at the serving path's shape (a batch of 4 x 30 s windows: 3072
+    frames each, 2998 valid), and at the training path's (batch 16 of 8 s
+    windows padded to 1024 frames, 798 valid) under "shapes"."""
+    main = _k1_case(dev, peaks, cfg, WINDOWS_PER_BATCH, 3072, 2998, SEED)
+    train = _k1_case(dev, peaks, cfg, TRAIN_BATCH, 1024, 798, SEED + 13)
+    return {"name": "log_mel", "route": "cuda",
+            "source": "omnilingual_asr_torch/csrc/mel.cu",
+            "replaces": "omnilingual_asr_tpu/ops/mel_pallas.py:66",
+            **main, "shapes": [main, train]}
+
+
+def _k1_case(dev, peaks, cfg, B, t_pad, n_frames, seed):
     import torch
     from omnilingual_asr_torch.audio.frontend import hann_window
     from omnilingual_asr_torch.ops.mel import (MelFrontend, log_mel_frames,
@@ -208,11 +271,9 @@ def check_k1(dev, peaks, cfg):
 
     fe_cfg = cfg.frontend
     fe = MelFrontend(fe_cfg, dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    n_frames = 2998                       # valid frames of a 30 s window
-    t_pad = 3072
-    frames = 0.1 * torch.randn(WINDOWS_PER_BATCH, t_pad, fe_cfg.n_fft,
-                               generator=gen, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = 0.1 * torch.randn(B, t_pad, fe_cfg.n_fft, generator=gen,
+                               device=dev)
     frames[:, n_frames:] = 0.0            # padding rows, as on the main path
     frames = frames.reshape(-1, fe_cfg.n_fft).contiguous()
     floor = fe_cfg.log_floor
@@ -221,7 +282,8 @@ def check_k1(dev, peaks, cfg):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not bool(torch.isfinite(got).all()) or err > TOL_K1:
-        raise PhaseError(f"K1 log-mel max abs err {err:.3e} > {TOL_K1}")
+        raise PhaseError(f"K1 log-mel {B} x {t_pad} frames: max abs err "
+                         f"{err:.3e} > {TOL_K1}")
     # Yardstick: the same function through cuFFT (rfft of the windowed
     # frames), the library's way to a power spectrum.
     win = torch.zeros(fe_cfg.n_fft, device=dev)
@@ -244,9 +306,6 @@ def check_k1(dev, peaks, cfg):
     b_ms, b_by = bound({"f32": flops},
                        nbytes(frames, fe.cw, fe.sw, fe.fb, got), peaks)
     return {
-        "name": "log_mel", "route": "cuda",
-        "source": "omnilingual_asr_torch/csrc/mel.cu",
-        "replaces": "omnilingual_asr_tpu/ops/mel_pallas.py:66",
         "max_abs_err": err, "tol": TOL_K1,
         "ms": time_ms(lambda: log_mel_frames(frames, fe.cw, fe.sw, fe.fb,
                                              floor)),
@@ -256,32 +315,33 @@ def check_k1(dev, peaks, cfg):
             frames, fe.cw, fe.sw, fe.fb, floor)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(library), "library_max_abs_err": lib_err,
-        "shape": f"frames {list(frames.shape)} f32 -> [{n}, {n_mels}]",
+        "shape": f"frames {list(frames.shape)} f32 ({B} x {t_pad}, "
+                 f"{n_frames} valid) -> [{n}, {n_mels}]",
         "gflop": flops / 1e9,
     }
 
 
-def check_k2(dev, peaks, cfg):
+def _flash_inputs(dev, B, T, H, D, n_valid, seed, n=3):
+    """n seeded bf16 [B, T, H, D] tensors and the key mask of ``n_valid``."""
     import torch
-    import torch.nn.functional as F
-    from omnilingual_asr_torch.ops.attention import (flash_attention,
-                                                     flash_attention_plain)
 
-    B, T = WINDOWS_PER_BATCH, 768
-    H = cfg.encoder.n_heads
-    D = cfg.encoder.d_model // H
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = [torch.randn(B, T, H, D, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(n)]
+    nv = torch.tensor(n_valid, device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < nv[:, None]
+    return xs, mask, nv
 
-    def rnd():
-        return torch.randn(B, T, H, D, generator=gen, device=dev).to(
-            torch.bfloat16)
 
-    q, k, v = rnd(), rnd(), rnd()
-    # Row 0 whole, row 1 ragged (partial last key tile), row 2 short (whole
-    # key tiles masked), row 3 a padded batch slot (every key masked).
-    n_valid = torch.tensor([T, 700, 300, 0], device=dev)
-    mask = torch.arange(T, device=dev)[None, :] < n_valid[:, None]
-    o, lse = flash_attention(q, k, v, mask)
+def _check_fwd(label, q, k, v, mask, o, lse):
+    """K2's (o, lse) against ``flash_attention_plain`` on the same inputs:
+    per element within TOL_K2_ABS + TOL_K2_REL |o_ref|, lse within
+    TOL_K2_LSE on live rows, and on a fully masked row lse exactly +1e30
+    and o exactly 0. Returns (max abs err of o, its largest share of the
+    tolerance, max abs err of lse)."""
+    import torch
+    from omnilingual_asr_torch.ops.attention import flash_attention_plain
+
     o_ref, lse_ref = flash_attention_plain(q, k, v, mask)
     torch.cuda.synchronize()
     diff = (o.float() - o_ref.float()).abs()
@@ -291,14 +351,29 @@ def check_k2(dev, peaks, cfg):
                                * o_ref.float().abs())).max())
     live = lse_ref < 1e29
     lse_err = float((lse - lse_ref)[live].abs().max())
+    dead_row = ~mask.any(dim=1)
     dead_ok = bool((lse[~live] == 1e30).all()) and bool(
-        (o[3].float() == 0).all())
+        (o[dead_row].float() == 0).all())
     if (tol_share > 1.0 or lse_err > TOL_K2_LSE or not dead_ok
             or not bool(torch.isfinite(o.float()).all())):
-        raise PhaseError(f"K2 flash attention: o err {err:.3e} uses "
+        raise PhaseError(f"K2 flash attention {label}: o err {err:.3e} uses "
                          f"{tol_share:.2f} of its tolerance, lse err "
                          f"{lse_err:.3e} (tol {TOL_K2_LSE}), masked rows ok: "
                          f"{dead_ok}")
+    return err, tol_share, lse_err
+
+
+def _k2_case(dev, peaks, B, T, H, D, n_valid, seed):
+    import torch
+    import torch.nn.functional as F
+    from omnilingual_asr_torch.ops.attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    (q, k, v), mask, n_valid_t = _flash_inputs(dev, B, T, H, D, n_valid,
+                                               seed)
+    o, lse = flash_attention(q, k, v, mask)
+    err, tol_share, lse_err = _check_fwd(f"{[B, T, H, D]}", q, k, v, mask,
+                                         o, lse)
     # Yardstick: scaled_dot_product_attention with the same key mask (its
     # fully-masked slot is not comparable and is not checked).
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -308,36 +383,181 @@ def check_k2(dev, peaks, cfg):
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
 
     # Work this run's data needs: every query row against its valid keys.
-    flops = 4 * H * D * T * int(n_valid.sum())
+    flops = 4 * H * D * T * int(n_valid_t.sum())
     b_ms, b_by = bound({"bf16": flops},
                        nbytes(q, k, v, mask.to(torch.int32), o, lse), peaks)
     return {
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "omnilingual_asr_torch/csrc/attention.cu",
-        "replaces": "omnilingual_asr_tpu/ops/attention.py:34",
-        "max_abs_err": err, "lse_max_abs_err": lse_err,
+        "D": D, "max_abs_err": err, "lse_max_abs_err": lse_err,
         "tol": f"{TOL_K2_ABS} + {TOL_K2_REL} |o|, max share {tol_share:.3f}",
         "ms": time_ms(lambda: flash_attention(q, k, v, mask)),
         "call_ms": call_ms(lambda: flash_attention(q, k, v, mask)),
         "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, mask)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(library),
-        "shape": f"q/k/v [{B}, {T}, {H}, {D}] bf16",
+        "shape": f"q/k/v [{B}, {T}, {H}, {D}] bf16, valid keys {n_valid}",
         "gflop": flops / 1e9,
     }
 
 
+def check_k2(dev, peaks, cfg):
+    """K2 at the serving path's shape (the release: head dim 64), and under
+    "head_dims" also at large_config's head dim 128 (8 heads of 128) and at
+    the training path's shape (batch 16 of 8 s windows: T' 256, 8 heads of
+    64). Rows whole, ragged (partial last key tile), short (whole key tiles
+    masked) and a padded batch slot (every key masked)."""
+    from omnilingual_asr_torch.config import PipelineConfig
+
+    H = cfg.encoder.n_heads
+    main = _k2_case(dev, peaks, WINDOWS_PER_BATCH, 768, H,
+                    cfg.encoder.d_model // H, [768, 700, 300, 0], SEED + 1)
+    wide = _k2_case(dev, peaks, WINDOWS_PER_BATCH, 768, 8, 128,
+                    [768, 700, 300, 0], SEED + 11)
+    enc = PipelineConfig().encoder
+    train = _k2_case(dev, peaks, TRAIN_BATCH, 256, enc.n_heads,
+                     enc.head_dim, TRAIN_VALID_KEYS, SEED + 14)
+    return {"name": "flash_attention_fwd", "route": "cuda",
+            "source": "omnilingual_asr_torch/csrc/attention.cu",
+            "replaces": "omnilingual_asr_tpu/ops/attention.py:34",
+            **main, "head_dims": [main, wide, train]}
+
+
+def _bwd_case(dev, peaks, B, T, H, D, n_valid, seed):
+    """K6 and K7 on one shape against their plain versions; SDPA's
+    backward (forward outside the timed region) as the pair's yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from omnilingual_asr_torch.ops import attention as A
+
+    (q, k, v, do), mask, nv = _flash_inputs(dev, B, T, H, D, n_valid, seed,
+                                            n=4)
+    o, lse = A.flash_attention(q, k, v, mask)
+    # K6 and K7 read K2's lse: hold it (and o) to the plain forward first.
+    fwd = _check_fwd(f"{[B, T, H, D]} (backward's inputs)", q, k, v, mask,
+                     o, lse)
+    delta = A.flash_delta(o, do)
+    args = (q, k, v, mask, do, lse, delta)
+    dq = A.flash_attention_bwd_dq(*args)
+    dk, dv = A.flash_attention_bwd_dkv(*args)
+    dq_ref = A.flash_attention_bwd_dq_plain(*args)
+    dk_ref, dv_ref = A.flash_attention_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    out = {}
+    dead_key, dead_row = ~mask, ~mask.any(dim=1)
+    for name, got, want in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                            ("dv", dv, dv_ref)):
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        share = float((diff / (TOL_BWD_ABS * w.abs().max()
+                               + TOL_BWD_REL * w.abs())).max())
+        zeros_ok = (bool((got[dead_row] == 0).all()) if name == "dq"
+                    else bool((got[dead_key] == 0).all()))
+        if share > 1.0 or not zeros_ok or not bool(torch.isfinite(g).all()):
+            raise PhaseError(f"{name} D={D}: max abs err "
+                             f"{float(diff.max()):.3e} uses {share:.2f} of "
+                             f"its tolerance; masked entries exactly 0: "
+                             f"{zeros_ok}")
+        out[name] = (float(diff.max()), share)
+
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    amask = mask[:, None, None, :]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
+
+    def library():
+        return torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+
+    try:
+        lib_ms = time_ms(library, stream=stream)
+    except RuntimeError as e:     # the yardstick only; the port never calls it
+        log(f"  SDPA backward could not be timed in a CUDA graph ({e}); "
+            f"library_ms null")
+        lib_ms = None
+    work = H * T * D * int(nv.sum())
+    io = nbytes(q, k, v, do, mask.to(torch.int32), lse, delta)
+    b6 = bound({"bf16": 6 * work}, io + nbytes(dq), peaks)
+    b7 = bound({"bf16": 8 * work}, io + nbytes(dk, dv), peaks)
+    shape = f"q/k/v/dO [{B}, {T}, {H}, {D}] bf16, valid keys {n_valid}"
+    k6 = {"D": D, "max_abs_err": out["dq"][0],
+          "k2_o_max_abs_err": fwd[0], "k2_lse_max_abs_err": fwd[2],
+          "tol": f"{TOL_BWD_ABS} max|ref| + {TOL_BWD_REL} |ref|, max share "
+                 f"{out['dq'][1]:.3f}",
+          "ms": time_ms(lambda: A.flash_attention_bwd_dq(*args)),
+          "call_ms": call_ms(lambda: A.flash_attention_bwd_dq(*args)),
+          "plain_ms": time_ms(lambda: A.flash_attention_bwd_dq_plain(*args)),
+          "bound_ms": b6[0], "bound_by": b6[1], "library_ms": lib_ms,
+          "library": "SDPA backward (dQ, dK, dV together), forward "
+                     "outside the timed region",
+          "shape": shape, "gflop": 6 * work / 1e9}
+    k7 = {"D": D, "max_abs_err": max(out["dk"][0], out["dv"][0]),
+          "tol": f"{TOL_BWD_ABS} max|ref| + {TOL_BWD_REL} |ref|, max share "
+                 f"dk {out['dk'][1]:.3f}, dv {out['dv'][1]:.3f}",
+          "ms": time_ms(lambda: A.flash_attention_bwd_dkv(*args)),
+          "call_ms": call_ms(lambda: A.flash_attention_bwd_dkv(*args)),
+          "plain_ms": time_ms(lambda: A.flash_attention_bwd_dkv_plain(
+              *args)),
+          "bound_ms": b7[0], "bound_by": b7[1], "library_ms": None,
+          "shape": shape, "gflop": 8 * work / 1e9}
+    return k6, k7
+
+
+def check_flash_bwd(dev, peaks, cfg):
+    """K6 and K7 at the training path's shape (batch 16 of 8 s windows:
+    T' 256, 8 heads of 64; rows whole, ragged, short and one padded slot)
+    and at large_config's (B 4, T 768, 8 heads of 128) under "head_dims"."""
+    enc = cfg.encoder
+    train = _bwd_case(dev, peaks, TRAIN_BATCH, 256, enc.n_heads,
+                      enc.head_dim, TRAIN_VALID_KEYS, SEED + 21)
+    wide = _bwd_case(dev, peaks, WINDOWS_PER_BATCH, 768, 8, 128,
+                     [768, 700, 300, 0], SEED + 22)
+    entries = []
+    for i, (name, line) in enumerate((
+            ("flash_attention_bwd_dq", 79), ("flash_attention_bwd_dkv", 110))):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "omnilingual_asr_torch/csrc/attention_bwd.cu",
+            "replaces": f"omnilingual_asr_tpu/ops/attention.py:{line}",
+            **train[i], "head_dims": [train[i], wide[i]]})
+    return entries
+
+
 def check_k3(dev, peaks, cfg, params):
+    """K3 at the serving path's shape with the release weights, and at the
+    training path's (batch 16, T' 256, D 512, random weights) under
+    "shapes"."""
+    import torch
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.models.layers import convmod_init
+
+    p = params["blocks"][0]["conv"]          # release weights
+    main = _k3_case(dev, peaks, WINDOWS_PER_BATCH, 768, [768, 700, 301, 0],
+                    p, SEED + 2)
+    enc = PipelineConfig().encoder
+    pt = convmod_init(torch.Generator().manual_seed(SEED),
+                      enc.d_model, enc.conv_kernel)
+    pt = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+              else v.to(dev)) for k, v in pt.items()}
+    train = _k3_case(dev, peaks, TRAIN_BATCH, 256, [256] * 13 + [200, 77, 0],
+                     pt, SEED + 12)
+    return {"name": "conv_module", "route": "cuda",
+            "source": "omnilingual_asr_torch/csrc/conv_module.cu",
+            "replaces": "omnilingual_asr_tpu/ops/conv_module.py:32",
+            **main, "shapes": [main, train]}
+
+
+def _k3_case(dev, peaks, B, T, valid, p, seed):
     import torch
     from omnilingual_asr_torch.ops.conv_module import (conv_module_plain,
                                                        fused_conv_module)
 
-    B, T, D = WINDOWS_PER_BATCH, 768, cfg.encoder.d_model
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    D = p["dw"].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(B, T, D, generator=gen, device=dev)
-    n_valid = torch.tensor([T, 700, 301, 0], device=dev)
+    n_valid = torch.tensor(valid, device=dev)
     mask = torch.arange(T, device=dev)[None, :] < n_valid[:, None]
-    p = params["blocks"][0]["conv"]          # release weights
     # pw1/pw2 in bf16, as the engine holds them for the kernel.
     pw1, pw2 = (p[k]["w"].to(torch.bfloat16) for k in ("pw1", "pw2"))
     args = (x, mask, p["ln"]["scale"], p["ln"]["bias"], pw1, p["dw"],
@@ -347,7 +567,8 @@ def check_k3(dev, peaks, cfg, params):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not bool(torch.isfinite(got).all()) or err > TOL_K3:
-        raise PhaseError(f"K3 conv module max abs err {err:.3e} > {TOL_K3}")
+        raise PhaseError(f"K3 conv module D={D}: max abs err {err:.3e} > "
+                         f"{TOL_K3}")
     K = p["dw"].shape[0]
     pw_flops = 2 * B * T * D * (2 * D + D)
     dw_flops = 2 * B * T * D * K
@@ -355,10 +576,7 @@ def check_k3(dev, peaks, cfg, params):
                        nbytes(x, mask, got, pw1, pw2, p["dw"]) + 4 * 4 * D,
                        peaks)
     return {
-        "name": "conv_module", "route": "cuda",
-        "source": "omnilingual_asr_torch/csrc/conv_module.cu",
-        "replaces": "omnilingual_asr_tpu/ops/conv_module.py:32",
-        "max_abs_err": err, "tol": TOL_K3,
+        "D": D, "max_abs_err": err, "tol": TOL_K3,
         "mean_abs_err": float((got - want).abs().mean()),
         "ms": time_ms(lambda: fused_conv_module(*args)),
         "call_ms": call_ms(lambda: fused_conv_module(*args)),
@@ -513,14 +731,26 @@ def write_tiled_wav(src: Path, dst: Path, seconds: float) -> float:
 
 
 def _counters():
-    from omnilingual_asr_torch.ops.attention import flash_attention
+    from omnilingual_asr_torch.ops.attention import (flash_attention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
     from omnilingual_asr_torch.ops.conv_module import fused_conv_module
     from omnilingual_asr_torch.ops.mel import log_mel_frames
     from omnilingual_asr_torch.ops.quant import (quantized_matmul,
                                                  quantized_matmul_a8)
 
     return (log_mel_frames, flash_attention, fused_conv_module,
-            quantized_matmul, quantized_matmul_a8)
+            quantized_matmul, quantized_matmul_a8, flash_attention_bwd_dq,
+            flash_attention_bwd_dkv)
+
+
+def _read_counters(reset: bool = True) -> dict:
+    counts = {}
+    for fn in _counters():
+        counts[fn.__name__] = fn.launches
+        if reset:
+            fn.launches = 0
+    return counts
 
 
 def _n_batches(engine, paths) -> int:
@@ -627,7 +857,8 @@ def run_e2e(dev, cfg, params, xvector):
                                  xvector_params=xvector, device=dev)
     unquantized = {"log_mel_frames": 1, "flash_attention": L,
                    "fused_conv_module": L, "quantized_matmul": 0,
-                   "quantized_matmul_a8": 0}
+                   "quantized_matmul_a8": 0, "flash_attention_bwd_dq": 0,
+                   "flash_attention_bwd_dkv": 0}
     results, base = drive_path(
         "unquantized",
         lambda path, cb: engine.transcribe(path,
@@ -681,7 +912,196 @@ def run_e2e(dev, cfg, params, xvector):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4b (--profile): where a request's time goes
+# Phase 4b: kernel-mode training through train_synth
+# ---------------------------------------------------------------------------
+
+def run_train(dev):
+    """``train_synth`` with ``pallas_kernels=True`` for TRAIN_STEPS steps at
+    ``PipelineConfig()`` dims from a seeded init. For this run only, a
+    subclass of ``SynthBatcher`` times the host's wait for each batch, and
+    the train step that ``make_train_step`` returns is wrapped to read the
+    launch counts and the parameters after each update. Returns the
+    training path's launches of each kernel."""
+    import torch
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.train import synth_train
+    from omnilingual_asr_torch.train.step import tree_leaves
+
+    L = PipelineConfig().encoder.n_layers
+    per_step = {"log_mel_frames": 1, "flash_attention": L,
+                "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+                "fused_conv_module": L, "quantized_matmul": 0,
+                "quantized_matmul_a8": 0}
+    waits = []
+
+    class TimedBatcher(synth_train.SynthBatcher):
+        def __next__(self):
+            t0 = time.perf_counter()
+            batch = super().__next__()
+            waits.append(time.perf_counter() - t0)
+            return batch
+
+    total = {k: 0 for k in per_step}
+    snaps, times = [], [time.perf_counter()]
+
+    def after_step(step, params, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        counts = _read_counters()
+        m = {k: float(v) for k, v in metrics.items()}
+        log("  train step " + json.dumps({
+            "step": step, **m, "step_s": now - times[-1],
+            "batch_wait_s": waits[-1], "launches": counts}))
+        times.append(now)
+        if not all(math.isfinite(v) for v in m.values()):
+            raise PhaseError(f"step {step}: non-finite metrics {m}")
+        for name, n in per_step.items():
+            if counts[name] != n:
+                raise PhaseError(f"step {step}: {name} launched "
+                                 f"{counts[name]} times, expected {n}")
+            total[name] += counts[name]
+        if step <= 2:
+            snaps.append([p.detach().clone() for p in tree_leaves(params)])
+
+    make_train_step = synth_train.make_train_step
+
+    def watched_make_train_step(*args, **kwargs):
+        init_state, train_step, loss_and_grads = make_train_step(*args,
+                                                                 **kwargs)
+
+        def watched_train_step(params, opt_state, batch, step):
+            out = train_step(params, opt_state, batch, step)
+            after_step(step + 1, out[0], out[3])
+            return out
+
+        return init_state, watched_train_step, loss_and_grads
+
+    _read_counters()
+    synth_batcher = synth_train.SynthBatcher
+    synth_train.SynthBatcher = TimedBatcher
+    synth_train.make_train_step = watched_make_train_step
+    try:
+        params, best = synth_train.train_synth(
+            steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, cfg=PipelineConfig(),
+            seed=SEED, pallas_kernels=True, device=dev, log_every=1,
+            eval_every=1000)
+    finally:
+        synth_train.SynthBatcher = synth_batcher
+        synth_train.make_train_step = make_train_step
+    torch.cuda.synchronize()
+    log(f"  evaluation launches {json.dumps(_read_counters())}; best synth "
+        f"WER {best}")
+    if len(snaps) < 2:
+        raise PhaseError(f"{len(snaps)} train steps were watched, expected "
+                         f"{TRAIN_STEPS}")
+    moved = sum(int(not torch.equal(a, b)) for a, b in zip(*snaps))
+    if moved == 0:
+        raise PhaseError("the parameters after step 2 equal those after "
+                         "step 1 (the first update has learning rate 0, the "
+                         "second must move them)")
+    log(f"  {moved} of {len(snaps[0])} parameter leaves moved in step 2; "
+        f"host batch waits {[round(w, 4) for w in waits]} s")
+    return total
+
+
+def grad_check(dev):
+    """One batch of 2 windows at ``PipelineConfig()`` dims through the
+    kernels on the card (K1-K3, K6, K7) against the same step on the CPU
+    (plain versions) from the same parameters: per-leaf relative L2 error
+    of the gradients. Beside it, the card's own floor (the same step with
+    the parameters perturbed by 1e-6 relative) and a planted fault (the
+    same step with delta dropped from the flash backward, so that K6 and K7
+    compute p * dp for p * (dp - delta)), which must miss the tolerance."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.ops import attention as A
+    from omnilingual_asr_torch.train.step import (make_train_step,
+                                                  tree_leaves, tree_map)
+    from omnilingual_asr_torch.train.synth import SynthBatcher
+
+    cfg = PipelineConfig()
+    cfg = cfg.replace(encoder=dataclasses.replace(
+        cfg.encoder, use_flash_attention=True, use_fused_conv=True))
+    mult = A.REFERENCE_BLOCK_Q * cfg.encoder.subsample_factor
+    batcher = SynthBatcher(cfg, batch_size=2, seed=SEED + 5,
+                           frame_multiple=mult, n_threads=1)
+    try:
+        batch = next(iter(batcher))
+    finally:
+        batcher.close()
+    batch["samples"] = np.clip(batch["samples"] * 32768.0, -32768,
+                               32767).astype(np.int16)
+    grads = {}
+    params = None
+    for where in (dev, torch.device("cpu")):
+        init, _, loss_and_grads = make_train_step(
+            cfg, where, from_samples=True, with_translator=True)
+        if params is None:
+            params = init(SEED).params
+        p = tree_map(lambda t: t.detach().to(where).requires_grad_(True),
+                     params)
+        b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        metrics, g = loss_and_grads(p, b, 0)
+        grads[where.type] = [x.detach().cpu() if x is not None
+                             else torch.zeros_like(y.cpu())
+                             for x, y in zip(g, tree_leaves(p))]
+        log(f"  grad check {where.type}: loss "
+            f"{float(metrics['loss']):.6f} ({time.perf_counter() - t0:.2f} s)")
+        if where.type == "cuda":      # the card's own floor, see above
+            gen = torch.Generator(device=where).manual_seed(SEED)
+            q = tree_map(lambda t: (t.detach() * (1 + 1e-6 * torch.randn(
+                t.shape, generator=gen, device=where))).requires_grad_(True),
+                p)
+            _, g2 = loss_and_grads(q, b, 0)
+            grads["floor"] = [x.detach().cpu() if x is not None
+                              else torch.zeros_like(y.cpu())
+                              for x, y in zip(g2, tree_leaves(q))]
+            flash_delta = A.flash_delta           # the planted fault
+            A.flash_delta = lambda o, do: torch.zeros_like(flash_delta(o,
+                                                                       do))
+            try:
+                _, g3 = loss_and_grads(p, b, 0)
+            finally:
+                A.flash_delta = flash_delta
+            grads["fault"] = [x.detach().cpu() if x is not None
+                              else torch.zeros_like(y.cpu())
+                              for x, y in zip(g3, tree_leaves(p))]
+
+    def worst_of(got, want):
+        worst, worst_i = 0.0, -1
+        for i, (a, b) in enumerate(zip(got, want)):
+            nb = float(b.norm())
+            err = float((a - b).norm()) / nb if nb > 0 else float(a.norm())
+            if not math.isfinite(err):
+                raise PhaseError(f"grad check: leaf {i} is not finite")
+            if err > worst:
+                worst, worst_i = err, i
+        return worst, worst_i
+
+    worst, worst_i = worst_of(grads["cuda"], grads["cpu"])
+    floor, floor_i = worst_of(grads["floor"], grads["cuda"])
+    fault, fault_i = worst_of(grads["fault"], grads["cpu"])
+    log(f"  grad check: worst per-leaf relative L2 error {worst:.3e} (leaf "
+        f"{worst_i} of {len(grads['cpu'])}; tol {TOL_GRAD_REL}); the card's "
+        f"own floor under a 1e-6 perturbation {floor:.3e} (leaf {floor_i}); "
+        f"with delta dropped from the flash backward {fault:.3e} (leaf "
+        f"{fault_i})")
+    if worst > TOL_GRAD_REL:
+        raise PhaseError(f"grad check: leaf {worst_i} relative error "
+                         f"{worst:.3e} > {TOL_GRAD_REL}")
+    if fault <= TOL_GRAD_REL:
+        raise PhaseError(f"grad check: with delta dropped from the flash "
+                         f"backward the worst leaf reads {fault:.3e}, within "
+                         f"the tolerance {TOL_GRAD_REL}: the check cannot "
+                         f"see such a fault")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c (--profile): where a request's and a train step's time goes
 # ---------------------------------------------------------------------------
 
 def request_seconds(label, engine, path, seconds) -> None:
@@ -700,16 +1120,18 @@ def request_seconds(label, engine, path, seconds) -> None:
                         for k, v in engine.last_trace.stages.items()}}))
 
 
-def device_profile(label, engine, path, top: int) -> None:
-    """One warm request under ``torch.profiler``: device time by kernel and
-    the device's busy share of the request's wall time."""
+def device_profile(label, fn, top: int) -> None:
+    """One warm ``fn()`` (a request, a train step) under ``torch.profiler``:
+    device time by kernel and the device's busy share of its wall time."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.transcribe(path)
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Only the device's own events (kernels, copies): an operator's entry
     # repeats the time of the kernels it launched.
@@ -727,7 +1149,7 @@ def device_profile(label, engine, path, top: int) -> None:
         return
     rows.sort(reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
-    log(f"  profile {label} 120 s request: wall {wall * 1e3:.3f} ms, device "
+    log(f"  profile {label}: wall {wall * 1e3:.3f} ms, device "
         f"{total_ms:.3f} ms in {sum(r[1] for r in rows)} device events, "
         f"device busy share {total_ms / 1e3 / wall:.3f}")
     for dev_us, count, key in rows[:top]:
@@ -761,8 +1183,92 @@ def run_profile(engines) -> None:
             "request_s_median": statistics.median(times[label]),
             "request_s_all": times[label]}))
     for label in labels:
-        device_profile(label, engines[label], paths[120.0],
+        device_profile(f"{label} 120 s request",
+                       lambda e=engines[label]: e.transcribe(paths[120.0]),
                        15 if label == "unquantized" else 8)
+
+
+PROFILE_TRAIN_STEPS = 6
+
+
+def profile_train(dev) -> None:
+    """Where a warm kernel-mode training step's time goes, at
+    ``PipelineConfig()`` dims, batch 16: the host's wait for the batch, the
+    upload, forward + loss, backward and the optimizer, each closed by a
+    synchronize (medians over PROFILE_TRAIN_STEPS steps after 2 warm-up
+    steps), then one whole step under ``torch.profiler``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.ops.attention import REFERENCE_BLOCK_Q
+    from omnilingual_asr_torch.ops.mel import MelFrontend
+    from omnilingual_asr_torch.train import step
+    from omnilingual_asr_torch.train.augment import (SpecAugmentConfig,
+                                                     spec_augment)
+    from omnilingual_asr_torch.train.synth import SynthBatcher
+
+    cfg = PipelineConfig()
+    cfg = cfg.replace(encoder=dataclasses.replace(
+        cfg.encoder, use_flash_attention=True, use_fused_conv=True))
+    aug = SpecAugmentConfig(n_freq_masks=1, freq_mask_width=16,
+                            n_time_masks=1, time_mask_width=24)
+    batcher = SynthBatcher(cfg, batch_size=TRAIN_BATCH, seed=SEED + 7,
+                           frame_multiple=REFERENCE_BLOCK_Q * 4, n_threads=2,
+                           snr_range=(15.0, 40.0), reuse_pool=6144,
+                           reuse_p=0.8)
+    tx = step.make_optimizer(lr=2e-3)
+    init, train_step, _ = step.make_train_step(
+        cfg, dev, tx=tx, from_samples=True, with_translator=True,
+        augment=aug)
+    state = init(SEED)
+    params, opt = state.params, state.opt_state
+    leaves = step.tree_leaves(params)
+    fe = MelFrontend(cfg.frontend, dev)
+    phases = {k: [] for k in ("batch_wait", "upload", "forward_loss",
+                              "backward", "optimizer")}
+    it = iter(batcher)
+
+    def upload(batch):
+        batch["samples"] = np.clip(batch["samples"] * 32768.0, -32768,
+                                   32767).astype(np.int16)
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    try:
+        for i in range(2 + PROFILE_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batch = next(it)
+            t1 = time.perf_counter()
+            b = upload(batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            b = step.mel_from_samples(b, fe)
+            gen = torch.Generator(device=dev).manual_seed(i)
+            b["mel"] = spec_augment(gen, b["mel"], b["mask"], aug)
+            total, _ = step.loss_fn(params["asr"], b, cfg,
+                                    trans_params=params["translator"])
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            tx.update(opt, list(grads))
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            if i >= 2:
+                for k, dt in zip(phases, (t1 - t0, t2 - t1, t3 - t2,
+                                          t4 - t3, t5 - t4)):
+                    phases[k].append(dt)
+        med = {k: statistics.median(v) for k, v in phases.items()}
+        log("  profile train step " + json.dumps({
+            "steps": PROFILE_TRAIN_STEPS, "median_s": med,
+            "step_s_median": sum(med.values()), "all_s": phases}))
+        batch = upload(next(it))
+        device_profile("kernel-mode train step",
+                       lambda: train_step(params, opt, batch, 0), 20)
+    finally:
+        batcher.close()
 
 
 # ---------------------------------------------------------------------------
@@ -770,7 +1276,7 @@ def run_profile(engines) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 4b: request seconds by length and a "
+                    help="add phase 4c: request seconds by length and a "
                          "torch.profiler device-time breakdown")
     args = ap.parse_args(argv)
     if not PKG.is_dir() or not RELEASE.is_dir():
@@ -830,26 +1336,35 @@ def main(argv=None) -> int:
         xvector = load_xvector(RELEASE / "xvector.npz", cfg, dev)
         kernels = [check_k1(dev, peaks, cfg), check_k2(dev, peaks, cfg),
                    check_k3(dev, peaks, cfg, params),
-                   *check_quant(dev, peaks, params)]
+                   *check_quant(dev, peaks, params),
+                   *check_flash_bwd(dev, peaks, PipelineConfig())]
         for k in kernels:
             log(f"  {k['name']}: max abs err {k['max_abs_err']:.3e} (tol "
                 f"{k['tol']}), {k['ms']:.4f} ms (one eager call "
                 f"{k['call_ms']:.4f} ms), plain {k['plain_ms']:.4f} ms, "
                 f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms "
                 f"({k['bound_by']}), {k['shape']}")
-            for w in k.get("widths", []):
+            for w in (k.get("widths", []) + k.get("head_dims", [])
+                      + k.get("shapes", [])):
                 log(f"    {json.dumps(w)}")
         log(f"[kernels] ok ({time.perf_counter() - t0:.2f} s)")
 
         phase = "e2e"
         t0 = time.perf_counter()
-        engines, launches = run_e2e(dev, cfg, params, xvector)
+        engines, serving = run_e2e(dev, cfg, params, xvector)
         log(f"[e2e] ok ({time.perf_counter() - t0:.2f} s)")
+
+        phase = "train"
+        t0 = time.perf_counter()
+        training = run_train(dev)
+        grad_check(dev)
+        log(f"[train] ok ({time.perf_counter() - t0:.2f} s)")
 
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
             run_profile(engines)
+            profile_train(dev)
             log(f"[profile] ok ({time.perf_counter() - t0:.2f} s)")
 
         phase = "report"
@@ -857,14 +1372,22 @@ def main(argv=None) -> int:
                  "flash_attention_fwd": "flash_attention",
                  "conv_module": "fused_conv_module",
                  "q_matmul_w8a16": "quantized_matmul",
-                 "q8a8_matmul": "quantized_matmul_a8"}
-        line = {"kernels": [
-            {"name": k["name"], "route": k["route"], "source": k["source"],
-             "replaces": k["replaces"], "launches": launches[by_fn[k["name"]]],
-             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-             "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-            for k in kernels]}
+                 "q8a8_matmul": "quantized_matmul_a8",
+                 "flash_attention_bwd_dq": "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
+        paths = {"serving": serving, "training": training}
+        line = {"kernels": []}
+        for k in kernels:
+            fn = by_fn[k["name"]]
+            by_path = {p: c.get(fn, 0) for p, c in paths.items()}
+            line["kernels"].append({
+                "name": k["name"], "route": k["route"],
+                "source": k["source"], "replaces": k["replaces"],
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
         log(f"[report] total {time.perf_counter() - t_start:.2f} s")
         print(json.dumps(line), flush=True)
         print(nvidia_smi_line(), flush=True)

@@ -1,8 +1,8 @@
 // K2: flash-attention forward with a key mask and the row logsumexp.
 //
 // Replaces omnilingual_asr_tpu/ops/attention.py::_flash_fwd_lse_kernel
-// (launched by _fwd_lse). Non-causal attention over q, k, v [B, T, H, 64]
-// bf16 with an int32 key-validity mask [B, T]:
+// (launched by _fwd_lse). Non-causal attention over q, k, v [B, T, H, D]
+// bf16, D in {64, 128}, with an int32 key-validity mask [B, T]:
 //
 //     s = (q * 1/sqrt(D)) k^T   masked keys -> -1e30, f32 online softmax
 //     o = softmax(s) v           bf16 out, [B, T, H, D]
@@ -20,40 +20,35 @@
 // the next step and are left to a later change.
 //
 // Design: one block per (b*h, 64-query tile): 16 x 12 = 192 blocks on the
-// main path. Four threads share one query row, each holding 16 of its 64
-// dimensions of q (pre-scaled) and of the output accumulator; dot products
-// are finished with two warp shuffles. K and V stream through shared memory
-// in 64-key tiles converted to f32; each tile updates the running max m,
-// denominator l and accumulator once (online softmax in f32). The [T, T]
-// score matrix never exists. q/k/v are read in place from the [B, T, H, D]
-// layout the projections produce, so no transpose runs before or after.
-#include "common.cuh"
+// main path. Four threads share one query row, each holding D/4 of its D
+// dimensions of q (pre-scaled) and of the output accumulator (dims
+// part*4 + 16*i + j); dot products are finished with two warp shuffles. K
+// and V stream through shared memory in f32 tiles of 4096 / D keys (64 at
+// D = 64, 32 at D = 128, so the two tiles stay at 32 KB of static shared
+// memory and the per-thread score array at 4096 / D registers); each tile
+// updates the running max m, denominator l and accumulator once (online
+// softmax in f32). The [T, T] score matrix never exists. q/k/v are read in
+// place from the [B, T, H, D] layout the projections produce, so no
+// transpose runs before or after. The template is instantiated for
+// D = 64 and D = 128.
+#include "flash.cuh"
 
 namespace {
 
-constexpr int D = 64;
-constexpr int BQ = 64;            // queries per block
-constexpr int BKV = 64;           // keys per shared-memory tile
-constexpr int TPQ = 4;            // threads per query row
-constexpr int THREADS = BQ * TPQ;
-constexpr float NEG_INF = -1e30f;
+using omni::BQ;
+using omni::NEG_INF;
+using omni::THREADS;
+using omni::TPQ;
 
-__device__ __forceinline__ void bf16x8_to_f32(const uint4 raw, float* dst) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ mask, __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse, int T, int H, float scale) {
+  constexpr int BKV = omni::tile_keys(D);  // keys per shared-memory tile
+  constexpr int NG = D / 16;              // 16-dim groups; 4 dims each
   __shared__ __align__(16) float Ks[BKV][D];
   __shared__ __align__(16) float Vs[BKV][D];
   __shared__ int Ms[BKV];
@@ -63,56 +58,26 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = bh / H;
   const int h = bh % H;
   const int qi = blockIdx.x * BQ + tid / TPQ;
-  const int part = tid % TPQ;       // dims part*4 + 16*i + j
+  const int part = tid % TPQ;       // dims part*4 + 16*i + j, i < NG
   const size_t ts = static_cast<size_t>(H) * D;   // stride between frames
   const size_t base = static_cast<size_t>(b) * T * ts + static_cast<size_t>(h) * D;
 
-  float qr[16];
+  float qr[4 * NG];
   if (qi < T) {
-    const __nv_bfloat16* src = q + base + qi * ts + part * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(src + 16 * i);
-      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 f0 = __bfloat1622float2(p2[0]);
-      const float2 f1 = __bfloat1622float2(p2[1]);
-      qr[4 * i + 0] = f0.x * scale;
-      qr[4 * i + 1] = f0.y * scale;
-      qr[4 * i + 2] = f1.x * scale;
-      qr[4 * i + 3] = f1.y * scale;
-    }
+    omni::load_row<D>(q + base + qi * ts + part * 4, qr, scale);
   } else {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) qr[i] = 0.f;
+    for (int i = 0; i < 4 * NG; ++i) qr[i] = 0.f;
   }
 
-  float acc[16];
+  float acc[4 * NG];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 4 * NG; ++i) acc[i] = 0.f;
   float m = NEG_INF;
   float l = 0.f;
 
   for (int j0 = 0; j0 < T; j0 += BKV) {
-#pragma unroll
-    for (int r = 0; r < (BKV * D / 8) / THREADS; ++r) {
-      const int idx = tid + r * THREADS;
-      const int key = idx >> 3;
-      const int c = (idx & 7) * 8;
-      const int t = j0 + key;
-      float kf[8], vf[8];
-      if (t < T) {
-        const size_t g = base + t * ts + c;
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(k + g), kf);
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(v + g), vf);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) kf[i] = vf[i] = 0.f;
-      }
-      *reinterpret_cast<float4*>(&Ks[key][c]) = make_float4(kf[0], kf[1], kf[2], kf[3]);
-      *reinterpret_cast<float4*>(&Ks[key][c + 4]) = make_float4(kf[4], kf[5], kf[6], kf[7]);
-      *reinterpret_cast<float4*>(&Vs[key][c]) = make_float4(vf[0], vf[1], vf[2], vf[3]);
-      *reinterpret_cast<float4*>(&Vs[key][c + 4]) = make_float4(vf[4], vf[5], vf[6], vf[7]);
-    }
+    omni::load_tiles<D, BKV>(k, v, Ks, Vs, base, ts, j0, T, tid);
     if (tid < BKV) {
       const int t = j0 + tid;
       Ms[tid] = (t < T) ? mask[static_cast<size_t>(b) * T + t] : 0;
@@ -123,18 +88,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     float tile_max = NEG_INF;
 #pragma unroll
     for (int j = 0; j < BKV; ++j) {
-      float part_dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 kv = *reinterpret_cast<const float4*>(&Ks[j][part * 4 + 16 * i]);
-        part_dot = fmaf(qr[4 * i + 0], kv.x, part_dot);
-        part_dot = fmaf(qr[4 * i + 1], kv.y, part_dot);
-        part_dot = fmaf(qr[4 * i + 2], kv.z, part_dot);
-        part_dot = fmaf(qr[4 * i + 3], kv.w, part_dot);
-      }
-      part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 1);
-      part_dot += __shfl_xor_sync(0xffffffffu, part_dot, 2);
-      s[j] = Ms[j] > 0 ? part_dot : NEG_INF;
+      const float dot = omni::row_dot<D>(qr, Ks[j], part);
+      s[j] = Ms[j] > 0 ? dot : NEG_INF;
       tile_max = fmaxf(tile_max, s[j]);
     }
     const float m_new = fmaxf(m, tile_max);
@@ -147,18 +102,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
     l = l * alpha + p_sum;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) acc[i] *= alpha;
+    for (int i = 0; i < 4 * NG; ++i) acc[i] *= alpha;
 #pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[j][part * 4 + 16 * i]);
-        acc[4 * i + 0] = fmaf(s[j], vv.x, acc[4 * i + 0]);
-        acc[4 * i + 1] = fmaf(s[j], vv.y, acc[4 * i + 1]);
-        acc[4 * i + 2] = fmaf(s[j], vv.z, acc[4 * i + 2]);
-        acc[4 * i + 3] = fmaf(s[j], vv.w, acc[4 * i + 3]);
-      }
-    }
+    for (int j = 0; j < BKV; ++j) omni::row_axpy<D>(acc, s[j], Vs[j], part);
     m = m_new;
     __syncthreads();
   }
@@ -167,7 +113,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const float denom = fmaxf(l, 1e-30f);
     __nv_bfloat16* dst = o + base + qi * ts + part * 4;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < NG; ++i) {
       __nv_bfloat162 lo = __floats2bfloat162_rn(acc[4 * i + 0] / denom,
                                                 acc[4 * i + 1] / denom);
       __nv_bfloat162 hi = __floats2bfloat162_rn(acc[4 * i + 2] / denom,
@@ -179,8 +125,20 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
     if (part == 0)
       lse[static_cast<size_t>(bh) * T + qi] =
-          l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : 1e30f;
+          l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : omni::FULLY_MASKED_LSE;
   }
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v,
+                       const int* mask, void* o, float* lse, int B, int T,
+                       int H, float scale, cudaStream_t stream) {
+  const dim3 grid((T + BQ - 1) / BQ, B * H);
+  flash_fwd_kernel<D><<<grid, THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), mask,
+      static_cast<__nv_bfloat16*>(o), lse, T, H, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -189,12 +147,17 @@ OMNI_API int omni_flash_fwd(const void* q, const void* k, const void* v,
                             const int* mask, void* o, float* lse, int B,
                             int T, int H, int head_dim, float scale,
                             void* stream) {
-  if (head_dim != D || B <= 0 || T <= 0 || H <= 0)
+  if (B <= 0 || T <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), mask,
-      static_cast<__nv_bfloat16*>(o), lse, T, H, scale);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return static_cast<int>(launch_fwd<64>(q, k, v, mask, o, lse, B, T, H,
+                                             scale, s));
+    case 128:
+      return static_cast<int>(launch_fwd<128>(q, k, v, mask, o, lse, B, T,
+                                              H, scale, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

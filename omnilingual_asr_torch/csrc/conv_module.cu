@@ -25,7 +25,10 @@
 // GLU -> mask over those frames plus the K-1 frame halo the depthwise taps
 // need (63 rows), all in shared memory. The depthwise taps, the second LN,
 // SiLU and pw2 then run on the block's own 32 frames, and only the final
-// residual sum is written to device memory.
+// residual sum is written to device memory. Shared memory holds the halo's
+// LN output in bf16 (it is rounded to bf16 anyway) and its GLU output in
+// f32, 6 (D + 4) bytes a row: D up to 576 fits the 227 KB a block may use
+// (the training path's D = 512 included).
 #include "common.cuh"
 
 namespace {
@@ -36,6 +39,9 @@ constexpr int THREADS = 256;
 constexpr int KC = 16;            // depth of one weight tile
 constexpr int NC = 64;            // output channels per GEMM chunk
 constexpr float LN_EPS = 1e-5f;
+// The bf16 halo buffer [RP][ld] is reused as the f32 conv output [TT][ld].
+static_assert(TT * sizeof(float) <= RP * sizeof(__nv_bfloat16),
+              "conv output must fit in the bf16 halo buffer");
 
 __device__ __forceinline__ void bf16x8_to_f32(const uint4 raw, float* dst) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -79,8 +85,9 @@ conv_module_kernel(const float* __restrict__ x, const int* __restrict__ mask,
                    float* __restrict__ out, int T, int D, int K) {
   extern __shared__ __align__(16) float smem[];
   const int ld = D + 4;
-  float* Hs = smem;                 // [RP][ld]  bf16(LN(x)); later dw output
-  float* Gs = Hs + RP * ld;         // [RP][ld]  masked GLU
+  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [RP][ld]
+  //                                   bf16(LN(x)); later the f32 dw output
+  float* Gs = smem + RP * ld / 2;   // [RP][ld]  masked GLU (ld is even)
   float* Wa = Gs + RP * ld;         // [KC][NC]  weight tile
   float* Wb = Wa + KC * NC;         // [KC][NC]  weight tile (GLU gate half)
   float* rowm = Wb + KC * NC;       // [RP]      1 if the halo row is a valid frame
@@ -101,14 +108,14 @@ conv_module_kernel(const float* __restrict__ x, const int* __restrict__ mask,
     if (lane == 0)
       rowm[r] = (in && mask[static_cast<size_t>(b) * T + t] != 0) ? 1.f : 0.f;
     if (!in) {
-      for (int c = lane; c < D; c += 32) Hs[r * ld + c] = 0.f;
+      for (int c = lane; c < D; c += 32) Hs[r * ld + c] = __float2bfloat16_rn(0.f);
       continue;
     }
     const float* xr = xb + static_cast<size_t>(t) * D;
     float mu, inv;
     row_stats(xr, D, &mu, &inv);
     for (int c = lane; c < D; c += 32)
-      Hs[r * ld + c] = omni::bf16_round((xr[c] - mu) * inv * ln_s[c] + ln_b[c]);
+      Hs[r * ld + c] = __float2bfloat16_rn((xr[c] - mu) * inv * ln_s[c] + ln_b[c]);
   }
   __syncthreads();
 
@@ -139,7 +146,8 @@ conv_module_kernel(const float* __restrict__ x, const int* __restrict__ mask,
       for (int k = 0; k < KC; ++k) {
         float hv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) hv[i] = Hs[(ty * 4 + i) * ld + c0 + k];
+        for (int i = 0; i < 4; ++i)
+          hv[i] = __bfloat162float(Hs[(ty * 4 + i) * ld + c0 + k]);
         const float4 wa = *reinterpret_cast<const float4*>(Wa + k * NC + tx * 4);
         const float4 wb = *reinterpret_cast<const float4*>(Wb + k * NC + tx * 4);
         const float a4[4] = {wa.x, wa.y, wa.z, wa.w};
@@ -166,7 +174,7 @@ conv_module_kernel(const float* __restrict__ x, const int* __restrict__ mask,
   __syncthreads();
 
   // 3. Depthwise conv over the block's TT frames, taps in ascending order.
-  float* Ds = Hs;                   // Hs is free again
+  float* Ds = smem;                 // Hs is free again: [TT][ld] f32
   for (int c = tid; c < D; c += THREADS) {
     float acc[TT];
 #pragma unroll
@@ -251,7 +259,8 @@ OMNI_API int omni_conv_module(const float* x, const int* mask,
                               int D, int K, void* stream) {
   if (B <= 0 || T <= 0 || D <= 0 || D % NC != 0 || K < 1 || TT + K - 1 > RP)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (2 * RP * (D + 4) + 2 * KC * NC + RP) * sizeof(float);
+  const size_t smem = RP * (D + 4) * (sizeof(__nv_bfloat16) + sizeof(float)) +
+                      (2 * KC * NC + RP) * sizeof(float);
   cudaError_t err = omni::allow_smem(conv_module_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + TT - 1) / TT, B);

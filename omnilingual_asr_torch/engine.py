@@ -46,7 +46,7 @@ from .config import PipelineConfig
 from .diarization.cluster import DEFAULT_THRESHOLD as CLUSTER_DEFAULT_THRESHOLD
 from .diarization.cluster import cluster_speakers
 from .models import languages as lang_table
-from .models.conformer import (asr_forward, asr_param_shapes,
+from .models.conformer import (asr_forward, asr_init,
                                pooled_speaker_embed_np)
 from .models.orthography import ctc_logit_mask
 from .models.summarizer import template_summary
@@ -134,35 +134,6 @@ def _progress_reporters(progress_callback: ProgressCallback):
             pass
 
     return report, report_frac
-
-
-def _init_params(shapes, seed: int):
-    """Random parameters for a shape tree (engines built without a
-    checkpoint). Fan-in scaled, LayerNorms identity, biases zero."""
-    gen = torch.Generator().manual_seed(seed)
-
-    def init(name, shape):
-        if name in ("scale",):
-            return torch.ones(shape)
-        if name in ("bias", "b"):
-            return torch.zeros(shape)
-        if name in ("spk_aam", "aam"):
-            w = torch.randn(shape, generator=gen)
-            return w / w.norm(dim=0, keepdim=True)
-        if len(shape) == 3:            # x-vector conv [K, Cin, Cout]
-            return torch.randn(shape, generator=gen) / math.sqrt(
-                shape[0] * shape[1])
-        lim = 1.0 / math.sqrt(shape[0])
-        return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * lim
-
-    def walk(tree, name=""):
-        if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [walk(v, name) for v in tree]
-        return init(name, tuple(tree))
-
-    return walk(shapes)
 
 
 class TranscriptionEngine:
@@ -296,7 +267,8 @@ class TranscriptionEngine:
                     "No ASR checkpoint found (checkpoint_path unset and no "
                     "release discovered): serving RANDOM-INIT weights — "
                     "transcriptions will be noise.", stacklevel=2)
-                params = _init_params(asr_param_shapes(cfg), cfg.seed)
+                params = asr_init(torch.Generator().manual_seed(cfg.seed),
+                                  cfg)
         # Host copy of the active embedder's pooling projection, taken
         # before quantization so that the host matmul stays f32.
         pool_src = self._xvector if self._xvector is not None else params

@@ -1,7 +1,6 @@
 """Conformer encoder and multi-task heads.
 
-The PyTorch port of the inference half of
-``omnilingual_asr_tpu/models/conformer.py``:
+The PyTorch port of ``omnilingual_asr_tpu/models/conformer.py``:
 
     log-mel [B, T, n_mels]
       -> frame-stacking subsampler (x4)
@@ -9,10 +8,12 @@ The PyTorch port of the inference half of
       -> heads: ctc [B, T', vocab], lid [B, T', 2048], emotion [B, T', 4],
          speaker frames [B, T', 256]
 
-``encoder.use_flash_attention`` routes attention through kernel K2 and
-``encoder.use_fused_conv`` the conv module through kernel K3, as the JAX
-engine's inference config does. Mixture-of-experts FFNs, remat and dropout
-are training or multi-chip features of the JAX package and are not ported.
+``encoder.use_flash_attention`` routes attention through kernels K2 (and
+K6/K7 in the backward) and ``encoder.use_fused_conv`` the conv module
+through kernel K3, as the JAX engine's inference config and the trainer's
+kernel mode do. Training adds residual-stream dropout and per-block
+rematerialisation (``encoder.remat``). Mixture-of-experts FFNs are a
+multi-chip feature of the JAX package and are not ported (A10).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..config import EncoderConfig, PipelineConfig
 from ..ops.conv_module import convmod_apply_fused
@@ -52,9 +54,7 @@ def asr_param_shapes(cfg: PipelineConfig):
     """Shape tree of the ASR parameters (the port's counterpart of
     ``jax.eval_shape(asr_init)``)."""
     enc = cfg.encoder
-    if enc.n_experts > 0:
-        raise NotImplementedError("mixture-of-experts FFNs are not ported "
-                                  "(ROADMAP Queue A item 10)")
+    _no_experts(enc)
     d, f = enc.d_model, enc.d_model * enc.ffn_mult
 
     def ffn():
@@ -87,6 +87,49 @@ def asr_param_shapes(cfg: PipelineConfig):
     }
 
 
+def _no_experts(enc: EncoderConfig) -> None:
+    if enc.n_experts > 0:
+        raise NotImplementedError("mixture-of-experts FFNs are not ported "
+                                  "(ROADMAP Queue A item 10)")
+
+
+def conformer_block_init(gen: torch.Generator, enc: EncoderConfig):
+    _no_experts(enc)
+    return {
+        "ffn1": L.ffn_init(gen, enc.d_model, enc.ffn_mult),
+        "mhsa": L.mhsa_init(gen, enc.d_model),
+        "conv": L.convmod_init(gen, enc.d_model, enc.conv_kernel),
+        "ffn2": L.ffn_init(gen, enc.d_model, enc.ffn_mult),
+        "ln_out": L.layernorm_init(enc.d_model),
+    }
+
+
+def _unit_columns(gen: torch.Generator, shape) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen)
+    return w / w.norm(dim=0, keepdim=True)
+
+
+def asr_init(gen: torch.Generator, cfg: PipelineConfig):
+    """Random ASR parameters (CPU f32) with the tree of
+    :func:`asr_param_shapes`, drawn from ``gen`` as the reference's
+    ``asr_init`` draws them (speaker AAM classes: unit columns)."""
+    enc = cfg.encoder
+    d, sub = enc.d_model, enc.subsample_factor
+    return {
+        "subsample": L.dense_init(gen, sub * cfg.frontend.n_mels, d),
+        "in_ln": L.layernorm_init(d),
+        "blocks": [conformer_block_init(gen, enc)
+                   for _ in range(enc.n_layers)],
+        "ctc_head": L.dense_init(gen, d, cfg.vocab.vocab_size),
+        "lid_head": L.dense_init(gen, d, N_LANGS),
+        "emotion_head": L.dense_init(gen, d, N_EMOTIONS),
+        "speaker_head": L.dense_init(gen, d, SPK_DIM),
+        "spk_head2": L.dense_init(gen, SPK_DIM, SPK_DIM),
+        "spk_proj": L.dense_init(gen, 2 * SPK_DIM, SPK_DIM),
+        "spk_aam": _unit_columns(gen, (SPK_DIM, N_SPEAKER_CLASSES)),
+    }
+
+
 def subsample_frames(mel: torch.Tensor, sub: int) -> torch.Tensor:
     """[B, T, F] -> [B, T // sub, sub * F] by frame stacking."""
     B, T, F = mel.shape
@@ -115,31 +158,62 @@ def conformer_block_apply(p, x, mask, cos, sin, enc: EncoderConfig, dtype,
     return L.layernorm_apply(p["ln_out"], x)
 
 
+def dropout(x: torch.Tensor, rate: float, seed: int,
+            salt: int) -> torch.Tensor:
+    """Inverted element-wise dropout with a generator of its own per
+    (seed, salt), as the reference folds a salt into its step key: each
+    element is kept with probability 1 - rate and scaled by 1/(1 - rate).
+    The bits differ from ``jax.random``'s."""
+    gen = torch.Generator(device=x.device).manual_seed(
+        (seed * 1_000_003 + salt) % (2 ** 63))
+    keep = 1.0 - rate
+    hit = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(hit, x / keep, torch.zeros_like(x))
+
+
 def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
-                cfg: PipelineConfig, quant: Optional[str] = None):
-    """Inference forward pass.
+                cfg: PipelineConfig, quant: Optional[str] = None,
+                dropout_seed: Optional[int] = None):
+    """Forward pass, for serving and for training.
 
     mel [B, T, n_mels] f32 (T a multiple of the subsample factor); mask
     [B, T] bool. Returns the JAX package's output dict: ctc/lid/emotion
-    logits, speaker frames and L2-normalised embeddings, encoder states and
-    the subsampled mask. ``params`` may hold quantized dense leaves
-    (``ops/quant.py::quantize_param_tree``); ``quant`` (None, "w8" or "a8")
-    routes those the kernels take through K4 or K5, as the JAX engine's
-    ``set_quant_kernel`` mode does.
+    logits, speaker frames and L2-normalised embeddings, encoder states,
+    the subsampled mask and ``moe_aux`` (0: no experts). ``params`` may
+    hold quantized dense leaves (``ops/quant.py::quantize_param_tree``);
+    ``quant`` (None, "w8" or "a8") routes those the kernels take through K4
+    or K5, as the JAX engine's ``set_quant_kernel`` mode does.
+
+    ``dropout_seed`` (training only): with ``encoder.dropout > 0``, dropout
+    on the residual stream after the input LayerNorm (salt 0) and after
+    each block (salt ``i + 1``), as the reference's ``dropout_rng`` hook.
+    ``encoder.remat`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``) when gradients are being taken.
     """
     enc = cfg.encoder
-    if enc.n_experts > 0:
-        raise NotImplementedError("mixture-of-experts FFNs are not ported "
-                                  "(ROADMAP Queue A item 10)")
+    _no_experts(enc)
     dtype = compute_dtype(enc)
     sub = enc.subsample_factor
+    rate = enc.dropout if dropout_seed is not None else 0.0
+
+    def drop(x, salt):
+        return dropout(x, rate, dropout_seed, salt) if rate > 0.0 else x
+
     x = subsample_frames(mel, sub)
     m = subsampled_mask(mask, sub)
     x = L.dense_apply(params["subsample"], x, dtype, quant)
     x = L.layernorm_apply(params["in_ln"], x)
+    x = drop(x, 0)
     cos, sin = L.rope_angles(x.shape[1], enc.head_dim, device=x.device)
-    for blk in params["blocks"]:
-        x = conformer_block_apply(blk, x, m, cos, sin, enc, dtype, quant)
+    remat = enc.remat and torch.is_grad_enabled()
+    for bi, blk in enumerate(params["blocks"]):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                conformer_block_apply, blk, x, m, cos, sin, enc, dtype,
+                quant, use_reentrant=False)
+        else:
+            x = conformer_block_apply(blk, x, m, cos, sin, enc, dtype, quant)
+        x = drop(x, bi + 1)
     ctc = L.dense_apply(params["ctc_head"], x, dtype, quant)
     lid = L.dense_apply(params["lid_head"], x, dtype, quant)
     emo = L.dense_apply(params["emotion_head"], x, dtype, quant)
@@ -155,7 +229,23 @@ def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
         "speaker_embed": spk,
         "encoder_states": x,
         "mask": m,
+        "moe_aux": torch.zeros((), device=x.device),
     }
+
+
+def pooled_speaker_embed(params, frames: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """Statistics-pooled speaker embedding (differentiable), L2-normalised.
+
+    frames [..., T, SPK_DIM] (``speaker_frames``); weights [..., T]
+    nonnegative pooling weights. Returns [..., SPK_DIM]."""
+    w = weights[..., None].to(torch.float32)
+    denom = torch.clamp(w.sum(dim=-2), min=1e-6)
+    mean = (frames * w).sum(dim=-2) / denom
+    var = (w * (frames - mean[..., None, :]) ** 2).sum(dim=-2) / denom
+    std = torch.sqrt(var + 1e-6)
+    e = L.dense_apply(params["spk_proj"], torch.cat([mean, std], dim=-1))
+    return e * torch.rsqrt((e * e).sum(dim=-1, keepdim=True) + 1e-8)
 
 
 def pooled_speaker_embed_np(params, frames: np.ndarray,

@@ -1,10 +1,13 @@
 """Layer functions on parameter dicts.
 
-The PyTorch port of the apply functions of
-``omnilingual_asr_tpu/models/layers.py``. Parameters are nested dicts of
-f32 tensors with the JAX package's leaf names (``{"w", "b"}`` for a dense
-layer, ``{"scale", "bias"}`` for a LayerNorm), so the two packages compute
-on the same trees.
+The PyTorch port of ``omnilingual_asr_tpu/models/layers.py``: init and
+apply functions. Parameters are nested dicts of f32 tensors with the JAX
+package's leaf names (``{"w", "b"}`` for a dense layer, ``{"scale",
+"bias"}`` for a LayerNorm), so the two packages compute on the same trees.
+The init functions draw the reference's distributions (dense weights
+uniform in +-1/sqrt(fan_in), zero biases, identity LayerNorms, depthwise
+taps uniform in +-1/sqrt(K)) from a ``torch.Generator``; the values differ
+from ``jax.random``'s, so tests carry a JAX tree across instead.
 
 Numerics follow the reference: a dense layer rounds its input and weight to
 the compute dtype (bf16) and accumulates in f32 with an f32 bias. The port
@@ -21,8 +24,44 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.attention import flash_attention
+from ..ops.attention import FlashAttention
 from ..ops.quant import dense_quant_matmul, kernel_shapes_ok
+
+
+def _uniform(gen: torch.Generator, shape, lim: float) -> torch.Tensor:
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * lim
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               use_bias: bool = True):
+    p = {"w": _uniform(gen, (in_dim, out_dim), 1.0 / math.sqrt(in_dim))}
+    if use_bias:
+        p["b"] = torch.zeros(out_dim)
+    return p
+
+
+def layernorm_init(dim: int):
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def mhsa_init(gen: torch.Generator, d_model: int):
+    return {"ln": layernorm_init(d_model),
+            **{n: dense_init(gen, d_model, d_model, use_bias=False)
+               for n in ("wq", "wk", "wv", "wo")}}
+
+
+def ffn_init(gen: torch.Generator, d_model: int, mult: int):
+    return {"ln": layernorm_init(d_model),
+            "w1": dense_init(gen, d_model, d_model * mult),
+            "w2": dense_init(gen, d_model * mult, d_model)}
+
+
+def convmod_init(gen: torch.Generator, d_model: int, kernel: int):
+    return {"ln": layernorm_init(d_model),
+            "pw1": dense_init(gen, d_model, 2 * d_model, use_bias=False),
+            "dw": _uniform(gen, (kernel, d_model), 1.0 / math.sqrt(kernel)),
+            "dw_ln": layernorm_init(d_model),
+            "pw2": dense_init(gen, d_model, d_model, use_bias=False)}
 
 
 def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -102,9 +141,9 @@ def mhsa_apply(p, x: torch.Tensor, n_heads: int, mask: torch.Tensor,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if use_flash:
-        out, _ = flash_attention(q.to(dtype).contiguous(),
-                                 k.to(dtype).contiguous(),
-                                 v.to(dtype).contiguous(), mask)
+        out = FlashAttention.apply(q.to(dtype).contiguous(),
+                                   k.to(dtype).contiguous(),
+                                   v.to(dtype).contiguous(), mask)
         out = out.to(torch.float32).reshape(B, T, D)
         return x + dense_apply(p["wo"], out, dtype, quant)
     scale = 1.0 / math.sqrt(hd)

@@ -1,11 +1,13 @@
-"""Release checkpoints without JAX.
+"""Checkpoints without JAX, and named configurations.
 
 A release is one float16 ``.npz`` per model, written by the JAX package's
 ``models/zoo.py::save_release``. Its keys are ``jax.tree_util.keystr``
 paths such as ``['blocks'][0]['mhsa']['wq']['w']``. This module parses
 them into the port's parameter tree (nested dicts and lists of f32 tensors,
 the JAX package's structure), validates every leaf against the shape tree
-of the configuration, and casts up on load.
+of the configuration, and casts up on load. :func:`save_checkpoint` writes
+the same layout in f32 (the port's training checkpoints), which this
+module's and the JAX package's ``load_checkpoint`` both read.
 """
 
 from __future__ import annotations
@@ -18,11 +20,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import PipelineConfig
+from ..config import EncoderConfig, PipelineConfig
 from .conformer import asr_param_shapes
 from .xvector import xvector_param_shapes
 
 _KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def large_config() -> PipelineConfig:
+    """The reference's ~300M-parameter conformer (head dim 128)."""
+    return PipelineConfig(encoder=EncoderConfig(
+        d_model=1024, n_layers=16, n_heads=8, ffn_mult=4, conv_kernel=32))
 
 
 def parse_keystr(key: str):
@@ -69,6 +77,37 @@ def tree_from_arrays(arrays: dict, shapes, source: str, device="cpu"):
         return torch.from_numpy(x.astype(np.float32)).to(device)
 
     return _build(shapes, fetch)
+
+
+def flatten(tree, path=()):
+    """``{keystr: tensor}`` over a parameter tree's leaves."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten(v, path + (k,)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(flatten(v, path + (i,)))
+        return out
+    return {keystr(path): tree}
+
+
+def save_checkpoint(path, params) -> None:
+    """Write a parameter tree as one f32 ``.npz`` (keystr keys), atomically.
+
+    The training checkpoint of the port: the release's layout at full
+    precision, so that the JAX package's ``load_checkpoint`` reads it too.
+    """
+    path = Path(path)
+    flat = {k: v.detach().to(torch.float32).cpu().numpy()
+            for k, v in flatten(params).items()}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.parent / (path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    tmp.replace(path)
 
 
 def load_release(path, shapes, device="cpu"):

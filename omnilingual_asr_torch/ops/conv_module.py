@@ -7,7 +7,9 @@ pointwise [D, D] (bf16 in, f32 accumulation) -> + the unmasked input.
 
 ``fused_conv_module`` launches the CUDA kernel (``csrc/conv_module.cu``)
 for CUDA tensors and runs ``conv_module_plain`` (the twin of the
-reference's ``_conv_module_ref``) for CPU tensors.
+reference's ``_conv_module_ref``) for CPU tensors. ``FusedConvModule`` is
+the differentiable entry point: K3 forward, autograd of the plain version
+backward, as the reference's custom VJP.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from . import cuda_build
 #: Largest depthwise kernel the CUDA kernel's 64-row halo holds (32 output
 #: frames + K - 1 halo rows).
 KERNEL_MAX_TAPS = 33
+#: Widest model whose 64-row halo (6 (D + 4) bytes a row) fits in the
+#: 227 KB of shared memory a block may use, as a multiple of 64.
+KERNEL_MAX_D = 576
 
 
 def _ln(x, scale, bias, eps: float = 1e-5):
@@ -70,9 +75,10 @@ def fused_conv_module(x, mask, ln_scale, ln_bias, pw1, dw, dwln_scale,
     K = dw.shape[0]
     dev = x.device
     f32 = torch.float32
-    if D % 64 or K > KERNEL_MAX_TAPS:
-        raise ValueError(f"conv-module kernel takes D % 64 == 0 and at most "
-                         f"{KERNEL_MAX_TAPS} taps, got D={D}, K={K}")
+    if D % 64 or D > KERNEL_MAX_D or K > KERNEL_MAX_TAPS:
+        raise ValueError(f"conv-module kernel takes D % 64 == 0, D <= "
+                         f"{KERNEL_MAX_D} and at most {KERNEL_MAX_TAPS} taps, "
+                         f"got D={D}, K={K}")
     mask_i = mask.to(torch.int32).contiguous()
     cuda_build.check_tensor(x, "x", f32, (B, T, D), dev)
     cuda_build.check_tensor(mask_i, "mask", torch.int32, (B, T), dev)
@@ -97,6 +103,43 @@ def fused_conv_module(x, mask, ln_scale, ln_bias, pw1, dw, dwln_scale,
 fused_conv_module.launches = 0
 
 
+class FusedConvModule(torch.autograd.Function):
+    """Differentiable fused conv module: ``FusedConvModule.apply(x, mask,
+    ln_scale, ln_bias, pw1, dw, dwln_scale, dwln_bias, pw2)`` -> [B, T, D]
+    f32, the arguments of :func:`conv_module_plain`.
+
+    Forward: kernel K3 on the card, given bf16 copies of the current pw1
+    and pw2 (a trainer's weights change every step, so no load-time copy
+    can serve), or the plain version on the CPU. Backward: recompute
+    :func:`conv_module_plain` under autograd and backpropagate through it,
+    as the reference's ``_fused_conv_bwd`` differentiates its XLA twin; the
+    mask gets no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, mask, ln_scale, ln_bias, pw1, dw, dwln_scale,
+                dwln_bias, pw2):
+        ctx.save_for_backward(x, mask, ln_scale, ln_bias, pw1, dw,
+                              dwln_scale, dwln_bias, pw2)
+        if x.is_cuda:
+            pw1 = pw1.to(torch.bfloat16).contiguous()
+            pw2 = pw2.to(torch.bfloat16).contiguous()
+        return fused_conv_module(x, mask, ln_scale, ln_bias, pw1, dw,
+                                 dwln_scale, dwln_bias, pw2)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(n) if n else t.detach()
+                    for t, n in zip(saved, need)]
+            out = conv_module_plain(*args)
+            wrt = [a for a, n in zip(args, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        return tuple(next(grads) if n else None for n in need)
+
+
 def dense_weight(leaf) -> torch.Tensor:
     """A pointwise weight from a plain or quantized leaf: ``f32(w_q) *
     w_scale`` in f32, as the reference's ``_dense_weight`` (the kernel then
@@ -107,8 +150,9 @@ def dense_weight(leaf) -> torch.Tensor:
 
 
 def convmod_apply_fused(p, x, mask):
-    """Drop-in for ``models.layers.convmod_apply`` through the fused path."""
-    return fused_conv_module(
+    """Drop-in for ``models.layers.convmod_apply`` through the fused path
+    (differentiable, :class:`FusedConvModule`)."""
+    return FusedConvModule.apply(
         x.to(torch.float32).contiguous(), mask,
         p["ln"]["scale"], p["ln"]["bias"], dense_weight(p["pw1"]), p["dw"],
         p["dw_ln"]["scale"], p["dw_ln"]["bias"], dense_weight(p["pw2"]))

@@ -1,10 +1,10 @@
-"""CTC host half: greedy collapse and text/segment assembly.
+"""CTC: the training loss, greedy collapse and text/segment assembly.
 
-The PyTorch port's own copy of the host functions of
-``omnilingual_asr_tpu/ops/ctc.py`` (the CTC loss is training, a later
-slice; the greedy argmax runs inside the engine's per-batch program).
-Segmentation from blank runs honors the reference's segment-granularity
-contract: short phrase-level segments of roughly 2-10 s, split at pauses.
+The PyTorch port of ``omnilingual_asr_tpu/ops/ctc.py``: ``ctc_loss`` and
+``text_to_byte_labels`` for training, and the host functions (the greedy
+argmax runs inside the engine's per-batch program). Segmentation from blank
+runs honors the reference's segment-granularity contract: short
+phrase-level segments of roughly 2-10 s, split at pauses.
 """
 
 from __future__ import annotations
@@ -13,9 +13,47 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..config import DecodeConfig, VocabConfig
 from ..types import WordTimestamp
+
+
+def ctc_loss(logits: torch.Tensor, logit_mask: torch.Tensor,
+             labels: torch.Tensor, label_mask: torch.Tensor,
+             blank_id: int = 0) -> torch.Tensor:
+    """Summed per-sequence CTC loss over the rows that have labels, as the
+    reference's ``optax.ctc_loss`` sum divided by that row count.
+
+    logits [B, T, V] f32; logit_mask [B, T] bool (valid frames are a
+    prefix); labels [B, L] int; label_mask [B, L] bool (right-padded).
+    ``F.ctc_loss`` runs with ``reduction="none"`` so that nothing divides by
+    target length. A row whose labels cannot be aligned in its frames gets
+    an infinite loss here where optax's gives a large finite one
+    (ROADMAP.md Queue C).
+    """
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    per_seq = torch.nn.functional.ctc_loss(
+        logp.transpose(0, 1), labels.to(torch.long),
+        logit_mask.sum(dim=1).to(torch.long),
+        label_mask.sum(dim=1).to(torch.long), blank=blank_id,
+        reduction="none")
+    n_valid = torch.clamp(label_mask.any(dim=-1).sum(), min=1)
+    return per_seq.sum() / n_valid
+
+
+def text_to_byte_labels(text: str, vocab: VocabConfig, max_len: int):
+    """Encode text as padded byte-label arrays for CTC training.
+
+    Returns (labels [max_len] int32, mask [max_len] bool).
+    """
+    raw = text.encode("utf-8")[:max_len]
+    ids = np.full((max_len,), 0, dtype=np.int32)
+    mask = np.zeros((max_len,), dtype=bool)
+    for i, b in enumerate(raw):
+        ids[i] = vocab.byte_to_id(b)
+        mask[i] = True
+    return ids, mask
 
 
 @dataclass

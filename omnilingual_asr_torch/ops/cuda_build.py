@@ -124,6 +124,12 @@ _SIGNATURES = {
     "omni_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, mask, o, lse, B, T, H, D, scale, stream
     "omni_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, mask, dO, lse, delta, dq, B, T, H, D, scale, stream
+    "omni_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _F, _P],
+    # q, k, v, mask, dO, lse, delta, dk, dv, B, T, H, D, scale, stream
+    "omni_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _F, _P],
     # x, mask, ln_s, ln_b, pw1, dw, dwln_s, dwln_b, pw2, out, B, T, D, K,
     # stream
     "omni_conv_module": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

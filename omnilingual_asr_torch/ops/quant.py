@@ -17,7 +17,9 @@ it outside its kernel; the CUDA kernels fold it into their epilogue in the
 same order). Each launches its CUDA kernel (``csrc/quant.cu``) for CUDA
 tensors and runs its plain version for CPU tensors. The kernels read the
 weight K-contiguous, as ``w_t = w_q.t().contiguous()`` [N, K]; callers that
-call often (the engine) keep that copy from load time.
+call often (the engine) keep that copy from load time. The kernels serve
+only: on the card an input that requires grad is refused
+(:func:`refuse_grad`) rather than given an output without a graph.
 """
 
 from __future__ import annotations
@@ -149,6 +151,17 @@ def quantized_matmul_a8_plain(x, w_q, scale, bias=None) -> torch.Tensor:
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def refuse_grad(what: str, *tensors) -> None:
+    """K4 and K5 serve only: their outputs carry no autograd graph, so a
+    caller that needs gradients through them gets an error, not a tensor
+    whose gradients are silently zero."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} kernel has no backward: it serves only; train through "
+            f"the unquantized weights")
+
+
 def _launch(entry: str, x, w_q, scale, bias, w_t, what: str) -> torch.Tensor:
     M, K = x.shape
     K2, N = w_q.shape
@@ -186,6 +199,7 @@ def quantized_matmul(x, w_q, scale, bias=None, w_t=None) -> torch.Tensor:
     """
     if not x.is_cuda:
         return quantized_matmul_plain(x, w_q, scale, bias)
+    refuse_grad("W8A16 matmul", x, scale, bias)
     out = _launch("omni_q_matmul", x, w_q, scale, bias, w_t, "W8A16 matmul")
     quantized_matmul.launches += 1
     return out
@@ -203,6 +217,7 @@ def quantized_matmul_a8(x, w_q, scale, bias=None, w_t=None) -> torch.Tensor:
     """
     if not x.is_cuda:
         return quantized_matmul_a8_plain(x, w_q, scale, bias)
+    refuse_grad("W8A8 matmul", x, scale, bias)
     out = _launch("omni_q8a8_matmul", x, w_q, scale, bias, w_t,
                   "W8A8 matmul")
     quantized_matmul_a8.launches += 1

@@ -43,10 +43,12 @@ def test_log_mel_kernel_matches_plain(dev, n):
     assert float((got - want).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("T,valid", [(768, [768, 700, 300, 0]),
-                                     (100, [100, 37, 1, 64])])
-def test_flash_kernel_matches_plain(dev, T, valid):
-    B, H, D = len(valid), 4, 64
+@pytest.mark.parametrize("T,valid,D", [(768, [768, 700, 300, 0], 64),
+                                       (100, [100, 37, 1, 64], 64),
+                                       (768, [768, 700, 300, 0], 128),
+                                       (100, [100, 37, 1, 64], 128)])
+def test_flash_kernel_matches_plain(dev, T, valid, D):
+    B, H = len(valid), 4
     gen = torch.Generator(device=dev).manual_seed(T)
     q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).to(
         torch.bfloat16) for _ in range(3))
@@ -61,10 +63,11 @@ def test_flash_kernel_matches_plain(dev, T, valid):
     assert bool((lse[~live] == 1e30).all())
 
 
-@pytest.mark.parametrize("T,valid", [(768, [768, 700, 301, 0]),
-                                     (50, [50, 13])])
-def test_conv_module_kernel_matches_plain(dev, T, valid):
-    B, D, K = len(valid), 256, 32
+@pytest.mark.parametrize("T,valid,D", [(768, [768, 700, 301, 0], 256),
+                                       (50, [50, 13], 256),
+                                       (256, [256, 200, 77, 0], 512)])
+def test_conv_module_kernel_matches_plain(dev, T, valid, D):
+    B, K = len(valid), 32
     gen = torch.Generator(device=dev).manual_seed(T)
 
     def rnd(*shape, scale=1.0):
@@ -84,6 +87,198 @@ def test_conv_module_kernel_matches_plain(dev, T, valid):
     assert float((got - want).abs().max()) <= 5e-2
 
 
+# Backward kernels against their plain versions, per element
+# |g - g_ref| <= FLASH_BWD_ABS * max|g_ref| + 2^-7 |g_ref|: both round an
+# f32 sum to bf16 (one ulp, 2^-8 relative, apart where they straddle a
+# rounding boundary; 2^-7 covers the f32 sums differing on top of that),
+# and the f32 sums of p * (dp - delta) over up to 768 keys, whose terms
+# cancel, are taken in another order, which ABS bounds relative to the
+# largest gradient element. A dropped key or a wrong p moves g by ~|g|.
+FLASH_BWD_ABS = 2.0 ** -10
+
+
+def _bwd_case(dev, B, T, H, D, valid, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(
+        valid, device=dev)[:, None]
+    o, lse = attention.flash_attention(q, k, v, mask)
+    delta = attention.flash_delta(o, do)
+    return q, k, v, do, mask, lse, delta
+
+
+def _within(got, want):
+    got, want = got.float(), want.float()
+    tol = FLASH_BWD_ABS * want.abs().max() + 2.0 ** -7 * want.abs()
+    return bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("B,T,H,D,valid", [
+    (16, 256, 8, 64, [256] * 12 + [200, 77, 1, 0]),
+    (4, 768, 8, 128, [768, 700, 300, 0]),
+    (3, 100, 2, 64, [100, 37, 0]),
+    (2, 70, 2, 128, [70, 5])])
+def test_flash_bwd_kernels_match_plain(dev, B, T, H, D, valid):
+    """K6 and K7 against their plain versions at the training shape, at
+    large_config's head dim and at ragged lengths; masked keys get exactly
+    0 in dK and dV, fully-masked query rows exactly 0 in dQ."""
+    q, k, v, do, mask, lse, delta = _bwd_case(dev, B, T, H, D, valid, T + D)
+    n6 = attention.flash_attention_bwd_dq.launches
+    n7 = attention.flash_attention_bwd_dkv.launches
+    dq = attention.flash_attention_bwd_dq(q, k, v, mask, do, lse, delta)
+    dk, dv = attention.flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta)
+    dq_ref = attention.flash_attention_bwd_dq_plain(q, k, v, mask, do, lse,
+                                                    delta)
+    dk_ref, dv_ref = attention.flash_attention_bwd_dkv_plain(
+        q, k, v, mask, do, lse, delta)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_bwd_dq.launches == n6 + 1
+    assert attention.flash_attention_bwd_dkv.launches == n7 + 1
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got.float()).all())
+        assert _within(got, want)
+    dead_key = ~mask
+    assert bool((dk[dead_key] == 0).all()) and bool((dv[dead_key] == 0).all())
+    dead_row = ~mask.any(dim=1)
+    assert bool((dq[dead_row] == 0).all())
+
+
+def test_flash_attention_function_grads_match_plain(dev):
+    """FlashAttention on the card (K2, K6, K7) against autograd through the
+    plain forward in f32 on the same bf16 inputs; tolerance as above on
+    top of the bf16 rounding of o, which both see."""
+    B, T, H, D = 4, 256, 4, 64
+    q, k, v, do, mask, _, _ = _bwd_case(dev, B, T, H, D, [256, 100, 3, 0],
+                                        11)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = attention.FlashAttention.apply(*leaves, mask)
+    o.backward(do)
+    want = attention.flash_attention_bwd_plain(q, k, v, mask, o.detach(),
+                                               attention.flash_attention(
+                                                   q, k, v, mask)[1], do)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == torch.bfloat16
+        assert _within(leaf.grad, w)
+
+
+def test_fused_conv_module_function_grads_match_plain(dev):
+    """FusedConvModule on the card (K3 forward, autograd of the plain
+    version backward) against autograd through the plain version alone:
+    the backward is the same computation on the same inputs, so the
+    gradients agree up to the order of the card's f32 sums (rtol 1e-5)."""
+    B, T, D, K = 2, 256, 256, 32
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device=dev)
+                ).requires_grad_(True)
+
+    x = rnd(B, T, D)
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(
+        [T, 100], device=dev)[:, None]
+    w = [rnd(D, scale=0.1), rnd(D, scale=0.1), rnd(D, 2 * D, scale=D ** -0.5),
+         rnd(K, D, scale=K ** -0.5), rnd(D, scale=0.1), rnd(D, scale=0.1),
+         rnd(D, D, scale=D ** -0.5)]
+    g = torch.randn(B, T, D, generator=gen, device=dev)
+    n3 = conv_module.fused_conv_module.launches
+    out = conv_module.FusedConvModule.apply(x, mask, *w)
+    assert conv_module.fused_conv_module.launches == n3 + 1
+    got = torch.autograd.grad(out, [x, *w], g)
+    ref = conv_module.conv_module_plain(x, mask, *w)
+    want = torch.autograd.grad(ref, [x, *w], g)
+    assert float((out - ref).abs().max()) <= 5e-2
+    for a, b in zip(got, want):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(
+            b.abs().max()))
+
+
+def test_large_config_engine_runs_k2_at_head_dim_128(dev, monkeypatch):
+    """An engine at large_config's widths (d_model 1024, 8 heads of 128;
+    depth cut to 2 layers) with random weights serves a request through K2
+    at head dim 128, and K2 holds to its plain version on the q, k, v the
+    engine gave it (chip_smoke.py's per-element tolerance)."""
+    import dataclasses
+
+    from omnilingual_asr_torch import testing
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.models.zoo import large_config
+
+    monkeypatch.setenv("OMNIASR_RELEASE_DIR", "")
+    cfg = large_config()
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, n_layers=2))
+    engine = TranscriptionEngine(config=cfg, device=dev,
+                                 speaker_mode="inline")
+    assert engine.infer_config.encoder.use_flash_attention
+    seen = []
+    kernel = attention.flash_attention
+
+    def spy(q, k, v, mask):
+        if not seen:
+            seen.append((q.clone(), k.clone(), v.clone(), mask.clone()))
+        return kernel(q, k, v, mask)
+
+    # The wrapper counts its launches on the module's name, now the spy.
+    spy.launches = 0
+    monkeypatch.setattr(attention, "flash_attention", spy)
+    engine.transcribe(testing.GOLDEN_WAV)
+    assert spy.launches == 2
+    q, k, v, mask = seen[0]
+    assert q.shape[-1] == 128
+    o, lse = kernel(q, k, v, mask)
+    o_ref, lse_ref = attention.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    tol = 1e-4 + 2.0 ** -7 * o_ref.float().abs()
+    assert bool(((o.float() - o_ref.float()).abs() <= tol).all())
+    live = lse_ref < 1e29
+    assert float((lse - lse_ref)[live].abs().max()) <= 1e-3
+
+
+def test_kernel_mode_train_step_launch_counts(dev):
+    """One kernel-mode step of ``make_train_step`` (d_model 128, 2 layers,
+    heads of 64, T' 256, the translator on, from i16 samples) on the card:
+    exactly 1 K1, 2 K2, 2 K6, 2 K7 and 2 K3 launches, no K4/K5, finite
+    metrics, and the parameters moved (learning rate > 0 at count 1)."""
+    import dataclasses
+
+    import numpy as np
+    from omnilingual_asr_torch.config import tiny_config
+    from omnilingual_asr_torch.train import step
+    from omnilingual_asr_torch.train.synth import SynthBatcher
+
+    cfg = tiny_config()
+    cfg = cfg.replace(encoder=dataclasses.replace(
+        cfg.encoder, use_flash_attention=True, use_fused_conv=True))
+    batcher = SynthBatcher(cfg, batch_size=2, window_seconds=8.0, seed=1,
+                           frame_multiple=1024, n_threads=1)
+    try:
+        batch = next(iter(batcher))
+    finally:
+        batcher.close()
+    batch["samples"] = np.clip(batch["samples"] * 32768.0, -32768,
+                               32767).astype(np.int16)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    init, train_step, _ = step.make_train_step(
+        cfg, dev, tx=step.make_optimizer(lr=1e-3, warmup_steps=1),
+        from_samples=True, with_translator=True)
+    state = init(0)
+    state.opt_state.count = 1
+    before = [p.detach().clone() for p in step.tree_leaves(state.params)]
+    fns = (mel.log_mel_frames, attention.flash_attention,
+           attention.flash_attention_bwd_dq, attention.flash_attention_bwd_dkv,
+           conv_module.fused_conv_module, quant.quantized_matmul,
+           quant.quantized_matmul_a8)
+    for fn in fns:
+        fn.launches = 0
+    _, _, _, metrics = train_step(state.params, state.opt_state, b, 0)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fns] == [1, 2, 2, 2, 2, 0, 0]
+    assert all(torch.isfinite(v) for v in metrics.values())
+    after = step.tree_leaves(state.params)
+    assert all(not torch.equal(a, b_) for a, b_ in zip(before, after))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -93,6 +288,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         attention.flash_attention(q, q, q, torch.ones(1, 64, dtype=torch.bool,
                                                       device=dev))
+    D = conv_module.KERNEL_MAX_D + 64          # over the shared memory
+    x = torch.zeros(1, 32, D, device=dev)
+    v = torch.zeros(D, device=dev)
+    with pytest.raises(ValueError, match="D <="):
+        conv_module.fused_conv_module(
+            x, torch.ones(1, 32, dtype=torch.bool, device=dev), v, v,
+            torch.zeros(D, 2 * D, dtype=torch.bfloat16, device=dev),
+            torch.zeros(32, D, device=dev), v, v,
+            torch.zeros(D, D, dtype=torch.bfloat16, device=dev))
+    # K4 and K5 serve only: an input that requires grad is refused.
+    xq = torch.randn(64, 256, device=dev, requires_grad=True)
+    w_q, scale = quant.quantize_weight(torch.randn(256, 128, device=dev))
+    for fn in (quant.quantized_matmul, quant.quantized_matmul_a8):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fn(xq, w_q, scale)
 
 
 def _quant_inputs(dev, M, K, N, seed):
