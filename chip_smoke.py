@@ -12,9 +12,12 @@ with no result line:
 1. device  - card name and power limit; TF32 off for matmuls and cuDNN.
 2. build   - nvcc builds the kernels from ``omnilingual_asr_torch/csrc``.
 3. kernels - log-mel (K1, at the serving and the training path's
-             frames), flash attention (K2, at head dims 64 and 128 and at
-             the training shape), the fused conv module (K3, at the serving
-             and the training shape), the int8 matmuls W8A16 (K4) and W8A8
+             frames; its bound counted for the function as an FFT computes
+             it, the dense DFT's beside it), flash attention (K2, at head
+             dims 64 and 128, at the training shape and at a ragged T of
+             200), the fused conv module (K3, at the serving and the
+             training shape and at large_config's width, D 1024), the int8
+             matmuls W8A16 (K4) and W8A8
              (K5, at the three widths of the quantized main path) and the
              flash-attention backward, dQ (K6) and dK/dV (K7), at the
              training shape and at large_config's head dim 128 (with the o
@@ -277,7 +280,8 @@ def _k1_case(dev, peaks, cfg, B, t_pad, n_frames, seed):
     frames[:, n_frames:] = 0.0            # padding rows, as on the main path
     frames = frames.reshape(-1, fe_cfg.n_fft).contiguous()
     floor = fe_cfg.log_floor
-    got = log_mel_frames(frames, fe.cw, fe.sw, fe.fb, floor)
+    plan = fe.plan
+    got = log_mel_frames(frames, fe.cw, fe.sw, fe.fb, floor, plan)
     want = log_mel_frames_plain(frames, fe.cw, fe.sw, fe.fb, floor)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -289,35 +293,45 @@ def _k1_case(dev, peaks, cfg, B, t_pad, n_frames, seed):
     win = torch.zeros(fe_cfg.n_fft, device=dev)
     win[:fe_cfg.win_length] = torch.from_numpy(
         hann_window(fe_cfg.win_length)).to(dev)
-    fb513 = fe.fb[:fe_cfg.n_freqs].contiguous()
 
     def library():
         spec = torch.fft.rfft(frames * win, n=fe_cfg.n_fft, dim=-1)
         power = spec.real * spec.real + spec.imag * spec.imag
-        return torch.log(torch.clamp(power @ fb513, min=floor))
+        return torch.log(torch.clamp(power @ fe.fb, min=floor))
 
     lib_err = float((library() - want).abs().max())
     n, n_fft = frames.shape
     n_mels = fe.fb.shape[1]
-    # The function's work is over the real bins; the zero bins that pad
-    # them to the kernel's chunk width are not counted.
     n_bins = fe_cfg.n_freqs
-    flops = 2 * n * n_fft * n_bins * 2 + 2 * n * n_bins * n_mels
-    b_ms, b_by = bound({"f32": flops},
-                       nbytes(frames, fe.cw, fe.sw, fe.fb, got), peaks)
+    # The function as computed with a real FFT: ~2.5 n log2 n FLOP a frame,
+    # plus the mel projection over the filterbank's nonzero weights (one
+    # FMA each). Bytes it must move: the frames' samples under the window
+    # (zero past it, so the rest cannot change the result), fb and the
+    # output. The dense DFT's count (the TPU's algorithm, and this row's
+    # yardstick before the FFT kernel) is kept beside it.
+    fft_flops = n * (2.5 * n_fft * math.log2(n_fft) + 2 * plan.n_weights)
+    n_win = plan.window.shape[0]
+    b_ms, b_by = bound({"f32": fft_flops},
+                       n * n_win * 4 + nbytes(fe.fb, got), peaks)
+    dft_flops = 2 * n * n_fft * n_bins * 2 + 2 * n * n_bins * n_mels
+    dft_ms, _ = bound({"f32": dft_flops},
+                      nbytes(frames, fe.cw, fe.sw, fe.fb, got), peaks)
+    all_ms, _ = bound({"f32": fft_flops}, nbytes(frames, fe.fb, got), peaks)
     return {
         "max_abs_err": err, "tol": TOL_K1,
         "ms": time_ms(lambda: log_mel_frames(frames, fe.cw, fe.sw, fe.fb,
-                                             floor)),
+                                             floor, plan)),
         "call_ms": call_ms(lambda: log_mel_frames(frames, fe.cw, fe.sw,
-                                                  fe.fb, floor)),
+                                                  fe.fb, floor, plan)),
         "plain_ms": time_ms(lambda: log_mel_frames_plain(
             frames, fe.cw, fe.sw, fe.fb, floor)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(library), "library_max_abs_err": lib_err,
         "shape": f"frames {list(frames.shape)} f32 ({B} x {t_pad}, "
                  f"{n_frames} valid) -> [{n}, {n_mels}]",
-        "gflop": flops / 1e9,
+        "gflop": fft_flops / 1e9,
+        "bound_all_samples_ms": all_ms,
+        "dense_dft_gflop": dft_flops / 1e9, "dense_dft_bound_ms": dft_ms,
     }
 
 
@@ -415,10 +429,13 @@ def check_k2(dev, peaks, cfg):
     enc = PipelineConfig().encoder
     train = _k2_case(dev, peaks, TRAIN_BATCH, 256, enc.n_heads,
                      enc.head_dim, TRAIN_VALID_KEYS, SEED + 14)
+    # T not a multiple of the 64-key tile, a partly masked row and a fully
+    # masked slot: the tiles' zero-filled edges.
+    ragged = _k2_case(dev, peaks, 3, 200, 4, 64, [200, 130, 0], SEED + 15)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/attention.cu",
             "replaces": "omnilingual_asr_tpu/ops/attention.py:34",
-            **main, "head_dims": [main, wide, train]}
+            **main, "head_dims": [main, wide, train, ragged]}
 
 
 def _bwd_case(dev, peaks, B, T, H, D, n_valid, seed):
@@ -526,7 +543,8 @@ def check_flash_bwd(dev, peaks, cfg):
 
 def check_k3(dev, peaks, cfg, params):
     """K3 at the serving path's shape with the release weights, and at the
-    training path's (batch 16, T' 256, D 512, random weights) under
+    training path's (batch 16, T' 256, D 512, random weights) and
+    large_config's width ([4, 256, 1024], random weights) under
     "shapes"."""
     import torch
     from omnilingual_asr_torch.config import PipelineConfig
@@ -542,10 +560,18 @@ def check_k3(dev, peaks, cfg, params):
               else v.to(dev)) for k, v in pt.items()}
     train = _k3_case(dev, peaks, TRAIN_BATCH, 256, [256] * 13 + [200, 77, 0],
                      pt, SEED + 12)
+    # large_config's width (d_model 1024), which a kernel-mode training run
+    # at that width launches.
+    pw = convmod_init(torch.Generator().manual_seed(SEED + 1), 1024,
+                      enc.conv_kernel)
+    pw = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+              else v.to(dev)) for k, v in pw.items()}
+    wide = _k3_case(dev, peaks, WINDOWS_PER_BATCH, 256, [256, 200, 77, 0],
+                    pw, SEED + 16)
     return {"name": "conv_module", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/conv_module.cu",
             "replaces": "omnilingual_asr_tpu/ops/conv_module.py:32",
-            **main, "shapes": [main, train]}
+            **main, "shapes": [main, train, wide]}
 
 
 def _k3_case(dev, peaks, B, T, valid, p, seed):
@@ -1018,7 +1044,8 @@ def grad_check(dev):
     import torch
     from omnilingual_asr_torch.config import PipelineConfig
     from omnilingual_asr_torch.ops import attention as A
-    from omnilingual_asr_torch.train.step import (make_train_step,
+    from omnilingual_asr_torch.train.step import (CTC_INFEASIBLE, ctc_rows,
+                                                  make_train_step,
                                                   tree_leaves, tree_map)
     from omnilingual_asr_torch.train.synth import SynthBatcher
 
@@ -1044,6 +1071,7 @@ def grad_check(dev):
         p = tree_map(lambda t: t.detach().to(where).requires_grad_(True),
                      params)
         b = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        b[CTC_INFEASIBLE] = ctc_rows(batch, cfg)
         t0 = time.perf_counter()
         metrics, g = loss_and_grads(p, b, 0)
         grads[where.type] = [x.detach().cpu() if x is not None
@@ -1233,7 +1261,9 @@ def profile_train(dev) -> None:
     def upload(batch):
         batch["samples"] = np.clip(batch["samples"] * 32768.0, -32768,
                                    32767).astype(np.int16)
-        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        b[step.CTC_INFEASIBLE] = step.ctc_rows(batch, cfg)
+        return b
 
     try:
         for i in range(2 + PROFILE_TRAIN_STEPS):

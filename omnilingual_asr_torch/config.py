@@ -28,7 +28,7 @@ class FrontendConfig:
 
     sample_rate: int = 16_000
     n_fft: int = 1024           # 15.6 Hz bins: keeps the lowest of 128 mel
-    #                             filters non-empty; 513 freqs pad to 576
+    #                             filters non-empty
     win_length: int = 400       # 25 ms @ 16 kHz
     hop_length: int = 160       # 10 ms @ 16 kHz
     n_mels: int = 128           # lane-aligned (128) for TPU tiling

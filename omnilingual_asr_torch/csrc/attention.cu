@@ -1,131 +1,271 @@
-// K2: flash-attention forward with a key mask and the row logsumexp.
+// K2: flash-attention forward with a key mask and the row logsumexp, on
+// bf16 tensor cores.
 //
 // Replaces omnilingual_asr_tpu/ops/attention.py::_flash_fwd_lse_kernel
 // (launched by _fwd_lse). Non-causal attention over q, k, v [B, T, H, D]
 // bf16, D in {64, 128}, with an int32 key-validity mask [B, T]:
 //
-//     s = (q * 1/sqrt(D)) k^T   masked keys -> -1e30, f32 online softmax
+//     s = (q k^T) / sqrt(D)      masked keys -> -1e30, f32 online softmax
 //     o = softmax(s) v           bf16 out, [B, T, H, D]
 //     lse = m + log(l)           f32, [B, H, T]; +1e30 for a fully-masked row
 //
 // A fully-masked row (a padded batch slot, n_valid = 0) gets o = 0 and
-// lse = +1e30, exactly as the reference; a key tile that is masked whole
-// contributes p = 0 even while the running max is still -1e30.
+// lse = +1e30, exactly as the reference; a masked key contributes p = 0
+// even while the running max is still -1e30. T may be any length: query
+// rows and keys past T are zero-filled, masked and not stored.
 //
-// What bounds it on an H100: at the main path's shapes (B*H = 16, T = 768,
-// D = 64) the work is 2.4 GFLOP against 6.3 MB of q/k/v/o, so operations;
-// this version runs the dot products in f32 on the CUDA cores (the
-// reference's dots are f32 over bf16-valued inputs, so f32 FMA reproduces
-// them up to summation order). Tensor cores (mma / wgmma on bf16 tiles) are
-// the next step and are left to a later change.
+// What bounds it on an H100: at the serving shape (B*H = 16, T = 768,
+// D = 64) the work is 2.4 GFLOP of bf16 products against 6.3 MB of
+// q/k/v/o: 2.4 us of tensor-core time, 1.9 us of memory time. At that size
+// neither bounds it; the latency of each key tile's chain (load, QK^T,
+// softmax, PV) and the number of blocks in flight do. The design keeps the
+// chain short and overlaps the next tile's copy with it.
 //
-// Design: one block per (b*h, 64-query tile): 16 x 12 = 192 blocks on the
-// main path. Four threads share one query row, each holding D/4 of its D
-// dimensions of q (pre-scaled) and of the output accumulator (dims
-// part*4 + 16*i + j); dot products are finished with two warp shuffles. K
-// and V stream through shared memory in f32 tiles of 4096 / D keys (64 at
-// D = 64, 32 at D = 128, so the two tiles stay at 32 KB of static shared
-// memory and the per-thread score array at 4096 / D registers); each tile
-// updates the running max m, denominator l and accumulator once (online
-// softmax in f32). The [T, T] score matrix never exists. q/k/v are read in
-// place from the [B, T, H, D] layout the projections produce, so no
-// transpose runs before or after. The template is instantiated for
-// D = 64 and D = 128.
+// Design (FlashAttention-2's shape, on warp-level mma.sync): one block of 4
+// warps per (64-query tile, b*h): 192 blocks at the serving shape. Each
+// warp owns 16 query rows, whose bf16 Q fragments it loads once
+// (ldmatrix) and keeps in registers. K and V stream as bf16 tiles of 64
+// keys into dynamic shared memory, double-buffered with cp.async (16 bytes
+// a thread, zero-filled past T), rows padded by 16 bytes so that ldmatrix
+// reads them without bank conflicts; the key mask comes along in 4-byte
+// copies. Per tile a warp computes S = Q K^T with
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 (q.k an f32 sum of exact bf16
+// products, as in the reference), scales S in f32 (scaling q first would
+// leave bf16 at D = 128), masks it and updates the running max and sum in
+// registers (row max and sum across the 4 lanes of a row by shuffles).
+// P comes straight from the S accumulators as bf16 A fragments, V through
+// ldmatrix.trans. P is split as hi + lo (hi = bf16(p), lo = bf16(p - hi))
+// and O += P_hi V + P_lo V: the reference takes P V in f32, and bf16 P
+// alone misses the output tolerance (tests/test_torch_attention.py
+// emulates both on the CPU), while hi + lo carries p to ~16 bits. The
+// [T, T] score matrix never exists; q/k/v are read in place from
+// [B, T, H, D]. mma.sync and cp.async, not wgmma and TMA: at these shapes
+// the tensor cores' rate is not the limit.
+//
+// Shared memory: two K and two V tiles of 64 x (D + 8) bf16 and two mask
+// tiles (Q is staged in the second K tile before the loop): 36.5 KB at
+// D 64, 68.5 KB at D 128. Registers (nvcc -Xptxas -v, sm_90a, as
+// chip_smoke.py prints them): 128 at D 64 with 24 bytes of spill stores,
+// 168 at D 128 with 56, both capped by the launch bounds below.
 #include "flash.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using omni::BQ;
 using omni::NEG_INF;
-using omni::THREADS;
-using omni::TPQ;
+
+constexpr int BQ = 64;            // query rows a block owns (16 per warp)
+constexpr int BK = 64;            // keys a shared-memory tile holds
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+struct Tiles {
+  static constexpr int LD = D + 8;               // bf16 row, padded 16 B
+  static constexpr int TILE = BK * LD;           // bf16 elements a tile
+  // Ks = [2][TILE], Vs = [2][TILE], then the masks [2][BK].
+  static constexpr size_t BYTES =
+      4 * TILE * sizeof(__nv_bfloat16) + 2 * BK * sizeof(int);
+};
+
+// Rows t0 .. t0 + 64 of one head of a [B, T, H, D] operand into a padded
+// shared tile; rows at or past T are zero-filled. Every thread takes part.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
+                                          const __nv_bfloat16* src,
+                                          size_t ts, int t0, int T, int tid) {
+  constexpr int CHUNKS = D / 8;                  // 16-byte chunks a row
+#pragma unroll
+  for (int c = tid; c < BK * CHUNKS; c += THREADS) {
+    const int row = c / CHUNKS;
+    const int col = (c % CHUNKS) * 8;
+    const int t = t0 + row;
+    const __nv_bfloat16* g = src + static_cast<size_t>(min(t, T - 1)) * ts + col;
+    omni::cp_async_16(tile + row * Tiles<D>::LD + col, g, t < T);
+  }
+}
+
+__device__ __forceinline__ void load_mask(int* ms, const int* mask_row,
+                                          int t0, int T, int tid) {
+  if (tid < BK) {
+    const int t = t0 + tid;
+    omni::cp_async_4(ms + tid, mask_row + min(t, T - 1), t < T);
+  }
+}
+
+// Blocks an SM the register budget must allow: at D 128 three (<= 170
+// registers) keep the 384 blocks of [4, 768, 8, 128] in one wave; at D 64
+// four (<= 128) keep the training shape's 512 blocks in one (at 160
+// registers it took 1.3x as long on an H100, chip_smoke.py's timing).
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 128 ? 3 : 4)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ mask, __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse, int T, int H, float scale) {
-  constexpr int BKV = omni::tile_keys(D);  // keys per shared-memory tile
-  constexpr int NG = D / 16;              // 16-dim groups; 4 dims each
-  __shared__ __align__(16) float Ks[BKV][D];
-  __shared__ __align__(16) float Vs[BKV][D];
-  __shared__ int Ms[BKV];
+  constexpr int LD = Tiles<D>::LD;
+  constexpr int TILE = Tiles<D>::TILE;
+  constexpr int KD = D / 16;        // k-steps of QK^T; dim-tile pairs of PV
+  constexpr int NT = BK / 8;        // 8-key column tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][TILE]
+  __nv_bfloat16* Vs = Ks + 2 * TILE;                                // [2][TILE]
+  int* Ms = reinterpret_cast<int*>(Vs + 2 * TILE);                  // [2][BK]
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;          // fragment row (and row + 8)
+  const int tq = lane & 3;          // fragment column pair
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int qi = blockIdx.x * BQ + tid / TPQ;
-  const int part = tid % TPQ;       // dims part*4 + 16*i + j, i < NG
+  const int q0 = blockIdx.x * BQ;
   const size_t ts = static_cast<size_t>(H) * D;   // stride between frames
   const size_t base = static_cast<size_t>(b) * T * ts + static_cast<size_t>(h) * D;
+  const int* mrow = mask + static_cast<size_t>(b) * T;
+  const int n_tiles = (T + BK - 1) / BK;
 
-  float qr[4 * NG];
-  if (qi < T) {
-    omni::load_row<D>(q + base + qi * ts + part * 4, qr, scale);
-  } else {
+  // Q (staged in K buffer 1), key tile 0 and its mask.
+  load_tile<D>(Ks + TILE, q + base, ts, q0, T, tid);
+  load_tile<D>(Ks, k + base, ts, 0, T, tid);
+  load_tile<D>(Vs, v + base, ts, 0, T, tid);
+  load_mask(Ms, mrow, 0, T, tid);
+  omni::cp_async_commit();
+  omni::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KD][4];
+  {
+    const __nv_bfloat16* qs = Ks + TILE + (warp * 16 + (lane & 15)) * LD +
+                              (lane >> 4) * 8;
 #pragma unroll
-    for (int i = 0; i < 4 * NG; ++i) qr[i] = 0.f;
+    for (int kk = 0; kk < KD; ++kk) omni::ldmatrix_x4(qf[kk], qs + kk * 16);
+  }
+  __syncthreads();                  // K buffer 1 is free for tile 1
+
+  float acc[2 * KD][4];             // O: 8-dim tiles, rows g and g + 8
+#pragma unroll
+  for (int i = 0; i < 2 * KD; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max, rows g and g + 8
+  float l[2] = {0.f, 0.f};          // this lane's share of the running sum
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {
+      const int nb = buf ^ 1;
+      load_tile<D>(Ks + nb * TILE, k + base, ts, (j + 1) * BK, T, tid);
+      load_tile<D>(Vs + nb * TILE, v + base, ts, (j + 1) * BK, T, tid);
+      load_mask(Ms + nb * BK, mrow, (j + 1) * BK, T, tid);
+    }
+    omni::cp_async_commit();
+    omni::cp_async_wait<1>();       // tile j has landed
+    __syncthreads();
+    const __nv_bfloat16* kt = Ks + buf * TILE;
+    const __nv_bfloat16* vt = Vs + buf * TILE;
+    const int* mt = Ms + buf * BK;
+
+    // S = Q K^T for this warp's 16 rows x 64 keys.
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < NT / 2; ++n2) {
+        uint32_t bfr[4];
+        const int key = n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int dim = kk * 16 + ((lane >> 3) & 1) * 8;
+        omni::ldmatrix_x4(bfr, kt + key * LD + dim);
+        omni::mma_bf16_16816(s[2 * n2], qf[kk], bfr[0], bfr[1]);
+        omni::mma_bf16_16816(s[2 * n2 + 1], qf[kk], bfr[2], bfr[3]);
+      }
+    }
+
+    // Scale, mask, online softmax (rows g: s[.][0..1]; g + 8: s[.][2..3]).
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int2 mk = *reinterpret_cast<const int2*>(mt + n * 8 + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = (e & 1 ? mk.y : mk.x) > 0;
+        s[n][e] = valid ? s[n][e] * scale : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int2 mk = *reinterpret_cast<const int2*>(mt + n * 8 + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = (e & 1 ? mk.y : mk.x) > 0;
+        s[n][e] = valid ? expf(s[n][e] - m[e >> 1]) : 0.f;
+        l[e >> 1] += s[n][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2 * KD; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[0];
+      acc[i][2] *= alpha[1];
+      acc[i][3] *= alpha[1];
+    }
+
+    // O += P V, P = hi + lo in bf16, 16 keys per k-step.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      omni::split_bf16(s[2 * kk][0], s[2 * kk][1], &ph[0], &pl[0]);
+      omni::split_bf16(s[2 * kk][2], s[2 * kk][3], &ph[1], &pl[1]);
+      omni::split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], &ph[2], &pl[2]);
+      omni::split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], &ph[3], &pl[3]);
+#pragma unroll
+      for (int d2 = 0; d2 < KD; ++d2) {
+        uint32_t bfr[4];
+        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int dim = d2 * 16 + (lane >> 4) * 8;
+        omni::ldmatrix_x4_trans(bfr, vt + key * LD + dim);
+        omni::mma_bf16_16816(acc[2 * d2], ph, bfr[0], bfr[1]);
+        omni::mma_bf16_16816(acc[2 * d2], pl, bfr[0], bfr[1]);
+        omni::mma_bf16_16816(acc[2 * d2 + 1], ph, bfr[2], bfr[3]);
+        omni::mma_bf16_16816(acc[2 * d2 + 1], pl, bfr[2], bfr[3]);
+      }
+    }
+    __syncthreads();                // buffer `buf` is refilled next round
   }
 
-  float acc[4 * NG];
+  // Epilogue: finish each row's sum across its 4 lanes, normalise, store.
 #pragma unroll
-  for (int i = 0; i < 4 * NG; ++i) acc[i] = 0.f;
-  float m = NEG_INF;
-  float l = 0.f;
-
-  for (int j0 = 0; j0 < T; j0 += BKV) {
-    omni::load_tiles<D, BKV>(k, v, Ks, Vs, base, ts, j0, T, tid);
-    if (tid < BKV) {
-      const int t = j0 + tid;
-      Ms[tid] = (t < T) ? mask[static_cast<size_t>(b) * T + t] : 0;
-    }
-    __syncthreads();
-
-    float s[BKV];
-    float tile_max = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      const float dot = omni::row_dot<D>(qr, Ks[j], part);
-      s[j] = Ms[j] > 0 ? dot : NEG_INF;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float p_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      s[j] = Ms[j] > 0 ? expf(s[j] - m_new) : 0.f;
-      p_sum += s[j];
-    }
-    l = l * alpha + p_sum;
-#pragma unroll
-    for (int i = 0; i < 4 * NG; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) omni::row_axpy<D>(acc, s[j], Vs[j], part);
-    m = m_new;
-    __syncthreads();
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-
-  if (qi < T) {
-    const float denom = fmaxf(l, 1e-30f);
-    __nv_bfloat16* dst = o + base + qi * ts + part * 4;
 #pragma unroll
-    for (int i = 0; i < NG; ++i) {
-      __nv_bfloat162 lo = __floats2bfloat162_rn(acc[4 * i + 0] / denom,
-                                                acc[4 * i + 1] / denom);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(acc[4 * i + 2] / denom,
-                                                acc[4 * i + 3] / denom);
-      uint2 raw;
-      raw.x = *reinterpret_cast<unsigned int*>(&lo);
-      raw.y = *reinterpret_cast<unsigned int*>(&hi);
-      *reinterpret_cast<uint2*>(dst + 16 * i) = raw;
-    }
-    if (part == 0)
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    if (qi >= T) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* dst = o + base + static_cast<size_t>(qi) * ts + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < 2 * KD; ++i)
+      *reinterpret_cast<uint32_t*>(dst + i * 8) = omni::pack_bf16(
+          acc[i][2 * r] / denom, acc[i][2 * r + 1] / denom);
+    if (tq == 0)
       lse[static_cast<size_t>(bh) * T + qi] =
-          l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : omni::FULLY_MASKED_LSE;
+          l[r] > 0.f ? m[r] + logf(fmaxf(l[r], 1e-30f))
+                     : omni::FULLY_MASKED_LSE;
   }
 }
 
@@ -133,8 +273,11 @@ template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* mask, void* o, float* lse, int B, int T,
                        int H, float scale, cudaStream_t stream) {
+  const size_t smem = Tiles<D>::BYTES;
+  cudaError_t err = omni::allow_smem(flash_fwd_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, THREADS, 0, stream>>>(
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), mask,
       static_cast<__nv_bfloat16*>(o), lse, T, H, scale);

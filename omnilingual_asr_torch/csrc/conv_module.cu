@@ -23,25 +23,35 @@
 // that would give 4 blocks for 132 SMs. Here one block owns 32 output
 // frames of one row (96 blocks on the main path) and recomputes LN -> pw1 ->
 // GLU -> mask over those frames plus the K-1 frame halo the depthwise taps
-// need (63 rows), all in shared memory. The depthwise taps, the second LN,
-// SiLU and pw2 then run on the block's own 32 frames, and only the final
-// residual sum is written to device memory. Shared memory holds the halo's
-// LN output in bf16 (it is rounded to bf16 anyway) and its GLU output in
-// f32, 6 (D + 4) bytes a row: D up to 576 fits the 227 KB a block may use
-// (the training path's D = 512 included).
+// need (63 rows). It walks the channels in chunks of 64: for each chunk,
+// pw1 runs over all 64 halo rows with the LN applied as its input tiles are
+// loaded (row statistics computed once; x re-read from L2 per chunk), the
+// GLU output of the chunk's channels stays in shared memory only until its
+// depthwise taps have run, and the taps' f32 output joins a [32, D] tile.
+// The second LN, SiLU and pw2 then run on the block's own 32 frames, and
+// only the final residual sum is written to device memory. The products'
+// global operands (x, weights) are fetched a 16-deep step ahead into
+// registers. Shared memory is ~32 KB plus 4 (D + 4) bytes a frame of that
+// tile: 162 KB at D 1024 (large_config's width; an earlier layout held the
+// whole halo, 6 (D + 4) bytes a row, and stopped at D 576). Each output
+// element is computed by the same operations in the same order as in that
+// layout (LN, bf16 rounding, pw1 over ascending channels, taps in
+// ascending order), so results at D <= 512 are unchanged. Registers
+// (nvcc -Xptxas -v, sm_90a): 125, no spills.
 #include "common.cuh"
 
 namespace {
 
 constexpr int TT = 32;            // output frames per block
-constexpr int RP = 64;            // halo rows held: TT + K - 1 <= RP
+constexpr int RP = 64;            // halo rows computed: TT + K - 1 <= RP
 constexpr int THREADS = 256;
 constexpr int KC = 16;            // depth of one weight tile
-constexpr int NC = 64;            // output channels per GEMM chunk
+constexpr int NC = 64;            // channels per GEMM / depthwise chunk
+constexpr int ALD = RP + 4;       // transposed LN tile row (padded)
+constexpr int GLD = NC + 4;       // GLU chunk row (padded)
 constexpr float LN_EPS = 1e-5f;
-// The bf16 halo buffer [RP][ld] is reused as the f32 conv output [TT][ld].
-static_assert(TT * sizeof(float) <= RP * sizeof(__nv_bfloat16),
-              "conv output must fit in the bf16 halo buffer");
+// Shared memory other than the [TT][D + 4] depthwise output tile, in floats.
+constexpr int SMEM_FIXED = 4 * RP + KC * ALD + 2 * KC * NC + RP * GLD;
 
 __device__ __forceinline__ void bf16x8_to_f32(const uint4 raw, float* dst) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -85,12 +95,15 @@ conv_module_kernel(const float* __restrict__ x, const int* __restrict__ mask,
                    float* __restrict__ out, int T, int D, int K) {
   extern __shared__ __align__(16) float smem[];
   const int ld = D + 4;
-  __nv_bfloat16* Hs = reinterpret_cast<__nv_bfloat16*>(smem);  // [RP][ld]
-  //                                   bf16(LN(x)); later the f32 dw output
-  float* Gs = smem + RP * ld / 2;   // [RP][ld]  masked GLU (ld is even)
-  float* Wa = Gs + RP * ld;         // [KC][NC]  weight tile
+  float* rowmu = smem;              // [RP]      LN mean of each halo row
+  float* rowinv = rowmu + RP;       // [RP]      LN 1/std
+  float* rowin = rowinv + RP;       // [RP]      1 if the halo row is in [0, T)
+  float* rowm = rowin + RP;         // [RP]      1 if it is a valid frame
+  float* As = rowm + RP;            // [KC][ALD] bf16(LN(x)) tile, transposed
+  float* Wa = As + KC * ALD;        // [KC][NC]  weight tile
   float* Wb = Wa + KC * NC;         // [KC][NC]  weight tile (GLU gate half)
-  float* rowm = Wb + KC * NC;       // [RP]      1 if the halo row is a valid frame
+  float* Gc = Wb + KC * NC;         // [RP][GLD] masked GLU of one chunk
+  float* Ds = smem + SMEM_FIXED;    // [TT][ld]  depthwise output
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -101,25 +114,23 @@ conv_module_kernel(const float* __restrict__ x, const int* __restrict__ mask,
   const int R = TT + K - 1;
   const float* xb = x + static_cast<size_t>(b) * T * D;
 
-  // 1. LayerNorm of the halo rows, rounded to bf16 (the pw1 input).
+  // 1. LayerNorm statistics and frame mask of the halo rows.
   for (int r = warp; r < RP; r += THREADS / 32) {
     const int t = t0 - pad_l + r;
     const bool in = r < R && t >= 0 && t < T;
-    if (lane == 0)
+    float mu = 0.f, inv = 0.f;
+    if (in) row_stats(xb + static_cast<size_t>(t) * D, D, &mu, &inv);
+    if (lane == 0) {
       rowm[r] = (in && mask[static_cast<size_t>(b) * T + t] != 0) ? 1.f : 0.f;
-    if (!in) {
-      for (int c = lane; c < D; c += 32) Hs[r * ld + c] = __float2bfloat16_rn(0.f);
-      continue;
+      rowin[r] = in ? 1.f : 0.f;    // a row outside [0, T) gives pw1 zeros
+      rowmu[r] = mu;
+      rowinv[r] = inv;
     }
-    const float* xr = xb + static_cast<size_t>(t) * D;
-    float mu, inv;
-    row_stats(xr, D, &mu, &inv);
-    for (int c = lane; c < D; c += 32)
-      Hs[r * ld + c] = __float2bfloat16_rn((xr[c] - mu) * inv * ln_s[c] + ln_b[c]);
   }
   __syncthreads();
 
-  // 2. pw1 -> GLU -> frame mask, NC output channels at a time.
+  // 2. Per chunk of NC channels: pw1 -> GLU -> frame mask over the halo,
+  //    then the depthwise taps over the block's TT frames.
   const int tx = tid & 15;          // channels tx*4 .. tx*4+3 of the chunk
   const int ty = tid >> 4;          // rows ty*4 .. ty*4+3 (0..63)
   for (int j0 = 0; j0 < D; j0 += NC) {
@@ -128,26 +139,54 @@ conv_module_kernel(const float* __restrict__ x, const int* __restrict__ mask,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc_a[i][j] = acc_b[i][j] = 0.f;
+    // The step's global operands (x under the LN tile, the pw1 weights)
+    // are fetched a step ahead into registers, so that their latency
+    // overlaps the previous step's products.
+    constexpr int XL = KC * RP / THREADS;
+    float xq[XL];
+    uint4 wq;
+    const int wk = tid >> 4;
+    const int wpart = tid & 15;
+    const int wcol = (wpart & 7) * 8;
+    auto fetch = [&](int c0) {
+#pragma unroll
+      for (int l = 0; l < XL; ++l) {
+        const int idx = tid + l * THREADS;
+        const int r = idx / KC;
+        xq[l] = rowin[r] != 0.f
+                    ? xb[static_cast<size_t>(t0 - pad_l + r) * D + c0 + idx % KC]
+                    : 0.f;
+      }
+      wq = *reinterpret_cast<const uint4*>(
+          pw1 + static_cast<size_t>(c0 + wk) * (2 * D) + (wpart < 8 ? 0 : D) +
+          j0 + wcol);
+    };
+    fetch(0);
     for (int c0 = 0; c0 < D; c0 += KC) {
+#pragma unroll
+      for (int l = 0; l < XL; ++l) {
+        const int idx = tid + l * THREADS;
+        const int r = idx / KC;
+        const int k = idx % KC;
+        const int c = c0 + k;
+        const float h = rowin[r] != 0.f
+            ? omni::bf16_round((xq[l] - rowmu[r]) * rowinv[r] * ln_s[c] + ln_b[c])
+            : 0.f;
+        As[k * ALD + r] = h;
+      }
       {
-        const int k = tid >> 4;
-        const int part = tid & 15;
-        const int col = (part & 7) * 8;
-        const __nv_bfloat16* src = pw1 + static_cast<size_t>(c0 + k) * (2 * D) +
-                                   (part < 8 ? 0 : D) + j0 + col;
         float w[8];
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(src), w);
-        float* dst = (part < 8 ? Wa : Wb) + k * NC + col;
+        bf16x8_to_f32(wq, w);
+        float* dst = (wpart < 8 ? Wa : Wb) + wk * NC + wcol;
         *reinterpret_cast<float4*>(dst) = make_float4(w[0], w[1], w[2], w[3]);
         *reinterpret_cast<float4*>(dst + 4) = make_float4(w[4], w[5], w[6], w[7]);
       }
       __syncthreads();
+      if (c0 + KC < D) fetch(c0 + KC);
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
-        float hv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          hv[i] = __bfloat162float(Hs[(ty * 4 + i) * ld + c0 + k]);
+        const float4 h4 = *reinterpret_cast<const float4*>(As + k * ALD + ty * 4);
+        const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
         const float4 wa = *reinterpret_cast<const float4*>(Wa + k * NC + tx * 4);
         const float4 wb = *reinterpret_cast<const float4*>(Wb + k * NC + tx * 4);
         const float a4[4] = {wa.x, wa.y, wa.z, wa.w};
@@ -168,28 +207,33 @@ conv_module_kernel(const float* __restrict__ x, const int* __restrict__ mask,
       const float mk = rowm[r];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        Gs[r * ld + j0 + tx * 4 + j] = acc_a[i][j] * sigmoidf(acc_b[i][j]) * mk;
+        Gc[r * GLD + tx * 4 + j] = acc_a[i][j] * sigmoidf(acc_b[i][j]) * mk;
     }
+    __syncthreads();
+    // Depthwise taps in ascending order: channel tid % NC, 8 of the TT
+    // frames from (tid / NC) * 8.
+    {
+      const int cc = tid % NC;
+      const int o0 = (tid / NC) * (TT * NC / THREADS);
+      constexpr int NO = TT * NC / THREADS;
+      float acc[NO];
+#pragma unroll
+      for (int o = 0; o < NO; ++o) acc[o] = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float w = dw[static_cast<size_t>(k) * D + j0 + cc];
+#pragma unroll
+        for (int o = 0; o < NO; ++o)
+          acc[o] = fmaf(Gc[(o0 + o + k) * GLD + cc], w, acc[o]);
+      }
+#pragma unroll
+      for (int o = 0; o < NO; ++o) Ds[(o0 + o) * ld + j0 + cc] = acc[o];
+    }
+    // The next chunk's tile loads touch As/Wa/Wb only; Gc is rewritten
+    // after its GEMM loop's barriers.
   }
   __syncthreads();
 
-  // 3. Depthwise conv over the block's TT frames, taps in ascending order.
-  float* Ds = smem;                 // Hs is free again: [TT][ld] f32
-  for (int c = tid; c < D; c += THREADS) {
-    float acc[TT];
-#pragma unroll
-    for (int o = 0; o < TT; ++o) acc[o] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float w = dw[static_cast<size_t>(k) * D + c];
-#pragma unroll
-      for (int o = 0; o < TT; ++o) acc[o] = fmaf(Gs[(o + k) * ld + c], w, acc[o]);
-    }
-#pragma unroll
-    for (int o = 0; o < TT; ++o) Ds[o * ld + c] = acc[o];
-  }
-  __syncthreads();
-
-  // 4. LayerNorm -> SiLU, rounded to bf16 (the pw2 input).
+  // 3. LayerNorm -> SiLU, rounded to bf16 (the pw2 input).
   for (int o = warp; o < TT; o += THREADS / 32) {
     float* row = Ds + o * ld;
     float mu, inv;
@@ -201,25 +245,33 @@ conv_module_kernel(const float* __restrict__ x, const int* __restrict__ mask,
   }
   __syncthreads();
 
-  // 5. pw2 + residual, NC output channels at a time (2 rows x 4 per thread).
+  // 4. pw2 + residual, NC output channels at a time (2 rows x 4 per thread).
   for (int n0 = 0; n0 < D; n0 += NC) {
     float acc[2][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    // The next step's weights are fetched into registers a step ahead.
+    const bool loader = tid < KC * NC / 8;
+    const int wk = tid >> 3;
+    const int wcol = (tid & 7) * 8;
+    uint4 wq = make_uint4(0, 0, 0, 0);
+    if (loader)
+      wq = *reinterpret_cast<const uint4*>(pw2 + static_cast<size_t>(wk) * D +
+                                           n0 + wcol);
     for (int c0 = 0; c0 < D; c0 += KC) {
-      if (tid < KC * NC / 8) {
-        const int k = tid >> 3;
-        const int col = (tid & 7) * 8;
+      if (loader) {
         float w[8];
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(
-                          pw2 + static_cast<size_t>(c0 + k) * D + n0 + col), w);
-        float* dst = Wa + k * NC + col;
+        bf16x8_to_f32(wq, w);
+        float* dst = Wa + wk * NC + wcol;
         *reinterpret_cast<float4*>(dst) = make_float4(w[0], w[1], w[2], w[3]);
         *reinterpret_cast<float4*>(dst + 4) = make_float4(w[4], w[5], w[6], w[7]);
       }
       __syncthreads();
+      if (loader && c0 + KC < D)
+        wq = *reinterpret_cast<const uint4*>(
+            pw2 + static_cast<size_t>(c0 + KC + wk) * D + n0 + wcol);
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
         const float d0 = Ds[(ty * 2) * ld + c0 + k];
@@ -259,8 +311,8 @@ OMNI_API int omni_conv_module(const float* x, const int* mask,
                               int D, int K, void* stream) {
   if (B <= 0 || T <= 0 || D <= 0 || D % NC != 0 || K < 1 || TT + K - 1 > RP)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = RP * (D + 4) * (sizeof(__nv_bfloat16) + sizeof(float)) +
-                      (2 * KC * NC + RP) * sizeof(float);
+  const size_t smem = (SMEM_FIXED + static_cast<size_t>(TT) * (D + 4)) *
+                      sizeof(float);
   cudaError_t err = omni::allow_smem(conv_module_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + TT - 1) / TT, B);

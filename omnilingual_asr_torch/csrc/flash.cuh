@@ -1,5 +1,6 @@
-// Shared layout of the flash-attention kernels: the forward (K2,
-// attention.cu) and the backward (K6 and K7, attention_bwd.cu).
+// Shared layout of the flash-attention backward kernels (K6 and K7,
+// attention_bwd.cu); the forward (K2, attention.cu) takes only its
+// constants, its tiles are in mma.cuh.
 //
 // q, k, v, o and dO are bf16 [B, T, H, D], read in place; lse and delta are
 // f32 [B, H, T]. A block owns 64 rows (queries, or keys for K7) of one

@@ -1,187 +1,230 @@
-// K1: fused log-mel frontend.
+// K1: fused log-mel frontend, as a real FFT in shared memory.
 //
 // Replaces omnilingual_asr_tpu/ops/mel_pallas.py::_mel_kernel (launched by
-// log_mel_frames_pallas). For frames F [N, n_fft] (raw, unwindowed), the
-// Hann-windowed DFT matrices Cw, Sw [n_fft, n_bins] and the mel filterbank
-// FB [n_bins, 128] it computes
+// log_mel_frames_pallas). For raw frames F [N, 1024] it computes
 //
-//     out = log(max(((F Cw)^2 + (F Sw)^2) FB, floor))          [N, 128]
+//     out = log(max(|rfft(F * w)|^2 FB, floor))                [N, 128]
 //
-// entirely in f32 FMA on the CUDA cores: the reference runs these products
-// at Precision.HIGHEST (true f32), so neither TF32 nor bf16 tensor-core
-// paths are allowed (they would lift the -100 dB feature noise floor).
+// which is the reference's log(max(((F Cw)^2 + (F Sw)^2) FB, floor)) with
+// the Hann window w folded out of the dense DFT matrices Cw, Sw. The
+// reference needs true f32 (Precision.HIGHEST), so tensor cores (TF32,
+// bf16) are closed; the way to the card's speed is fewer operations. The
+// TPU kernel ran the dense DFT, 2 x 1024 x 513 x 2 FLOP a frame (27.4
+// GFLOP at the serving shape, 12 288 frames); an FFT needs ~2.5 n log2 n
+// = 25.6 kFLOP a frame, and the filterbank's triangles ~2 x 1 013 more.
 //
-// What bounds it on an H100: operations. At the main path's shapes
-// (N = 4 windows x 3072 frames, n_fft 1024, 513 bins, 128 mels) the function
-// needs 27.4 GFLOP of f32 FMA against 50 MB of frames, i.e. ~550 FLOP per
-// byte, far above the card's f32 ridge (67 TFLOP/s / 3.35 TB/s = 20 FLOP/B).
-// The bins arrive zero-padded to 576 (a multiple of BN), so the kernel does
-// 30.8 GFLOP.
+// What bounds it on an H100: bytes. It reads the 400 windowed samples of
+// each frame (the window is exactly zero past win_length), 1.6 KB, and
+// writes 128 f32: ~26 MB at the serving shape against ~0.33 GFLOP.
 //
-// Design: one block of 256 threads owns 128 frames. It walks the 576 bins in
-// chunks of 64; for each chunk it runs a register-tiled GEMM (8 frames x 4
-// bins x {re, im} per thread, 16-deep shared-memory stages) for Re and Im
-// together, squares them into a transposed power tile in shared memory, and
-// immediately folds that tile into the 128 x 128 mel accumulator it keeps in
-// registers (8 x 8 per thread). Re, Im and the power spectrum never reach
-// device memory; each frame is read once from DRAM (later chunks hit L2).
-// The TPU kernel ran 256-frame blocks in order on one core; here 96 blocks
-// of 128 frames run in parallel across the SMs.
+// Design: one block of 256 threads takes 4 frames at a time, 64 threads a
+// frame, and walks over groups of 4 frames (grid of 4 blocks an SM, or one
+// a group if fewer). Each thread loads its packed complex samples
+// z[m] = w[2m] x[2m] + i w[2m+1] x[2m+1] at m = i + 64 r straight into
+// registers (coalesced 8-byte loads, none past the window) and the
+// 512-point complex FFT runs as three radix-8 Stockham stages (stride
+// p = 1, 8, 64; butterfly i reads i + 64 r, multiplies by the twiddle
+// exp(-2 pi i r (i mod p) / 8p), and writes (i - i mod p) 8 + i mod p + q p),
+// through two 4 KB buffers a frame in shared memory (float2, one pad slot
+// every 8 against bank conflicts). Bins 0..512 follow from Z[k] and
+// conj(Z[512 - k]); the power spectrum stays in shared memory, and each
+// thread sums two mel filters (i and 127 - i, which balances the narrow
+// low filters against the wide high ones) over their nonzero bands in
+// ascending bin order, then takes the log. Twiddles are a table computed
+// in float64 on the host and held as f32 (ops/mel.py::twiddle_table); the
+// bands and the packed filter weights are read into shared memory once a
+// block. Nothing but the log-mel reaches device memory.
+//
+// Shared memory: twiddles 8 KB, window <= 4 KB, 4 x 2 FFT buffers 36 KB,
+// bands 1.5 KB, weights <= 16 KB (52 KB with the release filterbank's
+// 1 013 weights), so four blocks an SM. Registers (nvcc -Xptxas -v,
+// sm_90a, as chip_smoke.py prints them): 64, with 8 bytes of spill.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 128;           // frames per block
-constexpr int BN = 64;            // DFT bins per chunk
-constexpr int BK = 16;            // n_fft depth per shared-memory stage
+constexpr int N_FFT = 1024;
+constexpr int HALF = N_FFT / 2;   // complex FFT length
+constexpr int FPB = 4;            // frames in flight a block
+constexpr int TPF = HALF / 8;     // threads a frame: one radix-8 butterfly
+constexpr int THREADS = FPB * TPF;
 constexpr int NMELS = 128;
-constexpr int THREADS = 256;
-constexpr int AS_LD = BM + 4;     // transposed frame tile row (padded)
-constexpr int PS_LD = BM + 4;     // transposed power tile row (padded)
-constexpr int SMEM_FLOATS =
-    BK * AS_LD + 2 * BK * BN + BN * PS_LD + BN * NMELS;
+constexpr int MAX_WEIGHTS = 4096;
+constexpr int PAD_LEN = HALF + HALF / 8;   // padded buffer, float2
 
-__global__ void __launch_bounds__(THREADS, 1)
-log_mel_kernel(const float* __restrict__ frames, const float* __restrict__ cw,
-               const float* __restrict__ sw, const float* __restrict__ fb,
-               float* __restrict__ out, int n_frames, int n_fft, int n_bins,
+__device__ __forceinline__ int pad(int j) { return j + (j >> 3); }
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// y[q] = sum_r x_r exp(-2 pi i r q / 4).
+__device__ __forceinline__ void dft4(float2 x0, float2 x1, float2 x2,
+                                     float2 x3, float2 y[4]) {
+  const float2 a = cadd(x0, x2), b = csub(x0, x2), c = cadd(x1, x3);
+  const float2 d = make_float2(x1.y - x3.y, x3.x - x1.x);   // -i (x1 - x3)
+  y[0] = cadd(a, c);
+  y[1] = cadd(b, d);
+  y[2] = csub(a, c);
+  y[3] = csub(b, d);
+}
+
+// u[q] <- sum_r u[r] exp(-2 pi i r q / 8): two radix-4 halves (even and
+// odd inputs), then the odd half times exp(-2 pi i q / 8).
+__device__ __forceinline__ void dft8(float2 u[8]) {
+  const float r2 = 0.70710678118654752f;
+  float2 e[4], o[4];
+  dft4(u[0], u[2], u[4], u[6], e);
+  dft4(u[1], u[3], u[5], u[7], o);
+  const float2 w[4] = {o[0],
+                       make_float2(r2 * (o[1].x + o[1].y), r2 * (o[1].y - o[1].x)),
+                       make_float2(o[2].y, -o[2].x),
+                       make_float2(r2 * (o[3].y - o[3].x), -r2 * (o[3].x + o[3].y))};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    u[q] = cadd(e[q], w[q]);
+    u[q + 4] = csub(e[q], w[q]);
+  }
+}
+
+// One Stockham stage of stride P from src to dst (padded buffers).
+template <int P>
+__device__ __forceinline__ void stage(const float2* src, float2* dst,
+                                      const float2* tw, int i) {
+  const int k = i % P;
+  float2 u[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) u[r] = src[pad(i + TPF * r)];
+#pragma unroll
+  for (int r = 1; r < 8; ++r) u[r] = cmul(u[r], tw[r * k * (N_FFT / (8 * P))]);
+  dft8(u);
+  const int j = (i - k) * 8 + k;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) dst[pad(j + q * P)] = u[q];
+}
+
+__global__ void __launch_bounds__(THREADS)
+log_mel_kernel(const float* __restrict__ frames, const float* __restrict__ win,
+               int n_win, const float2* __restrict__ twiddles,
+               const float* __restrict__ fb, const int* __restrict__ bands,
+               int n_weights, float* __restrict__ out, int n_frames,
                float log_floor) {
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                    // [BK][AS_LD]  frames, transposed
-  float* Cs = As + BK * AS_LD;         // [BK][BN]     windowed cos tile
-  float* Ss = Cs + BK * BN;            // [BK][BN]     windowed sin tile
-  float* PsT = Ss + BK * BN;           // [BN][PS_LD]  power, transposed
-  float* Fs = PsT + BN * PS_LD;        // [BN][NMELS]  filterbank chunk
+  float2* tw = reinterpret_cast<float2*>(smem);          // [N_FFT]
+  float2* bufA = tw + N_FFT;                              // [FPB][PAD_LEN]
+  float2* bufB = bufA + FPB * PAD_LEN;                    // [FPB][PAD_LEN]
+  int* bs = reinterpret_cast<int*>(bufB + FPB * PAD_LEN); // [NMELS][3]
+  float* ws = reinterpret_cast<float*>(bs + 3 * NMELS);   // [n_weights]
+  float* wn = ws + n_weights;                             // [n_win]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;             // bins tx*4.. / mels tx*8..
-  const int ty = tid >> 4;             // frames ty*8..
-  const int m0 = blockIdx.x * BM;
+  const int slot = tid / TPF;
+  const int i = tid % TPF;
+  for (int t = tid; t < N_FFT; t += THREADS) tw[t] = twiddles[t];
+  for (int t = tid; t < 3 * NMELS; t += THREADS) bs[t] = bands[t];
+  for (int t = tid; t < n_win; t += THREADS) wn[t] = win[t];
+  __syncthreads();
+  for (int m = tid; m < NMELS; m += THREADS) {
+    const int lo = bs[3 * m], cnt = bs[3 * m + 1], off = bs[3 * m + 2];
+    for (int c = 0; c < cnt; ++c) ws[off + c] = fb[(lo + c) * NMELS + m];
+  }
+  __syncthreads();
 
-  float mel[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) mel[i][j] = 0.f;
+  float2* A = bufA + slot * PAD_LEN;
+  float2* Bf = bufB + slot * PAD_LEN;
+  const int n_groups = (n_frames + FPB - 1) / FPB;
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+    const int f = grp * FPB + slot;
+    const bool live = f < n_frames;
+    const float* x = frames + static_cast<size_t>(live ? f : 0) * N_FFT;
 
-  for (int n0 = 0; n0 < n_bins; n0 += BN) {
-    float re[8][4], im[8][4];
+    // Windowed, packed samples; the first stage (stride 1) from registers.
+    float2 u[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < n_fft; k0 += BK) {
-#pragma unroll
-      for (int l = 0; l < 2; ++l) {
-        const int idx = tid + l * THREADS;           // 0..511
-        const int row = idx >> 2;
-        const int kq = (idx & 3) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (m0 + row < n_frames)
-          v = *reinterpret_cast<const float4*>(
-              frames + static_cast<size_t>(m0 + row) * n_fft + k0 + kq);
-        As[(kq + 0) * AS_LD + row] = v.x;
-        As[(kq + 1) * AS_LD + row] = v.y;
-        As[(kq + 2) * AS_LD + row] = v.z;
-        As[(kq + 3) * AS_LD + row] = v.w;
+    for (int r = 0; r < 8; ++r) {
+      const int n0 = 2 * (i + TPF * r);
+      float2 z = make_float2(0.f, 0.f);
+      if (live && n0 < n_win) {
+        const float2 s = *reinterpret_cast<const float2*>(x + n0);
+        z.x = s.x * wn[n0];
+        z.y = n0 + 1 < n_win ? s.y * wn[n0 + 1] : 0.f;
       }
-      {
-        const int k = tid >> 4;
-        const int nq = (tid & 15) * 4;
-        const size_t g = static_cast<size_t>(k0 + k) * n_bins + n0 + nq;
-        *reinterpret_cast<float4*>(Cs + k * BN + nq) =
-            *reinterpret_cast<const float4*>(cw + g);
-        *reinterpret_cast<float4*>(Ss + k * BN + nq) =
-            *reinterpret_cast<const float4*>(sw + g);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(As + k * AS_LD + ty * 8);
-        const float4 a1 = *reinterpret_cast<const float4*>(As + k * AS_LD + ty * 8 + 4);
-        const float4 c = *reinterpret_cast<const float4*>(Cs + k * BN + tx * 4);
-        const float4 s = *reinterpret_cast<const float4*>(Ss + k * BN + tx * 4);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float cc[4] = {c.x, c.y, c.z, c.w};
-        const float ss[4] = {s.x, s.y, s.z, s.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            re[i][j] = fmaf(a[i], cc[j], re[i][j]);
-            im[i][j] = fmaf(a[i], ss[j], im[i][j]);
-          }
-      }
-      __syncthreads();
+      u[r] = z;
     }
+    dft8(u);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) A[pad(i * 8 + q)] = u[q];
+    __syncthreads();
+    stage<8>(A, Bf, tw, i);
+    __syncthreads();
+    stage<64>(Bf, A, tw, i);
+    __syncthreads();
 
-    // Power spectrum of this bin chunk, transposed: PsT[bin][frame].
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        PsT[(tx * 4 + j) * PS_LD + ty * 8 + i] =
-            re[i][j] * re[i][j] + im[i][j] * im[i][j];
-#pragma unroll
-    for (int l = 0; l < (BN * NMELS / 4) / THREADS; ++l) {
-      const int idx = tid + l * THREADS;
-      const int b = idx / (NMELS / 4);
-      const int mq = (idx % (NMELS / 4)) * 4;
-      *reinterpret_cast<float4*>(Fs + b * NMELS + mq) =
-          *reinterpret_cast<const float4*>(
-              fb + static_cast<size_t>(n0 + b) * NMELS + mq);
+    // Bins 0..HALF of the real FFT, their power into Bf.
+    float* P = reinterpret_cast<float*>(Bf);
+    for (int k = i; k <= HALF; k += TPF) {
+      const float2 zk = A[pad(k & (HALF - 1))];
+      const float2 zm = A[pad((HALF - k) & (HALF - 1))];
+      const float2 e = make_float2((zk.x + zm.x) * 0.5f, (zk.y - zm.y) * 0.5f);
+      const float2 o = make_float2((zk.y + zm.y) * 0.5f, (zm.x - zk.x) * 0.5f);
+      const float2 w = tw[k];
+      const float xr = e.x + (w.x * o.x - w.y * o.y);
+      const float xi = e.y + (w.x * o.y + w.y * o.x);
+      P[k] = xr * xr + xi * xi;
     }
     __syncthreads();
-#pragma unroll 4
-    for (int b = 0; b < BN; ++b) {
-      const float4 p0 = *reinterpret_cast<const float4*>(PsT + b * PS_LD + ty * 8);
-      const float4 p1 = *reinterpret_cast<const float4*>(PsT + b * PS_LD + ty * 8 + 4);
-      const float4 f0 = *reinterpret_cast<const float4*>(Fs + b * NMELS + tx * 8);
-      const float4 f1 = *reinterpret_cast<const float4*>(Fs + b * NMELS + tx * 8 + 4);
-      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float f[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mel[i][j] = fmaf(p[i], f[j], mel[i][j]);
-    }
-    __syncthreads();
-  }
 
+    // Mel filters i and NMELS - 1 - i over their bands, then the log.
+    if (live) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + ty * 8 + i;
-    if (row >= n_frames) continue;
-    float* dst = out + static_cast<size_t>(row) * NMELS + tx * 8;
-    float4 o0, o1;
-    o0.x = logf(fmaxf(mel[i][0], log_floor));
-    o0.y = logf(fmaxf(mel[i][1], log_floor));
-    o0.z = logf(fmaxf(mel[i][2], log_floor));
-    o0.w = logf(fmaxf(mel[i][3], log_floor));
-    o1.x = logf(fmaxf(mel[i][4], log_floor));
-    o1.y = logf(fmaxf(mel[i][5], log_floor));
-    o1.z = logf(fmaxf(mel[i][6], log_floor));
-    o1.w = logf(fmaxf(mel[i][7], log_floor));
-    *reinterpret_cast<float4*>(dst) = o0;
-    *reinterpret_cast<float4*>(dst + 4) = o1;
+      for (int h = 0; h < 2; ++h) {
+        const int m = h ? NMELS - 1 - i : i;
+        const int lo = bs[3 * m], cnt = bs[3 * m + 1], off = bs[3 * m + 2];
+        float acc = 0.f;
+        for (int c = 0; c < cnt; ++c) acc = fmaf(P[lo + c], ws[off + c], acc);
+        out[static_cast<size_t>(f) * NMELS + m] = logf(fmaxf(acc, log_floor));
+      }
+    }
+    __syncthreads();                // A and Bf are rewritten next group
   }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
 }
 
 }  // namespace
 
-OMNI_API int omni_log_mel(const float* frames, const float* cw,
-                          const float* sw, const float* fb, float* out,
-                          int n_frames, int n_fft, int n_bins, int n_mels,
+OMNI_API int omni_log_mel(const float* frames, const float* win, int n_win,
+                          const float* twiddles, const float* fb,
+                          const int* bands, int n_weights, float* out,
+                          int n_frames, int n_fft, int n_mels,
                           float log_floor, void* stream) {
-  if (n_frames <= 0 || n_mels != NMELS || n_fft % BK != 0 ||
-      n_bins % BN != 0)
+  if (n_frames <= 0 || n_fft != N_FFT || n_mels != NMELS || n_win <= 0 ||
+      n_win > N_FFT || n_weights < 0 || n_weights > MAX_WEIGHTS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = SMEM_FLOATS * sizeof(float);
+  const size_t smem = (2 * N_FFT + 2 * 2 * FPB * PAD_LEN + 3 * NMELS +
+                       n_weights + n_win) * sizeof(float);
   cudaError_t err = omni::allow_smem(log_mel_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + BM - 1) / BM);
+  const int n_groups = (n_frames + FPB - 1) / FPB;
+  const dim3 grid(n_groups < 4 * sm_count() ? n_groups : 4 * sm_count());
   log_mel_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      frames, cw, sw, fb, out, n_frames, n_fft, n_bins, log_floor);
+      frames, win, n_win, reinterpret_cast<const float2*>(twiddles), fb,
+      bands, n_weights, out, n_frames, log_floor);
   return static_cast<int>(cudaGetLastError());
 }

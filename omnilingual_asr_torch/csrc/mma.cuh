@@ -1,0 +1,105 @@
+// Warp-level tensor-core building blocks for Hopper (sm_90a): asynchronous
+// global -> shared copies (cp.async), shared -> register fragment loads
+// (ldmatrix) and the bf16 m16n8k16 matrix product with f32 accumulation
+// (mma.sync). Used by the flash-attention forward (K2, attention.cu).
+//
+// Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
+//   A 16x16 bf16, 4 x b32: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same),
+//                          a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, same)
+//   B 16x8  bf16, 2 x b32: b0 (rows 2t, 2t+1, col g), b1 (rows 2t+8, 2t+9)
+//   C 16x8  f32,  4 x f32: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8)
+// so the C fragments of two adjacent 8-column tiles, packed to bf16 pairs,
+// are the A fragment of the 16 columns they cover (a product's output
+// feeds the next product without leaving registers).
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace omni {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !pred (src must
+// still be a valid address).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared; zero-filled when !pred.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i .. 8i+7 give the row addresses of
+// matrix i, which lands in r[i] (row lane / 4, columns 2 (lane % 4), +1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// As ldmatrix_x4, each matrix transposed: r[i] holds (rows 2 (lane % 4),
+// +1; column lane / 4) of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// c += a b for a 16x16 bf16 A, a 16x8 bf16 B, f32 C (exact products,
+// f32 sums).
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to a bf16 pair (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x = hi + lo to ~16 significant bits: hi = bf16(x), lo = bf16(x - hi),
+// both as packed pairs.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t* hi,
+                                           uint32_t* lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  *hi = *reinterpret_cast<uint32_t*>(&h);
+  *lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+}  // namespace omni

@@ -56,6 +56,55 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+#: Keys a tile of kernel K2 holds (``BK`` in ``csrc/attention.cu``).
+KERNEL_KEY_TILE = 64
+
+
+def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, mask: torch.Tensor,
+                             split_p: bool = True):
+    """Kernel K2's arithmetic in plain PyTorch, to predict on the CPU what
+    its bf16 tensor-core products do to the result: keys in tiles of
+    ``KERNEL_KEY_TILE`` with an f32 online softmax, s = (q k^T) * scale
+    over bf16 inputs, and P rounded to bf16 for the P V product, either as
+    hi + lo (``split_p``, hi = bf16(p), lo = bf16(p - hi), two products, as
+    the kernel does) or as hi alone. The running sum takes the f32 p.
+    Same arguments and results as :func:`flash_attention_plain`."""
+    B, T, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+
+    def bf16(t):
+        return t.to(torch.bfloat16).to(f32)
+
+    qf, kf, vf = (x.to(f32).permute(0, 2, 1, 3) for x in (q, k, v))
+    acc = torch.zeros((B, H, T, D), dtype=f32, device=q.device)
+    m = torch.full((B, H, T), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((B, H, T), dtype=f32, device=q.device)
+    for j0 in range(0, T, KERNEL_KEY_TILE):
+        kt = kf[:, :, j0:j0 + KERNEL_KEY_TILE]
+        vt = vf[:, :, j0:j0 + KERNEL_KEY_TILE]
+        valid = mask[:, j0:j0 + KERNEL_KEY_TILE].to(torch.bool)[
+            :, None, None, :]
+        s = (qf @ kt.transpose(-1, -2)) * scale
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        l = l * alpha + p.sum(dim=-1)
+        hi = bf16(p)
+        pv = hi @ vt
+        if split_p:
+            pv = pv + bf16(p - hi) @ vt
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.full_like(l, 1e30))
+    return out.permute(0, 2, 1, 3).to(q.dtype), lse
+
+
 def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = sum_d dO * O in f32: o, do [B, T, H, D] -> [B, H, T]. Plain
     PyTorch, as the reference computes it outside its kernels."""

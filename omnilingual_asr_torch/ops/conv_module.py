@@ -21,9 +21,11 @@ from . import cuda_build
 #: Largest depthwise kernel the CUDA kernel's 64-row halo holds (32 output
 #: frames + K - 1 halo rows).
 KERNEL_MAX_TAPS = 33
-#: Widest model whose 64-row halo (6 (D + 4) bytes a row) fits in the
-#: 227 KB of shared memory a block may use, as a multiple of 64.
-KERNEL_MAX_D = 576
+#: Widest model the kernel takes: large_config's D 1024, where its
+#: shared memory (~32 KB plus a [32, D + 4] f32 tile) is 162 KB of the
+#: 227 KB a block may use. Wider would fit up to D 1536 but is not
+#: checked on the card.
+KERNEL_MAX_D = 1024
 
 
 def _ln(x, scale, bias, eps: float = 1e-5):

@@ -120,8 +120,9 @@ _F = ctypes.c_float
 # C entry points: name -> argument types (every entry returns the
 # cudaError_t of its launch as an int).
 _SIGNATURES = {
-    # frames, cw, sw, fb, out, n_frames, n_fft, n_bins, n_mels, floor, stream
-    "omni_log_mel": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # frames, window, n_win, twiddles, fb, bands, n_weights, out, n_frames,
+    # n_fft, n_mels, floor, stream
+    "omni_log_mel": [_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _F, _P],
     # q, k, v, mask, o, lse, B, T, H, D, scale, stream
     "omni_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, mask, dO, lse, delta, dq, B, T, H, D, scale, stream

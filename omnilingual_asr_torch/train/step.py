@@ -17,17 +17,21 @@ import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..config import PipelineConfig
 from ..models.conformer import asr_forward, asr_init, pooled_speaker_embed
-from ..ops.ctc import ctc_loss
+from ..ops.ctc import ctc_loss, infeasible_rows
 
 #: Generator seeds of a step's SpecAugment masks and dropout: the step
 #: number plus a salt, as the reference folds the step into PRNGKey(0) and
 #: PRNGKey(1).
 _AUG_SALT = 0
 _DROPOUT_SALT = 1 << 40
+#: Batch key of the host-side indices of the rows whose CTC labels cannot
+#: be aligned in their frames (:func:`ctc_rows`); not a tensor.
+CTC_INFEASIBLE = "ctc_infeasible"
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -170,13 +174,15 @@ def loss_fn(params, batch: Dict[str, Any], cfg: PipelineConfig,
     ``char_frame_label`` (blank-excluded dense byte CE), ``speaker_label``
     (AAM-softmax on the pooled speaker embedding), ``trans_*`` with
     ``trans_params`` (teacher-forced translation CE), and the ramp scalars
-    ``w_ctc``, ``w_fce``, ``w_spk``, ``w_trans``.
+    ``w_ctc``, ``w_fce``, ``w_spk``, ``w_trans``. ``CTC_INFEASIBLE``, if
+    present, gives the CTC loss its unalignable rows from the host.
     """
     out = asr_forward(params, batch["mel"], batch["mask"], cfg,
                       dropout_seed=dropout_seed)
     lmask = batch["label_mask"]
     l_ctc_seq = ctc_loss(out["ctc_logits"], out["mask"], batch["labels"],
-                         lmask, blank_id=cfg.vocab.blank_id)
+                         lmask, blank_id=cfg.vocab.blank_id,
+                         infeasible=batch.get(CTC_INFEASIBLE))
     # Per-label-token nats (the reference's normalisation): the
     # per-sequence sum would drown every other objective.
     n_seq = torch.clamp(lmask.any(dim=-1).sum(), min=1)
@@ -237,6 +243,18 @@ def loss_fn(params, batch: Dict[str, Any], cfg: PipelineConfig,
 
     metrics["loss"] = total
     return total, metrics
+
+
+def ctc_rows(batch, cfg: PipelineConfig) -> np.ndarray:
+    """The rows of a host (numpy) batch whose labels cannot be aligned in
+    their subsampled frames (``ops.ctc.infeasible_rows``), from the arrays
+    the host built: the value of ``batch[CTC_INFEASIBLE]`` once the batch
+    is on a device, so that ``loss_fn`` reads nothing back."""
+    mask = np.asarray(batch["mask"])
+    B, T = mask.shape
+    sub = cfg.encoder.subsample_factor
+    n_frames = mask.reshape(B, T // sub, sub)[:, :, 0].sum(axis=1)
+    return infeasible_rows(n_frames, batch["labels"], batch["label_mask"])
 
 
 def mel_from_samples(batch, frontend):

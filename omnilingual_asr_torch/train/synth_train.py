@@ -39,7 +39,8 @@ from ..ops.attention import REFERENCE_BLOCK_Q
 from ..ops.ctc import collapse_ctc
 from ..utils.metrics import aggregate_wer
 from .augment import SpecAugmentConfig
-from .step import make_optimizer, make_train_step, tree_leaves
+from .step import (CTC_INFEASIBLE, ctc_rows, make_optimizer, make_train_step,
+                   tree_leaves)
 from .synth import SynthBatcher, eval_set, real_corpus, trim_to_window
 
 
@@ -369,6 +370,7 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
             dev_batch = {k: torch.from_numpy(
                 _encode_i16(v) if k == "samples" else v).to(dev)
                 for k, v in batch.items()}
+            dev_batch[CTC_INFEASIBLE] = ctc_rows(batch, cfg)
             dev_batch.update(stage_weights(i))
             params, opt_state, _, metrics = train_step(
                 params, opt_state, dev_batch, i)

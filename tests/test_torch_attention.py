@@ -91,3 +91,54 @@ def test_k2_plain_flash_differs_from_softmax_path_on_masked_rows():
         torch.from_numpy(mask))
     assert (o[1] == 0).all()
     assert (lse[1] == 1e30).all()
+
+
+# Kernel K2's tolerances against its plain version on the card
+# (chip_smoke.py TOL_K2_*): o per element within ABS + REL |o_ref|, lse
+# within LSE on live rows.
+K2_TOL_REL = 2.0 ** -7
+K2_TOL_ABS = 1e-4
+K2_TOL_LSE = 1e-3
+
+
+@pytest.mark.parametrize("d,valid", [(64, [T, 300, 0]), (128, [T, 77, 1])])
+def test_k2_bf16_p_emulation_within_kernel_tolerance(d, valid):
+    """Kernel K2 rounds P to bf16 for its tensor-core P V product; the
+    reference takes P V in f32. The kernel's arithmetic, emulated on the
+    CPU (``flash_attention_emulated``), against the JAX flash kernel in
+    interpret mode on seeded inputs at head dims 64 and 128: with P split
+    as hi + lo bf16 halves (the kernel's choice) o and lse stay within K2's
+    card tolerances; with P as one bf16 value o does not (its error is
+    2^-9 of p, summed over the keys, against a 1e-4 floor where o is near
+    0), which is why the kernel runs the second product."""
+    rng = np.random.default_rng(d)
+    shape = (B, T, 2, d)
+
+    def bf16(a):
+        return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+    q, k, v = (bf16(rng.standard_normal(shape).astype(np.float32))
+               for _ in range(3))
+    mask = np.arange(T)[None, :] < np.asarray(valid)[:, None]
+    to = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    qb, kb, vb = (jax_attention._to_bh(to(a), *shape) for a in (q, k, v))
+    maskb = jnp.repeat(jnp.asarray(mask, jnp.int32), 2, axis=0)[:, None, :]
+    want_o, want_lse = jax_attention._fwd_lse(qb, kb, vb, maskb,
+                                              1.0 / math.sqrt(d), True)
+    want_o = np.asarray(jax_attention._from_bh(want_o, *shape).astype(
+        jnp.float32))
+    want_lse = np.asarray(want_lse).reshape(B, 2, T)
+    tt = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    share = {}
+    for split in (True, False):
+        o, lse = attention.flash_attention_emulated(
+            tt(q), tt(k), tt(v), torch.from_numpy(mask), split_p=split)
+        o, lse = o.float().numpy(), lse.numpy()
+        share[split] = float((np.abs(o - want_o) / (
+            K2_TOL_ABS + K2_TOL_REL * np.abs(want_o))).max())
+        live = want_lse < 1e29
+        assert np.abs(lse - want_lse)[live].max() <= K2_TOL_LSE
+        np.testing.assert_array_equal(lse[~live], want_lse[~live])
+        assert (o[~mask.any(axis=1)] == 0).all()
+    assert share[True] <= 1.0, share
+    assert share[False] > 1.0, share

@@ -35,7 +35,8 @@ def test_log_mel_kernel_matches_plain(dev, n):
     frames = 0.1 * torch.randn(n, cfg.n_fft, generator=gen, device=dev)
     frames[n // 2:] = 0.0
     before = mel.log_mel_frames.launches
-    got = mel.log_mel_frames(frames, fe.cw, fe.sw, fe.fb, cfg.log_floor)
+    got = mel.log_mel_frames(frames, fe.cw, fe.sw, fe.fb, cfg.log_floor,
+                             fe.plan)
     want = mel.log_mel_frames_plain(frames, fe.cw, fe.sw, fe.fb,
                                     cfg.log_floor)
     torch.cuda.synchronize()
@@ -65,7 +66,8 @@ def test_flash_kernel_matches_plain(dev, T, valid, D):
 
 @pytest.mark.parametrize("T,valid,D", [(768, [768, 700, 301, 0], 256),
                                        (50, [50, 13], 256),
-                                       (256, [256, 200, 77, 0], 512)])
+                                       (256, [256, 200, 77, 0], 512),
+                                       (256, [256, 200, 77, 0], 1024)])
 def test_conv_module_kernel_matches_plain(dev, T, valid, D):
     B, K = len(valid), 32
     gen = torch.Generator(device=dev).manual_seed(T)
@@ -235,6 +237,41 @@ def test_large_config_engine_runs_k2_at_head_dim_128(dev, monkeypatch):
     assert float((lse - lse_ref)[live].abs().max()) <= 1e-3
 
 
+def test_ctc_loss_on_the_card_takes_unalignable_rows_from_the_host(dev):
+    """``ctc_loss`` on card tensors, with the unalignable rows given from
+    the host as the trainer gives them: the loss equals the CPU's within
+    1e-5 relative and the logits' gradient within 1e-4 relative L2, as the
+    CPU's equals JAX's (f32; the same operations, with the card's own exp,
+    log1p and reductions), finite where ``F.ctc_loss`` alone gives +inf."""
+    import numpy as np
+    from omnilingual_asr_torch.ops import ctc
+
+    rng = np.random.default_rng(3)
+    B, T, V, L = 4, 40, 32, 30
+    logits = rng.standard_normal((B, T, V)).astype(np.float32)
+    labels = rng.integers(1, V, (B, L)).astype(np.int32)
+    labels[1, 1:6] = labels[1, 0]            # repeats: 30 + 5 > 32 frames
+    n_frames = np.array([40, 32, 12, 40])
+    n_labels = np.array([10, 30, 20, 0])
+    fmask = np.arange(T)[None] < n_frames[:, None]
+    lmask = np.arange(L)[None] < n_labels[:, None]
+    rows = ctc.infeasible_rows(n_frames, labels, lmask)
+    assert rows.tolist() == [1, 2]
+    out = {}
+    for where in ("cpu", dev):
+        x = torch.from_numpy(logits).to(where).requires_grad_(True)
+        loss = ctc.ctc_loss(x, torch.from_numpy(fmask).to(where),
+                            torch.from_numpy(labels).to(where),
+                            torch.from_numpy(lmask).to(where),
+                            infeasible=rows)
+        loss.backward()
+        out[str(where)] = (float(loss.detach()), x.grad.cpu().numpy())
+    (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
+    assert np.isfinite(lg) and lg > 1e4
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert np.linalg.norm(gg - gc) <= 1e-4 * np.linalg.norm(gc)
+
+
 def test_kernel_mode_train_step_launch_counts(dev):
     """One kernel-mode step of ``make_train_step`` (d_model 128, 2 layers,
     heads of 64, T' 256, the translator on, from i16 samples) on the card:
@@ -288,7 +325,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         attention.flash_attention(q, q, q, torch.ones(1, 64, dtype=torch.bool,
                                                       device=dev))
-    D = conv_module.KERNEL_MAX_D + 64          # over the shared memory
+    D = conv_module.KERNEL_MAX_D + 64          # over the width limit
     x = torch.zeros(1, 32, D, device=dev)
     v = torch.zeros(D, device=dev)
     with pytest.raises(ValueError, match="D <="):

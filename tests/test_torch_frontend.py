@@ -28,17 +28,16 @@ def _signal(n: int, seed: int = 0) -> np.ndarray:
 
 
 def test_constants_equal_jax():
-    """The real bins equal the reference's exactly. The two pad the bin
-    axis with zeros to different widths (the reference to 640 for its
-    128-lane tiles, the port to 576 for its 64-bin chunks)."""
+    """The real bins equal the reference's exactly. The reference pads the
+    bin axis with zeros to 640 for its 128-lane tiles; the port keeps the
+    513 real bins (its FFT kernel reads no DFT matrix)."""
     jc, tc = JaxFrontendConfig(), FrontendConfig()
     nf = tc.n_freqs
     for axis, a, b in zip((1, 1, 0), mel_pallas.build_mel_constants(jc),
                           mel.build_mel_constants(tc)):
-        assert b.shape[axis] == 576
-        np.testing.assert_array_equal(np.take(a, range(nf), axis),
-                                      np.take(b, range(nf), axis))
-        assert not np.take(b, range(nf, b.shape[axis]), axis).any()
+        assert b.shape[axis] == nf
+        np.testing.assert_array_equal(np.take(a, range(nf), axis), b)
+        assert not np.take(a, range(nf, a.shape[axis]), axis).any()
     np.testing.assert_array_equal(jax_frontend.hann_window(400),
                                   frontend.hann_window(400))
 
@@ -127,3 +126,72 @@ def test_k1_wrapper_counts_only_kernel_launches():
     before = mel.log_mel_frames.launches
     tfe.log_mel(torch.zeros(1, 256, 1024))
     assert mel.log_mel_frames.launches == before
+
+
+def test_k1_fft_emulation_matches_pallas_kernel():
+    """Kernel K1's FFT (``log_mel_frames_emulated``: the kernel's window
+    from cw[:, 0], even/odd packing, radix-8 Stockham stages, twiddle
+    table and bin post-processing, in plain PyTorch) against
+    log_mel_frames_pallas(interpret=True) at the release frontend's shapes
+    (n_fft 1024, 128 mels, 512 frames). On noise frames (every bin well
+    above the floor, as chip_smoke.py feeds the kernel) within K1's card
+    tolerance, 1e-3 abs on log-mel everywhere; on speech-like frames
+    (quiet bins and all-zero frames) by the criterion of
+    test_k1_plain_matches_pallas_kernel, all-zero frames exactly on the
+    floor."""
+    cfg = FrontendConfig()
+    jc = JaxFrontendConfig()
+    cw, sw, fb = mel_pallas.build_mel_constants(jc)
+    tfe = mel.MelFrontend(cfg)
+    plan = mel.mel_plan(tfe.cw, tfe.sw, tfe.fb)
+    rng = np.random.default_rng(5)
+    noise = (0.1 * rng.standard_normal((512, cfg.n_fft))).astype(np.float32)
+    x = _signal(160 * 512 + 1024, seed=6)
+    speech, _ = tfe.frames_from_signal(torch.from_numpy(x))
+    for frames, exact in ((torch.from_numpy(noise), True),
+                          (speech[:512].contiguous(), False)):
+        want = np.asarray(mel_pallas.log_mel_frames_pallas(
+            frames.numpy(), cw, sw, fb, jc, interpret=True))
+        got = mel.log_mel_frames_emulated(frames, plan, tfe.fb,
+                                          cfg.log_floor).numpy()
+        assert got.shape == want.shape == (512, cfg.n_mels)
+        if exact:
+            assert np.abs(got - want).max() <= 1e-3
+            continue
+        lin_w, lin_g = np.exp(want), np.exp(got)
+        peak = lin_w.max(axis=1, keepdims=True)
+        np.testing.assert_allclose(lin_g / peak, lin_w / peak, atol=1e-5,
+                                   rtol=0)
+        sig = lin_w > peak * 1e-6
+        np.testing.assert_allclose(got[sig], want[sig], atol=2e-3, rtol=0)
+        zero = (frames.abs().sum(dim=1) == 0).numpy()
+        assert zero.any()
+        np.testing.assert_array_equal(got[zero], want[zero])
+
+
+def test_mel_plan_reads_the_constants():
+    """The FFT kernel's plan: the window from cw[:, 0] (400 nonzero
+    samples of the 1024), the twiddle table exp(-2 pi i t / 1024) within
+    f32 rounding, and each filter's band covering exactly its nonzero bins,
+    the weights packed in filter order. Constants that are not a windowed
+    DFT are refused."""
+    cfg = FrontendConfig()
+    cw, sw, fb = mel.build_mel_constants(cfg)
+    plan = mel.mel_plan(cw, sw, fb)
+    np.testing.assert_array_equal(plan.window.numpy(),
+                                  frontend.hann_window(cfg.win_length))
+    t = np.arange(cfg.n_fft)
+    want = np.exp(-2j * np.pi * t / cfg.n_fft)
+    tw = plan.twiddles.numpy()
+    assert np.abs(tw[:, 0] + 1j * tw[:, 1] - want).max() <= 1e-7
+    bands = plan.bands.numpy()
+    off = 0
+    for m, (lo, cnt, o) in enumerate(bands):
+        nz = np.flatnonzero(fb[:, m])
+        assert (lo, lo + cnt - 1, o) == (nz[0], nz[-1], off)
+        off += cnt
+    assert plan.n_weights == off <= mel.KERNEL_MAX_WEIGHTS
+    with pytest.raises(ValueError, match="windowed DFT"):
+        mel.mel_plan(cw * 1.01, sw, fb)
+    with pytest.raises(ValueError, match="windowed DFT"):
+        mel.mel_plan(cw, np.roll(sw, 1, axis=0), fb)

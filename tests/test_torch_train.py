@@ -290,9 +290,14 @@ def test_optimizer_matches_optax():
 
 def test_ctc_loss_matches_jax():
     """``ctc_loss`` against the reference's (optax) on ragged logits, a row
-    with no labels and a row whose labels fit exactly: relative 1e-5. A row
-    that cannot be aligned (more labels than frames) gives +inf here and a
-    large finite value in optax (ROADMAP.md Queue C); both are shown."""
+    with no labels and a row whose labels fit exactly: relative 1e-5. On a
+    row that cannot be aligned (more labels than frames) the port runs
+    optax's recursion too: the loss equals optax's within 1e-5 relative (a
+    large finite value, where ``F.ctc_loss`` gives +inf), and the logits'
+    gradient equals ``jax.grad`` of the reference within 1e-4 relative L2
+    (both f32, the same recursion and logaddexp derivative rule, so only
+    rounding in another operation order separates them), whether the rows
+    are found from the tensors or given from the host."""
     rng = np.random.default_rng(7)
     B, T, V, L = 3, 12, 16, 6
     logits = rng.standard_normal((B, T, V)).astype(np.float32)
@@ -301,20 +306,36 @@ def test_ctc_loss_matches_jax():
     labels[2] = [1, 2, 3, 4, 5, 6]
     lmask = np.arange(L)[None, :] < np.array([4, 0, 6])[:, None]
 
-    def both(lg, lm, lb, lbm):
-        want = float(jax_ctc.ctc_loss(jnp.asarray(lg), jnp.asarray(lm),
-                                      jnp.asarray(lb), jnp.asarray(lbm)))
-        got = float(ctc.ctc_loss(torch.from_numpy(lg), torch.from_numpy(lm),
-                                 torch.from_numpy(lb), torch.from_numpy(lbm)))
-        return got, want
+    def both(lg, lm, lb, lbm, infeasible=None):
+        def jloss(x):
+            return jax_ctc.ctc_loss(x, jnp.asarray(lm), jnp.asarray(lb),
+                                    jnp.asarray(lbm))
 
-    got, want = both(logits, lmask_t, labels, lmask)
+        want, jg = jax.value_and_grad(jloss)(jnp.asarray(lg))
+        x = torch.from_numpy(lg).requires_grad_(True)
+        got = ctc.ctc_loss(x, torch.from_numpy(lm), torch.from_numpy(lb),
+                           torch.from_numpy(lbm), infeasible=infeasible)
+        got.backward()
+        jg = np.asarray(jg)
+        g_err = np.linalg.norm(x.grad.numpy() - jg) / np.linalg.norm(jg)
+        return float(got.detach()), float(want), g_err
+
+    got, want, g_err = both(logits, lmask_t, labels, lmask)
     assert abs(got - want) <= 1e-5 * abs(want)
-    # Infeasible: 6 distinct labels in 4 frames.
+    assert g_err <= 1e-4, g_err
+    # Infeasible: 6 distinct labels in 4 frames (row 2); then row 0 too, 4
+    # labels with a repeat (5 frames needed) in 4 frames.
     short = np.arange(T)[None, :] < np.array([12, 9, 4])[:, None]
-    got, want = both(logits, short, labels, lmask)
-    assert got == float("inf")
-    assert np.isfinite(want) and want > 1e4
+    labels[0, 1] = labels[0, 0]
+    shorter = np.arange(T)[None, :] < np.array([4, 9, 4])[:, None]
+    for lm, rows in ((short, [2]), (shorter, [0, 2])):
+        assert ctc.infeasible_rows(lm.sum(axis=1), labels,
+                                   lmask).tolist() == rows
+        for given in (None, np.array(rows)):
+            got, want, g_err = both(logits, lm, labels, lmask, given)
+            assert np.isfinite(want) and want > 1e4
+            assert abs(got - want) <= 1e-5 * abs(want), (rows, got, want)
+            assert g_err <= 1e-4, (rows, g_err)
 
 
 def test_text_to_byte_labels_matches_jax():
@@ -371,6 +392,70 @@ def test_three_train_steps_match_jax():
         for k in want:
             flipped = np.mean(np.abs(got[k] - want[k]) > kw["lr"] / 2)
             assert flipped <= 1e-3, (i, k, flipped)
+
+
+def test_train_step_with_unalignable_row_matches_jax():
+    """One ``make_train_step`` update (learning rate at its peak from the
+    first update) against the reference's on a batch whose second row has
+    more labels plus repeats (17) than frames (12). The port's CTC takes
+    optax's finite value for that row (rows given from the host, as the
+    trainer gives them), so the global norm stays finite and the update is
+    the reference's step, not one zeroed by the clip and ``zero_nans``.
+
+    Adam's first update is lr * g / (|g| + eps), about +-lr per element, so
+    an element moves the other way wherever the two packages' gradients
+    (bf16-rounded operands summed in another order) differ in sign: near
+    zero, and in the speaker head's AAM terms a little above (2.8 % of its
+    leaf's largest element here). Criteria: the loss within 1e-3 relative;
+    the update's direction, cosine >= 0.99 over all parameters and >= 0.9
+    per leaf (n flipped elements of a leaf of N give 1 - 2 n / N; a zeroed
+    update, ~lr * weight decay * p, gives ~0); its norm within 10 % of the
+    reference's; at most 1 % of the elements more than lr / 2 apart."""
+    jcfg = jax_tiny_config().replace(mesh=MeshConfig(data=1, model=1))
+    cfg = tiny_config()
+    kw = dict(lr=1e-3, warmup_steps=0, decay_steps=10)
+    b = dict(_batch(2, 64, seed=30), **W_SCALARS)
+    b["labels"][1] = [3, 3, 3, 3, 8, 8, 8, 8, 4, 4]
+    b["label_mask"][1] = True
+    assert step.ctc_rows(b, cfg).tolist() == [1]
+    mesh = build_mesh(jcfg.mesh)
+    init, jstep = jax_step.make_train_step(
+        jcfg, mesh, tx=jax_step.make_optimizer(**kw),
+        batch_keys=tuple(b), with_translator=True)
+    state = init(seed=0)
+    jp = state.params
+    p0 = _flat_jax(jp)
+    tp = _to_port(jax.device_get(jp))
+    jb = {k: (jnp.asarray(v) if isinstance(v, np.ndarray)
+              else jnp.float32(v)) for k, v in b.items()}
+    jp, _, _, jm = jstep(jp, state.opt_state, jb, state.step)
+    _, tstep, _ = step.make_train_step(cfg, "cpu",
+                                       tx=step.make_optimizer(**kw),
+                                       with_translator=True)
+    tb = dict(_port_batch(b), **{step.CTC_INFEASIBLE: step.ctc_rows(b, cfg)})
+    tp, _, _, m = tstep(tp, step.make_optimizer(**kw).init(tp), tb, 0)
+    loss, jloss = float(m["loss"]), float(jm["loss"])
+    assert np.isfinite(loss) and loss > 1e3
+    assert abs(loss - jloss) <= 1e-3 * abs(jloss), (loss, jloss)
+    want = {k: (v - p0[k]).astype(np.float64)
+            for k, v in _flat_jax(jp).items()}
+    got = {k: (v - p0[k]).astype(np.float64)
+           for k, v in _flat_port(tp).items()}
+
+    def cos(a, b):
+        return float((a * b).sum() / np.sqrt((a * a).sum() * (b * b).sum()))
+
+    per_leaf = {k: cos(got[k], want[k]) for k in want}
+    worst = min(per_leaf, key=per_leaf.get)
+    assert per_leaf[worst] >= 0.9, (worst, per_leaf[worst])
+    g_all = np.concatenate([got[k].ravel() for k in want])
+    w_all = np.concatenate([want[k].ravel() for k in want])
+    assert np.isfinite(g_all).all()
+    far = np.abs(g_all - w_all) > kw["lr"] / 2
+    assert cos(g_all, w_all) >= 0.99, cos(g_all, w_all)
+    assert abs(np.linalg.norm(g_all) - np.linalg.norm(w_all)) <= 0.1 * \
+        np.linalg.norm(w_all)
+    assert far.mean() <= 1e-2, far.mean()
 
 
 # ---------------------------------------------------------------------------
