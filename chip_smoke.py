@@ -10,7 +10,8 @@ Phases, each printed with its elapsed seconds; any failure exits non-zero
 with no result line:
 
 1. device  - card name and power limit; TF32 off for matmuls and cuDNN.
-2. build   - nvcc builds the kernels from ``omnilingual_asr_torch/csrc``.
+2. build   - nvcc builds the kernels from ``omnilingual_asr_torch/csrc``
+             and each kernel's registers and spills are printed.
 3. kernels - log-mel (K1, at the serving and the training path's
              frames; its bound counted for the function as an FFT computes
              it, the dense DFT's beside it), flash attention (K2, at head
@@ -20,8 +21,9 @@ with no result line:
              matmuls W8A16 (K4) and W8A8
              (K5, at the three widths of the quantized main path) and the
              flash-attention backward, dQ (K6) and dK/dV (K7), at the
-             training shape and at large_config's head dim 128 (with the o
-             and lse they read held to the plain forward), on seeded inputs
+             training shape, at large_config's head dim 128 and at a
+             ragged T of 200 (with the o and lse they read held to the
+             plain forward), on seeded inputs
              with masked rows, each held against its plain
              PyTorch version, and timed beside its plain version, a PyTorch
              yardstick where one exists, and the card's bound. Times are
@@ -524,12 +526,15 @@ def _bwd_case(dev, peaks, B, T, H, D, n_valid, seed):
 def check_flash_bwd(dev, peaks, cfg):
     """K6 and K7 at the training path's shape (batch 16 of 8 s windows:
     T' 256, 8 heads of 64; rows whole, ragged, short and one padded slot)
-    and at large_config's (B 4, T 768, 8 heads of 128) under "head_dims"."""
+    and, under "head_dims", at large_config's (B 4, T 768, 8 heads of 128)
+    and at a T of 200 (a partial last tile of queries and keys, a partly
+    masked row and a fully masked slot)."""
     enc = cfg.encoder
     train = _bwd_case(dev, peaks, TRAIN_BATCH, 256, enc.n_heads,
                       enc.head_dim, TRAIN_VALID_KEYS, SEED + 21)
     wide = _bwd_case(dev, peaks, WINDOWS_PER_BATCH, 768, 8, 128,
                      [768, 700, 300, 0], SEED + 22)
+    ragged = _bwd_case(dev, peaks, 3, 200, 4, 64, [200, 130, 0], SEED + 23)
     entries = []
     for i, (name, line) in enumerate((
             ("flash_attention_bwd_dq", 79), ("flash_attention_bwd_dkv", 110))):
@@ -537,7 +542,7 @@ def check_flash_bwd(dev, peaks, cfg):
             "name": name, "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/attention_bwd.cu",
             "replaces": f"omnilingual_asr_tpu/ops/attention.py:{line}",
-            **train[i], "head_dims": [train[i], wide[i]]})
+            **train[i], "head_dims": [train[i], wide[i], ragged[i]]})
     return entries
 
 
@@ -1346,9 +1351,8 @@ def main(argv=None) -> int:
 
         info = cuda_build.build()
         cuda_build.library()
-        for line in info.ptxas_log.splitlines():
-            if "Used" in line or "spill" in line or line.startswith("---"):
-                log("  " + line.strip())
+        for name, regs, spills in info.kernels():
+            log(f"  {name}: {regs} registers, {spills}")
         log(f"[build] {'cached' if info.cached else 'built'} "
             f"{info.lib_path.relative_to(ROOT)} in {info.seconds:.2f} s "
             f"({time.perf_counter() - t0:.2f} s)")

@@ -45,53 +45,18 @@
 // Shared memory: two K and two V tiles of 64 x (D + 8) bf16 and two mask
 // tiles (Q is staged in the second K tile before the loop): 36.5 KB at
 // D 64, 68.5 KB at D 128. Registers (nvcc -Xptxas -v, sm_90a, as
-// chip_smoke.py prints them): 128 at D 64 with 24 bytes of spill stores,
-// 168 at D 128 with 56, both capped by the launch bounds below.
+// chip_smoke.py prints them): 128 at D 64 with no spills, 168 at D 128
+// with 56 bytes of spill stores, both capped by the launch bounds below.
 #include "flash.cuh"
-#include "mma.cuh"
 
 namespace {
 
+using omni::FlashTile;
 using omni::NEG_INF;
 
-constexpr int BQ = 64;            // query rows a block owns (16 per warp)
-constexpr int BK = 64;            // keys a shared-memory tile holds
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-
-template <int D>
-struct Tiles {
-  static constexpr int LD = D + 8;               // bf16 row, padded 16 B
-  static constexpr int TILE = BK * LD;           // bf16 elements a tile
-  // Ks = [2][TILE], Vs = [2][TILE], then the masks [2][BK].
-  static constexpr size_t BYTES =
-      4 * TILE * sizeof(__nv_bfloat16) + 2 * BK * sizeof(int);
-};
-
-// Rows t0 .. t0 + 64 of one head of a [B, T, H, D] operand into a padded
-// shared tile; rows at or past T are zero-filled. Every thread takes part.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* src,
-                                          size_t ts, int t0, int T, int tid) {
-  constexpr int CHUNKS = D / 8;                  // 16-byte chunks a row
-#pragma unroll
-  for (int c = tid; c < BK * CHUNKS; c += THREADS) {
-    const int row = c / CHUNKS;
-    const int col = (c % CHUNKS) * 8;
-    const int t = t0 + row;
-    const __nv_bfloat16* g = src + static_cast<size_t>(min(t, T - 1)) * ts + col;
-    omni::cp_async_16(tile + row * Tiles<D>::LD + col, g, t < T);
-  }
-}
-
-__device__ __forceinline__ void load_mask(int* ms, const int* mask_row,
-                                          int t0, int T, int tid) {
-  if (tid < BK) {
-    const int t = t0 + tid;
-    omni::cp_async_4(ms + tid, mask_row + min(t, T - 1), t < T);
-  }
-}
+constexpr int BQ = omni::FLASH_ROWS;      // query rows a block owns (16 a warp)
+constexpr int BK = omni::FLASH_ROWS;      // keys a shared-memory tile holds
+constexpr int THREADS = omni::FLASH_THREADS;
 
 // Blocks an SM the register budget must allow: at D 128 three (<= 170
 // registers) keep the 384 blocks of [4, 768, 8, 128] in one wave; at D 64
@@ -104,8 +69,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ mask, __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse, int T, int H, float scale) {
-  constexpr int LD = Tiles<D>::LD;
-  constexpr int TILE = Tiles<D>::TILE;
+  constexpr int TILE = FlashTile<D>::ELEMS;
   constexpr int KD = D / 16;        // k-steps of QK^T; dim-tile pairs of PV
   constexpr int NT = BK / 8;        // 8-key column tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -128,20 +92,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = (T + BK - 1) / BK;
 
   // Q (staged in K buffer 1), key tile 0 and its mask.
-  load_tile<D>(Ks + TILE, q + base, ts, q0, T, tid);
-  load_tile<D>(Ks, k + base, ts, 0, T, tid);
-  load_tile<D>(Vs, v + base, ts, 0, T, tid);
-  load_mask(Ms, mrow, 0, T, tid);
+  omni::load_tile<D>(Ks + TILE, q + base, ts, q0, T, tid);
+  omni::load_tile<D>(Ks, k + base, ts, 0, T, tid);
+  omni::load_tile<D>(Vs, v + base, ts, 0, T, tid);
+  omni::load_words(Ms, mrow, 0, T, tid, 0);
   omni::cp_async_commit();
   omni::cp_async_wait<0>();
   __syncthreads();
   uint32_t qf[KD][4];
-  {
-    const __nv_bfloat16* qs = Ks + TILE + (warp * 16 + (lane & 15)) * LD +
-                              (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) omni::ldmatrix_x4(qf[kk], qs + kk * 16);
-  }
+  omni::load_a_frags<D>(qf, Ks + TILE, warp * 16, lane);
   __syncthreads();                  // K buffer 1 is free for tile 1
 
   float acc[2 * KD][4];             // O: 8-dim tiles, rows g and g + 8
@@ -155,9 +114,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const int buf = j & 1;
     if (j + 1 < n_tiles) {
       const int nb = buf ^ 1;
-      load_tile<D>(Ks + nb * TILE, k + base, ts, (j + 1) * BK, T, tid);
-      load_tile<D>(Vs + nb * TILE, v + base, ts, (j + 1) * BK, T, tid);
-      load_mask(Ms + nb * BK, mrow, (j + 1) * BK, T, tid);
+      omni::load_tile<D>(Ks + nb * TILE, k + base, ts, (j + 1) * BK, T, tid);
+      omni::load_tile<D>(Vs + nb * TILE, v + base, ts, (j + 1) * BK, T, tid);
+      omni::load_words(Ms + nb * BK, mrow, (j + 1) * BK, T, tid, 0);
     }
     omni::cp_async_commit();
     omni::cp_async_wait<1>();       // tile j has landed
@@ -170,18 +129,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     float s[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int n2 = 0; n2 < NT / 2; ++n2) {
-        uint32_t bfr[4];
-        const int key = n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
-        const int dim = kk * 16 + ((lane >> 3) & 1) * 8;
-        omni::ldmatrix_x4(bfr, kt + key * LD + dim);
-        omni::mma_bf16_16816(s[2 * n2], qf[kk], bfr[0], bfr[1]);
-        omni::mma_bf16_16816(s[2 * n2 + 1], qf[kk], bfr[2], bfr[3]);
-      }
-    }
+    omni::mma_a_rows<D, NT>(s, qf, kt, 0, lane);
 
     // Scale, mask, online softmax (rows g: s[.][0..1]; g + 8: s[.][2..3]).
     float mx[2] = {NEG_INF, NEG_INF};
@@ -227,21 +175,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t ph[4], pl[4];
-      omni::split_bf16(s[2 * kk][0], s[2 * kk][1], &ph[0], &pl[0]);
-      omni::split_bf16(s[2 * kk][2], s[2 * kk][3], &ph[1], &pl[1]);
-      omni::split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], &ph[2], &pl[2]);
-      omni::split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], &ph[3], &pl[3]);
-#pragma unroll
-      for (int d2 = 0; d2 < KD; ++d2) {
-        uint32_t bfr[4];
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int dim = d2 * 16 + (lane >> 4) * 8;
-        omni::ldmatrix_x4_trans(bfr, vt + key * LD + dim);
-        omni::mma_bf16_16816(acc[2 * d2], ph, bfr[0], bfr[1]);
-        omni::mma_bf16_16816(acc[2 * d2], pl, bfr[0], bfr[1]);
-        omni::mma_bf16_16816(acc[2 * d2 + 1], ph, bfr[2], bfr[3]);
-        omni::mma_bf16_16816(acc[2 * d2 + 1], pl, bfr[2], bfr[3]);
-      }
+      omni::split_a_frag(s + 2 * kk, ph, pl);
+      omni::mma_split_cols<D>(acc, ph, pl, vt, 16 * kk, lane);
     }
     __syncthreads();                // buffer `buf` is refilled next round
   }
@@ -273,7 +208,7 @@ template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* mask, void* o, float* lse, int B, int T,
                        int H, float scale, cudaStream_t stream) {
-  const size_t smem = Tiles<D>::BYTES;
+  const size_t smem = FlashTile<D>::bytes(1);
   cudaError_t err = omni::allow_smem(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, B * H);

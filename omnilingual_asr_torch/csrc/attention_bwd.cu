@@ -1,4 +1,5 @@
-// K6 and K7: the flash-attention backward, dQ and dK/dV.
+// K6 and K7: the flash-attention backward, dQ and dK/dV, on bf16 tensor
+// cores.
 //
 // Replace omnilingual_asr_tpu/ops/attention.py::_flash_bwd_dq_kernel (K6)
 // and ::_flash_bwd_dkv_kernel (K7), both launched by _flash_bh_bwd. Over
@@ -6,158 +7,325 @@
 // [B, T], and the forward's row logsumexp lse and delta = sum_d dO * O, both
 // f32 [B, H, T], with scale = 1/sqrt(D):
 //
-//     p  = exp(q k^T * scale - lse) * keymask   (recomputed, never stored)
+//     p  = exp(q k^T * scale - lse) * keymask   (f32; recomputed, never stored)
 //     ds = p * (dO v^T - delta)
 //     dQ = ds k * scale                          K6, bf16 [B, T, H, D]
 //     dV = p^T dO,  dK = ds^T q * scale          K7, bf16 [B, T, H, D]
 //
-// A masked key has p = 0, so its dK and dV are exactly 0; a fully-masked
-// query row has lse = +1e30, so its p is 0 and it adds nothing anywhere
-// (and gets dQ = 0), as the reference's test of a padded batch slot needs.
+// A masked key has p = 0 exactly, so its dK and dV are exactly 0; a
+// fully-masked query row has lse = +1e30, so its p is 0, it adds nothing
+// anywhere and its dQ is exactly 0. Query rows past T count as fully
+// masked (K7 sets their lse to +1e30, not cp.async's zero fill); key rows
+// past T as masked keys.
 //
-// What bounds them on an H100: at the training path's shapes (B*H = 128,
-// T = 256, D = 64) K6 does 6 and K7 8 * B*H * T * T_valid * D operations
-// (3.2 and 4.3 GFLOP when every key is valid, 3-4 us at the bf16
-// tensor-core rate) and moves 17-21 MB (5-6 us), so bytes bound them. This
-// version runs every dot product in f32 on the CUDA cores, like K2: the
-// reference's dots are f32 over bf16-valued inputs, so f32 FMA reproduces
-// them up to summation order. Tensor cores are left to a later change.
+// What bounds them on an H100: at the training path's shape (B*H = 128,
+// T = 256, D = 64) K6 reads q, k, v, dO, lse and delta and writes dQ,
+// 21 MB (6.3 us at 3.35 TB/s); K7 writes dK and dV, 25 MB (7.6 us). Their
+// products, 6 and 8 * B*H * T * T_valid * D operations (3-4 us at the bf16
+// tensor-core rate), are below that, so bytes bound both; at large_config's
+// head dim 128 ([4, 768, 8, 128]) the same holds (9.5 and 11.3 us). What
+// holds a kernel above its bound at these sizes is the latency of each
+// tile's product chain and how many blocks an SM keeps in flight.
 //
-// Design (flash.cuh): K6 is one block per (b*h, 64-query tile); the
-// block's q and dO rows, lse and delta sit in registers, four threads to a
-// row, and K and V stream through shared memory in 4096 / D-key f32 tiles.
-// For each key a thread finishes two partial dot products (s and dp) with
-// warp shuffles and adds ds * k to its dims of dQ. K7 is the transpose: one
-// block per (b*h, 64-key tile), the block's k and v rows and their dK and
-// dV accumulators in registers, and Q, dO, lse and delta streaming through
-// shared memory. Both accumulate in f32 and round to bf16 once at the end;
-// nothing is transposed before or after, and no atomics are used.
+// Design (FlashAttention-2's backward on warp-level mma.sync, the tiles of
+// K2; flash.cuh): K6 is one block of 4 warps per (64-query tile, b*h); each
+// warp owns 16 query rows, whose Q and dO A fragments it loads once
+// (ldmatrix) and keeps in registers with the rows' lse and delta. K and V
+// stream as bf16 64-key tiles through dynamic shared memory, double-
+// buffered with cp.async. For each step of keys (32 at D 64, 16 at D 128,
+// to bound the registers) a warp computes S = Q K^T and dP = dO V^T as
+// mma.sync chains over D (f32 sums of exact bf16 products, as in the
+// reference), scales S in f32, forms P and dS = P (dP - delta) in registers
+// (S and dP share the C-fragment layout; lse and delta are per row), and
+// adds dS K to dQ: dS enters as A fragments straight from the accumulators,
+// K as ldmatrix.trans B fragments of the same shared tile. K7 is the
+// transpose: one block per (64-key tile, b*h), each warp holding its 16
+// keys' K and V A fragments; Q, dO and that tile's lse and delta stream;
+// per 16-query step S^T = K Q^T and dP^T = V dO^T, P^T and dS^T with lse
+// and delta per column (from shared memory), and dV += P^T dO,
+// dK += dS^T Q with dO and Q as ldmatrix.trans B fragments. Both keep f32
+// accumulators in registers and round to bf16 once at the end (dQ and dK
+// times scale there). Each block owns its output rows: no atomics, and the
+// results are the same on every run.
+//
+// Numerics: the only roundings beyond the reference's are of P and dS to
+// bf16 operands. Both are split as hi + lo (hi = bf16(x), lo = bf16(x -
+// hi), two products): with hi alone dV misses the tolerance at every shape
+// tried and dQ/dK on ragged rows (ops/attention.py::
+// flash_attention_bwd_emulated, tests/test_torch_attention_grad.py).
+//
+// Shared memory: two tiles each of the streamed operands, 64 x (D + 8)
+// bf16, and their 4-byte rows (mask; lse and delta): 36.5 / 37 KB at D 64,
+// 68.5 / 69 KB at D 128. Registers (nvcc -Xptxas -v, sm_90a, as
+// chip_smoke.py prints them): K6 128 at D 64 (4 bytes of spill stores) and
+// 168 at D 128 (44); K7 128 at D 64 (132) and 255 at D 128 (60), each
+// capped by its launch bounds. The bounds are the fastest of those that
+// python -m omnilingual_asr_torch.ops.flash_bwd_sweep timed on an H100:
+// at the training shape fewer blocks an SM (more registers, no spills)
+// took 1.3x as long for K6 and 1.1-1.2x for K7; at D 128 K6 at 2 blocks
+// 1.2x as long as at 3, K7 at 3 blocks 1.7x as long as at 2.
 #include "flash.cuh"
 
 namespace {
 
-using omni::BQ;
-using omni::THREADS;
-using omni::TPQ;
+using bf16 = __nv_bfloat16;
+using omni::FlashTile;
 
+constexpr int BR = omni::FLASH_ROWS;      // rows a block owns; tile rows
+constexpr int THREADS = omni::FLASH_THREADS;
+
+// Round a warp's accumulators acc[D / 8] (its rows g and g + 8, times mul)
+// to bf16 and store those below T; dst is the warp's first row, row0 its
+// index.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const int* __restrict__ mask,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int T, int H,
-                    float scale) {
-  constexpr int BKV = omni::tile_keys(D);
-  constexpr int NG = D / 16;
-  __shared__ __align__(16) float Ks[BKV][D];
-  __shared__ __align__(16) float Vs[BKV][D];
-  __shared__ int Ms[BKV];
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int qi = blockIdx.x * BQ + tid / TPQ;
-  const int part = tid % TPQ;
-  const size_t ts = static_cast<size_t>(H) * D;
-  const size_t base = static_cast<size_t>(b) * T * ts + static_cast<size_t>(h) * D;
-
-  float qr[4 * NG], dor[4 * NG], acc[4 * NG];
+__device__ __forceinline__ void store_rows(bf16* dst, float (*acc)[4],
+                                           float mul, size_t ts, int row0,
+                                           int T, int lane) {
+  const int g = lane >> 2;
+  const int tq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4 * NG; ++i) qr[i] = dor[i] = acc[i] = 0.f;
-  float row_lse = omni::FULLY_MASKED_LSE;
-  float row_delta = 0.f;
-  if (qi < T) {
-    omni::load_row<D>(q + base + qi * ts + part * 4, qr, 1.f);
-    omni::load_row<D>(dout + base + qi * ts + part * 4, dor, 1.f);
-    row_lse = lse[static_cast<size_t>(bh) * T + qi];
-    row_delta = delta[static_cast<size_t>(bh) * T + qi];
+  for (int r = 0; r < 2; ++r) {
+    if (row0 + g + 8 * r >= T) continue;
+    bf16* p = dst + static_cast<size_t>(g + 8 * r) * ts + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(p + i * 8) =
+          omni::pack_bf16(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
   }
-
-  for (int j0 = 0; j0 < T; j0 += BKV) {
-    omni::load_tiles<D, BKV>(k, v, Ks, Vs, base, ts, j0, T, tid);
-    if (tid < BKV) {
-      const int t = j0 + tid;
-      Ms[tid] = (t < T) ? mask[static_cast<size_t>(b) * T + t] : 0;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BKV; ++j) {
-      const float s = omni::row_dot<D>(qr, Ks[j], part) * scale;
-      const float dp = omni::row_dot<D>(dor, Vs[j], part);
-      const float p = Ms[j] > 0 ? expf(s - row_lse) : 0.f;
-      omni::row_axpy<D>(acc, p * (dp - row_delta), Ks[j], part);
-    }
-    __syncthreads();
-  }
-  if (qi < T) omni::store_row<D>(dq + base + qi * ts + part * 4, acc, scale);
 }
 
+template <int N>
+__device__ __forceinline__ void zero(float (*acc)[4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+}
+
+// K6. Blocks an SM the register budget must allow: four at D 64 keep the
+// training shape's 512 blocks in one wave, three at D 128 the 384 of
+// [4, 768, 8, 128].
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const int* __restrict__ mask,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int T, int H,
-                     float scale) {
-  constexpr int BQT = omni::tile_keys(D);   // query rows per tile
-  constexpr int NG = D / 16;
-  __shared__ __align__(16) float Qs[BQT][D];
-  __shared__ __align__(16) float Os[BQT][D];  // dO
-  __shared__ float Ls[BQT];
-  __shared__ float Ds[BQT];
+__global__ void __launch_bounds__(THREADS, D == 128 ? 3 : 4)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ mask,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int T, int H, float scale) {
+  constexpr int TILE = FlashTile<D>::ELEMS;
+  constexpr int KD = D / 16;
+  constexpr int KS = D == 128 ? 16 : 32;   // keys a step takes
+  constexpr int NS = KS / 8;               // 8-key column tiles a step
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);         // [2][TILE]
+  bf16* Vs = Ks + 2 * TILE;                             // [2][TILE]
+  int* Ms = reinterpret_cast<int*>(Vs + 2 * TILE);      // [2][BR]
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
-  const int ki = blockIdx.x * BQ + tid / TPQ;
-  const int part = tid % TPQ;
+  const int row0 = blockIdx.x * BR + warp * 16;   // the warp's first query
   const size_t ts = static_cast<size_t>(H) * D;
-  const size_t base = static_cast<size_t>(b) * T * ts + static_cast<size_t>(h) * D;
+  const size_t base =
+      static_cast<size_t>(b) * T * ts + static_cast<size_t>(h) * D;
+  const int* mrow = mask + static_cast<size_t>(b) * T;
+  const int n_tiles = (T + BR - 1) / BR;
 
-  float kr[4 * NG], vr[4 * NG], dka[4 * NG], dva[4 * NG];
+  // Q and dO (staged in the second K and V buffers), key tile 0, its mask.
+  omni::load_tile<D>(Ks + TILE, q + base, ts, blockIdx.x * BR, T, tid);
+  omni::load_tile<D>(Vs + TILE, dout + base, ts, blockIdx.x * BR, T, tid);
+  omni::load_tile<D>(Ks, k + base, ts, 0, T, tid);
+  omni::load_tile<D>(Vs, v + base, ts, 0, T, tid);
+  omni::load_words(Ms, mrow, 0, T, tid, 0);
+  omni::cp_async_commit();
+  omni::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KD][4], dof[KD][4];
+  omni::load_a_frags<D>(qf, Ks + TILE, warp * 16, lane);
+  omni::load_a_frags<D>(dof, Vs + TILE, warp * 16, lane);
+  __syncthreads();                  // the second buffers are free for tile 1
+
+  float rl[2], rd[2];               // lse and delta of rows g and g + 8
 #pragma unroll
-  for (int i = 0; i < 4 * NG; ++i) kr[i] = vr[i] = dka[i] = dva[i] = 0.f;
-  bool key_valid = false;
-  if (ki < T) {
-    omni::load_row<D>(k + base + ki * ts + part * 4, kr, 1.f);
-    omni::load_row<D>(v + base + ki * ts + part * 4, vr, 1.f);
-    key_valid = mask[static_cast<size_t>(b) * T + ki] > 0;
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + g + 8 * r;
+    const size_t at = static_cast<size_t>(bh) * T + qi;
+    rl[r] = qi < T ? lse[at] : omni::FULLY_MASKED_LSE;
+    rd[r] = qi < T ? delta[at] : 0.f;
   }
+  float acc[2 * KD][4];             // dQ: 8-dim tiles, rows g and g + 8
+  zero<2 * KD>(acc);
 
-  for (int i0 = 0; i0 < T; i0 += BQT) {
-    omni::load_tiles<D, BQT>(q, dout, Qs, Os, base, ts, i0, T, tid);
-    if (tid < BQT) {
-      const int t = i0 + tid;
-      const size_t g = static_cast<size_t>(bh) * T + t;
-      Ls[tid] = (t < T) ? lse[g] : omni::FULLY_MASKED_LSE;
-      Ds[tid] = (t < T) ? delta[g] : 0.f;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {
+      const int nb = buf ^ 1;
+      omni::load_tile<D>(Ks + nb * TILE, k + base, ts, (j + 1) * BR, T, tid);
+      omni::load_tile<D>(Vs + nb * TILE, v + base, ts, (j + 1) * BR, T, tid);
+      omni::load_words(Ms + nb * BR, mrow, (j + 1) * BR, T, tid, 0);
     }
+    omni::cp_async_commit();
+    omni::cp_async_wait<1>();       // tile j has landed
     __syncthreads();
-#pragma unroll 4
-    for (int i = 0; i < BQT; ++i) {
-      const float s = omni::row_dot<D>(kr, Qs[i], part) * scale;
-      const float dp = omni::row_dot<D>(vr, Os[i], part);
-      const float p = key_valid ? expf(s - Ls[i]) : 0.f;
-      omni::row_axpy<D>(dva, p, Os[i], part);
-      omni::row_axpy<D>(dka, p * (dp - Ds[i]), Qs[i], part);
+    const bf16* kt = Ks + buf * TILE;
+    const bf16* vt = Vs + buf * TILE;
+    const int* mt = Ms + buf * BR;
+
+#pragma unroll
+    for (int k0 = 0; k0 < BR; k0 += KS) {
+      // S = Q K^T and dP = dO V^T for the warp's 16 rows x KS keys.
+      float s[NS][4], dp[NS][4];
+      zero<NS>(s);
+      zero<NS>(dp);
+      omni::mma_a_rows<D, NS>(s, qf, kt, k0, lane);
+      omni::mma_a_rows<D, NS>(dp, dof, vt, k0, lane);
+      // dS = P (dP - delta), P = exp(S scale - lse) on valid keys; in S.
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int2 mk =
+            *reinterpret_cast<const int2*>(mt + k0 + n * 8 + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = (e & 1 ? mk.y : mk.x) > 0;
+          const float p = valid ? expf(s[n][e] * scale - rl[e >> 1]) : 0.f;
+          s[n][e] = p * (dp[n][e] - rd[e >> 1]);
+        }
+      }
+      // dQ += dS K, dS = hi + lo in bf16, 16 keys a k-step.
+#pragma unroll
+      for (int kk = 0; kk < KS / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        omni::split_a_frag(s + 2 * kk, hi, lo);
+        omni::mma_split_cols<D>(acc, hi, lo, kt, k0 + 16 * kk, lane);
+      }
     }
+    __syncthreads();                // buffer `buf` is refilled next round
+  }
+  store_rows<D>(dq + base + static_cast<size_t>(row0) * ts, acc, scale, ts,
+                row0, T, lane);
+}
+
+// K7. Blocks an SM: four at D 64 (the training shape's 512 blocks in one
+// wave); two at D 128, where K and V fragments and the dK and dV
+// accumulators alone take 192 registers.
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 128 ? 2 : 4)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ mask,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int T, int H, float scale) {
+  constexpr int TILE = FlashTile<D>::ELEMS;
+  constexpr int KD = D / 16;
+  constexpr int QS = 16;                   // queries a step takes
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);         // [2][TILE]
+  bf16* Os = Qs + 2 * TILE;                             // dO, [2][TILE]
+  float* Ls = reinterpret_cast<float*>(Os + 2 * TILE);  // lse, [2][BR]
+  float* Ds = Ls + 2 * BR;                              // delta, [2][BR]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int row0 = blockIdx.x * BR + warp * 16;   // the warp's first key
+  const size_t ts = static_cast<size_t>(H) * D;
+  const size_t base =
+      static_cast<size_t>(b) * T * ts + static_cast<size_t>(h) * D;
+  const float* lrow = lse + static_cast<size_t>(bh) * T;
+  const float* drow = delta + static_cast<size_t>(bh) * T;
+  const int n_tiles = (T + BR - 1) / BR;
+
+  // K and V (staged in the second Q and dO buffers), query tile 0 with its
+  // lse and delta; queries past T get lse +1e30, so p = 0 there.
+  omni::load_tile<D>(Qs + TILE, k + base, ts, blockIdx.x * BR, T, tid);
+  omni::load_tile<D>(Os + TILE, v + base, ts, blockIdx.x * BR, T, tid);
+  omni::load_tile<D>(Qs, q + base, ts, 0, T, tid);
+  omni::load_tile<D>(Os, dout + base, ts, 0, T, tid);
+  omni::load_words(Ls, lrow, 0, T, tid, omni::FULLY_MASKED_LSE);
+  omni::load_words(Ds, drow, 0, T, tid, 0.f);
+  omni::cp_async_commit();
+  omni::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t kf[KD][4], vf[KD][4];
+  omni::load_a_frags<D>(kf, Qs + TILE, warp * 16, lane);
+  omni::load_a_frags<D>(vf, Os + TILE, warp * 16, lane);
+  __syncthreads();                  // the second buffers are free for tile 1
+
+  bool kvalid[2];                   // keys g and g + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ki = row0 + g + 8 * r;
+    kvalid[r] = ki < T && mask[static_cast<size_t>(b) * T + ki] > 0;
+  }
+  float dka[2 * KD][4], dva[2 * KD][4];   // 8-dim tiles, keys g and g + 8
+  zero<2 * KD>(dka);
+  zero<2 * KD>(dva);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {
+      const int nb = buf ^ 1;
+      const int t0 = (j + 1) * BR;
+      omni::load_tile<D>(Qs + nb * TILE, q + base, ts, t0, T, tid);
+      omni::load_tile<D>(Os + nb * TILE, dout + base, ts, t0, T, tid);
+      omni::load_words(Ls + nb * BR, lrow, t0, T, tid,
+                       omni::FULLY_MASKED_LSE);
+      omni::load_words(Ds + nb * BR, drow, t0, T, tid, 0.f);
+    }
+    omni::cp_async_commit();
+    omni::cp_async_wait<1>();       // tile j has landed
     __syncthreads();
+    const bf16* qt = Qs + buf * TILE;
+    const bf16* ot = Os + buf * TILE;
+    const float* lt = Ls + buf * BR;
+    const float* dt = Ds + buf * BR;
+
+#pragma unroll
+    for (int i0 = 0; i0 < BR; i0 += QS) {
+      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys x 16 queries.
+      float st[2][4], dpt[2][4];
+      zero<2>(st);
+      zero<2>(dpt);
+      omni::mma_a_rows<D, 2>(st, kf, qt, i0, lane);
+      omni::mma_a_rows<D, 2>(dpt, vf, ot, i0, lane);
+      // P^T in st, dS^T in dpt; lse and delta per column (query).
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int col = i0 + n * 8 + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = e & 1 ? l2.y : l2.x;
+          const float dl = e & 1 ? d2.y : d2.x;
+          const float p = kvalid[e >> 1] ? expf(st[n][e] * scale - lq) : 0.f;
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - dl);
+        }
+      }
+      // dV += P^T dO, dK += dS^T Q; P and dS = hi + lo in bf16.
+      uint32_t hi[4], lo[4];
+      omni::split_a_frag(st, hi, lo);
+      omni::mma_split_cols<D>(dva, hi, lo, ot, i0, lane);
+      omni::split_a_frag(dpt, hi, lo);
+      omni::mma_split_cols<D>(dka, hi, lo, qt, i0, lane);
+    }
+    __syncthreads();                // buffer `buf` is refilled next round
   }
-  if (ki < T) {
-    omni::store_row<D>(dk + base + ki * ts + part * 4, dka, scale);
-    omni::store_row<D>(dv + base + ki * ts + part * 4, dva, 1.f);
-  }
+  const size_t at = base + static_cast<size_t>(row0) * ts;
+  store_rows<D>(dk + at, dka, scale, ts, row0, T, lane);
+  store_rows<D>(dv + at, dva, 1.f, ts, row0, T, lane);
 }
 
 template <int D>
@@ -166,18 +334,26 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const float* delta, void* dq, void* dk, void* dv,
                        int B, int T, int H, float scale,
                        cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
+  const dim3 grid((T + BR - 1) / BR, B * H);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* ob = static_cast<const bf16*>(dout);
+  cudaError_t err;
   if (dq != nullptr) {
-    flash_bwd_dq_kernel<D><<<grid, THREADS, 0, stream>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k),
-        static_cast<const bf*>(v), mask, static_cast<const bf*>(dout), lse,
-        delta, static_cast<bf*>(dq), T, H, scale);
+    const size_t smem = FlashTile<D>::bytes(1);
+    err = omni::allow_smem(flash_bwd_dq_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
+        qb, kb, vb, mask, ob, lse, delta, static_cast<bf16*>(dq), T, H,
+        scale);
   } else {
-    flash_bwd_dkv_kernel<D><<<grid, THREADS, 0, stream>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k),
-        static_cast<const bf*>(v), mask, static_cast<const bf*>(dout), lse,
-        delta, static_cast<bf*>(dk), static_cast<bf*>(dv), T, H, scale);
+    const size_t smem = FlashTile<D>::bytes(2);
+    err = omni::allow_smem(flash_bwd_dkv_kernel<D>, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
+        qb, kb, vb, mask, ob, lse, delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), T, H, scale);
   }
   return cudaGetLastError();
 }

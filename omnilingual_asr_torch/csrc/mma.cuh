@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a): asynchronous
 // global -> shared copies (cp.async), shared -> register fragment loads
 // (ldmatrix) and the bf16 m16n8k16 matrix product with f32 accumulation
-// (mma.sync). Used by the flash-attention forward (K2, attention.cu).
+// (mma.sync). Used by the flash-attention kernels (K2, attention.cu; K6 and
+// K7, attention_bwd.cu) through flash.cuh.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
 //   A 16x16 bf16, 4 x b32: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same),
@@ -33,12 +34,11 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                : "memory");
 }
 
-// 4 bytes global -> shared; zero-filled when !pred.
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+// 4 bytes global -> shared.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
-               "l"(src), "r"(pred ? 4 : 0)
+               "l"(src)
                : "memory");
 }
 
@@ -74,6 +74,32 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       : "memory");
 }
 
+// Where lane must point for ldmatrix_x4 to load, from a row-major bf16
+// tile with row stride ld (elements):
+//   a_frag_at: the A fragment of rows r0 .. r0 + 16, columns c0 .. c0 + 16;
+//   b_frag_at: as non-transposed B (k = column), the B fragments of the
+//     8-row n-tiles r0 and r0 + 8 over columns c0 .. c0 + 16, in r[0..1]
+//     and r[2..3] (the tile holds B^T, e.g. keys x dims for S = Q K^T);
+//   b_frag_trans_at: with ldmatrix_x4_trans (k = row), the B fragments of
+//     the 8-column n-tiles c0 and c0 + 8 over rows r0 .. r0 + 16, in
+//     r[0..1] and r[2..3] (the tile holds B, e.g. keys x dims for P V).
+__device__ __forceinline__ const __nv_bfloat16* a_frag_at(
+    const __nv_bfloat16* tile, int ld, int r0, int c0, int lane) {
+  return tile + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
+}
+
+__device__ __forceinline__ const __nv_bfloat16* b_frag_at(
+    const __nv_bfloat16* tile, int ld, int r0, int c0, int lane) {
+  return tile + (r0 + (lane & 7) + ((lane >> 4) << 3)) * ld + c0 +
+         ((lane >> 3) & 1) * 8;
+}
+
+__device__ __forceinline__ const __nv_bfloat16* b_frag_trans_at(
+    const __nv_bfloat16* tile, int ld, int r0, int c0, int lane) {
+  return tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + c0 +
+         (lane >> 4) * 8;
+}
+
 // c += a b for a 16x16 bf16 A, a 16x8 bf16 B, f32 C (exact products,
 // f32 sums).
 __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
@@ -100,6 +126,16 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t* hi,
   const float2 hf = __bfloat1622float2(h);
   *hi = *reinterpret_cast<uint32_t*>(&h);
   *lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// The C fragments c[0], c[1] of two adjacent 8-column tiles as the A
+// fragment of the 16 columns they cover, split as hi + lo.
+__device__ __forceinline__ void split_a_frag(float (*c)[4], uint32_t hi[4],
+                                             uint32_t lo[4]) {
+  split_bf16(c[0][0], c[0][1], &hi[0], &lo[0]);
+  split_bf16(c[0][2], c[0][3], &hi[1], &lo[1]);
+  split_bf16(c[1][0], c[1][1], &hi[2], &lo[2]);
+  split_bf16(c[1][2], c[1][3], &hi[3], &lo[3]);
 }
 
 }  // namespace omni

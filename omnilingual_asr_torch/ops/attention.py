@@ -144,6 +144,42 @@ def flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+#: Operands of the backward's second products that kernels K6 and K7 feed
+#: their bf16 tensor cores as hi + lo halves (two products) rather than as
+#: one bf16 value: "p" for dV = P^T dO, "ds" for dQ = dS K and dK = dS^T Q.
+KERNEL_BWD_SPLIT = ("p", "ds")
+
+
+def flash_attention_bwd_emulated(q, k, v, mask, do, lse, delta,
+                                 split=KERNEL_BWD_SPLIT):
+    """Kernels K6 and K7's arithmetic in plain PyTorch, to predict on the
+    CPU what their bf16 tensor-core products do to the gradients. s and dp
+    are f32 sums of exact bf16 products, as in the plain version; p and ds
+    are then rounded to bf16 for the products that take them, either as
+    hi + lo (operands named in ``split``: hi = bf16(x), lo = bf16(x - hi),
+    two products, as the kernels do) or as hi alone. Sums in f32; dQ and
+    dK times ``scale`` once, after the sum. Same arguments and results as
+    :func:`flash_attention_bwd_dq_plain` and
+    :func:`flash_attention_bwd_dkv_plain` together: (dq, dk, dv)."""
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _recompute(q, k, v, mask, do, lse, delta)
+
+    def parts(x, name):
+        hi = x.to(torch.bfloat16).to(f32)
+        if name not in split:
+            return (hi,)
+        return hi, (x - hi).to(torch.bfloat16).to(f32)
+
+    qf, kf, dof = (t.to(f32) for t in (q, k, do))
+    dq = sum(torch.einsum("bhts,bshd->bthd", x, kf)
+             for x in parts(ds, "ds")) * scale
+    dk = sum(torch.einsum("bhts,bthd->bshd", x, qf)
+             for x in parts(ds, "ds")) * scale
+    dv = sum(torch.einsum("bhts,bthd->bshd", x, dof) for x in parts(p, "p"))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_bwd_plain(q, k, v, mask, o, lse, do):
     """The whole backward from the forward's o and lse: (dq, dk, dv) in
     q's dtype. Recomputes p from lse; does not call autograd."""

@@ -17,13 +17,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -43,13 +44,44 @@ class BuildInfo:
     cached: bool
     ptxas_log: str
 
+    def kernels(self) -> List[Tuple[str, int, str]]:
+        """(kernel, registers, spill line) for each entry function in
+        ptxas's log (empty for a cached build)."""
+        out, name, spills = [], None, ""
+        for line in self.ptxas_log.splitlines():
+            entry = re.search(r"(?:Compiling entry function|Function "
+                              r"properties for) '?(\w+)", line)
+            if entry:
+                name = kernel_name(entry[1])
+            elif "spill stores" in line:
+                spills = line.strip()
+            elif name and (used := re.search(r"Used (\d+) registers", line)):
+                out.append((name, int(used[1]), spills))
+                name = None
+        return out
 
-def sources() -> List[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+
+def kernel_name(mangled: str) -> str:
+    """``name`` or ``name<D>`` of a kernel from its mangled symbol: the
+    length-prefixed identifier that ends in ``_kernel``."""
+    if "_kernel" not in mangled:
+        return mangled
+    end = mangled.find("_kernel") + len("_kernel")
+    for start in range(end - 1, 0, -1):
+        digits = re.search(r"\d+$", mangled[:start])
+        if digits and any(int(digits[0][-k:]) == end - start
+                          for k in range(1, len(digits[0]) + 1)):
+            arg = re.match(r"ILi(\d+)E", mangled[end:])
+            return mangled[start:end] + (f"<{arg[1]}>" if arg else "")
+    return mangled
 
 
-def _headers() -> List[Path]:
-    return sorted(CSRC_DIR.glob("*.cuh"))
+def sources(csrc: Path = CSRC_DIR) -> List[Path]:
+    return sorted(csrc.glob("*.cu"))
+
+
+def _headers(csrc: Path) -> List[Path]:
+    return sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -63,18 +95,19 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC_DIR) -> str:
     h = hashlib.sha256()
-    for p in sources() + _headers():
+    for p in sources(csrc) + _headers(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> BuildInfo:
-    """Compile the kernels (or find the cached build); returns BuildInfo."""
-    out_dir = BUILD_ROOT / source_hash()
+def build(csrc: Path = CSRC_DIR) -> BuildInfo:
+    """Compile the kernels of ``csrc`` (or find the cached build); returns
+    BuildInfo."""
+    out_dir = BUILD_ROOT / source_hash(csrc)
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return BuildInfo(lib, 0.0, True, "")
@@ -83,9 +116,9 @@ def build() -> BuildInfo:
     t0 = time.perf_counter()
     procs = []
     try:
-        for src in sources():
+        for src in sources(csrc):
             obj = out_dir / (src.stem + ".o")
-            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC_DIR),
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(csrc),
                    "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -144,19 +177,24 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def load(lib_path: Path) -> ctypes.CDLL:
+    """A built kernel library, its C entry points typed."""
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    lib.omni_error_string.argtypes = [_I]
+    lib.omni_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build().lib_path))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = _I
-            lib.omni_error_string.argtypes = [_I]
-            lib.omni_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build().lib_path)
         return _lib
 
 

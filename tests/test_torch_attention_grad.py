@@ -100,6 +100,65 @@ def test_flash_attention_grads_match_jax(D, case, dtype):
         assert (g[dead_row] == 0).all()
 
 
+def _share(got, want):
+    """Largest share of the card's backward tolerance, 2^-10 max|g| +
+    2^-7 |g| (chip_smoke.py's TOL_BWD_ABS/REL), that any element uses."""
+    got, want = got.float().numpy(), np.asarray(want)
+    tol = 2.0 ** -10 * np.abs(want).max() + 2.0 ** -7 * np.abs(want)
+    return float((np.abs(got - want) / tol).max())
+
+
+@pytest.mark.parametrize("case", sorted(MASKS))
+@pytest.mark.parametrize("D", [64, 128])
+def test_k6_k7_bf16_emulation_within_kernel_tolerance(D, case):
+    """Kernels K6 and K7 round P and dS to bf16 for their tensor-core
+    products (dV = P^T dO; dQ = dS K, dK = dS^T Q); the reference keeps
+    them in f32. The kernels' arithmetic, emulated on the CPU
+    (``flash_attention_bwd_emulated``), against the JAX Pallas backward
+    (``_flash_bh_bwd``) in interpret mode, from the same q, k, v, dO, o and
+    lse, at the card's tolerance. With both split as hi + lo bf16 halves
+    (``KERNEL_BWD_SPLIT``, the kernels' choice) every gradient passes.
+    With P as one bf16 value dV misses in every case (its terms are all
+    positive, so the rounding does not average out against the 2^-10
+    max|dV| floor); with dS as one bf16 value dQ or dK misses where rows
+    are ragged (fewer, larger p), which is why both take the second
+    product. Masked keys and a fully masked slot stay exactly 0."""
+    q, k, v, do, mask = _case(D, MASKS[case], "bf16", seed=D + len(case))
+    shape = q.shape
+    to = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    qb, kb, vb, dob = (jax_attention._to_bh(to(a), *shape)
+                       for a in (q, k, v, do))
+    maskb = jnp.repeat(jnp.asarray(mask, jnp.int32), H, axis=0)[:, None, :]
+    o, lse = jax_attention._fwd_lse(qb, kb, vb, maskb, 1.0 / np.sqrt(D),
+                                    True)
+    want = [np.asarray(jax_attention._from_bh(g, *shape).astype(jnp.float32))
+            for g in jax_attention._flash_bh_bwd(
+                True, (qb, kb, vb, maskb, o, lse), dob)[:3]]
+    tt = lambda a: torch.from_numpy(np.array(a, np.float32)).to(  # noqa: E731
+        torch.bfloat16)
+    o_t = tt(jax_attention._from_bh(o, *shape).astype(jnp.float32))
+    args = (tt(q), tt(k), tt(v), torch.from_numpy(mask), tt(do),
+            torch.from_numpy(np.array(lse)).reshape(B, H, T))
+    delta = attention.flash_delta(o_t, args[4])
+
+    def shares(split):
+        got = attention.flash_attention_bwd_emulated(*args, delta,
+                                                     split=split)
+        return dict(zip(("dq", "dk", "dv"),
+                        (_share(g, w) for g, w in zip(got, want)))), got
+
+    chosen, got = shares(attention.KERNEL_BWD_SPLIT)
+    assert attention.KERNEL_BWD_SPLIT == ("p", "ds")
+    assert max(chosen.values()) <= 1.0, chosen
+    assert (got[1][~mask] == 0).all() and (got[2][~mask] == 0).all()
+    assert (got[0][~mask.any(axis=1)] == 0).all()
+    p_hi, _ = shares(("ds",))
+    assert p_hi["dv"] > 1.0, p_hi
+    if case == "ragged":
+        ds_hi, _ = shares(("p",))
+        assert max(ds_hi["dq"], ds_hi["dk"]) > 1.0, ds_hi
+
+
 def test_flash_backward_pieces_compose():
     """The two halves (K6's and K7's plain versions) with ``flash_delta``
     equal ``flash_attention_bwd_plain``, and the whole equals autograd
