@@ -17,9 +17,10 @@ with no result line:
              it, the dense DFT's beside it), flash attention (K2, at head
              dims 64 and 128, at the training shape and at a ragged T of
              200), the fused conv module (K3, at the serving and the
-             training shape and at large_config's width, D 1024), the int8
-             matmuls W8A16 (K4) and W8A8
-             (K5, at the three widths of the quantized main path) and the
+             training shape and at large_config's width, D 1024, each with
+             its launch plan: both launches' blocks and pw1's rows a
+             frame), the int8 matmuls W8A16 (K4) and W8A8 (K5, at the
+             three widths of the quantized main path) and the
              flash-attention backward, dQ (K6) and dK/dV (K7), at the
              training shape, at large_config's head dim 128 and at a
              ragged T of 200 (with the o and lse they read held to the
@@ -29,7 +30,10 @@ with no result line:
              yardstick where one exists, and the card's bound. Times are
              device times: 20 calls captured back to back in a CUDA graph,
              replayed between CUDA events (``call_ms`` adds one eager
-             call's time, host launch included).
+             call's time, host launch included). K3's and K5's entries
+             carry their kernels' registers; their previous design's
+             recorded times (RECORDED_EARLIER_MS, not measured here)
+             follow on a line of their own.
 4. e2e     - ``TranscriptionEngine`` on the card with the release weights
              answers three ``transcribe`` requests (the golden fixture, the
              same audio tiled to two minutes = one full batch of 4 windows,
@@ -140,24 +144,31 @@ TOL_BWD_REL = 2.0 ** -7
 # beside it, and plants a fault (delta dropped from the flash backward)
 # whose reading must exceed the tolerance, or the check fails.
 TOL_GRAD_REL = 5e-2
-TOL_K3 = 5e-2   # conv module, abs: LN output and SiLU output are rounded to
-#                 bf16 in both; f32 inputs that differ in summation order can
-#                 round one bf16 ulp apart, and one flipped input moves a
-#                 256-term pointwise sum by |w| * 2^-8 * |h|
 # W8A16 matmul, per element: both sum the same exact bf16 x int8 products in
 # f32 in another order, each within K * 2^-24 * sum|terms| of the exact sum,
 # so |got - want| <= 2 K 2^-24 (|bf16(x)| @ |w_q|) scale[n], plus one f32
 # rounding of the bias add (2^-23 |want|).
 TOL_K4_ORDER = 2.0 ** -24
-# W8A8 matmul, abs relative to max|ref|: the int32 sums are exact and every
-# other step is the same f32 operation, so the kernel should equal its plain
-# version bit for bit; any difference means an activation was quantized
-# differently.
-TOL_K5_REL = 1e-6
+# K3's tolerance (TOL_K3) and K5's (TOL_K5_REL), and the shapes both are
+# checked at, are in omnilingual_asr_torch/ops/card_cases.py, which the
+# tiling sweep reads too.
 # The release layers that take K4/K5, by width N: the FFN up-projections
 # (8 a batch), the CTC head and the LID head.
 QUANT_LAYERS = {1024: ("blocks", 0, "ffn1", "w1"), 512: ("ctc_head",),
                 2048: ("lid_head",)}
+# Device ms of K3 and K5 as designed before their current design (K3: 32
+# frames a block over 64 halo rows, both products as f32 FMAs on the CUDA
+# cores; K5: every column tile re-quantizing its rows), by D and by N at
+# this script's shapes: the mean of two runs of this script at commit
+# 622b750 on an H100 80GB HBM3 at 700 W. Recorded, not measured by this
+# run: logged on a line of its own after the kernel checks, and in no
+# entry of the report.
+RECORDED_EARLIER_MS = {"conv_module": {256: 0.1515119969844818,
+                                       512: 0.5420583963394165,
+                                       1024: 2.0611288070678713},
+                       "q8a8_matmul": {512: 0.01579599976539612,
+                                       1024: 0.027265599370002745,
+                                       2048: 0.04393839985132217}}
 
 
 class PhaseError(RuntimeError):
@@ -546,45 +557,52 @@ def check_flash_bwd(dev, peaks, cfg):
     return entries
 
 
-def check_k3(dev, peaks, cfg, params):
+def check_k3(dev, peaks, cfg, params, ptxas):
     """K3 at the serving path's shape with the release weights, and at the
     training path's (batch 16, T' 256, D 512, random weights) and
     large_config's width ([4, 256, 1024], random weights) under
-    "shapes"."""
+    "shapes"; each with its launch plan (blocks of each stage, rows pw1
+    runs over per output frame). The shapes are card_cases.K3_SHAPES."""
     import torch
     from omnilingual_asr_torch.config import PipelineConfig
     from omnilingual_asr_torch.models.layers import convmod_init
+    from omnilingual_asr_torch.ops.card_cases import K3_SHAPES
 
     p = params["blocks"][0]["conv"]          # release weights
-    main = _k3_case(dev, peaks, WINDOWS_PER_BATCH, 768, [768, 700, 301, 0],
-                    p, SEED + 2)
+    main = _k3_case(dev, peaks, K3_SHAPES["serving"], p, SEED + 2)
     enc = PipelineConfig().encoder
     pt = convmod_init(torch.Generator().manual_seed(SEED),
                       enc.d_model, enc.conv_kernel)
     pt = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
               else v.to(dev)) for k, v in pt.items()}
-    train = _k3_case(dev, peaks, TRAIN_BATCH, 256, [256] * 13 + [200, 77, 0],
-                     pt, SEED + 12)
+    train = _k3_case(dev, peaks, K3_SHAPES["training"], pt, SEED + 12)
     # large_config's width (d_model 1024), which a kernel-mode training run
     # at that width launches.
     pw = convmod_init(torch.Generator().manual_seed(SEED + 1), 1024,
                       enc.conv_kernel)
     pw = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
               else v.to(dev)) for k, v in pw.items()}
-    wide = _k3_case(dev, peaks, WINDOWS_PER_BATCH, 256, [256, 200, 77, 0],
-                    pw, SEED + 16)
+    wide = _k3_case(dev, peaks, K3_SHAPES["d1024"], pw, SEED + 16)
     return {"name": "conv_module", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/conv_module.cu",
             "replaces": "omnilingual_asr_tpu/ops/conv_module.py:32",
-            **main, "shapes": [main, train, wide]}
+            **main, "shapes": [main, train, wide],
+            "ptxas": {k: v for k, v in ptxas.items()
+                      if k.startswith(("conv_stage1_kernel",
+                                       "conv_stage2_kernel"))}}
 
 
-def _k3_case(dev, peaks, B, T, valid, p, seed):
+def _k3_case(dev, peaks, shape, p, seed):
     import torch
+    from omnilingual_asr_torch.ops import cuda_build
+    from omnilingual_asr_torch.ops.card_cases import TOL_K3
     from omnilingual_asr_torch.ops.conv_module import (conv_module_plain,
                                                        fused_conv_module)
 
-    D = p["dw"].shape[1]
+    B, T, D, valid = shape
+    if p["dw"].shape[1] != D:
+        raise PhaseError(f"K3: weights of width {p['dw'].shape[1]} for a "
+                         f"case of width {D}")
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(B, T, D, generator=gen, device=dev)
     n_valid = torch.tensor(valid, device=dev)
@@ -601,6 +619,7 @@ def _k3_case(dev, peaks, B, T, valid, p, seed):
         raise PhaseError(f"K3 conv module D={D}: max abs err {err:.3e} > "
                          f"{TOL_K3}")
     K = p["dw"].shape[0]
+    plan = cuda_build.plan("omni_conv_module_plan", B, T, D)
     pw_flops = 2 * B * T * D * (2 * D + D)
     dw_flops = 2 * B * T * D * K
     b_ms, b_by = bound({"bf16": pw_flops, "f32": dw_flops},
@@ -615,6 +634,9 @@ def _k3_case(dev, peaks, B, T, valid, p, seed):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"x [{B}, {T}, {D}] f32, K {K}",
         "gflop": (pw_flops + dw_flops) / 1e9,
+        "plan": {"stage1_blocks": plan[0], "stage2_blocks": plan[3],
+                 "frames_a_block": plan[2],
+                 "rows_per_frame": plan[1] / plan[2]},
     }
 
 
@@ -624,23 +646,26 @@ def _leaf(tree, path):
     return tree
 
 
-def check_quant(dev, peaks, params):
+def check_quant(dev, peaks, params, ptxas):
     """K4 and K5 at (3072, 256, N) for the quantized main path's widths, on
     the release layers of those widths (quantized as the engine quantizes
     them) and seeded activations with an outlier row. Returns the two
     kernels' entries, their numbers at N = 1024 (8 of the 10 launches a
-    batch) and every width under "widths"."""
+    batch) and every width under "widths". The shapes are
+    card_cases.K5_SHAPES."""
     import torch
     from omnilingual_asr_torch.ops import quant
+    from omnilingual_asr_torch.ops.card_cases import K5_SHAPES, TOL_K5_REL
 
-    M = WINDOWS_PER_BATCH * 768
     out = {"w8": [], "a8": []}
-    for N, path in QUANT_LAYERS.items():
-        leaf = _leaf(params, path)
+    for M, K, N in K5_SHAPES.values():
+        leaf = _leaf(params, QUANT_LAYERS[N])
+        if tuple(leaf["w"].shape) != (K, N):
+            raise PhaseError(f"K4/K5: layer {QUANT_LAYERS[N]} is "
+                             f"{tuple(leaf['w'].shape)}, not {(K, N)}")
         w_q, scale = quant.quantize_weight(leaf["w"])
         w_t = w_q.t().contiguous()
         bias = leaf["b"]
-        K = w_q.shape[0]
         gen = torch.Generator(device=dev).manual_seed(SEED + 3 + N)
         x = torch.randn(M, K, generator=gen, device=dev)
         x[0] *= 1000.0                  # an outlier row
@@ -727,7 +752,7 @@ def check_quant(dev, peaks, params):
     for mode, name, src_line in (
             ("w8", "q_matmul_w8a16", "omnilingual_asr_tpu/ops/quant.py:41"),
             ("a8", "q8a8_matmul", "omnilingual_asr_tpu/ops/quant.py:90")):
-        head = out[mode][0]                # N = 1024
+        head = next(w for w in out[mode] if w["N"] == 1024)
         entries.append({
             "name": name, "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/quant.cu",
@@ -735,6 +760,10 @@ def check_quant(dev, peaks, params):
             **{k: head[k] for k in ("max_abs_err", "tol", "ms", "call_ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},
+            **({"ptxas": {k: v for k, v in ptxas.items()
+                          if k in ("quantize_rows_kernel",
+                                   "q8a8_matmul_kernel")}}
+               if mode == "a8" else {}),
             "shape": f"x [{M}, {K}] f32, w_q [{K}, N] int8, numbers at "
                      f"N = 1024",
             "gflop": 2 * M * K * 1024 / 1e9,
@@ -1351,8 +1380,12 @@ def main(argv=None) -> int:
 
         info = cuda_build.build()
         cuda_build.library()
+        ptxas = {}
         for name, regs, spills in info.kernels():
             log(f"  {name}: {regs} registers, {spills}")
+            ptxas[name] = f"{regs} registers, {spills}"
+        if info.cached:
+            log("  (a cached build: registers not read in this run)")
         log(f"[build] {'cached' if info.cached else 'built'} "
             f"{info.lib_path.relative_to(ROOT)} in {info.seconds:.2f} s "
             f"({time.perf_counter() - t0:.2f} s)")
@@ -1369,8 +1402,8 @@ def main(argv=None) -> int:
         params = load_checkpoint(RELEASE / "asr.npz", cfg, dev)
         xvector = load_xvector(RELEASE / "xvector.npz", cfg, dev)
         kernels = [check_k1(dev, peaks, cfg), check_k2(dev, peaks, cfg),
-                   check_k3(dev, peaks, cfg, params),
-                   *check_quant(dev, peaks, params),
+                   check_k3(dev, peaks, cfg, params, ptxas),
+                   *check_quant(dev, peaks, params, ptxas),
                    *check_flash_bwd(dev, peaks, PipelineConfig())]
         for k in kernels:
             log(f"  {k['name']}: max abs err {k['max_abs_err']:.3e} (tol "
@@ -1381,6 +1414,8 @@ def main(argv=None) -> int:
             for w in (k.get("widths", []) + k.get("head_dims", [])
                       + k.get("shapes", [])):
                 log(f"    {json.dumps(w)}")
+        log(f"  recorded, not measured in this run: the earlier designs' "
+            f"device ms {json.dumps(RECORDED_EARLIER_MS)}")
         log(f"[kernels] ok ({time.perf_counter() - t0:.2f} s)")
 
         phase = "e2e"

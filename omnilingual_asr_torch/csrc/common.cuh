@@ -18,12 +18,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Round an f32 value to bf16 (round to nearest even) and back: the value a
-// bf16 matmul input holds, kept in f32 for the CUDA-core dot products.
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Opt a kernel in to more than 48 KB of dynamic shared memory.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel k, size_t bytes) {

@@ -34,23 +34,16 @@ struct FlashTile {
   }
 };
 
-// Rows t0 .. t0 + 64 of one head of a [B, T, H, D] operand (src at the
-// head's row 0, frame stride ts) into a padded shared tile, by cp.async;
-// rows at or past T are zero-filled. Every thread takes part.
+// Rows t0 .. t0 + 64 (t0 < T) of one head of a [B, T, H, D] operand (src
+// at the head's row 0, frame stride ts) into a padded shared tile, by
+// cp.async; rows at or past T are zero-filled. Every thread takes part.
 template <int D>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
                                           const __nv_bfloat16* src,
                                           size_t ts, int t0, int T, int tid) {
-  constexpr int CHUNKS = D / 8;                  // 16-byte chunks a row
-#pragma unroll
-  for (int c = tid; c < FLASH_ROWS * CHUNKS; c += FLASH_THREADS) {
-    const int row = c / CHUNKS;
-    const int col = (c % CHUNKS) * 8;
-    const int t = t0 + row;
-    const __nv_bfloat16* g =
-        src + static_cast<size_t>(min(t, T - 1)) * ts + col;
-    cp_async_16(tile + row * FlashTile<D>::LD + col, g, t < T);
-  }
+  load_rows_async<FLASH_ROWS, D * 2, FLASH_THREADS>(
+      tile, FlashTile<D>::LD * 2, src + static_cast<size_t>(t0) * ts, ts * 2,
+      tid, T - t0);
 }
 
 // Values t0 .. t0 + 64 of a length-T row of 4-byte words (a key mask, lse

@@ -1,8 +1,9 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a): asynchronous
 // global -> shared copies (cp.async), shared -> register fragment loads
 // (ldmatrix) and the bf16 m16n8k16 matrix product with f32 accumulation
-// (mma.sync). Used by the flash-attention kernels (K2, attention.cu; K6 and
-// K7, attention_bwd.cu) through flash.cuh.
+// (mma.sync), bf16 and int8. Used by the flash-attention kernels (K2,
+// attention.cu; K6 and K7, attention_bwd.cu) through flash.cuh, by the
+// conv module (K3, conv_module.cu) and by the W8A8 matmul (K5, quant.cu).
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
 //   A 16x16 bf16, 4 x b32: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same),
@@ -40,6 +41,29 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
                    smem_addr(dst)),
                "l"(src)
                : "memory");
+}
+
+// A [ROWS, ROW_BYTES] tile of a row-major global matrix (src at the
+// tile's first row, row stride src_ld bytes) into shared memory (row stride
+// dst_ld bytes), 16 bytes a cp.async, spread over THREADS threads. Rows at
+// or past `valid` (>= 1) are zero-filled and read nothing (their source is
+// clamped to row valid - 1, which exists). Every address must be 16-byte
+// aligned.
+template <int ROWS, int ROW_BYTES, int THREADS>
+__device__ __forceinline__ void load_rows_async(void* dst, int dst_ld,
+                                                const void* src,
+                                                size_t src_ld, int tid,
+                                                int valid = ROWS) {
+  constexpr int CHUNKS = ROW_BYTES / 16;
+  static_assert(ROW_BYTES % 16 == 0, "rows are copied 16 bytes at a time");
+#pragma unroll
+  for (int i = tid; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 16;
+    cp_async_16(static_cast<char*>(dst) + r * dst_ld + c,
+                static_cast<const char*>(src) + min(r, valid - 1) * src_ld +
+                    c,
+                r < valid);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -109,6 +133,20 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for a 16x32 int8 A, a 32x8 int8 B, int32 C (exact). The
+// fragments are those of the bf16 m16n8k16 product over the same bytes
+// read as b16 pairs, so a_frag_at / b_frag_at with ldmatrix_x4 load them
+// from a byte tile viewed as b16 (columns and row stride halved).
+__device__ __forceinline__ void mma_s8_16832(int c[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -5,11 +5,11 @@ frame, LN -> pointwise [D, 2D] (bf16 in, f32 accumulation) -> GLU ->
 x mask -> depthwise K taps, SAME (left (K-1)//2) -> LN -> SiLU ->
 pointwise [D, D] (bf16 in, f32 accumulation) -> + the unmasked input.
 
-``fused_conv_module`` launches the CUDA kernel (``csrc/conv_module.cu``)
-for CUDA tensors and runs ``conv_module_plain`` (the twin of the
-reference's ``_conv_module_ref``) for CPU tensors. ``FusedConvModule`` is
-the differentiable entry point: K3 forward, autograd of the plain version
-backward, as the reference's custom VJP.
+``fused_conv_module`` launches the CUDA kernel (``csrc/conv_module.cu``:
+two launches, one count) for CUDA tensors and runs ``conv_module_plain``
+(the twin of the reference's ``_conv_module_ref``) for CPU tensors.
+``FusedConvModule`` is the differentiable entry point: K3 forward,
+autograd of the plain version backward, as the reference's custom VJP.
 """
 
 from __future__ import annotations
@@ -18,13 +18,12 @@ import torch
 
 from . import cuda_build
 
-#: Largest depthwise kernel the CUDA kernel's 64-row halo holds (32 output
-#: frames + K - 1 halo rows).
+#: Largest depthwise kernel the CUDA kernel's halo holds: its first stage
+#: computes pw1 over a block's frames plus 32 halo rows (K - 1 <= 32).
 KERNEL_MAX_TAPS = 33
-#: Widest model the kernel takes: large_config's D 1024, where its
-#: shared memory (~32 KB plus a [32, D + 4] f32 tile) is 162 KB of the
-#: 227 KB a block may use. Wider would fit up to D 1536 but is not
-#: checked on the card.
+#: Widest model the kernel takes: its first stage joins the D / 64 blocks
+#: of a frame tile in one thread block cluster, and a cluster holds at most
+#: 16 blocks, so D <= 1024 (large_config's width).
 KERNEL_MAX_D = 1024
 
 
@@ -62,6 +61,18 @@ def conv_module_plain(x, mask, ln_scale, ln_bias, pw1, dw, dwln_scale,
     return xf + out
 
 
+def kernel_scratch(B: int, T: int, D: int, device, lib=None) -> torch.Tensor:
+    """K3's scratch: the pw2 input bf16(SiLU(LN(c))), [B, T, D] bf16,
+    between its two launches, then its first launch's A operands,
+    bf16(LN(x)) of each tile of TT frames and its RP halo rows,
+    [B, ceil(T / TT), RP, D] bf16 (RP, TT from the plan of ``lib``, by
+    default the loaded kernel library)."""
+    _, rp, tt, *_ = cuda_build.plan("omni_conv_module_plan", B, T, D,
+                                    lib=lib)
+    n = B * T * D + B * -(-T // tt) * rp * D
+    return torch.empty(n, dtype=torch.bfloat16, device=device)
+
+
 def fused_conv_module(x, mask, ln_scale, ln_bias, pw1, dw, dwln_scale,
                       dwln_bias, pw2):
     """Fused conv module; see :func:`conv_module_plain`.
@@ -91,12 +102,14 @@ def fused_conv_module(x, mask, ln_scale, ln_bias, pw1, dw, dwln_scale,
     cuda_build.check_tensor(dw, "dw", f32, (K, D), dev)
     cuda_build.check_tensor(pw2, "pw2", torch.bfloat16, (D, D), dev)
     out = torch.empty_like(x)
+    scratch = kernel_scratch(B, T, D, dev)
     lib = cuda_build.library()
     err = lib.omni_conv_module(
         x.data_ptr(), mask_i.data_ptr(), ln_scale.data_ptr(),
         ln_bias.data_ptr(), pw1.data_ptr(), dw.data_ptr(),
         dwln_scale.data_ptr(), dwln_bias.data_ptr(), pw2.data_ptr(),
-        out.data_ptr(), B, T, D, K, cuda_build.stream_ptr(dev))
+        scratch.data_ptr(), out.data_ptr(), B, T, D, K,
+        cuda_build.stream_ptr(dev))
     cuda_build.check(err, "conv-module kernel")
     fused_conv_module.launches += 1
     return out

@@ -164,13 +164,16 @@ _SIGNATURES = {
     # q, k, v, mask, dO, lse, delta, dk, dv, B, T, H, D, scale, stream
     "omni_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _F, _P],
-    # x, mask, ln_s, ln_b, pw1, dw, dwln_s, dwln_b, pw2, out, B, T, D, K,
-    # stream
-    "omni_conv_module": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # x, mask, ln_s, ln_b, pw1, dw, dwln_s, dwln_b, pw2, scratch, out, B,
+    # T, D, K, stream
+    "omni_conv_module": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _P],
+    # B, T, D, plan (int[6])
+    "omni_conv_module_plan": [_I, _I, _I, _P],
     # x, w_t, scale, bias (or NULL), out, M, N, K, stream
     "omni_q_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "omni_q8a8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w_t, scale, bias (or NULL), out, scratch, M, N, K, stream
+    "omni_q8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -178,10 +181,13 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def load(lib_path: Path) -> ctypes.CDLL:
-    """A built kernel library, its C entry points typed."""
+    """A built kernel library, its C entry points typed (a library built
+    from some of the sources, as the sweeps build, has only theirs)."""
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = _I
     lib.omni_error_string.argtypes = [_I]
@@ -196,6 +202,16 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             _lib = load(build().lib_path)
         return _lib
+
+
+def plan(entry: str, *dims: int, lib: Optional[ctypes.CDLL] = None
+         ) -> List[int]:
+    """The launch plan a kernel's ``*_plan`` entry reports for ``dims``
+    (its grid and tiles; see the C source), from ``lib`` or the loaded
+    library."""
+    out = (ctypes.c_int * 6)()
+    check(getattr(lib or library(), entry)(*dims, out), entry)
+    return list(out)
 
 
 def check(err: int, what: str) -> None:

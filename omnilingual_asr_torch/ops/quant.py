@@ -162,7 +162,14 @@ def refuse_grad(what: str, *tensors) -> None:
             f"the unquantized weights")
 
 
-def _launch(entry: str, x, w_q, scale, bias, w_t, what: str) -> torch.Tensor:
+def kernel_scratch(M: int, K: int, device) -> torch.Tensor:
+    """What K5 keeps between its two launches: each row of x quantized,
+    xq [M, K] int8, then the row scales sx [M] f32, as bytes."""
+    return torch.empty(M * K + 4 * M, dtype=torch.uint8, device=device)
+
+
+def _launch(entry: str, x, w_q, scale, bias, w_t, what: str,
+            scratch: bool = False) -> torch.Tensor:
     M, K = x.shape
     K2, N = w_q.shape
     dev = x.device
@@ -180,11 +187,14 @@ def _launch(entry: str, x, w_q, scale, bias, w_t, what: str) -> torch.Tensor:
     if bias is not None:
         cuda_build.check_tensor(bias, "bias", torch.float32, (N,), dev)
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    # Held until the launch is queued, so that the allocator hands its
+    # memory out again only in stream order.
+    extra = [kernel_scratch(M, K, dev)] if scratch else []
     lib = cuda_build.library()
     err = getattr(lib, entry)(
         x.data_ptr(), w_t.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), M, N, K,
-        cuda_build.stream_ptr(dev))
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        *[t.data_ptr() for t in extra], M, N, K, cuda_build.stream_ptr(dev))
     cuda_build.check(err, f"{what} kernel")
     return out
 
@@ -213,13 +223,15 @@ def quantized_matmul_a8(x, w_q, scale, bias=None, w_t=None) -> torch.Tensor:
     :func:`quantized_matmul_a8_plain`.
 
     A CUDA tensor goes to kernel K5 (same arguments and limits as
-    :func:`quantized_matmul`); a CPU tensor to the plain version.
+    :func:`quantized_matmul`; two launches, one count: each row of x
+    quantized once, then the int8 product); a CPU tensor to the plain
+    version.
     """
     if not x.is_cuda:
         return quantized_matmul_a8_plain(x, w_q, scale, bias)
     refuse_grad("W8A8 matmul", x, scale, bias)
     out = _launch("omni_q8a8_matmul", x, w_q, scale, bias, w_t,
-                  "W8A8 matmul")
+                  "W8A8 matmul", scratch=True)
     quantized_matmul_a8.launches += 1
     return out
 

@@ -61,6 +61,29 @@ def test_k3_plain_matches_pallas_kernel(B, T, D, valid):
     assert np.median(np.abs(got - want)) < 1e-4
 
 
+@pytest.mark.parametrize("K", [31, 32])
+def test_k3_plain_matches_pallas_kernel_at_edges(K):
+    """T = 97, not a multiple of the CUDA kernel's 64- or 96-frame tiles,
+    with rows whole, ragged, one valid frame and a padded slot, at an odd
+    (31: SAME pads 15 | 15) and an even (32: 15 | 16) tap count: the card
+    holds the kernel against this plain version at these shapes.
+    Tolerance as test_k3_plain_matches_pallas_kernel."""
+    B, T, D = 4, 97, 64
+    rng = np.random.default_rng(K)
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    mask = np.arange(T)[None, :] < np.asarray([97, 64, 1, 0])[:, None]
+    p = _params(D, K, seed=K + 1)
+    want = np.asarray(jax_conv._fused_conv_fwd_kernel_call(
+        jnp.asarray(x), jnp.asarray(mask),
+        *(jnp.asarray(p[k]) for k in ORDER), interpret=True))
+    got = conv_module.fused_conv_module(
+        torch.from_numpy(x), torch.from_numpy(mask),
+        *(torch.from_numpy(p[k]) for k in ORDER)).numpy()
+    assert got.shape == want.shape == (B, T, D)
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+    assert np.median(np.abs(got - want)) < 1e-4
+
+
 def test_k3_plain_is_twin_of_reference_math():
     """conv_module_plain against the JAX package's own plain twin
     (_conv_module_ref) on the same inputs; same tolerance as above."""

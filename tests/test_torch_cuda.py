@@ -64,12 +64,16 @@ def test_flash_kernel_matches_plain(dev, T, valid, D):
     assert bool((lse[~live] == 1e30).all())
 
 
-@pytest.mark.parametrize("T,valid,D", [(768, [768, 700, 301, 0], 256),
-                                       (50, [50, 13], 256),
-                                       (256, [256, 200, 77, 0], 512),
-                                       (256, [256, 200, 77, 0], 1024)])
-def test_conv_module_kernel_matches_plain(dev, T, valid, D):
-    B, K = len(valid), 32
+@pytest.mark.parametrize("T,valid,D,K", [(768, [768, 700, 301, 0], 256, 32),
+                                         (50, [50, 13], 256, 32),
+                                         (256, [256, 200, 77, 0], 512, 32),
+                                         (256, [256, 200, 77, 0], 1024, 32),
+                                         # T not a multiple of the 64-frame
+                                         # tile; odd and even tap counts
+                                         (97, [97, 64, 1, 0], 256, 31),
+                                         (97, [97, 64, 1, 0], 256, 32)])
+def test_conv_module_kernel_matches_plain(dev, T, valid, D, K):
+    B = len(valid)
     gen = torch.Generator(device=dev).manual_seed(T)
 
     def rnd(*shape, scale=1.0):
@@ -83,9 +87,12 @@ def test_conv_module_kernel_matches_plain(dev, T, valid, D):
             rnd(D, 2 * D, scale=D ** -0.5).to(bf16),
             rnd(K, D, scale=K ** -0.5), 1 + rnd(D, scale=0.1),
             rnd(D, scale=0.1), rnd(D, D, scale=D ** -0.5).to(bf16))
+    before = conv_module.fused_conv_module.launches
     got = conv_module.fused_conv_module(*args)
     want = conv_module.conv_module_plain(*args)
     torch.cuda.synchronize()
+    assert conv_module.fused_conv_module.launches == before + 1
+    assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 5e-2
 
 
@@ -375,7 +382,10 @@ def _quant_inputs(dev, M, K, N, seed):
 
 @pytest.mark.parametrize("M,K,N", [(3072, 256, 1024), (3072, 256, 512),
                                    (3072, 256, 2048), (70, 128, 128),
-                                   (1, 384, 256)])
+                                   (1, 384, 256),
+                                   # where row stripes and column groups
+                                   # meet the M edge
+                                   (129, 256, 1024), (3071, 256, 1024)])
 def test_q8a8_kernel_equals_plain(dev, M, K, N):
     """K5: int32 sums are exact and every other step is the same f32
     operation, so the kernel equals its plain version bit for bit."""
@@ -387,6 +397,31 @@ def test_q8a8_kernel_equals_plain(dev, M, K, N):
         torch.cuda.synchronize()
         assert quant.quantized_matmul_a8.launches == before + 1
         assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("M,K,N", [(3072, 256, 1024), (3072, 256, 512),
+                                   (3072, 256, 2048), (1, 384, 256),
+                                   (129, 256, 1024)])
+def test_q8a8_kernel_is_deterministic(dev, M, K, N):
+    """K5: two calls on the same inputs are bit-identical (its int32 sums
+    are exact, and nothing depends on the order blocks run in)."""
+    x, w_q, scale, bias = _quant_inputs(dev, M, K, N, M + 7 * N)
+    w_t = w_q.t().contiguous()
+    first = quant.quantized_matmul_a8(x, w_q, scale, bias, w_t)
+    second = quant.quantized_matmul_a8(x, w_q, scale, bias, w_t)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_q8a8_kernel_takes_a_wide_k(dev):
+    """K5 at K = 8192 (its pre-pass keeps the first 512 columns of a row
+    in registers and reads the rest again): still equal to its plain
+    version bit for bit."""
+    x, w_q, scale, bias = _quant_inputs(dev, 200, 8192, 256, 11)
+    got = quant.quantized_matmul_a8(x, w_q, scale, bias)
+    want = quant.quantized_matmul_a8_plain(x, w_q, scale, bias)
+    torch.cuda.synchronize()
+    assert int((got != want).sum()) == 0
 
 
 @pytest.mark.parametrize("M,K,N", [(3072, 256, 1024), (3072, 256, 512),

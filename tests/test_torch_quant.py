@@ -147,6 +147,24 @@ def test_k5_plain_equals_pallas_kernel(M, N):
     assert rel.mean() < 0.02
 
 
+@pytest.mark.parametrize("N", [512, 1024])
+def test_k5_plain_equals_pallas_kernel_at_a_ragged_m(N):
+    """W8A8 at M = 129, where the CUDA kernel's row tiles meet the M edge:
+    the plain version against the reference's padded front end
+    (dense_quant_matmul pads M to its 256-row block), bit for bit."""
+    M, K = 129, 256
+    rng = np.random.default_rng(M + 7 * N)
+    x, w = _activations(rng, M, K), _weight(rng, K, N)
+    jq, js = jax_quant.quantize_weight(jnp.asarray(w))
+    want = np.asarray(jax_quant.dense_quant_matmul(
+        jnp.asarray(x), jq, js, mode="a8", interpret=True))
+    got = quant.quantized_matmul_a8(
+        torch.from_numpy(x), torch.from_numpy(np.array(jq)),
+        torch.from_numpy(np.array(js))).numpy()
+    assert got.shape == (M, N) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("M", [256, 3072])
 @pytest.mark.parametrize("N", [512, 1024])
 def test_k4_plain_matches_pallas_kernel(M, N):
