@@ -3,7 +3,8 @@
 // (ldmatrix) and the bf16 m16n8k16 matrix product with f32 accumulation
 // (mma.sync), bf16 and int8. Used by the flash-attention kernels (K2,
 // attention.cu; K6 and K7, attention_bwd.cu) through flash.cuh, by the
-// conv module (K3, conv_module.cu) and by the W8A8 matmul (K5, quant.cu).
+// conv module (K3, conv_module.cu) and by the W8A16 and W8A8 matmuls (K4,
+// K5, quant.cu).
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
 //   A 16x16 bf16, 4 x b32: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same),

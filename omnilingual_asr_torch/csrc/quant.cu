@@ -31,15 +31,39 @@
 // (K4), 0.8 us at the int8 peak of 1979 TOP/s (K5). Both are bound by
 // bytes, and the f32 output dominates them.
 //
-// K4's design: the Pallas kernels held K whole in VMEM with 256 x 512
-// blocks. Here one block of 8 warps owns a 64 x 128 output tile and walks
-// K in chunks of 128 through shared memory; each warp computes 32 x 32
-// with mma.m16n8k16 bf16 -> f32, rounding x to bf16 as it stores the chunk
-// and widening the int8 weights to bf16 (exact for |v| <= 127) as it
-// builds the B fragments. No asynchronous copies (each chunk's global
-// loads stall the tensor cores) and x is read again by every one of the
-// N / 128 column tiles: ~17 us at N = 1024 on an H100 SXM (700 W), 3.6x
-// the byte bound (chip_smoke.py). Left to a later change.
+// K4's design: bf16(x) made once, then a pipelined bf16 tensor-core GEMM,
+// in two launches (the wrapper counts one K4 launch a call).
+// 1. bf16_rows_kernel: x rounded to bf16 (round to nearest even, as
+//    astype(jnp.bfloat16)) once, 8 columns a thread, into xb [M, K] in the
+//    wrapper's scratch (1.6 MB at the main path's shapes, in L2). Within
+//    each 16-column group the columns are stored in the order the GEMM's
+//    fragments want: physical columns 4t .. 4t + 3 go to storage columns
+//    2t, 2t + 1, 2t + 8, 2t + 9.
+// 2. q_matmul_kernel: one block of 4 warps a 64 x 128 output tile (384
+//    blocks at N 1024, one wave at 3 blocks an SM); the bf16 rows of xb and
+//    the int8 rows of w_t stream in 64-deep chunks through a K4_STAGES-deep
+//    cp.async ring. A warp owns 64 x 32 outputs, so each weight is widened
+//    once a chunk: A fragments by ldmatrix from the bf16 tile, B fragments
+//    by ldmatrix from the int8 tile (four consecutive k of one column a
+//    register), each widened in registers to two bf16 pairs by byte
+//    permutes and a magic-number subtraction (exact for |v| <= 127);
+//    mma.m16n8k16 bf16 -> f32. The widened pairs hold k (4t, 4t + 1) and
+//    (4t + 2, 4t + 3) where the fragment layout has (2t, 2t + 1) and
+//    (2t + 8, 2t + 9): the pre-pass's column order gives A the same
+//    permutation, so the sums run over the same products. Scale and bias
+//    are read into registers before the first chunk; the f32 epilogue is
+//    staged through shared memory (over the ring) and written as 16-byte
+//    stores, whole 512-byte row segments. It is launched as a programmatic
+//    dependent of the pre-pass and loads its first weight chunks while the
+//    pre-pass finishes.
+// On an H100 SXM (700 W) K4 runs in ~12.6 us at N = 1024 (chip_smoke.py;
+// 17.3 us before), 2.6x the byte bound. Its chunk loop holds it (ops/
+// k4_phases.py): the operands of 384 blocks streaming from L2 (25 MB in
+// all, each x row read by N / 128 column tiles and each weight by M / 64
+// row tiles) and the mma.sync and widening issue of 12 warps an SM. A
+// persistent grid with cp.async.bulk stores of the staged tile, tried
+// against it, was no faster. Tiling and launch bounds were chosen by
+// ops/conv_quant_sweep.py on the card; times in PERF.md.
 //
 // K5's design: each row of x quantized once, then an int8 GEMM, in two
 // launches (the wrapper counts one K5 launch a call).
@@ -68,47 +92,11 @@
 
 namespace {
 
-constexpr int BM = 64;            // output rows per block
-constexpr int BN = 128;           // output columns per block
-constexpr int BK = 128;           // depth of one shared-memory chunk
-constexpr int THREADS = 256;      // 8 warps: 2 (rows) x 4 (columns) of 32 x 32
-constexpr int LD8 = BK + 16;      // int8 tile row stride in bytes (144)
-constexpr int LD16 = BK + 8;      // bf16 tile row stride in elements (272 B)
-constexpr int X_ITERS = BM * (BK / 4) / THREADS;   // x float4s a thread
-constexpr int W_ITERS = BN * (BK / 16) / THREADS;  // w_t int4s a thread
-static_assert(BM * (BK / 4) % THREADS == 0 && BN * (BK / 16) % THREADS == 0,
-              "chunk loads must divide evenly among the threads");
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// D = A (16 x 16, row) * B (16 x 8, col) + D, bf16 in, f32 accumulation.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two consecutive int8 weights (k, k + 1 of one column) as a bf16 pair,
-// the lower k in the low half.
-__device__ __forceinline__ uint32_t s8x2_to_bf16x2(const int8_t* p) {
-  return bits(__floats2bfloat162_rn(static_cast<float>(p[0]),
-                                    static_cast<float>(p[1])));
 }
 
 // One int8 activation: clip(rint(v / s), -127, 127).
@@ -117,120 +105,12 @@ __device__ __forceinline__ signed char quantize_s8(float v, float s) {
   return static_cast<signed char>(__float2int_rn(q));
 }
 
-// Four consecutive values of row m of x from column k; zeros past the M
-// edge.
-__device__ __forceinline__ float4 load_x4(const float* __restrict__ x, int m,
-                                          int M, int K, int k) {
-  if (m >= M) return make_float4(0.f, 0.f, 0.f, 0.f);
-  return *reinterpret_cast<const float4*>(x + static_cast<size_t>(m) * K + k);
-}
-
-// The [BN, BK] int8 chunk of w_t (rows n0.., columns k0..) into shared
-// memory, 16 bytes a thread per step.
-__device__ __forceinline__ void load_w_chunk(int8_t (*Bs)[LD8],
-                                             const int8_t* __restrict__ wt,
-                                             int n0, int k0, int K) {
-  constexpr int VEC = BK / 16;
-#pragma unroll
-  for (int it = 0; it < W_ITERS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    const int n = i / VEC, c = (i % VEC) * 16;
-    *reinterpret_cast<int4*>(&Bs[n][c]) = *reinterpret_cast<const int4*>(
-        wt + static_cast<size_t>(n0 + n) * K + k0 + c);
-  }
-}
-
-// Store two neighbouring outputs of one row: (v * scale) + bias, each
-// operation rounded on its own.
-__device__ __forceinline__ void store2(float* __restrict__ out, int r, int c,
-                                       int N, float v0, float v1,
-                                       const float* __restrict__ scale,
-                                       const float* __restrict__ bias) {
-  float2 y = make_float2(__fmul_rn(v0, scale[c]), __fmul_rn(v1, scale[c + 1]));
-  if (bias != nullptr) {
-    y.x = __fadd_rn(y.x, bias[c]);
-    y.y = __fadd_rn(y.y, bias[c + 1]);
-  }
-  *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * N + c) = y;
-}
-
-__global__ void __launch_bounds__(THREADS)
-q_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ wt,
-                const float* __restrict__ scale,
-                const float* __restrict__ bias, float* __restrict__ out,
-                int M, int N, int K) {
-  __shared__ __align__(16) __nv_bfloat16 As[BM][LD16];
-  __shared__ __align__(16) int8_t Bs[BN][LD8];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    constexpr int AV = BK / 4;
-#pragma unroll
-    for (int it = 0; it < X_ITERS; ++it) {
-      const int i = tid + it * THREADS;
-      const int r = i / AV, c = (i % AV) * 4;
-      const float4 v = load_x4(x, m0 + r, M, K, k0 + c);
-      uint2 packed;
-      packed.x = bits(__floats2bfloat162_rn(v.x, v.y));
-      packed.y = bits(__floats2bfloat162_rn(v.z, v.w));
-      *reinterpret_cast<uint2*>(&As[r][c]) = packed;
-    }
-    load_w_chunk(Bs, wt, n0, k0, K);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm + mi * 16 + g;
-        a[mi][0] = ld32(&As[r][kk + tig * 2]);
-        a[mi][1] = ld32(&As[r + 8][kk + tig * 2]);
-        a[mi][2] = ld32(&As[r][kk + 8 + tig * 2]);
-        a[mi][3] = ld32(&As[r + 8][kk + 8 + tig * 2]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* col = &Bs[wn + ni * 8 + g][kk + tig * 2];
-        const uint32_t b0 = s8x2_to_bf16x2(col);
-        const uint32_t b1 = s8x2_to_bf16x2(col + 8);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int c = n0 + wn + ni * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm + mi * 16 + g + h * 8;
-        if (r < M)
-          store2(out, r, c, N, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1],
-                 scale, bias);
-      }
-    }
-}
-
-// K5's two launches overlap by programmatic dependent launch: the product
-// is launched with cudaLaunchAttributeProgrammaticStreamSerialization, may
-// start once every pre-pass block has called launch_dependents, loads its
-// first weight chunks, and waits in wait_prerequisites (until the pre-pass
-// has completed and its writes are visible) before it reads xq.
+// K4's and K5's two launches overlap by programmatic dependent launch: the
+// product is launched with cudaLaunchAttributeProgrammaticStreamSerialization,
+// may start once every pre-pass block has called launch_dependents, loads
+// its first weight chunks, and waits in wait_prerequisites (until the
+// pre-pass has completed and its writes are visible) before it reads the
+// pre-pass's output.
 __device__ __forceinline__ void launch_dependents() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
@@ -435,21 +315,257 @@ q8a8_matmul_kernel(const int8_t* __restrict__ xq,
   }
 }
 
+// K4 tiling (ops/conv_quant_sweep.py --k4 times the alternatives).
+constexpr int K4_BM = 64;         // output rows a block owns
+constexpr int K4_BN = 128;        // output columns a block owns
+constexpr int K4_BK = 64;         // depth of one operand chunk (k values)
+constexpr int K4_WM = 64;         // rows a warp owns
+constexpr int K4_WN = 32;         // columns a warp owns
+constexpr int K4_STAGES = 2;      // chunks in the cp.async ring
+constexpr int K4_MIN_BLOCKS = 3;  // __launch_bounds__' blocks an SM
+constexpr int K4_WARPS = K4_BM / K4_WM * (K4_BN / K4_WN);
+constexpr int K4_THREADS = K4_WARPS * 32;
+constexpr int K4_MI = K4_WM / 16;          // 16-row fragments a warp
+constexpr int K4_NB = K4_WN / 16;          // 16-column fragment pairs
+constexpr int K4_LDA = 2 * K4_BK + 16;     // bf16 x chunk row (bytes)
+constexpr int K4_LDB = K4_BK + 16;         // int8 w_t chunk row (bytes)
+constexpr int K4_LDO = K4_BN + 8;          // staged output row (floats)
+constexpr int K4_STAGE = K4_BM * K4_LDA + K4_BN * K4_LDB;  // a ring slot
+constexpr int K4_RING = K4_STAGES * K4_STAGE;
+constexpr int K4_SMEM = K4_RING > K4_BM * K4_LDO * 4 ? K4_RING
+                                                     : K4_BM * K4_LDO * 4;
+static_assert(K4_BM % K4_WM == 0 && K4_WM % 16 == 0 &&
+                  K4_BN % K4_WN == 0 && K4_WN % 16 == 0 &&
+                  K4_BK % 32 == 0 && 128 % K4_BN == 0 &&
+                  128 % K4_BK == 0 && K4_STAGES >= 2 &&
+                  K4_STAGE % 16 == 0,
+              "K4 tiling (the wrapper takes K and N multiples of 128)");
+// The pre-pass: one thread an 8-column group.
+constexpr int R_THREADS = 256;
+
+// Four int8 weights (consecutive k of one column, the lowest in the low
+// byte) as two bf16 pairs, lo = (k0, k1), hi = (k2, k3). Each byte, offset
+// by 128, becomes the low mantissa byte of 2^23; subtracting 2^23 + 128
+// leaves the weight exactly, and an integer of magnitude <= 128 is a bf16
+// (its f32 has no bits in the low half).
+__device__ __forceinline__ void widen_s8x4(uint32_t v, uint32_t& lo,
+                                           uint32_t& hi) {
+  constexpr uint32_t TWO23 = 0x4B000000u;
+  const uint32_t u = v ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, TWO23, 0x7650)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, TWO23, 0x7651)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, TWO23, 0x7652)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, TWO23, 0x7653)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// K4's first launch: xb = bf16(x), 8 columns a thread, each 16-column
+// group's columns in the GEMM's order: physical 4t + j (j < 2) to storage
+// 2t + j, 4t + 2 + j to 2t + 8 + j (t < 4). Thread i converts half i & 1
+// of group i >> 1: physical 0-7 (t 0, 1) or 8-15 (t 2, 3).
+__global__ void __launch_bounds__(R_THREADS)
+bf16_rows_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ xb,
+                 long long groups) {
+  launch_dependents();     // the product may start its weight loads
+  const long long i =
+      static_cast<long long>(blockIdx.x) * R_THREADS + threadIdx.x;
+  if (i >= groups) return;
+  const float4* src = reinterpret_cast<const float4*>(x) + i * 2;
+  const float4 v0 = src[0], v1 = src[1];
+  // As bf16 pairs, the group's word t holds physical (4t, 4t + 1) and
+  // word 4 + t holds (4t + 2, 4t + 3).
+  auto* dst = reinterpret_cast<uint2*>(xb) + (i >> 1) * 4 + (i & 1);
+  dst[0] = make_uint2(omni::pack_bf16(v0.x, v0.y), omni::pack_bf16(v1.x, v1.y));
+  dst[2] = make_uint2(omni::pack_bf16(v0.z, v0.w), omni::pack_bf16(v1.z, v1.w));
+}
+
+// K4's second launch: out = (xb @ w_q) * scale (+ bias) for one K4_BM x
+// K4_BN tile a block. The bf16 rows of xb and the int8 rows of w_t stream
+// in K4_BK-deep chunks through a K4_STAGES-deep cp.async ring; the f32
+// epilogue is staged through shared memory (over the ring) and written as
+// 16-byte stores, whole 512-byte row segments.
+__global__ void __launch_bounds__(K4_THREADS, K4_MIN_BLOCKS)
+q_matmul_kernel(const __nv_bfloat16* __restrict__ xb,
+                const int8_t* __restrict__ wt,
+                const float* __restrict__ scale,
+                const float* __restrict__ bias, float* __restrict__ out,
+                int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char k4_smem[];
+  auto* staged = reinterpret_cast<float*>(k4_smem);  // [BM][LDO], after
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = warp / (K4_BN / K4_WN) * K4_WM;
+  const int wn = warp % (K4_BN / K4_WN) * K4_WN;
+  const int m0 = blockIdx.x * K4_BM, n0 = blockIdx.y * K4_BN;
+  const int kc = K / K4_BK;
+
+  // Chunk s into ring slot s % K4_STAGES: xb rows m0 .. (zero past M),
+  // then w_t rows n0 ..; one commit group a chunk (empty past the last).
+  auto slot = [&](int s) { return k4_smem + s % K4_STAGES * K4_STAGE; };
+  auto issue_a = [&](int s) {
+    omni::load_rows_async<K4_BM, 2 * K4_BK, K4_THREADS>(
+        slot(s), K4_LDA, xb + static_cast<size_t>(m0) * K + s * K4_BK,
+        2 * static_cast<size_t>(K), tid, M - m0);
+  };
+  auto issue_b = [&](int s) {
+    omni::load_rows_async<K4_BN, K4_BK, K4_THREADS>(
+        slot(s) + K4_BM * K4_LDA, K4_LDB,
+        wt + static_cast<size_t>(n0) * K + s * K4_BK, K, tid);
+  };
+  // The scale and bias at this thread's output columns, and the first
+  // chunks' weights, load while the pre-pass finishes; xb only after it
+  // (the first commit group holds them all).
+  float2 sc[2 * K4_NB], bi[2 * K4_NB];
+#pragma unroll
+  for (int ni = 0; ni < 2 * K4_NB; ++ni) {
+    const int c = n0 + wn + ni * 8 + tig * 2;
+    sc[ni] = *reinterpret_cast<const float2*>(scale + c);
+    bi[ni] = bias != nullptr ? *reinterpret_cast<const float2*>(bias + c)
+                             : make_float2(0.f, 0.f);
+  }
+#pragma unroll
+  for (int s = 0; s < K4_STAGES - 1; ++s)
+    if (s < kc) issue_b(s);
+  wait_prerequisites();
+#pragma unroll
+  for (int s = 0; s < K4_STAGES - 1; ++s) {
+    if (s < kc) issue_a(s);
+    omni::cp_async_commit();
+  }
+
+  float acc[K4_MI][2 * K4_NB][4];
+#pragma unroll
+  for (int mi = 0; mi < K4_MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2 * K4_NB; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+  for (int s = 0; s < kc; ++s) {
+    omni::cp_async_wait<K4_STAGES - 2>();
+    __syncthreads();              // chunk s landed; slot (s - 1) is free
+    if (s + K4_STAGES - 1 < kc) {
+      issue_a(s + K4_STAGES - 1);
+      issue_b(s + K4_STAGES - 1);
+    }
+    omni::cp_async_commit();
+    const auto* at = reinterpret_cast<const __nv_bfloat16*>(slot(s));
+    // The int8 tile read as b16: columns and row stride halve.
+    const auto* bt =
+        reinterpret_cast<const __nv_bfloat16*>(slot(s) + K4_BM * K4_LDA);
+#pragma unroll
+    for (int kw = 0; kw < K4_BK; kw += 32) {
+      uint32_t a[K4_MI][2][4];
+#pragma unroll
+      for (int mi = 0; mi < K4_MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          omni::ldmatrix_x4(a[mi][h],
+                            omni::a_frag_at(at, K4_LDA / 2, wm + mi * 16,
+                                            kw + 16 * h, lane));
+#pragma unroll
+      for (int nb = 0; nb < K4_NB; ++nb) {
+        // b[0], b[1]: k kw + 4t .. + 3 and kw + 16 + 4t .. + 3 of column
+        // wn + 16 nb + g; b[2], b[3]: the same of column + 8.
+        uint32_t b[4], w[4][2];
+        omni::ldmatrix_x4(b, omni::b_frag_at(bt, K4_LDB / 2, wn + nb * 16,
+                                             kw / 2, lane));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) widen_s8x4(b[j], w[j][0], w[j][1]);
+#pragma unroll
+        for (int mi = 0; mi < K4_MI; ++mi) {
+          omni::mma_bf16_16816(acc[mi][2 * nb], a[mi][0], w[0][0], w[0][1]);
+          omni::mma_bf16_16816(acc[mi][2 * nb], a[mi][1], w[1][0], w[1][1]);
+          omni::mma_bf16_16816(acc[mi][2 * nb + 1], a[mi][0], w[2][0],
+                               w[2][1]);
+          omni::mma_bf16_16816(acc[mi][2 * nb + 1], a[mi][1], w[3][0],
+                               w[3][1]);
+        }
+      }
+    }
+  }
+  omni::cp_async_wait<0>();
+  __syncthreads();                // the staged tile overwrites the ring
+
+  // (acc * scale) + bias, each operation rounded on its own.
+#pragma unroll
+  for (int mi = 0; mi < K4_MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wm + mi * 16 + g + h * 8;
+#pragma unroll
+      for (int ni = 0; ni < 2 * K4_NB; ++ni) {
+        float2 y = make_float2(__fmul_rn(acc[mi][ni][2 * h], sc[ni].x),
+                               __fmul_rn(acc[mi][ni][2 * h + 1], sc[ni].y));
+        if (bias != nullptr) {
+          y.x = __fadd_rn(y.x, bi[ni].x);
+          y.y = __fadd_rn(y.y, bi[ni].y);
+        }
+        *reinterpret_cast<float2*>(
+            &staged[rl * K4_LDO + wn + ni * 8 + tig * 2]) = y;
+      }
+    }
+  __syncthreads();
+  constexpr int V = K4_BN / 4;
+#pragma unroll 4
+  for (int i = tid; i < K4_BM * V; i += K4_THREADS) {
+    const int r = i / V, c4 = (i % V) * 4;
+    if (m0 + r < M)
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(m0 + r) * N + n0 +
+                                 c4) =
+          *reinterpret_cast<const float4*>(&staged[r * K4_LDO + c4]);
+  }
+}
+
+// The wrappers' limits: K and N multiples of 128, any M >= 1.
 bool shapes_ok(int M, int N, int K) {
-  return M > 0 && N > 0 && K > 0 && N % BN == 0 && K % BK == 0 &&
-         N / BN <= 65535;
+  return M > 0 && N > 0 && K > 0 && N % 128 == 0 && K % 128 == 0 &&
+         N / A8_BN <= 65535 && N / K4_BN <= 65535;
+}
+
+// Launch `kernel` as a programmatic dependent of the work before it on
+// `st`.
+template <typename Kernel, typename... Args>
+cudaError_t launch_dependent(Kernel kernel, dim3 grid, int threads,
+                             int smem, cudaStream_t st, Args... args) {
+  cudaError_t err = omni::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 }  // namespace
 
+// scratch: 2 M K bytes, xb [M, K] bf16, between K4's two launches.
 OMNI_API int omni_q_matmul(const float* x, const void* wt, const float* scale,
-                           const float* bias, float* out, int M, int N, int K,
-                           void* stream) {
+                           const float* bias, float* out, void* scratch,
+                           int M, int N, int K, void* stream) {
   if (!shapes_ok(M, N, K)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + BM - 1) / BM, N / BN);
-  q_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<const int8_t*>(wt), scale, bias, out, M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* xb = static_cast<__nv_bfloat16*>(scratch);
+  const long long groups = static_cast<long long>(M) * K / 8;
+  bf16_rows_kernel<<<static_cast<unsigned>((groups + R_THREADS - 1) /
+                                           R_THREADS),
+                     R_THREADS, 0, st>>>(x, xb, groups);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_dependent(q_matmul_kernel,
+                           dim3((M + K4_BM - 1) / K4_BM, N / K4_BN),
+                           K4_THREADS, K4_SMEM, st,
+                           static_cast<const __nv_bfloat16*>(xb),
+                           static_cast<const int8_t*>(wt), scale, bias, out,
+                           M, N, K);
+  return static_cast<int>(err);
 }
 
 // scratch: M K + 4 M bytes, xq [M, K] int8 then sx [M] f32, between K5's
@@ -465,19 +581,10 @@ OMNI_API int omni_q8a8_matmul(const float* x, const void* wt,
   quantize_rows_kernel<<<(M + Q_ROWS - 1) / Q_ROWS, Q_ROWS * 32, 0, st>>>(
       x, xq, sx, M, K);
   cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = omni::allow_smem(q8a8_matmul_kernel, A8_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + A8_BM - 1) / A8_BM, N / A8_BN);
-  cfg.blockDim = dim3(A8_THREADS);
-  cfg.dynamicSmemBytes = A8_SMEM;
-  cfg.stream = st;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, q8a8_matmul_kernel,
+  if (err == cudaSuccess)
+    err = launch_dependent(q8a8_matmul_kernel,
+                           dim3((M + A8_BM - 1) / A8_BM, N / A8_BN),
+                           A8_THREADS, A8_SMEM, st,
                            static_cast<const int8_t*>(xq),
                            static_cast<const float*>(sx),
                            static_cast<const int8_t*>(wt), scale, bias, out,

@@ -1,5 +1,6 @@
-"""Shapes and tolerances at which the card holds K3 (the fused conv module)
-and K5 (the W8A8 matmul) against their plain versions.
+"""Shapes and tolerances at which the card holds K3 (the fused conv module),
+K4 (the W8A16 matmul) and K5 (the W8A8 matmul) against their plain
+versions.
 
 ``chip_smoke.py`` checks and times the kernels at these shapes, and
 ``ops/conv_quant_sweep.py`` times its candidate tilings at the same ones;
@@ -12,6 +13,11 @@ from __future__ import annotations
 # that differ in summation order can round one bf16 ulp apart, and one
 # flipped input moves a 256-term pointwise sum by |w| * 2^-8 * |h|.
 TOL_K3 = 5e-2
+# K4, per element: both sum the same exact bf16 x int8 products in f32 in
+# another order, each within K * 2^-24 * sum|terms| of the exact sum, so
+# |got - want| <= 2 K 2^-24 (|bf16(x)| @ |w_q|) scale[n], plus one f32
+# rounding of the bias add (2^-23 |want|); see k4_error_share.
+TOL_K4_ORDER = 2.0 ** -24
 # K5, abs relative to max|ref|: the int32 sums are exact and every other
 # step is the same f32 operation, so the kernel should equal its plain
 # version bit for bit; any difference means an activation was quantized
@@ -29,3 +35,20 @@ K3_SHAPES = {"serving": (4, 768, 256, (768, 700, 301, 0)),
 # layers that take it, by width N (512 the CTC head, 1024 the FFN
 # up-projections, 2048 the LID head).
 K5_SHAPES = {f"n{n}": (3072, 256, n) for n in (512, 1024, 2048)}
+
+# K4 at K5's shapes: the same layers take K4 under quantize="w8".
+K4_SHAPES = dict(K5_SHAPES)
+
+
+def k4_error_share(got, want, x, w_q, scale, bias=None):
+    """(max |got - want|, its largest share of K4's per-element tolerance;
+    > 1 fails). ``want`` is the plain version's output on the same
+    inputs."""
+    K = x.shape[1]
+    xb = x.bfloat16().float().abs()
+    tol = (2 * K * TOL_K4_ORDER * (xb.double() @ w_q.double().abs())
+           * scale.double()).float()
+    if bias is not None:
+        tol = tol + 2.0 ** -23 * want.abs()
+    diff = (got - want).abs()
+    return float(diff.max()), float((diff / tol.clamp(min=1e-30)).max())

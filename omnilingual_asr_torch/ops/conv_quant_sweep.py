@@ -1,25 +1,31 @@
-"""Time kernels K3 and K5 on the card at each candidate tiling.
+"""Time kernels K3, K4 and K5 on the card at each candidate tiling.
 
 Each candidate sets some of the tiling and launch-bound constants of
 ``csrc/conv_module.cu`` (K3: ``TT_SMALL`` / ``TT_LARGE`` the output frames
 a stage-1 block owns, ``S1_WM`` its warps along the rows, ``PIPE`` the
 operand tiles in flight, ``BM2`` x ``BN2`` the stage-2 tile and ``WM2`` a
 stage-2 warp's rows, ``S1_MIN_BLOCKS`` / ``S2_MIN_BLOCKS`` the blocks an SM
-in ``__launch_bounds__``) or of ``csrc/quant.cu`` (K5: ``A8_BM`` x
-``A8_BN`` the output tile of the product, ``A8_STAGES`` the chunks in its
-cp.async ring, ``A8_MIN_BLOCKS``). For each, the sweep builds the kernel's
-source with those values into a library of its own under ``_build/`` (the
-source's own values first), prints the kernels' registers and spills and
-K3's launch plan (blocks; rows computed per output frame), checks the
-kernel against its plain version (K3 within ``card_cases.TOL_K3``, K5 bit
-for bit) and times it as chip_smoke.py does (device ms of one call, 20
-calls in one CUDA graph) at ``card_cases``' shapes, the ones chip_smoke.py
-checks: K3 at serving [4, 768, 256], training [16, 256, 512] and
-[4, 256, 1024]; K5 at M 3072, K 256 and N 512, 1024, 2048. Run on the card
-from the repository root:
+in ``__launch_bounds__``) or of ``csrc/quant.cu`` (K4: ``K4_BM`` x
+``K4_BN`` the output tile, ``K4_BK`` the depth of a chunk, ``K4_WM`` x
+``K4_WN`` a warp's outputs, ``K4_STAGES`` the chunks in its cp.async ring,
+``K4_MIN_BLOCKS``; K5: ``A8_BM`` x ``A8_BN`` the output tile of the
+product, ``A8_STAGES`` the chunks in its cp.async ring, ``A8_MIN_BLOCKS``).
+For each, the sweep builds
+the kernel's source with those values into a library of its own under
+``_build/`` (the source's own values first), prints the kernels' registers
+and spills and K3's launch plan (blocks; rows computed per output frame),
+checks the kernel against its plain version (K3 within
+``card_cases.TOL_K3``, K4 within its per-element tolerance
+``card_cases.k4_error_share``, K5 bit for bit) and times it as
+chip_smoke.py does (device ms of one call, 20 calls in one CUDA graph) at
+``card_cases``' shapes, the ones chip_smoke.py checks: K3 at serving
+[4, 768, 256], training [16, 256, 512] and [4, 256, 1024]; K4 and K5 at
+M 3072, K 256 and N 512, 1024, 2048. Run on the card from the repository
+root:
 
     python -m omnilingual_asr_torch.ops.conv_quant_sweep \\
         --k3 TT_LARGE=64 PIPE=3 WM2=16,S2_MIN_BLOCKS=3 \\
+        --k4 K4_STAGES=3 K4_BK=128 K4_WM=32,K4_WN=32 \\
         --k5 A8_STAGES=3 A8_BM=128,A8_MIN_BLOCKS=2
 
 each argument one candidate (``NAME=VALUE`` pairs joined by commas). A
@@ -39,11 +45,13 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from . import conv_module, cuda_build, quant
-from .card_cases import K3_SHAPES, K5_SHAPES, TOL_K3
+from .card_cases import (K3_SHAPES, K4_SHAPES, K5_SHAPES, TOL_K3,
+                         k4_error_share)
 from .flash_bwd_sweep import device_ms
 
-SOURCES = {"k3": "conv_module.cu", "k5": "quant.cu"}
+SOURCES = {"k3": "conv_module.cu", "k4": "quant.cu", "k5": "quant.cu"}
 KERNELS = {"k3": ("conv_stage1_kernel", "conv_stage2_kernel"),
+           "k4": ("bf16_rows_kernel", "q_matmul_kernel"),
            "k5": ("quantize_rows_kernel", "q8a8_matmul_kernel")}
 CONST = r"(constexpr int {name} = )(\d+);"
 
@@ -130,11 +138,11 @@ class K3Case:
                 "stage2_blocks": out[3]}
 
 
-class K5Case:
-    """K5's inputs as chip_smoke.py makes them (an outlier row and an
-    all-zero row), its plain version's output, and launches."""
+class QuantCase:
+    """K4's or K5's inputs as chip_smoke.py makes them (an outlier row and
+    an all-zero row), the plain version's output, and launches."""
 
-    def __init__(self, dev, M, K, N, seed):
+    def __init__(self, dev, M, K, N, seed, mode):
         gen = torch.Generator(device=dev).manual_seed(seed)
         x = torch.randn(M, K, generator=gen, device=dev)
         x[0] *= 1000.0
@@ -142,27 +150,40 @@ class K5Case:
         w_q, scale = quant.quantize_weight(
             0.05 * torch.randn(K, N, generator=gen, device=dev))
         bias = torch.randn(N, generator=gen, device=dev)
-        self.want = quant.quantized_matmul_a8_plain(x, w_q, scale, bias)
+        plain = (quant.quantized_matmul_a8_plain if mode == "a8"
+                 else quant.quantized_matmul_plain)
+        self.want = plain(x, w_q, scale, bias)
+        self.inputs = (x, w_q, scale, bias)
         self.args = (x, w_q.t().contiguous(), scale, bias)
         self.got = torch.empty(M, N, device=dev)
-        self.scratch = quant.kernel_scratch(M, K, dev)
+        self.scratch = quant.kernel_scratch(M, K, dev, mode)
         self.dims = (M, N, K)
+        self.mode = mode
 
     def launch(self, lib):
-        cuda_build.check(lib.omni_q8a8_matmul(
+        entry = "omni_q8a8_matmul" if self.mode == "a8" else "omni_q_matmul"
+        cuda_build.check(getattr(lib, entry)(
             *[t.data_ptr() for t in self.args], self.got.data_ptr(),
             self.scratch.data_ptr(), *self.dims,
-            torch.cuda.current_stream().cuda_stream), "K5")
+            torch.cuda.current_stream().cuda_stream), entry)
 
     def error(self) -> float:
+        """K5: the elements that differ; K4: the largest share of its
+        per-element tolerance (inf where not finite)."""
         torch.cuda.synchronize()
-        return float((self.got != self.want).sum())   # differing elements
+        if self.mode == "a8":
+            return float((self.got != self.want).sum())
+        if not bool(torch.isfinite(self.got).all()):
+            return float("inf")
+        return k4_error_share(self.got, self.want, *self.inputs)[1]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k3", nargs="*", default=[],
                     help="K3 candidates, NAME=VALUE[,NAME=VALUE...]")
+    ap.add_argument("--k4", nargs="*", default=[],
+                    help="K4 candidates, NAME=VALUE[,NAME=VALUE...]")
     ap.add_argument("--k5", nargs="*", default=[],
                     help="K5 candidates, NAME=VALUE[,NAME=VALUE...]")
     args = ap.parse_args(argv)
@@ -175,23 +196,34 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     jobs = []
-    for kernel, specs in (("k3", args.k3), ("k5", args.k5)):
+    for kernel, specs in (("k3", args.k3), ("k4", args.k4),
+                          ("k5", args.k5)):
         cands = [parse(s) for s in specs]
         names = sorted({k for c in cands for k in c})
         base = source_values(kernel, names)
         jobs.append((kernel, {}, base))
         jobs += [(kernel, c, {**base, **c}) for c in cands if c]
-    def build(job):
+    def build(key):
         try:
-            return cuda_build.build(variant_dir(job[0], job[1]))
+            return cuda_build.build(variant_dir(*key))
         except RuntimeError as e:    # a tiling the source's asserts refuse
             return str(e).splitlines()[-3:]
 
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        builds = list(pool.map(build, jobs))
+    # One build per distinct source: K4's and K5's own values are the same
+    # quant.cu, which would build into one directory twice at once.
+    keys = {}
+    for kernel, cand, _ in jobs:
+        keys.setdefault((SOURCES[kernel], tuple(sorted(cand.items()))),
+                        (kernel, cand))
+    with ThreadPoolExecutor(len(keys)) as pool:
+        built = dict(zip(keys, pool.map(build, keys.values())))
+    builds = [built[(SOURCES[k], tuple(sorted(c.items())))]
+              for k, c, _ in jobs]
     cases = {"k3": {n: K3Case(dev, *s, seed=i)
                     for i, (n, s) in enumerate(K3_SHAPES.items())},
-             "k5": {n: K5Case(dev, *s, seed=10 + i)
+             "k4": {n: QuantCase(dev, *s, seed=20 + i, mode="w8")
+                    for i, (n, s) in enumerate(K4_SHAPES.items())},
+             "k5": {n: QuantCase(dev, *s, seed=10 + i, mode="a8")
                     for i, (n, s) in enumerate(K5_SHAPES.items())}}
     ok = True
     for (kernel, cand, values), info in zip(jobs, builds):
@@ -210,8 +242,8 @@ def main(argv=None) -> int:
             case.launch(lib)
             err = case.error()
             row["err"][name] = err
-            row["correct"] &= (err <= TOL_K3 if kernel == "k3"
-                               else err == 0)
+            row["correct"] &= {"k3": err <= TOL_K3, "k4": err <= 1.0,
+                               "k5": err == 0}[kernel]
             if kernel == "k3":
                 row["plan"][name] = case.plan(lib)
             row["ms"][name] = device_ms(lambda c=case: c.launch(lib))

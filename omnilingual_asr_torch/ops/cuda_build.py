@@ -170,8 +170,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _P],
     # B, T, D, plan (int[6])
     "omni_conv_module_plan": [_I, _I, _I, _P],
-    # x, w_t, scale, bias (or NULL), out, M, N, K, stream
-    "omni_q_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, w_t, scale, bias (or NULL), out, scratch, M, N, K, stream
+    "omni_q_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, w_t, scale, bias (or NULL), out, scratch, M, N, K, stream
     "omni_q8a8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

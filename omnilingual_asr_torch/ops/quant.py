@@ -162,14 +162,21 @@ def refuse_grad(what: str, *tensors) -> None:
             f"the unquantized weights")
 
 
-def kernel_scratch(M: int, K: int, device) -> torch.Tensor:
-    """What K5 keeps between its two launches: each row of x quantized,
-    xq [M, K] int8, then the row scales sx [M] f32, as bytes."""
-    return torch.empty(M * K + 4 * M, dtype=torch.uint8, device=device)
+def kernel_scratch(M: int, K: int, device, mode: str = "a8") -> torch.Tensor:
+    """What K5 (``mode="a8"``) or K4 (``"w8"``) keeps between its two
+    launches, as bytes: K5 each row of x quantized, xq [M, K] int8, then
+    the row scales sx [M] f32; K4 bf16(x) [M, K]."""
+    n = M * K + 4 * M if mode == "a8" else 2 * M * K
+    return torch.empty(n, dtype=torch.uint8, device=device)
 
 
-def _launch(entry: str, x, w_q, scale, bias, w_t, what: str,
-            scratch: bool = False) -> torch.Tensor:
+# C entry point and name of the kernel that serves each mode.
+_KERNELS = {"w8": ("omni_q_matmul", "W8A16 matmul"),
+            "a8": ("omni_q8a8_matmul", "W8A8 matmul")}
+
+
+def _launch(mode: str, x, w_q, scale, bias, w_t) -> torch.Tensor:
+    entry, what = _KERNELS[mode]
     M, K = x.shape
     K2, N = w_q.shape
     dev = x.device
@@ -189,12 +196,12 @@ def _launch(entry: str, x, w_q, scale, bias, w_t, what: str,
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     # Held until the launch is queued, so that the allocator hands its
     # memory out again only in stream order.
-    extra = [kernel_scratch(M, K, dev)] if scratch else []
+    scratch = kernel_scratch(M, K, dev, mode)
     lib = cuda_build.library()
     err = getattr(lib, entry)(
         x.data_ptr(), w_t.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        *[t.data_ptr() for t in extra], M, N, K, cuda_build.stream_ptr(dev))
+        scratch.data_ptr(), M, N, K, cuda_build.stream_ptr(dev))
     cuda_build.check(err, f"{what} kernel")
     return out
 
@@ -202,15 +209,15 @@ def _launch(entry: str, x, w_q, scale, bias, w_t, what: str,
 def quantized_matmul(x, w_q, scale, bias=None, w_t=None) -> torch.Tensor:
     """W8A16 matmul; see :func:`quantized_matmul_plain`.
 
-    A CUDA tensor goes to kernel K4: x f32 [M, K] (rounded to bf16 as the
-    kernel loads it), K and N multiples of 128; ``w_t`` is the [N, K]
-    int8 copy of ``w_q`` the kernel reads, made here when not given. A CPU
-    tensor goes to the plain version.
+    A CUDA tensor goes to kernel K4: x f32 [M, K], K and N multiples of
+    128; ``w_t`` is the [N, K] int8 copy of ``w_q`` the kernel reads, made
+    here when not given. Two launches, one count: x rounded to bf16 once,
+    then the product. A CPU tensor goes to the plain version.
     """
     if not x.is_cuda:
         return quantized_matmul_plain(x, w_q, scale, bias)
     refuse_grad("W8A16 matmul", x, scale, bias)
-    out = _launch("omni_q_matmul", x, w_q, scale, bias, w_t, "W8A16 matmul")
+    out = _launch("w8", x, w_q, scale, bias, w_t)
     quantized_matmul.launches += 1
     return out
 
@@ -230,8 +237,7 @@ def quantized_matmul_a8(x, w_q, scale, bias=None, w_t=None) -> torch.Tensor:
     if not x.is_cuda:
         return quantized_matmul_a8_plain(x, w_q, scale, bias)
     refuse_grad("W8A8 matmul", x, scale, bias)
-    out = _launch("omni_q8a8_matmul", x, w_q, scale, bias, w_t,
-                  "W8A8 matmul", scratch=True)
+    out = _launch("a8", x, w_q, scale, bias, w_t)
     quantized_matmul_a8.launches += 1
     return out
 
