@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d in that order)
     python3 chip_smoke.py --profile    # and, before the report, phase 4c
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
@@ -56,17 +56,30 @@ with no result line:
              windows through the kernels on the card against the same step
              on the CPU (plain versions), leaf by leaf, beside the card's
              own floor and a planted fault that must miss the tolerance.
+4d. decoders - ``TranscriptionEngine`` on the card with the release
+             translator (text mode) and fact-conditioned summarizer given
+             by explicit path answers the golden file and the tiled file,
+             with the same K1-K3 launches a batch as phase 4. The golden
+             result (translations and the neural summary included) is held
+             to the JAX engine's ``golden_decoders.json``, and its decodes'
+             tokens to the JAX engine's; every decode, replayed from its
+             CUDA graph, is held to the same decode run eagerly. Then the
+             decoders' seconds a request (warm, 3 rounds, graphs on and off
+             in turns) beside the StageTrace's ``assemble.translate`` and
+             ``assemble.summary``.
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
              engines in 7 turns; then one warm 120 s request of each under
              ``torch.profiler``: device time by kernel and the device's
-             busy share of the request's wall time. Then a warm
+             busy share of the request's wall time, and the same for a
+             120 s request of phase 4d's engine. Then a warm
              kernel-mode training step at ``PipelineConfig()`` dims, batch
              16: the host's batch wait, upload, forward + loss, backward
              and optimizer seconds, and one step under the profiler.
 5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
-             over the serving and training paths, by path beside it), the
+             over the serving, training and decoders paths, by path beside
+             it), the
              ``nvidia-smi`` name and power limit, and the result line
              ``{"ok": true, "device": {...}}``.
 
@@ -96,6 +109,7 @@ TILED_SECONDS = 120.0
 PROFILE_SECONDS = (30.0, 120.0, 330.0)
 PROFILE_WARM_RUNS = 3
 INT8_ROUNDS = 7
+DECODER_ROUNDS = 3       # warm requests a decoder mode in phase 4d
 TRAIN_STEPS = 4          # train_synth steps at PipelineConfig() dims
 TRAIN_BATCH = 16         # 8 s windows a step
 # Valid keys of the attention checks at the training shape (T' 256): 12
@@ -971,6 +985,135 @@ def run_e2e(dev, cfg, params, xvector):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4d: the decoders (text-mode translator, fact-conditioned summarizer)
+# ---------------------------------------------------------------------------
+
+def _timed_decoders(engine, calls) -> dict:
+    """Wrap the engine's two decoders so that each call's seconds (host
+    clock; a decode ends in a device-to-host copy) and inputs are kept in
+    ``calls``: {"translate": [...], "summary": [...]} of (seconds, args,
+    kwargs, tokens). Returns the unwrapped decode functions by key."""
+    dec = {"translate": (engine._translator, "translate_text"),
+           "summary": (engine._summarizer.decoder, "decode")}
+    plain = {}
+    for key, (obj, name) in dec.items():
+        fn = plain[key] = getattr(obj, name)
+
+        def timed(*args, _fn=fn, _key=key, **kwargs):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs).cpu()
+            calls[_key].append((time.perf_counter() - t0, args, kwargs, out))
+            return out
+
+        setattr(obj, name, timed)
+    return plain
+
+
+def _set_graphs(engine, on: bool) -> None:
+    engine._translator.use_graph = on
+    engine._summarizer.decoder.use_graph = on
+
+
+def run_decoders(dev, cfg, params, xvector):
+    """``TranscriptionEngine`` on the card with the release translator and
+    summarizer given by explicit path answers the golden and the tiled
+    file; the golden result is held to ``golden_decoders.json`` and the
+    K1-K3 launches to the main path's counts; every decode's CUDA-graph
+    tokens are held to the same decode run eagerly; then the decoders'
+    seconds a request, warm, with the graphs and without. Returns the
+    launches of this path."""
+    import torch
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+
+    L = cfg.encoder.n_layers
+    tiled = PKG / "_build" / "smoke_tiled.wav"
+    tiled_s = write_tiled_wav(golden.GOLDEN_WAV, tiled, TILED_SECONDS)
+    engine = TranscriptionEngine(
+        config=cfg, params=params, xvector_params=xvector, device=dev,
+        translator_path=str(RELEASE / "translator.npz"),
+        summarizer_path=str(RELEASE / "summarizer.npz"))
+    if not (engine._translator.is_text and engine._translator.use_graph
+            and engine._summarizer.fact_conditioned):
+        raise PhaseError("the release decoders did not load as the text "
+                         "translator and the fact-conditioned summarizer "
+                         "with CUDA graphs")
+    calls = {"translate": [], "summary": []}
+    plain = _timed_decoders(engine, calls)
+    per_batch = {"log_mel_frames": 1, "flash_attention": L,
+                 "fused_conv_module": L, "quantized_matmul": 0,
+                 "quantized_matmul_a8": 0, "flash_attention_bwd_dq": 0,
+                 "flash_attention_bwd_dkv": 0}
+    results, launches = drive_path(
+        "decoders",
+        lambda path, cb: engine.transcribe(path,
+                                           progress_callback=cb).to_dict(),
+        engine, [("golden", golden.GOLDEN_WAV), ("tiled", tiled)],
+        per_batch)
+    stored = golden.load_golden_decoders()
+    bad = golden.result_mismatches(stored["result"], results[0],
+                                   tone_mass=stored["tone_mass"])
+    if results[0]["summary"] != stored["result"]["summary"]:
+        bad.append(f"summary {results[0]['summary']!r}")
+    if bad:
+        raise PhaseError("decoders: golden result mismatch: "
+                         + "; ".join(bad))
+    check_segment_times("decoders", results[1:], tiled_s)
+    if not all(s["translation"] for r in results for s in r["segments"]
+               if s["language_code"] != "en"):
+        raise PhaseError("decoders: a non-English segment has no "
+                         "translation")
+    # The golden request's decodes: the tokens of the JAX engine's
+    # decodes, and the same decodes run eagerly.
+    (_, args, kwargs, toks), = calls["translate"][:1]
+    want = [t["tokens"] for t in stored["translations"]]
+    if toks[:len(want)].tolist() != want:
+        raise PhaseError("decoders: the golden spans' tokens differ from "
+                         "the JAX engine's")
+    if calls["summary"][0][3][0].tolist() != stored["summary"]["tokens"]:
+        raise PhaseError("decoders: the golden summary's tokens differ "
+                         "from the JAX engine's")
+    n_tokens = 0
+    _set_graphs(engine, False)
+    for key, fn in plain.items():
+        for _, args, kwargs, toks in calls[key]:
+            eager = fn(*args, **kwargs).cpu()
+            if not torch.equal(eager, toks):
+                raise PhaseError(f"decoders: {key} tokens from the CUDA "
+                                 f"graph differ from the eager decode")
+            n_tokens += toks.numel()
+    log(f"  decoders: golden result equals golden_decoders.json; "
+        f"{len(calls['translate'])} translation and "
+        f"{len(calls['summary'])} summary decodes ({n_tokens} tokens) "
+        f"equal the same decodes run eagerly")
+    # Warm seconds a request, by decoder, graphs on and off, in turns.
+    secs = {}
+    for _ in range(DECODER_ROUNDS):
+        for graphs in (True, False):
+            _set_graphs(engine, graphs)
+            for name, path in (("golden", golden.GOLDEN_WAV),
+                               ("tiled", tiled)):
+                for v in calls.values():
+                    v.clear()
+                engine.transcribe(path)
+                st = engine.last_trace.stages
+                row = secs.setdefault(f"{name} graphs={graphs}", {
+                    "translate_s": [], "summary_s": [],
+                    "assemble.translate": [], "assemble.summary": []})
+                for key in ("translate", "summary"):
+                    row[f"{key}_s"].append(sum(c[0] for c in calls[key]))
+                    row[f"assemble.{key}"].append(st[f"assemble.{key}"])
+    _set_graphs(engine, True)
+    for label, row in secs.items():
+        log("  decoder seconds " + json.dumps({
+            "request": label, "rounds": DECODER_ROUNDS,
+            "translate_s_median": statistics.median(row["translate_s"]),
+            "summary_s_median": statistics.median(row["summary_s"]),
+            **{k: v for k, v in row.items()}}))
+    return engine, launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 4b: kernel-mode training through train_synth
 # ---------------------------------------------------------------------------
 
@@ -1247,6 +1390,9 @@ def run_profile(engines) -> None:
         device_profile(f"{label} 120 s request",
                        lambda e=engines[label]: e.transcribe(paths[120.0]),
                        15 if label == "unquantized" else 8)
+    engines["decoders"].transcribe(paths[120.0])          # warm-up
+    device_profile("decoders 120 s request",
+                   lambda: engines["decoders"].transcribe(paths[120.0]), 15)
 
 
 PROFILE_TRAIN_STEPS = 6
@@ -1428,6 +1574,12 @@ def main(argv=None) -> int:
         grad_check(dev)
         log(f"[train] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "decoders"
+        t0 = time.perf_counter()
+        engines["decoders"], decoding = run_decoders(dev, cfg, params,
+                                                     xvector)
+        log(f"[decoders] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -1443,7 +1595,8 @@ def main(argv=None) -> int:
                  "q8a8_matmul": "quantized_matmul_a8",
                  "flash_attention_bwd_dq": "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
-        paths = {"serving": serving, "training": training}
+        paths = {"serving": serving, "training": training,
+                 "decoders": decoding}
         line = {"kernels": []}
         for k in kernels:
             fn = by_fn[k["name"]]

@@ -17,7 +17,11 @@ Execution model:
 - every batch is enqueued on a CUDA stream before any is collected, so host
   extraction of batch k overlaps the device work of later batches;
 - CTC collapse, segmentation, pooling and whole-file speaker clustering run
-  on the host, exactly as in the JAX engine.
+  on the host, exactly as in the JAX engine;
+- with decoder weights loaded (the release's text-mode translator and
+  fact-conditioned summarizer), segment translations and the neural summary
+  are greedy-decoded on the engine's device (``models/translation.py``,
+  one CUDA graph a decode step on a card).
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; then every
 kernel wrapper takes its plain PyTorch version. With no CUDA device and no
@@ -49,7 +53,11 @@ from .models import languages as lang_table
 from .models.conformer import (asr_forward, asr_init,
                                pooled_speaker_embed_np)
 from .models.orthography import ctc_logit_mask
-from .models.summarizer import template_summary
+from .models.summarizer import (SummaryDecoder, summary_consistent,
+                                template_summary)
+from .models.translation import (MAX_SOURCE_LEN, GreedyDecoder,
+                                 load_translator, source_to_tokens,
+                                 tokens_to_text)
 from .models.xvector import xvector_frames
 from .models.zoo import (default_release_dir, load_checkpoint, load_xvector,
                          tree_to)
@@ -102,7 +110,7 @@ def resolve_device(device) -> torch.device:
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch engine yet ({item} in "
-        f"ROADMAP.md)")
+        f"ROADMAP.md, Queue A)")
 
 
 def _progress_reporters(progress_callback: ProgressCallback):
@@ -191,27 +199,18 @@ class TranscriptionEngine:
             raise ValueError(f"ingress must be 'i16' or 'mulaw', "
                              f"got {ingress!r}")
         if long_mode == "sequence":
-            raise _not_ported("long_mode='sequence'", "Queue A item 10")
+            raise _not_ported("long_mode='sequence'", "A10")
         if ingress == "mulaw":
-            raise _not_ported("ingress='mulaw'", "Queue A item 9")
-        if (enable_translation or translator_params is not None
-                or translator_path or os.getenv("OMNIASR_TRANSLATOR")):
-            raise _not_ported("translation (translator weights)",
-                              "Queue A item 6")
-        if (summarizer_params is not None or summarizer_path
-                or os.getenv("OMNIASR_SUMMARIZER")):
-            raise _not_ported("the neural summarizer (summarizer weights)",
-                              "Queue A item 6")
+            raise _not_ported("ingress='mulaw'", "A9")
 
         self.config = config or PipelineConfig.from_env()
         cfg = self.config
         if cfg.decode.beam_size > 1:
-            raise _not_ported("beam_size > 1 (prefix beam search)",
-                              "Queue A item 6")
+            raise _not_ported("beam_size > 1 (prefix beam search)", "A13")
         if cfg.decode.spk_frame_stride != 1 or cfg.decode.spk_wire != "f16":
             raise _not_ported("speaker-frame wire slimming (decode."
                               "spk_frame_stride / spk_wire)",
-                              "Queue A item 9, the packed D2H wire")
+                              "A9, the packed D2H wire")
         self.model = model
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -227,13 +226,45 @@ class TranscriptionEngine:
             p = release / f"{name}.npz"
             return str(p) if p.is_file() else None
 
-        skipped = [n for n in ("translator", "summarizer") if released(n)]
-        if skipped:
+        def load_decoder(explicit_path, env_name, release_name, n_layers):
+            """Explicit paths must load (errors propagate); a discovered
+            release file is best-effort: it may belong to another config
+            (a tiny test config, say), and is then skipped."""
+            path = explicit_path or os.getenv(env_name)
+            if path:
+                return load_translator(path, cfg, n_layers=n_layers)
+            path = released(release_name)
+            if path:
+                try:
+                    return load_translator(path, cfg, n_layers=n_layers)
+                except (KeyError, ValueError):
+                    return None
+            return None
+
+        # Translation and the neural summary need trained decoder weights: a
+        # random decoder would write noise where None and the template are
+        # schema-valid. The decoders are never quantized.
+        if translator_params is None:
+            translator_params = load_decoder(
+                translator_path, "OMNIASR_TRANSLATOR", "translator", 4)
+        if enable_translation and translator_params is None:
             warnings.warn(
-                f"release {', '.join(skipped)} weights found but not loaded: "
-                f"the PyTorch engine does not run the decoders yet (ROADMAP "
-                f"Queue A item 6); summaries use the template and "
-                f"translations stay None.", stacklevel=2)
+                "enable_translation=True but no translator checkpoint is "
+                "available (pass translator_params/translator_path or set "
+                "OMNIASR_TRANSLATOR); translation stays disabled.",
+                stacklevel=2)
+        #: The translator's decoder (text mode when its tree has "src").
+        self._translator: Optional[GreedyDecoder] = None
+        if translator_params is not None:
+            self._translator = GreedyDecoder(
+                tree_to(translator_params, self.device), cfg)
+        if summarizer_params is None:
+            summarizer_params = load_decoder(
+                summarizer_path, "OMNIASR_SUMMARIZER", "summarizer", 2)
+        self._summarizer: Optional[SummaryDecoder] = None
+        if summarizer_params is not None:
+            self._summarizer = SummaryDecoder(
+                cfg, tree_to(summarizer_params, self.device))
 
         # Dedicated speaker embedder: explicit params/path must load; a
         # discovered release file is best-effort.
@@ -256,7 +287,7 @@ class TranscriptionEngine:
         if speaker_mode == "crop":
             raise _not_ported("speaker_mode='crop' (per-segment speaker "
                               "re-embedding; the default without x-vector "
-                              "weights)", "Queue A item 9")
+                              "weights)", "A9")
         self.speaker_mode = speaker_mode
 
         if params is None:
@@ -365,7 +396,7 @@ class TranscriptionEngine:
         spk_frames = out["speaker_frames"]
         if self._xvector is not None:
             spk_frames = xvector_frames(self._xvector, mel, mask)
-        return {
+        ret = {
             "ctc_ids": ctc_ids.to(torch.int16),
             "lid_ids": lid_ids.to(torch.int16),
             "lid_conf": lid_conf.to(torch.float16),
@@ -374,6 +405,11 @@ class TranscriptionEngine:
             "frame_energy": e_sub.to(torch.float16),
             "mask": out["mask"],
         }
+        if self._states_consumer:
+            # Encoder states for the summarizer or an audio-conditioned
+            # translator, f16 on the wire; only copied when one is loaded.
+            ret["encoder_states"] = out["encoder_states"].to(torch.float16)
+        return ret
 
     # ------------------------------------------------------------------
     # Feature + forward plumbing
@@ -511,6 +547,8 @@ class TranscriptionEngine:
             spk = out["speaker_frames"].astype(np.float32)
             sub_mask = out["mask"]
             energy = out["frame_energy"].astype(np.float32)
+            enc = (out["encoder_states"].astype(np.float32)
+                   if "encoder_states" in out else None)
             outs = []
             for k in range(len(batch)):
                 nf_sub = int(sub_mask[k].sum())
@@ -523,6 +561,8 @@ class TranscriptionEngine:
                     "emotion_logits": emo[k, :nf_sub],
                     "speaker_frames": spk[k, :nf_sub],
                     "frame_energy": energy[k, :nf_sub],
+                    "encoder_states": (enc[k, :nf_sub]
+                                       if enc is not None else None),
                 })
             if batch_progress:
                 batch_progress(bi + 1, n_batches)
@@ -532,15 +572,21 @@ class TranscriptionEngine:
     # Host-side assembly
     # ------------------------------------------------------------------
 
-    def _extract_windows(self, window_outs, decoded=None, seg_meta=None):
+    def _extract_windows(self, window_outs, decoded=None, seg_meta=None,
+                         states=None):
         """Per-window host extraction: segmentation and speaker pooling.
 
         Called on each completed batch while later batches still run.
-        Returns (decoded, seg_meta); pass them back in to accumulate."""
+        Returns (decoded, seg_meta, states), where ``states`` lists each
+        window's encoder states when a decoder consumes them; pass them
+        back in to accumulate."""
         cfg = self.config
         decoded = decoded if decoded is not None else []
         seg_meta = seg_meta if seg_meta is not None else []
+        states = states if states is not None else []
         for w in window_outs:
+            if w.get("encoder_states") is not None:
+                states.append(w["encoder_states"])
             segs = segments_from_alignment(
                 w["ctc_ids"], self.frame_dur_s, cfg.vocab, cfg.decode,
                 time_offset_s=w["offset_s"])
@@ -560,21 +606,24 @@ class TranscriptionEngine:
                     weights = np.ones(len(spk_span), np.float32)
                 spk_mean = pooled_speaker_embed_np(
                     self._spk_pool, spk_span, weights)
+                enc_span = (w["encoder_states"][f0:f1]
+                            if w.get("encoder_states") is not None else None)
                 decoded.append(s)
                 seg_meta.append((emo_mean, spk_mean,
-                                 (w["lid_ids"][f0:f1], w["lid_conf"][f0:f1])))
-        return decoded, seg_meta
+                                 (w["lid_ids"][f0:f1], w["lid_conf"][f0:f1]),
+                                 enc_span))
+        return decoded, seg_meta, states
 
     def _assemble_global(self, parts, *, language: Optional[str],
                          speaker_count: Optional[str], duration_s: float):
         """Whole-file assembly over extracted window parts: speaker
-        clustering, language and emotion aggregation, summary.
+        clustering, language and emotion aggregation, translation, summary.
 
         Returns (result, profile) where profile maps each sub-stage
         (``cluster``, ``segments``, ``translate``, ``summary``) to seconds.
         """
         cfg = self.config
-        decoded, seg_meta = parts
+        decoded, seg_meta, states = parts
         lang_hint_id = lang_table.id_for_language(language) if language else -1
         prof: Dict[str, float] = {}
         t0 = time.perf_counter()
@@ -609,7 +658,7 @@ class TranscriptionEngine:
         all_languages: List[dict] = []
         seen_codes = set()
         emotion_counts = np.zeros(len(EMOTIONS))
-        for s, (emo_mean, _, (lid_frames, lid_conf)), lab in zip(
+        for s, (emo_mean, _, (lid_frames, lid_conf), _), lab in zip(
                 decoded, seg_meta, labels):
             langs = self._segment_languages(lid_frames, lid_conf,
                                             lang_hint_id)
@@ -632,20 +681,130 @@ class TranscriptionEngine:
                 languages=langs, emotion=EMOTIONS[emo_idx],
                 translation=None, words=s.words))
         mark("segments")
-        mark("translate")     # no decoder in this slice: None is schema-valid
+
+        if self._translator is not None:
+            self._translate_segments(segments, seg_meta)
+        mark("translate")
 
         n_speakers = int(labels.max()) + 1 if len(labels) else 0
         top_emotion = EMOTIONS[int(np.argmax(emotion_counts))]
+        language_names = [lg["language"] for lg in all_languages]
         summary = template_summary(
             duration_s=duration_s, n_speakers=n_speakers,
-            n_segments=len(segments),
-            language_names=[lg["language"] for lg in all_languages],
+            n_segments=len(segments), language_names=language_names,
             top_emotion=top_emotion)
+        if self._summarizer is not None and states:
+            # The generated summary replaces the template only where it
+            # agrees with the engine's own facts; a fact-conditioned
+            # checkpoint reads them as a forced prefix.
+            neural = self._summarizer.summarize(states, facts={
+                "n_speakers": n_speakers, "tone": top_emotion,
+                "language_names": language_names})
+            if neural and summary_consistent(neural, n_speakers=n_speakers,
+                                             tone=top_emotion):
+                summary = neural
         mark("summary")
         return TranscriptionResult(
             summary=summary, segments=segments,
             detected_languages=all_languages if all_languages else None,
         ), prof
+
+    TRANSLATE_SPAN_FRAMES = 256   # ~10 s of encoder frames per segment
+    TRANSLATE_MAX_BYTES = 128
+
+    @property
+    def _states_consumer(self) -> bool:
+        """True when a decoder needs host copies of the encoder states: the
+        neural summarizer, or an audio-conditioned translator (a text-mode
+        one reads the transcript)."""
+        return (self._summarizer is not None
+                or (self._translator is not None
+                    and not self._translator.is_text))
+
+    def _translate_segments(self, segments: List[TranscriptSegment],
+                            seg_meta) -> None:
+        """Fill ``translation`` for non-English segments (None iff English).
+
+        A text-mode translator reads each segment's transcript; an
+        audio-conditioned one cross-attends the segment's encoder states,
+        in batches of 8 spans of at most TRANSLATE_SPAN_FRAMES frames."""
+        if self._translator.is_text:
+            self._translate_segments_text(segments)
+            return
+        todo = [i for i, s in enumerate(segments)
+                if s.language_code and s.language_code != "en"
+                and seg_meta[i][3] is not None]
+        if not todo:
+            return
+        Te, D = self.TRANSLATE_SPAN_FRAMES, self.config.encoder.d_model
+        B = 8
+        for b0 in range(0, len(todo), B):
+            idxs = todo[b0:b0 + B]
+            enc = np.zeros((B, Te, D), np.float32)
+            mask = np.zeros((B, Te), bool)
+            for row, i in enumerate(idxs):
+                span = seg_meta[i][3][:Te]
+                enc[row, :len(span)] = span
+                mask[row, :len(span)] = True
+            toks = self._translator.decode(
+                torch.from_numpy(enc), torch.from_numpy(mask),
+                max_len=self.TRANSLATE_MAX_BYTES).cpu().numpy()
+            for row, i in enumerate(idxs):
+                text = tokens_to_text(toks[row], self.config.vocab).strip()
+                if text:
+                    segments[i].translation = text
+
+    def _translate_segments_text(
+            self, segments: List[TranscriptSegment]) -> None:
+        """Text-mode translation: segment transcript bytes -> English.
+
+        Long transcripts are split on word boundaries into MAX_SOURCE_LEN
+        byte spans, translated independently and joined. Spans are
+        memoized by text and decoded in batches of 128 rows (the decode
+        runs its TRANSLATE_MAX_BYTES steps whatever the batch width)."""
+        todo = [i for i, s in enumerate(segments)
+                if s.language_code and s.language_code != "en"
+                and (s.text or "").strip()]
+        if not todo:
+            return
+
+        def spans(text: str) -> List[str]:
+            words, cur, out = text.split(), [], []
+            n = 0
+            for w in words:
+                wb = len(w.encode("utf-8")) + 1
+                if cur and n + wb > MAX_SOURCE_LEN:
+                    out.append(" ".join(cur))
+                    cur, n = [], 0
+                cur.append(w)
+                n += wb
+            if cur:
+                out.append(" ".join(cur))
+            return out or [""]
+
+        jobs = [(i, sp) for i in todo for sp in spans(segments[i].text)]
+        memo: Dict[str, str] = {}
+        unique = sorted({sp for _, sp in jobs})
+        B = 128
+        for b0 in range(0, len(unique), B):
+            batch = unique[b0:b0 + B]
+            ids = np.zeros((B, MAX_SOURCE_LEN), np.int32)
+            mask = np.zeros((B, MAX_SOURCE_LEN), bool)
+            for row, sp in enumerate(batch):
+                ids[row], mask[row] = source_to_tokens(sp, self.config.vocab)
+            toks = self._translator.translate_text(
+                torch.from_numpy(ids), torch.from_numpy(mask),
+                max_len=self.TRANSLATE_MAX_BYTES).cpu().numpy()
+            for row, sp in enumerate(batch):
+                memo[sp] = tokens_to_text(toks[row],
+                                          self.config.vocab).strip()
+        results: Dict[int, List[str]] = {}
+        for i, sp in jobs:
+            text = memo.get(sp, "")
+            if text:
+                results.setdefault(i, []).append(text)
+        for i, parts in results.items():
+            segments[i].translation = " ".join(parts)
 
     def _segment_languages(self, lid_frames: np.ndarray,
                            lid_conf: Optional[np.ndarray],
@@ -734,7 +893,7 @@ class TranscriptionEngine:
         report("processing", 2)       # step 2: whole-file assembly
         with trace.stage("assemble"):
             result, prof = self._assemble_global(
-                parts or ([], []), language=language,
+                parts or ([], [], []), language=language,
                 speaker_count=speaker_count, duration_s=duration_s)
         trace.stages.update(
             {f"assemble.{k}": round(v, 2) for k, v in prof.items()})
@@ -745,7 +904,7 @@ class TranscriptionEngine:
 
     def transcribe_streaming(self, audio_path, **kwargs):
         raise _not_ported("transcribe_streaming (online speaker tracking)",
-                          "Queue A item 9")
+                          "A9")
 
     def transcribe_chunked(
         self,

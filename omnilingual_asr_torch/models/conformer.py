@@ -90,7 +90,7 @@ def asr_param_shapes(cfg: PipelineConfig):
 def _no_experts(enc: EncoderConfig) -> None:
     if enc.n_experts > 0:
         raise NotImplementedError("mixture-of-experts FFNs are not ported "
-                                  "(ROADMAP Queue A item 10)")
+                                  "(A10 in ROADMAP.md, Queue A)")
 
 
 def conformer_block_init(gen: torch.Generator, enc: EncoderConfig):

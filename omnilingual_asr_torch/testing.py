@@ -3,11 +3,12 @@
 ``testdata/golden.wav`` is 8 s of synthetic multi-speaker speech and
 ``testdata/golden.json`` the JAX engine's result on it (``to_dict`` form)
 with its greedy CTC ids; ``golden_a8.json`` and ``golden_w8.json`` are the
-JAX engine's results with ``quantize="a8"`` and ``"w8"``. The tests hold the
-port's CPU results to them, and ``chip_smoke.py`` holds the card's results
-to them, by one criterion:
-identical segment texts, speakers, languages and emotions, identical
-summary and detected languages, segment and word times within one
+JAX engine's results with ``quantize="a8"`` and ``"w8"``, and
+``golden_decoders.json`` its result with the release translator and
+summarizer loaded. The tests hold the port's CPU results to them, and
+``chip_smoke.py`` holds the card's results to them, by one criterion:
+identical segment texts, speakers, languages, emotions and translations,
+identical summary and detected languages, segment and word times within one
 subsampled frame (40 ms), and greedy CTC ids equal on at least 99.5 % of
 valid frames.
 
@@ -17,6 +18,11 @@ stores the reference's masses; where its top two are closer than
 ``TONE_TIE`` of the total, the decision lies inside the numerical noise of
 two implementations, and the criterion accepts either of those two tones
 (the rest of the summary must still be identical).
+
+The decoders' fixture also stores, for each translated span and for the
+summary, the JAX decode's tokens and the smallest gap between its top two
+logits where a token was chosen freely; each gap must be at least
+``MIN_TOKEN_GAP``, so that an exact check of the decoded bytes is fair.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from .types import EMOTIONS
 TESTDATA = Path(__file__).resolve().parent / "testdata"
 GOLDEN_WAV = TESTDATA / "golden.wav"
 GOLDEN_JSON = TESTDATA / "golden.json"
+GOLDEN_DECODERS_JSON = TESTDATA / "golden_decoders.json"
 
 #: One subsampled encoder frame (4 x 10 ms hop).
 TIME_TOL_S = 0.04
@@ -43,6 +50,13 @@ MIN_CTC_AGREEMENT = 0.995
 #: emotion logits on the wire, bf16 roundings flipped by summation order);
 #: 0.5 % leaves room for the card's other orders.
 TONE_TIE = 0.005
+#: Least top-two logit gap of a freely chosen token in the decoders'
+#: fixture. On the fixture's translated spans the port's CPU logits differ
+#: from the reference's by up to 0.057 a logit, and its top-two gaps by up
+#: to 0.046 (bf16 roundings of activations flipped by f32 summation order);
+#: a gap moves by at most twice the first, and 0.25 leaves room for the
+#: card's summation orders on top of that.
+MIN_TOKEN_GAP = 0.25
 
 _TONE = re.compile(r"Overall tone: (\w+)\.$")
 
@@ -62,6 +76,10 @@ def golden_json(quantize=False) -> Path:
 
 def load_golden(quantize=False) -> dict:
     return json.loads(golden_json(quantize).read_text())
+
+
+def load_golden_decoders() -> dict:
+    return json.loads(GOLDEN_DECODERS_JSON.read_text())
 
 
 def tone_mass(engine, path) -> List[float]:

@@ -481,3 +481,82 @@ def test_quant_wrappers_refuse_what_the_kernels_do_not_take(dev):
             fn(x, w200, s200)
         with pytest.raises(ValueError, match="CUDA"):
             fn(x, w_q.cpu(), scale)
+
+
+# ---------------------------------------------------------------------------
+# The decoders: CUDA-graph replay against eager decoding and the CPU
+# ---------------------------------------------------------------------------
+
+def _release_decoder(name, device, **kwargs):
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.models import translation
+    from omnilingual_asr_torch.testing import TESTDATA
+
+    release = TESTDATA.parents[1] / "checkpoints" / "release"
+    cfg = PipelineConfig.from_json((release / "config.json").read_text())
+    params = translation.load_translator(
+        release / f"{name}.npz", cfg, n_layers=4 if name == "translator"
+        else 2, device=device)
+    return translation.GreedyDecoder(params, cfg, **kwargs), cfg
+
+
+def _fixture_spans(cfg, rows: int = 128):
+    """The golden fixture's translated spans in the engine's batch of 128
+    rows, with a reversed copy of each span in the next rows."""
+    import numpy as np
+
+    from omnilingual_asr_torch import testing
+    from omnilingual_asr_torch.models.translation import source_to_tokens
+
+    spans = [t["span"] for t in testing.load_golden_decoders()["translations"]]
+    spans += [s[::-1] for s in spans]
+    ids = np.zeros((rows, 256), np.int32)
+    mask = np.zeros((rows, 256), bool)
+    for r, sp in enumerate(spans):
+        ids[r], mask[r] = source_to_tokens(sp, cfg.vocab)
+    return torch.from_numpy(ids), torch.from_numpy(mask), len(spans)
+
+
+def test_decoder_graph_tokens_equal_eager(dev):
+    """Translator and summarizer decodes replayed from their CUDA graphs
+    equal the same decodes run eagerly on the card, on two inputs in turn
+    through one captured graph each (its static buffers reused)."""
+    from omnilingual_asr_torch.models.summarizer import fact_prefix_ids
+
+    graph, cfg = _release_decoder("translator", dev)
+    eager, _ = _release_decoder("translator", dev, use_graph=False)
+    assert graph.use_graph and not eager.use_graph
+    ids, mask, _ = _fixture_spans(cfg)
+    for src, m in ((ids, mask), (ids.roll(1, 0), mask.roll(1, 0))):
+        assert torch.equal(graph.translate_text(src, m, max_len=128),
+                           eager.translate_text(src, m, max_len=128))
+    assert len(graph._states) == 1
+    summ, _ = _release_decoder("summarizer", dev)
+    summ_eager, _ = _release_decoder("summarizer", dev, use_graph=False)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prefix = fact_prefix_ids(cfg.vocab, n_speakers=2, tone="neutral",
+                             language_names=["Georgian", "Greek"])
+    forced = torch.full((1, 192), -1, dtype=torch.int32)
+    forced[0, :len(prefix)] = torch.tensor(prefix)
+    for valid in (1, 5):
+        enc = 0.5 * torch.randn(1, 128, 256, generator=gen, device=dev)
+        m = (torch.arange(128, device=dev) < valid)[None]
+        assert torch.equal(summ.decode(enc, m, max_len=192, forced=forced),
+                           summ_eager.decode(enc, m, max_len=192,
+                                             forced=forced))
+
+
+def test_decoder_card_translate_text_equals_cpu(dev):
+    """The card's text-mode translation of the golden fixture's spans
+    equals the CPU's, and the JAX engine's stored tokens."""
+    from omnilingual_asr_torch import testing
+
+    card, cfg = _release_decoder("translator", dev)
+    cpu, _ = _release_decoder("translator", torch.device("cpu"))
+    ids, mask, n = _fixture_spans(cfg, rows=8)
+    got = card.translate_text(ids, mask, max_len=128).cpu()
+    assert torch.equal(got[:n], cpu.translate_text(ids[:n], mask[:n],
+                                                   max_len=128))
+    stored = testing.load_golden_decoders()["translations"]
+    assert [got[i].tolist() for i in range(len(stored))] == \
+        [t["tokens"] for t in stored]

@@ -313,9 +313,6 @@ def test_cpu_construction_works(tmp_path):
     {"long_mode": "sequence"},
     {"speaker_mode": "crop"},
     {"ingress": "mulaw"},
-    {"enable_translation": True},
-    {"translator_path": "translator.npz"},
-    {"summarizer_path": "summarizer.npz"},
     {"config": tiny_config().replace(decode=DecodeConfig(beam_size=4))},
     {"config": tiny_config().replace(decode=DecodeConfig(spk_wire="i8"))},
     {"config": tiny_config().replace(

@@ -10,6 +10,11 @@ The int8 fixtures (``golden_a8.json``, ``golden_w8.json``) are the JAX
 engine's results with ``quantize="a8"`` and ``"w8"``; the port's engines in
 those modes, and its facade, are held to them the same way.
 
+``golden_decoders.json`` is the JAX engine's result with the release
+translator and summarizer loaded by explicit path, with each decode's
+tokens and its smallest top-two logit gap (``tests/test_torch_decoders.py``
+holds the port to it).
+
 Regenerate the files with ``JAX_PLATFORMS=cpu OMNIASR_RELEASE_DIR=
 python tests/test_torch_golden.py``.
 """
@@ -70,7 +75,7 @@ def wav_bytes(pcm: np.ndarray, sr: int = 16_000) -> bytes:
     return buf.getvalue()
 
 
-def jax_engine(quantize=False):
+def jax_engine(quantize=False, **kwargs):
     import jax
     from omnilingual_asr_tpu.config import MeshConfig, PipelineConfig
     from omnilingual_asr_tpu.engine import TranscriptionEngine
@@ -82,7 +87,7 @@ def jax_engine(quantize=False):
     return TranscriptionEngine(
         config=cfg, xvector_path=str(RELEASE / "xvector.npz"),
         mesh=build_mesh(MeshConfig(data=1), devices=jax.devices()[:1]),
-        batch_windows_per_device=4, quantize=quantize)
+        batch_windows_per_device=4, quantize=quantize, **kwargs)
 
 
 def greedy_ids(engine, path: Path):
@@ -103,6 +108,83 @@ def jax_golden(path: Path, quantize=False) -> dict:
     return {"result": dataclasses.asdict(res),
             "ctc_ids": greedy_ids(eng, path),
             "tone_mass": golden.tone_mass(eng, path)}
+
+
+def _free_gaps(logits, toks, n_prefix: int):
+    """Smallest top-two gap of ``logits`` [T, V] over the freely chosen
+    positions of one decoded row (from ``n_prefix`` to its first free EOS),
+    which must be the logits' argmax there."""
+    free = np.arange(n_prefix, len(toks))
+    eos = free[toks[free] == 0]
+    free = free[free <= eos[0]] if len(eos) else free
+    top2 = np.sort(logits[free], axis=-1)[:, -2:]
+    assert (np.argmax(logits[free], axis=-1) == toks[free]).all()
+    return float((top2[:, 1] - top2[:, 0]).min())
+
+
+def jax_golden_decoders(path: Path) -> dict:
+    """The JAX engine's result with the release decoders, and each of its
+    decodes: the tokens and the smallest top-two gap of the teacher-forced
+    logits over the decoded tokens (which must reproduce them)."""
+    from unittest import mock
+
+    import jax.numpy as jnp
+    from omnilingual_asr_tpu.models import summarizer as jsum
+    from omnilingual_asr_tpu.models import translation as jtr
+
+    eng = jax_engine(translator_path=str(RELEASE / "translator.npz"),
+                     summarizer_path=str(RELEASE / "summarizer.npz"))
+    calls = {"translate": [], "summary": []}
+    translate_text = jtr.translate_text
+    greedy_translate = jsum.greedy_translate
+
+    def rec_translate(params, tokens, mask, cfg, **kw):
+        out = translate_text(params, tokens, mask, cfg, **kw)
+        calls["translate"].append((np.asarray(tokens), np.asarray(mask),
+                                   np.asarray(out)))
+        return out
+
+    def rec_summary(params, enc, mask, cfg, **kw):
+        out = greedy_translate(params, enc, mask, cfg, **kw)
+        calls["summary"].append((np.asarray(enc), np.asarray(mask),
+                                 np.asarray(kw["forced"]), np.asarray(out)))
+        return out
+
+    with mock.patch.object(jtr, "translate_text", rec_translate), \
+            mock.patch.object(jsum, "greedy_translate", rec_summary):
+        res = eng.transcribe(path)
+    cfg, vocab = eng.config, eng.config.vocab
+    n_real = 1 + vocab.n_bytes
+
+    def gaps(params, mem, mask, toks, n_prefix):
+        inp = np.concatenate([np.zeros_like(toks[:, :1]), toks[:, :-1]], 1)
+        logits = np.asarray(jtr.decoder_forward(
+            params, jnp.asarray(inp), mem, jnp.asarray(mask), cfg))
+        return [_free_gaps(lg[:, :n_real], t, n_prefix)
+                for lg, t in zip(logits, toks)]
+
+    translations = []
+    for ids, mask, toks in calls["translate"]:
+        rows = mask.any(axis=1)
+        ids, mask, toks = ids[rows], mask[rows], toks[rows]
+        mem = jtr.encode_source(eng._translator, jnp.asarray(ids),
+                                jnp.asarray(mask), cfg)
+        for i, gap in enumerate(gaps(eng._translator, mem, mask, toks, 0)):
+            span = bytes(vocab.id_to_byte(int(t))
+                         for t in ids[i][mask[i]]).decode("utf-8")
+            translations.append({"span": span,
+                                 "tokens": toks[i].tolist(),
+                                 "min_gap": gap})
+    (enc, mask, forced, toks), = calls["summary"]
+    n_prefix = int((forced[0] >= 0).sum())
+    gap, = gaps(eng._summarizer.params, jnp.asarray(enc), mask, toks,
+                n_prefix)
+    return {"result": dataclasses.asdict(res),
+            "ctc_ids": greedy_ids(eng, path),
+            "tone_mass": golden.tone_mass(eng, path),
+            "translations": translations,
+            "summary": {"tokens": toks[0].tolist(), "n_prefix": n_prefix,
+                        "min_gap": gap}}
 
 
 @pytest.fixture(scope="module")
@@ -135,6 +217,38 @@ def _assert_current(stored: dict, fresh: dict) -> None:
         golden.MIN_CTC_AGREEMENT
     np.testing.assert_allclose(fresh["tone_mass"], mass,
                                atol=1e-3 * sum(mass))
+
+
+def test_golden_decoders_json_is_current(regenerated):
+    """golden_decoders.json equals a fresh JAX run with the release
+    decoders: the result by the port's criterion (translations and the
+    summary exactly), every decode's tokens exactly, its gaps within
+    1e-2."""
+    path, _ = regenerated
+    stored, fresh = golden.load_golden_decoders(), jax_golden_decoders(path)
+    _assert_current(stored, fresh)
+    assert ([t["span"] for t in fresh["translations"]]
+            == [t["span"] for t in stored["translations"]])
+    for want, got in zip(stored["translations"] + [stored["summary"]],
+                         fresh["translations"] + [fresh["summary"]]):
+        assert got["tokens"] == want["tokens"]
+        assert abs(got["min_gap"] - want["min_gap"]) <= 1e-2
+
+
+def test_golden_decoders_have_margin():
+    """The decoders' fixture is a fair exact check: every decode's free
+    tokens lead their runner-up by MIN_TOKEN_GAP, the tone is not a tie,
+    and the result carries translations and a generated summary."""
+    stored = golden.load_golden_decoders()
+    decodes = stored["translations"] + [stored["summary"]]
+    assert len(stored["translations"]) >= 2
+    assert all(d["min_gap"] >= golden.MIN_TOKEN_GAP for d in decodes)
+    m = sorted(stored["tone_mass"])
+    assert m[-1] - m[-2] >= golden.TONE_TIE * sum(m)
+    result = stored["result"]
+    assert all(s["translation"] for s in result["segments"]
+               if s["language_code"] != "en")
+    assert not result["summary"].startswith("Audio of ")
 
 
 def test_golden_has_content():
@@ -291,9 +405,13 @@ def main() -> None:
     golden.TESTDATA.mkdir(parents=True, exist_ok=True)
     golden.GOLDEN_WAV.write_bytes(wav_bytes(pcm))
     print(f"wrote {golden.GOLDEN_WAV} ({len(pcm) / 16000:.2f} s)")
-    for quantize in (False, "a8", "w8"):
-        data = jax_golden(golden.GOLDEN_WAV, quantize)
-        out = golden.golden_json(quantize)
+    for quantize in (False, "a8", "w8", "decoders"):
+        if quantize == "decoders":
+            data = jax_golden_decoders(golden.GOLDEN_WAV)
+            out = golden.GOLDEN_DECODERS_JSON
+        else:
+            data = jax_golden(golden.GOLDEN_WAV, quantize)
+            out = golden.golden_json(quantize)
         out.write_text(json.dumps(data, ensure_ascii=False,
                                   separators=(",", ":")) + "\n")
         print(f"wrote {out}")
