@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d in that order)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d, 4e in order)
     python3 chip_smoke.py --profile    # and, before the report, phase 4c
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
@@ -67,6 +67,26 @@ with no result line:
              decoders' seconds a request (warm, 3 rounds, graphs on and off
              in turns) beside the StageTrace's ``assemble.translate`` and
              ``assemble.summary``.
+4e. server - the port's HTTP server (``serving/app.py``'s ``OmniServer``)
+             in front of phase 4d's engine, on 127.0.0.1 with SQLite
+             history. The native ``omniaudio`` library must have been built
+             from the port's source under ``_build/`` (the phase fails on
+             the Python fallback); it and the Python parser decode the
+             tiled 120 s and 330 s files to equal samples, both timed.
+             Then: ``/api/transcribe`` on the golden file, held to
+             ``golden_decoders.json``; ``/api/transcribe-stream`` on the
+             120 s file (progress steps, one result); the 44.1 kHz stereo
+             golden audio and the 330 s file served alone (and an MP3 of
+             the golden audio where libav is linked and ffmpeg can make
+             one); the K1-K3 launches over those serial requests; the
+             same files at once on ``/api/transcribe-batch-stream`` (the
+             stereo one inside a .zip), each equal to the file served
+             alone; ``/api/history`` and the five exports of every entry,
+             each equal to ``export_transcript`` on the stored entry; the
+             live route's 501. Then warm seconds through HTTP beside
+             ``engine.transcribe`` (golden, 120 s), and the batch route's
+             wall seconds under the engine's device lock, under a lock
+             around whole requests, and served one after another.
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -78,8 +98,8 @@ with no result line:
              16: the host's batch wait, upload, forward + loss, backward
              and optimizer seconds, and one step under the profiler.
 5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
-             over the serving, training and decoders paths, by path beside
-             it), the
+             over the serving, training, decoders and server paths, by path
+             beside it), the
              ``nvidia-smi`` name and power limit, and the result line
              ``{"ok": true, "device": {...}}``.
 
@@ -1114,6 +1134,374 @@ def run_decoders(dev, cfg, params, xvector):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4e: the server (native decoding, HTTP routes, history, exports)
+# ---------------------------------------------------------------------------
+
+SERVER_SECONDS = (120.0, 330.0)  # tiled files decoded both ways and served
+SERVER_ROUNDS = 3                # warm requests a timing (medians)
+EXPORT_FORMATS = ("eaf", "textgrid", "srt", "txt", "json")
+# What differs between two servings of one file: ids, clocks, upload names.
+UNSTABLE_KEYS = ("id", "created_at", "audio_url", "audio_key", "file_name")
+
+
+def _multipart(files, field="file"):
+    """(body, content type) of a multipart form with ``files``: [(name,
+    bytes)]."""
+    boundary = "omnismokeboundary"
+    parts = []
+    for name, data in files:
+        parts.append(f"--{boundary}\r\nContent-Disposition: form-data; "
+                     f"name=\"{field}\"; filename=\"{name}\"\r\nContent-"
+                     f"Type: application/octet-stream\r\n\r\n".encode()
+                     + data + b"\r\n")
+    body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def _http(port, method, path, body=None, ctype=None):
+    """(status, body bytes) of one request to the local server."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": ctype} if ctype else {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _sse_events(data: bytes):
+    events = []
+    for block in data.decode().split("\n\n"):
+        fields = dict(line.partition(": ")[::2]
+                      for line in block.splitlines() if line)
+        if "event" in fields:
+            events.append((fields["event"], json.loads(fields["data"])))
+    return events
+
+
+def _stable(entry: dict) -> dict:
+    return {k: v for k, v in entry.items() if k not in UNSTABLE_KEYS}
+
+
+def _post_files(port, path, files, field="file"):
+    """The body of a multipart POST of ``files``; any status but 200
+    fails the phase."""
+    status, body = _http(port, "POST", path, *_multipart(files, field))
+    if status != 200:
+        raise PhaseError(f"server: POST {path} answered {status}: "
+                         f"{body[:300]!r}")
+    return body
+
+
+def write_resampled_stereo(src: Path, dst: Path, rate: int) -> None:
+    """``src`` (16 kHz mono PCM-16) resampled to ``rate`` as a stereo file
+    whose right channel is the left at half gain."""
+    import numpy as np
+    from omnilingual_asr_torch.audio.decode import decode_wav_bytes
+    from omnilingual_asr_torch.audio.resample import resample
+
+    x, sr = decode_wav_bytes(src.read_bytes())
+    y = resample(x, sr, rate)
+    pcm = np.clip(np.round(np.stack([y, 0.5 * y], axis=1) * 32767),
+                  -32768, 32767).astype("<i2")
+    with wave.open(str(dst), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+
+
+def check_native(engine, work: Path, smi: str) -> dict:
+    """The native library: built from the port's source under ``_build/``
+    (failing the phase when it is not), then the tiled files decoded
+    natively and by the Python parser, equal, with both times and the
+    engine's own decode (``_load_audio``: native, at the engine's rate)."""
+    import numpy as np
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.audio import native_lib
+    from omnilingual_asr_torch.audio.decode import decode_wav_bytes
+
+    if not native_lib.native_available():
+        raise PhaseError("server: the native omniaudio library did not "
+                         "build or load (g++ on "
+                         f"{native_lib.SOURCE.relative_to(ROOT)})")
+    info = native_lib.native_build()
+    if info.lib_path.parent.parent != PKG / "_build":
+        raise PhaseError(f"server: the native library {info.lib_path} is "
+                         f"not under omnilingual_asr_torch/_build/")
+    headers = bool(native_lib._libav_flags())
+    log("  native " + json.dumps({
+        "lib": str(info.lib_path.relative_to(ROOT)),
+        "build_s": info.seconds, "cached": info.cached,
+        "flags": info.flags, "libav_headers": headers,
+        "libav_linked": info.libav, "card": smi}))
+    paths = {}
+    for seconds in SERVER_SECONDS:
+        path = work / f"t{int(seconds)}.wav"
+        write_tiled_wav(golden.GOLDEN_WAV, path, seconds)
+        paths[seconds] = path
+        times = {"native_s": [], "python_s": [], "engine_load_s": []}
+        for _ in range(SERVER_ROUNDS):
+            t0 = time.perf_counter()
+            engine._load_audio(path)
+            times["engine_load_s"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            got, sr = native_lib.native_decode(path)
+            times["native_s"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            want, want_sr = decode_wav_bytes(path.read_bytes())
+            times["python_s"].append(time.perf_counter() - t0)
+            if sr != want_sr or not np.array_equal(got, want):
+                raise PhaseError(f"server: the native decode of the "
+                                 f"{seconds:.0f} s file differs from the "
+                                 f"Python parser's")
+        log("  decode " + json.dumps({
+            "audio_s": seconds, "samples_equal": True,
+            "native_s_median": statistics.median(times["native_s"]),
+            "python_s_median": statistics.median(times["python_s"]),
+            "engine_load_s_median": statistics.median(
+                times["engine_load_s"]),
+            **times, "card": smi}))
+    return {"paths": paths, "libav": info.libav}
+
+
+def _mp3_of(src: Path, dst: Path) -> bool:
+    """An MP3 of ``src`` made on this machine, if an encoder is here."""
+    import shutil
+
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        return False
+    proc = subprocess.run([ffmpeg, "-loglevel", "error", "-y", "-i",
+                           str(src), "-codec:a", "libmp3lame", "-b:a",
+                           "128k", str(dst)], capture_output=True,
+                          timeout=120)
+    return proc.returncode == 0 and dst.is_file()
+
+
+def run_server(engine, smi: str) -> dict:
+    """Phase 4e. The port's ``OmniServer`` in front of phase 4d's engine
+    (release weights and both decoders) on 127.0.0.1 with SQLite history:
+    the golden file, the tiled files and a 44.1 kHz stereo file served
+    alone, then all four at once on the batch route (each result equal to
+    the same file served alone), history and the five exports, the live
+    route's 501; the K1-K3 launches over the serial requests; warm seconds
+    through HTTP beside ``engine.transcribe``, and the batch route's wall
+    seconds under the engine's device lock beside a lock around whole
+    requests. Returns the serial requests' launches."""
+    import io
+    import re
+    import tempfile
+    import threading
+    import zipfile
+
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.exporters import export_transcript
+    from omnilingual_asr_torch.serving.app import OmniServer
+
+    work = PKG / "_build" / "server"
+    work.mkdir(parents=True, exist_ok=True)
+    native = check_native(engine, work, smi)
+    t120, t330 = (native["paths"][s] for s in SERVER_SECONDS)
+    stereo = work / "golden_44k1_stereo.wav"
+    write_resampled_stereo(golden.GOLDEN_WAV, stereo, 44_100)
+    files = {"golden.wav": golden.GOLDEN_WAV, "t120.wav": t120,
+             "golden_44k1_stereo.wav": stereo, "t330.wav": t330}
+    mp3 = work / "golden.mp3"
+    if native["libav"] and _mp3_of(golden.GOLDEN_WAV, mp3):
+        files["golden.mp3"] = mp3
+        log("  mp3: libav linked and ffmpeg made golden.mp3 here; it is "
+            "served alone and on the batch route")
+    else:
+        log(f"  mp3: not served (libav linked: {native['libav']}, an MP3 "
+            f"encoder here: {bool(native['libav'] and mp3.is_file())})")
+    data = {name: p.read_bytes() for name, p in files.items()}
+
+    L = engine.config.encoder.n_layers
+    per_batch = {"log_mel_frames": 1, "flash_attention": L,
+                 "fused_conv_module": L}
+    counters = _counters()
+    with tempfile.TemporaryDirectory(dir=work) as base:
+        srv = OmniServer(engine=engine, base_dir=Path(base),
+                         auth_required=False, use_sqlite=True)
+        port = srv.serve_background("127.0.0.1", 0)
+        try:
+            # Serial requests, each file alone; the launches are read over
+            # these only (the counters are not atomic across threads).
+            for fn in counters:
+                fn.launches = 0
+            alone = {}
+            for name in files:
+                if name == "t120.wav":
+                    continue
+                alone[name] = json.loads(_post_files(
+                    port, "/api/transcribe", [(name, data[name])]))
+            body = _post_files(port, "/api/transcribe-stream",
+                              [("t120.wav", data["t120.wav"])])
+            events = _sse_events(body)
+            steps = []
+            for kind, d in events:
+                if kind == "progress" and (not steps or steps[-1]
+                                           != d["step"]):
+                    steps.append(d["step"])
+            if (steps != ["uploading", "transcribing", "processing", "done"]
+                    or [k for k, _ in events].count("result") != 1
+                    or events[-1][0] != "result"):
+                raise PhaseError(f"server: stream events {steps} + "
+                                 f"{[k for k, _ in events][-2:]}")
+            alone["t120.wav"] = events[-1][1]
+            launches = {fn.__name__: fn.launches for fn in counters}
+            n_batches = _n_batches(engine, [files[n] for n in files
+                                            if n.endswith(".wav")])
+            if "golden.mp3" in files:
+                n_batches += 1
+            log(f"  server launches {json.dumps(launches)} over "
+                f"{n_batches} batches of serial requests")
+            for name, n in per_batch.items():
+                if launches[name] != n * n_batches:
+                    raise PhaseError(f"server: {name} launched "
+                                     f"{launches[name]} times, expected {n} "
+                                     f"a batch x {n_batches}")
+
+            stored = golden.load_golden_decoders()
+            g = alone["golden.wav"]
+            bad = golden.result_mismatches(stored["result"], g,
+                                           tone_mass=stored["tone_mass"])
+            if g.get("summary") != stored["result"]["summary"]:
+                bad.append(f"summary {g.get('summary')!r}")
+            if ([s.get("translation") for s in g["segments"]]
+                    != [s["translation"]
+                        for s in stored["result"]["segments"]]):
+                bad.append("translations differ")
+            if bad:
+                raise PhaseError("server: golden entry mismatch: "
+                                 + "; ".join(bad))
+            log(f"  server golden: {len(g['segments'])} segments equal "
+                f"golden_decoders.json (translations and summary exact)")
+
+            # The batch route: the four files at once, the stereo one
+            # inside a .zip; each result equals the file served alone.
+            zbuf = io.BytesIO()
+            with zipfile.ZipFile(zbuf, "w") as z:
+                z.writestr("golden_44k1_stereo.wav",
+                           data["golden_44k1_stereo.wav"])
+            upload = [(n, data[n]) for n in files
+                      if n != "golden_44k1_stereo.wav"]
+            upload.insert(2, ("batch.zip", zbuf.getvalue()))
+
+            def batch_route():
+                t0 = time.perf_counter()
+                body = _post_files(port, "/api/transcribe-batch-stream",
+                                  upload, field="files")
+                secs = time.perf_counter() - t0
+                events = _sse_events(body)
+                errors = [d for k, d in events if d.get("step") == "error"]
+                if errors or events[-1][0] != "result":
+                    raise PhaseError(f"server: batch route errors {errors}")
+                return events[-1][1]["results"], secs
+
+            results, _ = batch_route()
+            by_name = {r["file_name"]: r for r in results}
+            if sorted(by_name) != sorted(files):
+                raise PhaseError(f"server: batch results for "
+                                 f"{sorted(by_name)}, want {sorted(files)}")
+            for name in files:
+                if _stable(by_name[name]) != _stable(alone[name]):
+                    raise PhaseError(f"server: {name} on the batch route "
+                                     f"differs from the file served alone")
+            log(f"  server batch route: {len(files)} files at once (one in "
+                f"a .zip) equal the same files served alone")
+
+            # History and the five exports of every stored entry.
+            status, listed = _http(port, "GET", "/api/history")
+            listed = json.loads(listed)
+            if status != 200 or len(listed) != 2 * len(files):
+                raise PhaseError(f"server: history lists {len(listed)} "
+                                 f"entries, want {2 * len(files)}")
+            for item in listed:
+                status, entry = _http(port, "GET",
+                                      f"/api/history/{item['id']}")
+                entry = json.loads(entry)
+                for fmt in EXPORT_FORMATS:
+                    status, got = _http(
+                        port, "GET",
+                        f"/api/history/{item['id']}/export?format={fmt}")
+                    kw = {}
+                    if fmt == "eaf":
+                        kw["date"] = re.search(rb'DATE="([^"]*)"',
+                                               got)[1].decode()
+                    want = export_transcript(entry, fmt, **kw)
+                    if status != 200 or got != want.encode("utf-8"):
+                        raise PhaseError(f"server: the {fmt} export of "
+                                         f"{item['file_name']} differs from "
+                                         f"export_transcript")
+            log(f"  server history: {len(listed)} entries; all five exports "
+                f"of each equal export_transcript on the stored entry")
+
+            status, body = _http(port, "POST",
+                                 "/api/transcribe-stream-live",
+                                 *_multipart([("g.wav",
+                                               data["golden.wav"])]))
+            if status != 501:
+                raise PhaseError(f"server: the live route answered "
+                                 f"{status}, want 501")
+            log(f"  server live route: 501 {body.decode()}")
+
+            # Warm seconds a request: HTTP against engine.transcribe.
+            for name in ("golden.wav", "t120.wav"):
+                http_s, direct_s = [], []
+                for _ in range(SERVER_ROUNDS):
+                    t0 = time.perf_counter()
+                    _post_files(port, "/api/transcribe",
+                               [(name, data[name])])
+                    http_s.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    engine.transcribe(files[name])
+                    direct_s.append(time.perf_counter() - t0)
+                log("  server seconds " + json.dumps({
+                    "request": name, "rounds": SERVER_ROUNDS,
+                    "http_s_median": statistics.median(http_s),
+                    "direct_s_median": statistics.median(direct_s),
+                    "http_s": http_s, "direct_s": direct_s, "card": smi}))
+
+            # The lock's cost on the batch route: the four files at once
+            # under the device lock, then under a lock around each whole
+            # request, beside the same files served one after another.
+            whole = threading.Lock()
+            plain = engine.transcribe
+
+            def whole_request(*a, **kw):
+                with whole:
+                    return plain(*a, **kw)
+
+            secs = {"device_lock_s": [], "whole_request_lock_s": [],
+                    "serial_s": []}
+            for _ in range(SERVER_ROUNDS):
+                secs["device_lock_s"].append(batch_route()[1])
+                engine.transcribe = whole_request
+                try:
+                    secs["whole_request_lock_s"].append(batch_route()[1])
+                finally:
+                    del engine.transcribe
+                t0 = time.perf_counter()
+                for name in files:
+                    _post_files(port, "/api/transcribe",
+                               [(name, data[name])])
+                secs["serial_s"].append(time.perf_counter() - t0)
+            log("  server batch seconds " + json.dumps({
+                "files": len(files), "rounds": SERVER_ROUNDS,
+                **{f"{k}_median": statistics.median(v)
+                   for k, v in secs.items()}, **secs, "card": smi}))
+        finally:
+            srv.shutdown()
+            srv.app._httpd.server_close()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 4b: kernel-mode training through train_synth
 # ---------------------------------------------------------------------------
 
@@ -1580,6 +1968,11 @@ def main(argv=None) -> int:
                                                      xvector)
         log(f"[decoders] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "server"
+        t0 = time.perf_counter()
+        served = run_server(engines["decoders"], smi)
+        log(f"[server] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -1596,7 +1989,7 @@ def main(argv=None) -> int:
                  "flash_attention_bwd_dq": "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
         paths = {"serving": serving, "training": training,
-                 "decoders": decoding}
+                 "decoders": decoding, "server": served}
         line = {"kernels": []}
         for k in kernels:
             fn = by_fn[k["name"]]

@@ -1,9 +1,13 @@
-"""In-process audio decoding for the PyTorch port: the pure-Python WAV and
-AIFF paths of ``omnilingual_asr_tpu/audio/decode.py``.
+"""In-process audio decoding for the PyTorch port: the port's own copy of
+``omnilingual_asr_tpu/audio/decode.py`` (the port imports nothing of the JAX
+package); keep the two in step.
 
-The JAX package first tries its C++ ``omniaudio`` library (WAV/MP3/FLAC/
-AIFF); porting that decoder is a later slice, so here only the stdlib
-paths exist and other containers raise.
+Dispatch order per file:
+1. the native C++ ``omniaudio`` library (WAV natively; MP3/FLAC/OGG/M4A/AAC/
+   AIFF through libav where the build links it), loaded via ctypes from
+   ``native_lib.py``;
+2. pure-Python fallbacks (WAV/AIFF via stdlib) so the package works even
+   when the native library cannot be built.
 
 All decoders return ``(samples, sample_rate)`` where ``samples`` is a mono
 float32 numpy array in [-1, 1].
@@ -16,6 +20,8 @@ from pathlib import Path
 from typing import Tuple
 
 import numpy as np
+
+from .native_lib import native_available, native_decode, native_duration
 
 # MIME map, behavior-compatible with reference gemini_pipeline.py:106-118.
 MIME_TYPES = {
@@ -189,32 +195,116 @@ def _decode_aiff(path: Path) -> Tuple[np.ndarray, int]:
 # ---------------------------------------------------------------------------
 
 def decode_audio(path: str | Path) -> Tuple[np.ndarray, int]:
-    """Decode a WAV or AIFF file to (mono float32, sample_rate)."""
+    """Decode any supported audio file to (mono float32, sample_rate).
+
+    Replaces the ffmpeg decode path of the reference (gemini_pipeline.py:273-301)
+    with in-process native decoding.
+    """
     path = Path(path)
     ext = path.suffix.lower()
+    if native_available():
+        out = native_decode(path)
+        if out is not None:
+            return out
     if ext == ".wav":
         return decode_wav_bytes(path.read_bytes())
     if ext in (".aiff", ".aif"):
         return _decode_aiff(path)
     raise ValueError(
-        f"cannot decode {path.name!r}: the port decodes WAV and AIFF only "
-        f"(the native omniaudio decoder is not ported yet)")
+        f"cannot decode {path.name!r}: native omniaudio library unavailable "
+        f"for {ext} and no pure-Python fallback exists"
+    )
 
 
 def get_audio_duration(audio_path: str | Path) -> float:
-    """Audio duration in seconds from the WAV/AIFF header; 0.0 on any
-    failure, which downstream reads as "treat as a short file"."""
+    """Audio duration in seconds — header-only probe where possible.
+
+    Behavior-compatible with the reference's ffprobe wrapper
+    (gemini_pipeline.py:222-240): returns 0.0 on any failure instead of
+    raising, which downstream uses to mean "treat as short file".
+    """
     path = Path(audio_path)
     try:
+        if not path.exists():
+            return 0.0
+        if native_available():
+            d = native_duration(path)
+            if d is not None and d > 0:
+                return d
         ext = path.suffix.lower()
         if ext == ".wav":
-            (fmt, _, size) = _parse_wav_header(path.read_bytes())
+            data = path.read_bytes()
+            (fmt, _, size) = _parse_wav_header(data)
             audio_format, channels, sample_rate, bits = fmt
             bytes_per_frame = max(1, channels * (bits // 8))
             return size / bytes_per_frame / float(sample_rate)
         if ext in (".aiff", ".aif"):
             _, n_frames, _, sr, _, _ = _parse_aiff_header(path.read_bytes())
             return n_frames / float(sr)
+        if ext == ".mp3":
+            return _mp3_duration_estimate(path)
+        # Unknown container: decode fully as a last resort.
+        samples, sr = decode_audio(path)
+        return len(samples) / float(sr)
+    except Exception:
         return 0.0
-    except (OSError, ValueError, struct.error, ZeroDivisionError):
-        return 0.0
+
+
+_MP3_BITRATES_V1L3 = [0, 32, 40, 48, 56, 64, 80, 96, 112, 128, 160, 192, 224, 256, 320]
+_MP3_BITRATES_V2L3 = [0, 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128, 144, 160]
+_MP3_RATES = {3: [44100, 48000, 32000], 2: [22050, 24000, 16000], 0: [11025, 12000, 8000]}
+
+
+def _skip_id3(data: bytes) -> int:
+    if data[:3] == b"ID3" and len(data) > 10:
+        size = (
+            (data[6] & 0x7F) << 21
+            | (data[7] & 0x7F) << 14
+            | (data[8] & 0x7F) << 7
+            | (data[9] & 0x7F)
+        )
+        return 10 + size
+    return 0
+
+
+def _mp3_duration_estimate(path: Path) -> float:
+    """Estimate MP3 duration from the first frame header (Xing/VBRI-aware
+    for VBR, bitrate extrapolation for CBR)."""
+    data = path.read_bytes()
+    pos = _skip_id3(data)
+    n = len(data)
+    while pos + 4 <= n:
+        if data[pos] == 0xFF and (data[pos + 1] & 0xE0) == 0xE0:
+            h1 = data[pos + 1]
+            version = (h1 >> 3) & 0x3  # 3=MPEG1, 2=MPEG2, 0=MPEG2.5
+            layer = (h1 >> 1) & 0x3
+            if version == 1 or layer != 1:  # only Layer III
+                pos += 1
+                continue
+            h2 = data[pos + 2]
+            br_idx = (h2 >> 4) & 0xF
+            sr_idx = (h2 >> 2) & 0x3
+            if br_idx in (0, 15) or sr_idx == 3:
+                pos += 1
+                continue
+            sr = _MP3_RATES[version][sr_idx]
+            mpeg1 = version == 3
+            bitrate = (_MP3_BITRATES_V1L3 if mpeg1 else _MP3_BITRATES_V2L3)[br_idx] * 1000
+            samples_per_frame = 1152 if mpeg1 else 576
+            # Xing/Info header: frame count at a version/mode-dependent
+            # offset (side-info size: MPEG1 32 B stereo / 17 B mono;
+            # MPEG2 17 B stereo / 9 B mono).
+            h3 = data[pos + 3]
+            mode = (h3 >> 6) & 0x3
+            side_len = (32 if mode != 3 else 17) if mpeg1 else \
+                (17 if mode != 3 else 9)
+            xing_off = pos + 4 + side_len
+            if data[xing_off:xing_off + 4] in (b"Xing", b"Info"):
+                flags = struct.unpack_from(">I", data, xing_off + 4)[0]
+                if flags & 1:
+                    frames = struct.unpack_from(">I", data, xing_off + 8)[0]
+                    return frames * samples_per_frame / float(sr)
+            audio_bytes = n - pos
+            return audio_bytes * 8.0 / bitrate if bitrate else 0.0
+        pos += 1
+    return 0.0

@@ -1,8 +1,8 @@
 """Speaker clustering: agglomerative (average-linkage) clustering over
-
-The PyTorch port's own copy of ``omnilingual_asr_tpu/diarization/cluster.py`` (the port imports nothing
-of the JAX package); keep the two in step.
 L2-normalized segment speaker embeddings.
+
+The PyTorch port's own copy of ``omnilingual_asr_tpu/diarization/cluster.py``
+(the port imports nothing of the JAX package); keep the two in step.
 
 Replaces the diarization the reference outsources to Gemini (prompt
 requirement #1, reference gemini_pipeline.py:204). Because clustering runs
@@ -14,7 +14,7 @@ reference merge at gemini_pipeline.py:643-678 never reconciles labels).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -122,6 +122,12 @@ def _ahc_labels_scipy(x: np.ndarray, n_clusters: Optional[int],
     remap = np.empty(int(raw.max()) + 1, dtype=np.int64)
     remap[uniq[np.argsort(first_idx)]] = np.arange(len(uniq))
     return remap[raw]
+
+
+def speaker_names(labels: np.ndarray) -> List[str]:
+    """Map first-appearance labels to 'Speaker N' strings (default speaker
+    naming, reference gemini_pipeline.py:435)."""
+    return [f"Speaker {int(l) + 1}" for l in labels]
 
 
 def estimate_n_speakers(embeds: np.ndarray, max_k: int = 8,

@@ -7,8 +7,9 @@ the StageTrace stage names (``decode``, ``forward``, ``extract``,
 ``assemble`` and ``assemble.<sub-stage>``).
 
 Execution model:
-- audio is decoded (WAV/AIFF) and resampled on the host and cut into fixed
-  30 s int16 windows;
+- audio is decoded on the host by the native ``omniaudio`` library (and
+  resampled there where the build links libav; otherwise by
+  ``audio/resample.py``) and cut into fixed 30 s int16 windows;
 - windows are batched to a fixed [B, T] shape and run through the per-batch
   program ``_process``: framing, the log-mel kernel (K1), the conformer with
   the flash-attention (K2) and fused conv-module (K3) kernels (and, under
@@ -26,6 +27,13 @@ Execution model:
 The engine runs on CUDA unless the caller passes ``device="cpu"``; then every
 kernel wrapper takes its plain PyTorch version. With no CUDA device and no
 explicit ``device="cpu"``, construction raises.
+
+One engine serves concurrent requests (the server runs up to four files at
+once, one thread each). The work that shares device state, the batched
+device program and the decoders (whose CUDA graphs replay over static
+buffers and are captured on first use), runs under one lock; host decoding,
+host extraction and clustering run outside it, so concurrent requests
+overlap their host work with each other's device work.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import dataclasses
 import inspect
 import math
 import os
+import threading
 import time
 import warnings
 import wave
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from .audio.decode import decode_audio, get_audio_duration
+from .audio.native_lib import native_available, native_decode
 from .audio.resample import resample
 from .config import PipelineConfig
 from .diarization.cluster import DEFAULT_THRESHOLD as CLUSTER_DEFAULT_THRESHOLD
@@ -217,6 +227,9 @@ class TranscriptionEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.last_trace: Optional[StageTrace] = None
+        #: Held around the work that shares device state: the batched
+        #: device program (enqueue) and the decoders.
+        self._device_lock = threading.Lock()
 
         release = default_release_dir()
 
@@ -417,6 +430,16 @@ class TranscriptionEngine:
 
     def _load_audio(self, audio_path: Path) -> np.ndarray:
         target = self.config.frontend.sample_rate
+        # Fast path: native decode + resample in one in-process C++ call.
+        # The WAV-only build (no libav) returns the file's own rate; unlike
+        # the JAX engine, which takes those samples as they are, the port
+        # resamples them then (ROADMAP.md, Queue C).
+        if native_available():
+            out = native_decode(audio_path, target_sr=target)
+            if out is not None:
+                samples, sr = out
+                return (samples if sr == target
+                        else resample(samples, sr, target))
         samples, sr = decode_audio(audio_path)
         if sr != target:
             samples = resample(samples, sr, target)
@@ -486,8 +509,10 @@ class TranscriptionEngine:
 
         Every batch is enqueued on the engine's CUDA stream (program and
         device-to-host copies) before the first is collected, so host work on
-        batch k overlaps device work on later batches. ``windows`` may be a
-        lazy iterable; pass ``n_windows`` then.
+        batch k overlaps device work on later batches. The enqueue runs under
+        the engine's device lock; the collection (waiting on each batch's
+        event) does not. ``windows`` may be a lazy iterable; pass
+        ``n_windows`` then.
         """
         cfg = self.config
         B = self.batch_size
@@ -504,35 +529,38 @@ class TranscriptionEngine:
         ctx = (torch.cuda.stream(self._stream) if on_cuda
                else contextlib.nullcontext())
         pending = []
-        if on_cuda:   # the engine's stream starts after earlier default-stream work
-            self._stream.wait_stream(torch.cuda.current_stream(dev))
-        with ctx:
-            ctc_mask = torch.from_numpy(
-                ctc_logit_mask(orthography, cfg.vocab)).to(dev)
-            for b0 in range(0, n_win, B):
-                batch = [next(win_iter) for _ in range(min(B, n_win - b0))]
-                rows = [w for _, w in batch]
-                n_valid = [frames_for(b0 + k) for k in range(len(batch))]
-                while len(rows) < B:   # pad the batch to its static size
-                    rows.append(np.zeros_like(rows[0]))
-                    n_valid.append(0)
-                rows = np.stack(rows)
-                if rows.dtype != np.int16:
-                    rows = np.clip(rows * 32768.0, -32768,
-                                   32767).astype(np.int16)
-                host = torch.from_numpy(rows)
-                nv = torch.tensor(n_valid, dtype=torch.int32)
-                if on_cuda:
-                    host = host.pin_memory()
-                out = self._process(host.to(dev, non_blocking=True),
-                                    nv.to(dev, non_blocking=True), ctc_mask)
-                out = {k: v.to("cpu", non_blocking=on_cuda)
-                       for k, v in out.items()}
-                done = None
-                if on_cuda:
-                    done = torch.cuda.Event()
-                    done.record(self._stream)
-                pending.append((batch, out, done))
+        with self._device_lock:
+            if on_cuda:   # the stream starts after earlier default work
+                self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with ctx:
+                ctc_mask = torch.from_numpy(
+                    ctc_logit_mask(orthography, cfg.vocab)).to(dev)
+                for b0 in range(0, n_win, B):
+                    batch = [next(win_iter)
+                             for _ in range(min(B, n_win - b0))]
+                    rows = [w for _, w in batch]
+                    n_valid = [frames_for(b0 + k) for k in range(len(batch))]
+                    while len(rows) < B:   # pad the batch to its static size
+                        rows.append(np.zeros_like(rows[0]))
+                        n_valid.append(0)
+                    rows = np.stack(rows)
+                    if rows.dtype != np.int16:
+                        rows = np.clip(rows * 32768.0, -32768,
+                                       32767).astype(np.int16)
+                    host = torch.from_numpy(rows)
+                    nv = torch.tensor(n_valid, dtype=torch.int32)
+                    if on_cuda:
+                        host = host.pin_memory()
+                    out = self._process(host.to(dev, non_blocking=True),
+                                        nv.to(dev, non_blocking=True),
+                                        ctc_mask)
+                    out = {k: v.to("cpu", non_blocking=on_cuda)
+                           for k, v in out.items()}
+                    done = None
+                    if on_cuda:
+                        done = torch.cuda.Event()
+                        done.record(self._stream)
+                    pending.append((batch, out, done))
 
         n_batches = len(pending)
         spk_src = "xvector" if self._xvector is not None else "trunk"
@@ -683,7 +711,8 @@ class TranscriptionEngine:
         mark("segments")
 
         if self._translator is not None:
-            self._translate_segments(segments, seg_meta)
+            with self._device_lock:
+                self._translate_segments(segments, seg_meta)
         mark("translate")
 
         n_speakers = int(labels.max()) + 1 if len(labels) else 0
@@ -697,9 +726,10 @@ class TranscriptionEngine:
             # The generated summary replaces the template only where it
             # agrees with the engine's own facts; a fact-conditioned
             # checkpoint reads them as a forced prefix.
-            neural = self._summarizer.summarize(states, facts={
-                "n_speakers": n_speakers, "tone": top_emotion,
-                "language_names": language_names})
+            with self._device_lock:
+                neural = self._summarizer.summarize(states, facts={
+                    "n_speakers": n_speakers, "tone": top_emotion,
+                    "language_names": language_names})
             if neural and summary_consistent(neural, n_speakers=n_speakers,
                                              tone=top_emotion):
                 summary = neural
@@ -901,10 +931,6 @@ class TranscriptionEngine:
         trace.log(file=audio_path.name)
         report("done", 3)
         return result
-
-    def transcribe_streaming(self, audio_path, **kwargs):
-        raise _not_ported("transcribe_streaming (online speaker tracking)",
-                          "A9")
 
     def transcribe_chunked(
         self,

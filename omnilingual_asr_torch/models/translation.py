@@ -264,6 +264,10 @@ class GreedyDecoder:
     ``max_len`` times; a failed capture raises. Otherwise the step runs
     eagerly. ``params`` may hold a text-mode ``"src"`` subtree
     (:meth:`translate_text`) and summarizer marker leaves.
+
+    A decoder is not re-entrant: decodes of one shape share their static
+    buffers. Callers that decode from several threads hold one lock around
+    each decode, as ``TranscriptionEngine`` does.
     """
 
     def __init__(self, params, cfg: PipelineConfig,
@@ -322,7 +326,11 @@ class GreedyDecoder:
                 self._step(s)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # The engine captures under its device lock, while other threads may
+        # still wait on their own batches' events or free pinned buffers:
+        # the default global mode would refuse those calls (and break the
+        # capture), so this capture restricts only its own thread.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._step(s)
         return graph
 

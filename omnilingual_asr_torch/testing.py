@@ -23,18 +23,26 @@ The decoders' fixture also stores, for each translated span and for the
 summary, the JAX decode's tokens and the smallest gap between its top two
 logits where a token was chosen freely; each gap must be at least
 ``MIN_TOKEN_GAP``, so that an exact check of the decoded bytes is fair.
+
+It also holds the port's copies of the JAX package's test doubles
+(``omnilingual_asr_tpu/testing.py``): ``demo_result``, the canned
+code-switching transcript that the server's ``/api/demo`` route serves, and
+``FakeEngine``, an engine double with the real engine's surface.
 """
 
 from __future__ import annotations
 
 import json
 import re
+import time
 from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
 
-from .types import EMOTIONS
+from .audio.decode import get_audio_duration
+from .types import (EMOTIONS, PROGRESS_STEPS, TranscriptSegment,
+                    TranscriptionResult, WordTimestamp)
 
 TESTDATA = Path(__file__).resolve().parent / "testdata"
 GOLDEN_WAV = TESTDATA / "golden.wav"
@@ -165,3 +173,96 @@ def ctc_agreement(want: Sequence[Sequence[int]],
     total += sum(len(w) for w in want[len(got):])
     total += sum(len(g) for g in got[len(want):])
     return agree / total if total else 1.0
+
+
+# ---------------------------------------------------------------------------
+# Test doubles (the JAX package's, kept in step)
+# ---------------------------------------------------------------------------
+
+def demo_result() -> TranscriptionResult:
+    """Canned code-switching result in the reference's result shape."""
+    segs = [
+        TranscriptSegment(
+            start=0.0, end=3.2, speaker="Speaker 1",
+            text="ꓢꓳ ꓟꓬꓰ ꓠꓬ, hello everyone.",
+            language="Lisu", language_code="lis",
+            languages=[{"name": "Lisu", "code": "lis"},
+                       {"name": "English", "code": "en"}],
+            emotion="happy", translation="Good morning, hello everyone.",
+            words=[WordTimestamp("ꓢꓳ", 0.0, 0.6),
+                   WordTimestamp("ꓟꓬꓰ", 0.6, 1.2),
+                   WordTimestamp("ꓠꓬ,", 1.2, 1.8),
+                   WordTimestamp("hello", 1.8, 2.5),
+                   WordTimestamp("everyone.", 2.5, 3.2)]),
+        TranscriptSegment(
+            start=3.5, end=6.0, speaker="Speaker 2",
+            text="Thanks for joining today.",
+            language="English", language_code="en",
+            languages=[{"name": "English", "code": "en"}],
+            emotion="neutral", translation=None,
+            words=[WordTimestamp("Thanks", 3.5, 4.0),
+                   WordTimestamp("for", 4.0, 4.3),
+                   WordTimestamp("joining", 4.3, 5.0),
+                   WordTimestamp("today.", 5.0, 6.0)]),
+    ]
+    return TranscriptionResult(
+        summary="Two speakers greet each other in Lisu and English. "
+                "Overall tone: happy.",
+        segments=segs,
+        detected_languages=[{"code": "lis", "language": "Lisu"},
+                            {"code": "en", "language": "English"}],
+    )
+
+
+class FakeEngine:
+    """Drop-in engine double: same methods, progress contract and retry
+    semantics as TranscriptionEngine, no accelerator required.
+
+    fail_times: raise on the first N transcribe calls (fault injection for
+    the retry path, reference gemini_pipeline.py:717-737)."""
+
+    def __init__(self, result: Optional[TranscriptionResult] = None,
+                 fail_times: int = 0, delay_s: float = 0.0):
+        self.result = result or demo_result()
+        self.fail_times = fail_times
+        self.delay_s = delay_s
+        self.calls: List[dict] = []
+
+    def transcribe(self, audio_path, *, progress_callback=None,
+                   language=None, speaker_count=None) -> TranscriptionResult:
+        self.calls.append({"path": str(audio_path), "language": language,
+                           "speaker_count": speaker_count})
+        if self.fail_times > 0:
+            self.fail_times -= 1
+            raise RuntimeError("injected failure")
+        for idx, step in enumerate(PROGRESS_STEPS):
+            if progress_callback:
+                progress_callback(step, idx)
+            if self.delay_s:
+                time.sleep(self.delay_s / len(PROGRESS_STEPS))
+        return self.result
+
+    transcribe_chunked = transcribe
+
+    def transcribe_streaming(self, audio_path, *, language=None,
+                             speaker_count=None, orthography=None):
+        """Streaming double: one partial per segment, then the final."""
+        result = self.result
+        for seg in result.segments:
+            yield ("partial", [seg])
+        yield ("final", result)
+
+    def transcribe_with_retry(self, audio_path, *, max_retries: int = 3,
+                              progress_callback=None, language=None,
+                              speaker_count=None) -> TranscriptionResult:
+        get_audio_duration(Path(audio_path))  # parity: probe like the real one
+        last = None
+        for attempt in range(max_retries):
+            try:
+                return self.transcribe(
+                    audio_path, progress_callback=progress_callback,
+                    language=language, speaker_count=speaker_count)
+            except Exception as e:  # noqa: BLE001
+                last = e
+        raise RuntimeError(
+            f"Failed to transcribe after {max_retries} attempts: {last}")

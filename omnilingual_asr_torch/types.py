@@ -64,3 +64,40 @@ class TranscriptionResult:
 
 
 EMOTIONS = ("happy", "sad", "angry", "neutral")
+
+# Progress step contract (reference diarization/pipeline.py:89-90):
+# callback(step_name, step_index) with steps uploading(0) / transcribing(1)
+# / processing(2) / done(3).
+PROGRESS_STEPS = ("uploading", "transcribing", "processing", "done")
+
+
+def parse_timestamp(timestamp_str: str) -> float:
+    """Parse ``MM:SS`` / ``HH:MM:SS`` / raw-seconds timestamps to seconds.
+
+    Behavior-compatible with reference gemini_pipeline.py:73-103: empty or
+    unparseable input returns 0.0; two fields are minutes:seconds, three are
+    hours:minutes:seconds, otherwise the string is parsed as raw seconds.
+    """
+    if not timestamp_str:
+        return 0.0
+    parts = str(timestamp_str).strip().split(":")
+    try:
+        if len(parts) == 2:
+            return int(parts[0]) * 60.0 + float(parts[1])
+        if len(parts) == 3:
+            return int(parts[0]) * 3600.0 + int(parts[1]) * 60.0 + float(parts[2])
+        return float(timestamp_str)
+    except ValueError:
+        return 0.0
+
+
+def format_timestamp(seconds: float) -> str:
+    """Format seconds as MM:SS (or H:MM:SS past an hour), the inverse of
+    :func:`parse_timestamp` for the common cases."""
+    seconds = max(0.0, float(seconds))
+    total = int(round(seconds))
+    h, rem = divmod(total, 3600)
+    m, s = divmod(rem, 60)
+    if h:
+        return f"{h}:{m:02d}:{s:02d}"
+    return f"{m:02d}:{s:02d}"

@@ -560,3 +560,112 @@ def test_decoder_card_translate_text_equals_cpu(dev):
     stored = testing.load_golden_decoders()["translations"]
     assert [got[i].tolist() for i in range(len(stored))] == \
         [t["tokens"] for t in stored]
+
+
+# ---------------------------------------------------------------------------
+# One engine on the card, several threads; the port's server on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def release_engine_cuda():
+    """The port's engine on the card with the release ASR, x-vector,
+    translator and summarizer weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.testing import TESTDATA
+
+    release = TESTDATA.parents[1] / "checkpoints" / "release"
+    cfg = PipelineConfig.from_json((release / "config.json").read_text(),
+                                   checkpoint_path=str(release / "asr.npz"))
+    return TranscriptionEngine(
+        config=cfg, device="cuda", xvector_path=str(release / "xvector.npz"),
+        translator_path=str(release / "translator.npz"),
+        summarizer_path=str(release / "summarizer.npz"))
+
+
+@pytest.fixture(scope="module")
+def four_files(tmp_path_factory):
+    """Four different files: the golden one, the golden audio tiled to
+    60 s and to 100 s, and the golden audio as a 44.1 kHz stereo WAV."""
+    import wave
+
+    import numpy as np
+
+    from omnilingual_asr_torch.audio.decode import decode_wav_bytes
+    from omnilingual_asr_torch.audio.resample import resample
+    from omnilingual_asr_torch.testing import GOLDEN_WAV
+
+    d = tmp_path_factory.mktemp("four")
+    x, sr = decode_wav_bytes(GOLDEN_WAV.read_bytes())
+
+    def write(path, samples, rate, channels=1):
+        pcm = np.clip(np.round(samples * 32767), -32768,
+                      32767).astype("<i2")
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(channels)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(pcm.tobytes())
+        return path
+
+    files = [GOLDEN_WAV]
+    for seconds in (60, 100):
+        files.append(write(d / f"t{seconds}.wav",
+                           np.resize(x, seconds * sr), sr))
+    y = resample(x, sr, 44_100)
+    files.append(write(d / "stereo.wav", np.stack([y, 0.5 * y], axis=1),
+                       44_100, channels=2))
+    return files
+
+
+def test_engine_four_threads_equal_alone(release_engine_cuda, four_files):
+    """Four threads transcribe four files on one engine on the card (the
+    server's batch route); each result equals the same file alone,
+    exactly. Without the engine's device lock the decoders' CUDA graphs
+    share their static buffers across threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    eng = release_engine_cuda
+    alone = [eng.transcribe(p).to_dict() for p in four_files]
+    for _ in range(2):
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            got = list(pool.map(lambda p: eng.transcribe(p).to_dict(),
+                                four_files))
+        assert got == alone
+
+
+def test_server_on_card_answers_golden(release_engine_cuda, tmp_path):
+    """The port's server in front of the card's engine answers the golden
+    file through HTTP with what ``engine.transcribe`` returns."""
+    import http.client
+    import json
+
+    from omnilingual_asr_torch.serving.app import OmniServer
+    from omnilingual_asr_torch.serving.schema import result_to_entry
+    from omnilingual_asr_torch.testing import GOLDEN_WAV
+
+    eng = release_engine_cuda
+    want = result_to_entry(eng.transcribe(GOLDEN_WAV), file_name="g.wav",
+                           audio_url="")
+    srv = OmniServer(engine=eng, base_dir=tmp_path)
+    port = srv.serve_background()
+    try:
+        boundary = "cardtestboundary"
+        body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f"name=\"file\"; filename=\"g.wav\"\r\n\r\n".encode()
+                + GOLDEN_WAV.read_bytes()
+                + f"\r\n--{boundary}--\r\n".encode())
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request("POST", "/api/transcribe", body=body, headers={
+            "Content-Type": f"multipart/form-data; boundary={boundary}"})
+        resp = conn.getresponse()
+        got = json.loads(resp.read())
+        conn.close()
+    finally:
+        srv.shutdown()
+    assert resp.status == 200
+    for key in ("segments", "summary", "detected_languages"):
+        assert got.get(key) == want.get(key)
+    assert got["file_name"] == "g.wav" and got["id"]

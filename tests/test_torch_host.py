@@ -67,12 +67,13 @@ def test_decode_equals_jax(tmp_path, fmt, channels):
     if fmt == "wav":
         path = tmp_path / "a.wav"
         path.write_bytes(_wav(pcm, 16000, channels))
-        want = jax_decode.decode_wav_bytes(path.read_bytes())
     else:
         path = tmp_path / "a.aiff"
         path.write_bytes(make_aiff_bytes(pcm.astype(">i2").tobytes(), 16000,
                                          channels=channels))
-        want = jax_decode._decode_aiff(path)
+    # Both packages decode natively first (AIFF through libav where it is
+    # linked), then in Python.
+    want = jax_decode.decode_audio(path)
     got = decode.decode_audio(path)
     assert got[1] == want[1] == 16000
     np.testing.assert_array_equal(got[0], want[0])
@@ -80,10 +81,15 @@ def test_decode_equals_jax(tmp_path, fmt, channels):
 
 
 def test_decode_refuses_other_containers(tmp_path):
+    """A container that neither the native library nor the Python parsers
+    decode raises the JAX package's error."""
     path = tmp_path / "a.mp3"
     path.write_bytes(b"\xff\xfb" + b"\x00" * 100)
-    with pytest.raises(ValueError, match="WAV and AIFF"):
+    with pytest.raises(ValueError, match="no pure-Python fallback") as got:
         decode.decode_audio(path)
+    with pytest.raises(ValueError) as want:
+        jax_decode.decode_audio(path)
+    assert str(got.value) == str(want.value)
     assert decode.get_audio_duration(path) == 0.0
     assert decode.get_audio_duration(tmp_path / "missing.wav") == 0.0
 

@@ -77,3 +77,18 @@ def test_no_forbidden_import_statements(path):
         for n in names:
             assert n.split(".")[0] not in FORBIDDEN, (
                 f"{path.name}:{node.lineno} imports {n}")
+
+
+def test_walk_reaches_the_server_exporters_and_native_loader():
+    """The import walk above covers the server, the exporters and the
+    native decoder's loader (and so holds them to the rule)."""
+    import pkgutil
+
+    import omnilingual_asr_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pkg.__path__, "omnilingual_asr_torch.")}
+    for name in ("serving", "serving.app", "serving.auth", "serving.history",
+                 "serving.http_kit", "serving.schema", "exporters",
+                 "exporters.formats", "audio.native_lib"):
+        assert f"omnilingual_asr_torch.{name}" in names
