@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d, 4e in order)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d, 4e, 4f)
     python3 chip_smoke.py --profile    # and, before the report, phase 4c
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
@@ -12,14 +12,15 @@ with no result line:
 1. device  - card name and power limit; TF32 off for matmuls and cuDNN.
 2. build   - nvcc builds the kernels from ``omnilingual_asr_torch/csrc``
              and each kernel's registers and spills are printed.
-3. kernels - log-mel (K1, at the serving and the training path's
-             frames; its bound counted for the function as an FFT computes
-             it, the dense DFT's beside it), flash attention (K2, at head
-             dims 64 and 128, at the training shape and at a ragged T of
-             200), the fused conv module (K3, at the serving and the
-             training shape and at large_config's width, D 1024, each with
-             its launch plan: both launches' blocks and pw1's rows a
-             frame), the int8 matmuls W8A16 (K4) and W8A8 (K5, at the
+3. kernels - log-mel (K1, at the serving, the training path's and the
+             crop re-embedding's frames, [16 x 768]; its bound counted for
+             the function as an FFT computes it, the dense DFT's beside
+             it), flash attention (K2, at head dims 64 and 128, at the
+             training shape, at a ragged T of 200 and at the d512 seed's
+             [4, 768, 8, 64]), the fused conv module (K3, at the serving
+             and the training shape, at large_config's width, D 1024, and
+             at the d512 seed's [4, 768, 512], each with its launch plan:
+             both launches' blocks and pw1's rows a frame), the int8 matmuls W8A16 (K4) and W8A8 (K5, at the
              three widths of the quantized main path) and the
              flash-attention backward, dQ (K6) and dK/dV (K7), at the
              training shape, at large_config's head dim 128 and at a
@@ -83,10 +84,29 @@ with no result line:
              stereo one inside a .zip), each equal to the file served
              alone; ``/api/history`` and the five exports of every entry,
              each equal to ``export_transcript`` on the stored entry; the
-             live route's 501. Then warm seconds through HTTP beside
+             live route (``/api/transcribe-stream-live``) streaming the
+             golden file, its result held to ``golden_decoders.json``.
+             Then warm seconds through HTTP beside
              ``engine.transcribe`` (golden, 120 s), and the batch route's
              wall seconds under the engine's device lock, under a lock
              around whole requests, and served one after another.
+4f. d512  - ``checkpoints/r5_d512x12_seed`` (d_model 512, 12 layers, 8
+             heads, no x-vector) through ``config_for_checkpoint`` in crop
+             speaker mode, greedy and with the beam search (beam 8, the
+             "synth" lexicon, lm_alpha 0.3), answers the golden and the
+             tiled file through ``transcribe`` and
+             ``transcribe_streaming``, held to ``golden_d512_crop.json``
+             (the beam texts of its stable decodes exact, the beam's
+             top-K feed within ``testing.FEED_TOL`` of the JAX engine's,
+             the search over the JAX feed giving every JAX text; every
+             stream's final event equal to ``transcribe``'s); K1 launches a
+             window batch and a crop batch ([16 x 768]), K2 and K3 12 a
+             window batch. Then warm seconds (inline, crop and beam crop),
+             the ``extract`` stage and the crop forward; the live route's
+             first partial and final event against ``engine.transcribe``;
+             the release engine with μ-law ingress and with the int8
+             speaker wire at stride 2 on the golden file, held to the JAX
+             engine's results in those modes; ``health_check``.
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -98,8 +118,8 @@ with no result line:
              16: the host's batch wait, upload, forward + loss, backward
              and optimizer seconds, and one step under the profiler.
 5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
-             over the serving, training, decoders and server paths, by path
-             beside it), the
+             over the serving, training, decoders, server and d512 paths,
+             by path beside it), the
              ``nvidia-smi`` name and power limit, and the result line
              ``{"ok": true, "device": {...}}``.
 
@@ -122,6 +142,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = ROOT / "omnilingual_asr_torch"
 RELEASE = ROOT / "checkpoints" / "release"
+D512 = ROOT / "checkpoints" / "r5_d512x12_seed" / "asr.npz"
 SEED = 1234
 N_TIMED = 20
 WINDOWS_PER_BATCH = 4
@@ -130,6 +151,7 @@ PROFILE_SECONDS = (30.0, 120.0, 330.0)
 PROFILE_WARM_RUNS = 3
 INT8_ROUNDS = 7
 DECODER_ROUNDS = 3       # warm requests a decoder mode in phase 4d
+D512_ROUNDS = 3          # warm requests a d512 mode in phase 4f (medians)
 TRAIN_STEPS = 4          # train_synth steps at PipelineConfig() dims
 TRAIN_BATCH = 16         # 8 s windows a step
 # Valid keys of the attention checks at the training shape (T' 256): 12
@@ -302,14 +324,24 @@ def nbytes(*tensors) -> int:
 
 def check_k1(dev, peaks, cfg):
     """K1 at the serving path's shape (a batch of 4 x 30 s windows: 3072
-    frames each, 2998 valid), and at the training path's (batch 16 of 8 s
-    windows padded to 1024 frames, 798 valid) under "shapes"."""
+    frames each, 2998 valid), and under "shapes" at the training path's
+    (batch 16 of 8 s windows padded to 1024 frames, 798 valid) and the
+    crop re-embedding's (16 crops of 6 s padded to 768 frames, 598
+    valid)."""
+    from omnilingual_asr_torch.engine import (SPK_CROP_BATCH,
+                                              SPK_CROP_SECONDS)
+
     main = _k1_case(dev, peaks, cfg, WINDOWS_PER_BATCH, 3072, 2998, SEED)
     train = _k1_case(dev, peaks, cfg, TRAIN_BATCH, 1024, 798, SEED + 13)
+    crop_frames = cfg.frontend.frames_for_samples(
+        int(SPK_CROP_SECONDS * cfg.frontend.sample_rate))
+    crop = _k1_case(dev, peaks, cfg, SPK_CROP_BATCH,
+                    math.ceil(crop_frames / 256) * 256, crop_frames,
+                    SEED + 17)
     return {"name": "log_mel", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/mel.cu",
             "replaces": "omnilingual_asr_tpu/ops/mel_pallas.py:66",
-            **main, "shapes": [main, train]}
+            **main, "shapes": [main, train, crop]}
 
 
 def _k1_case(dev, peaks, cfg, B, t_pad, n_frames, seed):
@@ -461,10 +493,11 @@ def _k2_case(dev, peaks, B, T, H, D, n_valid, seed):
 
 def check_k2(dev, peaks, cfg):
     """K2 at the serving path's shape (the release: head dim 64), and under
-    "head_dims" also at large_config's head dim 128 (8 heads of 128) and at
+    "head_dims" also at large_config's head dim 128 (8 heads of 128), at
     the training path's shape (batch 16 of 8 s windows: T' 256, 8 heads of
-    64). Rows whole, ragged (partial last key tile), short (whole key tiles
-    masked) and a padded batch slot (every key masked)."""
+    64) and at the d512 seed's serving batch (T' 768, 8 heads of 64). Rows
+    whole, ragged (partial last key tile), short (whole key tiles masked)
+    and a padded batch slot (every key masked)."""
     from omnilingual_asr_torch.config import PipelineConfig
 
     H = cfg.encoder.n_heads
@@ -478,10 +511,12 @@ def check_k2(dev, peaks, cfg):
     # T not a multiple of the 64-key tile, a partly masked row and a fully
     # masked slot: the tiles' zero-filled edges.
     ragged = _k2_case(dev, peaks, 3, 200, 4, 64, [200, 130, 0], SEED + 15)
+    d512 = _k2_case(dev, peaks, WINDOWS_PER_BATCH, 768, 8, 64,
+                    [768, 700, 300, 0], SEED + 18)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/attention.cu",
             "replaces": "omnilingual_asr_tpu/ops/attention.py:34",
-            **main, "head_dims": [main, wide, train, ragged]}
+            **main, "head_dims": [main, wide, train, ragged, d512]}
 
 
 def _bwd_case(dev, peaks, B, T, H, D, n_valid, seed):
@@ -592,8 +627,9 @@ def check_flash_bwd(dev, peaks, cfg):
 
 def check_k3(dev, peaks, cfg, params, ptxas):
     """K3 at the serving path's shape with the release weights, and at the
-    training path's (batch 16, T' 256, D 512, random weights) and
-    large_config's width ([4, 256, 1024], random weights) under
+    training path's (batch 16, T' 256, D 512, random weights),
+    large_config's width ([4, 256, 1024], random weights) and the d512
+    seed's serving batch ([4, 768, 512], its block 0 weights) under
     "shapes"; each with its launch plan (blocks of each stage, rows pw1
     runs over per output frame). The shapes are card_cases.K3_SHAPES."""
     import torch
@@ -616,10 +652,16 @@ def check_k3(dev, peaks, cfg, params, ptxas):
     pw = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
               else v.to(dev)) for k, v in pw.items()}
     wide = _k3_case(dev, peaks, K3_SHAPES["d1024"], pw, SEED + 16)
+    from omnilingual_asr_torch.config import config_for_checkpoint
+    from omnilingual_asr_torch.models.zoo import load_checkpoint
+
+    p512 = load_checkpoint(D512, config_for_checkpoint(str(D512)),
+                           dev)["blocks"][0]["conv"]
+    d512 = _k3_case(dev, peaks, K3_SHAPES["d512"], p512, SEED + 19)
     return {"name": "conv_module", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/conv_module.cu",
             "replaces": "omnilingual_asr_tpu/ops/conv_module.py:32",
-            **main, "shapes": [main, train, wide],
+            **main, "shapes": [main, train, wide, d512],
             "ptxas": {k: v for k, v in ptxas.items()
                       if k.startswith(("conv_stage1_kernel",
                                        "conv_stage2_kernel"))}}
@@ -1134,6 +1176,296 @@ def run_decoders(dev, cfg, params, xvector):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4f: the d512 x 12 seed in crop mode, the beam search, streaming,
+# the live route, and the release engine's wire modes
+# ---------------------------------------------------------------------------
+
+def _sse_timed(port, path, name, data):
+    """(seconds to the first ``segments`` event, seconds to the ``result``
+    event, events) of one SSE POST, read line by line as it streams."""
+    import http.client
+
+    body, ctype = _multipart([(name, data)])
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    t_first = t_final = None
+    try:
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": ctype})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise PhaseError(f"POST {path} answered {resp.status}")
+        lines = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.startswith(b"event: segments") and t_first is None:
+                t_first = time.perf_counter() - t0
+            if line.startswith(b"event: result"):
+                t_final = time.perf_counter() - t0
+            lines.append(line)
+    finally:
+        conn.close()
+    return t_first, t_final, _sse_events(b"".join(lines))
+
+
+def run_d512(dev, smi, release_params, release_xvector):
+    """Phase 4f. ``checkpoints/r5_d512x12_seed`` (d_model 512, 12 layers, no
+    x-vector) through ``config_for_checkpoint`` with ``speaker_mode=
+    "crop"``, greedy and with the fixture's beam search, answers the golden
+    and the tiled 120 s file through ``transcribe`` and through
+    ``transcribe_streaming``: held to ``golden_d512_crop.json``
+    (``testing.d512_mismatches``; the stable beam decodes' texts exact;
+    the beam feed within ``testing.FEED_TOL`` of the JAX engine's, and the
+    search over the JAX feed giving every JAX text),
+    each stream's final event equal to ``transcribe``'s result, and the
+    launches read over these requests (K1 a window batch and a crop batch,
+    K2 and K3 12 a window batch). Then warm seconds (medians of
+    D512_ROUNDS): inline (trunk pooling), crop and beam-8 crop requests,
+    the ``extract`` stage and the crop forward's seconds; the live route
+    in front of the crop engine, its first partial and its final event
+    against ``engine.transcribe``. Last, the release engine with μ-law
+    ingress and with the int8 speaker wire at stride 2 answers the golden
+    file, held to the fixture's ``release_wire``, and ``health_check``.
+    Returns the launches."""
+    import dataclasses
+    import tempfile
+
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.config import (PipelineConfig,
+                                              config_for_checkpoint)
+    from omnilingual_asr_torch.engine import (SPK_CROP_BATCH,
+                                              TranscriptionEngine)
+    from omnilingual_asr_torch.models.zoo import load_checkpoint
+    from omnilingual_asr_torch.serving.app import OmniServer
+    from omnilingual_asr_torch.serving.schema import result_to_entry
+
+    stored = golden.load_golden_d512()
+    base = config_for_checkpoint(str(D512))
+    L = base.encoder.n_layers
+    beam = base.replace(decode=dataclasses.replace(base.decode,
+                                                   **stored["beam"]))
+    params = load_checkpoint(D512, base, dev)
+    engines = {mode: TranscriptionEngine(config=cfg, params=params,
+                                         device=dev, speaker_mode=speaker)
+               for mode, cfg, speaker in (("greedy", base, "crop"),
+                                          ("beam", beam, "crop"),
+                                          ("inline", base, "inline"))}
+    for eng in engines.values():
+        icfg = eng.infer_config.encoder
+        if not (icfg.use_flash_attention and icfg.use_fused_conv
+                and eng._xvector is None):
+            raise PhaseError("d512: the engine did not take K2 and K3, or "
+                             "loaded an x-vector")
+    tiled = PKG / "_build" / "smoke_tiled.wav"
+    write_tiled_wav(golden.GOLDEN_WAV, tiled, TILED_SECONDS)
+    files = {"golden": golden.GOLDEN_WAV, "tiled": tiled}
+    rec = {"ids": {}, "feeds": {}, "crop_batches": 0, "crop_s": []}
+
+    def watch(eng):
+        """Record each request's greedy ids, beam feed, crop batches and
+        crop seconds on ``eng``."""
+        extract, crop = eng._extract_windows, eng._segment_crop_embeds
+
+        def rec_extract(outs, *parts):
+            rec["ids"].setdefault(rec["name"], []).extend(
+                o["ctc_ids"].astype(int).tolist() for o in outs)
+            rec["feeds"].setdefault(rec["name"], []).extend(
+                o["ctc_topk"] for o in outs if o["ctc_topk"] is not None)
+            return extract(outs, *parts)
+
+        def rec_crop(samples, decoded):
+            t0 = time.perf_counter()
+            out = crop(samples, decoded)
+            rec["crop_s"].append(time.perf_counter() - t0)
+            rec["crop_batches"] += math.ceil(len(decoded) / SPK_CROP_BATCH)
+            return out
+
+        eng._extract_windows, eng._segment_crop_embeds = (rec_extract,
+                                                          rec_crop)
+
+    for eng in engines.values():
+        watch(eng)
+    counters = _counters()
+    for fn in counters:
+        fn.launches = 0
+    rec["crop_batches"] = 0
+    results = {}
+    for mode in ("greedy", "beam"):
+        eng = engines[mode]
+        results[mode] = {}
+        rec["ids"], rec["feeds"] = {}, {}
+        for name, path in files.items():
+            rec["name"] = name
+            results[mode][name] = eng.transcribe(path).to_dict()
+        bad = golden.d512_mismatches(mode, results[mode], rec["ids"])
+        if mode == "beam":
+            bad += golden.d512_feed_mismatches(rec["feeds"])
+        if bad:
+            raise PhaseError(f"d512 {mode}: golden mismatch: "
+                             + "; ".join(bad))
+        rec["name"] = "stream"
+        for name, path in files.items():
+            events = list(eng.transcribe_streaming(path))
+            kinds = [k for k, _ in events]
+            n_part = _n_batches(eng, [path])
+            if kinds != ["partial"] * n_part + ["final"]:
+                raise PhaseError(f"d512 {mode} stream of {name}: {kinds}")
+            if events[-1][1].to_dict() != results[mode][name]:
+                raise PhaseError(f"d512 {mode}: the stream's final result "
+                                 f"for {name} differs from transcribe's")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    n_batches = 4 * _n_batches(engines["greedy"], list(files.values()))
+    want = {"log_mel_frames": n_batches + rec["crop_batches"],
+            "flash_attention": L * n_batches,
+            "fused_conv_module": L * n_batches}
+    log(f"  d512 launches {json.dumps(launches)} over {n_batches} window "
+        f"batches and {rec['crop_batches']} crop batches")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise PhaseError(f"d512: {name} launched {launches[name]} "
+                             f"times, expected {n}")
+    # The host half of the beam path alone: the port's search over the JAX
+    # engine's own feed gives the JAX text of every decode.
+    import numpy as np
+
+    feed = np.load(golden.GOLDEN_D512_FEED)
+    n_exact = n_dec = 0
+    for name, f in stored["files"].items():
+        for d in f["beam"]["decodes"]:
+            topk = (feed[f"{name}/{d['window']}/lp"],
+                    feed[f"{name}/{d['window']}/ids"])
+            n_exact += engines["beam"]._beam_text(topk, d["f0"],
+                                                  d["f1"]) == d["text"]
+            n_dec += 1
+    if n_exact != n_dec:
+        raise PhaseError(f"d512: the beam search over the JAX feed gave "
+                         f"the JAX text in {n_exact} of {n_dec} decodes")
+    diffs, swaps, n_frames = [], 0, 0
+    for name in files:
+        for w, (lp, ids) in enumerate(rec["feeds"][name]):
+            diffs.append(np.abs(lp - feed[f"{name}/{w}/lp"]).ravel())
+            swaps += sum(set(a) != set(b) for a, b in zip(
+                ids.tolist(), feed[f"{name}/{w}/ids"].tolist()))
+            n_frames += len(ids)
+    diffs = np.concatenate(diffs)
+    log("  d512 beam feed against the JAX engine's " + json.dumps({
+        "mean_abs_dlogp": float(diffs.mean()),
+        "max_abs_dlogp": float(diffs.max()),
+        "frames_with_another_class_set": swaps / n_frames}))
+    log("  d512 beam decodes " + json.dumps([
+        {"file": name, "gap": d["gap"], "stable": d["stable"],
+         "text_equal": w["text"] == g["text"]}
+        for name, f in stored["files"].items()
+        for d, w, g in zip(f["beam"]["decodes"], f["beam"]["result"][
+            "segments"], results["beam"][name]["segments"])]))
+    texts = golden.d512_beam_texts(results["beam"])
+    log(f"  d512 golden: greedy and beam results of both files match "
+        f"golden_d512_crop.json; the beam feed is within "
+        f"{golden.FEED_TOL} of the JAX engine's; over the JAX feed the "
+        f"beam search gives the JAX text of all {n_dec} decodes; over the "
+        f"run's own feed it gives the JAX text of {texts['stable']} "
+        f"stable and {texts['unstable']} unstable decodes; streams' final "
+        f"events equal transcribe's")
+    for mode in ("greedy", "beam"):
+        for name in files:
+            segs = results[mode][name]["segments"]
+            log(f"  d512 {mode} {name}: {len(segs)} segments, "
+                f"{len({s['speaker'] for s in segs})} speakers")
+
+    # Warm seconds a request, by mode and file, in turns.
+    secs = {}
+    for _ in range(D512_ROUNDS):
+        for mode in ("inline", "greedy", "beam"):
+            eng = engines[mode]
+            for name, path in files.items():
+                rec["crop_s"].clear()
+                t0 = time.perf_counter()
+                eng.transcribe(path)
+                row = secs.setdefault(f"{mode} {name}", {
+                    "request_s": [], "extract_s": [], "crop_s": []})
+                row["request_s"].append(time.perf_counter() - t0)
+                row["extract_s"].append(eng.last_trace.stages["extract"])
+                row["crop_s"].append(sum(rec["crop_s"]))
+    for label, row in secs.items():
+        log("  d512 seconds " + json.dumps({
+            "request": label, "rounds": D512_ROUNDS,
+            **{f"{k}_median": statistics.median(v) for k, v in row.items()},
+            **row, "card": smi}))
+
+    # The live route in front of the crop engine.
+    eng = engines["greedy"]
+    with tempfile.TemporaryDirectory(dir=PKG / "_build") as d:
+        srv = OmniServer(engine=eng, base_dir=Path(d), auth_required=False,
+                         use_sqlite=True)
+        port = srv.serve_background("127.0.0.1", 0)
+        try:
+            for name, path in files.items():
+                data = path.read_bytes()
+                row = {"first_partial_s": [], "final_s": [],
+                       "transcribe_s": []}
+                for _ in range(D512_ROUNDS):
+                    t_first, t_final, events = _sse_timed(
+                        port, "/api/transcribe-stream-live", f"{name}.wav",
+                        data)
+                    if events[-1][0] != "result" or t_first is None:
+                        raise PhaseError(f"d512 live route: events "
+                                         f"{[k for k, _ in events]}")
+                    t0 = time.perf_counter()
+                    res = eng.transcribe(path)
+                    row["transcribe_s"].append(time.perf_counter() - t0)
+                    row["first_partial_s"].append(t_first)
+                    row["final_s"].append(t_final)
+                    want = result_to_entry(res, file_name="", audio_url="")
+                    got = events[-1][1]
+                    if any(got.get(k) != want.get(k) for k in (
+                            "segments", "summary", "detected_languages")):
+                        raise PhaseError(f"d512 live route: the final entry "
+                                         f"for {name} differs from "
+                                         f"transcribe's result")
+                log("  d512 live route " + json.dumps({
+                    "file": name, "rounds": D512_ROUNDS,
+                    **{f"{k}_median": statistics.median(v)
+                       for k, v in row.items()}, **row, "card": smi}))
+        finally:
+            srv.shutdown()
+            srv.app._httpd.server_close()
+
+    # The release engine's wire modes on the golden file, and the probe.
+    for mode, (kwargs, decode) in (
+            ("mulaw", ({"ingress": "mulaw"}, {})),
+            ("i8_stride2", ({}, {"spk_wire": "i8", "spk_frame_stride": 2}))):
+        cfg = PipelineConfig.from_json(
+            (RELEASE / "config.json").read_text(),
+            checkpoint_path=str(RELEASE / "asr.npz"))
+        cfg = cfg.replace(decode=dataclasses.replace(cfg.decode, **decode))
+        eng = TranscriptionEngine(config=cfg, params=release_params,
+                                  xvector_params=release_xvector,
+                                  device=dev, **kwargs)
+        want = stored["release_wire"][mode]
+        res = eng.transcribe(golden.GOLDEN_WAV).to_dict()
+        samples = eng._load_audio(golden.GOLDEN_WAV)   # one window
+        ids = [o["ctc_ids"].astype(int).tolist()
+               for outs in eng._forward_batches(eng._windows(samples),
+                                                len(samples))
+               for o in outs]
+        bad = golden.result_mismatches(want["result"], res,
+                                       tone_mass=want["tone_mass"])
+        agree = golden.ctc_agreement(want["ctc_ids"], ids)
+        if bad or agree < golden.MIN_CTC_AGREEMENT:
+            raise PhaseError(f"release {mode}: golden mismatch "
+                             f"{bad}, ids agree {agree:.4f}")
+        log(f"  release {mode}: golden result matches the JAX engine's in "
+            f"the same mode; greedy ids agree on {agree:.4%}")
+    report = engines["greedy"].health_check()
+    if not report["ok"]:
+        raise PhaseError(f"health_check: {report}")
+    log(f"  health_check {json.dumps(report)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 4e: the server (native decoding, HTTP routes, history, exports)
 # ---------------------------------------------------------------------------
 
@@ -1288,7 +1620,9 @@ def run_server(engine, smi: str) -> dict:
     the golden file, the tiled files and a 44.1 kHz stereo file served
     alone, then all four at once on the batch route (each result equal to
     the same file served alone), history and the five exports, the live
-    route's 501; the K1-K3 launches over the serial requests; warm seconds
+    route streaming the golden file (its result held to
+    ``golden_decoders.json``); the K1-K3 launches over the serial requests;
+    warm seconds
     through HTTP beside ``engine.transcribe``, and the batch route's wall
     seconds under the engine's device lock beside a lock around whole
     requests. Returns the serial requests' launches."""
@@ -1441,14 +1775,30 @@ def run_server(engine, smi: str) -> dict:
             log(f"  server history: {len(listed)} entries; all five exports "
                 f"of each equal export_transcript on the stored entry")
 
-            status, body = _http(port, "POST",
-                                 "/api/transcribe-stream-live",
-                                 *_multipart([("g.wav",
-                                               data["golden.wav"])]))
-            if status != 501:
-                raise PhaseError(f"server: the live route answered "
-                                 f"{status}, want 501")
-            log(f"  server live route: 501 {body.decode()}")
+            # The live route streams the golden file: progress, one
+            # segments event (one batch), the entry held to the fixture.
+            events = _sse_events(_post_files(
+                port, "/api/transcribe-stream-live",
+                [("g.wav", data["golden.wav"])]))
+            kinds = [k for k, _ in events]
+            live = events[-1][1]
+            bad = golden.result_mismatches(stored["result"], live,
+                                           tone_mass=stored["tone_mass"])
+            if (kinds.count("segments") != 1 or kinds[-1] != "result"
+                    or "error" in kinds):
+                bad.append(f"events {kinds}")
+            if live.get("summary") != stored["result"]["summary"]:
+                bad.append(f"summary {live.get('summary')!r}")
+            if ([s.get("translation") for s in live["segments"]]
+                    != [s["translation"]
+                        for s in stored["result"]["segments"]]):
+                bad.append("translations differ")
+            if bad:
+                raise PhaseError("server: live route mismatch: "
+                                 + "; ".join(bad))
+            log(f"  server live route: {kinds.count('progress')} progress "
+                f"events, 1 segments event, a result equal to "
+                f"golden_decoders.json")
 
             # Warm seconds a request: HTTP against engine.transcribe.
             for name in ("golden.wav", "t120.wav"):
@@ -1973,6 +2323,11 @@ def main(argv=None) -> int:
         served = run_server(engines["decoders"], smi)
         log(f"[server] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "d512"
+        t0 = time.perf_counter()
+        d512 = run_d512(dev, smi, params, xvector)
+        log(f"[d512] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -1989,7 +2344,7 @@ def main(argv=None) -> int:
                  "flash_attention_bwd_dq": "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
         paths = {"serving": serving, "training": training,
-                 "decoders": decoding, "server": served}
+                 "decoders": decoding, "server": served, "d512": d512}
         line = {"kernels": []}
         for k in kernels:
             fn = by_fn[k["name"]]

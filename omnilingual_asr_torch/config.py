@@ -270,3 +270,23 @@ def tiny_config() -> PipelineConfig:
         encoder=EncoderConfig(d_model=128, n_layers=2, n_heads=2, conv_kernel=8),
         frontend=FrontendConfig(),
     )
+
+
+def config_for_checkpoint(ckpt: str) -> "PipelineConfig":
+    """Config for an EXPLICIT checkpoint path, bypassing release discovery.
+
+    Eval tools take ``--ckpt``; building their config via :meth:`from_env`
+    would adopt whatever release checkpoint happens to be installed —
+    including its model dims, which then mismatch the requested
+    checkpoint's weights (ADVICE r2 medium). Instead: read the
+    ``config.json`` the trainer writes beside the checkpoint (self-
+    describing, like a release), falling back to code-default dims.
+    """
+    from pathlib import Path
+
+    p = Path(ckpt)
+    for cand in (p / "config.json", p.parent / "config.json"):
+        if cand.is_file():
+            return PipelineConfig.from_json(cand.read_text(),
+                                            checkpoint_path=str(ckpt))
+    return PipelineConfig(checkpoint_path=str(ckpt))

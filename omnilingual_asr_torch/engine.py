@@ -1,10 +1,18 @@
 """TranscriptionEngine on PyTorch: window-mode serving on one CUDA card.
 
 The PyTorch port of ``omnilingual_asr_tpu/engine.py`` in window mode, with
-the same surface and semantics: ``transcribe``, ``transcribe_chunked`` and
-``transcribe_with_retry``, the 4-step progress contract, the result types and
-the StageTrace stage names (``decode``, ``forward``, ``extract``,
-``assemble`` and ``assemble.<sub-stage>``).
+the same surface and semantics: ``transcribe``, ``transcribe_chunked``,
+``transcribe_with_retry``, ``transcribe_streaming`` (partial segments after
+each device batch, then the final result) and ``health_check``, the 4-step
+progress contract, the result types and the StageTrace stage names
+(``decode``, ``forward``, ``extract``, ``assemble`` and
+``assemble.<sub-stage>``). The JAX engine's single-device modes are all
+here: prefix beam search with the lexicon LM (``decode.beam_size > 1``,
+``ops/beam.py``, ``ops/lexicon.py``), per-segment speaker re-embedding
+(``speaker_mode="crop"``), μ-law ingress (``ingress="mulaw"``,
+``audio/codec.py``) and the slim speaker wire (``decode.spk_frame_stride``,
+``decode.spk_wire="i8"``). Only ``long_mode="sequence"`` (a file as one
+sequence over several devices) raises.
 
 Execution model:
 - audio is decoded on the host by the native ``omniaudio`` library (and
@@ -17,8 +25,13 @@ Execution model:
   x-vector embedder, argmax, LID confidence and frame energy, all on the card;
 - every batch is enqueued on a CUDA stream before any is collected, so host
   extraction of batch k overlaps the device work of later batches;
-- CTC collapse, segmentation, pooling and whole-file speaker clustering run
-  on the host, exactly as in the JAX engine;
+- CTC collapse, segmentation, pooling, the beam search over the device's
+  per-frame top-K scores and whole-file speaker clustering run on the host,
+  exactly as in the JAX engine; in crop mode each segment's audio is
+  re-embedded by a second forward (16 crops of 6 s a batch, K1 and the
+  plain-op trunk, or the x-vector);
+- a batch whose device program raises is dispatched once more before the
+  error surfaces (not a kernel build failure);
 - with decoder weights loaded (the release's text-mode translator and
   fact-conditioned summarizer), segment translations and the neural summary
   are greedy-decoded on the engine's device (``models/translation.py``,
@@ -31,9 +44,9 @@ explicit ``device="cpu"``, construction raises.
 One engine serves concurrent requests (the server runs up to four files at
 once, one thread each). The work that shares device state, the batched
 device program and the decoders (whose CUDA graphs replay over static
-buffers and are captured on first use), runs under one lock; host decoding,
-host extraction and clustering run outside it, so concurrent requests
-overlap their host work with each other's device work.
+buffers and are captured on first use), and the crop re-embedding run under
+one lock; host decoding, host extraction and clustering run outside it, so
+concurrent requests overlap their host work with each other's device work.
 """
 
 from __future__ import annotations
@@ -53,6 +66,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .audio.codec import mulaw_decode, mulaw_encode
 from .audio.decode import decode_audio, get_audio_duration
 from .audio.native_lib import native_available, native_decode
 from .audio.resample import resample
@@ -61,7 +75,7 @@ from .diarization.cluster import DEFAULT_THRESHOLD as CLUSTER_DEFAULT_THRESHOLD
 from .diarization.cluster import cluster_speakers
 from .models import languages as lang_table
 from .models.conformer import (asr_forward, asr_init,
-                               pooled_speaker_embed_np)
+                               pooled_speaker_embed_np, subsampled_mask)
 from .models.orthography import ctc_logit_mask
 from .models.summarizer import (SummaryDecoder, summary_consistent,
                                 template_summary)
@@ -72,8 +86,11 @@ from .models.xvector import xvector_frames
 from .models.zoo import (default_release_dir, load_checkpoint, load_xvector,
                          tree_to)
 from .ops.attention import REFERENCE_BLOCK_Q
+from .ops.beam import LOG_ZERO, ctc_prefix_beam_search
 from .ops.conv_module import dense_weight
 from .ops.ctc import segments_from_alignment
+from .ops.cuda_build import KernelBuildError
+from .ops.lexicon import TrieLM, synth_lexicon
 from .ops.mel import BLOCK_T, MelFrontend
 from .ops.quant import add_kernel_layouts, quantize_param_tree
 from .types import EMOTIONS, TranscriptSegment, TranscriptionResult
@@ -84,6 +101,17 @@ ProgressCallback = Optional[Callable[[str, int], None]]
 # Fixed inference window: 30 s at 16 kHz -> 2998 mel frames -> 3072 padded.
 WINDOW_SECONDS = 30.0
 
+# Window of the per-segment speaker re-embedding (speaker_mode="crop"):
+# longer segments are center-cropped to it. 6 s -> 598 frames -> 768 padded.
+SPK_CROP_SECONDS = 6.0
+SPK_CROP_BATCH = 16
+
+# AHC merge cut for crop-mode trunk embeddings (the JAX engine's).
+CROP_AHC_THRESHOLD = 0.22
+
+# Classes a frame ships to the host for the beam search (at most).
+BEAM_TOPK = 8
+
 # AHC merge cut for x-vector embeddings (DecodeConfig.ahc_threshold
 # overrides).
 XVECTOR_AHC_THRESHOLD = 0.30
@@ -91,6 +119,15 @@ XVECTOR_AHC_THRESHOLD = 0.30
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def ctc_topk(logits: torch.Tensor, k: int):
+    """(log-probabilities, classes) of each frame's ``k`` likeliest CTC
+    classes, best first: the beam search's feed. A stable descending sort
+    orders ties lower class first, as ``jax.lax.top_k`` does."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    top_lp, top_ids = torch.sort(logp, dim=-1, descending=True, stable=True)
+    return top_lp[..., :k], top_ids[..., :k]
 
 
 def resolve_device(device) -> torch.device:
@@ -169,6 +206,12 @@ class TranscriptionEngine:
     W8A16 kernel K4 or the W8A8 kernel K5 (``ops/quant.py``). The JAX
     engine refuses the kernel modes under tensor parallelism; the port runs
     on one card, so that check has no counterpart here.
+
+    ``speaker_mode``: ``"inline"`` pools the main forward's speaker frames;
+    ``"crop"`` re-embeds each segment's audio in a forward of its own;
+    ``"auto"`` (the default) is inline with x-vector weights, crop without.
+    ``ingress``: ``"i16"`` ships int16 windows to the card, ``"mulaw"``
+    8-bit μ-law codes decoded on the card before the frontend.
     """
 
     def __init__(
@@ -210,17 +253,10 @@ class TranscriptionEngine:
                              f"got {ingress!r}")
         if long_mode == "sequence":
             raise _not_ported("long_mode='sequence'", "A10")
-        if ingress == "mulaw":
-            raise _not_ported("ingress='mulaw'", "A9")
+        self.ingress = ingress
 
         self.config = config or PipelineConfig.from_env()
         cfg = self.config
-        if cfg.decode.beam_size > 1:
-            raise _not_ported("beam_size > 1 (prefix beam search)", "A13")
-        if cfg.decode.spk_frame_stride != 1 or cfg.decode.spk_wire != "f16":
-            raise _not_ported("speaker-frame wire slimming (decode."
-                              "spk_frame_stride / spk_wire)",
-                              "A9, the packed D2H wire")
         self.model = model
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -297,11 +333,9 @@ class TranscriptionEngine:
                 "encoder.subsample_factor must be 4 to align with it")
         if speaker_mode == "auto":
             speaker_mode = "inline" if self._xvector is not None else "crop"
-        if speaker_mode == "crop":
-            raise _not_ported("speaker_mode='crop' (per-segment speaker "
-                              "re-embedding; the default without x-vector "
-                              "weights)", "A9")
         self.speaker_mode = speaker_mode
+        #: The beam search's lexicon LM, built on first use.
+        self._lexicon_lm = None
 
         if params is None:
             if cfg.checkpoint_path:
@@ -343,6 +377,11 @@ class TranscriptionEngine:
         self.window_frames = _round_up(n_frames, math.lcm(BLOCK_T, sub))
         self.frame_dur_s = fe.hop_length * sub / fe.sample_rate
         self.batch_size = batch_windows_per_device
+        # Crop geometry: SPK_CROP_SECONDS of samples, their frames padded
+        # as a window's are.
+        self.crop_samples = int(SPK_CROP_SECONDS * fe.sample_rate)
+        self.crop_frames = _round_up(fe.frames_for_samples(self.crop_samples),
+                                     math.lcm(BLOCK_T, sub))
         self._frontend = MelFrontend(fe, self.device)
 
         # Inference config, decided exactly as the JAX engine decides it
@@ -359,6 +398,15 @@ class TranscriptionEngine:
         self.infer_config = cfg.replace(encoder=dataclasses.replace(
             cfg.encoder, use_flash_attention=use_flash,
             use_fused_conv=use_fused_conv))
+        #: The crop re-embedding's trunk: plain attention and conv module
+        #: (as in the JAX engine), on the conv weights as loaded.
+        self._crop_config = cfg.replace(encoder=dataclasses.replace(
+            cfg.encoder, use_flash_attention=False, use_fused_conv=False))
+        self._crop_params = self.params
+        if use_fused_conv and speaker_mode == "crop":
+            self._crop_params = {**self.params, "blocks": [
+                {**blk, "conv": dict(blk["conv"])}
+                for blk in self.params["blocks"]]}
         if use_fused_conv:
             # The fused conv module rounds its pointwise weights to bf16;
             # hold them so once, rather than cast them on every call. A
@@ -380,17 +428,25 @@ class TranscriptionEngine:
     @torch.inference_mode()
     def _process(self, samples_i16: torch.Tensor, n_valid: torch.Tensor,
                  ctc_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Raw int16 samples [B, window_samples] -> compact head outputs.
+        """Raw int16 samples [B, window_samples] (or uint8 μ-law codes)
+        -> compact head outputs.
 
         n_valid: [B] int32 valid mel frames per window (0 for a padded
         slot). Outputs carry the JAX engine's wire dtypes (i16 ids, f16
-        features); host clustering runs on the f16-rounded speaker frames.
+        features; speaker frames mean-pooled over ``decode.spk_frame_stride``
+        frames, and as int8 with an f16 scale a frame under
+        ``decode.spk_wire="i8"``); host clustering runs on the rounded
+        speaker frames. With ``decode.beam_size > 1`` each frame's top
+        ``BEAM_TOPK`` CTC log-probabilities and their classes ride along.
         """
         cfg = self.config
         icfg = self.infer_config
         fe = self._frontend
         B = samples_i16.shape[0]
-        samples = samples_i16.to(torch.float32) * (1.0 / 32768.0)
+        if samples_i16.dtype == torch.uint8:          # μ-law wire format
+            samples = mulaw_decode(samples_i16)
+        else:
+            samples = samples_i16.to(torch.float32) * (1.0 / 32768.0)
         frames, _ = fe.frames_from_signal(samples)      # [B, T_pad, n_fft]
         mel = fe.log_mel(frames)[:, :self.window_frames]
         frame_idx = torch.arange(self.window_frames, device=mel.device)
@@ -403,21 +459,37 @@ class TranscriptionEngine:
         e_sub = e.reshape(B, -1, sub).mean(dim=-1)
         n_real = 1 + cfg.vocab.n_bytes
         masked = out["ctc_logits"] + ctc_mask[None, None, :]
-        ctc_ids = torch.argmax(masked[..., :n_real], dim=-1)
+        real = masked[..., :n_real]
+        ctc_ids = torch.argmax(real, dim=-1)
         lid_ids = torch.argmax(out["lid_logits"], dim=-1)
         lid_conf = torch.softmax(out["lid_logits"], dim=-1).amax(dim=-1)
         spk_frames = out["speaker_frames"]
         if self._xvector is not None:
             spk_frames = xvector_frames(self._xvector, mel, mask)
+        stride = max(1, cfg.decode.spk_frame_stride)
+        if stride > 1:
+            T2 = spk_frames.shape[1] // stride
+            spk_frames = spk_frames[:, :T2 * stride].reshape(
+                B, T2, stride, spk_frames.shape[-1]).mean(dim=2)
         ret = {
             "ctc_ids": ctc_ids.to(torch.int16),
             "lid_ids": lid_ids.to(torch.int16),
             "lid_conf": lid_conf.to(torch.float16),
             "emotion_logits": out["emotion_logits"].to(torch.float16),
-            "speaker_frames": spk_frames.to(torch.float16),
             "frame_energy": e_sub.to(torch.float16),
             "mask": out["mask"],
         }
+        if cfg.decode.spk_wire == "i8":
+            scale = spk_frames.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+            ret["speaker_frames_q"] = torch.clamp(
+                torch.round(spk_frames / scale), -127, 127).to(torch.int8)
+            ret["speaker_scale"] = scale[..., 0].to(torch.float16)
+        else:
+            ret["speaker_frames"] = spk_frames.to(torch.float16)
+        if cfg.decode.beam_size > 1:
+            top_lp, top_ids = ctc_topk(real, min(BEAM_TOPK, n_real))
+            ret["ctc_topk_logp"] = top_lp
+            ret["ctc_topk_ids"] = top_ids.to(torch.int16)
         if self._states_consumer:
             # Encoder states for the summarizer or an audio-conditioned
             # translator, f16 on the wire; only copied when one is loaded.
@@ -544,16 +616,20 @@ class TranscriptionEngine:
                         rows.append(np.zeros_like(rows[0]))
                         n_valid.append(0)
                     rows = np.stack(rows)
-                    if rows.dtype != np.int16:
+                    if self.ingress == "mulaw":
+                        if rows.dtype == np.int16:
+                            rows = rows.astype(np.float32) * (1.0 / 32768.0)
+                        rows = mulaw_encode(rows)
+                    elif rows.dtype != np.int16:
                         rows = np.clip(rows * 32768.0, -32768,
                                        32767).astype(np.int16)
                     host = torch.from_numpy(rows)
                     nv = torch.tensor(n_valid, dtype=torch.int32)
                     if on_cuda:
                         host = host.pin_memory()
-                    out = self._process(host.to(dev, non_blocking=True),
-                                        nv.to(dev, non_blocking=True),
-                                        ctc_mask)
+                    out = self._dispatch_batch(
+                        host.to(dev, non_blocking=True),
+                        nv.to(dev, non_blocking=True), ctc_mask)
                     out = {k: v.to("cpu", non_blocking=on_cuda)
                            for k, v in out.items()}
                     done = None
@@ -572,11 +648,13 @@ class TranscriptionEngine:
             lid = out["lid_ids"]
             lconf = out["lid_conf"].astype(np.float32)
             emo = out["emotion_logits"].astype(np.float32)
-            spk = out["speaker_frames"].astype(np.float32)
             sub_mask = out["mask"]
+            spk = self._unpack_speaker_frames(out, sub_mask.shape[1])
             energy = out["frame_energy"].astype(np.float32)
             enc = (out["encoder_states"].astype(np.float32)
                    if "encoder_states" in out else None)
+            tk_lp = out.get("ctc_topk_logp")
+            tk_id = out.get("ctc_topk_ids")
             outs = []
             for k in range(len(batch)):
                 nf_sub = int(sub_mask[k].sum())
@@ -591,10 +669,122 @@ class TranscriptionEngine:
                     "frame_energy": energy[k, :nf_sub],
                     "encoder_states": (enc[k, :nf_sub]
                                        if enc is not None else None),
+                    "ctc_topk": ((tk_lp[k, :nf_sub], tk_id[k, :nf_sub])
+                                 if tk_lp is not None else None),
                 })
             if batch_progress:
                 batch_progress(bi + 1, n_batches)
             yield outs
+
+    def _dispatch_batch(self, samples: torch.Tensor, n_valid: torch.Tensor,
+                        ctc_mask: torch.Tensor, max_attempts: int = 2):
+        """Enqueue one batch's device program; a runtime error re-dispatches
+        it once on the same device and kernels before the last error
+        surfaces. A kernel build failure is raised at once."""
+        last = None
+        for _ in range(max_attempts):
+            try:
+                return self._process(samples, n_valid, ctc_mask)
+            except KernelBuildError:
+                raise
+            except RuntimeError as e:
+                last = e
+        raise last
+
+    def _unpack_speaker_frames(self, out: Dict[str, np.ndarray],
+                               n_frames: int) -> np.ndarray:
+        """f32 speaker frames [B, n_frames, D] from the wire: int8 times
+        its per-frame scale under ``spk_wire="i8"``, and at a pooled stride
+        repeated back to the frame rate (the tail frames lost to the floor
+        division repeat the last pooled frame)."""
+        if "speaker_frames_q" in out:
+            spk = (out["speaker_frames_q"].astype(np.float32)
+                   * out["speaker_scale"].astype(np.float32)[..., None])
+        else:
+            spk = out["speaker_frames"].astype(np.float32)
+        stride = max(1, self.config.decode.spk_frame_stride)
+        if stride > 1:
+            spk = np.repeat(spk, stride, axis=1)
+            short = n_frames - spk.shape[1]
+            if short > 0:
+                spk = np.concatenate(
+                    [spk, np.repeat(spk[:, -1:], short, axis=1)], axis=1)
+        return spk
+
+    # ------------------------------------------------------------------
+    # Per-segment speaker re-embedding (speaker_mode="crop")
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def _crop_process(self, samples_i16: torch.Tensor,
+                      n_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """[B, crop_samples] int16 -> f16 speaker frames and their mask.
+
+        The log-mel runs on K1; then the x-vector embedder when one is
+        loaded, else the trunk with plain attention and conv module (the
+        JAX engine turns its kernels off for the short crop)."""
+        crop_frames = self.crop_frames
+        fe = self._frontend
+        samples = samples_i16.to(torch.float32) * (1.0 / 32768.0)
+        frames, _ = fe.frames_from_signal(samples)
+        mel = fe.log_mel(frames)[:, :crop_frames]
+        mask = (torch.arange(crop_frames, device=mel.device)[None, :]
+                < n_valid[:, None])
+        if self._xvector is not None:
+            fr = xvector_frames(self._xvector, mel, mask)
+            m = subsampled_mask(mask, self.config.encoder.subsample_factor)
+        else:
+            out = asr_forward(self._crop_params, mel, mask, self._crop_config,
+                              quant=self._quant_kernel)
+            fr, m = out["speaker_frames"], out["mask"]
+        return {"speaker_frames": fr.to(torch.float16), "mask": m}
+
+    def _segment_crop_embeds(self, samples: np.ndarray,
+                             decoded) -> np.ndarray:
+        """Pooled speaker embedding per decoded segment, each from its own
+        forward over the segment's (center-cropped) audio, in batches of
+        SPK_CROP_BATCH crops under the device lock."""
+        crop_samples, crop_frames = self.crop_samples, self.crop_frames
+        fe = self.config.frontend
+        sr = fe.sample_rate
+        rows, nvalid = [], []
+        n_total = len(samples)
+        for s in decoded:
+            a = max(0, min(int(s.start * sr), n_total))
+            b = max(a, min(int(s.end * sr), n_total))
+            if b - a > crop_samples:   # center crop of long segments
+                mid = (a + b) // 2
+                a = max(0, mid - crop_samples // 2)
+                b = a + crop_samples
+            row = np.zeros(crop_samples, np.float32)
+            row[:b - a] = samples[a:b]
+            rows.append(row)
+            nvalid.append(min(fe.frames_for_samples(max(b - a, 1)),
+                              crop_frames))
+        embeds = []
+        B = SPK_CROP_BATCH
+        for b0 in range(0, len(rows), B):
+            chunk = rows[b0:b0 + B]
+            nv = nvalid[b0:b0 + B]
+            n_live = len(chunk)
+            while len(chunk) < B:
+                chunk.append(np.zeros(crop_samples, np.float32))
+                nv.append(0)
+            wire = np.clip(np.stack(chunk) * 32768.0,
+                           -32768, 32767).astype(np.int16)
+            with self._device_lock:
+                out = self._crop_process(
+                    torch.from_numpy(wire).to(self.device),
+                    torch.tensor(nv, dtype=torch.int32, device=self.device))
+                spk = out["speaker_frames"].cpu().numpy().astype(np.float32)
+                msk = out["mask"].cpu().numpy().astype(np.float32)
+            for k in range(n_live):
+                w = msk[k]
+                if w.sum() < 1.0:
+                    w = np.ones_like(w)
+                embeds.append(pooled_speaker_embed_np(
+                    self._spk_pool, spk[k], w))
+        return np.stack(embeds)
 
     # ------------------------------------------------------------------
     # Host-side assembly
@@ -602,7 +792,9 @@ class TranscriptionEngine:
 
     def _extract_windows(self, window_outs, decoded=None, seg_meta=None,
                          states=None):
-        """Per-window host extraction: segmentation and speaker pooling.
+        """Per-window host extraction: segmentation, speaker pooling and,
+        with ``decode.beam_size > 1``, each segment's text from the prefix
+        beam search (times and words stay the greedy alignment's).
 
         Called on each completed batch while later batches still run.
         Returns (decoded, seg_meta, states), where ``states`` lists each
@@ -636,6 +828,10 @@ class TranscriptionEngine:
                     self._spk_pool, spk_span, weights)
                 enc_span = (w["encoder_states"][f0:f1]
                             if w.get("encoder_states") is not None else None)
+                if w.get("ctc_topk") is not None:
+                    text = self._beam_text(w["ctc_topk"], f0, f1)
+                    if text:
+                        s.text = text
                 decoded.append(s)
                 seg_meta.append((emo_mean, spk_mean,
                                  (w["lid_ids"][f0:f1], w["lid_conf"][f0:f1]),
@@ -643,9 +839,15 @@ class TranscriptionEngine:
         return decoded, seg_meta, states
 
     def _assemble_global(self, parts, *, language: Optional[str],
-                         speaker_count: Optional[str], duration_s: float):
+                         speaker_count: Optional[str], duration_s: float,
+                         samples: Optional[np.ndarray] = None):
         """Whole-file assembly over extracted window parts: speaker
         clustering, language and emotion aggregation, translation, summary.
+
+        In crop mode, with ``samples`` (the file's audio) and more than one
+        segment, every segment is re-embedded from its own audio and the
+        clustering cut is ``CROP_AHC_THRESHOLD``; otherwise the segments'
+        pooled embeddings from the main forward are clustered.
 
         Returns (result, profile) where profile maps each sub-stage
         (``cluster``, ``segments``, ``translate``, ``summary``) to seconds.
@@ -672,11 +874,23 @@ class TranscriptionEngine:
                 n_clusters = max(1, int(str(speaker_count).strip()))
             except ValueError:
                 n_clusters = None
-        embeds = np.stack([m[1] for m in seg_meta])
+        # Window outputs always carry the active embedder's frames here (the
+        # JAX engine's sequence mode, which does not, is not ported), so
+        # only crop mode re-embeds.
+        used_crop = (self.speaker_mode == "crop" and samples is not None
+                     and len(decoded) > 1)
+        if used_crop:
+            embeds = self._segment_crop_embeds(samples, decoded)
+        else:
+            embeds = np.stack([m[1] for m in seg_meta])
         th = cfg.decode.ahc_threshold
         if th is None:
-            th = (XVECTOR_AHC_THRESHOLD if self._xvector is not None
-                  else CLUSTER_DEFAULT_THRESHOLD)
+            if self._xvector is not None:
+                th = XVECTOR_AHC_THRESHOLD
+            elif used_crop:
+                th = CROP_AHC_THRESHOLD
+            else:
+                th = CLUSTER_DEFAULT_THRESHOLD
         labels = cluster_speakers(embeds, n_clusters=n_clusters, threshold=th,
                                   count_mode=cfg.decode.count_mode,
                                   resegment=cfg.decode.resegment)
@@ -738,6 +952,47 @@ class TranscriptionEngine:
             summary=summary, segments=segments,
             detected_languages=all_languages if all_languages else None,
         ), prof
+
+    def _decode_lm(self):
+        """The lexicon trie LM of the beam search's shallow fusion, built
+        on first use (``ops/lexicon.py``): ``decode.lexicon`` is "synth"
+        (the training corpus's lexicons), "synth_bigram" (plus word bigrams
+        of the English sentence bank) or a word-list file (whitespace
+        separated, uniform unigram). None when fusion is off
+        (``decode.lm_alpha == 0`` or no lexicon)."""
+        dec = self.config.decode
+        if dec.lm_alpha == 0.0 or not dec.lexicon:
+            return None
+        if self._lexicon_lm is None:
+            if dec.lexicon == "synth":
+                lm = synth_lexicon()
+            elif dec.lexicon == "synth_bigram":
+                lm = synth_lexicon(bigram=True)
+            else:
+                words = [w.strip() for w in Path(dec.lexicon).read_text(
+                    encoding="utf-8").split()]
+                lp = -math.log(max(len(words), 1))
+                lm = TrieLM((w, lp) for w in words if w)
+            self._lexicon_lm = lm
+        return self._lexicon_lm
+
+    def _beam_text(self, topk, f0: int, f1: int) -> Optional[str]:
+        """One segment's text from the prefix beam search over its frames'
+        top-K scores (``ops/beam.py``); None when no beam survives."""
+        lp, ids = topk
+        dec, vocab = self.config.decode, self.config.vocab
+        T = f1 - f0
+        dense = np.full((T, 1 + vocab.n_bytes), LOG_ZERO, np.float32)
+        dense[np.arange(T)[:, None], ids[f0:f1]] = lp[f0:f1]
+        beams = ctc_prefix_beam_search(
+            dense, beam_size=dec.beam_size, blank_id=vocab.blank_id,
+            topk=ids.shape[-1], lm=self._decode_lm(), lm_alpha=dec.lm_alpha,
+            word_bonus=dec.lm_word_bonus)
+        if not beams:
+            return None
+        byte_vals = [vocab.id_to_byte(c) for c in beams[0].prefix]
+        return bytes(b for b in byte_vals if 0 <= b < 256).decode(
+            "utf-8", errors="replace").strip()
 
     TRANSLATE_SPAN_FRAMES = 256   # ~10 s of encoder frames per segment
     TRANSLATE_MAX_BYTES = 128
@@ -890,8 +1145,11 @@ class TranscriptionEngine:
         report("uploading", 0)        # step 0: host decode + resample
 
         # Long PCM WAV files stream their windows straight off the file so
-        # the host decode rides under the device forward.
-        stream = self._stream_windows_wav(audio_path)
+        # the host decode rides under the device forward; not in crop mode,
+        # whose re-embedding reads the samples.
+        samples = None
+        stream = (self._stream_windows_wav(audio_path)
+                  if self.speaker_mode != "crop" else None)
         if stream is not None:
             win_iter, n_win, n_last, duration_s = stream
         else:
@@ -924,13 +1182,112 @@ class TranscriptionEngine:
         with trace.stage("assemble"):
             result, prof = self._assemble_global(
                 parts or ([], [], []), language=language,
-                speaker_count=speaker_count, duration_s=duration_s)
+                speaker_count=speaker_count, duration_s=duration_s,
+                samples=samples)
         trace.stages.update(
             {f"assemble.{k}": round(v, 2) for k, v in prof.items()})
         self.last_trace = trace
         trace.log(file=audio_path.name)
         report("done", 3)
         return result
+
+    def transcribe_streaming(
+        self,
+        audio_path,
+        *,
+        language: Optional[str] = None,
+        speaker_count: Optional[str] = None,
+        orthography: Optional[str] = None,
+    ):
+        """Generator of results as device batches complete.
+
+        Yields ("partial", list[TranscriptSegment]) after each batch, with
+        provisional speakers from online centroid tracking and greedy
+        texts, then ("final", TranscriptionResult): the result
+        ``transcribe`` returns for the file. The device work runs through
+        ``_forward_batches`` under the engine's device lock, as
+        ``transcribe``'s does."""
+        cfg = self.config
+        samples = self._load_audio(Path(audio_path))
+        duration_s = len(samples) / cfg.frontend.sample_rate
+        windows = self._windows(samples)
+        if not windows:
+            yield ("final", TranscriptionResult(summary=None, segments=[],
+                                                detected_languages=None))
+            return
+        n_last = len(samples) - (len(windows) - 1) * self.window_samples
+        threshold = (XVECTOR_AHC_THRESHOLD if self._xvector is not None
+                     else CLUSTER_DEFAULT_THRESHOLD)
+        all_outs = []
+        centroids: List[np.ndarray] = []   # online speaker centroids
+        counts: List[int] = []
+        for outs in self._forward_batches(windows, n_last, orthography):
+            partial: List[TranscriptSegment] = []
+            for w in outs:
+                all_outs.append(w)
+                segs = segments_from_alignment(
+                    w["ctc_ids"], self.frame_dur_s, cfg.vocab, cfg.decode,
+                    time_offset_s=w["offset_s"])
+                for s in segs:
+                    f0, f1 = s.frame_start, s.frame_end
+                    emb = pooled_speaker_embed_np(
+                        self._spk_pool, w["speaker_frames"][f0:f1],
+                        np.ones(f1 - f0, np.float32))
+                    lab = self._online_speaker(emb, centroids, counts,
+                                               threshold=threshold)
+                    langs = self._segment_languages(
+                        w["lid_ids"][f0:f1], w["lid_conf"][f0:f1], -1)
+                    primary = (langs[0] if langs
+                               else {"name": None, "code": None})
+                    emo_idx = int(np.argmax(w["emotion_logits"][f0:f1].mean(
+                        axis=0)[:len(EMOTIONS)]))
+                    partial.append(TranscriptSegment(
+                        start=round(s.start, 3), end=round(s.end, 3),
+                        speaker=f"Speaker {lab + 1}", text=s.text,
+                        language=primary["name"],
+                        language_code=primary["code"], languages=langs,
+                        emotion=EMOTIONS[emo_idx], translation=None,
+                        words=s.words))
+            yield ("partial", partial)
+        result, _ = self._assemble_global(
+            self._extract_windows(all_outs), language=language,
+            speaker_count=speaker_count, duration_s=duration_s,
+            samples=samples)
+        yield ("final", result)
+
+    @staticmethod
+    def _online_speaker(emb: np.ndarray, centroids: List[np.ndarray],
+                        counts: List[int], threshold: float = 0.45) -> int:
+        """Assign an embedding to the nearest running centroid (cosine),
+        spawning a new speaker past the distance threshold."""
+        e = emb / (np.linalg.norm(emb) + 1e-9)
+        best, best_d = -1, 1e9
+        for i, c in enumerate(centroids):
+            d = 1.0 - float(e @ (c / (np.linalg.norm(c) + 1e-9)))
+            if d < best_d:
+                best, best_d = i, d
+        if best >= 0 and best_d < threshold:
+            centroids[best] = ((centroids[best] * counts[best] + e)
+                               / (counts[best] + 1))
+            counts[best] += 1
+            return best
+        centroids.append(e)
+        counts.append(1)
+        return len(centroids) - 1
+
+    def health_check(self) -> dict:
+        """Run a trivial program on the engine's device; returns
+        {"devices": [{"id", "ok"}], "ok"} (with "error" when it raised)."""
+        report = {"devices": [], "ok": True}
+        try:
+            x = torch.ones((8, 8), device=self.device)
+            ok = abs(float((x * 2.0).sum()) - 128.0) < 1e-3
+        except Exception as e:  # noqa: BLE001 — a probe reports, never raises
+            ok = False
+            report["error"] = str(e)
+        report["devices"].append({"id": str(self.device), "ok": ok})
+        report["ok"] = ok
+        return report
 
     def transcribe_chunked(
         self,

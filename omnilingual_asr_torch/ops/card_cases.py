@@ -26,10 +26,12 @@ TOL_K5_REL = 1e-6
 
 # K3 as (B, T, D, valid frames of each row): a serving batch (4 windows of
 # 768 frames at the release width), a training step (16 windows of 256
-# frames at PipelineConfig's width) and large_config's width, D 1024.
+# frames at PipelineConfig's width), large_config's width, D 1024, and a
+# serving batch of the d512 x 12 seed (checkpoints/r5_d512x12_seed).
 K3_SHAPES = {"serving": (4, 768, 256, (768, 700, 301, 0)),
              "training": (16, 256, 512, (256,) * 13 + (200, 77, 0)),
-             "d1024": (4, 256, 1024, (256, 200, 77, 0))}
+             "d1024": (4, 256, 1024, (256, 200, 77, 0)),
+             "d512": (4, 768, 512, (768, 700, 301, 0))}
 
 # K5 as (M, K, N): a serving batch's 4 x 768 frames through the release
 # layers that take it, by width N (512 the CTC head, 1024 the FFN

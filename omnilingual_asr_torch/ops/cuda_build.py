@@ -84,6 +84,11 @@ def _headers(csrc: Path) -> List[Path]:
     return sorted(csrc.glob("*.cuh"))
 
 
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source: not a transient fault,
+    so the engine never re-dispatches a batch that raised it."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -91,8 +96,8 @@ def _nvcc() -> str:
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and (Path(root) / "bin" / "nvcc").is_file():
             return str(Path(root) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    raise KernelBuildError("nvcc not found: the CUDA kernels need the "
+                           "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
 def source_hash(csrc: Path = CSRC_DIR) -> str:
@@ -128,7 +133,7 @@ def build(csrc: Path = CSRC_DIR) -> BuildInfo:
             out, _ = p.communicate(timeout=BUILD_TIMEOUT_S)
             logs.append(f"--- {src.name}\n{out}")
             if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+                raise KernelBuildError(f"nvcc failed on {src.name}:\n{out}")
     finally:
         for _, _, p in procs:
             if p.poll() is None:
@@ -141,7 +146,7 @@ def build(csrc: Path = CSRC_DIR) -> BuildInfo:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         timeout=BUILD_TIMEOUT_S)
     if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
     return BuildInfo(lib, time.perf_counter() - t0, False, "\n".join(logs))
 

@@ -48,6 +48,8 @@ TESTDATA = Path(__file__).resolve().parent / "testdata"
 GOLDEN_WAV = TESTDATA / "golden.wav"
 GOLDEN_JSON = TESTDATA / "golden.json"
 GOLDEN_DECODERS_JSON = TESTDATA / "golden_decoders.json"
+GOLDEN_D512_JSON = TESTDATA / "golden_d512_crop.json"
+GOLDEN_D512_FEED = TESTDATA / "golden_d512_crop_topk.npz"
 
 #: One subsampled encoder frame (4 x 10 ms hop).
 TIME_TOL_S = 0.04
@@ -65,6 +67,29 @@ TONE_TIE = 0.005
 #: a gap moves by at most twice the first, and 0.25 leaves room for the
 #: card's summation orders on top of that.
 MIN_TOKEN_GAP = 0.25
+#: The beam texts of ``golden_d512_crop.json`` are held exactly where the
+#: JAX engine's decode is stable: its text unchanged in BEAM_NOISE_DRAWS
+#: searches over its top-K log-probabilities plus N(0, BEAM_NOISE_SIGMA)
+#: noise. The d512 seed's top-K feed from the port on the H100 differs
+#: from the JAX engine's by ~0.015 a value on average and by up to ~0.3
+#: (bf16 roundings flipped by another summation order, through 12
+#: layers), and ~2.5 % of frames swap a class at the top-K boundary
+#: (``chip_smoke.py`` phase 4f prints these, and each decode's gap and
+#: outcome). Where the search turns on less, a character or two changes:
+#: 4 of the fixture's 13 decodes on the card, some of them further ahead
+#: of their runner-up than decodes that held, so the top-two gap does not
+#: predict it. At sigma 0.03 and 16 draws the decodes marked stable held.
+BEAM_NOISE_SIGMA = 0.03
+BEAM_NOISE_DRAWS = 16
+BEAM_NOISE_SEED = 20_261_017
+#: Least number of stable decodes for the fixture to be regenerated.
+MIN_STABLE_BEAM_DECODES = 2
+#: The beam search's feed against the fixture's (``golden_d512_crop_
+#: topk.npz``), per frame and class rank: log-probabilities within
+#: FEED_TOL (the measured differences reach 0.3), and the classes equal
+#: wherever a value stands more than 2 FEED_TOL from its neighbours. A
+#: wrong log-softmax, sort order or class index moves values by nats.
+FEED_TOL = 0.5
 
 _TONE = re.compile(r"Overall tone: (\w+)\.$")
 
@@ -88,6 +113,10 @@ def load_golden(quantize=False) -> dict:
 
 def load_golden_decoders() -> dict:
     return json.loads(GOLDEN_DECODERS_JSON.read_text())
+
+
+def load_golden_d512() -> dict:
+    return json.loads(GOLDEN_D512_JSON.read_text())
 
 
 def tone_mass(engine, path) -> List[float]:
@@ -124,12 +153,13 @@ def _tone_tied(want: str, got: str, mass: Optional[Sequence[float]]) -> bool:
 
 
 def result_mismatches(want: dict, got: dict, time_tol: float = TIME_TOL_S,
-                      tone_mass: Optional[Sequence[float]] = None
-                      ) -> List[str]:
+                      tone_mass: Optional[Sequence[float]] = None,
+                      free_text: Sequence[int] = ()) -> List[str]:
     """Differences between two ``TranscriptionResult.to_dict()`` results
     beyond the criterion; empty when they agree. ``tone_mass`` is the
     reference's (a fixture's ``"tone_mass"``); without it the summary must
-    be identical."""
+    be identical. ``free_text``: indices of segments whose text is not
+    compared (the d512 fixture's unstable beam decodes)."""
     bad = []
     for key in ("summary", "detected_languages"):
         if want.get(key) != got.get(key) and not (
@@ -141,6 +171,8 @@ def result_mismatches(want: dict, got: dict, time_tol: float = TIME_TOL_S,
         return bad + [f"{len(gs)} segments, want {len(ws)}"]
     for i, (w, g) in enumerate(zip(ws, gs)):
         for f in _EXACT_SEGMENT_FIELDS:
+            if f == "text" and i in free_text:
+                continue
             if w.get(f) != g.get(f):
                 bad.append(f"segment {i} {f}: {g.get(f)!r}, want "
                            f"{w.get(f)!r}")
@@ -158,6 +190,70 @@ def result_mismatches(want: dict, got: dict, time_tol: float = TIME_TOL_S,
                            f"{y['start']}-{y['end']}, want "
                            f"{x['start']}-{x['end']}")
     return bad
+
+
+def d512_mismatches(mode: str, results: dict, ids: dict) -> List[str]:
+    """``results`` ({file: ``to_dict()`` result}) of the d512 crop engine
+    in ``mode`` ("greedy" or "beam") and its greedy ids ({file: ids a
+    window}) against ``golden_d512_crop.json``: each result by
+    ``result_mismatches`` (in beam mode the texts of unstable decodes
+    free), and the ids of all the files' windows together on at least
+    MIN_CTC_AGREEMENT of their frames (the golden file alone has 191)."""
+    stored = load_golden_d512()["files"]
+    bad = []
+    for name, got in results.items():
+        entry = stored[name][mode]
+        free = [i for i, d in enumerate(entry.get("decodes", ()))
+                if not d["stable"]]
+        bad += [f"{name} {mode}: {m}" for m in result_mismatches(
+            entry["result"], got, tone_mass=entry["tone_mass"],
+            free_text=free)]
+    agree = ctc_agreement([w for n in ids for w in stored[n][mode]["ctc_ids"]],
+                          [w for n in ids for w in ids[n]])
+    if agree < MIN_CTC_AGREEMENT:
+        bad.append(f"{mode}: greedy ids agree on {agree:.4f} of frames")
+    return bad
+
+
+def d512_feed_mismatches(feeds: dict) -> List[str]:
+    """``feeds`` ({file: [(log-probabilities, classes) a window]}, the beam
+    search's top-K feed over each window's valid frames) against the JAX
+    engine's in ``golden_d512_crop_topk.npz`` by the FEED_TOL rule."""
+    want = np.load(GOLDEN_D512_FEED)
+    bad = []
+    for name, windows in feeds.items():
+        for w, (lp, ids) in enumerate(windows):
+            wl, wi = want[f"{name}/{w}/lp"], want[f"{name}/{w}/ids"]
+            if lp.shape != wl.shape:
+                bad.append(f"{name} window {w}: feed {lp.shape}, want "
+                           f"{wl.shape}")
+                continue
+            err = float(np.abs(lp - wl).max())
+            gap = np.abs(np.diff(wl, axis=1)) > 2 * FEED_TOL
+            apart = np.ones(wl.shape, bool)
+            apart[:, :-1] &= gap
+            apart[:, 1:] &= gap
+            apart[:, -1] = False      # the next class is not shipped
+            n_diff = int((ids[apart] != wi[apart]).sum())
+            if err > FEED_TOL or n_diff:
+                bad.append(f"{name} window {w}: max |dlogp| {err:.3f}, "
+                           f"{n_diff} classes differ where apart")
+    return bad
+
+
+def d512_beam_texts(results: dict) -> dict:
+    """How many beam texts of ``results`` ({file: result}) equal the
+    fixture's, among its stable and its unstable decodes."""
+    stored = load_golden_d512()["files"]
+    out = {"stable": [0, 0], "unstable": [0, 0]}
+    for name, got in results.items():
+        for d, w, g in zip(stored[name]["beam"]["decodes"],
+                           stored[name]["beam"]["result"]["segments"],
+                           got["segments"]):
+            row = out["stable" if d["stable"] else "unstable"]
+            row[0] += w["text"] == g["text"]
+            row[1] += 1
+    return {k: f"{v[0]} of {v[1]}" for k, v in out.items()}
 
 
 def ctc_agreement(want: Sequence[Sequence[int]],

@@ -319,15 +319,30 @@ def test_cpu_construction_works(tmp_path):
         decode=DecodeConfig(spk_frame_stride=2))},
 ])
 def test_unported_modes_raise(kwargs):
+    """Only ``long_mode="sequence"`` (A10, several devices) is unported and
+    raises; the other modes that raised before the engine's single-card
+    modes were ported now construct, with the mode in force."""
     kwargs = {"config": tiny_config(), **kwargs}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TranscriptionEngine(device="cpu", speaker_mode=kwargs.pop(
-            "speaker_mode", "inline"), **kwargs)
+    speaker_mode = kwargs.pop("speaker_mode", "inline")
+    if kwargs.get("long_mode") == "sequence":
+        with pytest.raises(NotImplementedError, match="A10.*ROADMAP"):
+            TranscriptionEngine(device="cpu", speaker_mode=speaker_mode,
+                                **kwargs)
+        return
+    eng = TranscriptionEngine(device="cpu", speaker_mode=speaker_mode,
+                              **kwargs)
+    assert eng.speaker_mode == speaker_mode
+    assert eng.ingress == kwargs.get("ingress", "i16")
+    assert eng.config.decode == kwargs["config"].decode
 
 
 def test_auto_speaker_mode_without_xvector_is_crop_and_raises():
-    with pytest.raises(NotImplementedError, match="crop"):
-        TranscriptionEngine(config=tiny_config(), device="cpu")
+    """"auto" resolves to crop without x-vector weights (as in the JAX
+    engine); crop mode is ported, so construction no longer raises."""
+    with pytest.warns(UserWarning, match="RANDOM-INIT"):
+        eng = TranscriptionEngine(config=tiny_config(), device="cpu")
+    assert eng.speaker_mode == "crop"
+    assert eng._xvector is None
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -92,3 +92,17 @@ def test_walk_reaches_the_server_exporters_and_native_loader():
                  "serving.http_kit", "serving.schema", "exporters",
                  "exporters.formats", "audio.native_lib"):
         assert f"omnilingual_asr_torch.{name}" in names
+
+
+def test_walk_reaches_the_beam_search_and_the_codec():
+    """The import walk covers the beam search, the lexicon LM, the English
+    sentence bank and the μ-law codec (and so holds them to the rule)."""
+    import pkgutil
+
+    import omnilingual_asr_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pkg.__path__, "omnilingual_asr_torch.")}
+    for name in ("ops.beam", "ops.lexicon", "train.english_text",
+                 "audio.codec"):
+        assert f"omnilingual_asr_torch.{name}" in names

@@ -12,8 +12,11 @@ masked (``test_scenario_parity``): history and user ids, upload names,
 
 Then the port's server in front of the port's CPU engine with the release
 weights and decoders answers ``/api/transcribe`` for the golden file, held
-to ``golden_decoders.json``; the live route answers 501 in front of the
-real engine; and the default engine raises without a CUDA device.
+to ``golden_decoders.json``, and streams it on the live route
+(``/api/transcribe-stream-live``) to the same result; in front of a tiny
+CPU engine (crop mode, beam search) the live route's partial and final
+events equal the engine's own ``transcribe_streaming`` and ``transcribe``;
+and the default engine raises without a CUDA device.
 """
 
 from __future__ import annotations
@@ -697,11 +700,88 @@ def test_release_engine_answers_golden(release_server):
 
 
 def test_release_engine_live_route_is_501(release_server):
-    """The port's engine has no ``transcribe_streaming`` (A9), so the live
-    route answers 501, as the JAX server does for such an engine."""
+    """The port's engine has ``transcribe_streaming`` now, so the live route
+    no longer answers 501: it streams the golden file's partial segments
+    and a final entry held to ``golden_decoders.json`` (translations and
+    the neural summary exact), as the JAX server does for its engine."""
     srv, client = release_server
-    assert not hasattr(srv.engine(), "transcribe_streaming")
-    status, err = client.request("POST", "/api/transcribe-stream-live",
-                                 *_upload("live.wav"))
-    assert status == 501
-    assert err == {"detail": "Engine does not support streaming."}
+    assert hasattr(srv.engine(), "transcribe_streaming")
+    body, ctype = multipart({}, [("file", "golden.wav",
+                                  golden.GOLDEN_WAV.read_bytes())])
+    status, events = client.sse("POST", "/api/transcribe-stream-live", body,
+                                ctype, timeout=600)
+    assert status == 200
+    kinds = [k for k, _ in events]
+    assert kinds[0] == "progress" and kinds[-1] == "result"
+    assert "error" not in kinds and kinds.count("segments") == 1
+    steps = [d["step"] for k, d in events if k == "progress"]
+    assert steps == ["uploading", "transcribing", "processing", "done"]
+    entry = events[-1][1]
+    stored = golden.load_golden_decoders()
+    assert golden.result_mismatches(stored["result"], entry,
+                                    tone_mass=stored["tone_mass"]) == []
+    assert entry["summary"] == stored["result"]["summary"]
+    assert [s.get("translation") for s in entry["segments"]] == \
+        [s["translation"] for s in stored["result"]["segments"]]
+    partial = events[kinds.index("segments")][1]["segments"]
+    assert [s["text"] for s in partial] == \
+        [s["text"] for s in entry["segments"]]
+
+
+def _two_window_wav() -> bytes:
+    """The golden audio twice, a 30 s window each (the first padded with
+    silence): two device batches at one window a batch."""
+    with wave.open(str(golden.GOLDEN_WAV), "rb") as w:
+        params = w.getparams()
+        pcm = w.readframes(w.getnframes())
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setparams(params)
+        w.writeframes(pcm + b"\0" * (30 * params.framerate
+                                       * params.sampwidth - len(pcm)) + pcm)
+    return buf.getvalue()
+
+
+def test_live_route_on_tiny_engine_equals_engine(tmp_path):
+    """The live route in front of a tiny CPU engine in crop mode with the
+    beam search: one ``segments`` event a device batch, each the engine's
+    own partial in wire form, and a final entry equal to ``transcribe``'s
+    result in wire form."""
+    from omnilingual_asr_torch.config import DecodeConfig, tiny_config
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.models.conformer import asr_init
+    from omnilingual_asr_torch.serving.app import OmniServer
+    from omnilingual_asr_torch.serving.schema import (result_to_entry,
+                                                      segments_to_wire)
+    from omnilingual_asr_torch.types import TranscriptionResult
+
+    cfg = tiny_config().replace(decode=DecodeConfig(beam_size=4))
+    eng = TranscriptionEngine(
+        config=cfg, device="cpu", batch_windows_per_device=1,
+        params=asr_init(torch.Generator().manual_seed(0), cfg))
+    assert eng.speaker_mode == "crop"
+    wav = tmp_path / "two.wav"
+    wav.write_bytes(_two_window_wav())
+    srv = OmniServer(engine=eng, base_dir=tmp_path / "srv")
+    port = srv.serve_background()
+    try:
+        status, events = Client(port).sse(
+            "POST", "/api/transcribe-stream-live",
+            *multipart({}, [("file", "two.wav", wav.read_bytes())]),
+            timeout=300)
+    finally:
+        srv.shutdown()
+    assert status == 200
+    stream = list(eng.transcribe_streaming(wav))
+    want_partials = [segments_to_wire(TranscriptionResult(segments=p))
+                     for k, p in stream if k == "partial"]
+    got_partials = [d["segments"] for k, d in events if k == "segments"]
+    assert len(got_partials) == 2
+    assert got_partials == want_partials
+    want = result_to_entry(eng.transcribe(wav), file_name="two.wav",
+                           audio_url="")
+    got = events[-1][1]
+    assert events[-1][0] == "result"
+    for key in ("segments", "summary", "detected_languages"):
+        assert got.get(key) == want.get(key)
+    assert len(got["segments"]) >= 2
