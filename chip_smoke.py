@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d, 4e, 4f)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4g)
     python3 chip_smoke.py --profile    # and, before the report, phase 4c
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
@@ -13,13 +13,16 @@ with no result line:
 2. build   - nvcc builds the kernels from ``omnilingual_asr_torch/csrc``
              and each kernel's registers and spills are printed.
 3. kernels - log-mel (K1, at the serving, the training path's and the
-             crop re-embedding's frames, [16 x 768]; its bound counted for
+             crop re-embedding's frames, [16 x 768], and the eval
+             drivers' [4 x 1024] and [1 x 3072]; its bound counted for
              the function as an FFT computes it, the dense DFT's beside
              it), flash attention (K2, at head dims 64 and 128, at the
-             training shape, at a ragged T of 200 and at the d512 seed's
-             [4, 768, 8, 64]), the fused conv module (K3, at the serving
-             and the training shape, at large_config's width, D 1024, and
-             at the d512 seed's [4, 768, 512], each with its launch plan:
+             training shape, at a ragged T of 200, at the d512 seed's
+             [4, 768, 8, 64] and at the eval drivers' [4, 256, 4, 64] and
+             [1, 768, 8, 64]), the fused conv module (K3, at the serving
+             and the training shape, at large_config's width, D 1024, at
+             the d512 seed's [4, 768, 512] and at the eval drivers'
+             [4, 256, 256] and [1, 768, 512], each with its launch plan:
              both launches' blocks and pw1's rows a frame), the int8 matmuls W8A16 (K4) and W8A8 (K5, at the
              three widths of the quantized main path) and the
              flash-attention backward, dQ (K6) and dK/dV (K7), at the
@@ -107,6 +110,26 @@ with no result line:
              the release engine with μ-law ingress and with the int8
              speaker wire at stride 2 on the golden file, held to the JAX
              engine's results in those modes; ``health_check``.
+4g. evals  - the port's evaluation drivers (``omnilingual_asr_torch/
+             eval/``) with the release weights, held to the JAX package's
+             ``golden_evals.json`` (``testing.py``'s criteria):
+             ``eval.synth`` on its 96 held-out files at 10 s windows (texts
+             on at least 94, the files' greedy ids together on 99.5 %,
+             WER and CER within 0.005), its first 32 files unquantized and
+             under "w8" and "a8" (WER/CER, RTF, K4/K5 launches; reported,
+             not held); ``eval.heads`` on 64 files and 8 conversations with
+             the release translator and summarizer (languages and emotions
+             equal but for one tied emotion, translation word accuracy
+             within 0.01, summary accuracies equal); ``eval.diar`` on 16
+             conversations (speaker counts equal on 15, each DER within
+             0.02, the mean within 0.01); ``eval.long``'s engine on the
+             420 s file (streamed; greedy ids on 99.5 %, the result's
+             structure by ``testing.long_mismatches``: its tones are no
+             speech, and the JAX result itself moves under 1-LSB noise);
+             one K1, four K2 and four K3 launches a release batch. Then
+             ``python -m omnilingual_asr_torch.eval.long --hours 1`` and
+             ``eval.latency`` (d512 x 12, batch 1, 16 reps), each in a
+             process of its own with the release discovered.
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -118,7 +141,8 @@ with no result line:
              16: the host's batch wait, upload, forward + loss, backward
              and optimizer seconds, and one step under the profiler.
 5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
-             over the serving, training, decoders, server and d512 paths,
+             over the serving, training, decoders, server, d512 and evals
+             paths,
              by path beside it), the
              ``nvidia-smi`` name and power limit, and the result line
              ``{"ok": true, "device": {...}}``.
@@ -129,6 +153,7 @@ The script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -154,6 +179,7 @@ DECODER_ROUNDS = 3       # warm requests a decoder mode in phase 4d
 D512_ROUNDS = 3          # warm requests a d512 mode in phase 4f (medians)
 TRAIN_STEPS = 4          # train_synth steps at PipelineConfig() dims
 TRAIN_BATCH = 16         # 8 s windows a step
+EVAL_WINDOW_SECONDS = 10.0  # eval.synth's windows (1024 frames, T' 256)
 # Valid keys of the attention checks at the training shape (T' 256): 12
 # whole rows, ragged, short, one valid key and a padded batch slot.
 TRAIN_VALID_KEYS = [256] * 12 + [200, 77, 1, 0]
@@ -325,9 +351,10 @@ def nbytes(*tensors) -> int:
 def check_k1(dev, peaks, cfg):
     """K1 at the serving path's shape (a batch of 4 x 30 s windows: 3072
     frames each, 2998 valid), and under "shapes" at the training path's
-    (batch 16 of 8 s windows padded to 1024 frames, 798 valid) and the
+    (batch 16 of 8 s windows padded to 1024 frames, 798 valid), the
     crop re-embedding's (16 crops of 6 s padded to 768 frames, 598
-    valid)."""
+    valid), eval.synth's (4 x 10 s windows: 1024 frames, 998 valid) and
+    eval.latency's (one 30 s window)."""
     from omnilingual_asr_torch.engine import (SPK_CROP_BATCH,
                                               SPK_CROP_SECONDS)
 
@@ -338,10 +365,17 @@ def check_k1(dev, peaks, cfg):
     crop = _k1_case(dev, peaks, cfg, SPK_CROP_BATCH,
                     math.ceil(crop_frames / 256) * 256, crop_frames,
                     SEED + 17)
+    # The eval drivers': eval.synth's 10 s windows (998 frames padded to
+    # 1024) and eval.latency's one 30 s window at batch 1.
+    eval10 = _k1_case(dev, peaks, cfg, WINDOWS_PER_BATCH, 1024,
+                      cfg.frontend.frames_for_samples(
+                          int(EVAL_WINDOW_SECONDS
+                              * cfg.frontend.sample_rate)), SEED + 20)
+    lat = _k1_case(dev, peaks, cfg, 1, 3072, 2998, SEED + 21)
     return {"name": "log_mel", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/mel.cu",
             "replaces": "omnilingual_asr_tpu/ops/mel_pallas.py:66",
-            **main, "shapes": [main, train, crop]}
+            **main, "shapes": [main, train, crop, eval10, lat]}
 
 
 def _k1_case(dev, peaks, cfg, B, t_pad, n_frames, seed):
@@ -495,9 +529,11 @@ def check_k2(dev, peaks, cfg):
     """K2 at the serving path's shape (the release: head dim 64), and under
     "head_dims" also at large_config's head dim 128 (8 heads of 128), at
     the training path's shape (batch 16 of 8 s windows: T' 256, 8 heads of
-    64) and at the d512 seed's serving batch (T' 768, 8 heads of 64). Rows
-    whole, ragged (partial last key tile), short (whole key tiles masked)
-    and a padded batch slot (every key masked)."""
+    64), at the d512 seed's serving batch (T' 768, 8 heads of 64), at
+    eval.synth's 10 s windows (T' 256, the release's heads) and at
+    eval.latency's batch 1 (T' 768, 8 heads of 64). Rows whole, ragged
+    (partial last key tile), short (whole key tiles masked) and a padded
+    batch slot (every key masked)."""
     from omnilingual_asr_torch.config import PipelineConfig
 
     H = cfg.encoder.n_heads
@@ -513,10 +549,19 @@ def check_k2(dev, peaks, cfg):
     ragged = _k2_case(dev, peaks, 3, 200, 4, 64, [200, 130, 0], SEED + 15)
     d512 = _k2_case(dev, peaks, WINDOWS_PER_BATCH, 768, 8, 64,
                     [768, 700, 300, 0], SEED + 18)
+    # eval.synth's batch of 10 s windows at the release width (T' 256: one
+    # window whole, three ragged or padded) and eval.latency's flagship
+    # d512 x 12 at batch 1 (749 of 768 frames valid).
+    eval10 = _k2_case(dev, peaks, WINDOWS_PER_BATCH, 256, H,
+                      cfg.encoder.d_model // H, [249, 200, 77, 0],
+                      SEED + 22)
+    lat = _k2_case(dev, peaks, 1, 768, enc.n_heads, enc.head_dim, [749],
+                   SEED + 23)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/attention.cu",
             "replaces": "omnilingual_asr_tpu/ops/attention.py:34",
-            **main, "head_dims": [main, wide, train, ragged, d512]}
+            **main, "head_dims": [main, wide, train, ragged, d512, eval10,
+                                  lat]}
 
 
 def _bwd_case(dev, peaks, B, T, H, D, n_valid, seed):
@@ -629,7 +674,9 @@ def check_k3(dev, peaks, cfg, params, ptxas):
     """K3 at the serving path's shape with the release weights, and at the
     training path's (batch 16, T' 256, D 512, random weights),
     large_config's width ([4, 256, 1024], random weights) and the d512
-    seed's serving batch ([4, 768, 512], its block 0 weights) under
+    seed's serving batch ([4, 768, 512], its block 0 weights),
+    eval.synth's 10 s windows ([4, 256, 256], release weights) and
+    eval.latency's batch 1 ([1, 768, 512], random weights) under
     "shapes"; each with its launch plan (blocks of each stage, rows pw1
     runs over per output frame). The shapes are card_cases.K3_SHAPES."""
     import torch
@@ -658,10 +705,14 @@ def check_k3(dev, peaks, cfg, params, ptxas):
     p512 = load_checkpoint(D512, config_for_checkpoint(str(D512)),
                            dev)["blocks"][0]["conv"]
     d512 = _k3_case(dev, peaks, K3_SHAPES["d512"], p512, SEED + 19)
+    # eval.synth's 10 s windows (release weights) and eval.latency's
+    # flagship at batch 1 (seeded random weights, as that driver's).
+    eval10 = _k3_case(dev, peaks, K3_SHAPES["eval10s"], p, SEED + 24)
+    lat = _k3_case(dev, peaks, K3_SHAPES["latency"], pt, SEED + 25)
     return {"name": "conv_module", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/conv_module.cu",
             "replaces": "omnilingual_asr_tpu/ops/conv_module.py:32",
-            **main, "shapes": [main, train, wide, d512],
+            **main, "shapes": [main, train, wide, d512, eval10, lat],
             "ptxas": {k: v for k, v in ptxas.items()
                       if k.startswith(("conv_stage1_kernel",
                                        "conv_stage2_kernel"))}}
@@ -1462,6 +1513,253 @@ def run_d512(dev, smi, release_params, release_xvector):
     if not report["ok"]:
         raise PhaseError(f"health_check: {report}")
     log(f"  health_check {json.dumps(report)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 4g: the evaluation drivers (eval.synth, heads, diar, long, latency)
+# ---------------------------------------------------------------------------
+
+EVAL_QUANT_FILES = 32     # eval.synth files under each int8 kernel mode
+EVAL_LONG_HOURS = 1.0     # the timed eval.long run (its own process)
+EVAL_LATENCY_REPS = 16
+EVAL_CLI_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def _batches(engine):
+    """Counts the device batches ``engine`` dispatches within the block."""
+    n = [0]
+    inner = engine._dispatch_batch
+
+    def counting(*args, **kwargs):
+        n[0] += 1
+        return inner(*args, **kwargs)
+
+    engine._dispatch_batch = counting
+    try:
+        yield n
+    finally:
+        del engine._dispatch_batch
+
+
+def _launches_since(label, before, n_batches, per_batch) -> dict:
+    """The launches since ``before`` (``_read_counters(reset=False)``), held
+    to ``per_batch`` launches of each kernel named a batch."""
+    now = _read_counters(reset=False)
+    got = {k: now[k] - before[k] for k in now}
+    for name, n in per_batch.items():
+        if got[name] != n * n_batches:
+            raise PhaseError(f"{label}: {name} launched {got[name]} times, "
+                             f"expected {n} a batch x {n_batches}")
+    return got
+
+
+def _driver_cli(name: str, argv) -> dict:
+    """``python -m omnilingual_asr_torch.eval.<name> ARGV`` in a process of
+    its own, with release discovery on as a user's run has it: its one
+    JSON line."""
+    env = {k: v for k, v in os.environ.items() if k != "OMNIASR_RELEASE_DIR"}
+    proc = subprocess.run(
+        [sys.executable, "-m", f"omnilingual_asr_torch.eval.{name}", *argv],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, timeout=EVAL_CLI_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise PhaseError(f"eval.{name} {argv} exited {proc.returncode}: "
+                         f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    return json.loads(lines[0])
+
+
+def run_evals(dev, cfg, params, xvector) -> dict:
+    """Phase 4g. The port's evaluation drivers with the release weights on
+    the card, held to the JAX package's ``golden_evals.json`` by
+    ``testing.py``'s criteria: eval.synth on its 96 files at 10 s windows
+    (texts, greedy ids pooled over the files, WER/CER), then its first EVAL_QUANT_FILES files
+    unquantized and under "w8" and "a8" (reported, not held: the fixture
+    has no JAX int8 corpus run); eval.heads on its 64 files and 8
+    conversations with the release translator and summarizer; eval.diar on
+    its 16 conversations; eval.long's engine on the 420 s file (streamed:
+    no ``decode`` stage; ``testing.long_mismatches``). Every release batch launches one K1, four K2 and
+    four K3 (K4 or K5 ten under "w8" or "a8"). Then two drivers as a user
+    runs them, each in a process of its own with the release discovered:
+    ``eval.long --hours 1`` (wall, RTF, stages, peak RSS, the card's peak
+    memory) and ``eval.latency`` (d512 x 12 at batch 1). Returns the
+    launches of the in-process runs."""
+    import tempfile
+
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.eval import diar, harness, heads, long, synth
+    from omnilingual_asr_torch.utils.metrics import aggregate_wer
+
+    want = golden.load_golden_evals()
+    L = cfg.encoder.n_layers
+    per_batch = {"log_mel_frames": 1, "flash_attention": L,
+                 "fused_conv_module": L, "quantized_matmul": 0,
+                 "quantized_matmul_a8": 0, "flash_attention_bwd_dq": 0,
+                 "flash_attention_bwd_dkv": 0}
+
+    def engine(**kwargs):
+        return TranscriptionEngine(config=cfg, params=params,
+                                   xvector_params=xvector, device=dev,
+                                   **kwargs)
+
+    for fn in _counters():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # eval.synth: 96 files at 10 s windows.
+        t0 = time.perf_counter()
+        ws = want["synth"]["window_seconds"]
+        eng = engine(window_seconds=ws)
+        if (eng.window_frames != 1024
+                or not eng.infer_config.encoder.use_flash_attention):
+            raise PhaseError(f"eval.synth engine: {eng.window_frames} "
+                             f"frames, flash "
+                             f"{eng.infer_config.encoder.use_flash_attention}")
+        folder = tmp / "synth"
+        manifest = synth.build_manifest(folder, want["synth"]["n"],
+                                        include_real=True)
+        t_data = time.perf_counter() - t0
+        before = _read_counters(reset=False)
+        with golden.recorded_ctc_ids(eng) as ids, _batches(eng) as nb:
+            sets, reports = synth.evaluate_sets(eng, manifest, folder)
+        _launches_since("eval.synth", before, nb[0], per_batch)
+        rep = reports["synth"]
+        hyps = [r["hyp"] for r in rep.per_file]
+        stored = want["synth"]["files"]
+        differ = {i: golden.ctc_agreement(f["ctc_ids"], ids[i])
+                  for i, (h, f) in enumerate(zip(hyps, stored))
+                  if h != f["hyp"]}
+        pooled = golden.ctc_agreement(
+            [x for f in stored for x in f["ctc_ids"]],
+            [x for got in ids for x in got])
+        log(f"  eval.synth {json.dumps(sets)} over {nb[0]} batches "
+            f"(data {t_data:.2f} s, {time.perf_counter() - t0:.2f} s); "
+            f"fixture WER {want['synth']['wer']:.6f} CER "
+            f"{want['synth']['cer']:.6f}, card WER {rep.wer:.6f} CER "
+            f"{rep.cer:.6f}; texts differ on {len(differ)} of "
+            f"{len(hyps)} files (file: its ids' agreement {differ}); the "
+            f"files' greedy ids agree on {pooled:.4%} of frames")
+        bad = golden.synth_mismatches(want["synth"], hyps, ids, rep.wer,
+                                      rep.cer)
+        if bad:
+            raise PhaseError("eval.synth: " + "; ".join(bad))
+
+        # The same corpus's first files unquantized and under the kernels.
+        sub = folder / "manifest_quant.jsonl"
+        sub.write_text("".join(
+            (folder / "manifest_synth.jsonl").read_text().splitlines(True)
+            [:EVAL_QUANT_FILES]))
+        quant = {}
+        for mode in (False, "w8", "a8"):
+            e = eng if mode is False else engine(window_seconds=ws,
+                                                 quantize=mode)
+            pb = dict(per_batch)
+            if mode:
+                pb["quantized_matmul" if mode == "w8"
+                   else "quantized_matmul_a8"] = 2 * L + 2
+            before = _read_counters(reset=False)
+            with _batches(e) as nb:
+                r = harness.evaluate(e, sub)
+            got = _launches_since(f"eval.synth quantize={mode!r}", before,
+                                  nb[0], pb)
+            quant[mode or "none"] = {
+                "wer": r.wer, "cer": r.cer, "rtf": r.rtf,
+                "n_files": r.n_files, "batches": nb[0],
+                "k4": got["quantized_matmul"],
+                "k5": got["quantized_matmul_a8"]}
+        fixture32 = aggregate_wer([(f["text"], f["hyp"])
+                                   for f in stored[:EVAL_QUANT_FILES]])
+        log(f"  eval.synth first {EVAL_QUANT_FILES} files {json.dumps(quant)}"
+            f"; the fixture's WER/CER there {fixture32['wer']:.4f} / "
+            f"{fixture32['cer']:.4f}")
+
+        # eval.heads with the release translator and summarizer.
+        t0 = time.perf_counter()
+        eng = engine(translator_path=str(RELEASE / "translator.npz"),
+                     summarizer_path=str(RELEASE / "summarizer.npz"))
+        before = _read_counters(reset=False)
+        with _batches(eng) as nb:
+            report, rows = heads.evaluate_heads(
+                eng, want["heads"]["n"], tmp / "heads", translate=True,
+                summarize=True)
+        _launches_since("eval.heads", before, nb[0], per_batch)
+        pairs = [(g, w) for g, w in zip(rows["files"],
+                                        want["heads"]["files"])
+                 if g and w and "translation" in w]
+        same = sum(g.get("translation") == w["translation"]
+                   for g, w in pairs)
+        log(f"  eval.heads {json.dumps(report)} over {nb[0]} batches "
+            f"({time.perf_counter() - t0:.2f} s); fixture "
+            f"{json.dumps(want['heads']['report'])}; translations identical "
+            f"on {same} of {len(pairs)} files")
+        bad = golden.heads_mismatches(want["heads"], report, rows)
+        if bad:
+            raise PhaseError("eval.heads: " + "; ".join(bad))
+
+        # eval.diar: 16 conversations on the serving engine's config.
+        t0 = time.perf_counter()
+        eng = engine()
+        before = _read_counters(reset=False)
+        with _batches(eng) as nb:
+            report, _ = diar.diar_report(lambda c: eng, cfg,
+                                         want["diar"]["n"],
+                                         want["diar"]["seed"])
+        _launches_since("eval.diar", before, nb[0], per_batch)
+        details = report["details"]
+        der_mean = float(sum(d["der"] for d in details) / len(details))
+        log(f"  eval.diar DER {report['value']} speaker count acc "
+            f"{report['speaker_count_acc']} over {nb[0]} batches "
+            f"({time.perf_counter() - t0:.2f} s); fixture DER "
+            f"{want['diar']['report']['value']} count acc "
+            f"{want['diar']['report']['speaker_count_acc']}; largest DER "
+            f"difference "
+            f"{max(abs(g['der'] - w['der']) for g, w in zip(details, want['diar']['report']['details'])):.4f}")
+        bad = golden.diar_mismatches(want["diar"], details, der_mean)
+        if bad:
+            raise PhaseError("eval.diar: " + "; ".join(bad))
+
+        # eval.long's engine on the 420 s file: the streamed-WAV path.
+        t0 = time.perf_counter()
+        eng = engine(batch_windows_per_device=want["long"]["batch_windows"])
+        long.warm_up(eng, tmp)
+        seconds = want["long"]["seconds"]
+        path = long.make_long_audio(seconds, tmp / "long.wav")
+        before = _read_counters(reset=False)
+        with golden.recorded_ctc_ids(eng) as ids, _batches(eng) as nb:
+            report, result = long.long_report(eng, path, seconds,
+                                              seconds / 3600)
+        _launches_since("eval.long 420 s", before, nb[0], per_batch)
+        agreement = golden.long_agreement(want["long"]["result"],
+                                          result.to_dict())
+        log(f"  eval.long 420 s {json.dumps(report)} over {nb[0]} batches "
+            f"({time.perf_counter() - t0:.2f} s with the warm-up); greedy "
+            f"ids agree on {golden.ctc_agreement(want['long']['ctc_ids'], ids[0]):.4%}"
+            f"; against the JAX result {json.dumps(agreement)}; the JAX "
+            f"engine's own under 1-LSB noise "
+            f"{json.dumps(want['long']['perturbed'])}")
+        bad = golden.long_mismatches(want["long"], result.to_dict(),
+                                     report["stages_s"], ids[0])
+        if bad:
+            raise PhaseError("eval.long 420 s: " + "; ".join(bad))
+    launches = _read_counters(reset=False)
+
+    # The drivers as a user runs them, each in a process of its own.
+    t0 = time.perf_counter()
+    report = _driver_cli("long", ["--hours", str(EVAL_LONG_HOURS)])
+    log(f"  eval.long --hours {EVAL_LONG_HOURS} {json.dumps(report)} "
+        f"({time.perf_counter() - t0:.2f} s with process start, warm-up "
+        f"and the WAV's writing)")
+    if "decode" in report["stages_s"] or report["n_segments"] < 100:
+        raise PhaseError(f"eval.long --hours {EVAL_LONG_HOURS}: {report}")
+    t0 = time.perf_counter()
+    report = _driver_cli("latency", ["--reps", str(EVAL_LATENCY_REPS)])
+    log(f"  eval.latency {json.dumps(report)} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if report["model"] != {"d_model": 512, "n_layers": 12}:
+        raise PhaseError(f"eval.latency: {report}")
     return launches
 
 
@@ -2328,6 +2626,11 @@ def main(argv=None) -> int:
         d512 = run_d512(dev, smi, params, xvector)
         log(f"[d512] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "evals"
+        t0 = time.perf_counter()
+        evals = run_evals(dev, cfg, params, xvector)
+        log(f"[evals] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -2344,7 +2647,8 @@ def main(argv=None) -> int:
                  "flash_attention_bwd_dq": "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
         paths = {"serving": serving, "training": training,
-                 "decoders": decoding, "server": served, "d512": d512}
+                 "decoders": decoding, "server": served, "d512": d512,
+                 "evals": evals}
         line = {"kernels": []}
         for k in kernels:
             fn = by_fn[k["name"]]

@@ -24,6 +24,17 @@ summary, the JAX decode's tokens and the smallest gap between its top two
 logits where a token was chosen freely; each gap must be at least
 ``MIN_TOKEN_GAP``, so that an exact check of the decoded bytes is fair.
 
+``golden_evals.json`` (with ``golden_evals_ids.npz``, each synthetic
+file's greedy CTC ids a window) holds the JAX package's evaluation drivers'
+results with the release weights: ``eval_synth`` on ``eval_set(96)`` at
+10 s windows, ``eval_heads`` on ``eval_set(64)`` with the release
+translator and summarizer, ``eval_diar`` on 16 conversations and the
+engine on ``make_long_audio(420)`` (with its windows' greedy ids, and
+the JAX engine's own distance from that result under 1-LSB perturbations
+of the audio). ``synth_mismatches``, ``heads_mismatches``,
+``diar_mismatches`` and ``long_mismatches`` hold the port's drivers to it
+by the tolerances below.
+
 It also holds the port's copies of the JAX package's test doubles
 (``omnilingual_asr_tpu/testing.py``): ``demo_result``, the canned
 code-switching transcript that the server's ``/api/demo`` route serves, and
@@ -32,7 +43,9 @@ code-switching transcript that the server's ``/api/demo`` route serves, and
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import re
 import time
 from pathlib import Path
@@ -50,6 +63,8 @@ GOLDEN_JSON = TESTDATA / "golden.json"
 GOLDEN_DECODERS_JSON = TESTDATA / "golden_decoders.json"
 GOLDEN_D512_JSON = TESTDATA / "golden_d512_crop.json"
 GOLDEN_D512_FEED = TESTDATA / "golden_d512_crop_topk.npz"
+GOLDEN_EVALS_JSON = TESTDATA / "golden_evals.json"
+GOLDEN_EVALS_IDS = TESTDATA / "golden_evals_ids.npz"
 
 #: One subsampled encoder frame (4 x 10 ms hop).
 TIME_TOL_S = 0.04
@@ -91,6 +106,45 @@ MIN_STABLE_BEAM_DECODES = 2
 #: wrong log-softmax, sort order or class index moves values by nats.
 FEED_TOL = 0.5
 
+#: The evals fixture's tolerances. Over its 96 synthetic files the greedy
+#: argmax of two implementations' forwards may flip a character where two
+#: classes are close: at least SYNTH_MIN_EXACT_SHARE of the texts must be
+#: identical, and the greedy ids of the files together must agree on
+#: MIN_CTC_AGREEMENT of their frames (a file has ~50-150 valid frames, so
+#: one flipped frame is 0.7-2 % of its own: the ids are pooled, as
+#: ``d512_mismatches`` pools its two files'); corpus WER and CER within
+#: SYNTH_RATE_TOL.
+SYNTH_MIN_EXACT_SHARE = 94 / 96
+SYNTH_RATE_TOL = 0.005
+#: Language-ID and emotion: equal on every file, except an emotion where
+#: the file's reference tone mass has its top two within TONE_TIE (at most
+#: HEADS_MAX_TIED such files); translation word accuracy within
+#: TRANSLATION_ACC_TOL; the summary accuracies equal.
+HEADS_MAX_TIED = 1
+TRANSLATION_ACC_TOL = 0.01
+#: Diarization: the hypothesis speaker count equal on at least
+#: DIAR_MIN_COUNT_SHARE of the conversations, each DER within DIAR_DER_TOL
+#: and the mean within DIAR_MEAN_TOL.
+DIAR_MIN_COUNT_SHARE = 15 / 16
+DIAR_DER_TOL = 0.02
+DIAR_MEAN_TOL = 0.01
+#: The long file (``eval/long.py::make_long_audio``: tones, noise and
+#: gates, not speech) leaves the CTC head near a tie on many frames, and
+#: its whole result is not stable under noise far below two
+#: implementations' differences: raising or lowering one sample in 1 000
+#: by one LSB moves the JAX engine's own result from 212 to 214 segments,
+#: its joined text by a CER of up to 0.018, a segment boundary or text on
+#: up to 10 % of segments (the fixture's "perturbed" rows). It is held by
+#: the windows' greedy ids (MIN_CTC_AGREEMENT) and by its structure: DER
+#: against the reference's turns at most LONG_MAX_DER (one small speaker
+#: cluster merged or split reads ~0.03), joined-text CER at most
+#: LONG_MAX_CER, at least LONG_MIN_SEGMENT_MATCH of the reference's
+#: segments matched within TIME_TOL_S at both ends, the speaker count
+#: within one; and the streamed-WAV path taken (no ``decode`` stage).
+LONG_MAX_DER = 0.05
+LONG_MAX_CER = 0.05
+LONG_MIN_SEGMENT_MATCH = 0.9
+
 _TONE = re.compile(r"Overall tone: (\w+)\.$")
 
 _EXACT_SEGMENT_FIELDS = ("text", "speaker", "language", "language_code",
@@ -119,6 +173,42 @@ def load_golden_d512() -> dict:
     return json.loads(GOLDEN_D512_JSON.read_text())
 
 
+def load_golden_evals() -> dict:
+    """``golden_evals.json`` with each synthetic file's greedy ids (a list
+    of windows) under ``data["synth"]["files"][i]["ctc_ids"]``."""
+    data = json.loads(GOLDEN_EVALS_JSON.read_text())
+    ids = np.load(GOLDEN_EVALS_IDS)
+    for i, f in enumerate(data["synth"]["files"]):
+        f["ctc_ids"] = [ids[f"synth/{i}/{w}"].tolist()
+                        for w in range(f["n_windows"])]
+    data["long"]["ctc_ids"] = [ids[f"long/{w}"].tolist()
+                               for w in range(data["long"]["n_windows"])]
+    return data
+
+
+@contextlib.contextmanager
+def recorded_ctc_ids(engine):
+    """Within the block, each call of ``engine._forward_batches`` (either
+    engine's) appends the list of its windows' greedy CTC ids (valid
+    frames) to the yielded list."""
+    calls = []
+    inner = engine._forward_batches
+
+    def recording(*args, **kwargs):
+        ids = []
+        calls.append(ids)
+        for outs in inner(*args, **kwargs):
+            ids.extend(np.asarray(o["ctc_ids"]).astype(int).tolist()
+                       for o in outs)
+            yield outs
+
+    engine._forward_batches = recording
+    try:
+        yield calls
+    finally:
+        del engine._forward_batches
+
+
 def tone_mass(engine, path) -> List[float]:
     """The engine's duration-weighted emotion probabilities on ``path``,
     whose argmax is the summary's overall tone (the aggregation of either
@@ -137,6 +227,16 @@ def tone_mass(engine, path) -> List[float]:
     return mass.tolist()
 
 
+def _emotions_tied(want: str, got: str, mass: Sequence[float]) -> bool:
+    """True when ``want`` and ``got`` are the reference's top two emotions
+    by ``mass`` (in that order) and those are tied (``TONE_TIE``)."""
+    order = np.argsort(mass)[::-1]
+    first, second = EMOTIONS[order[0]], EMOTIONS[order[1]]
+    margin = mass[order[0]] - mass[order[1]]
+    return (want == first and got == second
+            and margin < TONE_TIE * float(np.sum(mass)))
+
+
 def _tone_tied(want: str, got: str, mass: Optional[Sequence[float]]) -> bool:
     """True when two summaries differ only in their overall tone, both
     tones are the reference's top two, and those are tied (``TONE_TIE``)."""
@@ -145,11 +245,7 @@ def _tone_tied(want: str, got: str, mass: Optional[Sequence[float]]) -> bool:
     tw, tg = _TONE.search(want), _TONE.search(got)
     if not (tw and tg) or _TONE.sub("", want) != _TONE.sub("", got):
         return False
-    order = np.argsort(mass)[::-1]
-    first, second = EMOTIONS[order[0]], EMOTIONS[order[1]]
-    margin = mass[order[0]] - mass[order[1]]
-    return (tw.group(1) == first and tg.group(1) == second
-            and margin < TONE_TIE * float(np.sum(mass)))
+    return _emotions_tied(tw.group(1), tg.group(1), mass)
 
 
 def result_mismatches(want: dict, got: dict, time_tol: float = TIME_TOL_S,
@@ -269,6 +365,160 @@ def ctc_agreement(want: Sequence[Sequence[int]],
     total += sum(len(w) for w in want[len(got):])
     total += sum(len(g) for g in got[len(want):])
     return agree / total if total else 1.0
+
+
+def _allowed_misses(n: int, share: float) -> int:
+    """How many of ``n`` items may miss when ``share`` of them must hold
+    (94 of 96 files: 2; 4 files: none)."""
+    return n - math.ceil(n * share - 1e-9)
+
+
+def synth_mismatches(want: dict, hyps: Sequence[str],
+                     ids: Sequence[Sequence[Sequence[int]]],
+                     wer: Optional[float] = None,
+                     cer: Optional[float] = None) -> List[str]:
+    """The first ``len(hyps)`` files' texts and greedy ids (windows a
+    file) against ``want`` (``load_golden_evals()["synth"]``), and the
+    corpus WER/CER where given (then every file must be there)."""
+    files = want["files"][:len(hyps)]
+    bad = []
+    differ = [f"file {i}: {hyp!r}, want {w['hyp']!r} (its ids agree on "
+              f"{ctc_agreement(w['ctc_ids'], got):.4f})"
+              for i, (w, hyp, got) in enumerate(zip(files, hyps, ids))
+              if hyp != w["hyp"]]
+    if len(differ) > _allowed_misses(len(files), SYNTH_MIN_EXACT_SHARE):
+        bad.append(f"synth: texts differ on {len(differ)} of {len(files)} "
+                   f"files: " + "; ".join(differ))
+    agree = ctc_agreement([x for w in files for x in w["ctc_ids"]],
+                          [x for got in ids[:len(files)] for x in got])
+    if agree < MIN_CTC_AGREEMENT:
+        bad.append(f"synth: greedy ids agree on {agree:.4f} of the files' "
+                   f"frames; " + "; ".join(differ))
+    for key, got in (("wer", wer), ("cer", cer)):
+        if got is None:
+            continue
+        if len(hyps) != len(want["files"]):
+            bad.append(f"synth {key} of {len(hyps)} files, the fixture's is "
+                       f"of {len(want['files'])}")
+        elif abs(got - want[key]) > SYNTH_RATE_TOL:
+            bad.append(f"synth {key} {got:.4f}, want {want[key]:.4f} +- "
+                       f"{SYNTH_RATE_TOL}")
+    return bad
+
+
+def heads_mismatches(want: dict, report: dict, rows: dict) -> List[str]:
+    """``eval/heads.py``'s report and rows against ``want``
+    (``load_golden_evals()["heads"]``)."""
+    bad, tied = [], []
+    if len(rows["files"]) != len(want["files"]):
+        return [f"heads: {len(rows['files'])} files, want "
+                f"{len(want['files'])}"]
+    for i, (w, g) in enumerate(zip(want["files"], rows["files"])):
+        if (w is None) != (g is None):
+            bad.append(f"heads file {i}: {g}, want {w}")
+            continue
+        if w is None:
+            continue
+        if g["language"] != w["language"]:
+            bad.append(f"heads file {i} language {g['language']!r}, want "
+                       f"{w['language']!r}")
+        if g["emotion"] != w["emotion"]:
+            if _emotions_tied(w["emotion"], g["emotion"], w["tone_mass"]):
+                tied.append(i)
+            else:
+                bad.append(f"heads file {i} emotion {g['emotion']!r}, want "
+                           f"{w['emotion']!r} (tone mass {w['tone_mass']})")
+    if len(tied) > HEADS_MAX_TIED:
+        bad.append(f"heads: emotions tied on files {tied}")
+    wr = want["report"]
+    if "translation_word_acc" in wr:
+        got = report.get("translation_word_acc", -1.0)
+        if abs(got - wr["translation_word_acc"]) > TRANSLATION_ACC_TOL:
+            bad.append(f"heads translation_word_acc {got}, want "
+                       f"{wr['translation_word_acc']} +- "
+                       f"{TRANSLATION_ACC_TOL}")
+    for key in ("summary_speaker_count_acc", "summary_tone_acc",
+                "summary_n_conversations"):
+        if report.get(key) != wr.get(key):
+            bad.append(f"heads {key} {report.get(key)}, want {wr.get(key)}")
+    return bad
+
+
+def diar_mismatches(want: dict, details: Sequence[dict],
+                    der_mean: Optional[float] = None) -> List[str]:
+    """The first ``len(details)`` conversations of ``eval/diar.py``
+    against ``want`` (``load_golden_evals()["diar"]``), and the mean DER
+    where given (then every conversation must be there)."""
+    stored = want["report"]["details"][:len(details)]
+    bad, counts = [], []
+    for w, g in zip(stored, details):
+        if g["n_spk_ref"] != w["n_spk_ref"]:
+            bad.append(f"diar conversation {w['conv']}: {g['n_spk_ref']} "
+                       f"reference speakers, want {w['n_spk_ref']}")
+        if g["n_spk_hyp"] != w["n_spk_hyp"]:
+            counts.append(w["conv"])
+        if abs(g["der"] - w["der"]) > DIAR_DER_TOL:
+            bad.append(f"diar conversation {w['conv']}: DER {g['der']}, "
+                       f"want {w['der']} +- {DIAR_DER_TOL}")
+    if len(counts) > _allowed_misses(len(stored), DIAR_MIN_COUNT_SHARE):
+        bad.append(f"diar: speaker counts differ on conversations {counts}")
+    if der_mean is not None:
+        if len(details) != len(want["report"]["details"]):
+            bad.append(f"diar mean DER of {len(details)} conversations")
+        elif abs(der_mean - want["der_mean"]) > DIAR_MEAN_TOL:
+            bad.append(f"diar mean DER {der_mean:.4f}, want "
+                       f"{want['der_mean']:.4f} +- {DIAR_MEAN_TOL}")
+    return bad
+
+
+def long_agreement(want: dict, got: dict) -> dict:
+    """How far result ``got`` (``to_dict()`` form) is from ``want``: DER
+    of ``got``'s turns against ``want``'s, CER of the joined texts, the
+    share of ``want``'s segments that ``got`` has within TIME_TOL_S at
+    both ends, both segment and speaker counts."""
+    from .utils.metrics import cer, der
+
+    ws, gs = want["segments"], got["segments"]
+    bounds = np.array([[s["start"], s["end"]] for s in gs]).reshape(-1, 2)
+    matched = sum(bool(len(bounds)) and float(np.abs(
+        bounds - [s["start"], s["end"]]).max(axis=1).min())
+        <= TIME_TOL_S + 1e-9 for s in ws)
+    return {
+        "der": der([(s["start"], s["end"], s["speaker"]) for s in ws],
+                   [(s["start"], s["end"], s["speaker"]) for s in gs]),
+        "cer": cer(" ".join(s["text"] for s in ws),
+                   " ".join(s["text"] for s in gs), normalize=False),
+        "segment_match": matched / len(ws) if ws else 1.0,
+        "n_segments": [len(ws), len(gs)],
+        "n_speakers": [len({s["speaker"] for s in ws}),
+                       len({s["speaker"] for s in gs})],
+    }
+
+
+def long_mismatches(want: dict, result: dict, stages: dict,
+                    ids: Sequence[Sequence[int]]) -> List[str]:
+    """The long file's result and its windows' greedy ids against
+    ``want`` (``load_golden_evals()["long"]``) by the LONG_* rule; the
+    streamed-WAV path must have been taken (no ``decode`` stage)."""
+    bad = []
+    agree = ctc_agreement(want["ctc_ids"], ids)
+    if agree < MIN_CTC_AGREEMENT:
+        bad.append(f"long: greedy ids agree on {agree:.4f} of frames")
+    a = long_agreement(want["result"], result)
+    if a["der"] > LONG_MAX_DER or a["cer"] > LONG_MAX_CER:
+        bad.append(f"long: DER {a['der']:.4f} / CER {a['cer']:.4f} against "
+                   f"the reference (at most {LONG_MAX_DER} / "
+                   f"{LONG_MAX_CER})")
+    if a["segment_match"] < LONG_MIN_SEGMENT_MATCH:
+        bad.append(f"long: {a['segment_match']:.3f} of the reference's "
+                   f"segments matched (at least {LONG_MIN_SEGMENT_MATCH})")
+    if abs(a["n_speakers"][0] - a["n_speakers"][1]) > 1:
+        bad.append(f"long: speakers {a['n_speakers'][1]}, want "
+                   f"{a['n_speakers'][0]} +- 1")
+    if "decode" in stages:
+        bad.append(f"long: a decode stage ({stages['decode']} s): the "
+                   f"file was not streamed")
+    return bad
 
 
 # ---------------------------------------------------------------------------

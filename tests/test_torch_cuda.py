@@ -28,7 +28,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n", [3072, 300, 1])
+@pytest.mark.parametrize("n", [3072, 300, 1, 4096])
 def test_log_mel_kernel_matches_plain(dev, n):
     cfg = FrontendConfig()
     fe = mel.MelFrontend(cfg, dev)
@@ -48,7 +48,11 @@ def test_log_mel_kernel_matches_plain(dev, n):
 @pytest.mark.parametrize("T,valid,D", [(768, [768, 700, 300, 0], 64),
                                        (100, [100, 37, 1, 64], 64),
                                        (768, [768, 700, 300, 0], 128),
-                                       (100, [100, 37, 1, 64], 128)])
+                                       (100, [100, 37, 1, 64], 128),
+                                       # the eval drivers' 10 s windows
+                                       # and batch-1 latency
+                                       (256, [249, 200, 77, 0], 64),
+                                       (768, [749], 64)])
 def test_flash_kernel_matches_plain(dev, T, valid, D):
     B, H = len(valid), 4
     gen = torch.Generator(device=dev).manual_seed(T)
@@ -72,7 +76,11 @@ def test_flash_kernel_matches_plain(dev, T, valid, D):
                                          # T not a multiple of the 64-frame
                                          # tile; odd and even tap counts
                                          (97, [97, 64, 1, 0], 256, 31),
-                                         (97, [97, 64, 1, 0], 256, 32)])
+                                         (97, [97, 64, 1, 0], 256, 32),
+                                         # the eval drivers' 10 s windows
+                                         # and batch-1 latency
+                                         (256, [249, 200, 77, 0], 256, 32),
+                                         (768, [749], 512, 32)])
 def test_conv_module_kernel_matches_plain(dev, T, valid, D, K):
     B = len(valid)
     gen = torch.Generator(device=dev).manual_seed(T)
@@ -669,3 +677,61 @@ def test_server_on_card_answers_golden(release_engine_cuda, tmp_path):
     for key in ("segments", "summary", "detected_languages"):
         assert got.get(key) == want.get(key)
     assert got["file_name"] == "g.wav" and got["id"]
+
+
+# ---------------------------------------------------------------------------
+# The eval drivers on the card, against the JAX package's golden_evals.json
+# ---------------------------------------------------------------------------
+
+def _release_cuda(**kwargs):
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.testing import TESTDATA
+
+    release = TESTDATA.parents[1] / "checkpoints" / "release"
+    cfg = PipelineConfig.from_json((release / "config.json").read_text(),
+                                   checkpoint_path=str(release / "asr.npz"))
+    return TranscriptionEngine(config=cfg, device="cuda",
+                               xvector_path=str(release / "xvector.npz"),
+                               **kwargs)
+
+
+def test_eval_synth_on_card_matches_golden_evals(dev, tmp_path):
+    """eval.synth's first 8 files at 10 s windows on the card: texts and
+    greedy ids by the fixture's criterion, one K1 and four K2 and K3
+    launches a batch."""
+    from omnilingual_asr_torch import testing
+    from omnilingual_asr_torch.eval.synth import build_manifest, \
+        evaluate_sets
+
+    stored = testing.load_golden_evals()["synth"]
+    eng = _release_cuda(window_seconds=stored["window_seconds"])
+    manifest = build_manifest(tmp_path, 8, include_real=True)
+    before = [f.launches for f in (mel.log_mel_frames,
+                                   attention.flash_attention,
+                                   conv_module.fused_conv_module)]
+    with testing.recorded_ctc_ids(eng) as ids:
+        _, reports = evaluate_sets(eng, manifest, tmp_path)
+    hyps = [r["hyp"] for r in reports["synth"].per_file]
+    assert testing.synth_mismatches(stored, hyps, ids) == []
+    after = [f.launches for f in (mel.log_mel_frames,
+                                  attention.flash_attention,
+                                  conv_module.fused_conv_module)]
+    assert [a - b for a, b in zip(after, before)] == [8, 32, 32]
+
+
+def test_eval_long_on_card_matches_golden_evals(dev, tmp_path):
+    """eval.long's engine on the 420 s file on the card: streamed, its
+    greedy ids and its result's structure by ``testing.long_mismatches``."""
+    from omnilingual_asr_torch import testing
+    from omnilingual_asr_torch.eval.long import long_report, make_long_audio
+
+    stored = testing.load_golden_evals()["long"]
+    eng = _release_cuda(batch_windows_per_device=stored["batch_windows"])
+    path = make_long_audio(stored["seconds"], tmp_path / "long.wav")
+    with testing.recorded_ctc_ids(eng) as ids:
+        report, result = long_report(eng, path, stored["seconds"],
+                                     420 / 3600)
+    assert testing.long_mismatches(stored, result.to_dict(),
+                                   report["stages_s"], ids[0]) == []
+    assert report["device_peak_gb"] > 0

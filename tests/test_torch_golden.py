@@ -23,9 +23,19 @@ golden audio tiled to 120 s, greedy and with the beam search (beam 8, the
 and the runner-up final beam score of each beam decode and the number of
 crop re-embeddings each request ran.
 
+``golden_evals.json`` (with ``golden_evals_ids.npz``) holds the JAX
+package's evaluation drivers with the release weights: ``eval_synth``'s 96
+files at 10 s windows, ``eval_heads``' 64 files and 8 conversations with
+both decoders, ``eval_diar``'s 16 conversations and the engine on
+``eval_long``'s 420 s file (``omnilingual_asr_torch/testing.py`` says what
+each holds). Tier-1 regenerates its first 4 synthetic files, first
+conversation and the long file, and ``tests/test_torch_eval.py`` holds
+the port's drivers to that subset.
+
 Regenerate the files with ``JAX_PLATFORMS=cpu OMNIASR_RELEASE_DIR=
 python tests/test_torch_golden.py`` (or name some of ``plain a8 w8
-decoders d512_crop`` to regenerate only those).
+decoders d512_crop evals`` to regenerate only those; ``evals`` takes
+~21 min on a CPU, almost all of it eval_heads with both decoders).
 """
 
 from __future__ import annotations
@@ -95,19 +105,22 @@ def tiled_pcm(pcm: np.ndarray, seconds: float) -> np.ndarray:
     return np.resize(pcm, int(seconds * 16_000))
 
 
-def jax_engine(quantize=False, **kwargs):
+def jax_engine(quantize=False, engine_cls=None, **kwargs):
     import jax
     from omnilingual_asr_tpu.config import MeshConfig, PipelineConfig
     from omnilingual_asr_tpu.engine import TranscriptionEngine
     from omnilingual_asr_tpu.parallel.mesh import build_mesh
 
+    TranscriptionEngine = engine_cls or TranscriptionEngine
+
     cfg = PipelineConfig.from_json(
         (RELEASE / "config.json").read_text(),
         checkpoint_path=str(RELEASE / "asr.npz"))
+    kwargs.setdefault("batch_windows_per_device", 4)
     return TranscriptionEngine(
         config=cfg, xvector_path=str(RELEASE / "xvector.npz"),
         mesh=build_mesh(MeshConfig(data=1), devices=jax.devices()[:1]),
-        batch_windows_per_device=4, quantize=quantize, **kwargs)
+        quantize=quantize, **kwargs)
 
 
 def greedy_ids(engine, path: Path):
@@ -714,7 +727,297 @@ def test_port_cpu_release_wire_matches_golden(mode):
         golden.MIN_CTC_AGREEMENT
 
 
-FIXTURES = ("plain", "a8", "w8", "decoders", "d512_crop")
+# ---------------------------------------------------------------------------
+# golden_evals.json: the JAX package's evaluation drivers, release weights
+# ---------------------------------------------------------------------------
+
+#: The evals fixture: eval_synth's files at its default 10 s windows,
+#: eval_heads' files and conversations, eval_diar's conversations (its
+#: default seed) and eval_long's batch on a file past the chunking threshold
+#: (360 s), so the streamed-WAV path is taken.
+EVALS = {"synth_n": 96, "window_seconds": 10.0, "heads_n": 64,
+         "diar_n": 16, "diar_seed": 123, "long_seconds": 420.0,
+         "long_batch_windows": 8}
+#: The subset that tier-1 regenerates and holds the port to.
+EVALS_SUBSET = {"synth_n": 4, "diar_n": 1}
+
+
+class _Recorded:
+    """A JAX engine whose ``transcribe`` keeps (file name, result) of each
+    call in ``calls``; everything else is the engine's."""
+
+    def __init__(self, engine, calls: list):
+        self._engine = engine
+        self._calls = calls
+
+    def transcribe(self, path, **kwargs):
+        res = self._engine.transcribe(path, **kwargs)
+        self._calls.append((Path(path).name, res))
+        return res
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+def _run_jax_driver(module, argv, calls: list):
+    """``module.main()`` (a root ``eval_*.py``) with ``argv``, its engine
+    pinned to the release weights by explicit path (the tests turn release
+    discovery off, so the driver's own config would be the code default;
+    the release config also carries its tuned AHC cut). Returns (its JSON
+    line, the engine); each transcribe call lands in ``calls``."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import omnilingual_asr_tpu.engine as jengine
+
+    engines = []
+    cls = jengine.TranscriptionEngine
+
+    def pinned(config=None, **kwargs):
+        engines.append(jax_engine(engine_cls=cls, **kwargs))
+        return _Recorded(engines[-1], calls)
+
+    out = io.StringIO()
+    with mock.patch.object(jengine, "TranscriptionEngine", pinned), \
+            mock.patch.object(sys, "argv", [module.__file__, *argv]), \
+            contextlib.redirect_stdout(out):
+        module.main()
+    return json.loads(out.getvalue().strip().splitlines()[-1]), engines[-1]
+
+
+def jax_evals_synth(folder: Path, n: int):
+    """eval_synth's per-set run of the synthetic set: each file's text and
+    greedy ids, and the corpus WER/CER (the gettysburg set needs the
+    reference recording, which the repository does not ship)."""
+    import eval_synth
+    from omnilingual_asr_tpu.eval.harness import evaluate, load_manifest
+
+    manifest = eval_synth.build_manifest(folder, n, include_real=True)
+    items = [i for i in load_manifest(manifest) if i["set"] == "synth"]
+    sub = folder / "manifest_synth.jsonl"
+    sub.write_text("\n".join(json.dumps(i) for i in items) + "\n")
+    eng = jax_engine(window_seconds=EVALS["window_seconds"])
+    with golden.recorded_ctc_ids(eng) as calls:
+        rep = evaluate(eng, sub)
+    assert len(calls) == len(items)
+    files = [{"audio": Path(i["audio"]).name, "text": i["text"],
+              "hyp": row["hyp"], "n_windows": len(ids)}
+             for i, row, ids in zip(items, rep.per_file, calls)]
+    ids = {f"synth/{i}/{w}": np.asarray(x, np.int16)
+           for i, c in enumerate(calls) for w, x in enumerate(c)}
+    return {"n": n, "window_seconds": EVALS["window_seconds"],
+            "files": files, "wer": rep.wer, "cer": rep.cer,
+            "n_ref_words": rep.n_ref_words}, ids
+
+
+def jax_evals_heads(folder: Path, n: int) -> dict:
+    """eval_heads with the release translator and summarizer: its report,
+    each file's majority language and emotion (the port's ``majority`` on
+    the JAX segments, checked against the report), tone mass and joined
+    translation, and each conversation's facts and summary."""
+    import eval_heads
+    from omnilingual_asr_tpu.train.synth import eval_set
+    from omnilingual_asr_tpu.train.summary_train import (
+        build_utterance_pool, make_conversation)
+
+    from omnilingual_asr_torch.eval.heads import (SUMMARY_POOL, SUMMARY_SEED,
+                                                  majority, summary_hits)
+
+    calls = []
+    report, eng = _run_jax_driver(
+        eval_heads, ["--n", str(n), "--out", str(folder),
+                     "--translator", str(RELEASE / "translator.npz"),
+                     "--summarizer", str(RELEASE / "summarizer.npz")], calls)
+    by_name = dict(calls)
+    files, n_ok = [], [0, 0]
+    for i, ex in enumerate(eval_set(n)):
+        segs = by_name[f"ex_{i:04d}.wav"].segments
+        if not segs:
+            files.append(None)
+            continue
+        row = {"language": majority(segs, "language"),
+               "emotion": majority(segs, "emotion"),
+               "tone_mass": golden.tone_mass(eng, folder / f"ex_{i:04d}.wav")}
+        if ex.translation:
+            row["translation"] = " ".join(" ".join(
+                (s.translation or "") for s in segs).split())
+        n_ok[0] += row["language"] == ex.language
+        n_ok[1] += row["emotion"] == ex.emotion
+        files.append(row)
+    n_files = sum(f is not None for f in files)
+    assert report["lid_acc"] == round(n_ok[0] / max(1, n_files), 4)
+    assert report["emotion_acc"] == round(n_ok[1] / max(1, n_files), 4)
+    rng = np.random.default_rng(SUMMARY_SEED)
+    pool = build_utterance_pool(rng, SUMMARY_POOL)
+    conversations = []
+    for i in range(report["summary_n_conversations"]):
+        _, facts = make_conversation(rng, pool)
+        summary = by_name[f"conv_{i:04d}.wav"].summary
+        spk, tone = summary_hits(summary, facts)
+        conversations.append({"facts": facts, "summary": summary,
+                              "speaker_count_ok": spk, "tone_ok": tone})
+    return {"n": n, "report": report, "files": files,
+            "conversations": conversations}
+
+
+def jax_evals_diar(n: int) -> dict:
+    """eval_diar's battery at its default seed and cut: its report and
+    each conversation's segments (start, end, speaker)."""
+    import eval_diar
+
+    calls = []
+    report, _ = _run_jax_driver(
+        eval_diar, ["--n", str(n), "--seed", str(EVALS["diar_seed"])], calls)
+    segments = [[[s.start, s.end, s.speaker] for s in res.segments]
+                for _, res in calls]
+    der_mean = float(np.mean([d["der"] for d in report["details"]]))
+    return {"n": n, "seed": EVALS["diar_seed"], "report": report,
+            "der_mean": der_mean, "segments": segments}
+
+
+#: 1-LSB perturbations of the long file (one sample in PERTURB_EVERY,
+#: a sign each, from these seeds): the JAX engine's own spread there.
+LONG_PERTURB_SEEDS = (0, 1, 2)
+LONG_PERTURB_EVERY = 1000
+
+
+def perturbed_wav(src: Path, dst: Path, seed: int) -> Path:
+    """``src`` (16-bit WAV) with one sample in LONG_PERTURB_EVERY raised or
+    lowered by one LSB."""
+    with wave.open(str(src), "rb") as w:
+        params = w.getparams()
+        x = np.frombuffer(w.readframes(w.getnframes()), "<i2").copy()
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, len(x), len(x) // LONG_PERTURB_EVERY)
+    x[idx] += rng.choice([-1, 1], len(idx)).astype(np.int16)
+    with wave.open(str(dst), "wb") as w:
+        w.setparams(params)
+        w.writeframes(x.tobytes())
+    return dst
+
+
+def jax_evals_long(folder: Path, perturb: bool = True):
+    """The JAX engine at eval_long's batch on ``make_long_audio(420)``:
+    the whole result, its tone mass, its windows' greedy ids (no
+    ``decode`` stage: streamed), and with ``perturb`` the result's
+    distance (``testing.long_agreement``) from the JAX engine's own
+    results on 1-LSB perturbations of the file."""
+    import eval_long
+
+    path = eval_long.make_long_audio(EVALS["long_seconds"],
+                                     path=str(folder / "long.wav"))
+    eng = jax_engine(batch_windows_per_device=EVALS["long_batch_windows"])
+    with golden.recorded_ctc_ids(eng) as calls:
+        res = eng.transcribe(path)
+    stages = dict(eng.last_trace.stages)
+    assert "decode" not in stages, stages
+    want = dataclasses.asdict(res)
+    perturbed = [golden.long_agreement(want, dataclasses.asdict(
+        eng.transcribe(perturbed_wav(Path(path), folder / "p.wav", seed))))
+        for seed in (LONG_PERTURB_SEEDS if perturb else ())]
+    ids = {f"long/{w}": np.asarray(x, np.int16)
+           for w, x in enumerate(calls[0])}
+    return {"seconds": EVALS["long_seconds"],
+            "batch_windows": EVALS["long_batch_windows"],
+            "result": want, "tone_mass": golden.tone_mass(eng, path),
+            "n_windows": len(calls[0]),
+            "n_segments": len(res.segments),
+            "n_speakers": len({s.speaker for s in res.segments}),
+            "perturbed": perturbed}, ids
+
+
+def jax_golden_evals(folder: Path, synth_n: int = EVALS["synth_n"],
+                     heads_n: Optional[int] = EVALS["heads_n"],
+                     diar_n: int = EVALS["diar_n"], perturb: bool = True):
+    """(fixture, greedy ids) from the JAX drivers; ``heads_n`` None skips
+    the heads run, ``perturb`` False the long file's perturbed runs."""
+    synth, ids = jax_evals_synth(folder / "synth", synth_n)
+    data = {"synth": synth}
+    if heads_n:
+        data["heads"] = jax_evals_heads(folder / "heads", heads_n)
+    data["diar"] = jax_evals_diar(diar_n)
+    (folder / "long").mkdir()
+    data["long"], long_ids = jax_evals_long(folder / "long", perturb)
+    return data, {**ids, **long_ids}
+
+
+@pytest.fixture(scope="module")
+def evals_regenerated(tmp_path_factory):
+    folder = tmp_path_factory.mktemp("evals")
+    return jax_golden_evals(folder, heads_n=None, perturb=False,
+                            **EVALS_SUBSET)
+
+
+def test_golden_evals_is_current(evals_regenerated):
+    """golden_evals.json on the subset that tier-1 regenerates (the first
+    4 synthetic files, the first conversation, the 420 s file) equals a
+    fresh JAX run: texts and ids exactly, the conversation's speaker count,
+    DER and segments, the long result by the golden criterion and its
+    greedy ids exactly."""
+    stored = golden.load_golden_evals()
+    fresh, ids = evals_regenerated
+    got = fresh["synth"]["files"]
+    assert [f["hyp"] for f in got] == \
+        [f["hyp"] for f in stored["synth"]["files"][:len(got)]]
+    for i, f in enumerate(stored["synth"]["files"][:len(got)]):
+        assert f["ctc_ids"] == [ids[f"synth/{i}/{w}"].tolist()
+                                for w in range(got[i]["n_windows"])]
+    assert stored["long"]["ctc_ids"] == [
+        ids[f"long/{w}"].tolist() for w in range(fresh["long"]["n_windows"])]
+    want_diar = stored["diar"]
+    det = fresh["diar"]["report"]["details"]
+    assert det == want_diar["report"]["details"][:len(det)]
+    for w, g in zip(want_diar["segments"], fresh["diar"]["segments"]):
+        assert [x[2] for x in g] == [x[2] for x in w]
+        np.testing.assert_allclose([x[:2] for x in g], [x[:2] for x in w],
+                                   atol=golden.TIME_TOL_S)
+    assert golden.result_mismatches(
+        stored["long"]["result"], fresh["long"]["result"],
+        tone_mass=stored["long"]["tone_mass"]) == []
+
+
+def test_golden_evals_have_content():
+    """The fixture is the full battery: 96 synthetic files, 64 heads files
+    with translations and 8 conversations, 16 conversations, a 420 s file
+    of many segments; and its numbers are the drivers' own."""
+    stored = golden.load_golden_evals()
+    synth = stored["synth"]
+    assert len(synth["files"]) == EVALS["synth_n"]
+    assert all(f["n_windows"] == 1 and f["ctc_ids"][0] for f in
+               synth["files"])
+    heads = stored["heads"]
+    assert heads["report"]["n_files"] == len(
+        [f for f in heads["files"] if f is not None]) == EVALS["heads_n"]
+    assert heads["report"]["summary_n_conversations"] == \
+        len(heads["conversations"]) == EVALS["heads_n"] // 8
+    assert sum("translation" in f for f in heads["files"]) >= 32
+    diar = stored["diar"]
+    assert len(diar["report"]["details"]) == len(diar["segments"]) == \
+        EVALS["diar_n"]
+    assert abs(diar["der_mean"] - diar["report"]["value"]) < 1e-4
+    long = stored["long"]
+    assert long["n_segments"] >= 50 and long["n_windows"] == 14
+    assert golden.ctc_agreement(long["ctc_ids"], long["ctc_ids"]) == 1.0
+
+
+def test_golden_evals_long_criterion_admits_the_reference_under_noise():
+    """The long file's rule (``testing.LONG_*``) admits the JAX engine's
+    own results on 1-LSB perturbations of the file, and those results are
+    not the reference's: the exact criterion would not be a fair check of
+    a second implementation there."""
+    perturbed = golden.load_golden_evals()["long"]["perturbed"]
+    assert len(perturbed) == len(LONG_PERTURB_SEEDS)
+    for a in perturbed:
+        assert a["der"] <= golden.LONG_MAX_DER
+        assert a["cer"] <= golden.LONG_MAX_CER
+        assert a["segment_match"] >= golden.LONG_MIN_SEGMENT_MATCH
+        assert abs(a["n_speakers"][0] - a["n_speakers"][1]) <= 1
+    assert all(a["cer"] > 0 and a["n_segments"][1] != a["n_segments"][0]
+               for a in perturbed)
+
+
+FIXTURES = ("plain", "a8", "w8", "decoders", "d512_crop", "evals")
 
 
 def main(argv=None) -> None:
@@ -736,6 +1039,12 @@ def main(argv=None) -> None:
         if name == "decoders":
             data = jax_golden_decoders(golden.GOLDEN_WAV)
             out = golden.GOLDEN_DECODERS_JSON
+        elif name == "evals":
+            with tempfile.TemporaryDirectory() as d:
+                data, ids = jax_golden_evals(Path(d))
+            np.savez_compressed(golden.GOLDEN_EVALS_IDS, **ids)
+            print(f"wrote {golden.GOLDEN_EVALS_IDS}")
+            out = golden.GOLDEN_EVALS_JSON
         elif name == "d512_crop":
             with tempfile.TemporaryDirectory() as d:
                 data, feed = jax_golden_d512(d512_paths(Path(d)))

@@ -17,6 +17,10 @@ REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "omnilingual_asr_torch"
 FORBIDDEN = ("jax", "jaxlib", "omnilingual_asr_tpu", "omnilingual_asr",
              "optax", "orbax", "flax")
+#: The repository's root scripts (the JAX package's drivers and bench):
+#: the port keeps its own copy of what it needs from them.
+ROOT_SCRIPTS = tuple(sorted(p.stem for p in REPO.glob("*.py")
+                            if p.name != "chip_smoke.py"))
 
 _HOOK = """
 import sys
@@ -75,7 +79,7 @@ def test_no_forbidden_import_statements(path):
         else:
             continue
         for n in names:
-            assert n.split(".")[0] not in FORBIDDEN, (
+            assert n.split(".")[0] not in FORBIDDEN + ROOT_SCRIPTS, (
                 f"{path.name}:{node.lineno} imports {n}")
 
 
@@ -106,3 +110,21 @@ def test_walk_reaches_the_beam_search_and_the_codec():
     for name in ("ops.beam", "ops.lexicon", "train.english_text",
                  "audio.codec"):
         assert f"omnilingual_asr_torch.{name}" in names
+
+
+def test_walk_reaches_the_eval_layer():
+    """The import walk covers the evaluation layer and the summary
+    trainer's data half (and so holds them to the rule); the root scripts
+    they were ported from are among the names no port module imports."""
+    import pkgutil
+
+    import omnilingual_asr_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pkg.__path__, "omnilingual_asr_torch.")}
+    for name in ("eval.harness", "eval.manifests", "eval.synth",
+                 "eval.heads", "eval.diar", "eval.long", "eval.latency",
+                 "train.summary_train"):
+        assert f"omnilingual_asr_torch.{name}" in names
+    assert {"bench", "eval_synth", "eval_heads", "eval_diar", "eval_long",
+            "eval_latency"} <= set(ROOT_SCRIPTS)
