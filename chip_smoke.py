@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4g)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4h)
     python3 chip_smoke.py --profile    # and, before the report, phase 4c
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
@@ -13,8 +13,9 @@ with no result line:
 2. build   - nvcc builds the kernels from ``omnilingual_asr_torch/csrc``
              and each kernel's registers and spills are printed.
 3. kernels - log-mel (K1, at the serving, the training path's and the
-             crop re-embedding's frames, [16 x 768], and the eval
-             drivers' [4 x 1024] and [1 x 3072]; its bound counted for
+             crop re-embedding's frames, [16 x 768], the eval
+             drivers' [4 x 1024] and [1 x 3072], and the trainers'
+             [64 x 512], [64 x 1024] and [16 x 1024]; its bound counted for
              the function as an FFT computes it, the dense DFT's beside
              it), flash attention (K2, at head dims 64 and 128, at the
              training shape, at a ragged T of 200, at the d512 seed's
@@ -130,6 +131,27 @@ with no result line:
              ``python -m omnilingual_asr_torch.eval.long --hours 1`` and
              ``eval.latency`` (d512 x 12, batch 1, 16 reps), each in a
              process of its own with the release discovered.
+4h. trainers - the four trainers the release's other weight files come
+             from, each through the port's own functions on the card from
+             a seeded init: ``train_xvector`` (``PipelineConfig()``'s
+             x-vector, 8 steps of 64 4 s windows, the 48-utterance eval at
+             step 8), the text translator (``text_translator_train``, the
+             release's dims, 20 steps of 128, 64 eval pairs a set), the
+             audio translator (``translator_train``, a seeded decoder on
+             the release ASR, 256 + 32 utterances, 20 steps of 64) and the
+             summarizer (``summary_train`` on the release ASR, a pool of
+             96, 64 + 8 conversations, 20 steps of 32). Each must give
+             finite losses, exactly its K1 launches (one a x-vector step
+             and eval batch, one a frozen-encoder batch of 64, one a
+             conversation; no other kernel), one update on the card equal
+             to the same update on the CPU (gradients within 5e-2 per
+             leaf, the loss within 1e-3), and a file that the port's
+             loaders read back equal. Each prints its steps per second,
+             its seconds by part (host synthesis, encoding, steps, eval)
+             and the card's peak memory. Then an engine with the trained
+             x-vector, summarizer and each translator (text and audio
+             mode) by explicit path answers the golden file: segments, a
+             translation attempt on every non-English span, a summary.
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -141,8 +163,8 @@ with no result line:
              16: the host's batch wait, upload, forward + loss, backward
              and optimizer seconds, and one step under the profiler.
 5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
-             over the serving, training, decoders, server, d512 and evals
-             paths,
+             over the serving, training, decoders, server, d512, evals and
+             trainers paths,
              by path beside it), the
              ``nvidia-smi`` name and power limit, and the result line
              ``{"ok": true, "device": {...}}``.
@@ -353,10 +375,12 @@ def check_k1(dev, peaks, cfg):
     frames each, 2998 valid), and under "shapes" at the training path's
     (batch 16 of 8 s windows padded to 1024 frames, 798 valid), the
     crop re-embedding's (16 crops of 6 s padded to 768 frames, 598
-    valid), eval.synth's (4 x 10 s windows: 1024 frames, 998 valid) and
-    eval.latency's (one 30 s window)."""
+    valid), eval.synth's (4 x 10 s windows: 1024 frames, 998 valid),
+    eval.latency's (one 30 s window) and the trainers'
+    (``card_cases.K1_TRAINER_SHAPES``)."""
     from omnilingual_asr_torch.engine import (SPK_CROP_BATCH,
                                               SPK_CROP_SECONDS)
+    from omnilingual_asr_torch.ops import card_cases
 
     main = _k1_case(dev, peaks, cfg, WINDOWS_PER_BATCH, 3072, 2998, SEED)
     train = _k1_case(dev, peaks, cfg, TRAIN_BATCH, 1024, 798, SEED + 13)
@@ -372,10 +396,15 @@ def check_k1(dev, peaks, cfg):
                           int(EVAL_WINDOW_SECONDS
                               * cfg.frontend.sample_rate)), SEED + 20)
     lat = _k1_case(dev, peaks, cfg, 1, 3072, 2998, SEED + 21)
+    # The trainers' (phase 4h): the x-vector's 64 4 s windows, the audio
+    # translator's 64 8 s utterances, the summarizer's 16 8 s windows.
+    trainers = [_k1_case(dev, peaks, cfg, B, t_pad, valid, SEED + 22 + i)
+                for i, (B, t_pad, valid) in enumerate(
+                    card_cases.K1_TRAINER_SHAPES.values())]
     return {"name": "log_mel", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/mel.cu",
             "replaces": "omnilingual_asr_tpu/ops/mel_pallas.py:66",
-            **main, "shapes": [main, train, crop, eval10, lat]}
+            **main, "shapes": [main, train, crop, eval10, lat, *trainers]}
 
 
 def _k1_case(dev, peaks, cfg, B, t_pad, n_frames, seed):
@@ -2341,6 +2370,286 @@ def grad_check(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4h: the release's other trainers (x-vector, text and audio
+# translators, summarizer)
+# ---------------------------------------------------------------------------
+
+# The trainers' runs, cut to fit the phase: (steps, batch) and the data.
+XV_STEPS, XV_BATCH = 8, 64            # the full 48-utterance eval at step 8
+TT_STEPS, TT_BATCH, TT_EVAL = 20, 128, 64
+AT_STEPS, AT_BATCH, AT_TRAIN, AT_EVAL = 20, 64, 256, 32
+SM_STEPS, SM_BATCH, SM_POOL, SM_TRAIN, SM_EVAL = 20, 32, 96, 64, 8
+# One update on the card against the same update on the CPU: the gradients
+# per leaf within TOL_GRAD_REL (phase 4b's criterion) and the loss within
+# TOL_TRAINER_LOSS_REL (f32 sums in another order; bf16 roundings of the
+# x-vector's convolution inputs flipped by them).
+TOL_TRAINER_LOSS_REL = 1e-3
+
+
+def _trainer_update_check(label, dev, loss, params, args_on) -> dict:
+    """The gradient of ``loss(params, *args_on(device))`` on the card and
+    on the CPU from the same parameters and batch, leaf by leaf."""
+    import torch
+    from omnilingual_asr_torch.train.step import (tree_leaves, trainable,
+                                                  value_and_grads)
+
+    got = []
+    for where in (dev, torch.device("cpu")):
+        p = trainable(params, where)
+        t0 = time.perf_counter()
+        value, grads = value_and_grads(loss, p, *args_on(where))
+        got.append((float(value), [
+            torch.zeros(x.shape) if g is None else g.detach().cpu()
+            for g, x in zip(grads, tree_leaves(p))],
+            time.perf_counter() - t0))
+    (lc, gc, tc), (lp, gp, tp) = got
+    worst, worst_i = 0.0, -1
+    for i, (a, b) in enumerate(zip(gc, gp)):
+        nb = float(b.norm())
+        err = float((a - b).norm()) / nb if nb > 0 else float(a.norm())
+        if not math.isfinite(err):
+            raise PhaseError(f"{label}: gradient leaf {i} is not finite")
+        if err > worst:
+            worst, worst_i = err, i
+    loss_rel = abs(lc - lp) / max(abs(lp), 1e-30)
+    out = {"loss_cuda": lc, "loss_cpu": lp, "loss_rel": loss_rel,
+           "grad_worst_rel": worst, "grad_worst_leaf": worst_i,
+           "n_leaves": len(gp), "cuda_s": tc, "cpu_s": tp}
+    if worst > TOL_GRAD_REL or loss_rel > TOL_TRAINER_LOSS_REL:
+        raise PhaseError(f"{label}: one update on the card against the CPU: "
+                         f"{out} (tol {TOL_GRAD_REL} per leaf, loss "
+                         f"{TOL_TRAINER_LOSS_REL})")
+    return out
+
+
+def _trainer_drive(label, fn, k1) -> tuple:
+    """Drives one trainer: every launch count set to 0 and the card's peak
+    memory reset just before ``fn()``, both read just after. Its losses
+    must be finite, K1 launched ``k1`` times and no other kernel."""
+    import torch
+
+    _read_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, run = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want["log_mel_frames"] = k1
+    if launches != want:
+        raise PhaseError(f"{label}: launches {launches}, expected {want}")
+    if not run.losses or not all(math.isfinite(x) for x in run.losses):
+        raise PhaseError(f"{label}: losses {run.losses}")
+    steps = len(run.losses)
+    secs = {k: round(v, 4) for k, v in run.seconds.items()}
+    log(f"  trainer {json.dumps({'trainer': label, 'wall_s': wall, 'steps': steps, 'steps_per_s': steps / run.seconds['steps'], 'seconds': secs, 'peak_card_gb': peak / 1e9, 'losses': [round(x, 4) for x in run.losses], 'evals': run.evals, 'launches': launches})}")
+    return params, run, launches
+
+
+def _loads_back(label, got, want, half=False) -> None:
+    """The saved file's tree, loaded by the port's loader, equal to the
+    trained parameters at the file's precision (f16 or f32)."""
+    import torch
+    from omnilingual_asr_torch.models.zoo import flatten
+
+    a, b = flatten(got), flatten(want)
+    if a.keys() != b.keys():
+        raise PhaseError(f"{label}: the saved file's leaves differ")
+    for k in a:
+        w = b[k].detach().cpu()
+        w = w.half().float() if half else w.float()
+        if not torch.equal(a[k].cpu().float(), w):
+            raise PhaseError(f"{label}: saved leaf {k} does not load back")
+
+
+def run_trainers(dev, cfg, params, smi) -> dict:
+    """Phase 4h. The four trainers the port lacked, each through its own
+    functions on the card from a seeded init, cut as the constants above
+    say: the x-vector (``PipelineConfig()``'s, batch 64 of 4 s, the eval
+    at the last step), the text translator at the release's dims, the
+    audio translator and the summarizer on the release ASR. Each must give
+    finite losses, its count of K1 launches (one a x-vector step and eval
+    batch, one a frozen-encoder batch of 64 utterances, one a
+    conversation; no other kernel), one update equal to the CPU's, and a
+    file that loads back. Then an engine with the trained x-vector,
+    summarizer and each translator by explicit path answers the golden
+    file with its structure whole. Returns the launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.models.translation import (
+        load_translator, text_translator_init, translator_init)
+    from omnilingual_asr_torch.models.xvector import xvector_init
+    from omnilingual_asr_torch.models.zoo import load_xvector
+    from omnilingual_asr_torch.ops.mel import MelFrontend
+    from omnilingual_asr_torch.train import summary_train as sm
+    from omnilingual_asr_torch.train import text_translator_train as tt
+    from omnilingual_asr_torch.train import translator_train as at
+    from omnilingual_asr_torch.train import xvector_train as xv
+    from omnilingual_asr_torch.train.synth import LEXICON_SIZE
+
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def gen():
+        return torch.Generator().manual_seed(SEED)
+
+    asr = str(RELEASE / "asr.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # The x-vector: PipelineConfig()'s embedder, batch 64 of 4 s.
+        xcfg = PipelineConfig()
+        x0 = xvector_init(gen(), xcfg)
+        n_eval = xv.EVAL_SPEAKERS * xv.EVAL_PER_SPEAKER
+        xp, _, launches = _trainer_drive(
+            "xvector", lambda: xv.train_xvector(
+                steps=XV_STEPS, batch_size=XV_BATCH, seed=SEED,
+                ckpt_dir=str(tmp / "xv"), log_every=XV_STEPS,
+                eval_every=XV_STEPS, device=dev, init_params=x0),
+            XV_STEPS + math.ceil(n_eval / XV_BATCH))
+        add(launches)
+        win = int(4.0 * xcfg.frontend.sample_rate)
+        wf = xv.window_frames(xcfg, win)
+        batch = xv.BatchPool(xcfg, batch_size=XV_BATCH, win=win, wf=wf,
+                             seed=SEED + 1).next_batch()
+        check = _trainer_update_check(
+            "xvector", dev, xv.loss_fn, x0, lambda d: (
+                MelFrontend(xcfg.frontend, d), *xv.batch_tensors(batch, d),
+                wf))
+        log(f"  xvector update on the card against the CPU {json.dumps(check)}")
+        _loads_back("xvector", load_xvector(tmp / "xv" / "xvector.npz",
+                                            xcfg), xp, half=True)
+
+        # The text translator at the release's dims (no real corpus where
+        # humanize/babel give none).
+        t0_params = text_translator_init(gen(), cfg, n_layers=4)
+        tp, _, launches = _trainer_drive(
+            "text_translator", lambda: tt.train_translator(
+                str(tmp / "tt.npz"), steps=TT_STEPS, batch_size=TT_BATCH,
+                n_eval=TT_EVAL, seed=SEED, eval_every=TT_STEPS,
+                log_every=TT_STEPS, cfg=cfg, device=dev,
+                init_params=t0_params), 0)
+        add(launches)
+        tables, english = tt._lang_tables()
+        batch = tt.make_batch(np.random.default_rng(SEED), tables, english,
+                              LEXICON_SIZE, cfg.vocab, TT_BATCH, noise=True,
+                              g=tt._grammar_tables(tables, english))
+        check = _trainer_update_check(
+            "text_translator", dev, tt.loss_fn, t0_params,
+            lambda d: (*tt.batch_tensors(batch, d), cfg))
+        log(f"  text_translator update on the card against the CPU "
+            f"{json.dumps(check)}")
+        _loads_back("text_translator", load_translator(tmp / "tt.npz", cfg),
+                    tp)
+
+        # The audio translator on the release ASR (its bank kept for the
+        # update check).
+        banks = {}
+
+        def keep(inner, key):
+            def wrapped(*args, **kwargs):
+                out = inner(*args, **kwargs)
+                banks[key] = out
+                return out
+            return wrapped
+
+        a0 = translator_init(gen(), cfg, n_layers=4)
+        build_bank = at.build_bank
+        at.build_bank = keep(build_bank, "translator")
+        try:
+            ap, _, launches = _trainer_drive(
+                "translator", lambda: at.train_translator(
+                    asr_ckpt=asr, out_dir=str(tmp / "at"), steps=AT_STEPS,
+                    batch_size=AT_BATCH, n_train=AT_TRAIN, n_eval=AT_EVAL,
+                    seed=SEED, cfg=cfg, log_every=AT_STEPS, device=dev,
+                    init_params=a0),
+                math.ceil((AT_TRAIN + AT_EVAL) / at.ENCODE_BATCH))
+        finally:
+            at.build_bank = build_bank
+        add(launches)
+        bank = banks["translator"][0]
+        idx = torch.arange(AT_BATCH)
+        check = _trainer_update_check(
+            "translator", dev, at.loss_fn, a0, lambda d: (
+                tuple(b.to(d) for b in bank), idx.to(d), cfg))
+        log(f"  translator update on the card against the CPU "
+            f"{json.dumps(check)}")
+        _loads_back("translator", load_translator(
+            tmp / "at" / "translator.npz", cfg), ap)
+
+        # The summarizer on the release ASR.
+        s0 = translator_init(gen(), cfg, n_layers=2)
+        build_bank = sm.build_bank
+        sm.build_bank = keep(build_bank, "summarizer")
+        try:
+            sp, _, launches = _trainer_drive(
+                "summarizer", lambda: sm.train_summarizer(
+                    asr_ckpt=asr, out_dir=str(tmp / "sm"), steps=SM_STEPS,
+                    batch_size=SM_BATCH, pool_size=SM_POOL,
+                    n_train=SM_TRAIN, n_eval=SM_EVAL, seed=SEED, cfg=cfg,
+                    log_every=SM_STEPS, device=dev, init_params=s0),
+                SM_TRAIN + SM_EVAL)
+        finally:
+            sm.build_bank = build_bank
+        add(launches)
+        bank = banks["summarizer"][0]
+        rows = torch.arange(SM_BATCH)
+        check = _trainer_update_check(
+            "summarizer", dev, sm.loss_fn, s0, lambda d: (
+                *(b.to(d)[rows.to(d)] for b in bank), cfg))
+        log(f"  summarizer update on the card against the CPU "
+            f"{json.dumps(check)}")
+        _loads_back("summarizer", load_translator(
+            tmp / "sm" / "summarizer.npz", cfg, n_layers=2), sp)
+
+        # The trained files serve the golden file through the engine.
+        for label, translator in (("text", tmp / "tt.npz"),
+                                  ("audio", tmp / "at" / "translator.npz")):
+            t0 = time.perf_counter()
+            engine = TranscriptionEngine(
+                config=cfg, params=params, device=dev,
+                xvector_params=load_xvector(tmp / "xv" / "xvector.npz",
+                                            cfg, dev),
+                translator_path=str(translator),
+                summarizer_path=str(tmp / "sm" / "summarizer.npz"))
+            rows = []
+            decode = engine._translator.decode
+
+            def counting(enc, *args, **kwargs):
+                rows.append(enc.shape[0])
+                return decode(enc, *args, **kwargs)
+
+            engine._translator.decode = counting
+            res = engine.transcribe(golden.GOLDEN_WAV).to_dict()
+            segs = res["segments"]
+            foreign = [s for s in segs if s["language_code"] != "en"]
+            if (not segs or not foreign or not rows
+                    or sum(rows) < len(foreign)
+                    or not isinstance(res["summary"], str)
+                    or not res["summary"]
+                    or any(s["translation"] is not None for s in segs
+                           if s["language_code"] == "en")):
+                raise PhaseError(f"trainers: the engine with the {label} "
+                                 f"translator answered {res}")
+            log(f"  engine with the trained files ({label} translator): "
+                f"{len(segs)} segments, {len(foreign)} non-English, "
+                f"{sum(rows)} spans decoded, translations "
+                f"{[s['translation'] for s in foreign]}, summary "
+                f"{res['summary']!r} ({time.perf_counter() - t0:.2f} s)")
+    log(f"  trainers launches {json.dumps(total)} ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 4c (--profile): where a request's and a train step's time goes
 # ---------------------------------------------------------------------------
 
@@ -2631,6 +2940,11 @@ def main(argv=None) -> int:
         evals = run_evals(dev, cfg, params, xvector)
         log(f"[evals] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "trainers"
+        t0 = time.perf_counter()
+        trainers = run_trainers(dev, cfg, params, smi)
+        log(f"[trainers] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -2648,7 +2962,7 @@ def main(argv=None) -> int:
                  "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
         paths = {"serving": serving, "training": training,
                  "decoders": decoding, "server": served, "d512": d512,
-                 "evals": evals}
+                 "evals": evals, "trainers": trainers}
         line = {"kernels": []}
         for k in kernels:
             fn = by_fn[k["name"]]

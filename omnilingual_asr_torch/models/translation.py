@@ -422,11 +422,11 @@ def _encode_source(w, tokens: torch.Tensor, mask: torch.Tensor,
     return x * mask[:, :, None]
 
 
-@torch.no_grad()
 def encode_source(params, tokens: torch.Tensor, mask: torch.Tensor,
                   cfg: PipelineConfig,
                   n_heads: Optional[int] = None) -> torch.Tensor:
-    """Byte tokens [B, Ts] + mask [B, Ts] -> [B, Ts, D] decoder memory."""
+    """Byte tokens [B, Ts] + mask [B, Ts] -> [B, Ts, D] decoder memory;
+    differentiable in ``params`` (the text translator trainer's loss)."""
     if n_heads is None:
         n_heads = cfg.encoder.n_heads
     return _encode_source(decode_weights(params), tokens, mask.to(torch.bool),

@@ -6,6 +6,11 @@ log-mel with (kernel, stride, dilation) = (5,2,1) (5,2,1) (3,1,2) (3,1,4)
 (3,1,8), each followed by a bias, a LayerNorm and a ReLU, then a dense
 projection to 256-d frame embeddings at 1/4 of the mel frame rate.
 
+The training half (``xvector_init``, ``xvector_pooled``, ``save_xvector``)
+is what ``train/xvector_train.py`` needs: stats pooling over the valid
+frames, the ``spk_proj`` projection and L2 normalisation, differentiable
+through ``xvector_frames``.
+
 The reference runs these as XLA convolutions in bf16 (bf16 inputs and
 output, f32 accumulation); the port rounds inputs to bf16, convolves in f32
 and rounds the result to bf16, which is the same arithmetic. On a card the
@@ -24,7 +29,7 @@ import torch.nn.functional as F
 
 from ..config import PipelineConfig
 from . import layers as L
-from .conformer import N_SPEAKER_CLASSES, SPK_DIM
+from .conformer import N_SPEAKER_CLASSES, SPK_DIM, _unit_columns
 
 # (kernel, stride, dilation, out_channels) per conv layer.
 _LAYERS = ((5, 2, 1, 128), (5, 2, 1, 256), (3, 1, 2, 256), (3, 1, 4, 256),
@@ -47,6 +52,25 @@ def xvector_param_shapes(cfg: PipelineConfig) -> Dict:
         "spk_proj": {"w": (2 * SPK_DIM, SPK_DIM), "b": (SPK_DIM,)},
         "aam": (SPK_DIM, N_SPEAKER_CLASSES),
     }
+
+
+def xvector_init(gen: torch.Generator, cfg: PipelineConfig) -> Dict:
+    """Random parameters (CPU f32) with the tree of
+    :func:`xvector_param_shapes`, drawn as the reference draws them: conv
+    weights [K, Cin, Cout] N(0, 1 / (K Cin)), zero biases, identity
+    LayerNorms, the reference's dense init for ``out`` and ``spk_proj``,
+    unit columns for the AAM classes."""
+    params: Dict = {"convs": [], "lns": []}
+    c_in = cfg.frontend.n_mels
+    for k, _, _, c_out in _LAYERS:
+        w = torch.randn((k, c_in, c_out), generator=gen) / math.sqrt(k * c_in)
+        params["convs"].append({"w": w, "b": torch.zeros(c_out)})
+        params["lns"].append(L.layernorm_init(c_out))
+        c_in = c_out
+    params["out"] = L.dense_init(gen, c_in, SPK_DIM)
+    params["spk_proj"] = L.dense_init(gen, 2 * SPK_DIM, SPK_DIM)
+    params["aam"] = _unit_columns(gen, (SPK_DIM, N_SPEAKER_CLASSES))
+    return params
 
 
 def same_padding(T: int, k: int, stride: int, dilation: int):
@@ -74,3 +98,28 @@ def xvector_frames(params, mel: torch.Tensor, mask: torch.Tensor,
         x = L.layernorm_apply(ln, L.round_to(y, dtype))
         x = torch.relu(x)
     return L.dense_apply(params["out"], x, dtype)
+
+
+def xvector_pooled(params, mel: torch.Tensor, mask: torch.Tensor,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """Utterance-level L2-normalised embedding [B, 256] (the training
+    path): mean and standard deviation over the valid subsampled frames,
+    then ``spk_proj`` in f32."""
+    frames = xvector_frames(params, mel, mask, dtype)
+    sub = mask.shape[1] // frames.shape[1]
+    w = mask.reshape(mask.shape[0], -1, sub).any(dim=-1).to(torch.float32)
+    n = torch.clamp(w.sum(dim=1, keepdim=True), min=1.0)
+    mean = (frames * w[..., None]).sum(dim=1) / n
+    var = ((frames - mean[:, None]) ** 2 * w[..., None]).sum(dim=1) / n
+    pooled = torch.cat([mean, torch.sqrt(var + 1e-6)], dim=-1)
+    e = L.dense_apply(params["spk_proj"], pooled, torch.float32)
+    return e * torch.rsqrt((e * e).sum(dim=-1, keepdim=True) + 1e-8)
+
+
+def save_xvector(path, params) -> None:
+    """Write the parameters as a release ``.npz`` (float16,
+    ``models/zoo.py::save_release``)."""
+    from .zoo import save_release
+
+    save_release(path, params)
+

@@ -100,14 +100,38 @@ def save_checkpoint(path, params) -> None:
     The training checkpoint of the port: the release's layout at full
     precision, so that the JAX package's ``load_checkpoint`` reads it too.
     """
+    _save_npz(path, {k: v.detach().to(torch.float32).cpu().numpy()
+                     for k, v in flatten(params).items()})
+
+
+def save_release(path, params) -> None:
+    """Write a parameter tree as one float16 ``.npz`` (keystr keys;
+    integer leaves keep their dtype), atomically: the layout of the JAX
+    package's ``save_release``, which this module's and the JAX package's
+    ``load_release`` read."""
+    flat = {}
+    for k, v in flatten(params).items():
+        x = v.detach().cpu().numpy()
+        flat[k] = x.astype(np.float16) if x.dtype.kind == "f" else x
+    _save_npz(path, flat)
+
+
+def _save_npz(path, flat: dict) -> None:
     path = Path(path)
-    flat = {k: v.detach().to(torch.float32).cpu().numpy()
-            for k, v in flatten(params).items()}
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.parent / (path.name + ".tmp")
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
     tmp.replace(path)
+
+
+def checkpoint_path(out, name: str) -> Path:
+    """Where a trainer's ``--out`` puts its ``.npz``: ``out`` itself when it
+    names an ``.npz`` file, else ``out/name`` (``translator.npz``,
+    ``summarizer.npz``: the names the engine finds in a release directory).
+    """
+    out = Path(out)
+    return out if out.suffix == ".npz" else out / name
 
 
 def load_release(path, shapes, device="cpu"):

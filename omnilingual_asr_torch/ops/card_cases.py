@@ -1,6 +1,6 @@
 """Shapes and tolerances at which the card holds K3 (the fused conv module),
 K4 (the W8A16 matmul) and K5 (the W8A8 matmul) against their plain
-versions.
+versions, and the log-mel (K1) shapes of the trainers.
 
 ``chip_smoke.py`` checks and times the kernels at these shapes, and
 ``ops/conv_quant_sweep.py`` times its candidate tilings at the same ones;
@@ -36,6 +36,14 @@ K3_SHAPES = {"serving": (4, 768, 256, (768, 700, 301, 0)),
              "d512": (4, 768, 512, (768, 700, 301, 0)),
              "eval10s": (4, 256, 256, (249, 200, 77, 0)),
              "latency": (1, 768, 512, (749,))}
+
+# K1 as (windows, frames a window padded to the 256-frame blocks, valid
+# frames) on the trainers' paths: the x-vector trainer's batch of 64 4 s
+# windows, the audio translator's frozen encoder on 64 8 s utterances, and
+# the summarizer's 16 8 s windows of one conversation.
+K1_TRAINER_SHAPES = {"xvector": (64, 512, 398),
+                     "translator": (64, 1024, 798),
+                     "summarizer": (16, 1024, 798)}
 
 # K5 as (M, K, N): a serving batch's 4 x 768 frames through the release
 # layers that take it, by width N (512 the CTC head, 1024 the FFN

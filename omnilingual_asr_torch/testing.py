@@ -145,6 +145,39 @@ LONG_MAX_DER = 0.05
 LONG_MAX_CER = 0.05
 LONG_MIN_SEGMENT_MATCH = 0.9
 
+#: The trainers (``train/{xvector,text_translator,translator,summary}_
+#: train.py``) against the JAX trainers on the CPU, from the same
+#: parameters and data (``tests/test_torch_trainers_*.py``). The loss of
+#: each step within TRAINER_LOSS_REL (measured: under 2e-5 relative).
+#: Parameters after 2 steps, per leaf ||got - want|| / ||want||, within
+#: TRAINER_PARAM_REL: the first update has learning rate 0, and from the
+#: second Adam moves each element by about lr * sign(g), so an element
+#: whose gradient is near 0 and differs in sign between the two packages
+#: (f32 sums in another order) moves 2 lr apart; on a leaf that was zero
+#: at init (biases, the decoder's position table) that is a share of the
+#: whole leaf (measured at most 0.048, the audio translator's ``pos``).
+TRAINER_LOSS_REL = 1e-4
+TRAINER_PARAM_REL = 0.15
+#: x-vector: pooled embeddings (unit vectors) of one mel per element
+#: within TRAINER_EMBED_TOL (measured 4.5e-8) and the AAM loss's gradient
+#: per leaf within TRAINER_GRAD_REL relative L2 (measured at most 8.3e-3:
+#: bf16 convolution inputs and their gradients, rounded from f32 sums
+#: taken in another order); the eval's mean cosine distances within
+#: TRAINER_DIST_TOL (printed to 4 decimals; measured equal) and its
+#: violation rate within TRAINER_VIOL_TOL (measured 1e-4 apart).
+TRAINER_EMBED_TOL = 1e-4
+TRAINER_GRAD_REL = 5e-2
+TRAINER_DIST_TOL = 1e-3
+TRAINER_VIOL_TOL = 5e-3
+#: The frozen encoders' outputs per element, from the same audio (each
+#: package's own log-mel): ``UtteranceEncoder``'s bf16 states within
+#: TRAINER_STATE_TOL (measured 0.0156, one bf16 ulp of a state near 3.6:
+#: activations' bf16 roundings flipped by f32 sums in another order,
+#: through the conformer) and ``WindowEncoder``'s f32 window means within
+#: TRAINER_POOL_TOL (measured at most 7.7e-4).
+TRAINER_STATE_TOL = 5e-2
+TRAINER_POOL_TOL = 5e-3
+
 _TONE = re.compile(r"Overall tone: (\w+)\.$")
 
 _EXACT_SEGMENT_FIELDS = ("text", "speaker", "language", "language_code",

@@ -5,7 +5,11 @@ labels, cross-entropy for the LID and emotion heads, the optional
 frame-level LID, dense byte-CE, AAM-softmax speaker and translation terms
 (each keyed by the batch's contents), and the reference's optimizer
 (warmup-cosine learning rate, clip by global norm 1.0, ``zero_nans``,
-AdamW). One device; sharding over a mesh is A10 in ROADMAP.md.
+AdamW) with the other trainers' variants of it. It also holds what the
+x-vector, translator and summarizer trainers share: one update
+(:func:`train_update`), the decoders' masked cross-entropy and a run's
+log (:class:`RunLog`). One device; sharding over a mesh is A10 in
+ROADMAP.md.
 
 Parameters are trees of leaf tensors (``requires_grad``), updated in place
 by the optimizer; the step function returns them as the reference's does.
@@ -13,8 +17,12 @@ by the optimizer; the step function returns them as the reference's does.
 
 from __future__ import annotations
 
+import contextlib
+import json
 import math
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -54,18 +62,25 @@ def tree_map(fn, tree):
 
 @dataclass(frozen=True)
 class Optimizer:
-    """The reference's ``make_optimizer`` chain, written out:
+    """The reference trainers' optax chains, written out:
 
     1. learning rate: optax ``warmup_cosine_decay_schedule(0, lr, warmup,
        decay_steps, 0.05 lr)``, read at the update count (0 at the first
        update, so the first update moves nothing);
     2. ``clip_by_global_norm(1.0)``;
-    3. ``zero_nans``: a NaN gradient element becomes 0 (after the clip, a
-       non-finite global norm has made every element NaN or 0, so the whole
-       update is zero while Adam's moments still decay);
+    3. with ``zero_nans`` (optax's ``zero_nans()``): a NaN gradient element
+       becomes 0 (after the clip, a non-finite global norm has made every
+       element NaN or 0, so the whole update is zero while Adam's moments
+       still decay). Without it a NaN reaches Adam's moments and the
+       parameters, as in a chain without that step;
     4. AdamW (b1 0.9, b2 0.999, eps 1e-8 outside the square root,
        decoupled weight decay scaled by the learning rate), which is what
        ``torch.optim.AdamW`` computes with the learning rate set per step.
+
+    ``make_optimizer`` (the synthetic-corpus and x-vector trainers) has
+    weight decay 1e-6 and ``zero_nans``; the translator trainers build the
+    same chain with their own warmup and decay; the summarizer trainer's
+    has no ``zero_nans`` and optax's default weight decay, 1e-4.
     """
 
     lr: float = 1e-3
@@ -76,6 +91,7 @@ class Optimizer:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    zero_nans: bool = True
 
     def schedule(self, count: int) -> float:
         if count < self.warmup_steps:
@@ -99,8 +115,10 @@ class Optimizer:
         for g in grads:
             clipped = torch.where(norm < self.max_norm, g,
                                   g / norm * self.max_norm)
-            g.copy_(torch.where(torch.isnan(clipped),
-                                torch.zeros_like(clipped), clipped))
+            if self.zero_nans:
+                clipped = torch.where(torch.isnan(clipped),
+                                      torch.zeros_like(clipped), clipped)
+            g.copy_(clipped)
 
     def update(self, state: "OptState", grads: List[Optional[torch.Tensor]]
                ) -> None:
@@ -119,6 +137,33 @@ class Optimizer:
         state.count += 1
 
 
+def trainable(tree, device):
+    """A copy of a parameter tree on ``device``: f32 leaves that require a
+    gradient, apart from the tree they came from."""
+    return tree_map(lambda t: t.detach().to(device, torch.float32).clone()
+                    .requires_grad_(True), tree)
+
+
+def value_and_grads(loss, params, *args):
+    """``loss(params, *args)`` and its gradient with respect to every leaf
+    of ``params`` (None for a leaf the loss does not reach, which
+    :meth:`Optimizer.update` counts as 0): the reference trainers'
+    ``jax.value_and_grad``."""
+    value = loss(params, *args)
+    grads = torch.autograd.grad(value, tree_leaves(params), allow_unused=True)
+    return value.detach(), list(grads)
+
+
+def train_update(tx: "Optimizer", opt_state: "OptState", loss, params,
+                 *args) -> float:
+    """One update of ``params`` in place (the reference trainers' jitted
+    step): ``loss(params, *args)`` and its gradient, then ``tx``. Returns
+    the loss, read back (so that the step has finished)."""
+    value, grads = value_and_grads(loss, params, *args)
+    tx.update(opt_state, grads)
+    return float(value)
+
+
 @dataclass
 class OptState:
     opt: torch.optim.AdamW
@@ -131,6 +176,54 @@ def make_optimizer(lr: float = 1e-3, weight_decay: float = 1e-6,
                    decay_steps: int = 200_000) -> Optimizer:
     return Optimizer(lr=lr, weight_decay=weight_decay,
                      warmup_steps=warmup_steps, decay_steps=decay_steps)
+
+
+@dataclass
+class RunLog:
+    """What one run of the x-vector, translator or summarizer trainer did:
+    its loss at every step, its eval lines, and seconds by part (``synth``: the host
+    making data; ``encode``: the frozen encoder's bank; ``steps``: the train
+    steps, each waited for; ``eval``). :meth:`emit` prints a JSON line and
+    appends it to the metrics log, as the reference trainers do."""
+
+    metrics_log: Optional[Path] = None
+    losses: List[float] = field(default_factory=list)
+    evals: List[dict] = field(default_factory=list)
+    seconds: Dict[str, float] = field(default_factory=dict)
+
+    def emit(self, line: dict) -> None:
+        print(json.dumps(line), flush=True)
+        if self.metrics_log is not None:
+            self.metrics_log.parent.mkdir(parents=True, exist_ok=True)
+            with self.metrics_log.open("a") as f:
+                f.write(json.dumps(line) + "\n")
+
+    @contextlib.contextmanager
+    def timed(self, part: str):
+        """Adds the block's wall seconds to ``seconds[part]``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[part] = (self.seconds.get(part, 0.0)
+                                  + time.perf_counter() - t0)
+
+
+def make_translator_optimizer(lr: float, steps: int) -> Optimizer:
+    """The translator trainers' chain (text and audio mode): clip,
+    ``zero_nans``, AdamW with weight decay 1e-6, warmup ``min(200, max(1,
+    steps // 5))``, cosine decay over ``steps``."""
+    return Optimizer(lr=lr, weight_decay=1e-6,
+                     warmup_steps=min(200, max(1, steps // 5)),
+                     decay_steps=steps)
+
+
+def make_summarizer_optimizer(lr: float, steps: int) -> Optimizer:
+    """The summarizer trainer's chain: clip, then optax's ``adamw`` at its
+    default weight decay 1e-4, warmup 200, decay over ``max(steps, 201)``;
+    no ``zero_nans``."""
+    return Optimizer(lr=lr, weight_decay=1e-4, warmup_steps=200,
+                     decay_steps=max(steps, 201), zero_nans=False)
 
 
 @dataclass
@@ -163,6 +256,15 @@ def aam_softmax_loss(embed: torch.Tensor, labels: torch.Tensor,
 
 def _pick(logp: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(logp, -1, idx.to(torch.long)[..., None])[..., 0]
+
+
+def masked_ce(logits: torch.Tensor, tgt: torch.Tensor,
+              msk: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of ``tgt`` under ``logits`` over the positions
+    ``msk`` marks: the decoder trainers' loss."""
+    pick = _pick(torch.log_softmax(logits, dim=-1), tgt)
+    m = msk.to(torch.float32)
+    return -(pick * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
 def loss_fn(params, batch: Dict[str, Any], cfg: PipelineConfig,
@@ -235,9 +337,7 @@ def loss_fn(params, batch: Dict[str, Any], cfg: PipelineConfig,
 
         tlogits = decoder_forward(trans_params, batch["trans_in"],
                                   out["encoder_states"], out["mask"], cfg)
-        pick = _pick(torch.log_softmax(tlogits, dim=-1), batch["trans_tgt"])
-        tm = batch["trans_mask"].to(torch.float32)
-        l_tr = -(pick * tm).sum() / torch.clamp(tm.sum(), min=1.0)
+        l_tr = masked_ce(tlogits, batch["trans_tgt"], batch["trans_mask"])
         total = total + 0.5 * batch.get("w_trans", 1.0) * l_tr
         metrics["translation"] = l_tr
 

@@ -421,6 +421,9 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
 
 
 def main(argv=None):
+    from ..utils.term import install_sigterm_exit
+
+    install_sigterm_exit()
     ap = argparse.ArgumentParser(
         description="Multi-task training on the synthetic corpus")
     ap.add_argument("--steps", type=int, default=20000)

@@ -735,3 +735,99 @@ def test_eval_long_on_card_matches_golden_evals(dev, tmp_path):
     assert testing.long_mismatches(stored, result.to_dict(),
                                    report["stages_s"], ids[0]) == []
     assert report["device_peak_gb"] > 0
+
+
+@pytest.mark.parametrize("name", sorted(card_cases.K1_TRAINER_SHAPES))
+def test_log_mel_kernel_at_the_trainers_shapes(dev, name):
+    """K1 at the trainers' shapes (the x-vector's 64 4 s windows, the audio
+    translator's 64 8 s utterances, the summarizer's 16 8 s windows),
+    padding rows zero: one launch, within chip_smoke's TOL_K1 of the plain
+    version."""
+    B, t_pad, valid = card_cases.K1_TRAINER_SHAPES[name]
+    cfg = FrontendConfig()
+    fe = mel.MelFrontend(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(B + t_pad)
+    frames = 0.1 * torch.randn(B, t_pad, cfg.n_fft, generator=gen,
+                               device=dev)
+    frames[:, valid:] = 0.0
+    frames = frames.reshape(-1, cfg.n_fft).contiguous()
+    before = mel.log_mel_frames.launches
+    got = mel.log_mel_frames(frames, fe.cw, fe.sw, fe.fb, cfg.log_floor,
+                             fe.plan)
+    want = mel.log_mel_frames_plain(frames, fe.cw, fe.sw, fe.fb,
+                                    cfg.log_floor)
+    torch.cuda.synchronize()
+    assert mel.log_mel_frames.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+def _trainer_case(name, dev):
+    """(loss, initial parameters, args on a device) of one small update of
+    a trainer: its own loss function, a seeded init and one batch (the
+    frozen encoders' banks built on the card and copied to the CPU)."""
+    import numpy as np
+
+    from omnilingual_asr_torch.config import PipelineConfig, tiny_config
+    from omnilingual_asr_torch.models import conformer, translation
+    from omnilingual_asr_torch.models.xvector import xvector_init
+    from omnilingual_asr_torch.train import summary_train as sm
+    from omnilingual_asr_torch.train import text_translator_train as tt
+    from omnilingual_asr_torch.train import translator_train as at
+    from omnilingual_asr_torch.train import xvector_train as xv
+    from omnilingual_asr_torch.train.step import RunLog
+    from omnilingual_asr_torch.train.synth import LEXICON_SIZE
+
+    gen = torch.Generator().manual_seed(7)
+    rng = np.random.default_rng(7)
+    cfg = tiny_config()
+    if name == "xvector":
+        xcfg = PipelineConfig()
+        wf = xv.window_frames(xcfg, 64000)
+        batch = xv.BatchPool(xcfg, batch_size=8, win=64000, wf=wf,
+                             seed=7).next_batch()
+        return xv.loss_fn, xvector_init(gen, xcfg), lambda d: (
+            mel.MelFrontend(xcfg.frontend, d), *xv.batch_tensors(batch, d),
+            wf)
+    if name == "text_translator":
+        tables, english = tt._lang_tables()
+        batch = tt.make_batch(rng, tables, english, LEXICON_SIZE, cfg.vocab,
+                              16, noise=True,
+                              g=tt._grammar_tables(tables, english))
+        return tt.loss_fn, translation.text_translator_init(gen, cfg), \
+            lambda d: (*tt.batch_tensors(batch, d), cfg)
+    asr = conformer.asr_init(torch.Generator().manual_seed(3), cfg)
+    if name == "translator":
+        enc = at.UtteranceEncoder(cfg, asr, dev)
+        bank, _ = at.build_bank(rng, enc, 8, RunLog())
+        idx = torch.arange(8)
+        return at.loss_fn, translation.translator_init(gen, cfg), \
+            lambda d: (tuple(b.to(d) for b in bank), idx.to(d), cfg)
+    enc = sm.WindowEncoder(cfg, asr, dev)
+    pool = sm.build_utterance_pool(rng, 48)
+    bank, _ = sm.build_bank(rng, enc, 4, pool, True, RunLog())
+    return sm.loss_fn, translation.translator_init(gen, cfg, n_layers=2), \
+        lambda d: (*(b.to(d) for b in bank), cfg)
+
+
+@pytest.mark.parametrize("name", ["xvector", "text_translator",
+                                  "translator", "summarizer"])
+def test_trainer_update_on_card_equals_cpu(dev, name):
+    """One update of each trainer (x-vector, text and audio translator,
+    summarizer) on the card against the CPU from the same parameters and
+    batch: chip_smoke's criterion, the gradients within 5e-2 relative L2
+    per leaf and the loss within 1e-3 relative."""
+    from omnilingual_asr_torch.train.step import (tree_leaves, trainable,
+                                                  value_and_grads)
+
+    loss, params, args_on = _trainer_case(name, dev)
+    got = []
+    for where in (dev, torch.device("cpu")):
+        p = trainable(params, where)
+        value, grads = value_and_grads(loss, p, *args_on(where))
+        got.append((float(value), [
+            torch.zeros(x.shape) if g is None else g.detach().cpu()
+            for g, x in zip(grads, tree_leaves(p))]))
+    (lc, gc), (lp, gp) = got
+    assert abs(lc - lp) <= 1e-3 * abs(lp)
+    for i, (a, b) in enumerate(zip(gc, gp)):
+        assert float((a - b).norm()) <= 5e-2 * float(b.norm()) + 1e-12, i

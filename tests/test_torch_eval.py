@@ -22,6 +22,7 @@ import contextlib
 import csv
 import io
 import json
+import signal
 import sys
 from pathlib import Path
 from unittest import mock
@@ -229,8 +230,13 @@ def test_summary_conversations_equal_jax():
         assert fa == fb
         assert xa.dtype == xb.dtype == np.float32
         np.testing.assert_array_equal(xa, xb)
-    with pytest.raises(NotImplementedError, match="A11"):
-        port.main([])
+    before = signal.getsignal(signal.SIGTERM)   # main installs its own
+    try:
+        with pytest.raises(SystemExit) as refused:  # argparse: --ckpt, --out
+            port.main([])
+    finally:
+        signal.signal(signal.SIGTERM, before)
+    assert refused.value.code == 2
 
 
 def test_long_audio_and_latency_audio_equal_jax(tmp_path):

@@ -128,3 +128,18 @@ def test_walk_reaches_the_eval_layer():
         assert f"omnilingual_asr_torch.{name}" in names
     assert {"bench", "eval_synth", "eval_heads", "eval_diar", "eval_long",
             "eval_latency"} <= set(ROOT_SCRIPTS)
+
+
+def test_walk_reaches_the_trainers():
+    """The import walk covers the release's trainers, the real-pair corpus,
+    the SIGTERM exit and the watchdog (and so holds them to the rule)."""
+    import pkgutil
+
+    import omnilingual_asr_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pkg.__path__, "omnilingual_asr_torch.")}
+    for name in ("train.xvector_train", "train.text_translator_train",
+                 "train.translator_train", "train.summary_train",
+                 "train.real_pairs", "utils.term", "utils.watchdog"):
+        assert f"omnilingual_asr_torch.{name}" in names
