@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4h)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4i)
     python3 chip_smoke.py --profile    # and, before the report, phase 4c
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
@@ -14,8 +14,10 @@ with no result line:
              and each kernel's registers and spills are printed.
 3. kernels - log-mel (K1, at the serving, the training path's and the
              crop re-embedding's frames, [16 x 768], the eval
-             drivers' [4 x 1024] and [1 x 3072], and the trainers'
-             [64 x 512], [64 x 1024] and [16 x 1024]; its bound counted for
+             drivers' [4 x 1024] and [1 x 3072], the trainers'
+             [64 x 512], [64 x 1024] and [16 x 1024], and the pretrainer's
+             [64 x 1024] and the manifest trainer's [16 x 1536]; its bound
+             counted for
              the function as an FFT computes it, the dense DFT's beside
              it), flash attention (K2, at head dims 64 and 128, at the
              training shape, at a ragged T of 200, at the d512 seed's
@@ -152,6 +154,26 @@ with no result line:
              x-vector, summarizer and each translator (text and audio
              mode) by explicit path answers the golden file: segments, a
              translation attempt on every non-English span, a summary.
+4i. rest   - the rest of training at ``PipelineConfig()`` width, each
+             run through the port's own functions on the card, cut in
+             steps and data: ``pretrain_cli.pretrain_main`` at its
+             defaults (batch 64 of 8 s, the mu-law wire, English
+             sentences at 0.65, a codebook of 8192 x 16) for 12 steps with
+             2 of warmup, its masked CE falling; its ``last/asr.npz``
+             warm-starting one ``train_synth --init-encoder`` step (the
+             trunk equal to the file after it); ``train_synth`` in kernel
+             mode with a device pool of 512 on the mu-law wire, English
+             sentences at 0.65, batch 16 of 8 s, 20 steps refreshed every
+             5 (in place); the manifest trainer (``cli.train``, 6 steps of
+             16 x 15 s, then ``cli.pretrain``, 4 steps) over 48 written
+             WAVs, both checkpoints loading back; AED's joint loss for 10
+             steps of 16 x 8 s, then its greedy decode at ``max_len`` 256.
+             Every step's launches exactly (K1 1; the pool step K2, K3,
+             K6, K7 12 each), finite losses, seconds by part (host
+             synthesis or bake, steps, save), steps a second and card peak
+             memory; one update of pretraining, the pool step and AED on
+             the card against the CPU (the same rows and draws; gradients
+             within 5e-2 per leaf, the loss within 1e-4).
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -163,8 +185,8 @@ with no result line:
              16: the host's batch wait, upload, forward + loss, backward
              and optimizer seconds, and one step under the profiler.
 5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
-             over the serving, training, decoders, server, d512, evals and
-             trainers paths,
+             over the serving, training, decoders, server, d512, evals,
+             trainers and rest_of_training paths,
              by path beside it), the
              ``nvidia-smi`` name and power limit, and the result line
              ``{"ok": true, "device": {...}}``.
@@ -376,8 +398,9 @@ def check_k1(dev, peaks, cfg):
     (batch 16 of 8 s windows padded to 1024 frames, 798 valid), the
     crop re-embedding's (16 crops of 6 s padded to 768 frames, 598
     valid), eval.synth's (4 x 10 s windows: 1024 frames, 998 valid),
-    eval.latency's (one 30 s window) and the trainers'
-    (``card_cases.K1_TRAINER_SHAPES``)."""
+    eval.latency's (one 30 s window), the trainers'
+    (``card_cases.K1_TRAINER_SHAPES``) and the rest of training's
+    (``card_cases.K1_REST_SHAPES``)."""
     from omnilingual_asr_torch.engine import (SPK_CROP_BATCH,
                                               SPK_CROP_SECONDS)
     from omnilingual_asr_torch.ops import card_cases
@@ -401,10 +424,16 @@ def check_k1(dev, peaks, cfg):
     trainers = [_k1_case(dev, peaks, cfg, B, t_pad, valid, SEED + 22 + i)
                 for i, (B, t_pad, valid) in enumerate(
                     card_cases.K1_TRAINER_SHAPES.values())]
+    # The rest of training's (phase 4i): the pretrainer's 64 8 s windows
+    # and the manifest trainer's 16 15 s windows.
+    rest = [_k1_case(dev, peaks, cfg, B, t_pad, valid, SEED + 26 + i)
+            for i, (B, t_pad, valid) in enumerate(
+                card_cases.K1_REST_SHAPES.values())]
     return {"name": "log_mel", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/mel.cu",
             "replaces": "omnilingual_asr_tpu/ops/mel_pallas.py:66",
-            **main, "shapes": [main, train, crop, eval10, lat, *trainers]}
+            **main, "shapes": [main, train, crop, eval10, lat, *trainers,
+                               *rest]}
 
 
 def _k1_case(dev, peaks, cfg, B, t_pad, n_frames, seed):
@@ -2386,22 +2415,35 @@ SM_STEPS, SM_BATCH, SM_POOL, SM_TRAIN, SM_EVAL = 20, 32, 96, 64, 8
 TOL_TRAINER_LOSS_REL = 1e-3
 
 
-def _trainer_update_check(label, dev, loss, params, args_on) -> dict:
+def _trainer_update_check(label, dev, loss, params, args_on,
+                          loss_tol=TOL_TRAINER_LOSS_REL) -> dict:
     """The gradient of ``loss(params, *args_on(device))`` on the card and
     on the CPU from the same parameters and batch, leaf by leaf."""
     import torch
     from omnilingual_asr_torch.train.step import (tree_leaves, trainable,
                                                   value_and_grads)
 
+    def run(where):
+        p = trainable(params, where)
+        value, grads = value_and_grads(loss, p, *args_on(where))
+        return float(value), [torch.zeros(x.shape) if g is None
+                              else g.detach().cpu()
+                              for g, x in zip(grads, tree_leaves(p))]
+
+    return _compare_on_devices(label, dev, run, loss_tol)
+
+
+def _compare_on_devices(label, dev, run, loss_tol) -> dict:
+    """``run(device)`` -> (loss, gradient leaves on the CPU), on the card
+    and on the CPU: every leaf within TOL_GRAD_REL relative L2 and the loss
+    within ``loss_tol`` relative, or the phase fails."""
+    import torch
+
     got = []
     for where in (dev, torch.device("cpu")):
-        p = trainable(params, where)
         t0 = time.perf_counter()
-        value, grads = value_and_grads(loss, p, *args_on(where))
-        got.append((float(value), [
-            torch.zeros(x.shape) if g is None else g.detach().cpu()
-            for g, x in zip(grads, tree_leaves(p))],
-            time.perf_counter() - t0))
+        value, grads = run(where)
+        got.append((value, grads, time.perf_counter() - t0))
     (lc, gc, tc), (lp, gp, tp) = got
     worst, worst_i = 0.0, -1
     for i, (a, b) in enumerate(zip(gc, gp)):
@@ -2415,10 +2457,10 @@ def _trainer_update_check(label, dev, loss, params, args_on) -> dict:
     out = {"loss_cuda": lc, "loss_cpu": lp, "loss_rel": loss_rel,
            "grad_worst_rel": worst, "grad_worst_leaf": worst_i,
            "n_leaves": len(gp), "cuda_s": tc, "cpu_s": tp}
-    if worst > TOL_GRAD_REL or loss_rel > TOL_TRAINER_LOSS_REL:
+    if worst > TOL_GRAD_REL or loss_rel > loss_tol or not math.isfinite(lc):
         raise PhaseError(f"{label}: one update on the card against the CPU: "
                          f"{out} (tol {TOL_GRAD_REL} per leaf, loss "
-                         f"{TOL_TRAINER_LOSS_REL})")
+                         f"{loss_tol})")
     return out
 
 
@@ -2646,6 +2688,499 @@ def run_trainers(dev, cfg, params, smi) -> dict:
                 f"{[s['translation'] for s in foreign]}, summary "
                 f"{res['summary']!r} ({time.perf_counter() - t0:.2f} s)")
     log(f"  trainers launches {json.dumps(total)} ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 4i: the rest of training (BEST-RQ pretraining, the device pool, the
+# manifest trainer, AED)
+# ---------------------------------------------------------------------------
+
+# The runs, cut in steps and data to fit the phase (PERF.md section 4).
+PRE_STEPS, PRE_BATCH, PRE_WARMUP = 12, 64, 2   # pretrain_main's defaults
+POOL_STEPS, POOL_BATCH, POOL_SIZE, POOL_REFRESH = 20, 16, 512, 5
+MAN_FILES, MAN_BATCH, MAN_STEPS, MAN_PRE_STEPS = 48, 16, 6, 4
+MAN_WINDOW_SECONDS = 15.0
+AED_STEPS, AED_BATCH, AED_LAYERS, AED_MAX_LEN = 10, 16, 4, 256
+# Rows of each card-vs-CPU update (the CPU runs d512 x 12 on them).
+CHECK_ROWS = 2
+# One update on the card against the CPU: the loss within this, relative
+# (the gradients within TOL_GRAD_REL, phase 4b's criterion).
+TOL_REST_LOSS_REL = 1e-4
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield value
+    finally:
+        setattr(obj, name, old)
+
+
+def _timed(parts, key, fn):
+    """``fn`` adding its wall seconds to ``parts[key]``."""
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+    return timed
+
+
+def _timed_batches(cls, parts, key="synth"):
+    """A subclass of a batch iterator whose waits for a batch add to
+    ``parts[key]``."""
+    class Timed(cls):
+        def __next__(self):
+            t0 = time.perf_counter()
+            try:
+                return super().__next__()
+            finally:
+                parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+    return Timed
+
+
+def _per_step(k1=0, flash=0):
+    """Launches of each kernel a step: ``flash`` counts K2, K3, K6 and K7
+    (one each a layer in kernel mode)."""
+    return {"log_mel_frames": k1, "flash_attention": flash,
+            "fused_conv_module": flash, "quantized_matmul": 0,
+            "quantized_matmul_a8": 0, "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkv": flash}
+
+
+class _StepWatch:
+    """Wraps a train step: each call waited for, its seconds, its metrics
+    (finite, or the phase fails) and the launches since the previous step
+    ended (``want`` of each kernel exactly, or the phase fails)."""
+
+    def __init__(self, label, want):
+        self.label, self.want = label, want
+        self.rows, self.seconds = [], 0.0
+        self.last = {k: 0 for k in want}
+
+    def wrap(self, fn):
+        import torch
+
+        def watched(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            now = _read_counters(reset=False)
+            n = {k: now[k] - self.last[k] for k in now}
+            self.last = now
+            m = {k: float(v) for k, v in out[3].items()}
+            self.seconds += secs
+            self.rows.append({"step": len(self.rows) + 1, "step_s": secs,
+                              **m})
+            if not all(math.isfinite(v) for v in m.values()):
+                raise PhaseError(f"{self.label} step {len(self.rows)}: "
+                                 f"metrics {m}")
+            if n != self.want:
+                raise PhaseError(f"{self.label} step {len(self.rows)}: "
+                                 f"launches {n}, expected {self.want}")
+            return out
+        return watched
+
+    def factory(self, make, captured):
+        """``make`` (a make_*_step) whose init state is kept in
+        ``captured`` (and a CPU copy of its first parameters in
+        ``self.initial``) and whose step (the second element) is
+        watched."""
+        def made(*args, **kwargs):
+            out = list(make(*args, **kwargs))
+            init = out[0]
+
+            def init_state(seed=0):
+                from omnilingual_asr_torch.train.step import tree_map
+
+                captured.append(init(seed))
+                st = captured[-1]
+                p = st.params if hasattr(st, "params") else st[0]
+                self.initial = tree_map(
+                    lambda t: t.detach().cpu().clone(), p)
+                return st
+
+            out[0], out[1] = init_state, self.wrap(out[1])
+            return tuple(out)
+        return made
+
+    def losses(self):
+        return [r["loss"] for r in self.rows]
+
+
+def _rest_drive(label, fn, parts, watch):
+    """Drives one run: every launch count set to 0 and the card's peak
+    memory reset just before ``fn()``, both read just after; logs the run's
+    seconds by part, steps a second and peak memory. Returns (fn's result,
+    launches)."""
+    import torch
+
+    _read_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(watch.rows)
+    parts = dict(parts, steps=watch.seconds)
+    if not steps:
+        raise PhaseError(f"{label}: no step was watched")
+    step_s = sorted(r["step_s"] for r in watch.rows)
+    log("  rest " + json.dumps({
+        "run": label, "wall_s": wall, "steps": steps,
+        "steps_per_s": steps / watch.seconds,
+        "step_s_median": step_s[len(step_s) // 2],
+        "seconds": {k: round(v, 4) for k, v in parts.items()},
+        "peak_card_gb": peak / 1e9,
+        "losses": [round(x, 4) for x in watch.losses()],
+        "launches": launches}))
+    return out, launches
+
+
+def _write_manifest(root: Path, n: int) -> Path:
+    """n seeded synthetic utterances (``eval_set``) as 16 kHz int16 WAVs and
+    a JSONL manifest of them."""
+    import numpy as np
+    from omnilingual_asr_torch.train.synth import SAMPLE_RATE, eval_set
+
+    root.mkdir(parents=True, exist_ok=True)
+    lines = []
+    for i, ex in enumerate(eval_set(n, seed=SEED + 40)):
+        pcm = (np.clip(ex.samples, -1.0, 1.0) * 32767).astype(np.int16)
+        with wave.open(str(root / f"u{i:03d}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(SAMPLE_RATE)
+            w.writeframes(pcm.tobytes())
+        lines.append(json.dumps({"audio": f"u{i:03d}.wav", "text": ex.text,
+                                 "language": ex.language,
+                                 "emotion": ex.emotion}))
+    path = root / "manifest.jsonl"
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def run_rest_of_training(dev, smi) -> dict:
+    """Phase 4i. The rest of training at ``PipelineConfig()`` width, each
+    run cut as the constants above say: (a) ``pretrain_main`` at its
+    defaults (batch 64 of 8 s, the mu-law wire, English sentences at 0.65,
+    a codebook of 8192 x 16), its checkpoint then warm-starting one
+    ``train_synth --init-encoder`` step; (b) ``train_synth`` in kernel mode
+    with a device pool of 512 on the mu-law wire, English sentences at
+    0.65, refreshed every 5 steps; (c) the manifest trainer (``cli.train``,
+    then ``cli.pretrain``) over 48 written WAVs; (d) AED's joint loss for 10
+    steps, then its greedy decode. Each run: finite losses, exact launches
+    a step, its seconds by part; (a), (b) and (d) one update on the card
+    against the CPU; the checkpoints load back. Returns the launches."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.models import zoo
+    from omnilingual_asr_torch.models.aed import (aed_greedy_decode,
+                                                  aed_init, aed_loss)
+    from omnilingual_asr_torch.ops.attention import REFERENCE_BLOCK_Q
+    from omnilingual_asr_torch.ops.mel import MelFrontend
+    from omnilingual_asr_torch.train import cli, device_pool
+    from omnilingual_asr_torch.train import pretrain as pre
+    from omnilingual_asr_torch.train import pretrain_cli, synth_train
+    from omnilingual_asr_torch.train.step import (CTC_INFEASIBLE, ctc_rows,
+                                                  make_optimizer,
+                                                  mel_from_samples,
+                                                  train_update, trainable,
+                                                  tree_leaves, tree_map)
+    from omnilingual_asr_torch.train.synth import SynthBatcher
+
+    cfg = PipelineConfig()
+    L = cfg.encoder.n_layers
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def on(tree, where):
+        return tree_map(lambda t: t.detach().to(where), tree)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) BEST-RQ pretraining at pretrain_main's defaults.
+        parts, captured = {}, []
+        watch = _StepWatch("pretrain", _per_step(k1=1))
+        with contextlib.ExitStack() as st:
+            st.enter_context(_patched(
+                pretrain_cli, "make_pretrain_step",
+                watch.factory(pretrain_cli.make_pretrain_step, captured)))
+            st.enter_context(_patched(pretrain_cli, "SynthBatcher",
+                                      _timed_batches(SynthBatcher, parts)))
+            st.enter_context(_patched(zoo, "save_checkpoint", _timed(
+                parts, "save", zoo.save_checkpoint)))
+            st.enter_context(_patched(pretrain_cli, "save_train_state",
+                                      _timed(parts, "save",
+                                             pretrain_cli.save_train_state)))
+            _, launches = _rest_drive("pretrain", lambda: (
+                pretrain_cli.pretrain_main(
+                    steps=PRE_STEPS, batch_size=PRE_BATCH, cfg=cfg,
+                    warmup_steps=PRE_WARMUP, ckpt_dir=str(tmp / "bestrq"),
+                    seed=SEED, log_every=PRE_STEPS, save_every=PRE_STEPS,
+                    device=dev)), parts, watch)
+        add(launches)
+        losses = watch.losses()
+        if not losses[-1] < losses[0]:
+            raise PhaseError(f"pretrain: the masked CE did not fall over "
+                             f"{PRE_STEPS} steps: {losses}")
+        if launches["log_mel_frames"] != PRE_STEPS:
+            raise PhaseError(f"pretrain: launches {launches}")
+        params, quantizer, _ = captured[0]
+        init_params = watch.initial
+        last = tmp / "bestrq" / "last"
+        for name in ("head.npz", "config.json", "train_state.npz"):
+            if not (last / name).is_file():
+                raise PhaseError(f"pretrain: no {name} in {last}")
+        _loads_back("pretrain", zoo.load_checkpoint(last / "asr.npz", cfg),
+                    params["encoder"])
+        # One update on the card against the CPU: the same mu-law rows, mel
+        # and targets from the CPU, the step's draws from the CPU.
+        pcfg = pre.PretrainConfig()
+        b = SynthBatcher(cfg, batch_size=CHECK_ROWS, seed=SEED + 31,
+                         n_threads=1, english_sentence_p=0.65,
+                         real_fraction=0.0)
+        try:
+            hb = next(iter(b))
+        finally:
+            b.close()
+        cpu = torch.device("cpu")
+        mel_b = mel_from_samples(
+            {"samples": torch.from_numpy(device_pool.encode_wire(
+                hb["samples"], "mulaw")),
+             "mask": torch.from_numpy(hb["mask"])},
+            MelFrontend(cfg.frontend, cpu))
+        q_cpu = on(quantizer, cpu)
+        targets = pre.quantize_targets(q_cpu, mel_b["mel"],
+                                       cfg.encoder.subsample_factor)
+        draws = pre.step_draws(0, *hb["mask"].shape, cfg, pcfg, cpu)
+        check = _trainer_update_check(
+            "pretrain", dev, lambda p, *a: pre.pretrain_loss(p, *a)[0],
+            init_params, lambda d: (
+                on(q_cpu, d), on(mel_b, d), draws[0].to(d), draws[1].to(d),
+                cfg, pcfg, targets.to(d)), loss_tol=TOL_REST_LOSS_REL)
+        log(f"  pretrain update on the card against the CPU "
+            f"{json.dumps(check)}")
+
+        # (a2) The pretrained encoder warm-starts supervised training: one
+        # step at learning rate 0 leaves the trunk equal to the file.
+        parts, captured = {}, []
+        watch = _StepWatch("init_encoder", _per_step(k1=1))
+        with _patched(synth_train, "make_train_step", watch.factory(
+                synth_train.make_train_step, captured)):
+            (sp, _), launches = _rest_drive(
+                "init_encoder", lambda: synth_train.train_synth(
+                    steps=1, batch_size=TRAIN_BATCH, cfg=cfg, seed=SEED,
+                    init_encoder=str(last / "asr.npz"), device=dev,
+                    log_every=1, eval_every=1000), parts, watch)
+        add(launches)
+        _loads_back("init_encoder", zoo.load_checkpoint(last / "asr.npz",
+                                                        cfg), sp["asr"])
+
+        # (b) The device pool in kernel mode on the mu-law wire.
+        parts, captured, pool_seen = {}, [], {}
+        watch = _StepWatch("device_pool", _per_step(k1=1, flash=L))
+        to_device = synth_train.pool_to_device
+
+        def keep_pool(pool_np, where):
+            t0 = time.perf_counter()
+            pool = to_device(pool_np, where)
+            torch.cuda.synchronize()
+            parts["upload"] = time.perf_counter() - t0
+            pool_seen.update(pool=pool, ptrs={
+                k: v.data_ptr() for k, v in pool.items()})
+            return pool
+
+        class TimedEval(synth_train.Evaluator):
+            def run(self, params):
+                return _timed(parts, "eval", super().run)(params)
+
+        with contextlib.ExitStack() as st:
+            st.enter_context(_patched(
+                synth_train, "make_pool_train_step",
+                watch.factory(synth_train.make_pool_train_step, captured)))
+            st.enter_context(_patched(synth_train, "SynthBatcher",
+                                      _timed_batches(SynthBatcher, parts)))
+            st.enter_context(_patched(synth_train, "build_pool", _timed(
+                parts, "bake", synth_train.build_pool)))
+            st.enter_context(_patched(synth_train, "pool_to_device",
+                                      keep_pool))
+            st.enter_context(_patched(synth_train, "Evaluator", TimedEval))
+            _, launches = _rest_drive("device_pool", lambda: (
+                synth_train.train_synth(
+                    steps=POOL_STEPS, batch_size=POOL_BATCH, cfg=cfg,
+                    seed=SEED, pallas_kernels=True, device_pool=POOL_SIZE,
+                    pool_refresh_every=POOL_REFRESH, wire="mulaw",
+                    english_sentences=0.65, device=dev,
+                    log_every=POOL_STEPS, eval_every=1000)), parts, watch)
+        add(launches)
+        pool = pool_seen["pool"]
+        pool_bytes = sum(v.numel() * v.element_size() for v in pool.values())
+        moved = [k for k, v in pool.items()
+                 if v.data_ptr() != pool_seen["ptrs"][k]]
+        if pool["samples"].dtype != torch.uint8 or moved or \
+                pool["samples"].shape[0] != POOL_SIZE:
+            raise PhaseError(f"device_pool: samples {pool['samples'].dtype} "
+                             f"{tuple(pool['samples'].shape)}, reallocated "
+                             f"{moved}")
+        log(f"  device pool on the card: {pool_bytes / 1e6:.1f} MB "
+            f"({json.dumps({k: [list(v.shape), str(v.dtype)] for k, v in pool.items()})}); "
+            f"baked in {parts['bake']:.3f} s, uploaded in "
+            f"{parts['upload']:.3f} s; refreshed in place "
+            f"{POOL_STEPS // POOL_REFRESH} times")
+        # One pool step on the card against the CPU: the same rows, the
+        # gain, SNR and noise drawn on the CPU, SpecAugment off.
+        kcfg = cfg.replace(encoder=dataclasses.replace(
+            cfg.encoder, use_flash_attention=True, use_fused_conv=True))
+        rows = {k: v[:CHECK_ROWS].cpu() for k, v in pool.items()}
+        host = {k: v.numpy() for k, v in rows.items()}
+        scalars = {"w_spk": 1.0, "w_trans": 1.0, "w_aug": 1.0,
+                   "w_fce": 0.0, "w_ctc": 1.0,
+                   CTC_INFEASIBLE: ctc_rows(host, kcfg)}
+        gen = torch.Generator().manual_seed(SEED)
+        draws = device_pool.augment_draws(gen, CHECK_ROWS,
+                                          rows["samples"].shape[1],
+                                          (15.0, 40.0), (0.7, 1.3))
+        pool_params = watch.initial
+
+        def pool_run(where):
+            _, _, _, lg = device_pool.make_pool_train_step(
+                kcfg, where, with_translator=True)
+            p = trainable(pool_params, where)
+            m, g = lg(p, on(rows, where),
+                      torch.arange(CHECK_ROWS, device=where), 0, scalars,
+                      tuple(x.to(where) for x in draws))
+            return float(m["loss"]), [
+                torch.zeros(x.shape) if y is None else y.detach().cpu()
+                for y, x in zip(g, tree_leaves(p))]
+
+        check = _compare_on_devices("device_pool", dev, pool_run,
+                                    TOL_REST_LOSS_REL)
+        log(f"  device-pool step on the card against the CPU "
+            f"{json.dumps(check)}")
+
+        # (c) The manifest trainer over written WAVs, then its pretrain mode.
+        manifest = _write_manifest(tmp / "manifest", MAN_FILES)
+        parts, captured = {}, []
+        watch = _StepWatch("manifest_train", _per_step(k1=1))
+        with contextlib.ExitStack() as st:
+            st.enter_context(_patched(cli, "make_train_step", watch.factory(
+                cli.make_train_step, captured)))
+            st.enter_context(_patched(cli, "BatchLoader", _timed_batches(
+                cli.BatchLoader, parts, "load")))
+            st.enter_context(_patched(cli, "save_checkpoint", _timed(
+                parts, "save", cli.save_checkpoint)))
+            mp, launches = _rest_drive("manifest_train", lambda: cli.train(
+                str(manifest), steps=MAN_STEPS, batch_size=MAN_BATCH,
+                cfg=cfg, window_seconds=MAN_WINDOW_SECONDS,
+                ckpt=str(tmp / "man_asr.npz"), log_every=MAN_STEPS,
+                seed=SEED, device=dev), parts, watch)
+        add(launches)
+        _loads_back("manifest_train", zoo.load_checkpoint(
+            tmp / "man_asr.npz", cfg), mp)
+        parts, captured = {}, []
+        watch = _StepWatch("manifest_pretrain", _per_step(k1=1))
+        with contextlib.ExitStack() as st:
+            st.enter_context(_patched(pre, "make_pretrain_step",
+                                      watch.factory(pre.make_pretrain_step,
+                                                    captured)))
+            st.enter_context(_patched(cli, "BatchLoader", _timed_batches(
+                cli.BatchLoader, parts, "load")))
+            st.enter_context(_patched(cli, "save_checkpoint", _timed(
+                parts, "save", cli.save_checkpoint)))
+            pp, launches = _rest_drive("manifest_pretrain", lambda: (
+                cli.pretrain(str(manifest), steps=MAN_PRE_STEPS,
+                             batch_size=MAN_BATCH, cfg=cfg,
+                             window_seconds=MAN_WINDOW_SECONDS,
+                             ckpt=str(tmp / "man_pre.npz"),
+                             log_every=MAN_PRE_STEPS, seed=SEED,
+                             device=dev)), parts, watch)
+        add(launches)
+        _loads_back("manifest_pretrain", zoo.load_checkpoint(
+            tmp / "man_pre.npz", cfg), pp["encoder"])
+
+        # (d) AED: joint CTC/CE steps on synthetic 8 s windows, then the
+        # greedy decode.
+        parts = {}
+        watch = _StepWatch("aed", _per_step(k1=1))
+        a0 = aed_init(torch.Generator().manual_seed(SEED), cfg,
+                      decoder_layers=AED_LAYERS)
+        fe = MelFrontend(cfg.frontend, dev)
+        batches = []
+
+        def aed_run():
+            params = trainable(a0, dev)
+            tx = make_optimizer(lr=1e-3, warmup_steps=2,
+                                decay_steps=AED_STEPS)
+            opt = tx.init(params)
+            b = _timed_batches(SynthBatcher, parts)(
+                cfg, batch_size=AED_BATCH, seed=SEED + 32, n_threads=2,
+                reuse_pool=1024, reuse_p=0.8)
+
+            def one(p, hb):
+                batch = mel_from_samples({
+                    "samples": torch.from_numpy(device_pool.encode_wire(
+                        hb["samples"], "i16")).to(dev),
+                    "mask": torch.from_numpy(hb["mask"]).to(dev)}, fe)
+                batch["labels"] = torch.from_numpy(hb["labels"]).to(dev)
+                batch["label_mask"] = torch.from_numpy(
+                    hb["label_mask"]).to(dev)
+                batches.append((hb, batch))
+                loss = train_update(tx, opt, lambda q, bb: aed_loss(
+                    q, bb, cfg)[0], p, batch)
+                return p, opt, None, {"loss": loss}
+
+            step = watch.wrap(one)
+            try:
+                it = iter(b)
+                for _ in range(AED_STEPS):
+                    step(params, next(it))
+            finally:
+                b.close()
+            t0 = time.perf_counter()
+            mel = batches[-1][1]
+            ids = aed_greedy_decode(params, mel["mel"], mel["mask"], cfg,
+                                    max_len=AED_MAX_LEN)
+            torch.cuda.synchronize()
+            parts["decode"] = time.perf_counter() - t0
+            return ids
+
+        ids, launches = _rest_drive("aed", aed_run, parts, watch)
+        add(launches)
+        if (tuple(ids.shape) != (AED_BATCH, AED_MAX_LEN)
+                or int(ids.min()) < 0
+                or int(ids.max()) >= cfg.vocab.vocab_size):
+            raise PhaseError(f"aed: decoded ids {tuple(ids.shape)} in "
+                             f"[{int(ids.min())}, {int(ids.max())}]")
+        log(f"  aed greedy decode [{AED_BATCH}, {AED_MAX_LEN}] in "
+            f"{parts['decode']:.3f} s; first row's first ids "
+            f"{ids[0, :16].tolist()}")
+        hb = {k: v[:CHECK_ROWS] for k, v in batches[0][0].items()}
+        mel_b = mel_from_samples(
+            {"samples": torch.from_numpy(device_pool.encode_wire(
+                hb["samples"], "i16")),
+             "mask": torch.from_numpy(hb["mask"])},
+            MelFrontend(cfg.frontend, cpu))
+        mel_b["labels"] = torch.from_numpy(hb["labels"])
+        mel_b["label_mask"] = torch.from_numpy(hb["label_mask"])
+        check = _trainer_update_check(
+            "aed", dev, lambda p, bb: aed_loss(p, bb, cfg)[0], a0,
+            lambda d: (on(mel_b, d),), loss_tol=TOL_REST_LOSS_REL)
+        log(f"  aed update on the card against the CPU {json.dumps(check)}")
+    log(f"  rest_of_training launches {json.dumps(total)} ({smi})")
     return total
 
 
@@ -2945,6 +3480,11 @@ def main(argv=None) -> int:
         trainers = run_trainers(dev, cfg, params, smi)
         log(f"[trainers] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "rest"
+        t0 = time.perf_counter()
+        rest = run_rest_of_training(dev, smi)
+        log(f"[rest] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -2962,7 +3502,8 @@ def main(argv=None) -> int:
                  "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
         paths = {"serving": serving, "training": training,
                  "decoders": decoding, "server": served, "d512": d512,
-                 "evals": evals, "trainers": trainers}
+                 "evals": evals, "trainers": trainers,
+                 "rest_of_training": rest}
         line = {"kernels": []}
         for k in kernels:
             fn = by_fn[k["name"]]

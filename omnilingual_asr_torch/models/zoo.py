@@ -27,6 +27,12 @@ from .xvector import xvector_param_shapes
 _KEY_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
 
+def base_config() -> PipelineConfig:
+    """The reference's ~80M-parameter conformer: the default single-card
+    serving model."""
+    return PipelineConfig()
+
+
 def large_config() -> PipelineConfig:
     """The reference's ~300M-parameter conformer (head dim 128)."""
     return PipelineConfig(encoder=EncoderConfig(

@@ -45,6 +45,13 @@ K1_TRAINER_SHAPES = {"xvector": (64, 512, 398),
                      "translator": (64, 1024, 798),
                      "summarizer": (16, 1024, 798)}
 
+# K1 on the rest of training's paths: the pretrainer's batch of 64 8 s
+# windows (the audio translator's shape, its own run) and the manifest
+# trainer's 16 15 s windows (1498 frames padded to 1536). The device pool's
+# and AED's batches of 16 8 s windows are the training shape.
+K1_REST_SHAPES = {"pretrain": (64, 1024, 798),
+                  "manifest": (16, 1536, 1498)}
+
 # K5 as (M, K, N): a serving batch's 4 x 768 frames through the release
 # layers that take it, by width N (512 the CTC head, 1024 the FFN
 # up-projections, 2048 the LID head).

@@ -357,15 +357,37 @@ def ctc_rows(batch, cfg: PipelineConfig) -> np.ndarray:
     return infeasible_rows(n_frames, batch["labels"], batch["label_mask"])
 
 
+def training_device(device) -> torch.device:
+    """A trainer's device: CUDA unless the caller asks for the CPU
+    (``engine.resolve_device``), with TF32 off on the card, so that f32
+    products (the quantizer's code similarities, the mel) stay f32."""
+    from ..engine import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def decode_wire(samples: torch.Tensor) -> torch.Tensor:
+    """A sample wire -> f32 samples in [-1, 1], on the wire's device: int16
+    (x / 32768), uint8 mu-law codes (``audio/codec.py``), and any other
+    dtype (the manifest trainer's and the pool's f32) as it is."""
+    if samples.dtype == torch.int16:
+        return samples.to(torch.float32) * (1.0 / 32768.0)
+    if samples.dtype == torch.uint8:
+        from ..audio.codec import mulaw_decode
+
+        return mulaw_decode(samples)
+    return samples
+
+
 def mel_from_samples(batch, frontend):
-    """Decode the i16 sample wire and run the log-mel frontend (kernel K1
-    on the card) on the batch's device; ``mel`` replaces ``samples``."""
-    samples = batch["samples"]
-    if samples.dtype != torch.int16:
-        raise NotImplementedError(
-            f"sample wire {samples.dtype} is not ported (i16 only; the "
-            f"mu-law wire is A11 in ROADMAP.md)")
-    x = samples.to(torch.float32) * (1.0 / 32768.0)
+    """Decode the batch's sample wire (:func:`decode_wire`) and run the
+    log-mel frontend (kernel K1 on the card) on the batch's device; ``mel``
+    replaces ``samples``, cut to the mask's frames."""
+    x = decode_wire(batch["samples"])
     T = batch["mask"].shape[1]
     with torch.no_grad():
         frames, _ = frontend.frames_from_signal(x)
@@ -388,7 +410,8 @@ def make_train_step(cfg: PipelineConfig, device="cpu",
     (``asr_init`` from seed, the translator from seed + 1) on ``device``.
     ``train_step(params, opt_state, batch, step)`` -> ``(params, opt_state,
     step + 1, metrics)``: the batch is a dict of tensors on ``device``
-    (``samples`` int16 instead of ``mel`` with ``from_samples``), the
+    (with ``from_samples``, ``samples`` instead of ``mel``: int16, uint8
+    mu-law or f32, :func:`decode_wire`), the
     parameters are updated in place. ``loss_and_grads(params, batch,
     step)`` -> (metrics, grads aligned with ``tree_leaves(params)``), the
     step's gradient without the update. The batch's own keys select the

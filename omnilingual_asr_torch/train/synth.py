@@ -33,10 +33,7 @@ in through :func:`eaf_windows` so the checkpoint also sees real speech.
 The PyTorch port's own copy of ``omnilingual_asr_tpu/train/synth.py``
 (numpy only; the port imports nothing of the JAX package); keep the two in
 step: the port's tests hold its batches equal, element for element, to the
-JAX module's. Two knobs need modules that are not ported yet and raise
-``NotImplementedError`` (A11 in ROADMAP.md): the grammatical English
-sentence bank (``english_sentence_p``, ``train/english_text.py``) and the
-device pool's bake mode (``bake_mode``, ``train/device_pool.py``).
+JAX module's.
 """
 
 from __future__ import annotations
@@ -49,11 +46,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..types import EMOTIONS
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch "
-                               f"trainer yet (A11 in ROADMAP.md)")
 
 SAMPLE_RATE = 16_000
 
@@ -510,8 +502,11 @@ def make_example(rng: np.random.Generator, *,
             and rng.random() < english_sentence_p):
         # grammatical English from the sentence bank (real word order,
         # function-word rhythm) instead of an i.i.d. lexicon draw
-        raise _not_ported("the English sentence bank (english_sentence_p, "
-                          "train/english_text.py)")
+        from .english_text import sample_sentence
+
+        text = sample_sentence(rng, min_words=min_words,
+                               max_words=max_words)
+        translation = None
     else:
         lex = lexicon(lang)
         n_words = int(rng.integers(min_words, max_words + 1))
@@ -866,12 +861,6 @@ class SynthBatcher:
 
         from ..models import languages as lang_table
 
-        if bake_mode:
-            raise _not_ported("the device pool's bake mode "
-                              "(train/device_pool.py)")
-        if english_sentence_p > 0:
-            raise _not_ported("the English sentence bank (english_sentence_p, "
-                              "train/english_text.py)")
         self.cfg = cfg
         self.batch_size = batch_size
         self.max_label_len = max_label_len

@@ -9,6 +9,10 @@ and at every ``--eval-every`` steps.
     python -m omnilingual_asr_torch.train.synth_train --pallas-kernels \\
         --steps 20000 --batch-size 16 --ckpt-dir ckpt
 
+``--device-pool N`` keeps N baked examples on the card (int16 or, with
+``--wire mulaw``, mu-law) and ships only a step's row indices; the rows'
+gain and noise are drawn on the card (``train/device_pool.py``).
+
 ``--pallas-kernels`` (the reference's flag name) trains through the port's
 hand-written kernels: flash attention forward and backward (K2, K6, K7)
 and the fused conv module (K3), with the frames padded so that T/4 tiles
@@ -39,6 +43,8 @@ from ..ops.attention import REFERENCE_BLOCK_Q
 from ..ops.ctc import collapse_ctc
 from ..utils.metrics import aggregate_wer
 from .augment import SpecAugmentConfig
+from .device_pool import (build_pool, encode_wire, make_pool_train_step,
+                          pool_to_device)
 from .step import (CTC_INFEASIBLE, ctc_rows, make_optimizer, make_train_step,
                    tree_leaves)
 from .synth import SynthBatcher, eval_set, real_corpus, trim_to_window
@@ -182,10 +188,6 @@ class Evaluator:
         return report
 
 
-def _encode_i16(v: np.ndarray) -> np.ndarray:
-    return np.clip(v * 32768.0, -32768, 32767).astype(np.int16)
-
-
 def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                 lr: float = 2e-3, window_seconds: float = 8.0,
                 ckpt_dir: Optional[str] = None, log_every: int = 50,
@@ -212,12 +214,12 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
     reference's. ``device``: CUDA unless "cpu" is asked for."""
     from ..engine import resolve_device
 
-    if device_pool > 0:
-        raise _not_ported("the device-resident example pool (--device-pool, "
-                          "train/device_pool.py)")
-    if wire != "i16":
-        raise _not_ported(f"the {wire} sample wire (audio/codec.py)")
     dev = resolve_device(device)
+    use_pool = device_pool > 0
+    if use_pool:
+        # Round up so that refresh slices tile the pool.
+        device_pool = ((device_pool + batch_size - 1)
+                       // batch_size) * batch_size
     frame_multiple = 0
     if pallas_kernels:
         # Train through the hand-written kernels (flash attention forward
@@ -242,7 +244,8 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                            english_fraction=english_fraction,
                            voice_match_p=voice_match,
                            english_sentence_p=english_sentences,
-                           real_fraction=real_fraction)
+                           real_fraction=real_fraction,
+                           bake_mode=use_pool)
     # Pool-size curriculum "max:reuse_p:steps,..." (the last entry holds).
     pool_stages: List[Tuple[int, float, int]] = []
     if pool_schedule:
@@ -292,9 +295,33 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
     # subsampled frames, so 0.6 s time masks would erase whole words.
     aug_cfg = SpecAugmentConfig(n_freq_masks=1, freq_mask_width=16,
                                 n_time_masks=1, time_mask_width=24)
-    init_state, train_step, _ = make_train_step(
-        cfg, dev, tx=tx, from_samples=True, with_translator=True,
-        augment=aug_cfg, dropout=use_dropout)
+    if use_pool:
+        init_state, pool_step, refresh_pool, _ = make_pool_train_step(
+            cfg, dev, tx=tx, augment=aug_cfg, with_translator=True,
+            snr_range=(15.0, 40.0), dropout=use_dropout)
+        print(f"building device pool: {device_pool} entries "
+              f"({wire} wire)...", flush=True)
+        t_bake = time.perf_counter()
+        refresh_iter = iter(batcher)
+        pool_np = build_pool(refresh_iter, device_pool, wire=wire)
+        t_bake = time.perf_counter() - t_bake
+        pool_nframes = pool_np["mask"].sum(axis=1).astype(np.float64)
+        # The rows whose CTC labels cannot be aligned, known on the host
+        # so that the loss reads nothing back.
+        pool_infeasible = np.zeros(device_pool, bool)
+        pool_infeasible[ctc_rows(pool_np, cfg)] = True
+        pool = pool_to_device(pool_np, dev)
+        pool_mb = sum(v.nbytes for v in pool_np.values()) / 1e6
+        print(f"device pool resident: {pool_mb:.0f} MB (baked in "
+              f"{t_bake:.1f} s); per-step H2D is now {4 * batch_size} B of "
+              f"indices", flush=True)
+        del pool_np
+        pool_cursor = 0
+        idx_rng = np.random.default_rng(seed + 104729)
+    else:
+        init_state, train_step, _ = make_train_step(
+            cfg, dev, tx=tx, from_samples=True, with_translator=True,
+            augment=aug_cfg, dropout=use_dropout)
     state = init_state(seed=seed)
     params, opt_state = state.params, state.opt_state
     start_step = 0
@@ -351,9 +378,9 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
         end_step = min(end_step, total_steps)
     fe = cfg.frontend
     try:
-        batch_iter = iter(batcher)
+        batch_iter = None if use_pool else iter(batcher)
         for i in range(start_step, end_step):
-            batch = next(batch_iter)
+            batch = None if use_pool else next(batch_iter)
             if pool_boundaries and i == pool_boundaries[0]:
                 pool_boundaries.pop(0)
                 nxt = pool_stages[len(pool_stages) - len(pool_boundaries) - 1]
@@ -367,15 +394,39 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
             if curriculum and stage2_steps and i == stage1_steps + stage2_steps:
                 batcher.set_curriculum()
                 print(f"curriculum stage 3 at step {i}", flush=True)
-            dev_batch = {k: torch.from_numpy(
-                _encode_i16(v) if k == "samples" else v).to(dev)
-                for k, v in batch.items()}
-            dev_batch[CTC_INFEASIBLE] = ctc_rows(batch, cfg)
-            dev_batch.update(stage_weights(i))
-            params, opt_state, _, metrics = train_step(
-                params, opt_state, dev_batch, i)
-            audio_s += float(batch["mask"].sum()) * fe.hop_length \
-                / fe.sample_rate
+            if use_pool:
+                idx = idx_rng.integers(0, device_pool, batch_size)
+                scalars = dict(stage_weights(i))
+                scalars[CTC_INFEASIBLE] = np.flatnonzero(
+                    pool_infeasible[idx])
+                params, opt_state, _, metrics = pool_step(
+                    params, opt_state, pool,
+                    torch.from_numpy(idx.astype(np.int32)).to(dev), i,
+                    scalars)
+                audio_s += float(pool_nframes[idx].sum()) * fe.hop_length \
+                    / fe.sample_rate
+                if pool_refresh_every and (i + 1) % pool_refresh_every == 0:
+                    # Rotate one freshly baked batch into the pool, in
+                    # place: ~B/P of the pool churns a refresh.
+                    nb = next(refresh_iter)
+                    new = {k: (encode_wire(v, wire) if k == "samples" else v)
+                           for k, v in nb.items()}
+                    refresh_pool(pool, pool_cursor, new)
+                    sl = slice(pool_cursor, pool_cursor + batch_size)
+                    pool_nframes[sl] = nb["mask"].sum(axis=1)
+                    pool_infeasible[sl] = False
+                    pool_infeasible[pool_cursor + ctc_rows(nb, cfg)] = True
+                    pool_cursor = (pool_cursor + batch_size) % device_pool
+            else:
+                dev_batch = {k: torch.from_numpy(
+                    encode_wire(v, wire) if k == "samples" else v).to(dev)
+                    for k, v in batch.items()}
+                dev_batch[CTC_INFEASIBLE] = ctc_rows(batch, cfg)
+                dev_batch.update(stage_weights(i))
+                params, opt_state, _, metrics = train_step(
+                    params, opt_state, dev_batch, i)
+                audio_s += float(batch["mask"].sum()) * fe.hop_length \
+                    / fe.sample_rate
             if (i + 1) % log_every == 0:
                 m = {k: round(float(v), 4) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0

@@ -143,3 +143,55 @@ def test_walk_reaches_the_trainers():
                  "train.translator_train", "train.summary_train",
                  "train.real_pairs", "utils.term", "utils.watchdog"):
         assert f"omnilingual_asr_torch.{name}" in names
+
+
+def test_walk_reaches_the_rest_of_training():
+    """The import walk covers BEST-RQ pretraining and its CLI, the manifest
+    loader and CLI, the device pool and the AED family (and so holds them
+    to the rule)."""
+    import pkgutil
+
+    import omnilingual_asr_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pkg.__path__, "omnilingual_asr_torch.")}
+    for name in ("train.pretrain", "train.pretrain_cli", "train.cli",
+                 "train.data", "train.device_pool", "models.aed"):
+        assert f"omnilingual_asr_torch.{name}" in names
+
+
+_HELP = """
+import runpy, sys
+FORBIDDEN = {forbidden!r}
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in FORBIDDEN:
+            raise ImportError('forbidden import: ' + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {repo!r})
+sys.argv = [{module!r}, '--help']
+try:
+    runpy.run_module({module!r}, run_name='__main__')
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
+assert not leaked, leaked
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "omnilingual_asr_torch.train.pretrain_cli",
+    "omnilingual_asr_torch.train.cli",
+    "omnilingual_asr_torch.train.synth_train"])
+def test_training_cli_help_with_jax_blocked(module):
+    """Each training CLI of the rest of training prints its ``--help`` (the
+    JAX CLI's flags) in a process where JAX and the JAX package cannot be
+    imported."""
+    code = _HELP.format(forbidden=FORBIDDEN, repo=str(REPO), module=module)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout and "--steps" in out.stdout
