@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4i)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4j)
     python3 chip_smoke.py --profile    # and, before the report, phase 4c
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
@@ -15,8 +15,9 @@ with no result line:
 3. kernels - log-mel (K1, at the serving, the training path's and the
              crop re-embedding's frames, [16 x 768], the eval
              drivers' [4 x 1024] and [1 x 3072], the trainers'
-             [64 x 512], [64 x 1024] and [16 x 1024], and the pretrainer's
-             [64 x 1024] and the manifest trainer's [16 x 1536]; its bound
+             [64 x 512], [64 x 1024] and [16 x 1024], the pretrainer's
+             [64 x 1024], the manifest trainer's [16 x 1536] and sequence
+             mode's [11 x 3072] (a 330 s file's chunks); its bound
              counted for
              the function as an FFT computes it, the dense DFT's beside
              it), flash attention (K2, at head dims 64 and 128, at the
@@ -174,6 +175,32 @@ with no result line:
              memory; one update of pretraining, the pool step and AED on
              the card against the CPU (the same rows and draws; gradients
              within 5e-2 per leaf, the loss within 1e-4).
+4j. mesh   - the device mesh without tensor parallelism and the packed
+             wire, with the release weights, meshes as shards on the card
+             (and, where more than one card is visible, (a)-(e) again over
+             distinct cards): (a) ``long_mode="sequence"`` at one shard and
+             at four on the golden file (held to ``golden_sequence.json``)
+             and the 330 s tiled file (four shards' ids on 99.5 % of one
+             shard's; K1 one launch for the file's mel plus one a crop
+             batch, K2/K3 none; seconds and peak memory beside window mode),
+             then the longest file its forward takes at one shard and at
+             four (``MESH_CEILING_MINUTES`` tried in turn until one runs out
+             of memory); (b) ``ring_attention`` at T 4096 over 8 shards
+             against full attention; (c) data-parallel windows, 2 shards of
+             2 equal to one shard of 2 and on 99.5 % of ids to one shard of
+             4, unquantized and "a8", golden and 120 s files (K1-K3, K5
+             launches a shard batch); (d) the release model with 8 experts grafted into its
+             second FFNs (seeded router and perturbations): the engine on
+             the card against the port's CPU engine (ids on 99.5 %), the
+             all-to-all conformer on a (2, 4) mesh against dense dispatch at
+             capacity 16, the drop count at capacity 1, one kernel-mode step
+             at ``PipelineConfig()`` with 8 experts and batch 16 (finite,
+             ``moe_aux``, exactly K1 1 and K2, K3, K6, K7 12) and one update
+             card vs CPU at batch 2 (``testing.TRAINER_GRAD_REL``); (e)
+             ``pipeline_forward`` at 4 stages and 4 microbatches of release
+             blocks against ``apply_stacked_blocks``; (f) the packed wire on
+             and off on the 120 s file: equal results, device-to-host copies
+             a batch, warm seconds over 6 requests each, interleaved.
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -186,7 +213,7 @@ with no result line:
              and optimizer seconds, and one step under the profiler.
 5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
              over the serving, training, decoders, server, d512, evals,
-             trainers and rest_of_training paths,
+             trainers, rest_of_training and mesh paths,
              by path beside it), the
              ``nvidia-smi`` name and power limit, and the result line
              ``{"ok": true, "device": {...}}``.
@@ -399,10 +426,12 @@ def check_k1(dev, peaks, cfg):
     crop re-embedding's (16 crops of 6 s padded to 768 frames, 598
     valid), eval.synth's (4 x 10 s windows: 1024 frames, 998 valid),
     eval.latency's (one 30 s window), the trainers'
-    (``card_cases.K1_TRAINER_SHAPES``) and the rest of training's
-    (``card_cases.K1_REST_SHAPES``)."""
+    (``card_cases.K1_TRAINER_SHAPES``), the rest of training's
+    (``card_cases.K1_REST_SHAPES``) and sequence mode's (the 330 s file's
+    11 chunks of 30 s plus the frame overlap, 3000 frames each)."""
     from omnilingual_asr_torch.engine import (SPK_CROP_BATCH,
-                                              SPK_CROP_SECONDS)
+                                              SPK_CROP_SECONDS,
+                                              WINDOW_SECONDS)
     from omnilingual_asr_torch.ops import card_cases
 
     main = _k1_case(dev, peaks, cfg, WINDOWS_PER_BATCH, 3072, 2998, SEED)
@@ -429,11 +458,20 @@ def check_k1(dev, peaks, cfg):
     rest = [_k1_case(dev, peaks, cfg, B, t_pad, valid, SEED + 26 + i)
             for i, (B, t_pad, valid) in enumerate(
                 card_cases.K1_REST_SHAPES.values())]
+    # Sequence mode's (phase 4j): one call over the 330 s file's 11 chunks
+    # of 30 s plus the win - hop overlap.
+    fe = cfg.frontend
+    chunk = int(WINDOW_SECONDS * fe.sample_rate) + fe.win_length \
+        - fe.hop_length
+    seq_valid = fe.frames_for_samples(chunk)
+    seq = _k1_case(dev, peaks, cfg, math.ceil(MESH_SEQ_SECONDS
+                                              / WINDOW_SECONDS),
+                   math.ceil(seq_valid / 256) * 256, seq_valid, SEED + 28)
     return {"name": "log_mel", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/mel.cu",
             "replaces": "omnilingual_asr_tpu/ops/mel_pallas.py:66",
             **main, "shapes": [main, train, crop, eval10, lat, *trainers,
-                               *rest]}
+                               *rest, seq]}
 
 
 def _k1_case(dev, peaks, cfg, B, t_pad, n_frames, seed):
@@ -3185,6 +3223,603 @@ def run_rest_of_training(dev, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4j: the device mesh without tensor parallelism and the packed wire
+# ---------------------------------------------------------------------------
+
+MESH_SEQ_SHARDS = 4         # sequence mode's second mesh
+MESH_SEQ_SECONDS = 330.0    # the tiled file of phase 4e
+MESH_DP_SHARDS = 2          # data-parallel windows
+MESH_EXPERTS = 8
+MESH_EP = (2, 4)            # the all-to-all conformer's (data, model) mesh
+MESH_EP_CAPACITY = 16.0     # nothing drops: equal to the dense dispatch
+MESH_PP = (4, 4)            # pipeline stages and microbatches
+MESH_RING_T, MESH_RING_SHARDS = 4096, 8
+MESH_WIRE_ROUNDS = 6        # warm 120 s requests a wire setting
+# Sequence mode's length ceiling on one card: files of these minutes
+# tried at one shard and at MESH_SEQ_SHARDS, in turn until one runs out of
+# memory; a run and an out-of-memory at each count bracket the ceiling.
+MESH_CEILING_MINUTES = {1: (40, 50), MESH_SEQ_SHARDS: (180, 240)}
+# The grafted MoE model: every expert the release's second FFN times
+# (1 + N(0, MESH_EXPERT_NOISE)) and a router N(0, 1) * MESH_ROUTER_SCALE,
+# both from SEED: a seeded MoE whose greedy ids are not near ties (a
+# random trunk's are, below the card-vs-CPU floor).
+MESH_EXPERT_NOISE = 0.01
+MESH_ROUTER_SCALE = 30.0
+# ring_attention against plain full attention (f32 both): the JAX tests'
+# tolerance at T = 4096.
+TOL_RING_ATOL, TOL_RING_RTOL = 5e-5, 1e-3
+# Whole models against each other (bf16 dense layers; the pipeline and the
+# all-to-all conformer): max abs difference over the largest magnitude,
+# tests/test_torch_model.py's REL_MODEL.
+TOL_MESH_REL_MODEL = 3e-2
+
+
+def _mesh_devices(dev, n: int, distinct: bool):
+    """n shards: all on ``dev``, or spread over the visible cards."""
+    import torch
+
+    if not distinct:
+        return [dev] * n
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def _seq_ids(engine, path) -> list:
+    out = engine._forward_sequence(engine._load_audio(path))
+    return [out[0]["ctc_ids"].astype(int).tolist()]
+
+
+def _win_ids(engine, path) -> list:
+    samples = engine._load_audio(path)
+    windows = engine._windows(samples)
+    n_last = len(samples) - (len(windows) - 1) * engine.window_samples
+    return [o["ctc_ids"].astype(int).tolist()
+            for outs in engine._forward_batches(windows, n_last) for o in outs]
+
+
+def _timed_request(engine, path, dev):
+    """(result dict, wall seconds, peak card bytes, launches) of one
+    ``transcribe``; the counts are set to 0 before it and read after."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _read_counters()
+    t0 = time.perf_counter()
+    res = engine.transcribe(path).to_dict()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (res, secs, torch.cuda.max_memory_allocated(dev),
+            _read_counters())
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _mesh_sequence(dev, cfg, params, xvector, tiled, distinct, total):
+    """(a) Sequence mode on the golden and the tiled file at one shard and
+    at MESH_SEQ_SHARDS: the golden result against golden_sequence.json,
+    the shards' ids against one shard's, K1 launches (one mel, plus the
+    crop batches), wall seconds and peak memory beside window mode."""
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.config import MeshConfig
+    from omnilingual_asr_torch.engine import SPK_CROP_BATCH
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.parallel.mesh import build_mesh
+
+    stored = golden.load_golden_sequence()
+    window = TranscriptionEngine(config=cfg, params=params,
+                                 xvector_params=xvector, device=dev)
+    window.transcribe(golden.GOLDEN_WAV)               # warm
+    engines = {}
+    for n in (1, MESH_SEQ_SHARDS):
+        engines[n] = TranscriptionEngine(
+            config=cfg, params=params, xvector_params=xvector,
+            long_mode="sequence",
+            mesh=build_mesh(MeshConfig(data=n),
+                            _mesh_devices(dev, n, distinct)))
+        engines[n].transcribe(golden.GOLDEN_WAV)       # warm
+    ids = {}
+    for name, path in (("golden", golden.GOLDEN_WAV), ("tiled", tiled)):
+        res_w, secs_w, peak_w, _ = _timed_request(window, path, dev)
+        for n, eng in engines.items():
+            res, secs, peak, counts = _timed_request(eng, path, dev)
+            _add(total, counts)
+            n_seg = len(res["segments"])
+            crops = -(-n_seg // SPK_CROP_BATCH) if n_seg > 1 else 0
+            log("  mesh sequence " + json.dumps({
+                "file": name, "shards": n, "seconds": secs,
+                "peak_bytes": peak, "segments": n_seg,
+                "window_mode_seconds": secs_w,
+                "window_mode_peak_bytes": peak_w,
+                "window_mode_segments": len(res_w["segments"]),
+                "launches": counts, "crop_batches": crops}))
+            if counts["log_mel_frames"] != 1 + crops:
+                raise PhaseError(f"sequence mode {name} x{n}: K1 launched "
+                                 f"{counts['log_mel_frames']} times, "
+                                 f"expected 1 + {crops} crop batches")
+            if counts["flash_attention"] or counts["fused_conv_module"]:
+                raise PhaseError(f"sequence mode {name} x{n}: K2/K3 "
+                                 f"launched ({counts})")
+            ids[name, n] = _seq_ids(eng, path)
+            if name == "golden":
+                bad = golden.result_mismatches(stored["result"], res,
+                                               tone_mass=stored["tone_mass"])
+                agree = golden.ctc_agreement(stored["ctc_ids"], ids[name, n])
+                log(f"  sequence x{n} golden: {n_seg} segments; ids agree "
+                    f"with golden_sequence.json on {agree:.4%}")
+                if bad or agree < golden.MIN_CTC_AGREEMENT:
+                    raise PhaseError(f"sequence x{n} golden: {bad}, ids "
+                                     f"{agree:.4f}")
+        agree = golden.ctc_agreement(ids[name, 1],
+                                     ids[name, MESH_SEQ_SHARDS])
+        log(f"  sequence {name}: {MESH_SEQ_SHARDS} shards agree with one "
+            f"on {agree:.4%} of ids")
+        if agree < golden.MIN_CTC_AGREEMENT:
+            raise PhaseError(f"sequence {name}: shards agree on {agree:.4f}")
+    return engines
+
+
+def _mesh_ceiling(dev, engines) -> dict:
+    """The longest file sequence mode's forward takes on this card, at
+    one shard and at MESH_SEQ_SHARDS: MESH_CEILING_MINUTES tried in order,
+    stopping at the first that runs out of memory (tiled golden audio)."""
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch import testing as golden
+
+    base = engines[1]._load_audio(golden.GOLDEN_WAV)
+    sr = engines[1].config.frontend.sample_rate
+    out = {}
+    for n, minutes in MESH_CEILING_MINUTES.items():
+        runs = []
+        for m in minutes:
+            samples = np.resize(base, int(m * 60 * sr))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            try:
+                engines[n]._forward_sequence(samples)
+                torch.cuda.synchronize()
+                runs.append({"minutes": m, "seconds":
+                             time.perf_counter() - t0, "peak_bytes":
+                             torch.cuda.max_memory_allocated(dev)})
+            except torch.cuda.OutOfMemoryError:
+                runs.append({"minutes": m, "out_of_memory": True})
+                break
+            finally:
+                del samples
+                torch.cuda.empty_cache()
+        out[n] = runs
+        log("  sequence ceiling " + json.dumps({"shards": n, "runs": runs}))
+    return out
+
+
+def _mesh_ring(dev, distinct) -> None:
+    """(b) ring_attention at T = 4096 over 8 shards against plain full
+    attention."""
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch.ops.ring_attention import ring_attention
+    from omnilingual_asr_torch.parallel.mesh import Mesh
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    q, k, v = (torch.randn(1, MESH_RING_T, 1, 64, generator=gen, device=dev)
+               for _ in range(3))
+    mask = torch.ones(1, MESH_RING_T, dtype=torch.bool, device=dev)
+    mesh = Mesh(np.asarray(_mesh_devices(dev, MESH_RING_SHARDS, distinct),
+                           dtype=object), ("data",))
+    t0 = time.perf_counter()
+    got = ring_attention(q, k, v, mask, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    s = torch.einsum("bthd,bshd->bhts", q, k) / 8.0
+    want = torch.einsum("bhts,bshd->bthd", torch.softmax(s, dim=-1), v)
+    err = (got - want).abs()
+    bad = int((err > TOL_RING_ATOL + TOL_RING_RTOL * want.abs()).sum())
+    log(f"  ring attention T={MESH_RING_T} over {MESH_RING_SHARDS} shards: "
+        f"max abs err {float(err.max()):.3e} against full attention "
+        f"({secs:.3f} s)")
+    if bad:
+        raise PhaseError(f"ring attention: {bad} elements outside atol "
+                         f"{TOL_RING_ATOL} + rtol {TOL_RING_RTOL}")
+
+
+def _mesh_data_parallel(dev, cfg, params, xvector, tiled, distinct, total):
+    """(c) Data-parallel windows: MESH_DP_SHARDS shards of 2 windows
+    against one shard of 2, result for result (each shard's program sees
+    the one-shard program's shapes and rows), and against one shard of 4
+    by ids (a batch of 4 rounds its reductions in another order on the
+    card), unquantized and under "a8", on the golden and the 120 s file;
+    K1-K3 (and K5) launches a shard batch."""
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.config import MeshConfig
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.parallel.mesh import build_mesh
+
+    L = cfg.encoder.n_layers
+    per_shard = WINDOWS_PER_BATCH // MESH_DP_SHARDS
+    for quantize in (False, "a8"):
+        def engine(b, mesh=None):
+            return TranscriptionEngine(
+                config=cfg, params=params, xvector_params=xvector,
+                quantize=quantize, batch_windows_per_device=b, mesh=mesh,
+                device=None if mesh else dev)
+
+        same = engine(per_shard)
+        four = engine(WINDOWS_PER_BATCH)
+        dp = engine(per_shard, build_mesh(
+            MeshConfig(data=MESH_DP_SHARDS),
+            _mesh_devices(dev, MESH_DP_SHARDS, distinct)))
+        for name, path in (("golden", golden.GOLDEN_WAV), ("tiled", tiled)):
+            want, secs_same, _, _ = _timed_request(same, path, dev)
+            want4, secs_four, _, _ = _timed_request(four, path, dev)
+            got, secs, _, counts = _timed_request(dp, path, dev)
+            _add(total, counts)
+            n_shard_batches = _n_batches(dp, [path]) * MESH_DP_SHARDS
+            per = {k: v / n_shard_batches for k, v in counts.items()}
+            agree4 = golden.ctc_agreement(_win_ids(four, path),
+                                          _win_ids(dp, path))
+            log("  mesh data-parallel " + json.dumps({
+                "quantize": quantize, "file": name, "seconds": secs,
+                "one_shard_of_2_seconds": secs_same,
+                "one_shard_of_4_seconds": secs_four,
+                "equal_to_one_shard_of_2": got == want,
+                "ids_agree_one_shard_of_4": agree4,
+                "text_mismatches_one_shard_of_4": len(
+                    golden.result_mismatches(want4, got)),
+                "launches_per_shard_batch": per}))
+            if got != want or agree4 < golden.MIN_CTC_AGREEMENT:
+                raise PhaseError(
+                    f"data-parallel {quantize} {name}: "
+                    f"{golden.result_mismatches(want, got)}, ids against "
+                    f"one shard of 4 {agree4:.4f}")
+            want_per = {"log_mel_frames": 1, "flash_attention": L,
+                        "fused_conv_module": L,
+                        "quantized_matmul_a8": (2 * L + 2 if quantize
+                                                else 0)}
+            for k, n in want_per.items():
+                if counts[k] != n * n_shard_batches:
+                    raise PhaseError(f"data-parallel {quantize} {name}: {k} "
+                                     f"launched {counts[k]}, expected {n} x "
+                                     f"{n_shard_batches} shard batches")
+
+
+def _graft_moe(params, n_experts: int):
+    """The release tree with each block's second FFN a mixture of
+    ``n_experts`` seeded perturbations of it behind a seeded router."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 50)
+    out = {**params, "blocks": []}
+    for blk in params["blocks"]:
+        f = {k: {n: t.detach().cpu() for n, t in v.items()}
+             for k, v in blk["ffn2"].items()}
+        d = f["w1"]["w"].shape[0]
+
+        def noisy(t):
+            return torch.stack([t * (1 + MESH_EXPERT_NOISE * torch.randn(
+                t.shape, generator=gen)) for _ in range(n_experts)])
+
+        dev = blk["ffn2"]["w1"]["w"].device
+        moe = {"ln": f["ln"],
+               "router": {"w": MESH_ROUTER_SCALE * torch.randn(
+                   d, n_experts, generator=gen)},
+               "w1": noisy(f["w1"]["w"]), "b1": noisy(f["w1"]["b"]),
+               "w2": noisy(f["w2"]["w"]), "b2": noisy(f["w2"]["b"])}
+        out["blocks"].append({**blk, "ffn2": {
+            k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+                else v.to(dev)) for k, v in moe.items()}})
+    return out
+
+
+def _mesh_moe(dev, cfg, params, xvector, tiled, distinct, total):
+    """(d) MoE: the engine with the grafted release MoE on the card against
+    the port's CPU engine; the all-to-all conformer on a (2, 4) mesh
+    against dense dispatch; the drop count at capacity 1; one kernel-mode
+    training step at PipelineConfig() with 8 experts and one update on the
+    card against the CPU."""
+    import dataclasses
+
+    import torch
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.config import MeshConfig
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.models.conformer import asr_forward
+    from omnilingual_asr_torch.models.moe import moe_ffn_init
+    from omnilingual_asr_torch.models.zoo import tree_to
+    from omnilingual_asr_torch.parallel.expert_dispatch import ep_moe_apply
+    from omnilingual_asr_torch.parallel.mesh import build_mesh
+
+    L = cfg.encoder.n_layers
+    mcfg = cfg.replace(encoder=dataclasses.replace(
+        cfg.encoder, n_experts=MESH_EXPERTS))
+    mparams = _graft_moe(params, MESH_EXPERTS)
+    card = TranscriptionEngine(config=mcfg, params=mparams,
+                               xvector_params=xvector, device=dev)
+    cpu = TranscriptionEngine(config=mcfg, params=tree_to(mparams, "cpu"),
+                              xvector_params=tree_to(xvector, "cpu"),
+                              device="cpu")
+    for name, path in (("golden", golden.GOLDEN_WAV), ("tiled", tiled)):
+        res, secs, peak, counts = _timed_request(card, path, dev)
+        _add(total, counts)
+        n_b = _n_batches(card, [path])
+        for k, n in (("log_mel_frames", 1), ("flash_attention", L),
+                     ("fused_conv_module", L)):
+            if counts[k] != n * n_b:
+                raise PhaseError(f"MoE engine {name}: {k} launched "
+                                 f"{counts[k]}, expected {n} x {n_b}")
+        agree = golden.ctc_agreement(_win_ids(cpu, path),
+                                     _win_ids(card, path))
+        log("  mesh moe engine " + json.dumps({
+            "file": name, "seconds": secs, "peak_bytes": peak,
+            "segments": len(res["segments"]), "ids_agree_cpu": agree,
+            "launches_per_batch": {k: v / n_b for k, v in counts.items()}}))
+        if agree < golden.MIN_CTC_AGREEMENT:
+            raise PhaseError(f"MoE engine {name}: card and CPU ids agree "
+                             f"on {agree:.4f}")
+    del cpu
+    # The all-to-all conformer on a (data, model) mesh of shards, with
+    # seeded experts (moe_ffn_init) in the release trunk: the grafted
+    # router above is so peaked that f32 rounding in the blocks before it
+    # moves near-tie gates, and its outputs differ card vs CPU by ~0.1 of
+    # their largest magnitude in either dispatch.
+    gen_cpu = torch.Generator().manual_seed(SEED + 54)
+    sparams = {**params, "blocks": [
+        {**blk, "ffn2": tree_to(moe_ffn_init(
+            gen_cpu, cfg.encoder.d_model, MESH_EXPERTS,
+            cfg.encoder.ffn_mult), dev)} for blk in params["blocks"]]}
+    ecfg = mcfg.replace(encoder=dataclasses.replace(
+        mcfg.encoder, moe_dispatch="alltoall",
+        moe_capacity_factor=MESH_EP_CAPACITY))
+    mesh = build_mesh(MeshConfig(*MESH_EP),
+                      _mesh_devices(dev, MESH_EP[0] * MESH_EP[1], distinct))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    mel = torch.randn(2, 768, cfg.frontend.n_mels, generator=gen,
+                      device=dev) * 2.0 - 5.0
+    mask = torch.ones(2, 768, dtype=torch.bool, device=dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ep = asr_forward(sparams, mel, mask, ecfg, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        dense = asr_forward(sparams, mel, mask, mcfg)
+        x = torch.randn(2 * 192, cfg.encoder.d_model, generator=gen,
+                        device=dev)
+        stats = {}
+        ep_moe_apply(sparams["blocks"][0]["ffn2"], x, mesh,
+                     capacity_factor=1.0, data_axis="data", stats=stats)
+    errs = {}
+    for key in ("ctc_logits", "encoder_states"):
+        a, b = ep[key].float(), dense[key].float()
+        errs[key] = float((a - b).abs().max() / b.abs().max())
+    log("  mesh moe all-to-all " + json.dumps({
+        "mesh": mesh.shape, "capacity_factor": MESH_EP_CAPACITY,
+        "seconds": secs, "rel_err_vs_dense": errs,
+        "capacity_1_dropped": stats["dropped"],
+        "capacity_1_tokens": x.shape[0],
+        "capacity_1_slots": stats["capacity"]}))
+    if max(errs.values()) > TOL_MESH_REL_MODEL:
+        raise PhaseError(f"all-to-all conformer against dense: {errs}")
+    _moe_train_step(dev, total)
+
+
+def _moe_train_step(dev, total):
+    """One kernel-mode training step at PipelineConfig() with MESH_EXPERTS
+    experts, batch TRAIN_BATCH: finite loss, moe_aux, exactly K1 1 and K2,
+    K3, K6, K7 n_layers each; then one update on the card against the CPU
+    at batch 2 (gradients within testing.TRAINER_GRAD_REL a leaf)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.ops import attention as A
+    from omnilingual_asr_torch.train.step import (CTC_INFEASIBLE, ctc_rows,
+                                                  make_train_step,
+                                                  tree_leaves, tree_map)
+    from omnilingual_asr_torch.train.synth import SynthBatcher
+
+    cfg = PipelineConfig()
+    cfg = cfg.replace(encoder=dataclasses.replace(
+        cfg.encoder, n_experts=MESH_EXPERTS, use_flash_attention=True,
+        use_fused_conv=True))
+    L = cfg.encoder.n_layers
+    mult = A.REFERENCE_BLOCK_Q * cfg.encoder.subsample_factor
+
+    def batch_of(n, seed):
+        batcher = SynthBatcher(cfg, batch_size=n, seed=seed,
+                               frame_multiple=mult, n_threads=1)
+        try:
+            b = next(iter(batcher))
+        finally:
+            batcher.close()
+        b["samples"] = np.clip(b["samples"] * 32768.0, -32768,
+                               32767).astype(np.int16)
+        return b
+
+    def on(b, where):
+        out = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+        out[CTC_INFEASIBLE] = ctc_rows(b, cfg)
+        return out
+
+    init, train_step, loss_and_grads = make_train_step(cfg, dev,
+                                                       from_samples=True)
+    state = init(SEED)
+    big = batch_of(TRAIN_BATCH, SEED + 52)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _read_counters()
+    t0 = time.perf_counter()
+    out = train_step(state.params, state.opt_state, on(big, dev), 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _read_counters()
+    _add(total, counts)
+    metrics = {k: float(v) for k, v in out[3].items()}
+    log("  mesh moe train step " + json.dumps({
+        "experts": MESH_EXPERTS, "batch": TRAIN_BATCH, "seconds": secs,
+        "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "metrics": metrics, "launches": counts}))
+    if "moe_aux" not in metrics or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise PhaseError(f"MoE train step: metrics {metrics}")
+    for k, n in (("log_mel_frames", 1), ("flash_attention", L),
+                 ("fused_conv_module", L), ("flash_attention_bwd_dq", L),
+                 ("flash_attention_bwd_dkv", L)):
+        if counts[k] != n:
+            raise PhaseError(f"MoE train step: {k} launched {counts[k]} "
+                             f"times, expected {n}")
+    small = batch_of(2, SEED + 53)
+    grads, losses = {}, {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        _, _, lg = make_train_step(cfg, where, from_samples=True)
+        p = tree_map(lambda t: t.detach().to(where).requires_grad_(True),
+                     state.params)
+        m, g = lg(p, on(small, where), 0)
+        losses[label] = float(m["loss"])
+        grads[label] = [x.detach().cpu() if x is not None
+                        else torch.zeros_like(y.detach().cpu())
+                        for x, y in zip(g, tree_leaves(p))]
+    _read_counters()
+    worst = 0.0
+    for a, b in zip(grads["card"], grads["cpu"]):
+        nb = float(b.norm())
+        err = float((a - b).norm()) / nb if nb > 0 else float(a.norm())
+        worst = max(worst, err)
+    log(f"  mesh moe update on the card against the CPU: loss "
+        f"{losses['card']:.6f} / {losses['cpu']:.6f}, worst leaf gradient "
+        f"relative L2 {worst:.3e} (tol {golden.TRAINER_GRAD_REL})")
+    if not math.isfinite(worst) or worst > golden.TRAINER_GRAD_REL:
+        raise PhaseError(f"MoE update: worst gradient leaf {worst:.3e}")
+
+
+def _mesh_pipeline(dev, cfg, params, distinct) -> None:
+    """(e) pipeline_forward with MESH_PP stages and microbatches at the
+    release block width against apply_stacked_blocks."""
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch.models import layers
+    from omnilingual_asr_torch.parallel.mesh import Mesh
+    from omnilingual_asr_torch.parallel.pipeline import (
+        apply_stacked_blocks, pipeline_forward, stack_blocks)
+
+    S, M = MESH_PP
+    enc = cfg.encoder
+    stacked = stack_blocks(params["blocks"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    T = 768
+    x_mb = torch.randn(M, 2, T, enc.d_model, generator=gen, device=dev)
+    mask = torch.ones(2, T, dtype=torch.bool, device=dev)
+    mask[1, 500:] = False
+    cos, sin = layers.rope_angles(T, enc.head_dim, device=dev)
+    mesh = Mesh(np.asarray(_mesh_devices(dev, S, distinct), dtype=object),
+                ("stage",))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        got = pipeline_forward(stacked, x_mb, mask, cos, sin, cfg, mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        errs = []
+        for m in range(M):
+            want = apply_stacked_blocks(stacked, x_mb[m], mask, cos, sin,
+                                        cfg, torch.bfloat16)
+            errs.append(float((got[m] - want).abs().max()
+                              / want.abs().max()))
+    log(f"  mesh pipeline S={S} M={M}: relative errors against the "
+        f"stacked blocks {errs} ({secs:.3f} s)")
+    if max(errs) > TOL_MESH_REL_MODEL:
+        raise PhaseError(f"pipeline against stacked blocks: {errs}")
+
+
+def _mesh_wire(dev, cfg, params, xvector, tiled, total) -> None:
+    """(f) The packed wire on the 120 s file: results with it on equal
+    results with it off; device-to-host copies a batch and warm seconds,
+    the two engines' requests interleaved (on, off, off, on, ...)."""
+    import dataclasses
+
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+
+    engines, runs = {}, {}
+    for pack in (True, False):
+        c = cfg.replace(decode=dataclasses.replace(cfg.decode,
+                                                   wire_pack=pack))
+        engines[pack] = TranscriptionEngine(config=c, params=params,
+                                            xvector_params=xvector,
+                                            device=dev)
+        engines[pack].transcribe(tiled)                       # warm
+        runs[pack] = {"warm_seconds": [], "copies": engines[pack].d2h_copies}
+    for rnd in range(MESH_WIRE_ROUNDS):
+        for pack in ((True, False) if rnd % 2 == 0 else (False, True)):
+            res, secs, _, counts = _timed_request(engines[pack], tiled, dev)
+            _add(total, counts)
+            runs[pack]["warm_seconds"].append(secs)
+            runs[pack]["result"] = res
+    n_b = _n_batches(engines[True], [tiled])
+    for pack, r in runs.items():
+        r["warm_seconds_median"] = statistics.median(r["warm_seconds"])
+        r["d2h_copies_per_batch"] = ((engines[pack].d2h_copies - r["copies"])
+                                     / (MESH_WIRE_ROUNDS * n_b))
+    log("  mesh packed wire " + json.dumps({
+        ("on" if k else "off"): {n: v for n, v in r.items()
+                                 if n not in ("result", "copies")}
+        for k, r in runs.items()}))
+    if runs[True]["result"] != runs[False]["result"]:
+        raise PhaseError("the packed wire changes the 120 s result")
+    if runs[True]["d2h_copies_per_batch"] != 1:
+        raise PhaseError(f"packed wire: {runs[True]['d2h_copies_per_batch']}"
+                         f" copies a batch")
+
+
+def run_mesh(dev, cfg, params, xvector, smi) -> dict:
+    """Phase 4j. Meshes are shards on ``dev`` (and, where more than one
+    card is visible, (a)-(e) again over distinct cards). Returns the
+    launches of each kernel over the phase's requests and steps."""
+    import torch
+    from omnilingual_asr_torch import testing as golden
+
+    tiled = PKG / "_build" / "smoke_tiled.wav"
+    write_tiled_wav(golden.GOLDEN_WAV, tiled, TILED_SECONDS)
+    long_path = PKG / "_build" / "mesh_330.wav"
+    write_tiled_wav(golden.GOLDEN_WAV, long_path, MESH_SEQ_SECONDS)
+    total: dict = {}
+    variants = [False] + ([True] if torch.cuda.device_count() > 1 else [])
+    for distinct in variants:
+        where = "distinct cards" if distinct else f"shards on {dev}"
+        log(f"  mesh variant: {where}")
+        t0 = time.perf_counter()
+        engines = _mesh_sequence(dev, cfg, params, xvector, long_path,
+                                 distinct, total)
+        log(f"  (a) sequence mode {time.perf_counter() - t0:.2f} s")
+        if not distinct:
+            t0 = time.perf_counter()
+            _mesh_ceiling(dev, engines)
+            log(f"  sequence ceiling {time.perf_counter() - t0:.2f} s")
+        del engines
+        torch.cuda.empty_cache()
+        for label, fn in (
+                ("(b) ring attention", lambda: _mesh_ring(dev, distinct)),
+                ("(c) data-parallel windows", lambda: _mesh_data_parallel(
+                    dev, cfg, params, xvector, tiled, distinct, total)),
+                ("(d) mixture of experts", lambda: _mesh_moe(
+                    dev, cfg, params, xvector, tiled, distinct, total)),
+                ("(e) pipeline", lambda: _mesh_pipeline(
+                    dev, cfg, params, distinct))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.empty_cache()
+            log(f"  {label} {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _mesh_wire(dev, cfg, params, xvector, tiled, total)
+    log(f"  (f) packed wire {time.perf_counter() - t0:.2f} s")
+    log(f"  mesh launches {json.dumps(total)} ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 4c (--profile): where a request's and a train step's time goes
 # ---------------------------------------------------------------------------
 
@@ -3485,6 +4120,11 @@ def main(argv=None) -> int:
         rest = run_rest_of_training(dev, smi)
         log(f"[rest] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "mesh"
+        t0 = time.perf_counter()
+        mesh = run_mesh(dev, cfg, params, xvector, smi)
+        log(f"[mesh] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -3503,7 +4143,7 @@ def main(argv=None) -> int:
         paths = {"serving": serving, "training": training,
                  "decoders": decoding, "server": served, "d512": d512,
                  "evals": evals, "trainers": trainers,
-                 "rest_of_training": rest}
+                 "rest_of_training": rest, "mesh": mesh}
         line = {"kernels": []}
         for k in kernels:
             fn = by_fn[k["name"]]

@@ -1,7 +1,7 @@
-"""TranscriptionEngine on PyTorch: window-mode serving on one CUDA card.
+"""TranscriptionEngine on PyTorch: serving on CUDA cards.
 
-The PyTorch port of ``omnilingual_asr_tpu/engine.py`` in window mode, with
-the same surface and semantics: ``transcribe``, ``transcribe_chunked``,
+The PyTorch port of ``omnilingual_asr_tpu/engine.py``, with the same
+surface and semantics: ``transcribe``, ``transcribe_chunked``,
 ``transcribe_with_retry``, ``transcribe_streaming`` (partial segments after
 each device batch, then the final result) and ``health_check``, the 4-step
 progress contract, the result types and the StageTrace stage names
@@ -11,8 +11,13 @@ here: prefix beam search with the lexicon LM (``decode.beam_size > 1``,
 ``ops/beam.py``, ``ops/lexicon.py``), per-segment speaker re-embedding
 (``speaker_mode="crop"``), μ-law ingress (``ingress="mulaw"``,
 ``audio/codec.py``) and the slim speaker wire (``decode.spk_frame_stride``,
-``decode.spk_wire="i8"``). Only ``long_mode="sequence"`` (a file as one
-sequence over several devices) raises.
+``decode.spk_wire="i8"``), and the mesh modes without tensor
+parallelism: windows split over the ``data`` axis of a mesh
+(``parallel/mesh.py``), ``long_mode="sequence"`` (a whole file as one
+sequence over that axis: ring attention and the conv halo exchange,
+``parallel/sequence.py``) and the packed wire (``decode.wire_pack``: a
+batch's outputs come back in one device-to-host copy, ``ops/pack.py``).
+A mesh whose ``model`` axis is above 1 (tensor parallelism) raises.
 
 Execution model:
 - audio is decoded on the host by the native ``omniaudio`` library (and
@@ -24,7 +29,10 @@ Execution model:
   ``quantize="w8"``/``"a8"``, the int8 matmul kernels K4/K5), the heads, the
   x-vector embedder, argmax, LID confidence and frame energy, all on the card;
 - every batch is enqueued on a CUDA stream before any is collected, so host
-  extraction of batch k overlaps the device work of later batches;
+  extraction of batch k overlaps the device work of later batches; on a
+  mesh, each data shard's windows run on its device with the parameters
+  replicated there (one copy a distinct device), and the outputs are
+  gathered in window order;
 - CTC collapse, segmentation, pooling, the beam search over the device's
   per-frame top-K scores and whole-file speaker clustering run on the host,
   exactly as in the JAX engine; in crop mode each segment's audio is
@@ -70,11 +78,11 @@ from .audio.codec import mulaw_decode, mulaw_encode
 from .audio.decode import decode_audio, get_audio_duration
 from .audio.native_lib import native_available, native_decode
 from .audio.resample import resample
-from .config import PipelineConfig
+from .config import MeshConfig, PipelineConfig
 from .diarization.cluster import DEFAULT_THRESHOLD as CLUSTER_DEFAULT_THRESHOLD
 from .diarization.cluster import cluster_speakers
 from .models import languages as lang_table
-from .models.conformer import (asr_forward, asr_init,
+from .models.conformer import (SPK_DIM, asr_forward, asr_init,
                                pooled_speaker_embed_np, subsampled_mask)
 from .models.orthography import ctc_logit_mask
 from .models.summarizer import (SummaryDecoder, summary_consistent,
@@ -92,7 +100,10 @@ from .ops.ctc import segments_from_alignment
 from .ops.cuda_build import KernelBuildError
 from .ops.lexicon import TrieLM, synth_lexicon
 from .ops.mel import BLOCK_T, MelFrontend
+from .ops.pack import layout_of, pack_tree, unpack_buffer
 from .ops.quant import add_kernel_layouts, quantize_param_tree
+from .parallel.mesh import Mesh, build_mesh
+from .parallel.sequence import sp_conformer_forward
 from .types import EMOTIONS, TranscriptSegment, TranscriptionResult
 from .utils.tracing import StageTrace
 
@@ -154,10 +165,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch engine yet ({item} in "
-        f"ROADMAP.md, Queue A)")
+@dataclasses.dataclass
+class _Replica:
+    """What one device of the data axis computes a shard batch with: the
+    parameters, the x-vector embedder, the mel constants and a stream."""
+    device: torch.device
+    params: dict
+    xvector: Optional[dict]
+    frontend: MelFrontend
+    stream: Optional["torch.cuda.Stream"]
 
 
 def _progress_reporters(progress_callback: ProgressCallback):
@@ -192,7 +208,7 @@ def _progress_reporters(progress_callback: ProgressCallback):
 
 
 class TranscriptionEngine:
-    """Local GPU ASR engine with the JAX engine's surface (window mode).
+    """Local GPU ASR engine with the JAX engine's surface.
 
     ``api_key`` and ``model`` are accepted for drop-in compatibility and
     ignored. On CUDA the constructor sets ``torch.backends.cuda.matmul.
@@ -204,14 +220,23 @@ class TranscriptionEngine:
     into the bf16 matmuls; ``"w8"`` and ``"a8"`` also route the layers that
     the kernels take (in_dim % 128 == 0, out_dim % 512 == 0) through the
     W8A16 kernel K4 or the W8A8 kernel K5 (``ops/quant.py``). The JAX
-    engine refuses the kernel modes under tensor parallelism; the port runs
-    on one card, so that check has no counterpart here.
+    engine refuses the kernel modes under tensor parallelism; the port
+    refuses tensor parallelism itself.
 
     ``speaker_mode``: ``"inline"`` pools the main forward's speaker frames;
     ``"crop"`` re-embeds each segment's audio in a forward of its own;
     ``"auto"`` (the default) is inline with x-vector weights, crop without.
     ``ingress``: ``"i16"`` ships int16 windows to the card, ``"mulaw"``
     8-bit μ-law codes decoded on the card before the frontend.
+
+    ``mesh`` (``parallel.mesh.build_mesh``): the windows of a batch split
+    over its ``data`` axis, ``batch_windows_per_device`` a shard, and in
+    sequence mode a file's frames split over it. Devices may repeat (a
+    mesh of shards on one card). Without a mesh, an engine given
+    ``device`` runs on a mesh of that one device, and one given neither
+    spans every visible CUDA device along ``data`` (the JAX engine spans
+    ``jax.devices()``); its primary device (the mesh's first) runs the
+    crop re-embedding and the decoders. A ``model`` axis above 1 raises.
     """
 
     def __init__(
@@ -235,6 +260,7 @@ class TranscriptionEngine:
         speaker_mode: Optional[str] = None,
         xvector_params=None,
         xvector_path: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         if long_mode not in ("window", "sequence"):
             raise ValueError(f"long_mode must be 'window' or 'sequence', "
@@ -251,15 +277,33 @@ class TranscriptionEngine:
         if ingress not in ("i16", "mulaw"):
             raise ValueError(f"ingress must be 'i16' or 'mulaw', "
                              f"got {ingress!r}")
-        if long_mode == "sequence":
-            raise _not_ported("long_mode='sequence'", "A10")
+        #: "window": 30 s windows batched over the mesh's data axis.
+        #: "sequence": a whole file as one sequence split over that axis.
+        self.long_mode = long_mode
         self.ingress = ingress
 
         self.config = config or PipelineConfig.from_env()
         cfg = self.config
         self.model = model
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        if mesh is None:
+            if device is not None:
+                mesh = build_mesh(MeshConfig(data=1, model=1),
+                                  [resolve_device(device)])
+            else:
+                resolve_device(None)   # raises without CUDA
+                mesh = build_mesh(cfg.mesh)
+        elif device is not None and resolve_device(device) != \
+                mesh.devices.flat[0]:
+            raise ValueError(f"device {device!r} is not the mesh's first "
+                             f"device {mesh.devices.flat[0]}")
+        if mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"a mesh with model axis {mesh.shape['model']} is tensor "
+                f"parallelism, which is not ported to the PyTorch engine "
+                f"yet (A10 tensor parallelism in ROADMAP.md, Queue A)")
+        self.mesh = mesh
+        self.device = mesh.devices.flat[0]
+        if any(d.type == "cuda" for d in mesh.distinct_devices()):
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.last_trace: Optional[StageTrace] = None
@@ -376,7 +420,10 @@ class TranscriptionEngine:
         n_frames = fe.frames_for_samples(self.window_samples)
         self.window_frames = _round_up(n_frames, math.lcm(BLOCK_T, sub))
         self.frame_dur_s = fe.hop_length * sub / fe.sample_rate
-        self.batch_size = batch_windows_per_device
+        #: Windows a batch: ``batch_windows_per_device`` a data shard.
+        self.n_data = self.mesh.shape["data"]
+        self.shard_batch = batch_windows_per_device
+        self.batch_size = batch_windows_per_device * self.n_data
         # Crop geometry: SPK_CROP_SECONDS of samples, their frames padded
         # as a window's are.
         self.crop_samples = int(SPK_CROP_SECONDS * fe.sample_rate)
@@ -402,9 +449,12 @@ class TranscriptionEngine:
         #: (as in the JAX engine), on the conv weights as loaded.
         self._crop_config = cfg.replace(encoder=dataclasses.replace(
             cfg.encoder, use_flash_attention=False, use_fused_conv=False))
-        self._crop_params = self.params
-        if use_fused_conv and speaker_mode == "crop":
-            self._crop_params = {**self.params, "blocks": [
+        #: The parameters as loaded (f32 conv weights): the crop
+        #: re-embedding's and sequence mode's.
+        self._plain_params = self.params
+        if use_fused_conv and (speaker_mode == "crop"
+                               or long_mode == "sequence"):
+            self._plain_params = {**self.params, "blocks": [
                 {**blk, "conv": dict(blk["conv"])}
                 for blk in self.params["blocks"]]}
         if use_fused_conv:
@@ -419,17 +469,73 @@ class TranscriptionEngine:
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
-            torch.cuda.synchronize(self.device)   # weights are on the card
+        #: One replica a distinct device of the data axis (the primary's
+        #: holds the engine's own tensors); shard i of a batch runs on
+        #: ``self._replicas[i]``.
+        primary = _Replica(self.device, self.params, self._xvector,
+                           self._frontend, self._stream)
+        by_device = {self.device: primary}
+        for d in self.mesh.axis_devices("data"):
+            if d not in by_device:
+                by_device[d] = _Replica(
+                    d, tree_to(self.params, d),
+                    tree_to(self._xvector, d) if self._xvector else None,
+                    MelFrontend(fe, d),
+                    torch.cuda.Stream(d) if d.type == "cuda" else None)
+        self._replicas = [by_device[d]
+                          for d in self.mesh.axis_devices("data")]
+        #: The packed wire's layout of a shard batch's outputs, fixed here
+        #: (None: the outputs come back leaf by leaf).
+        self._out_layout = (layout_of(self._wire_spec(self.shard_batch))
+                            if cfg.decode.wire_pack else None)
+        #: Device-to-host copies the window path has made (a packed shard
+        #: batch makes one).
+        self.d2h_copies = 0
+        #: Sequence mode's frontend (pre-emphasis on the host), built on
+        #: first use.
+        self._seq_frontend: Optional[MelFrontend] = None
+        for d in self.mesh.distinct_devices():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)   # weights are on the card
 
     # ------------------------------------------------------------------
     # The per-batch device program
     # ------------------------------------------------------------------
 
+    def _wire_spec(self, B: int) -> Dict[str, tuple]:
+        """{name: (dtype, shape)} of ``_process``'s outputs for B windows:
+        the packed wire's layout (``ops/pack.py::layout_of``)."""
+        cfg = self.config
+        Tp = self.window_frames // cfg.encoder.subsample_factor
+        stride = max(1, cfg.decode.spk_frame_stride)
+        Ts = Tp // stride if stride > 1 else Tp
+        spec = {"ctc_ids": (torch.int16, (B, Tp)),
+                "lid_ids": (torch.int16, (B, Tp)),
+                "lid_conf": (torch.float16, (B, Tp)),
+                "emotion_logits": (torch.float16, (B, Tp, len(EMOTIONS))),
+                "frame_energy": (torch.float16, (B, Tp)),
+                "mask": (torch.bool, (B, Tp))}
+        if cfg.decode.spk_wire == "i8":
+            spec["speaker_frames_q"] = (torch.int8, (B, Ts, SPK_DIM))
+            spec["speaker_scale"] = (torch.float16, (B, Ts))
+        else:
+            spec["speaker_frames"] = (torch.float16, (B, Ts, SPK_DIM))
+        if cfg.decode.beam_size > 1:
+            K = min(BEAM_TOPK, 1 + cfg.vocab.n_bytes)
+            spec["ctc_topk_logp"] = (torch.float32, (B, Tp, K))
+            spec["ctc_topk_ids"] = (torch.int16, (B, Tp, K))
+        if self._states_consumer:
+            spec["encoder_states"] = (torch.float16,
+                                      (B, Tp, cfg.encoder.d_model))
+        return spec
+
     @torch.inference_mode()
     def _process(self, samples_i16: torch.Tensor, n_valid: torch.Tensor,
-                 ctc_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                 ctc_mask: torch.Tensor,
+                 rep: Optional[_Replica] = None) -> Dict[str, torch.Tensor]:
         """Raw int16 samples [B, window_samples] (or uint8 μ-law codes)
-        -> compact head outputs.
+        -> compact head outputs, on ``rep``'s device (default: the
+        primary's).
 
         n_valid: [B] int32 valid mel frames per window (0 for a padded
         slot). Outputs carry the JAX engine's wire dtypes (i16 ids, f16
@@ -441,7 +547,8 @@ class TranscriptionEngine:
         """
         cfg = self.config
         icfg = self.infer_config
-        fe = self._frontend
+        rep = rep or self._replicas[0]
+        fe = rep.frontend
         B = samples_i16.shape[0]
         if samples_i16.dtype == torch.uint8:          # μ-law wire format
             samples = mulaw_decode(samples_i16)
@@ -451,7 +558,7 @@ class TranscriptionEngine:
         mel = fe.log_mel(frames)[:, :self.window_frames]
         frame_idx = torch.arange(self.window_frames, device=mel.device)
         mask = frame_idx[None, :] < n_valid[:, None]
-        out = asr_forward(self.params, mel, mask, icfg,
+        out = asr_forward(rep.params, mel, mask, icfg,
                           quant=self._quant_kernel)
         # Per-subsampled-frame energy (dB proxy) for host-side pooling.
         e = torch.logsumexp(mel, dim=-1) * (10.0 / math.log(10.0))
@@ -464,8 +571,8 @@ class TranscriptionEngine:
         lid_ids = torch.argmax(out["lid_logits"], dim=-1)
         lid_conf = torch.softmax(out["lid_logits"], dim=-1).amax(dim=-1)
         spk_frames = out["speaker_frames"]
-        if self._xvector is not None:
-            spk_frames = xvector_frames(self._xvector, mel, mask)
+        if rep.xvector is not None:
+            spk_frames = xvector_frames(rep.xvector, mel, mask)
         stride = max(1, cfg.decode.spk_frame_stride)
         if stride > 1:
             T2 = spk_frames.shape[1] // stride
@@ -579,16 +686,17 @@ class TranscriptionEngine:
         """Generator over device batches: yields a list of per-window host
         dicts per completed batch.
 
-        Every batch is enqueued on the engine's CUDA stream (program and
-        device-to-host copies) before the first is collected, so host work on
-        batch k overlaps device work on later batches. The enqueue runs under
-        the engine's device lock; the collection (waiting on each batch's
-        event) does not. ``windows`` may be a lazy iterable; pass
-        ``n_windows`` then.
+        Every batch is enqueued (program and device-to-host copies) before
+        the first is collected, so host work on batch k overlaps device
+        work on later batches. A batch's windows split over the mesh's data
+        shards, ``shard_batch`` each, each shard on its replica's device and
+        stream; with the packed wire a shard's outputs come back in one
+        copy. The enqueue runs under the engine's device lock; the
+        collection (waiting on each shard's event) does not. ``windows``
+        may be a lazy iterable; pass ``n_windows`` then.
         """
         cfg = self.config
-        B = self.batch_size
-        dev = self.device
+        B, Bs = self.batch_size, self.shard_batch
         n_win = n_windows if n_windows is not None else len(windows)
         win_iter = iter(windows)
 
@@ -597,53 +705,75 @@ class TranscriptionEngine:
             return min(cfg.frontend.frames_for_samples(n_s),
                        self.window_frames)
 
-        on_cuda = dev.type == "cuda"
-        ctx = (torch.cuda.stream(self._stream) if on_cuda
-               else contextlib.nullcontext())
         pending = []
         with self._device_lock:
-            if on_cuda:   # the stream starts after earlier default work
-                self._stream.wait_stream(torch.cuda.current_stream(dev))
-            with ctx:
-                ctc_mask = torch.from_numpy(
-                    ctc_logit_mask(orthography, cfg.vocab)).to(dev)
-                for b0 in range(0, n_win, B):
-                    batch = [next(win_iter)
-                             for _ in range(min(B, n_win - b0))]
-                    rows = [w for _, w in batch]
-                    n_valid = [frames_for(b0 + k) for k in range(len(batch))]
-                    while len(rows) < B:   # pad the batch to its static size
-                        rows.append(np.zeros_like(rows[0]))
-                        n_valid.append(0)
-                    rows = np.stack(rows)
-                    if self.ingress == "mulaw":
-                        if rows.dtype == np.int16:
-                            rows = rows.astype(np.float32) * (1.0 / 32768.0)
-                        rows = mulaw_encode(rows)
-                    elif rows.dtype != np.int16:
-                        rows = np.clip(rows * 32768.0, -32768,
-                                       32767).astype(np.int16)
-                    host = torch.from_numpy(rows)
-                    nv = torch.tensor(n_valid, dtype=torch.int32)
-                    if on_cuda:
-                        host = host.pin_memory()
-                    out = self._dispatch_batch(
-                        host.to(dev, non_blocking=True),
-                        nv.to(dev, non_blocking=True), ctc_mask)
-                    out = {k: v.to("cpu", non_blocking=on_cuda)
-                           for k, v in out.items()}
-                    done = None
-                    if on_cuda:
-                        done = torch.cuda.Event()
-                        done.record(self._stream)
-                    pending.append((batch, out, done))
+            mask = torch.from_numpy(ctc_logit_mask(orthography, cfg.vocab))
+            masks = {r.device: mask.to(r.device) for r in self._replicas}
+            for r in self._replicas:
+                if r.stream is not None:   # starts after earlier default work
+                    r.stream.wait_stream(torch.cuda.current_stream(r.device))
+            for b0 in range(0, n_win, B):
+                batch = [next(win_iter) for _ in range(min(B, n_win - b0))]
+                rows = [w for _, w in batch]
+                n_valid = [frames_for(b0 + k) for k in range(len(batch))]
+                while len(rows) < B:   # pad the batch to its static size
+                    rows.append(np.zeros_like(rows[0]))
+                    n_valid.append(0)
+                rows = np.stack(rows)
+                if self.ingress == "mulaw":
+                    if rows.dtype == np.int16:
+                        rows = rows.astype(np.float32) * (1.0 / 32768.0)
+                    rows = mulaw_encode(rows)
+                elif rows.dtype != np.int16:
+                    rows = np.clip(rows * 32768.0, -32768,
+                                   32767).astype(np.int16)
+                shards = []
+                for i, r in enumerate(self._replicas):
+                    sl = slice(i * Bs, (i + 1) * Bs)
+                    on_cuda = r.device.type == "cuda"
+                    ctx = (torch.cuda.stream(r.stream) if on_cuda
+                           else contextlib.nullcontext())
+                    with ctx:
+                        host = torch.from_numpy(rows[sl])
+                        nv = torch.tensor(n_valid[sl], dtype=torch.int32)
+                        if on_cuda:
+                            host = host.pin_memory()
+                        out = self._dispatch_batch(
+                            host.to(r.device, non_blocking=True),
+                            nv.to(r.device, non_blocking=True),
+                            masks[r.device], rep=r)
+                        if self._out_layout is None:
+                            out = {k: v.to("cpu", non_blocking=on_cuda)
+                                   for k, v in out.items()}
+                            self.d2h_copies += len(out)
+                        else:
+                            if layout_of(out) != self._out_layout:
+                                raise ValueError(
+                                    "the batch's outputs differ from the "
+                                    "packed wire's layout")
+                            out = pack_tree(out).to("cpu",
+                                                    non_blocking=on_cuda)
+                            self.d2h_copies += 1
+                        done = None
+                        if on_cuda:
+                            done = torch.cuda.Event()
+                            done.record(r.stream)
+                    shards.append((out, done))
+                pending.append((batch, shards))
 
         n_batches = len(pending)
         spk_src = "xvector" if self._xvector is not None else "trunk"
-        for bi, (batch, out, done) in enumerate(pending):
-            if done is not None:
-                done.synchronize()
-            out = {k: v.numpy() for k, v in out.items()}
+        for bi, (batch, shards) in enumerate(pending):
+            parts = []
+            for out, done in shards:
+                if done is not None:
+                    done.synchronize()
+                parts.append(unpack_buffer(out.numpy(), self._out_layout)
+                             if self._out_layout is not None
+                             else {k: v.numpy() for k, v in out.items()})
+            out = (parts[0] if len(parts) == 1 else
+                   {k: np.concatenate([p[k] for p in parts])
+                    for k in parts[0]})
             ctc = out["ctc_ids"]
             lid = out["lid_ids"]
             lconf = out["lid_conf"].astype(np.float32)
@@ -677,14 +807,15 @@ class TranscriptionEngine:
             yield outs
 
     def _dispatch_batch(self, samples: torch.Tensor, n_valid: torch.Tensor,
-                        ctc_mask: torch.Tensor, max_attempts: int = 2):
-        """Enqueue one batch's device program; a runtime error re-dispatches
-        it once on the same device and kernels before the last error
-        surfaces. A kernel build failure is raised at once."""
+                        ctc_mask: torch.Tensor, max_attempts: int = 2,
+                        rep: Optional[_Replica] = None):
+        """Enqueue one shard batch's device program; a runtime error
+        re-dispatches it once on the same device and kernels before the
+        last error surfaces. A kernel build failure is raised at once."""
         last = None
         for _ in range(max_attempts):
             try:
-                return self._process(samples, n_valid, ctc_mask)
+                return self._process(samples, n_valid, ctc_mask, rep)
             except KernelBuildError:
                 raise
             except RuntimeError as e:
@@ -734,7 +865,7 @@ class TranscriptionEngine:
             fr = xvector_frames(self._xvector, mel, mask)
             m = subsampled_mask(mask, self.config.encoder.subsample_factor)
         else:
-            out = asr_forward(self._crop_params, mel, mask, self._crop_config,
+            out = asr_forward(self._plain_params, mel, mask, self._crop_config,
                               quant=self._quant_kernel)
             fr, m = out["speaker_frames"], out["mask"]
         return {"speaker_frames": fr.to(torch.float16), "mask": m}
@@ -785,6 +916,118 @@ class TranscriptionEngine:
                 embeds.append(pooled_speaker_embed_np(
                     self._spk_pool, spk[k], w))
         return np.stack(embeds)
+
+    # ------------------------------------------------------------------
+    # Sequence mode (long_mode="sequence")
+    # ------------------------------------------------------------------
+
+    #: Bytes of encoder states a device-to-host copy moves in sequence mode.
+    STATE_SLICE_BYTES = 32 << 20
+    #: Longest file whose encoder states sequence mode brings to the host.
+    MAX_STATE_HOURS = 12.0
+
+    @torch.inference_mode()
+    def _sequence_mel(self, samples: np.ndarray) -> torch.Tensor:
+        """The whole file's log-mel [n_frames, n_mels] on the primary
+        device: pre-emphasis over the contiguous signal on the host, then
+        hop-aligned chunks of ``window_samples`` with a ``win - hop``
+        overlap (so the chunked framing is the contiguous framing) and one
+        K1 call over all chunks' frames."""
+        fe = self.config.frontend
+        if self._seq_frontend is None:
+            self._seq_frontend = MelFrontend(
+                dataclasses.replace(fe, preemphasis=0.0), self.device)
+        n = len(samples)
+        x = np.asarray(samples, np.float32)
+        x_pe = np.concatenate([x[:1], x[1:] - fe.preemphasis * x[:-1]])
+        overlap = fe.win_length - fe.hop_length
+        cs = self.window_samples
+        chunks = []
+        for start in range(0, n, cs):
+            c = x_pe[start:start + cs + overlap]
+            if len(c) < cs + overlap:
+                c = np.pad(c, (0, cs + overlap - len(c)))
+            chunks.append(c)
+        frames, _ = self._seq_frontend.frames_from_signal(
+            torch.from_numpy(np.stack(chunks)).to(self.device))
+        mel = self._seq_frontend.log_mel(frames)
+        chunk_frames = cs // fe.hop_length
+        mel = mel[:, :chunk_frames].reshape(-1, fe.n_mels)
+        return mel[:fe.frames_for_samples(n)]
+
+    @torch.inference_mode()
+    def _forward_sequence(self, samples: np.ndarray,
+                          orthography: Optional[str] = None):
+        """A whole file as one sequence split over the mesh's data axis
+        (``parallel/sequence.py``): exact mel, then the encoder once, by
+        ring attention and the conv halo exchange, in f32. Returns one
+        window dict (offset 0) of the file's frames, as the JAX engine's
+        ``_forward_sequence``: speaker frames are the trunk's (with an
+        x-vector loaded, speakers then come from crop re-embedding), and
+        encoder states, when a decoder reads them, come back in
+        ``STATE_SLICE_BYTES`` slices up to ``MAX_STATE_HOURS``."""
+        cfg = self.config
+        fe = cfg.frontend
+        n_frames = fe.frames_for_samples(len(samples))
+        if n_frames <= 0:
+            return []
+        with self._device_lock:
+            mel = self._sequence_mel(samples)
+            n_dev = self.n_data
+            sub = cfg.encoder.subsample_factor
+            T = _round_up(max(n_frames, 1), n_dev * sub * 2)
+            mel = torch.nn.functional.pad(mel, (0, 0, 0, T - mel.shape[0]))
+            mask = torch.arange(T, device=self.device) < n_frames
+            ctc_mask = torch.from_numpy(
+                ctc_logit_mask(orthography, cfg.vocab)).to(self.device)
+            want_states = self._states_consumer
+            out = sp_conformer_forward(self._plain_params, mel, mask, cfg,
+                                       self.mesh, axis="data",
+                                       all_heads=True,
+                                       with_states=want_states)
+            n_real = 1 + cfg.vocab.n_bytes
+            masked = out["ctc_logits"] + ctc_mask[None, :]
+            e = torch.logsumexp(mel, dim=-1) * (10.0 / math.log(10.0))
+            res = {
+                "ctc_ids": torch.argmax(masked[:, :n_real], dim=-1),
+                "lid_ids": torch.argmax(out["lid_logits"], dim=-1),
+                "lid_conf": torch.softmax(out["lid_logits"],
+                                          dim=-1).amax(dim=-1),
+                "emotion_logits": out["emotion_logits"],
+                "speaker_frames": out["speaker_frames"],
+                "frame_energy": e.reshape(-1, sub).mean(dim=-1),
+            }
+            nf_sub = int(out["mask"].sum())
+            host = {k: v[:nf_sub].cpu().numpy() for k, v in res.items()}
+            enc_states = None
+            if want_states:
+                max_frames = int(self.MAX_STATE_HOURS * 3600.0
+                                 / self.frame_dur_s)
+                if nf_sub <= max_frames:
+                    enc = out["encoder_states"]
+                    step = max(1, self.STATE_SLICE_BYTES
+                               // max(1, 2 * enc.shape[-1]))
+                    enc_states = np.concatenate([
+                        enc[i:min(i + step, nf_sub)].to(torch.float32)
+                        .cpu().numpy() for i in range(0, nf_sub, step)])
+                else:
+                    warnings.warn(
+                        f"sequence mode: file has {nf_sub} encoder frames "
+                        f"(> {max_frames}); translation/neural summary are "
+                        "skipped for this file — use window mode for "
+                        "decoder heads on very long audio.", stacklevel=2)
+        return [{
+            "offset_s": 0.0,
+            "spk_embedder": "trunk",
+            "ctc_ids": host["ctc_ids"].astype(np.int32),
+            "lid_ids": host["lid_ids"].astype(np.int32),
+            "lid_conf": host["lid_conf"].astype(np.float32),
+            "emotion_logits": host["emotion_logits"].astype(np.float32),
+            "speaker_frames": host["speaker_frames"].astype(np.float32),
+            "frame_energy": host["frame_energy"].astype(np.float32),
+            "encoder_states": enc_states,
+            "ctc_topk": None,
+        }]
 
     # ------------------------------------------------------------------
     # Host-side assembly
@@ -840,14 +1083,18 @@ class TranscriptionEngine:
 
     def _assemble_global(self, parts, *, language: Optional[str],
                          speaker_count: Optional[str], duration_s: float,
-                         samples: Optional[np.ndarray] = None):
+                         samples: Optional[np.ndarray] = None,
+                         frames_from: Optional[str] = None):
         """Whole-file assembly over extracted window parts: speaker
         clustering, language and emotion aggregation, translation, summary.
 
-        In crop mode, with ``samples`` (the file's audio) and more than one
-        segment, every segment is re-embedded from its own audio and the
-        clustering cut is ``CROP_AHC_THRESHOLD``; otherwise the segments'
-        pooled embeddings from the main forward are clustered.
+        In crop mode, or in inline mode when the parts' speaker frames are
+        not the active embedder's (``frames_from="trunk"``, sequence mode's,
+        with an x-vector loaded), with ``samples`` (the file's audio) and
+        more than one segment, every segment is re-embedded from its own
+        audio (clustering cut ``CROP_AHC_THRESHOLD`` without an x-vector);
+        otherwise the segments' pooled embeddings from the main forward are
+        clustered.
 
         Returns (result, profile) where profile maps each sub-stage
         (``cluster``, ``segments``, ``translate``, ``summary``) to seconds.
@@ -874,11 +1121,10 @@ class TranscriptionEngine:
                 n_clusters = max(1, int(str(speaker_count).strip()))
             except ValueError:
                 n_clusters = None
-        # Window outputs always carry the active embedder's frames here (the
-        # JAX engine's sequence mode, which does not, is not ported), so
-        # only crop mode re-embeds.
-        used_crop = (self.speaker_mode == "crop" and samples is not None
-                     and len(decoded) > 1)
+        active = "xvector" if self._xvector is not None else "trunk"
+        want_crop = (self.speaker_mode == "crop"
+                     or (frames_from or active) != active)
+        used_crop = want_crop and samples is not None and len(decoded) > 1
         if used_crop:
             embeds = self._segment_crop_embeds(samples, decoded)
         else:
@@ -1137,53 +1383,66 @@ class TranscriptionEngine:
         """Transcribe an audio file on the engine's device.
 
         Same signature, progress steps and result semantics as the JAX
-        engine's ``transcribe`` in window mode."""
+        engine's ``transcribe``, in window and in sequence mode."""
         report, report_frac = _progress_reporters(progress_callback)
-        trace = StageTrace(n_chips=1)
+        trace = StageTrace(n_chips=self.mesh.size)
         audio_path = Path(audio_path)
         sr = self.config.frontend.sample_rate
         report("uploading", 0)        # step 0: host decode + resample
 
         # Long PCM WAV files stream their windows straight off the file so
-        # the host decode rides under the device forward; not in crop mode,
-        # whose re-embedding reads the samples.
+        # the host decode rides under the device forward; not in sequence
+        # mode or crop mode, which read the whole file's samples.
         samples = None
         stream = (self._stream_windows_wav(audio_path)
-                  if self.speaker_mode != "crop" else None)
+                  if self.speaker_mode != "crop"
+                  and self.long_mode != "sequence" else None)
         if stream is not None:
             win_iter, n_win, n_last, duration_s = stream
         else:
             with trace.stage("decode"):
                 samples = self._load_audio(audio_path)
             duration_s = len(samples) / sr
-            windows = self._windows(samples)
-            n_win = len(windows)
-            n_last = (len(samples) - (n_win - 1) * self.window_samples
-                      if windows else 0)
-            win_iter = windows
         trace.audio_seconds = duration_s
 
         report("transcribing", 1)     # step 1: device forward
-        parts = None
-        t_extract = 0.0
-        with trace.stage("forward"):
-            for outs_b in self._forward_batches(
-                    win_iter, n_last, orthography=orthography,
-                    n_windows=n_win,
-                    batch_progress=lambda done, total: report_frac(
-                        "transcribing", 1, done / total)):
-                t0 = time.perf_counter()
-                parts = self._extract_windows(outs_b, *(parts or ()))
-                t_extract += time.perf_counter() - t0
-        trace.stages["forward"] = max(
-            0.0, trace.stages.get("forward", 0.0) - t_extract)
-        trace.stages["extract"] = t_extract
-        report("processing", 2)       # step 2: whole-file assembly
+        frames_from = None
+        if self.long_mode == "sequence":
+            with trace.stage("forward"):
+                outs = self._forward_sequence(samples,
+                                              orthography=orthography)
+                report_frac("transcribing", 1, 1.0)
+            report("processing", 2)
+            with trace.stage("assemble"):
+                parts = self._extract_windows(outs)
+            frames_from = "trunk"
+        else:
+            if stream is None:
+                windows = self._windows(samples)
+                n_win = len(windows)
+                n_last = (len(samples) - (n_win - 1) * self.window_samples
+                          if windows else 0)
+                win_iter = windows
+            parts = None
+            t_extract = 0.0
+            with trace.stage("forward"):
+                for outs_b in self._forward_batches(
+                        win_iter, n_last, orthography=orthography,
+                        n_windows=n_win,
+                        batch_progress=lambda done, total: report_frac(
+                            "transcribing", 1, done / total)):
+                    t0 = time.perf_counter()
+                    parts = self._extract_windows(outs_b, *(parts or ()))
+                    t_extract += time.perf_counter() - t0
+            trace.stages["forward"] = max(
+                0.0, trace.stages.get("forward", 0.0) - t_extract)
+            trace.stages["extract"] = t_extract
+            report("processing", 2)   # step 2: whole-file assembly
         with trace.stage("assemble"):
             result, prof = self._assemble_global(
                 parts or ([], [], []), language=language,
                 speaker_count=speaker_count, duration_s=duration_s,
-                samples=samples)
+                samples=samples, frames_from=frames_from)
         trace.stages.update(
             {f"assemble.{k}": round(v, 2) for k, v in prof.items()})
         self.last_trace = trace
@@ -1276,17 +1535,19 @@ class TranscriptionEngine:
         return len(centroids) - 1
 
     def health_check(self) -> dict:
-        """Run a trivial program on the engine's device; returns
-        {"devices": [{"id", "ok"}], "ok"} (with "error" when it raised)."""
+        """Run a trivial program on each distinct device of the mesh;
+        returns {"devices": [{"id", "ok"}], "ok"} (with "error" when a
+        probe raised)."""
         report = {"devices": [], "ok": True}
-        try:
-            x = torch.ones((8, 8), device=self.device)
-            ok = abs(float((x * 2.0).sum()) - 128.0) < 1e-3
-        except Exception as e:  # noqa: BLE001 — a probe reports, never raises
-            ok = False
-            report["error"] = str(e)
-        report["devices"].append({"id": str(self.device), "ok": ok})
-        report["ok"] = ok
+        for d in self.mesh.distinct_devices():
+            try:
+                x = torch.ones((8, 8), device=d)
+                ok = abs(float((x * 2.0).sum()) - 128.0) < 1e-3
+            except Exception as e:  # noqa: BLE001 — a probe reports
+                ok = False
+                report["error"] = str(e)
+            report["devices"].append({"id": str(d), "ok": ok})
+            report["ok"] &= ok
         return report
 
     def transcribe_chunked(

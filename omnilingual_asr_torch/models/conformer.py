@@ -12,8 +12,11 @@ The PyTorch port of ``omnilingual_asr_tpu/models/conformer.py``:
 K6/K7 in the backward) and ``encoder.use_fused_conv`` the conv module
 through kernel K3, as the JAX engine's inference config and the trainer's
 kernel mode do. Training adds residual-stream dropout and per-block
-rematerialisation (``encoder.remat``). Mixture-of-experts FFNs are a
-multi-chip feature of the JAX package and are not ported (A10).
+rematerialisation (``encoder.remat``). With ``encoder.n_experts > 0`` each
+block's second FFN is a mixture of experts (``models/moe.py``): dense
+dispatch, or with ``encoder.moe_dispatch="alltoall"`` and a mesh whose
+``model`` axis is above 1, the all-to-all dispatch of
+``parallel/expert_dispatch.py``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch.utils.checkpoint
 from ..config import EncoderConfig, PipelineConfig
 from ..ops.conv_module import convmod_apply_fused
 from . import layers as L
+from .moe import moe_ffn_apply, moe_ffn_init, moe_ffn_shapes
 
 # Head dimensions (as the JAX package's).
 N_LANGS = 2048
@@ -38,7 +42,8 @@ N_SPEAKER_CLASSES = 1024
 def compute_dtype(enc: EncoderConfig) -> torch.dtype:
     if enc.dtype != "bfloat16":
         raise NotImplementedError(
-            f"encoder dtype {enc.dtype!r} is not ported (bfloat16 only)")
+            f"encoder dtype {enc.dtype!r} is not ported (bfloat16 only; "
+            f"A14 in ROADMAP.md, Queue A)")
     return torch.bfloat16
 
 
@@ -54,7 +59,6 @@ def asr_param_shapes(cfg: PipelineConfig):
     """Shape tree of the ASR parameters (the port's counterpart of
     ``jax.eval_shape(asr_init)``)."""
     enc = cfg.encoder
-    _no_experts(enc)
     d, f = enc.d_model, enc.d_model * enc.ffn_mult
 
     def ffn():
@@ -69,7 +73,8 @@ def asr_param_shapes(cfg: PipelineConfig):
         "conv": {"ln": _ln_shapes(d), "pw1": _dense_shapes(d, 2 * d, False),
                  "dw": (enc.conv_kernel, d), "dw_ln": _ln_shapes(d),
                  "pw2": _dense_shapes(d, d, False)},
-        "ffn2": ffn(),
+        "ffn2": (moe_ffn_shapes(d, enc.n_experts, enc.ffn_mult)
+                 if enc.n_experts > 0 else ffn()),
         "ln_out": _ln_shapes(d),
     }
     return {
@@ -87,19 +92,14 @@ def asr_param_shapes(cfg: PipelineConfig):
     }
 
 
-def _no_experts(enc: EncoderConfig) -> None:
-    if enc.n_experts > 0:
-        raise NotImplementedError("mixture-of-experts FFNs are not ported "
-                                  "(A10 in ROADMAP.md, Queue A)")
-
-
 def conformer_block_init(gen: torch.Generator, enc: EncoderConfig):
-    _no_experts(enc)
     return {
         "ffn1": L.ffn_init(gen, enc.d_model, enc.ffn_mult),
         "mhsa": L.mhsa_init(gen, enc.d_model),
         "conv": L.convmod_init(gen, enc.d_model, enc.conv_kernel),
-        "ffn2": L.ffn_init(gen, enc.d_model, enc.ffn_mult),
+        "ffn2": (moe_ffn_init(gen, enc.d_model, enc.n_experts, enc.ffn_mult)
+                 if enc.n_experts > 0
+                 else L.ffn_init(gen, enc.d_model, enc.ffn_mult)),
         "ln_out": L.layernorm_init(enc.d_model),
     }
 
@@ -144,9 +144,13 @@ def subsampled_mask(mask: torch.Tensor, sub: int) -> torch.Tensor:
 
 
 def conformer_block_apply(p, x, mask, cos, sin, enc: EncoderConfig, dtype,
-                          quant: Optional[str] = None):
-    """One conformer block. ``quant`` is the quantized-kernel mode of
-    ``layers.dense_apply``."""
+                          quant: Optional[str] = None, mesh=None):
+    """One conformer block -> (x, moe_aux). ``quant`` is the
+    quantized-kernel mode of ``layers.dense_apply``. moe_aux is the block's
+    Switch load-balance loss: 0 without experts and under all-to-all
+    dispatch, as in the reference. The experts compute in f32 whatever
+    ``dtype`` is (the reference's default)."""
+    aux = torch.zeros((), device=x.device)
     x = L.ffn_apply(p["ffn1"], x, dtype, quant=quant)
     x = L.mhsa_apply(p["mhsa"], x, enc.n_heads, mask, cos, sin, dtype,
                      use_flash=enc.use_flash_attention, quant=quant)
@@ -154,8 +158,21 @@ def conformer_block_apply(p, x, mask, cos, sin, enc: EncoderConfig, dtype,
         x = convmod_apply_fused(p["conv"], x, mask)
     else:
         x = L.convmod_apply(p["conv"], x, mask, dtype, quant=quant)
-    x = L.ffn_apply(p["ffn2"], x, dtype, quant=quant)
-    return L.layernorm_apply(p["ln_out"], x)
+    if enc.n_experts > 0:
+        if (enc.moe_dispatch == "alltoall" and mesh is not None
+                and mesh.shape.get("model", 1) > 1):
+            from ..parallel.expert_dispatch import ep_moe_apply
+
+            B, T, D = x.shape
+            data_axis = "data" if mesh.shape.get("data", 1) > 1 else None
+            x = ep_moe_apply(p["ffn2"], x.reshape(B * T, D), mesh,
+                             capacity_factor=enc.moe_capacity_factor,
+                             data_axis=data_axis).reshape(B, T, D)
+        else:
+            x, aux = moe_ffn_apply(p["ffn2"], x)
+    else:
+        x = L.ffn_apply(p["ffn2"], x, dtype, quant=quant)
+    return L.layernorm_apply(p["ln_out"], x), aux
 
 
 def dropout(x: torch.Tensor, rate: float, seed: int,
@@ -173,13 +190,15 @@ def dropout(x: torch.Tensor, rate: float, seed: int,
 
 def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
                 cfg: PipelineConfig, quant: Optional[str] = None,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, mesh=None):
     """Forward pass, for serving and for training.
 
     mel [B, T, n_mels] f32 (T a multiple of the subsample factor); mask
     [B, T] bool. Returns the JAX package's output dict: ctc/lid/emotion
     logits, speaker frames and L2-normalised embeddings, encoder states,
-    the subsampled mask and ``moe_aux`` (0: no experts). ``params`` may
+    the subsampled mask and ``moe_aux`` (the blocks' summed load-balance
+    loss; 0 without experts). ``mesh`` serves the all-to-all expert
+    dispatch (``encoder.moe_dispatch="alltoall"``). ``params`` may
     hold quantized dense leaves (``ops/quant.py::quantize_param_tree``);
     ``quant`` (None, "w8" or "a8") routes those the kernels take through K4
     or K5, as the JAX engine's ``set_quant_kernel`` mode does.
@@ -191,7 +210,6 @@ def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
     (``torch.utils.checkpoint``) when gradients are being taken.
     """
     enc = cfg.encoder
-    _no_experts(enc)
     dtype = compute_dtype(enc)
     sub = enc.subsample_factor
     rate = enc.dropout if dropout_seed is not None else 0.0
@@ -206,14 +224,17 @@ def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
     x = drop(x, 0)
     cos, sin = L.rope_angles(x.shape[1], enc.head_dim, device=x.device)
     remat = enc.remat and torch.is_grad_enabled()
+    moe_aux = torch.zeros((), device=x.device)
     for bi, blk in enumerate(params["blocks"]):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 conformer_block_apply, blk, x, m, cos, sin, enc, dtype,
-                quant, use_reentrant=False)
+                quant, mesh, use_reentrant=False)
         else:
-            x = conformer_block_apply(blk, x, m, cos, sin, enc, dtype, quant)
+            x, aux = conformer_block_apply(blk, x, m, cos, sin, enc, dtype,
+                                           quant, mesh)
         x = drop(x, bi + 1)
+        moe_aux = moe_aux + aux
     ctc = L.dense_apply(params["ctc_head"], x, dtype, quant)
     lid = L.dense_apply(params["lid_head"], x, dtype, quant)
     emo = L.dense_apply(params["emotion_head"], x, dtype, quant)
@@ -229,7 +250,7 @@ def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
         "speaker_embed": spk,
         "encoder_states": x,
         "mask": m,
-        "moe_aux": torch.zeros((), device=x.device),
+        "moe_aux": moe_aux,
     }
 
 

@@ -156,7 +156,7 @@ def load_checkpoint(path, cfg: PipelineConfig, device="cpu"):
     if path.suffix != ".npz":
         raise NotImplementedError(
             f"{path}: only release .npz checkpoints load in the port "
-            f"(Orbax checkpoints need JAX)")
+            f"(Orbax checkpoints need JAX; A11 in ROADMAP.md)")
     return load_release(path, asr_param_shapes(cfg), device)
 
 

@@ -61,6 +61,7 @@ TESTDATA = Path(__file__).resolve().parent / "testdata"
 GOLDEN_WAV = TESTDATA / "golden.wav"
 GOLDEN_JSON = TESTDATA / "golden.json"
 GOLDEN_DECODERS_JSON = TESTDATA / "golden_decoders.json"
+GOLDEN_SEQUENCE_JSON = TESTDATA / "golden_sequence.json"
 GOLDEN_D512_JSON = TESTDATA / "golden_d512_crop.json"
 GOLDEN_D512_FEED = TESTDATA / "golden_d512_crop_topk.npz"
 GOLDEN_EVALS_JSON = TESTDATA / "golden_evals.json"
@@ -202,6 +203,13 @@ def load_golden_decoders() -> dict:
     return json.loads(GOLDEN_DECODERS_JSON.read_text())
 
 
+def load_golden_sequence() -> dict:
+    """The JAX engine's sequence-mode result on the golden file (one
+    device), its greedy ids over the file's frames (one list) and its tone
+    mass."""
+    return json.loads(GOLDEN_SEQUENCE_JSON.read_text())
+
+
 def load_golden_d512() -> dict:
     return json.loads(GOLDEN_D512_JSON.read_text())
 
@@ -247,11 +255,14 @@ def tone_mass(engine, path) -> List[float]:
     whose argmax is the summary's overall tone (the aggregation of either
     engine's ``_assemble_global``)."""
     samples = engine._load_audio(path)
-    windows = engine._windows(samples)
-    n_last = len(samples) - (len(windows) - 1) * engine.window_samples
-    parts = None
-    for outs in engine._forward_batches(windows, n_last):
-        parts = engine._extract_windows(outs, *(parts or ()))
+    if getattr(engine, "long_mode", "window") == "sequence":
+        parts = engine._extract_windows(engine._forward_sequence(samples))
+    else:
+        windows = engine._windows(samples)
+        n_last = len(samples) - (len(windows) - 1) * engine.window_samples
+        parts = None
+        for outs in engine._forward_batches(windows, n_last):
+            parts = engine._extract_windows(outs, *(parts or ()))
     mass = np.zeros(len(EMOTIONS))
     for s, meta in zip(parts[0], parts[1]):
         logits = np.asarray(meta[0][:len(EMOTIONS)], np.float64)

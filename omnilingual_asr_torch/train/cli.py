@@ -138,7 +138,8 @@ def main(argv=None):
     if args.mesh_model > 1:
         raise NotImplementedError(
             f"--mesh-model {args.mesh_model}: tensor-parallel training is "
-            f"not ported to the PyTorch trainer yet (A10 in ROADMAP.md)")
+            f"not ported to the PyTorch trainer yet (A10 tensor "
+            f"parallelism in ROADMAP.md)")
 
     cfg = tiny_config() if args.tiny else PipelineConfig()
     fn = pretrain if args.pretrain else train

@@ -271,10 +271,11 @@ def loss_fn(params, batch: Dict[str, Any], cfg: PipelineConfig,
             trans_params=None, dropout_seed: Optional[int] = None):
     """Joint multi-task loss -> (total, metrics), as the reference's.
 
-    Always: per-token CTC + 0.1 (LID CE + emotion CE). Optional, keyed by
-    the batch: ``lid_frame_label`` (frame LID instead of pooled),
-    ``char_frame_label`` (blank-excluded dense byte CE), ``speaker_label``
-    (AAM-softmax on the pooled speaker embedding), ``trans_*`` with
+    Always: per-token CTC + 0.1 (LID CE + emotion CE); with experts, 0.01
+    times the blocks' load-balance loss (``metrics["moe_aux"]``).
+    Optional, keyed by the batch: ``lid_frame_label`` (frame LID instead
+    of pooled), ``char_frame_label`` (blank-excluded dense byte CE),
+    ``speaker_label`` (AAM-softmax on the pooled speaker embedding), ``trans_*`` with
     ``trans_params`` (teacher-forced translation CE), and the ramp scalars
     ``w_ctc``, ``w_fce``, ``w_spk``, ``w_trans``. ``CTC_INFEASIBLE``, if
     present, gives the CTC loss its unalignable rows from the host.
@@ -323,6 +324,12 @@ def loss_fn(params, batch: Dict[str, Any], cfg: PipelineConfig,
         l_fce = frame_ce(logp_f, batch["char_frame_label"], offset=1)
         total = total + batch.get("w_fce", 1.0) * l_fce
         metrics["frame_ce"] = l_fce
+
+    if cfg.encoder.n_experts > 0:
+        # The Switch load-balance loss, summed over the blocks, at the
+        # standard coefficient.
+        total = total + 0.01 * out["moe_aux"]
+        metrics["moe_aux"] = out["moe_aux"]
 
     if "speaker_label" in batch:
         emb = pooled_speaker_embed(params, out["speaker_frames"],

@@ -311,6 +311,7 @@ def test_cpu_construction_works(tmp_path):
 
 @pytest.mark.parametrize("kwargs", [
     {"long_mode": "sequence"},
+    {"mesh_model": 2},
     {"speaker_mode": "crop"},
     {"ingress": "mulaw"},
     {"config": tiny_config().replace(decode=DecodeConfig(beam_size=4))},
@@ -319,20 +320,28 @@ def test_cpu_construction_works(tmp_path):
         decode=DecodeConfig(spk_frame_stride=2))},
 ])
 def test_unported_modes_raise(kwargs):
-    """Only ``long_mode="sequence"`` (A10, several devices) is unported and
-    raises; the other modes that raised before the engine's single-card
-    modes were ported now construct, with the mode in force."""
+    """Only a mesh whose ``model`` axis is above 1 (tensor parallelism,
+    A10) is unported and raises; ``long_mode="sequence"`` and the other
+    modes that raised before they were ported now construct, with the mode
+    in force."""
+    from omnilingual_asr_torch.config import MeshConfig
+    from omnilingual_asr_torch.parallel.mesh import build_mesh
+
     kwargs = {"config": tiny_config(), **kwargs}
     speaker_mode = kwargs.pop("speaker_mode", "inline")
-    if kwargs.get("long_mode") == "sequence":
+    if "mesh_model" in kwargs:
+        model = kwargs.pop("mesh_model")
+        mesh = build_mesh(MeshConfig(data=1, model=model),
+                          [torch.device("cpu")] * model)
         with pytest.raises(NotImplementedError, match="A10.*ROADMAP"):
-            TranscriptionEngine(device="cpu", speaker_mode=speaker_mode,
+            TranscriptionEngine(mesh=mesh, speaker_mode=speaker_mode,
                                 **kwargs)
         return
     eng = TranscriptionEngine(device="cpu", speaker_mode=speaker_mode,
                               **kwargs)
     assert eng.speaker_mode == speaker_mode
     assert eng.ingress == kwargs.get("ingress", "i16")
+    assert eng.long_mode == kwargs.get("long_mode", "window")
     assert eng.config.decode == kwargs["config"].decode
 
 

@@ -23,6 +23,12 @@ golden audio tiled to 120 s, greedy and with the beam search (beam 8, the
 and the runner-up final beam score of each beam decode and the number of
 crop re-embeddings each request ran.
 
+``golden_sequence.json`` is the JAX engine's result in sequence mode
+(``long_mode="sequence"``, one device) on the golden file, with its greedy
+ids over the file's frames and its tone mass; the port's CPU engine in
+sequence mode, on one shard and on two, is held to it, and
+``chip_smoke.py`` holds the card's to it.
+
 ``golden_evals.json`` (with ``golden_evals_ids.npz``) holds the JAX
 package's evaluation drivers with the release weights: ``eval_synth``'s 96
 files at 10 s windows, ``eval_heads``' 64 files and 8 conversations with
@@ -34,7 +40,7 @@ the port's drivers to that subset.
 
 Regenerate the files with ``JAX_PLATFORMS=cpu OMNIASR_RELEASE_DIR=
 python tests/test_torch_golden.py`` (or name some of ``plain a8 w8
-decoders d512_crop evals`` to regenerate only those; ``evals`` takes
+decoders sequence d512_crop evals`` to regenerate only those; ``evals`` takes
 ~21 min on a CPU, almost all of it eval_heads with both decoders).
 """
 
@@ -140,6 +146,21 @@ def jax_golden(path: Path, quantize=False) -> dict:
     res = eng.transcribe(path)
     return {"result": dataclasses.asdict(res),
             "ctc_ids": greedy_ids(eng, path),
+            "tone_mass": golden.tone_mass(eng, path)}
+
+
+def sequence_ids(engine, path: Path):
+    """Sequence mode's greedy CTC ids over the file's frames, as one list
+    in a list (either engine)."""
+    outs = engine._forward_sequence(engine._load_audio(path))
+    return [np.asarray(outs[0]["ctc_ids"]).astype(int).tolist()]
+
+
+def jax_golden_sequence(path: Path) -> dict:
+    eng = jax_engine(long_mode="sequence", batch_windows_per_device=1)
+    res = eng.transcribe(path)
+    return {"result": dataclasses.asdict(res),
+            "ctc_ids": sequence_ids(eng, path),
             "tone_mass": golden.tone_mass(eng, path)}
 
 
@@ -481,6 +502,40 @@ def test_port_cpu_matches_golden():
     agree = golden.ctc_agreement(stored["ctc_ids"],
                                  greedy_ids(eng, golden.GOLDEN_WAV))
     assert agree >= golden.MIN_CTC_AGREEMENT
+
+
+def test_golden_sequence_json_is_current(regenerated):
+    """golden_sequence.json equals a fresh JAX run in sequence mode by the
+    port's criterion."""
+    path, _ = regenerated
+    _assert_current(golden.load_golden_sequence(),
+                    jax_golden_sequence(path))
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_port_cpu_sequence_matches_golden(n_shards):
+    """The port's CPU engine in sequence mode (the x-vector loaded, so the
+    speakers come from crop re-embedding) on one shard and on two, against
+    the JAX engine's sequence-mode result."""
+    from omnilingual_asr_torch.config import MeshConfig, PipelineConfig
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.parallel.mesh import build_mesh
+
+    cfg = PipelineConfig.from_json(
+        (RELEASE / "config.json").read_text(),
+        checkpoint_path=str(RELEASE / "asr.npz"))
+    eng = TranscriptionEngine(
+        config=cfg, xvector_path=str(RELEASE / "xvector.npz"),
+        long_mode="sequence",
+        mesh=build_mesh(MeshConfig(data=n_shards),
+                        [torch.device("cpu")] * n_shards))
+    res = eng.transcribe(golden.GOLDEN_WAV).to_dict()
+    stored = golden.load_golden_sequence()
+    assert golden.result_mismatches(stored["result"], res,
+                                    tone_mass=stored["tone_mass"]) == []
+    assert golden.ctc_agreement(stored["ctc_ids"],
+                                sequence_ids(eng, golden.GOLDEN_WAV)) >= \
+        golden.MIN_CTC_AGREEMENT
 
 
 def test_tone_tie_rule():
@@ -1017,7 +1072,8 @@ def test_golden_evals_long_criterion_admits_the_reference_under_noise():
                for a in perturbed)
 
 
-FIXTURES = ("plain", "a8", "w8", "decoders", "d512_crop", "evals")
+FIXTURES = ("plain", "a8", "w8", "decoders", "sequence", "d512_crop",
+            "evals")
 
 
 def main(argv=None) -> None:
@@ -1039,6 +1095,9 @@ def main(argv=None) -> None:
         if name == "decoders":
             data = jax_golden_decoders(golden.GOLDEN_WAV)
             out = golden.GOLDEN_DECODERS_JSON
+        elif name == "sequence":
+            data = jax_golden_sequence(golden.GOLDEN_WAV)
+            out = golden.GOLDEN_SEQUENCE_JSON
         elif name == "evals":
             with tempfile.TemporaryDirectory() as d:
                 data, ids = jax_golden_evals(Path(d))

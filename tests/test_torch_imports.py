@@ -160,6 +160,23 @@ def test_walk_reaches_the_rest_of_training():
         assert f"omnilingual_asr_torch.{name}" in names
 
 
+def test_walk_reaches_the_mesh_layer():
+    """The import walk covers the mesh and its strategies (sequence
+    parallelism, expert dispatch, pipeline stages), ring attention, the
+    packed wire and the mixture of experts (and so holds them to the
+    rule)."""
+    import pkgutil
+
+    import omnilingual_asr_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pkg.__path__, "omnilingual_asr_torch.")}
+    for name in ("parallel", "parallel.mesh", "parallel.sequence",
+                 "parallel.expert_dispatch", "parallel.pipeline",
+                 "ops.ring_attention", "ops.pack", "models.moe"):
+        assert f"omnilingual_asr_torch.{name}" in names
+
+
 _HELP = """
 import runpy, sys
 FORBIDDEN = {forbidden!r}

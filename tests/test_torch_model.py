@@ -83,7 +83,7 @@ def test_conformer_block_matches_jax(flags):
         jp["blocks"][0], jnp.asarray(x), jnp.asarray(mask), cos, sin,
         jcfg.encoder, jnp.bfloat16, flash_interpret=True)
     tcos, tsin = layers.rope_angles(T, 64)
-    got = conformer.conformer_block_apply(
+    got, _ = conformer.conformer_block_apply(
         tp["blocks"][0], torch.from_numpy(x), torch.from_numpy(mask), tcos,
         tsin, tcfg.encoder, torch.bfloat16)
     _close(got.numpy(), np.asarray(want), REL_BLOCK)
