@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4j)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4k)
     python3 chip_smoke.py --profile    # and, before the report, phase 4c
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
@@ -22,13 +22,20 @@ with no result line:
              the function as an FFT computes it, the dense DFT's beside
              it), flash attention (K2, at head dims 64 and 128, at the
              training shape, at a ragged T of 200, at the d512 seed's
-             [4, 768, 8, 64] and at the eval drivers' [4, 256, 4, 64] and
-             [1, 768, 8, 64]), the fused conv module (K3, at the serving
+             [4, 768, 8, 64], at the eval drivers' [4, 256, 4, 64] and
+             [1, 768, 8, 64], at a data shard's [2, 768, 4, 64] and at one
+             model shard's heads [4, 768, 2, 64] and [4, 768, 1, 64]),
+             the fused conv module (K3, at the serving
              and the training shape, at large_config's width, D 1024, at
-             the d512 seed's [4, 768, 512] and at the eval drivers'
-             [4, 256, 256] and [1, 768, 512], each with its launch plan:
-             both launches' blocks and pw1's rows a frame), the int8 matmuls W8A16 (K4) and W8A8 (K5, at the
-             three widths of the quantized main path) and the
+             the d512 seed's [4, 768, 512], at the eval drivers'
+             [4, 256, 256] and [1, 768, 512] and at a data shard's
+             [2, 768, 256], each with its launch plan:
+             both launches' blocks and pw1's rows a frame; then split over
+             2 and 4 model shards at the release's and the d512 seed's
+             serving batch, against the plain split and whole K3), the
+             int8 matmuls W8A16 (K4) and W8A8 (K5, at the
+             three widths of the quantized main path, K5 also at a data
+             shard's M 1536) and the
              flash-attention backward, dQ (K6) and dK/dV (K7), at the
              training shape, at large_config's head dim 128 and at a
              ragged T of 200 (with the o and lse they read held to the
@@ -201,6 +208,25 @@ with no result line:
              blocks against ``apply_stacked_blocks``; (f) the packed wire on
              and off on the 120 s file: equal results, device-to-host copies
              a batch, warm seconds over 6 requests each, interleaved.
+4k. tp     - tensor parallelism in serving with the release weights,
+             meshes as shards on the card (and, where more than one card
+             is visible, (a), (e) and (g) again over distinct cards): (a)
+             the engine at (data, model) (1, 2), (1, 4) and (2, 2),
+             unquantized and ``quantize=True``, on the golden and the
+             120 s file: every golden result held to ``golden.json`` (to
+             the (1, 1) ``quantize=True`` engine under quantize=True),
+             the meshes' golden ids and 120 s ids pooled against the same
+             references on 99.5 %; per data row's shard batch K1 once and
+             K2 and split K3 once a model shard a layer, whole K3, K4 and
+             K5 never; (b) ``quantize="a8"`` and ``"w8"`` at model 2
+             raise ValueError; (e) the release with 8 grafted experts at
+             (1, 4) with all-to-all dispatch inside the blocks against the
+             dense engine (ids on 99.5 %); (f) the d512 seed in crop mode
+             at model 2 against ``golden_d512_crop.json`` where stable;
+             (g) sequence mode at (2, 2) against ``golden_sequence.json``;
+             (h) warm 120 s request seconds and card memory at model 1, 2
+             and 4 (reported). (c) and (d), the split K3 and K2 at one
+             shard's heads, run in phase 3.
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -213,7 +239,8 @@ with no result line:
              and optimizer seconds, and one step under the profiler.
 5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
              over the serving, training, decoders, server, d512, evals,
-             trainers, rest_of_training and mesh paths,
+             trainers, rest_of_training, mesh and tp paths, K3's whole
+             and split over a model axis (one a shard),
              by path beside it), the
              ``nvidia-smi`` name and power limit, and the result line
              ``{"ok": true, "device": {...}}``.
@@ -629,8 +656,10 @@ def check_k2(dev, peaks, cfg):
     eval.synth's 10 s windows (T' 256, the release's heads) and at
     eval.latency's batch 1 (T' 768, 8 heads of 64). Rows whole, ragged
     (partial last key tile), short (whole key tiles masked) and a padded
-    batch slot (every key masked)."""
+    batch slot (every key masked). Then the mesh paths' shapes
+    (card_cases.K2_MESH_SHAPES)."""
     from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.ops.card_cases import K2_MESH_SHAPES
 
     H = cfg.encoder.n_heads
     main = _k2_case(dev, peaks, WINDOWS_PER_BATCH, 768, H,
@@ -653,11 +682,16 @@ def check_k2(dev, peaks, cfg):
                       SEED + 22)
     lat = _k2_case(dev, peaks, 1, 768, enc.n_heads, enc.head_dim, [749],
                    SEED + 23)
+    # The mesh paths' (card_cases.K2_MESH_SHAPES): a data shard's batch of
+    # 2 windows, and one model shard's heads at model 2 and 4.
+    mesh = [_k2_case(dev, peaks, B, T, Hm, Dm, list(valid), SEED + 70 + i)
+            for i, (B, T, Hm, Dm, valid) in enumerate(
+                K2_MESH_SHAPES.values())]
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/attention.cu",
             "replaces": "omnilingual_asr_tpu/ops/attention.py:34",
             **main, "head_dims": [main, wide, train, ragged, d512, eval10,
-                                  lat]}
+                                  lat, *mesh]}
 
 
 def _bwd_case(dev, peaks, B, T, H, D, n_valid, seed):
@@ -774,11 +808,15 @@ def check_k3(dev, peaks, cfg, params, ptxas):
     eval.synth's 10 s windows ([4, 256, 256], release weights) and
     eval.latency's batch 1 ([1, 768, 512], random weights) under
     "shapes"; each with its launch plan (blocks of each stage, rows pw1
-    runs over per output frame). The shapes are card_cases.K3_SHAPES."""
+    runs over per output frame). The shapes are card_cases.K3_SHAPES; then
+    a data shard's batch and K3 split over a model axis
+    (card_cases.K3_SPLIT_SHAPES) against its plain split and against
+    whole K3."""
     import torch
     from omnilingual_asr_torch.config import PipelineConfig
     from omnilingual_asr_torch.models.layers import convmod_init
-    from omnilingual_asr_torch.ops.card_cases import K3_SHAPES
+    from omnilingual_asr_torch.ops.card_cases import (K3_SHAPES,
+                                                      K3_SPLIT_SHAPES)
 
     p = params["blocks"][0]["conv"]          # release weights
     main = _k3_case(dev, peaks, K3_SHAPES["serving"], p, SEED + 2)
@@ -805,13 +843,23 @@ def check_k3(dev, peaks, cfg, params, ptxas):
     # flagship at batch 1 (seeded random weights, as that driver's).
     eval10 = _k3_case(dev, peaks, K3_SHAPES["eval10s"], p, SEED + 24)
     lat = _k3_case(dev, peaks, K3_SHAPES["latency"], pt, SEED + 25)
+    # A data shard's batch of the mesh's data-parallel windows (release).
+    shard = _k3_case(dev, peaks, K3_SHAPES["dp_shard"], p, SEED + 26)
+    # Split over the shards of a model axis: the release's serving batch at
+    # model 2 and 4 and the d512 seed's (card_cases.K3_SPLIT_SHAPES).
+    split = [_k3_split_case(dev, peaks, K3_SPLIT_SHAPES[name],
+                            p512 if name.startswith("d512") else p,
+                            SEED + 27 + i)
+             for i, name in enumerate(K3_SPLIT_SHAPES)]
     return {"name": "conv_module", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/conv_module.cu",
             "replaces": "omnilingual_asr_tpu/ops/conv_module.py:32",
-            **main, "shapes": [main, train, wide, d512, eval10, lat],
+            **main, "shapes": [main, train, wide, d512, eval10, lat, shard,
+                               *split],
             "ptxas": {k: v for k, v in ptxas.items()
                       if k.startswith(("conv_stage1_kernel",
-                                       "conv_stage2_kernel"))}}
+                                       "conv_stage2_kernel",
+                                       "conv_split_finish_kernel"))}}
 
 
 def _k3_case(dev, peaks, shape, p, seed):
@@ -862,10 +910,124 @@ def _k3_case(dev, peaks, shape, p, seed):
     }
 
 
+def _k3_split_case(dev, peaks, shape, p, seed):
+    """K3 split over n shards of D / n channels (tensor parallelism: each
+    shard's pw1 value and gate columns, taps and pw2 rows, as
+    ``layers.convmod_spec`` places them) against the plain split
+    (``conv_module_split_plain``, TOL_K3) and against whole K3 on the same
+    weights (TOL_K3). Timed as the whole split call: every shard's three
+    launches, the statistics' exchange and the sum over the shards."""
+    import torch
+    from omnilingual_asr_torch.ops.card_cases import TOL_K3
+    from omnilingual_asr_torch.ops.conv_module import (
+        conv_module_split_plain, fused_conv_module, fused_conv_module_split)
+    from omnilingual_asr_torch.parallel.mesh import Split, split_block
+
+    B, T, D, n, valid = shape
+    if p["dw"].shape[1] != D:
+        raise PhaseError(f"split K3: weights of width {p['dw'].shape[1]} "
+                         f"for a case of width {D}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, T, D, generator=gen, device=dev)
+    n_valid = torch.tensor(valid, device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < n_valid[:, None]
+    pw1, pw2 = (p[k]["w"].to(torch.bfloat16) for k in ("pw1", "pw2"))
+
+    def blocks(t, spec):
+        return [split_block(t, spec, m, n).contiguous() for m in range(n)]
+
+    args = ([x] * n, [mask] * n, [p["ln"]["scale"]] * n,
+            [p["ln"]["bias"]] * n, blocks(pw1, Split("model", 1, 2)),
+            blocks(p["dw"], Split("model", 1)), [p["dw_ln"]["scale"]] * n,
+            [p["dw_ln"]["bias"]] * n, blocks(pw2, Split("model", 0)))
+    got = fused_conv_module_split(*args)[0]
+    want = conv_module_split_plain(*args)[0]
+    whole = fused_conv_module(x, mask, p["ln"]["scale"], p["ln"]["bias"],
+                              pw1, p["dw"], p["dw_ln"]["scale"],
+                              p["dw_ln"]["bias"], pw2)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    err_whole = float((got - whole).abs().max())
+    if (not bool(torch.isfinite(got).all()) or err > TOL_K3
+            or err_whole > TOL_K3):
+        raise PhaseError(f"split K3 D={D} n={n}: max abs err {err:.3e} "
+                         f"against the plain split, {err_whole:.3e} against "
+                         f"whole K3 (tol {TOL_K3})")
+    K = p["dw"].shape[0]
+    pw_flops = 2 * B * T * D * (2 * D + D)
+    dw_flops = 2 * B * T * D * K
+    b_ms, b_by = bound({"bf16": pw_flops, "f32": dw_flops},
+                       nbytes(x, mask, got, pw1, pw2, p["dw"]) + 4 * 4 * D,
+                       peaks)
+    return {
+        "D": D, "shards": n, "max_abs_err": err, "tol": TOL_K3,
+        "max_abs_err_vs_whole": err_whole,
+        "ms": time_ms(lambda: fused_conv_module_split(*args)),
+        "call_ms": call_ms(lambda: fused_conv_module_split(*args)),
+        "plain_ms": time_ms(lambda: conv_module_split_plain(*args)),
+        "whole_ms": time_ms(lambda: fused_conv_module(
+            x, mask, p["ln"]["scale"], p["ln"]["bias"], pw1, p["dw"],
+            p["dw_ln"]["scale"], p["dw_ln"]["bias"], pw2)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"x [{B}, {T}, {D}] f32 over {n} shards of {D // n} "
+                 f"channels, K {K}",
+        "gflop": (pw_flops + dw_flops) / 1e9,
+    }
+
+
 def _leaf(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def _k5_case(dev, peaks, x, w_q, scale, bias, w_t):
+    """K5 (W8A8) on x [M, K] against its plain version: bit for bit up to
+    TOL_K5_REL; timed beside its plain version and the int8 GEMM alone."""
+    import torch
+    from omnilingual_asr_torch.ops import quant
+    from omnilingual_asr_torch.ops.card_cases import TOL_K5_REL
+
+    M, K = x.shape
+    N = w_q.shape[1]
+    flops = 2 * M * N * K
+    n_bytes = nbytes(x, w_q, scale, bias) + M * N * 4
+    got = quant.quantized_matmul_a8(x, w_q, scale, bias, w_t)
+    want = quant.quantized_matmul_a8_plain(x, w_q, scale, bias)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    err = float((got - want).abs().max())
+    tol5 = TOL_K5_REL * float(want.abs().max())
+    if err > tol5 or not bool(torch.isfinite(got).all()):
+        raise PhaseError(f"K5 W8A8 N={N}: {n_diff} elements differ, max "
+                         f"abs err {err:.3e} > {tol5:.3e}")
+    xq, sx = quant.quantize_rows(x)
+    xq8 = xq.to(torch.int8)
+    lib_ok = bool(torch.equal(
+        torch._int_mm(xq8, w_t.t()).float() * sx[:, None] * scale + bias,
+        want))
+
+    def lib_a8():
+        return torch._int_mm(xq8, w_t.t())
+
+    b_ms, b_by = bound({"int8": flops}, n_bytes, peaks)
+    return {
+        "M": M, "N": N, "max_abs_err": err, "n_diff": n_diff,
+        "tol": f"{TOL_K5_REL} max|ref| = {tol5:.3e}",
+        "ms": time_ms(lambda: quant.quantized_matmul_a8(x, w_q, scale,
+                                                        bias, w_t)),
+        "call_ms": call_ms(lambda: quant.quantized_matmul_a8(
+            x, w_q, scale, bias, w_t)),
+        "plain_ms": time_ms(lambda: quant.quantized_matmul_a8_plain(
+            x, w_q, scale, bias)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lib_a8),
+        "library": "GEMM only: torch._int_mm on int8 activations "
+                   "quantized beforehand; leaves out the per-row "
+                   "quantization of x and the f32 epilogue (scales, "
+                   "bias) and writes int32",
+        "library_epilogue_equal": lib_ok,
+    }
 
 
 def check_quant(dev, peaks, params, ptxas):
@@ -874,10 +1036,12 @@ def check_quant(dev, peaks, params, ptxas):
     them) and seeded activations with an outlier row. Returns the two
     kernels' entries, their numbers at N = 1024 (8 of the 10 launches a
     batch) and every width under "widths". The shapes are
-    card_cases.K4_SHAPES (K5_SHAPES is the same), K5 on K4's inputs."""
+    card_cases.K4_SHAPES (K5_SHAPES is the same), K5 on K4's inputs, then
+    K5 alone at a data shard's batch (card_cases.K5_DP_SHAPES)."""
     import torch
     from omnilingual_asr_torch.ops import quant
-    from omnilingual_asr_torch.ops.card_cases import (K4_SHAPES, TOL_K5_REL,
+    from omnilingual_asr_torch.ops.card_cases import (K4_SHAPES,
+                                                      K5_DP_SHAPES,
                                                       k4_error_share)
 
     out = {"w8": [], "a8": []}
@@ -915,7 +1079,7 @@ def check_quant(dev, peaks, params, ptxas):
 
         b_ms, b_by = bound({"bf16": flops}, n_bytes, peaks)
         out["w8"].append({
-            "N": N, "max_abs_err": err,
+            "M": M, "N": N, "max_abs_err": err,
             "tol": f"2 K 2^-24 sum|terms| scale + 2^-23 |ref|, max share "
                    f"{share:.3f}",
             "ms": time_ms(lambda: quant.quantized_matmul(x, w_q, scale,
@@ -933,48 +1097,25 @@ def check_quant(dev, peaks, params, ptxas):
         })
 
         # K5: W8A8.
-        got = quant.quantized_matmul_a8(x, w_q, scale, bias, w_t)
-        want = quant.quantized_matmul_a8_plain(x, w_q, scale, bias)
-        torch.cuda.synchronize()
-        n_diff = int((got != want).sum())
-        err = float((got - want).abs().max())
-        tol5 = TOL_K5_REL * float(want.abs().max())
-        if err > tol5 or not bool(torch.isfinite(got).all()):
-            raise PhaseError(f"K5 W8A8 N={N}: {n_diff} elements differ, max "
-                             f"abs err {err:.3e} > {tol5:.3e}")
-        xq, sx = quant.quantize_rows(x)
-        xq8 = xq.to(torch.int8)
-        lib_ok = bool(torch.equal(
-            torch._int_mm(xq8, w_t.t()).float() * sx[:, None] * scale + bias,
-            want))
+        out["a8"].append(_k5_case(dev, peaks, x, w_q, scale, bias, w_t))
 
-        def lib_a8():
-            return torch._int_mm(xq8, w_t.t())
-
-        b_ms, b_by = bound({"int8": flops}, n_bytes, peaks)
-        out["a8"].append({
-            "N": N, "max_abs_err": err, "n_diff": n_diff,
-            "tol": f"{TOL_K5_REL} max|ref| = {tol5:.3e}",
-            "ms": time_ms(lambda: quant.quantized_matmul_a8(x, w_q, scale,
-                                                            bias, w_t)),
-            "call_ms": call_ms(lambda: quant.quantized_matmul_a8(
-                x, w_q, scale, bias, w_t)),
-            "plain_ms": time_ms(lambda: quant.quantized_matmul_a8_plain(
-                x, w_q, scale, bias)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lib_a8),
-            "library": "GEMM only: torch._int_mm on int8 activations "
-                       "quantized beforehand; leaves out the per-row "
-                       "quantization of x and the f32 epilogue (scales, "
-                       "bias) and writes int32",
-            "library_epilogue_equal": lib_ok,
-        })
+    # K5 at a data shard's batch under "a8" (card_cases.K5_DP_SHAPES).
+    for M, K, N in K5_DP_SHAPES.values():
+        w_q, scale = quant.quantize_weight(_leaf(params, QUANT_LAYERS[N])["w"])
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5 + N)
+        x = torch.randn(M, K, generator=gen, device=dev)
+        x[0] *= 1000.0
+        x[M - 1] = 0.0
+        out["a8"].append(_k5_case(dev, peaks, x, w_q, scale,
+                                  _leaf(params, QUANT_LAYERS[N])["b"],
+                                  w_q.t().contiguous()))
 
     entries = []
     for mode, name, src_line in (
             ("w8", "q_matmul_w8a16", "omnilingual_asr_tpu/ops/quant.py:41"),
             ("a8", "q8a8_matmul", "omnilingual_asr_tpu/ops/quant.py:90")):
-        head = next(w for w in out[mode] if w["N"] == 1024)
+        head = next(w for w in out[mode] if w["N"] == 1024
+                    and w["M"] == 3072)
         entries.append({
             "name": name, "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/quant.cu",
@@ -986,9 +1127,9 @@ def check_quant(dev, peaks, params, ptxas):
                       if k in {"w8": ("bf16_rows_kernel", "q_matmul_kernel"),
                                "a8": ("quantize_rows_kernel",
                                       "q8a8_matmul_kernel")}[mode]},
-            "shape": f"x [{M}, {K}] f32, w_q [{K}, N] int8, numbers at "
-                     f"N = 1024",
-            "gflop": 2 * M * K * 1024 / 1e9,
+            "shape": f"x [{head['M']}, {K}] f32, w_q [{K}, N] int8, "
+                     f"numbers at N = 1024",
+            "gflop": 2 * head["M"] * K * 1024 / 1e9,
             "widths": out[mode],
         })
     return entries
@@ -1016,14 +1157,15 @@ def _counters():
     from omnilingual_asr_torch.ops.attention import (flash_attention,
                                                      flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq)
-    from omnilingual_asr_torch.ops.conv_module import fused_conv_module
+    from omnilingual_asr_torch.ops.conv_module import (
+        fused_conv_module, fused_conv_module_split)
     from omnilingual_asr_torch.ops.mel import log_mel_frames
     from omnilingual_asr_torch.ops.quant import (quantized_matmul,
                                                  quantized_matmul_a8)
 
     return (log_mel_frames, flash_attention, fused_conv_module,
             quantized_matmul, quantized_matmul_a8, flash_attention_bwd_dq,
-            flash_attention_bwd_dkv)
+            flash_attention_bwd_dkv, fused_conv_module_split)
 
 
 def _read_counters(reset: bool = True) -> dict:
@@ -2783,11 +2925,11 @@ def _timed_batches(cls, parts, key="synth"):
 
 def _per_step(k1=0, flash=0):
     """Launches of each kernel a step: ``flash`` counts K2, K3, K6 and K7
-    (one each a layer in kernel mode)."""
+    (one each a layer in kernel mode); K3 split over a model axis none."""
     return {"log_mel_frames": k1, "flash_attention": flash,
             "fused_conv_module": flash, "quantized_matmul": 0,
             "quantized_matmul_a8": 0, "flash_attention_bwd_dq": flash,
-            "flash_attention_bwd_dkv": flash}
+            "flash_attention_bwd_dkv": flash, "fused_conv_module_split": 0}
 
 
 class _StepWatch:
@@ -3820,6 +3962,306 @@ def run_mesh(dev, cfg, params, xvector, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4k: tensor parallelism in serving
+# ---------------------------------------------------------------------------
+
+TP_MESHES = ((1, 2), (1, 4), (2, 2))   # (data, model) of the release engines
+TP_MOE_MESH = (1, 4)        # the all-to-all MoE engine
+TP_SEQ_MESH = (2, 2)        # sequence mode beside a model axis
+TP_D512_MODEL = 2           # the d512 seed in crop mode
+TP_ROUNDS = 3               # warm 120 s requests a model axis (medians)
+
+
+def _tp_engine(dev, cfg, params, xvector, shape, distinct, **kw):
+    """The engine on a (data, model) mesh of shards of ``dev`` (or of the
+    visible cards), WINDOWS_PER_BATCH windows a batch in all."""
+    from omnilingual_asr_torch.config import MeshConfig
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.parallel.mesh import build_mesh
+
+    data, model = shape
+    return TranscriptionEngine(
+        config=cfg, params=params, xvector_params=xvector,
+        batch_windows_per_device=WINDOWS_PER_BATCH // data,
+        mesh=build_mesh(MeshConfig(data=data, model=model),
+                        _mesh_devices(dev, data * model, distinct)), **kw)
+
+
+def _tp_launches(label, counts, shape, n_batches, layers, crops=0) -> None:
+    """A TP engine's launches over ``n_batches`` batches: per data row's
+    shard batch K1 once and K2 and split K3 once a model shard a layer;
+    whole K3, K4 and K5 never; K1 once more a crop batch."""
+    data, model = shape
+    rows = n_batches * data
+    want = {"log_mel_frames": rows + crops,
+            "flash_attention": rows * model * layers,
+            "fused_conv_module_split": rows * model * layers,
+            "fused_conv_module": 0, "quantized_matmul": 0,
+            "quantized_matmul_a8": 0}
+    bad = {k: (counts.get(k, 0), n) for k, n in want.items()
+           if counts.get(k, 0) != n}
+    if bad:
+        raise PhaseError(f"{label}: launches (got, want) {bad}")
+
+
+def _tp_release(dev, cfg, params, xvector, tiled, distinct, total) -> None:
+    """(a) The release engine at TP_MESHES, unquantized and under
+    quantize=True, on the golden and the tiled 120 s file: each golden
+    result held to golden.json (unquantized) or to the (1, 1)
+    quantize=True engine on this card by ``result_mismatches``; the
+    greedy ids of the meshes' golden windows together on
+    MIN_CTC_AGREEMENT of the same reference's, and of their 120 s
+    windows together on MIN_CTC_AGREEMENT of the (1, 1) engine's (pooled
+    as testing.py pools files: the golden file's 191 frames hold near
+    ties, top-two gaps of 0.006-0.03 against ~0.06 of logit movement
+    between two f32 orders, which one flip turns into 0.5 %); each
+    mesh's own agreement is printed; launches."""
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+
+    L = cfg.encoder.n_layers
+    stored = golden.load_golden()
+    for quantize in (False, True):
+        base = TranscriptionEngine(config=cfg, params=params,
+                                   xvector_params=xvector, device=dev,
+                                   quantize=quantize)
+        want = {"golden": base.transcribe(golden.GOLDEN_WAV).to_dict(),
+                "ids": _win_ids(base, golden.GOLDEN_WAV),
+                "tiled_ids": _win_ids(base, tiled)}
+        if not quantize:
+            want["golden"] = stored["result"]
+            want["ids"] = stored["ctc_ids"]
+        pooled = {"want": [], "got": [], "want_t": [], "got_t": []}
+        for shape in TP_MESHES:
+            eng = _tp_engine(dev, cfg, params, xvector, shape, distinct,
+                             quantize=quantize)
+            label = f"TP {shape} quantize={quantize}"
+            res, secs, peak, counts = _timed_request(eng, golden.GOLDEN_WAV,
+                                                     dev)
+            _add(total, counts)
+            _tp_launches(label + " golden", counts, shape,
+                         _n_batches(eng, [golden.GOLDEN_WAV]), L)
+            bad = golden.result_mismatches(
+                want["golden"], res,
+                tone_mass=stored["tone_mass"] if not quantize else None)
+            ids = _win_ids(eng, golden.GOLDEN_WAV)
+            res_t, secs_t, peak_t, counts_t = _timed_request(eng, tiled,
+                                                             dev)
+            _add(total, counts_t)
+            _tp_launches(label + " 120 s", counts_t, shape,
+                         _n_batches(eng, [tiled]), L)
+            ids_t = _win_ids(eng, tiled)
+            pooled["want"] += want["ids"]
+            pooled["got"] += ids
+            pooled["want_t"] += want["tiled_ids"]
+            pooled["got_t"] += ids_t
+            log("  tp release " + json.dumps({
+                "mesh": shape, "quantize": quantize,
+                "golden_against": "golden.json" if not quantize
+                else "(1, 1) quantize=True on this card",
+                "golden_mismatches": bad,
+                "golden_ids_agree": golden.ctc_agreement(want["ids"], ids),
+                "tiled_ids_agree_1x1": golden.ctc_agreement(
+                    want["tiled_ids"], ids_t),
+                "golden_seconds": secs, "tiled_seconds": secs_t,
+                "tiled_peak_bytes": peak_t,
+                "tiled_segments": len(res_t["segments"]),
+                "launches_golden": counts}))
+            if bad:
+                raise PhaseError(f"{label}: golden {bad}")
+        agree = golden.ctc_agreement(pooled["want"], pooled["got"])
+        agree_t = golden.ctc_agreement(pooled["want_t"], pooled["got_t"])
+        log(f"  tp release quantize={quantize}: golden ids of the "
+            f"{len(TP_MESHES)} meshes agree on {agree:.4%}, their 120 s ids "
+            f"with (1, 1)'s on {agree_t:.4%}")
+        if min(agree, agree_t) < golden.MIN_CTC_AGREEMENT:
+            raise PhaseError(f"TP quantize={quantize}: golden ids "
+                             f"{agree:.4f}, 120 s ids {agree_t:.4f}")
+        del base, eng
+
+
+def _tp_refusals(dev, cfg, params, xvector) -> None:
+    """(b) The int8 kernel modes at model 2 raise, as the JAX engine's."""
+    for quantize in ("a8", "w8"):
+        try:
+            _tp_engine(dev, cfg, params, xvector, (1, 2), False,
+                       quantize=quantize)
+        except ValueError as e:
+            if "model-parallel axis 1" not in str(e):
+                raise
+            log(f"  tp refusal quantize={quantize!r}: {e}")
+            continue
+        raise PhaseError(f"quantize={quantize!r} at model 2 did not raise")
+
+
+def _tp_moe(dev, cfg, params, xvector, tiled, distinct, total) -> None:
+    """(e) The release with MESH_EXPERTS grafted experts at TP_MOE_MESH
+    with all-to-all dispatch inside the blocks (capacity where nothing
+    drops) against the dense engine without a model axis, by ids."""
+    import dataclasses
+
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+
+    mcfg = cfg.replace(encoder=dataclasses.replace(
+        cfg.encoder, n_experts=MESH_EXPERTS))
+    acfg = mcfg.replace(encoder=dataclasses.replace(
+        mcfg.encoder, moe_dispatch="alltoall",
+        moe_capacity_factor=MESH_EP_CAPACITY))
+    mparams = _graft_moe(params, MESH_EXPERTS)
+    dense = TranscriptionEngine(config=mcfg, params=mparams,
+                                xvector_params=xvector, device=dev)
+    a2a = _tp_engine(dev, acfg, mparams, xvector, TP_MOE_MESH, distinct)
+    for name, path in (("golden", golden.GOLDEN_WAV), ("tiled", tiled)):
+        res, secs, _, counts = _timed_request(a2a, path, dev)
+        _add(total, counts)
+        _tp_launches(f"TP MoE {name}", counts, TP_MOE_MESH,
+                     _n_batches(a2a, [path]), cfg.encoder.n_layers)
+        agree = golden.ctc_agreement(_win_ids(dense, path),
+                                     _win_ids(a2a, path))
+        log("  tp moe all-to-all engine " + json.dumps({
+            "mesh": TP_MOE_MESH, "experts": MESH_EXPERTS, "file": name,
+            "seconds": secs, "segments": len(res["segments"]),
+            "ids_agree_dense_1x1": agree}))
+        if agree < golden.MIN_CTC_AGREEMENT:
+            raise PhaseError(f"TP MoE {name}: ids agree with dense on "
+                             f"{agree:.4f}")
+
+
+def _tp_d512_crop(dev, tiled, distinct, total) -> None:
+    """(f) The d512 seed in crop mode at model TP_D512_MODEL (the crop
+    re-embedding's trunk on plain ops over the shards), greedy, held to
+    golden_d512_crop.json where stable (testing.d512_mismatches with
+    near_ties: segments, times, speakers, languages, emotions, summary
+    and the pooled ids held; a segment's text free where the fixture's
+    feed has a near tie in it)."""
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.config import config_for_checkpoint
+    from omnilingual_asr_torch.engine import SPK_CROP_BATCH
+    from omnilingual_asr_torch.models.zoo import load_checkpoint
+
+    base = config_for_checkpoint(str(D512))
+    params = load_checkpoint(D512, base, dev)
+    shape = (1, TP_D512_MODEL)
+    eng = _tp_engine(dev, base, params, None, shape, distinct,
+                     speaker_mode="crop")
+    results, ids = {}, {}
+    for name, path in (("golden", golden.GOLDEN_WAV), ("tiled", tiled)):
+        res, secs, _, counts = _timed_request(eng, path, dev)
+        _add(total, counts)
+        n_seg = len(res["segments"])
+        crops = -(-n_seg // SPK_CROP_BATCH) if n_seg > 1 else 0
+        _tp_launches(f"TP d512 crop {name}", counts, shape,
+                     _n_batches(eng, [path]), base.encoder.n_layers, crops)
+        results[name] = res
+        ids[name] = _win_ids(eng, path)
+        log("  tp d512 crop " + json.dumps({
+            "model": TP_D512_MODEL, "file": name, "seconds": secs,
+            "segments": n_seg, "crop_batches": crops}))
+    free = {n: golden.d512_greedy_near_ties(n) for n in results}
+    bad = golden.d512_mismatches("greedy", results, ids, near_ties=True)
+    log(f"  tp d512 crop: texts free where the fixture has a near tie "
+        f"(segments {free}); texts equal on "
+        + json.dumps({n: sum(a["text"] == b["text"] for a, b in zip(
+            golden.load_golden_d512()["files"][n]["greedy"]["result"][
+                "segments"], r["segments"])) for n, r in results.items()}))
+    if bad:
+        raise PhaseError("TP d512 crop: " + "; ".join(bad))
+
+
+def _tp_sequence(dev, cfg, params, xvector, distinct, total) -> None:
+    """(g) Sequence mode on a TP_SEQ_MESH mesh (over the data axis, the
+    parameters gathered per data row) on the golden file, held to
+    golden_sequence.json."""
+    from omnilingual_asr_torch import testing as golden
+
+    eng = _tp_engine(dev, cfg, params, xvector, TP_SEQ_MESH, distinct,
+                     long_mode="sequence")
+    res, secs, _, counts = _timed_request(eng, golden.GOLDEN_WAV, dev)
+    _add(total, counts)
+    stored = golden.load_golden_sequence()
+    bad = golden.result_mismatches(stored["result"], res,
+                                   tone_mass=stored["tone_mass"])
+    agree = golden.ctc_agreement(stored["ctc_ids"],
+                                 _seq_ids(eng, golden.GOLDEN_WAV))
+    log("  tp sequence " + json.dumps({
+        "mesh": TP_SEQ_MESH, "seconds": secs, "mismatches": bad,
+        "ids_agree": agree, "launches": counts}))
+    if bad or agree < golden.MIN_CTC_AGREEMENT:
+        raise PhaseError(f"TP sequence mode: {bad}, ids {agree:.4f}")
+
+
+def _tp_costs(dev, cfg, params, xvector, tiled, distinct, total) -> None:
+    """(h) Warm 120 s request seconds (median of TP_ROUNDS), peak card
+    memory and what a request adds to the memory held before it
+    (``request_bytes``) at model 1, 2 and 4 (data 1), the engines'
+    requests interleaved. Reported, not held: on one card the shards run
+    in turn."""
+    import torch
+
+    engines = {m: _tp_engine(dev, cfg, params, xvector, (1, m), distinct)
+               for m in (1, 2, 4)}
+    runs = {m: {"seconds": [], "peak_bytes": 0, "request_bytes": 0}
+            for m in engines}
+    for m, eng in engines.items():
+        eng.transcribe(tiled)                          # warm
+    for rnd in range(TP_ROUNDS):
+        order = list(engines) if rnd % 2 == 0 else list(engines)[::-1]
+        for m in order:
+            start = torch.cuda.memory_allocated(dev)
+            _, secs, peak, counts = _timed_request(engines[m], tiled, dev)
+            _add(total, counts)
+            r = runs[m]
+            r["seconds"].append(secs)
+            r["peak_bytes"] = max(r["peak_bytes"], peak)
+            r["request_bytes"] = max(r["request_bytes"], peak - start)
+    for m, r in runs.items():
+        r["median_seconds"] = statistics.median(r["seconds"])
+    log("  tp request costs (120 s, warm) " + json.dumps(runs))
+
+
+def run_tp(dev, cfg, params, xvector, smi) -> dict:
+    """Phase 4k. Tensor parallelism in serving with the release weights,
+    meshes as shards on ``dev`` (and, where more than one card is
+    visible, (a), (e) and (g) again over distinct cards): (a) the release
+    engine at TP_MESHES; (b) the int8 kernel modes refused at model 2;
+    (e) the all-to-all MoE engine; (f) the d512 seed in crop mode; (g)
+    sequence mode beside a model axis; (h) request seconds and peak
+    memory at model 1, 2 and 4. (c) and (d), the split K3 and K2 at one
+    shard's heads, run in phase 3. Returns the launches of each kernel."""
+    import torch
+
+    tiled = PKG / "_build" / "smoke_tiled.wav"
+    write_tiled_wav(PKG / "testdata" / "golden.wav", tiled, TILED_SECONDS)
+    total: dict = {}
+    variants = [False] + ([True] if torch.cuda.device_count() > 1 else [])
+    for distinct in variants:
+        where = "distinct cards" if distinct else f"shards on {dev}"
+        log(f"  tp variant: {where}")
+        steps = [("(a) release engines", lambda: _tp_release(
+                     dev, cfg, params, xvector, tiled, distinct, total)),
+                 ("(e) all-to-all experts", lambda: _tp_moe(
+                     dev, cfg, params, xvector, tiled, distinct, total)),
+                 ("(g) sequence mode", lambda: _tp_sequence(
+                     dev, cfg, params, xvector, distinct, total))]
+        if not distinct:
+            steps[1:1] = [("(b) int8 kernel modes", lambda: _tp_refusals(
+                dev, cfg, params, xvector))]
+            steps += [("(f) d512 crop", lambda: _tp_d512_crop(
+                          dev, tiled, distinct, total)),
+                      ("(h) request costs", lambda: _tp_costs(
+                          dev, cfg, params, xvector, tiled, distinct,
+                          total))]
+        for label, fn in steps:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.empty_cache()
+            log(f"  {label} {time.perf_counter() - t0:.2f} s")
+    log(f"  tp launches {json.dumps(total)} ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 4c (--profile): where a request's and a train step's time goes
 # ---------------------------------------------------------------------------
 
@@ -4125,6 +4567,11 @@ def main(argv=None) -> int:
         mesh = run_mesh(dev, cfg, params, xvector, smi)
         log(f"[mesh] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "tp"
+        t0 = time.perf_counter()
+        tp_path = run_tp(dev, cfg, params, xvector, smi)
+        log(f"[tp] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -4133,21 +4580,24 @@ def main(argv=None) -> int:
             log(f"[profile] ok ({time.perf_counter() - t0:.2f} s)")
 
         phase = "report"
-        by_fn = {"log_mel": "log_mel_frames",
-                 "flash_attention_fwd": "flash_attention",
-                 "conv_module": "fused_conv_module",
-                 "q_matmul_w8a16": "quantized_matmul",
-                 "q8a8_matmul": "quantized_matmul_a8",
-                 "flash_attention_bwd_dq": "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv": "flash_attention_bwd_dkv"}
+        # K3's launches: whole, and split over a model axis (one a shard).
+        by_fn = {"log_mel": ("log_mel_frames",),
+                 "flash_attention_fwd": ("flash_attention",),
+                 "conv_module": ("fused_conv_module",
+                                 "fused_conv_module_split"),
+                 "q_matmul_w8a16": ("quantized_matmul",),
+                 "q8a8_matmul": ("quantized_matmul_a8",),
+                 "flash_attention_bwd_dq": ("flash_attention_bwd_dq",),
+                 "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv",)}
         paths = {"serving": serving, "training": training,
                  "decoders": decoding, "server": served, "d512": d512,
                  "evals": evals, "trainers": trainers,
-                 "rest_of_training": rest, "mesh": mesh}
+                 "rest_of_training": rest, "mesh": mesh, "tp": tp_path}
         line = {"kernels": []}
         for k in kernels:
-            fn = by_fn[k["name"]]
-            by_path = {p: c.get(fn, 0) for p, c in paths.items()}
+            fns = by_fn[k["name"]]
+            by_path = {p: sum(c.get(f, 0) for f in fns)
+                       for p, c in paths.items()}
             line["kernels"].append({
                 "name": k["name"], "route": k["route"],
                 "source": k["source"], "replaces": k["replaces"],

@@ -57,6 +57,22 @@
 //    flattened B x T frames: a and pw2 stream by cp.async as in (b), and
 //    the epilogue adds x.
 //
+// Split over channels (tensor parallelism, three launches a shard; the
+// stand-in for what GSPMD derives from the reference's conv-module specs).
+// Shard m of n holds pw1's value and gate columns of its DL = D / n
+// channels ([D, 2 DL]), their taps ([K, DL]) and pw2's rows ([DL, D]):
+// (i)  conv_stage1_kernel<TT, true>: steps 1(a)-(d) over the shard's DL
+//      channels (LN(x) over all D), but in place of the LN at (d) it writes
+//      c ([B, T, DL] f32) and each frame's (mean, M2) over the DL channels
+//      (the cluster's parts merged);
+// (ii) conv_split_finish_kernel: after the host gathered the n shards'
+//      statistics ([B, T, n, 2]), one warp a frame merges them (Chan et
+//      al.'s update) and writes a = bf16(SiLU(LN(c))) for the shard's
+//      channels;
+// (iii) conv_stage2_kernel over K = DL rows of pw2 without the residual:
+//      the shard's partial output; the host sums the shards' partials and
+//      adds x once. DL % 64 == 0 (stage 1's channel blocks).
+//
 // Each output element is computed by the same operations as the plain
 // version, up to the order of f32 sums (LN statistics, products, taps) and
 // a fast sigmoid, which TOL_K3 in chip_smoke.py covers. The tiling and
@@ -181,7 +197,10 @@ __device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float a,
   *reinterpret_cast<uint2*>(dst) = p;
 }
 
-template <int TT>
+// SPLIT: the block's DL channels are a shard's (pw1 [D, 2 DL], dw
+// [K, DL]); c and each frame's (mean, M2) over them go to c_out and
+// stats_out in place of a_out. Otherwise DL == D.
+template <int TT, bool SPLIT>
 __global__ void __launch_bounds__(S1_THREADS, S1_MIN_BLOCKS)
 conv_stage1_kernel(const float* __restrict__ x, const int* __restrict__ mask,
                    const float* __restrict__ ln_s,
@@ -191,7 +210,9 @@ conv_stage1_kernel(const float* __restrict__ x, const int* __restrict__ mask,
                    const float* __restrict__ dwln_s,
                    const float* __restrict__ dwln_b,
                    __nv_bfloat16* __restrict__ h_tiles,
-                   __nv_bfloat16* __restrict__ a_out, int T, int D, int K) {
+                   __nv_bfloat16* __restrict__ a_out,
+                   float* __restrict__ c_out, float2* __restrict__ stats_out,
+                   int T, int D, int DL, int K) {
   using S = Stage1<TT>;
   constexpr int RP = S::RP, MT = S::MT;
   __shared__ float rowm[RP];         // 1 where the halo row is a valid frame
@@ -202,8 +223,8 @@ conv_stage1_kernel(const float* __restrict__ x, const int* __restrict__ mask,
   auto* Gc = reinterpret_cast<float*>(s1_smem);  // [RP][GLD], after the GEMM
   auto* taps = reinterpret_cast<float*>(s1_smem + S::UNION);   // [K][NC]
   float* dwp = taps + (HALO + 1) * NC;                      // [2][NC]
-  // [D / NC][TT]: (mean, m2) of each frame's c over each block's channels,
-  // written by the cluster's blocks.
+  // [DL / NC][TT]: (mean, m2) of each frame's c over each block's
+  // channels, written by the cluster's blocks.
   auto* parts = reinterpret_cast<float2*>(dwp + 2 * NC);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -282,7 +303,7 @@ conv_stage1_kernel(const float* __restrict__ x, const int* __restrict__ mask,
 
   // 2. pw1 over the tile. Chunk s: rows of ht, columns s * KC .., and pw1
   //    rows s * KC ..: the value columns j0 .. j0 + NC, then the gate
-  //    columns D + j0 .., side by side. One commit group a chunk (empty
+  //    columns DL + j0 .., side by side. One commit group a chunk (empty
   //    past the last); the taps and the second LN's parameters join the
   //    first.
   auto issue = [&](int s) {
@@ -290,21 +311,22 @@ conv_stage1_kernel(const float* __restrict__ x, const int* __restrict__ mask,
       const int k0 = s * KC;
       omni::load_rows_async<RP, KC * 2, S1_THREADS>(
           As + (s % (PIPE + 1)) * S::A, LDA * 2, ht + k0, 2 * D, tid);
-      const __nv_bfloat16* src = pw1 + static_cast<size_t>(k0) * 2 * D + j0;
+      const __nv_bfloat16* src =
+          pw1 + static_cast<size_t>(k0) * 2 * DL + j0;
       __nv_bfloat16* B = Bs + (s % (PIPE + 1)) * S::B;
-      omni::load_rows_async<KC, NC * 2, S1_THREADS>(B, LDB1 * 2, src, 4 * D,
+      omni::load_rows_async<KC, NC * 2, S1_THREADS>(B, LDB1 * 2, src, 4 * DL,
                                                     tid);
       omni::load_rows_async<KC, NC * 2, S1_THREADS>(B + NC, LDB1 * 2,
-                                                    src + D, 4 * D, tid);
+                                                    src + DL, 4 * DL, tid);
     }
     omni::cp_async_commit();
   };
   for (int i = tid; i < K * (NC / 4); i += S1_THREADS)
     omni::cp_async_16(taps + i * 4,
-                      dw + static_cast<size_t>(i / (NC / 4)) * D + j0 +
+                      dw + static_cast<size_t>(i / (NC / 4)) * DL + j0 +
                           (i % (NC / 4)) * 4,
                       true);
-  if (tid < NC / 2)
+  if (!SPLIT && tid < NC / 2)
     omni::cp_async_16(dwp + tid * 4, tid < NC / 4 ? dwln_s + j0 + tid * 4
                                                   : dwln_b + j0 + tid * 4 -
                                                         NC,
@@ -422,8 +444,25 @@ conv_stage1_kernel(const float* __restrict__ x, const int* __restrict__ mask,
       mo = merge(mo, Moments{pt.x, pt.y, static_cast<float>(NC)});
     }
     mo = warp_merge(mo);
-    if (lane == 0)
+    if (SPLIT) {
+      if (lane == 0 && rank == 0 && t0 + f < T)
+        stats_out[static_cast<size_t>(b) * T + t0 + f] =
+            make_float2(mo.mean, mo.m2);
+    } else if (lane == 0) {
       ln2[f] = make_float2(mo.mean, 1.f / sqrtf(mo.m2 / D + LN_EPS));
+    }
+  }
+  if (SPLIT) {
+    // c of the block's channels, four a thread, one 16-byte store each.
+    for (int i = tid; i < TT * (NC / 4); i += S1_THREADS) {
+      const int f = i / (NC / 4), c4 = (i % (NC / 4)) * 4;
+      if (t0 + f >= T) continue;
+      *reinterpret_cast<float4*>(c_out +
+                                 (static_cast<size_t>(b) * T + t0 + f) * DL +
+                                 j0 + c4) =
+          *reinterpret_cast<const float4*>(&Ct[f * GLD + c4]);
+    }
+    return;
   }
   __syncthreads();
   // 8 channels a thread: frame i / (NC / 8), one 16-byte store each.
@@ -445,16 +484,17 @@ conv_stage1_kernel(const float* __restrict__ x, const int* __restrict__ mask,
       packed[e / 2] = omni::pack_bf16(y[0], y[1]);
     }
     *reinterpret_cast<uint4*>(a_out + (static_cast<size_t>(b) * T + t0 + f) *
-                                          D + j0 + c8) =
+                                          DL + j0 + c8) =
         make_uint4(packed[0], packed[1], packed[2], packed[3]);
   }
 }
 
+// out = a [M, DK] @ pw2 [DK, D] (+ x where x is not null).
 __global__ void __launch_bounds__(S2_THREADS, S2_MIN_BLOCKS)
 conv_stage2_kernel(const __nv_bfloat16* __restrict__ a_in,
                    const float* __restrict__ x,
                    const __nv_bfloat16* __restrict__ pw2,
-                   float* __restrict__ out, int M, int D) {
+                   float* __restrict__ out, int M, int DK, int D) {
   extern __shared__ __align__(16) unsigned char s2_smem[];
   auto* As = reinterpret_cast<__nv_bfloat16*>(s2_smem);   // [PIPE + 1][A]
   __nv_bfloat16* Bs = As + (PIPE + 1) * Tiles2::A;         // [PIPE + 1][B]
@@ -463,7 +503,7 @@ conv_stage2_kernel(const __nv_bfloat16* __restrict__ a_in,
   const int g = lane >> 2, tig = lane & 3;
   const int wr = warp / S2_WARPS_N, wc = warp % S2_WARPS_N;
   const int m0 = blockIdx.x * BM2, n0 = blockIdx.y * BN2;
-  const int n_k = D / KC;
+  const int n_k = DK / KC;
 
   // Chunk s: a rows m0 .. (zero past M), columns s * KC .., and pw2 rows
   // s * KC .., columns n0 .. n0 + BN2; one commit group a chunk.
@@ -471,7 +511,7 @@ conv_stage2_kernel(const __nv_bfloat16* __restrict__ a_in,
     if (s < n_k) {
       omni::load_rows_async<BM2, KC * 2, S2_THREADS>(
           As + (s % (PIPE + 1)) * Tiles2::A, LDA * 2,
-          a_in + static_cast<size_t>(m0) * D + s * KC, 2 * D, tid, M - m0);
+          a_in + static_cast<size_t>(m0) * DK + s * KC, 2 * DK, tid, M - m0);
       omni::load_rows_async<KC, BN2 * 2, S2_THREADS>(
           Bs + (s % (PIPE + 1)) * Tiles2::B, LDB2 * 2,
           pw2 + static_cast<size_t>(s) * KC * D + n0, 2 * D, tid);
@@ -517,7 +557,8 @@ conv_stage2_kernel(const __nv_bfloat16* __restrict__ a_in,
   }
   omni::cp_async_wait<0>();
 
-  // + x (the unmasked input), two neighbouring channels a store.
+  // + x (the unmasked input; none for a shard's partial), two
+  // neighbouring channels a store.
 #pragma unroll
   for (int mi = 0; mi < MT2; ++mi)
 #pragma unroll
@@ -528,17 +569,22 @@ conv_stage2_kernel(const __nv_bfloat16* __restrict__ a_in,
         if (m >= M) continue;
         const size_t off = static_cast<size_t>(m) * D + n0 + wc * 32 +
                            ni * 8 + tig * 2;
-        const float2 xr = *reinterpret_cast<const float2*>(x + off);
+        const float2 xr = x != nullptr
+                              ? *reinterpret_cast<const float2*>(x + off)
+                              : make_float2(0.f, 0.f);
         *reinterpret_cast<float2*>(out + off) = make_float2(
             xr.x + acc[mi][ni][2 * h], xr.y + acc[mi][ni][2 * h + 1]);
       }
 }
 
 // D % 64 == 0 covers both stages' channel tiles (NC and BN2 divide 64);
-// stage 1's cluster holds all D / NC channel chunks of a frame tile.
-bool shapes_ok(int B, int T, int D, int K) {
+// stage 1's cluster holds all DL / NC channel chunks of a frame tile, and
+// its LN rows hold D <= MAX_CLUSTER NC values a lane's registers take.
+bool shapes_ok(int B, int T, int D, int K, int DL = 0) {
+  if (DL == 0) DL = D;
   return B > 0 && B <= 65535 && T > 0 && D > 0 && D % 64 == 0 &&
-         D / NC <= MAX_CLUSTER && K >= 1 && K - 1 <= HALO;
+         D / NC <= MAX_CLUSTER && DL > 0 && DL % 64 == 0 && D % DL == 0 &&
+         K >= 1 && K - 1 <= HALO;
 }
 
 // Stage 1's frames a block at (B, T, D): TT_LARGE (fewer blocks re-read
@@ -555,17 +601,19 @@ int frames_a_block(int B, int T, int D) {
   return large >= sms ? TT_LARGE : TT_SMALL;
 }
 
-template <int TT>
+template <int TT, bool SPLIT>
 cudaError_t launch_stage1(const float* x, const int* mask, const float* ln_s,
                           const float* ln_b, const void* pw1, const float* dw,
                           const float* dwln_s, const float* dwln_b,
-                          __nv_bfloat16* h, __nv_bfloat16* a, int B, int T,
-                          int D, int K, cudaStream_t st) {
-  const int cs = D / NC;   // the cluster: one frame tile's channel chunks
+                          __nv_bfloat16* h, __nv_bfloat16* a, float* c,
+                          float2* stats, int B, int T, int D, int DL, int K,
+                          cudaStream_t st) {
+  const int cs = DL / NC;  // the cluster: one frame tile's channel chunks
   const size_t smem = Stage1<TT>::FIXED + 8 * TT * cs;
-  cudaError_t err = omni::allow_smem(conv_stage1_kernel<TT>, smem);
+  const auto kernel = conv_stage1_kernel<TT, SPLIT>;
+  cudaError_t err = omni::allow_smem(kernel, smem);
   if (err == cudaSuccess && cs > 8)   // 8 is the portable cluster size
-    err = cudaFuncSetAttribute(conv_stage1_kernel<TT>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   if (err != cudaSuccess) return err;
@@ -581,9 +629,56 @@ cudaError_t launch_stage1(const float* x, const int* mask, const float* ln_s,
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, conv_stage1_kernel<TT>, x, mask, ln_s,
-                            ln_b, static_cast<const __nv_bfloat16*>(pw1), dw,
-                            dwln_s, dwln_b, h, a, T, D, K);
+  return cudaLaunchKernelEx(&cfg, kernel, x, mask, ln_s, ln_b,
+                            static_cast<const __nv_bfloat16*>(pw1), dw,
+                            dwln_s, dwln_b, h, a, c, stats, T, D, DL, K);
+}
+
+constexpr int FIN_WARPS = 8;   // frames a finishing block
+
+// (ii) of the split: frame f's n shard statistics merged (lane j takes
+// shard j, then a butterfly; lane 0's result for the whole warp), then
+// a = bf16(SiLU(LN(c))) over the shard's DL channels, two a lane a step.
+__global__ void __launch_bounds__(FIN_WARPS * 32)
+conv_split_finish_kernel(const float* __restrict__ c,
+                         const float2* __restrict__ stats, int n,
+                         const float* __restrict__ dwln_s,
+                         const float* __restrict__ dwln_b,
+                         __nv_bfloat16* __restrict__ a, int M, int DL,
+                         int D) {
+  const int lane = threadIdx.x & 31;
+  const int f = blockIdx.x * FIN_WARPS + (threadIdx.x >> 5);
+  if (f >= M) return;
+  Moments mo = {0.f, 0.f, 0.f};
+  for (int j = lane; j < n; j += 32) {
+    const float2 pt = stats[static_cast<size_t>(f) * n + j];
+    mo = merge(mo, Moments{pt.x, pt.y, static_cast<float>(DL)});
+  }
+  mo = warp_merge(mo);
+  const float mean = __shfl_sync(0xffffffffu, mo.mean, 0);
+  const float inv =
+      1.f / sqrtf(__shfl_sync(0xffffffffu, mo.m2, 0) / D + LN_EPS);
+  const float* cr = c + static_cast<size_t>(f) * DL;
+  __nv_bfloat16* ar = a + static_cast<size_t>(f) * DL;
+  for (int ch = lane * 2; ch < DL; ch += 64) {
+    const float2 v = *reinterpret_cast<const float2*>(cr + ch);
+    float y0 = (v.x - mean) * inv * dwln_s[ch] + dwln_b[ch];
+    float y1 = (v.y - mean) * inv * dwln_s[ch + 1] + dwln_b[ch + 1];
+    y0 = y0 * sigmoidf(y0);
+    y1 = y1 * sigmoidf(y1);
+    *reinterpret_cast<uint32_t*>(ar + ch) = omni::pack_bf16(y0, y1);
+  }
+}
+
+cudaError_t launch_stage2(const __nv_bfloat16* a, const float* x,
+                          const void* pw2, float* out, int M, int DK, int D,
+                          cudaStream_t st) {
+  cudaError_t err = omni::allow_smem(conv_stage2_kernel, Tiles2::BYTES);
+  if (err != cudaSuccess) return err;
+  conv_stage2_kernel<<<dim3((M + BM2 - 1) / BM2, D / BN2), S2_THREADS,
+                       Tiles2::BYTES, st>>>(
+      a, x, static_cast<const __nv_bfloat16*>(pw2), out, M, DK, D);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -604,18 +699,84 @@ OMNI_API int omni_conv_module(const float* x, const int* mask,
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       frames_a_block(B, T, D) == TT_LARGE
-          ? launch_stage1<TT_LARGE>(x, mask, ln_s, ln_b, pw1, dw, dwln_s,
-                                    dwln_b, h, a, B, T, D, K, st)
-          : launch_stage1<TT_SMALL>(x, mask, ln_s, ln_b, pw1, dw, dwln_s,
-                                    dwln_b, h, a, B, T, D, K, st);
+          ? launch_stage1<TT_LARGE, false>(x, mask, ln_s, ln_b, pw1, dw,
+                                           dwln_s, dwln_b, h, a, nullptr,
+                                           nullptr, B, T, D, D, K, st)
+          : launch_stage1<TT_SMALL, false>(x, mask, ln_s, ln_b, pw1, dw,
+                                           dwln_s, dwln_b, h, a, nullptr,
+                                           nullptr, B, T, D, D, K, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int M = B * T;
-  err = omni::allow_smem(conv_stage2_kernel, Tiles2::BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  conv_stage2_kernel<<<dim3((M + BM2 - 1) / BM2, D / BN2), S2_THREADS,
-                       Tiles2::BYTES, st>>>(
-      a, x, static_cast<const __nv_bfloat16*>(pw2), out, M, D);
+  return static_cast<int>(launch_stage2(a, x, pw2, out, B * T, D, D, st));
+}
+
+// The split's (i) on one shard: x [B, T, D] f32, pw1 [D, 2 DL] bf16 (the
+// shard's value | gate columns), dw [K, DL] f32 -> c [B, T, DL] f32 and
+// stats [B, T, 2] f32 (each frame's mean and M2 over the DL channels).
+// scratch: stage 1's A operands, [B, ceil(T / TT), RP, D] bf16 (RP, TT:
+// omni_conv_split_plan's plan[1], plan[2]).
+OMNI_API int omni_conv_split_stage1(const float* x, const int* mask,
+                                    const float* ln_s, const float* ln_b,
+                                    const void* pw1, const float* dw,
+                                    void* scratch, float* c, float* stats,
+                                    int B, int T, int D, int DL, int K,
+                                    void* stream) {
+  if (!shapes_ok(B, T, D, K, DL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* h = static_cast<__nv_bfloat16*>(scratch);
+  auto* st2 = reinterpret_cast<float2*>(stats);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      frames_a_block(B, T, DL) == TT_LARGE
+          ? launch_stage1<TT_LARGE, true>(x, mask, ln_s, ln_b, pw1, dw,
+                                          nullptr, nullptr, h, nullptr, c,
+                                          st2, B, T, D, DL, K, st)
+          : launch_stage1<TT_SMALL, true>(x, mask, ln_s, ln_b, pw1, dw,
+                                          nullptr, nullptr, h, nullptr, c,
+                                          st2, B, T, D, DL, K, st);
+  return static_cast<int>(err);
+}
+
+// The split's (ii): c [M, DL] f32, stats [M, n, 2] f32 (every shard's,
+// gathered), the shard's second-LN scale and bias [DL] -> a [M, DL] bf16.
+OMNI_API int omni_conv_split_finish(const float* c, const float* stats,
+                                    int n, const float* dwln_s,
+                                    const float* dwln_b, void* a, int M,
+                                    int DL, int D, void* stream) {
+  if (M <= 0 || n <= 0 || DL <= 0 || DL % 64 || D % DL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  conv_split_finish_kernel<<<(M + FIN_WARPS - 1) / FIN_WARPS,
+                             FIN_WARPS * 32, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      c, reinterpret_cast<const float2*>(stats), n, dwln_s, dwln_b,
+      static_cast<__nv_bfloat16*>(a), M, DL, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The split's (iii): a [M, DL] bf16 @ pw2 [DL, D] bf16 (the shard's rows)
+// -> out [M, D] f32, the shard's partial output (no residual).
+OMNI_API int omni_conv_split_stage2(const void* a, const void* pw2,
+                                    float* out, int M, int DL, int D,
+                                    void* stream) {
+  if (M <= 0 || DL <= 0 || DL % 64 || D % 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_stage2(
+      static_cast<const __nv_bfloat16*>(a), nullptr, pw2, out, M, DL, D,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The split's plan at (B, T, D, DL): as omni_conv_module_plan's, for one
+// shard's launches.
+OMNI_API int omni_conv_split_plan(int B, int T, int D, int DL, int* plan) {
+  if (!shapes_ok(B, T, D, 1, DL))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tt = frames_a_block(B, T, DL);
+  plan[0] = (T + tt - 1) / tt * (DL / NC) * B;
+  plan[1] = tt + HALO;
+  plan[2] = tt;
+  plan[3] = (B * T + BM2 - 1) / BM2 * (D / BN2);
+  plan[4] = S1_THREADS;
+  plan[5] = S2_THREADS;
+  return 0;
 }
 
 // K3's plan at (B, T, D), for reports: plan[0] stage-1 blocks, [1] rows

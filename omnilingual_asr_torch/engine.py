@@ -11,13 +11,15 @@ here: prefix beam search with the lexicon LM (``decode.beam_size > 1``,
 ``ops/beam.py``, ``ops/lexicon.py``), per-segment speaker re-embedding
 (``speaker_mode="crop"``), μ-law ingress (``ingress="mulaw"``,
 ``audio/codec.py``) and the slim speaker wire (``decode.spk_frame_stride``,
-``decode.spk_wire="i8"``), and the mesh modes without tensor
-parallelism: windows split over the ``data`` axis of a mesh
-(``parallel/mesh.py``), ``long_mode="sequence"`` (a whole file as one
-sequence over that axis: ring attention and the conv halo exchange,
-``parallel/sequence.py``) and the packed wire (``decode.wire_pack``: a
-batch's outputs come back in one device-to-host copy, ``ops/pack.py``).
-A mesh whose ``model`` axis is above 1 (tensor parallelism) raises.
+``decode.spk_wire="i8"``), and the mesh modes: windows split over the
+``data`` axis of a mesh (``parallel/mesh.py``), tensor parallelism over
+its ``model`` axis (each data row's forward over the row's model shards,
+``models/conformer.py::tp_asr_forward``; the int8 kernel modes need a
+``model`` axis of 1, as in JAX), ``long_mode="sequence"`` (a whole file
+as one sequence over the data axis: ring attention and the conv halo
+exchange, ``parallel/sequence.py``) and the packed wire
+(``decode.wire_pack``: a batch's outputs come back in one device-to-host
+copy, ``ops/pack.py``).
 
 Execution model:
 - audio is decoded on the host by the native ``omniaudio`` library (and
@@ -32,7 +34,11 @@ Execution model:
   extraction of batch k overlaps the device work of later batches; on a
   mesh, each data shard's windows run on its device with the parameters
   replicated there (one copy a distinct device), and the outputs are
-  gathered in window order;
+  gathered in window order; with a ``model`` axis above 1 the mel runs
+  once a data row, on the row's first device, and the conformer over the
+  row's model shards, each holding its block of every split parameter
+  (``models/conformer.py::asr_param_specs``); the heads, argmax and wire
+  packing run on the row's first device;
 - CTC collapse, segmentation, pooling, the beam search over the device's
   per-frame top-K scores and whole-file speaker clustering run on the host,
   exactly as in the JAX engine; in crop mode each segment's audio is
@@ -83,7 +89,9 @@ from .diarization.cluster import DEFAULT_THRESHOLD as CLUSTER_DEFAULT_THRESHOLD
 from .diarization.cluster import cluster_speakers
 from .models import languages as lang_table
 from .models.conformer import (SPK_DIM, asr_forward, asr_init,
-                               pooled_speaker_embed_np, subsampled_mask)
+                               asr_param_specs, check_tp_dims,
+                               pooled_speaker_embed_np, shard_for_tp,
+                               subsampled_mask, tp_asr_forward)
 from .models.orthography import ctc_logit_mask
 from .models.summarizer import (SummaryDecoder, summary_consistent,
                                 template_summary)
@@ -101,7 +109,8 @@ from .ops.cuda_build import KernelBuildError
 from .ops.lexicon import TrieLM, synth_lexicon
 from .ops.mel import BLOCK_T, MelFrontend
 from .ops.pack import layout_of, pack_tree, unpack_buffer
-from .ops.quant import add_kernel_layouts, quantize_param_tree
+from .ops.quant import (add_kernel_layouts, quantize_param_tree,
+                        quantize_spec_tree)
 from .parallel.mesh import Mesh, build_mesh
 from .parallel.sequence import sp_conformer_forward
 from .types import EMOTIONS, TranscriptSegment, TranscriptionResult
@@ -174,6 +183,23 @@ class _Replica:
     xvector: Optional[dict]
     frontend: MelFrontend
     stream: Optional["torch.cuda.Stream"]
+    #: With a model axis above 1: the row's model shards' trees (shard m
+    #: on the row's device m); ``params`` is then unused.
+    shards: Optional[List[dict]] = None
+
+
+def _bf16_conv(params):
+    """``params`` with each block's conv-module pointwise weights as
+    ``{"w": bf16}`` (a quantized one dequantized in f32 first), as the
+    fused conv module takes them; the other leaves shared."""
+    blocks = []
+    for blk in params["blocks"]:
+        conv = dict(blk["conv"])
+        for name in ("pw1", "pw2"):
+            conv[name] = {"w": dense_weight(conv[name]).to(
+                torch.bfloat16).contiguous()}
+        blocks.append({**blk, "conv": conv})
+    return {**params, "blocks": blocks}
 
 
 def _progress_reporters(progress_callback: ProgressCallback):
@@ -219,9 +245,9 @@ class TranscriptionEngine:
     every dense weight as int8 with per-channel scales and dequantizes it
     into the bf16 matmuls; ``"w8"`` and ``"a8"`` also route the layers that
     the kernels take (in_dim % 128 == 0, out_dim % 512 == 0) through the
-    W8A16 kernel K4 or the W8A8 kernel K5 (``ops/quant.py``). The JAX
-    engine refuses the kernel modes under tensor parallelism; the port
-    refuses tensor parallelism itself.
+    W8A16 kernel K4 or the W8A8 kernel K5 (``ops/quant.py``). Under
+    tensor parallelism the kernel modes raise ValueError, as in the JAX
+    engine; ``quantize=True`` serves there.
 
     ``speaker_mode``: ``"inline"`` pools the main forward's speaker frames;
     ``"crop"`` re-embeds each segment's audio in a forward of its own;
@@ -231,12 +257,17 @@ class TranscriptionEngine:
 
     ``mesh`` (``parallel.mesh.build_mesh``): the windows of a batch split
     over its ``data`` axis, ``batch_windows_per_device`` a shard, and in
-    sequence mode a file's frames split over it. Devices may repeat (a
-    mesh of shards on one card). Without a mesh, an engine given
-    ``device`` runs on a mesh of that one device, and one given neither
+    sequence mode a file's frames split over it. A ``model`` axis above 1
+    is tensor parallelism: each data row's forward (and the crop
+    re-embedding's) runs over the row's model shards, which must divide
+    the heads, the model and FFN widths and the LID classes (ValueError
+    otherwise); sequence mode runs on the parameters gathered on the
+    row's first device, as the JAX engine passes them replicated. Devices
+    may repeat (a mesh of shards on one card). Without a mesh, an engine
+    given ``device`` runs on a mesh of that one device, and one given neither
     spans every visible CUDA device along ``data`` (the JAX engine spans
     ``jax.devices()``); its primary device (the mesh's first) runs the
-    crop re-embedding and the decoders. A ``model`` axis above 1 raises.
+    crop re-embedding and the decoders.
     """
 
     def __init__(
@@ -296,11 +327,16 @@ class TranscriptionEngine:
                 mesh.devices.flat[0]:
             raise ValueError(f"device {device!r} is not the mesh's first "
                              f"device {mesh.devices.flat[0]}")
-        if mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"a mesh with model axis {mesh.shape['model']} is tensor "
-                f"parallelism, which is not ported to the PyTorch engine "
-                f"yet (A10 tensor parallelism in ROADMAP.md, Queue A)")
+        #: Model shards a data row's forward splits over (1: no tensor
+        #: parallelism).
+        self.n_model = mesh.shape.get("model", 1)
+        if self.n_model > 1:
+            if quantize in ("a8", "w8"):
+                raise ValueError(
+                    "quantize='a8'/'w8' (the int8 kernels K5/K4) requires "
+                    "model-parallel axis 1; use quantize=True with tensor "
+                    "parallelism")
+            check_tp_dims(self.config, self.n_model)
         self.mesh = mesh
         self.device = mesh.devices.flat[0]
         if any(d.type == "cuda" for d in mesh.distinct_devices()):
@@ -400,6 +436,8 @@ class TranscriptionEngine:
         #: Quantized-kernel mode of the dense layers: "a8" (K5), "w8" (K4)
         #: or None (quantize=True and unquantized serving).
         self._quant_kernel = quantize if quantize in ("a8", "w8") else None
+        # The placement of the ASR tree over the model axis.
+        specs = asr_param_specs(cfg)
         if quantize:
             # Int8 serving: every dense weight is held as int8 plus a
             # per-channel scale. quantize=True dequantizes it into the bf16
@@ -407,6 +445,7 @@ class TranscriptionEngine:
             # K5/K4, which read a K-contiguous copy kept from here on. The
             # x-vector embedder stays unquantized (it is held apart).
             params = quantize_param_tree(params)
+            specs = quantize_spec_tree(specs)
             if self._quant_kernel is not None:
                 params = add_kernel_layouts(params)
         self.params = tree_to(params, self.device)
@@ -452,38 +491,52 @@ class TranscriptionEngine:
         #: The parameters as loaded (f32 conv weights): the crop
         #: re-embedding's and sequence mode's.
         self._plain_params = self.params
-        if use_fused_conv and (speaker_mode == "crop"
-                               or long_mode == "sequence"):
-            self._plain_params = {**self.params, "blocks": [
-                {**blk, "conv": dict(blk["conv"])}
-                for blk in self.params["blocks"]]}
-        if use_fused_conv:
+        #: With a model axis above 1: each distinct data row's model shards
+        #: (by the row's devices), cut from the tree as loaded, and the crop
+        #: re-embedding's (the primary row's, as loaded).
+        row_shards: Dict[tuple, List[dict]] = {}
+        self._crop_shards: Optional[List[dict]] = None
+        if self.n_model > 1:
+            for row in self._mesh_rows():
+                if row not in row_shards:
+                    row_shards[row] = shard_for_tp(self.params, cfg,
+                                                   list(row), specs)
+            first = row_shards[self._mesh_rows()[0]]
+            if speaker_mode == "crop":
+                self._crop_shards = first
+            if use_fused_conv:
+                row_shards = {row: [_bf16_conv(t) for t in trees]
+                              for row, trees in row_shards.items()}
+        tp_on = self.n_model > 1
+        if use_fused_conv and not tp_on:
             # The fused conv module rounds its pointwise weights to bf16;
             # hold them so once, rather than cast them on every call. A
             # quantized weight is dequantized in f32 first, as the
             # reference feeds its kernel.
-            for blk in self.params["blocks"]:
-                for name in ("pw1", "pw2"):
-                    blk["conv"][name] = {"w": dense_weight(
-                        blk["conv"][name]).to(torch.bfloat16)}
+            self.params = _bf16_conv(self.params)
+        if speaker_mode != "crop" and long_mode != "sequence":
+            self._plain_params = self.params
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
-        #: One replica a distinct device of the data axis (the primary's
-        #: holds the engine's own tensors); shard i of a batch runs on
-        #: ``self._replicas[i]``.
-        primary = _Replica(self.device, self.params, self._xvector,
-                           self._frontend, self._stream)
-        by_device = {self.device: primary}
-        for d in self.mesh.axis_devices("data"):
-            if d not in by_device:
-                by_device[d] = _Replica(
-                    d, tree_to(self.params, d),
+        #: One replica a distinct data row (the primary's holds the
+        #: engine's own tensors), on the row's first device; shard i of a
+        #: batch runs on ``self._replicas[i]``. With a model axis above 1
+        #: a replica holds its row's model shards.
+        primary = _Replica(self.device, None if tp_on else self.params,
+                           self._xvector, self._frontend, self._stream,
+                           row_shards.get(self._mesh_rows()[0]))
+        by_row = {self._mesh_rows()[0]: primary}
+        for row in self._mesh_rows():
+            if row not in by_row:
+                d = row[0]
+                by_row[row] = _Replica(
+                    d, None if tp_on else tree_to(self.params, d),
                     tree_to(self._xvector, d) if self._xvector else None,
                     MelFrontend(fe, d),
-                    torch.cuda.Stream(d) if d.type == "cuda" else None)
-        self._replicas = [by_device[d]
-                          for d in self.mesh.axis_devices("data")]
+                    torch.cuda.Stream(d) if d.type == "cuda" else None,
+                    row_shards.get(row))
+        self._replicas = [by_row[row] for row in self._mesh_rows()]
         #: The packed wire's layout of a shard batch's outputs, fixed here
         #: (None: the outputs come back leaf by leaf).
         self._out_layout = (layout_of(self._wire_spec(self.shard_batch))
@@ -497,6 +550,11 @@ class TranscriptionEngine:
         for d in self.mesh.distinct_devices():
             if d.type == "cuda":
                 torch.cuda.synchronize(d)   # weights are on the card
+
+    def _mesh_rows(self) -> List[tuple]:
+        """Each data row's devices along the model axis, as a tuple; rows
+        on the same devices are equal (they share a replica)."""
+        return [tuple(row) for row in self.mesh.devices]
 
     # ------------------------------------------------------------------
     # The per-batch device program
@@ -558,8 +616,11 @@ class TranscriptionEngine:
         mel = fe.log_mel(frames)[:, :self.window_frames]
         frame_idx = torch.arange(self.window_frames, device=mel.device)
         mask = frame_idx[None, :] < n_valid[:, None]
-        out = asr_forward(rep.params, mel, mask, icfg,
-                          quant=self._quant_kernel)
+        if rep.shards is not None:
+            out = tp_asr_forward(rep.shards, mel, mask, icfg)
+        else:
+            out = asr_forward(rep.params, mel, mask, icfg,
+                              quant=self._quant_kernel)
         # Per-subsampled-frame energy (dB proxy) for host-side pooling.
         e = torch.logsumexp(mel, dim=-1) * (10.0 / math.log(10.0))
         sub = icfg.encoder.subsample_factor
@@ -690,8 +751,9 @@ class TranscriptionEngine:
         the first is collected, so host work on batch k overlaps device
         work on later batches. A batch's windows split over the mesh's data
         shards, ``shard_batch`` each, each shard on its replica's device and
-        stream; with the packed wire a shard's outputs come back in one
-        copy. The enqueue runs under the engine's device lock; the
+        stream (with a model axis, over the row's model shards from its
+        first device); with the packed wire a shard's outputs come back in
+        one copy. The enqueue runs under the engine's device lock; the
         collection (waiting on each shard's event) does not. ``windows``
         may be a lazy iterable; pass ``n_windows`` then.
         """
@@ -864,6 +926,10 @@ class TranscriptionEngine:
         if self._xvector is not None:
             fr = xvector_frames(self._xvector, mel, mask)
             m = subsampled_mask(mask, self.config.encoder.subsample_factor)
+        elif self._crop_shards is not None:
+            out = tp_asr_forward(self._crop_shards, mel, mask,
+                                 self._crop_config)
+            fr, m = out["speaker_frames"], out["mask"]
         else:
             out = asr_forward(self._plain_params, mel, mask, self._crop_config,
                               quant=self._quant_kernel)

@@ -17,6 +17,12 @@ block's second FFN is a mixture of experts (``models/moe.py``): dense
 dispatch, or with ``encoder.moe_dispatch="alltoall"`` and a mesh whose
 ``model`` axis is above 1, the all-to-all dispatch of
 ``parallel/expert_dispatch.py``.
+
+Tensor parallelism (serving): :func:`asr_param_specs` places the tree on
+a (data, model) mesh as the reference's does, :func:`shard_for_tp` cuts
+it into one tree per model shard, and :func:`tp_asr_forward` runs the
+forward over those trees (``parallel/tensor.py``'s column- and
+row-parallel layers, K2 on each shard's heads, K3 split over channels).
 """
 
 from __future__ import annotations
@@ -28,9 +34,11 @@ import torch
 import torch.utils.checkpoint
 
 from ..config import EncoderConfig, PipelineConfig
-from ..ops.conv_module import convmod_apply_fused
+from ..ops.conv_module import convmod_apply_fused, tp_convmod_apply_fused
+from ..parallel import tensor as tp
+from ..parallel.mesh import AXIS_MODEL, Split, all_gather, gather, replicate
 from . import layers as L
-from .moe import moe_ffn_apply, moe_ffn_init, moe_ffn_shapes
+from .moe import moe_ffn_apply, moe_ffn_init, moe_ffn_shapes, moe_ffn_spec
 
 # Head dimensions (as the JAX package's).
 N_LANGS = 2048
@@ -252,6 +260,151 @@ def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
         "mask": m,
         "moe_aux": moe_aux,
     }
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (serving)
+# ---------------------------------------------------------------------------
+
+def conformer_block_spec(enc: EncoderConfig):
+    return {"ffn1": L.ffn_spec(), "mhsa": L.mhsa_spec(),
+            "conv": L.convmod_spec(),
+            "ffn2": moe_ffn_spec() if enc.n_experts > 0 else L.ffn_spec(),
+            "ln_out": L.layernorm_spec()}
+
+
+def asr_param_specs(cfg: PipelineConfig):
+    """The placement of :func:`asr_init`'s tree on a (data, model) mesh
+    (the reference's ``asr_param_specs``; replicated over ``data``). Two
+    leaves differ from the reference's: pw1's value and gate halves are
+    each split (``layers.convmod_spec``), and the CTC head is replicated:
+    its 1 + 256 columns split evenly over no model axis above 1, where the
+    reference's GSPMD pads them; the result is the same."""
+    enc = cfg.encoder
+    rep = L.dense_spec(None, None)
+    return {
+        "subsample": L.dense_spec(None, AXIS_MODEL),
+        "in_ln": L.layernorm_spec(),
+        "blocks": [conformer_block_spec(enc) for _ in range(enc.n_layers)],
+        "ctc_head": rep,
+        "lid_head": L.dense_spec(None, AXIS_MODEL),
+        "emotion_head": rep, "speaker_head": rep, "spk_head2": rep,
+        "spk_proj": rep, "spk_aam": None,
+    }
+
+
+def asr_output_specs():
+    """How :func:`tp_asr_forward` makes each head's logits (the
+    reference's ``activation_specs()["out"]`` within one data row): split
+    by columns over the model axis, each shard its block, then gathered
+    (as its head is placed by :func:`asr_param_specs`), or computed once,
+    on model shard 0, from a replicated head. The speaker frames and
+    embedding, the encoder states and the mask come from shard 0."""
+    return {"ctc_logits": None, "lid_logits": Split(AXIS_MODEL, 2),
+            "emotion_logits": None}
+
+
+def check_tp_dims(cfg: PipelineConfig, n: int) -> None:
+    """ValueError unless a model axis of ``n`` splits every dimension that
+    tensor parallelism splits."""
+    enc = cfg.encoder
+    dims = {"n_heads": enc.n_heads, "d_model": enc.d_model,
+            "FFN width": enc.d_model * enc.ffn_mult, "LID classes": N_LANGS}
+    if enc.n_experts > 0:
+        dims["n_experts"] = enc.n_experts
+    bad = {k: v for k, v in dims.items() if v % n}
+    if bad:
+        raise ValueError(f"a model axis of {n} does not divide {bad}")
+
+
+def shard_for_tp(params, cfg: PipelineConfig, devices, specs=None):
+    """One parameter tree per model shard on ``devices`` (one data row)
+    under :func:`asr_param_specs` (or ``specs``: a quantized tree takes
+    ``ops.quant.quantize_spec_tree`` of them). ``params`` is the full tree,
+    the port's or the JAX package's as numpy arrays."""
+    check_tp_dims(cfg, len(devices))
+    return tp.shard_trees(params, specs or asr_param_specs(cfg), devices)
+
+
+def tp_conformer_block_apply(ps, xs, masks, cos, sin, enc: EncoderConfig,
+                             dtype):
+    """One conformer block over the model shards' trees ``ps`` and
+    replicated activations ``xs`` -> (xs, moe_aux)."""
+    aux = torch.zeros((), device=xs[0].device)
+    xs = tp.tp_ffn_apply([p["ffn1"] for p in ps], xs, dtype)
+    xs = tp.tp_mhsa_apply([p["mhsa"] for p in ps], xs, enc.n_heads, masks,
+                          cos, sin, dtype, use_flash=enc.use_flash_attention)
+    convs = [p["conv"] for p in ps]
+    xs = (tp_convmod_apply_fused(convs, xs, masks) if enc.use_fused_conv
+          else tp.tp_convmod_apply(convs, xs, masks, dtype))
+    ffn2 = [p["ffn2"] for p in ps]
+    if enc.n_experts > 0:
+        if enc.moe_dispatch == "alltoall" and len(ps) > 1:
+            xs = tp.tp_moe_alltoall(ffn2, xs, enc.moe_capacity_factor)
+        else:
+            xs, aux = tp.tp_moe_dense(ffn2, xs)
+    else:
+        xs = tp.tp_ffn_apply(ffn2, xs, dtype)
+    xs = tp.per_copy(lambda x, p: L.layernorm_apply(p["ln_out"], x), xs, ps)
+    return xs, aux
+
+
+def tp_asr_forward(shards, mel: torch.Tensor, mask: torch.Tensor,
+                   cfg: PipelineConfig):
+    """:func:`asr_forward` (serving) over the model shards of one data
+    row: ``shards`` from :func:`shard_for_tp`, shard m's tree on its
+    device; mel and mask on shard 0's device. The mel goes to every
+    shard's device; the subsampler and the LID head are column-parallel
+    and gathered, the blocks run on ``parallel/tensor.py``'s layers (K2 on
+    each shard's heads, K3 split over channels under the encoder's flags),
+    and the replicated heads run once, on shard 0. Returns
+    :func:`asr_forward`'s dict on shard 0's device. Under tensor
+    parallelism the int8 kernel modes do not run (the reference's rule):
+    a quantized tree dequantizes into the bf16 products."""
+    enc = cfg.encoder
+    n = len(shards)
+    check_tp_dims(cfg, n)
+    dtype = compute_dtype(enc)
+    sub = enc.subsample_factor
+    devices = [_tree_device(s) for s in shards]
+    frames = tp.per_copy(lambda m: subsample_frames(m, sub),
+                         replicate(mel, devices))
+    m_sub = subsampled_mask(mask, sub)
+    masks = replicate(m_sub, devices)
+    xs = all_gather(tp.column_dense([s["subsample"] for s in shards],
+                                    frames, dtype), dim=-1)
+    xs = tp.per_copy(lambda x, s: L.layernorm_apply(s["in_ln"], x), xs,
+                     shards)
+    rope = tp.per_copy(lambda x: L.rope_angles(x.shape[1], enc.head_dim,
+                                               device=x.device), xs)
+    cos = [r[0] for r in rope]
+    sin = [r[1] for r in rope]
+    moe_aux = torch.zeros((), device=mel.device)
+    for bi in range(enc.n_layers):
+        xs, aux = tp_conformer_block_apply(
+            [s["blocks"][bi] for s in shards], xs, masks, cos, sin, enc,
+            dtype)
+        moe_aux = moe_aux + aux.to(mel.device)
+    x, p0 = xs[0], shards[0]
+    out = {}
+    for key, spec in asr_output_specs().items():
+        head = key.split("_")[0] + "_head"
+        out[key] = (L.dense_apply(p0[head], x, dtype) if spec is None
+                    else gather(tp.column_dense([s[head] for s in shards],
+                                                xs, dtype),
+                                dim=spec.dim, device=x.device))
+    h = torch.relu(L.dense_apply(p0["speaker_head"], x, dtype))
+    spk_frames = L.dense_apply(p0["spk_head2"], h, dtype)
+    spk = spk_frames * torch.rsqrt(
+        (spk_frames * spk_frames).sum(dim=-1, keepdim=True) + 1e-8)
+    return {**out, "speaker_frames": spk_frames, "speaker_embed": spk,
+            "encoder_states": x, "mask": m_sub, "moe_aux": moe_aux}
+
+
+def _tree_device(tree) -> torch.device:
+    """The device of a shard's tree (that of its subsampler weight)."""
+    sub = tree["subsample"]
+    return (sub.get("w", sub.get("w_q"))).device
 
 
 def pooled_speaker_embed(params, frames: torch.Tensor,

@@ -26,6 +26,7 @@ import torch
 
 from ..ops.attention import FlashAttention
 from ..ops.quant import dense_quant_matmul, kernel_shapes_ok
+from ..parallel.mesh import AXIS_MODEL, Split
 
 
 def _uniform(gen: torch.Generator, shape, lim: float) -> torch.Tensor:
@@ -62,6 +63,51 @@ def convmod_init(gen: torch.Generator, d_model: int, kernel: int):
             "dw": _uniform(gen, (kernel, d_model), 1.0 / math.sqrt(kernel)),
             "dw_ln": layernorm_init(d_model),
             "pw2": dense_init(gen, d_model, d_model, use_bias=False)}
+
+
+# Placement specs (the reference's ``*_spec``; ``parallel/mesh.py``'s
+# spec forms): column-parallel layers split their output columns over the
+# model axis, row-parallel ones their input rows (bias replicated, added
+# once after the sum over the shards).
+
+def dense_spec(shard_in: Optional[str] = None,
+               shard_out: Optional[str] = None, use_bias: bool = True):
+    s = {"w": (shard_in, shard_out)}
+    if use_bias:
+        s["b"] = (shard_out,)
+    return s
+
+
+def layernorm_spec():
+    return {"scale": None, "bias": None}
+
+
+def mhsa_spec():
+    """Heads split over the model axis: q, k, v column-parallel (shard m
+    takes heads [m H / n, (m + 1) H / n)), the output row-parallel."""
+    return {"ln": layernorm_spec(),
+            **{n: dense_spec(None, AXIS_MODEL, use_bias=False)
+               for n in ("wq", "wk", "wv")},
+            "wo": dense_spec(AXIS_MODEL, None, use_bias=False)}
+
+
+def ffn_spec():
+    return {"ln": layernorm_spec(), "w1": dense_spec(None, AXIS_MODEL),
+            "w2": dense_spec(AXIS_MODEL, None)}
+
+
+def convmod_spec():
+    """Channels split over the model axis. The reference splits pw1's 2D
+    columns contiguously, so that at 2 shards one holds every value column
+    and the other every gate column; here each half is split (shard m:
+    value columns [m D / n, (m + 1) D / n) and the same gate columns), so
+    that the GLU stays on the shard. The second LayerNorm's parameters
+    stay replicated, as the reference's; each shard reads its channels."""
+    return {"ln": layernorm_spec(),
+            "pw1": {"w": Split(AXIS_MODEL, 1, halves=2)},
+            "dw": (None, AXIS_MODEL),
+            "dw_ln": layernorm_spec(),
+            "pw2": dense_spec(AXIS_MODEL, None, use_bias=False)}
 
 
 def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -169,6 +215,17 @@ def ffn_apply(p, x: torch.Tensor, dtype=torch.bfloat16,
     return x + (0.5 * h if half_step else h)
 
 
+def depthwise_conv(h: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """[B, T, C] -> [B, T, C]: each channel's K taps (``dw`` [K, C]) over
+    time, SAME padding (left (K - 1) // 2)."""
+    kernel = dw.to(torch.float32)
+    K, C = kernel.shape
+    pad_l = (K - 1) // 2
+    hp = torch.nn.functional.pad(h.transpose(1, 2), (pad_l, K - 1 - pad_l))
+    return torch.nn.functional.conv1d(
+        hp, kernel.t().unsqueeze(1), groups=C).transpose(1, 2)
+
+
 def convmod_apply(p, x: torch.Tensor, mask: torch.Tensor,
                   dtype=torch.bfloat16,
                   quant: Optional[str] = None) -> torch.Tensor:
@@ -180,12 +237,7 @@ def convmod_apply(p, x: torch.Tensor, mask: torch.Tensor,
     a, g = h[..., :D], h[..., D:]
     h = a * torch.sigmoid(g)
     h = torch.where(mask[:, :, None], h, torch.zeros_like(h))
-    kernel = p["dw"].to(torch.float32)            # [K, D]
-    K = kernel.shape[0]
-    pad_l = (K - 1) // 2
-    hp = torch.nn.functional.pad(h.transpose(1, 2), (pad_l, K - 1 - pad_l))
-    out = torch.nn.functional.conv1d(
-        hp, kernel.t().unsqueeze(1), groups=D).transpose(1, 2)
+    out = depthwise_conv(h, p["dw"])
     out = layernorm_apply(p["dw_ln"], out)
     out = torch.nn.functional.silu(out)
     out = dense_apply(p["pw2"], out, dtype, quant)

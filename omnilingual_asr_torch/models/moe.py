@@ -59,20 +59,29 @@ def route(p, h: torch.Tensor):
     return probs, top, gate
 
 
-def moe_ffn_apply(p, x: torch.Tensor, dtype=F32,
-                  half_step: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, T, D] -> (y [B, T, D], aux scalar).
+def moe_ffn_spec():
+    """Experts split over the model axis (shard m owns experts [m E / n,
+    (m + 1) E / n)); the router and LayerNorm replicated."""
+    from ..parallel.mesh import AXIS_MODEL
 
-    aux is the Switch Transformer's load-balance term ``E * sum_e f_e *
-    p_e`` (f: the share of tokens routed to e, p: e's mean router
-    probability), about 1 when balanced. ``dtype`` is the experts'
-    compute dtype (f32 by default, as the reference's); their products
-    are rounded to it as the reference's einsums round theirs.
-    """
+    return {"ln": L.layernorm_spec(),
+            "router": L.dense_spec(None, None, use_bias=False),
+            "w1": AXIS_MODEL, "b1": AXIS_MODEL, "w2": AXIS_MODEL,
+            "b2": AXIS_MODEL}
+
+
+def expert_combine(p, h: torch.Tensor, top: torch.Tensor, gate: torch.Tensor,
+                   first: int = 0, dtype=F32) -> torch.Tensor:
+    """sum_e out_e(h) * [top == first + e] * gate over the experts of
+    ``p`` (experts ``first, first + 1, ...`` of the model): every expert
+    over every token, the routed one kept. A token routed elsewhere gets
+    exact zeros, so the partial sums of disjoint expert sets add up to the
+    whole exactly."""
     E = p["w1"].shape[0]
-    h = L.layernorm_apply(p["ln"], x)
-    probs, top, gate = route(p, h)
-    onehot = torch.nn.functional.one_hot(top, E).to(F32)
+    local = top - first
+    hit = (local >= 0) & (local < E)
+    onehot = (torch.nn.functional.one_hot(local.clamp(0, E - 1), E).to(F32)
+              * hit[..., None].to(F32))
     hh = L.round_to(h, dtype)
     mid = L.round_to(torch.einsum("btd,edf->btef", hh,
                                   L.round_to(p["w1"], dtype)), dtype)
@@ -80,8 +89,27 @@ def moe_ffn_apply(p, x: torch.Tensor, dtype=F32,
     out = L.round_to(torch.einsum("btef,efd->bted", L.round_to(mid, dtype),
                                   L.round_to(p["w2"], dtype)), dtype)
     out = out + p["b2"][None, None].to(F32)
-    y = torch.einsum("bted,bte->btd", out, onehot) * gate[..., None]
-    f = onehot.mean(dim=(0, 1))
-    pr = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(f * pr)
-    return x + (0.5 * y if half_step else y), aux
+    return torch.einsum("bted,bte->btd", out, onehot) * gate[..., None]
+
+
+def load_balance(probs: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
+    """The Switch Transformer's load-balance term ``E * sum_e f_e * p_e``
+    (f: the share of tokens routed to e, p: e's mean router
+    probability), about 1 when balanced."""
+    E = probs.shape[-1]
+    f = torch.nn.functional.one_hot(top, E).to(F32).mean(dim=(0, 1))
+    return E * torch.sum(f * probs.mean(dim=(0, 1)))
+
+
+def moe_ffn_apply(p, x: torch.Tensor, dtype=F32,
+                  half_step: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, T, D] -> (y [B, T, D], aux scalar).
+
+    aux is :func:`load_balance`'s term. ``dtype`` is the experts' compute
+    dtype (f32 by default, as the reference's); their products are
+    rounded to it as the reference's einsums round theirs.
+    """
+    h = L.layernorm_apply(p["ln"], x)
+    probs, top, gate = route(p, h)
+    y = expert_combine(p, h, top, gate, 0, dtype)
+    return x + (0.5 * y if half_step else y), load_balance(probs, top)

@@ -1,6 +1,8 @@
-"""Shapes and tolerances at which the card holds K3 (the fused conv module),
-K4 (the W8A16 matmul) and K5 (the W8A8 matmul) against their plain
-versions, and the log-mel (K1) shapes of the trainers.
+"""Shapes and tolerances at which the card holds K3 (the fused conv module,
+whole and split over the shards of a model axis), K4 (the W8A16 matmul)
+and K5 (the W8A8 matmul) against their plain versions, the flash
+attention (K2) shapes of the mesh paths, and the log-mel (K1) shapes of
+the trainers.
 
 ``chip_smoke.py`` checks and times the kernels at these shapes, and
 ``ops/conv_quant_sweep.py`` times its candidate tilings at the same ones;
@@ -29,13 +31,34 @@ TOL_K5_REL = 1e-6
 # frames at PipelineConfig's width), large_config's width, D 1024, and a
 # serving batch of the d512 x 12 seed (checkpoints/r5_d512x12_seed), and the
 # eval drivers': eval.synth's batch of 10 s windows at the release width
-# and eval.latency's one 30 s window of the flagship d512 x 12.
+# and eval.latency's one 30 s window of the flagship d512 x 12, and a data
+# shard's batch of the mesh's data-parallel windows (2 of 4 windows).
 K3_SHAPES = {"serving": (4, 768, 256, (768, 700, 301, 0)),
+             "dp_shard": (2, 768, 256, (768, 301)),
              "training": (16, 256, 512, (256,) * 13 + (200, 77, 0)),
              "d1024": (4, 256, 1024, (256, 200, 77, 0)),
              "d512": (4, 768, 512, (768, 700, 301, 0)),
              "eval10s": (4, 256, 256, (249, 200, 77, 0)),
              "latency": (1, 768, 512, (749,))}
+
+# K3 split over n shards of a model axis as (B, T, D, n, valid frames of
+# each row): the release's serving batch at D / n = 128 and 64, a data
+# row's batch of a (2, 2) mesh and the d512 seed's serving batch at 256
+# and 128 (tensor parallelism at model 2 and 4).
+K3_SPLIT_SHAPES = {"serving_tp2": (4, 768, 256, 2, (768, 700, 301, 0)),
+                   "dp_shard_tp2": (2, 768, 256, 2, (768, 301)),
+                   "serving_tp4": (4, 768, 256, 4, (768, 700, 301, 0)),
+                   "d512_tp2": (4, 768, 512, 2, (768, 700, 301, 0)),
+                   "d512_tp4": (4, 768, 512, 4, (768, 700, 301, 0))}
+
+# K2 on the mesh paths as (B, T, H, head dim, valid keys of each row): a
+# data shard's batch of the release (2 windows), the release's serving
+# batch on one model shard's heads at model 2 and 4, and a data row's
+# batch of a (2, 2) mesh on one model shard's heads.
+K2_MESH_SHAPES = {"dp_shard": (2, 768, 4, 64, (768, 300)),
+                  "dp_shard_tp2": (2, 768, 2, 64, (768, 300)),
+                  "tp2": (4, 768, 2, 64, (768, 700, 300, 0)),
+                  "tp4": (4, 768, 1, 64, (768, 700, 300, 0))}
 
 # K1 as (windows, frames a window padded to the 256-frame blocks, valid
 # frames) on the trainers' paths: the x-vector trainer's batch of 64 4 s
@@ -59,6 +82,9 @@ K5_SHAPES = {f"n{n}": (3072, 256, n) for n in (512, 1024, 2048)}
 
 # K4 at K5's shapes: the same layers take K4 under quantize="w8".
 K4_SHAPES = dict(K5_SHAPES)
+
+# K5 at a data shard's batch under "a8" (2 windows: M 1536), by width.
+K5_DP_SHAPES = {f"n{n}": (1536, 256, n) for n in (512, 1024, 2048)}
 
 
 def k4_error_share(got, want, x, w_q, scale, bias=None):

@@ -175,6 +175,17 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _P],
     # B, T, D, plan (int[6])
     "omni_conv_module_plan": [_I, _I, _I, _P],
+    # the split over channels, a shard's steps:
+    # x, mask, ln_s, ln_b, pw1, dw, scratch, c, stats, B, T, D, DL, K,
+    # stream
+    "omni_conv_split_stage1": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _P],
+    # c, stats, n, dwln_s, dwln_b, a, M, DL, D, stream
+    "omni_conv_split_finish": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    # a, pw2, out, M, DL, D, stream
+    "omni_conv_split_stage2": [_P, _P, _P, _I, _I, _I, _P],
+    # B, T, D, DL, plan (int[6])
+    "omni_conv_split_plan": [_I, _I, _I, _I, _P],
     # x, w_t, scale, bias (or NULL), out, scratch, M, N, K, stream
     "omni_q_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, w_t, scale, bias (or NULL), out, scratch, M, N, K, stream

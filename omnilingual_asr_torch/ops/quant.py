@@ -87,6 +87,32 @@ def quantize_param_tree(params) -> Dict:
     return visit(params)
 
 
+def quantize_spec_tree(specs) -> Dict:
+    """The specs of :func:`quantize_param_tree`'s output (the reference's
+    ``quantize_spec_tree``): ``{"w": spec}`` becomes ``{"w_q": spec,
+    "w_scale": ...}``, the scale split with the output columns where
+    ``w``'s are split (a GLU's halves each, as its columns) and
+    replicated for a layer split by input rows or not at all."""
+    from ..parallel.mesh import Split, as_split
+
+    def visit(node):
+        if isinstance(node, dict):
+            if "w" in node and not isinstance(node["w"], dict):
+                out = {k: v for k, v in node.items() if k != "w"}
+                sp = as_split(node["w"])
+                out["w_q"] = node["w"]
+                out["w_scale"] = (Split(sp.axis, 0, sp.halves)
+                                  if sp is not None and sp.dim == 1
+                                  else None)
+                return out
+            return {k: visit(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v) for v in node]
+        return node
+
+    return visit(specs)
+
+
 def add_kernel_layouts(params) -> Dict:
     """Add ``w_t`` (the K-contiguous int8 copy the kernels read) to every
     quantized leaf whose shape the kernels take."""

@@ -78,14 +78,23 @@ def ep_moe_apply(p, x: torch.Tensor, mesh: Mesh, axis: str = "model",
 
     p: ``models.moe.moe_ffn_init`` parameters; shard ``m`` of ``axis``
     owns experts ``[m * E / n, (m + 1) * E / n)``, and the router and
-    LayerNorm are replicated. x: [N, D] tokens on one device, split over
-    ``axis`` (N divisible by its size); with ``data_axis``, over
+    LayerNorm are replicated. ``p`` may also be a list of the shards'
+    own trees (``moe_ffn_spec``'s placement: shard m's experts and the
+    replicated rest, as tensor parallelism holds them). x: [N, D] tokens
+    on one device, split over ``axis`` (N divisible by its size); with
+    ``data_axis``, over
     ``(data_axis, axis)`` with the exchange inside each data row. Returns
     [N, D] on x's device. With ``stats`` (a dict), its ``"dropped"`` gets
     the number of tokens past their capacity.
     """
     n_dev = mesh.shape[axis]
-    E = p["w1"].shape[0]
+    local = p if isinstance(p, list) else None
+    if local is not None:
+        if len(local) != n_dev:
+            raise ValueError(f"{len(local)} expert shards for {n_dev} "
+                             f"devices")
+        p = local[0]
+    E = p["w1"].shape[0] * (n_dev if local is not None else 1)
     if E % n_dev:
         raise ValueError(f"{E} experts do not split over {n_dev} shards")
     e_local = E // n_dev
@@ -112,7 +121,8 @@ def ep_moe_apply(p, x: torch.Tensor, mesh: Mesh, axis: str = "model",
         results = []
         for m, dev in enumerate(devices):
             sl = slice(m * e_local, (m + 1) * e_local)
-            mine = {k: replicate(p[k][sl], [dev])[0]
+            mine = {k: replicate(local[m][k] if local is not None
+                                 else p[k][sl], [dev])[0]
                     for k in ("w1", "b1", "w2", "b2")}
             results.append(_local_experts(mine, recv_tok[m], recv_eid[m],
                                           e_local))

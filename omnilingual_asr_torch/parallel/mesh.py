@@ -9,9 +9,15 @@ per device along an axis, and the functions below are the only way one
 shard reaches another:
 
 - :func:`ppermute` (``jax.lax.ppermute``), :func:`all_to_all`
-  (``jax.lax.all_to_all`` with ``tiled=False``) and :func:`psum`;
+  (``jax.lax.all_to_all`` with ``tiled=False``), :func:`psum` and
+  :func:`all_gather` (over a flat list of shards, or over one axis of the
+  mesh within each group of the other axes);
 - :func:`scatter` and :func:`gather` along a tensor dimension (what a
   ``shard_map`` in_spec / out_spec does).
+
+A parameter's placement is a spec (:func:`shard_params`): replicated, or
+one dimension split over one axis (:class:`Split`, the port's
+``PartitionSpec``).
 
 Devices may repeat: ``[cpu] * 4`` in the tests, ``[cuda:0] * 4`` on one
 card, where the shards of a mesh run one after another on the same
@@ -25,7 +31,7 @@ every cross-device ordering of the port lives in :func:`to_device`.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -138,27 +144,81 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
     return Mesh(grid, (AXIS_DATA, AXIS_MODEL))
 
 
+class Split(NamedTuple):
+    """A leaf's dimension ``dim`` split into equal blocks over mesh axis
+    ``axis``, block i on the axis's device i: ``PartitionSpec`` with
+    ``axis`` at position ``dim``. With ``halves = 2`` the dimension is two
+    equal halves and block i is block i of each half, side by side (a GLU
+    weight's value | gate columns, so that each shard's GLU stays local)."""
+    axis: str
+    dim: int = 0
+    halves: int = 1
+
+
+def as_split(spec) -> Optional[Split]:
+    """A spec as a :class:`Split`, or None for a replicated leaf. A spec is
+    None, an axis name (the leading dimension), a :class:`Split`, or a
+    tuple of axis names and Nones by dimension, as a ``PartitionSpec``
+    (at most one dimension split)."""
+    if spec is None or isinstance(spec, Split):
+        return spec
+    if isinstance(spec, str):
+        return Split(spec, 0)
+    named = [(i, a) for i, a in enumerate(spec) if a is not None]
+    if not named:
+        return None
+    if len(named) > 1:
+        raise ValueError(f"spec {spec!r} splits more than one dimension")
+    return Split(named[0][1], named[0][0])
+
+
+def split_block(t: torch.Tensor, spec, index: int, n: int) -> torch.Tensor:
+    """Block ``index`` of ``n`` of ``t`` under ``spec`` (a view where the
+    block is one slice); a replicated spec gives ``t``."""
+    sp = as_split(spec)
+    if sp is None:
+        return t
+    size = t.shape[sp.dim]
+    if size % (n * sp.halves):
+        raise ValueError(f"dimension {sp.dim} of {tuple(t.shape)} does not "
+                         f"split into {n} shards"
+                         + (f" of each of {sp.halves} halves"
+                            if sp.halves > 1 else ""))
+    halves = torch.chunk(t, sp.halves, dim=sp.dim)
+    blocks = [torch.chunk(h, n, dim=sp.dim)[index] for h in halves]
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=sp.dim)
+
+
 def shard_params(params, specs, mesh: Mesh):
     """Place a parameter tree on the mesh by a tree of specs.
 
-    A spec is None (replicated) or an axis name (the leaf's leading
-    dimension split over that axis, as ``PartitionSpec(axis)``). Returns,
-    for each leaf, a list with one tensor per device along the axis (the
-    axis's devices) or per distinct mesh device (replicated; a device that
-    repeats shares its copy)."""
+    A spec is None (replicated), an axis name (the leaf's leading
+    dimension split over that axis, as ``PartitionSpec(axis)``), a
+    :class:`Split` (any dimension, over an axis; a GLU's two halves each
+    split), or a ``PartitionSpec``-like tuple such as ``(None, "model")``.
+    Returns, for each leaf, a list with one tensor per device along the
+    split axis (the axis's devices, the other axes at index 0) or per
+    distinct mesh device (replicated; a device that repeats shares its
+    copy). ``models.conformer.shard_for_tp`` places a whole tree for every
+    shard of a (data, model) mesh."""
     if isinstance(params, dict):
         return {k: shard_params(v, _sub(specs, k), mesh)
                 for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return [shard_params(v, _sub(specs, i), mesh)
                 for i, v in enumerate(params)]
-    if specs is None:
+    sp = as_split(specs)
+    if sp is None:
         return replicate(params, mesh.distinct_devices())
-    return scatter(params, mesh.axis_devices(specs), dim=0)
+    devices = mesh.axis_devices(sp.axis)
+    return [to_device(split_block(params, sp, i, len(devices)), d)
+            for i, d in enumerate(devices)]
 
 
 def _sub(specs, key):
-    if specs is None or isinstance(specs, str):
+    """The spec of a subtree: a leaf spec (None, a name, a Split or a
+    tuple) holds for every leaf below it; dicts and lists are trees."""
+    if specs is None or isinstance(specs, (str, tuple)):
         return specs
     return specs[key]
 
@@ -186,6 +246,15 @@ def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
         t.record_stream(consumer)
         return out
     return t.to(device)
+
+
+def device_guard(t: torch.Tensor):
+    """A context in which ``t``'s CUDA device is the current one (what a
+    hand-written kernel launches on); a no-op for a CPU tensor."""
+    import contextlib
+
+    return (torch.cuda.device(t.device) if t.is_cuda
+            else contextlib.nullcontext())
 
 
 def replicate(t: torch.Tensor, devices: Sequence[torch.device]
@@ -250,17 +319,53 @@ def all_to_all(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
                          for i in range(n)]) for j in range(n)]
 
 
-def psum(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def _groups(n: int, mesh: Optional[Mesh], axis: Optional[str]
+            ) -> List[List[int]]:
+    """Indices of the shards that reduce together: all ``n`` without a
+    mesh; with one, the shards are one per mesh device in row-major
+    order and each group runs along ``axis`` with the other axes fixed."""
+    if mesh is None:
+        return [list(range(n))]
+    if n != mesh.size:
+        raise ValueError(f"{n} shards on a mesh of {mesh.size} devices")
+    idx = np.arange(n).reshape(mesh.devices.shape)
+    idx = np.moveaxis(idx, mesh.axis_names.index(axis), -1)
+    return [list(map(int, g)) for g in idx.reshape(-1, idx.shape[-1])]
+
+
+def psum(shards: Sequence[torch.Tensor], mesh: Optional[Mesh] = None,
+         axis: Optional[str] = None) -> List[torch.Tensor]:
     """``jax.lax.psum``: every shard gets the sum of all shards (added in
-    shard order; shards on one device share the sum)."""
-    sums: Dict[torch.device, torch.Tensor] = {}
-    out = []
-    for s in shards:
-        d = s.device
-        if d not in sums:
-            acc = to_device(shards[0], d)
-            for other in shards[1:]:
-                acc = acc + to_device(other, d)
-            sums[d] = acc
-        out.append(sums[d])
+    shard order; shards on one device share the sum). With ``mesh`` and
+    ``axis`` the shards are one per mesh device (row-major) and the sums
+    run over ``axis`` only: over the model axis, within each data row."""
+    out: List[Optional[torch.Tensor]] = [None] * len(shards)
+    for g in _groups(len(shards), mesh, axis):
+        sums: Dict[torch.device, torch.Tensor] = {}
+        for i in g:
+            d = shards[i].device
+            if d not in sums:
+                acc = to_device(shards[g[0]], d)
+                for j in g[1:]:
+                    acc = acc + to_device(shards[j], d)
+                sums[d] = acc
+            out[i] = sums[d]
+    return out
+
+
+def all_gather(shards: Sequence[torch.Tensor], dim: int = 0,
+               mesh: Optional[Mesh] = None,
+               axis: Optional[str] = None) -> List[torch.Tensor]:
+    """``jax.lax.all_gather(..., tiled=True)``: every shard gets the shards
+    concatenated along ``dim``, in shard order (shards on one device share
+    the result). ``mesh`` and ``axis`` group the shards as in
+    :func:`psum`."""
+    out: List[Optional[torch.Tensor]] = [None] * len(shards)
+    for g in _groups(len(shards), mesh, axis):
+        cats: Dict[torch.device, torch.Tensor] = {}
+        for i in g:
+            d = shards[i].device
+            if d not in cats:
+                cats[d] = gather([shards[j] for j in g], dim, d)
+            out[i] = cats[d]
     return out

@@ -294,12 +294,15 @@ def _tone_tied(want: str, got: str, mass: Optional[Sequence[float]]) -> bool:
 
 def result_mismatches(want: dict, got: dict, time_tol: float = TIME_TOL_S,
                       tone_mass: Optional[Sequence[float]] = None,
-                      free_text: Sequence[int] = ()) -> List[str]:
+                      free_text: Sequence[int] = (),
+                      free_words: bool = False) -> List[str]:
     """Differences between two ``TranscriptionResult.to_dict()`` results
     beyond the criterion; empty when they agree. ``tone_mass`` is the
     reference's (a fixture's ``"tone_mass"``); without it the summary must
     be identical. ``free_text``: indices of segments whose text is not
-    compared (the d512 fixture's unstable beam decodes)."""
+    compared (the d512 fixture's unstable beam decodes); with
+    ``free_words`` their words are not either, but for their count (a
+    changed character moves a word's times)."""
     bad = []
     for key in ("summary", "detected_languages"):
         if want.get(key) != got.get(key) and not (
@@ -320,6 +323,10 @@ def result_mismatches(want: dict, got: dict, time_tol: float = TIME_TOL_S,
             if abs(w[f] - g[f]) > time_tol + 1e-9:
                 bad.append(f"segment {i} {f}: {g[f]}, want {w[f]}")
         ww, gw = w.get("words") or [], g.get("words") or []
+        if free_words and i in free_text:
+            if len(ww) != len(gw):
+                bad.append(f"segment {i}: {len(gw)} words, want {len(ww)}")
+            continue
         if [x["word"] for x in ww] != [x["word"] for x in gw]:
             bad.append(f"segment {i} words differ")
             continue
@@ -332,27 +339,64 @@ def result_mismatches(want: dict, got: dict, time_tol: float = TIME_TOL_S,
     return bad
 
 
-def d512_mismatches(mode: str, results: dict, ids: dict) -> List[str]:
+def d512_mismatches(mode: str, results: dict, ids: dict,
+                    near_ties: bool = False) -> List[str]:
     """``results`` ({file: ``to_dict()`` result}) of the d512 crop engine
     in ``mode`` ("greedy" or "beam") and its greedy ids ({file: ids a
     window}) against ``golden_d512_crop.json``: each result by
     ``result_mismatches`` (in beam mode the texts of unstable decodes
     free), and the ids of all the files' windows together on at least
-    MIN_CTC_AGREEMENT of their frames (the golden file alone has 191)."""
+    MIN_CTC_AGREEMENT of their frames (the golden file alone has 191).
+    With ``near_ties`` the greedy texts (and words) of the segments
+    :func:`d512_greedy_near_ties` names are free as well; everything
+    else of them is held."""
     stored = load_golden_d512()["files"]
     bad = []
     for name, got in results.items():
         entry = stored[name][mode]
         free = [i for i, d in enumerate(entry.get("decodes", ()))
                 if not d["stable"]]
+        if near_ties and mode == "greedy":
+            free = d512_greedy_near_ties(name)
         bad += [f"{name} {mode}: {m}" for m in result_mismatches(
             entry["result"], got, tone_mass=entry["tone_mass"],
-            free_text=free)]
+            free_text=free, free_words=near_ties)]
     agree = ctc_agreement([w for n in ids for w in stored[n][mode]["ctc_ids"]],
                           [w for n in ids for w in ids[n]])
     if agree < MIN_CTC_AGREEMENT:
         bad.append(f"{mode}: greedy ids agree on {agree:.4f} of frames")
     return bad
+
+
+def d512_greedy_near_ties(name: str, window_s: float = 30.0,
+                          frame_s: float = TIME_TOL_S) -> List[int]:
+    """Indices of file ``name``'s greedy segments in
+    ``golden_d512_crop.json`` whose text turns on a near tie: a frame in
+    the segment's span where the JAX engine's top two log-probabilities
+    (``golden_d512_crop_topk.npz``, the same forward's) stand within
+    2 FEED_TOL, the distance within which two implementations' feeds may
+    swap classes (:func:`d512_feed_mismatches`). The d512 seed's greedy
+    segments all hold one (least gaps 0.0-0.14)."""
+    feed = np.load(GOLDEN_D512_FEED)
+    gaps = []
+    w = 0
+    while f"{name}/{w}/lp" in feed:
+        lp = feed[f"{name}/{w}/lp"]
+        gaps.append(lp[:, 0] - lp[:, 1])
+        w += 1
+    out = []
+    segs = load_golden_d512()["files"][name]["greedy"]["result"]["segments"]
+    for i, seg in enumerate(segs):
+        for w, g in enumerate(gaps):
+            a = max(seg["start"] - w * window_s, 0.0)
+            b = min(seg["end"] - w * window_s, window_s)
+            if b <= a:
+                continue
+            span = g[int(a / frame_s):int(math.ceil(b / frame_s))]
+            if len(span) and float(span.min()) <= 2 * FEED_TOL:
+                out.append(i)
+                break
+    return out
 
 
 def d512_feed_mismatches(feeds: dict) -> List[str]:

@@ -13,7 +13,8 @@ writes that file, any other ``--ckpt`` writes ``X/asr.npz``; the engine
 and ``models/zoo.py::load_checkpoint`` read it. Samples travel as f32 and
 the log-mel (kernel K1 on the card) runs on the device. One device:
 ``--mesh-data`` is accepted and means the one card, ``--mesh-model`` above
-1 (tensor parallelism) is A10 in ROADMAP.md. Everything runs on CUDA
+1 (tensor-parallel training) is A10 training over the mesh in
+ROADMAP.md. Everything runs on CUDA
 unless the caller passes ``device="cpu"`` (``--device cpu``).
 """
 
@@ -125,7 +126,8 @@ def main(argv=None):
     ap.add_argument("--mesh-data", type=int, default=-1,
                     help="accepted for the reference's flags: one card")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="tensor parallelism above 1 is not ported (A10)")
+                    help="training over a model axis above 1 is not "
+                         "ported (A10 training over the mesh)")
     ap.add_argument("--ckpt", default=None,
                     help="X.npz, or a directory that gets asr.npz")
     ap.add_argument("--tiny", action="store_true",
@@ -138,8 +140,8 @@ def main(argv=None):
     if args.mesh_model > 1:
         raise NotImplementedError(
             f"--mesh-model {args.mesh_model}: tensor-parallel training is "
-            f"not ported to the PyTorch trainer yet (A10 tensor "
-            f"parallelism in ROADMAP.md)")
+            f"not ported to the PyTorch trainer yet (A10 training over the "
+            f"mesh in ROADMAP.md, Queue A)")
 
     cfg = tiny_config() if args.tiny else PipelineConfig()
     fn = pretrain if args.pretrain else train

@@ -8,8 +8,8 @@ frame-level LID, dense byte-CE, AAM-softmax speaker and translation terms
 AdamW) with the other trainers' variants of it. It also holds what the
 x-vector, translator and summarizer trainers share: one update
 (:func:`train_update`), the decoders' masked cross-entropy and a run's
-log (:class:`RunLog`). One device; sharding over a mesh is A10 in
-ROADMAP.md.
+log (:class:`RunLog`). One device; training over a (data, model) mesh
+is A10 training over the mesh in ROADMAP.md.
 
 Parameters are trees of leaf tensors (``requires_grad``), updated in place
 by the optimizer; the step function returns them as the reference's does.

@@ -105,6 +105,55 @@ def test_conv_module_kernel_matches_plain(dev, T, valid, D, K):
     assert float((got - want).abs().max()) <= 5e-2
 
 
+@pytest.mark.parametrize("T,valid,D,n", [(768, [768, 700, 301, 0], 256, 2),
+                                         (768, [768, 700, 301, 0], 256, 4),
+                                         (768, [768, 700, 301, 0], 512, 2),
+                                         (768, [768, 700, 301, 0], 512, 4),
+                                         (97, [97, 64, 1, 0], 512, 8),
+                                         (256, [256, 200, 77, 0], 1024, 16)])
+def test_split_conv_module_kernel_matches_plain_split(dev, T, valid, D, n):
+    """K3 split over n shards of D / n channels (three launches a shard)
+    against the plain split and against unsharded K3 on the same whole
+    weights; a shard narrower than 64 channels raises."""
+    B, K = len(valid), 32
+    gen = torch.Generator(device=dev).manual_seed(T + n)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    x = rnd(B, T, D)
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(
+        valid, device=dev)[:, None]
+    bf16 = torch.bfloat16
+    ln_s, ln_b = 1 + rnd(D, scale=0.1), rnd(D, scale=0.1)
+    pw1 = rnd(D, 2 * D, scale=D ** -0.5).to(bf16)
+    dw = rnd(K, D, scale=K ** -0.5)
+    dl_s, dl_b = 1 + rnd(D, scale=0.1), rnd(D, scale=0.1)
+    pw2 = rnd(D, D, scale=D ** -0.5).to(bf16)
+    dl = D // n
+    pw1s = [torch.cat([pw1[:, m * dl:(m + 1) * dl],
+                       pw1[:, D + m * dl:D + (m + 1) * dl]], 1).contiguous()
+            for m in range(n)]
+    args = ([x] * n, [mask] * n, [ln_s] * n, [ln_b] * n, pw1s,
+            [dw[:, m * dl:(m + 1) * dl].contiguous() for m in range(n)],
+            [dl_s] * n, [dl_b] * n,
+            [pw2[m * dl:(m + 1) * dl].contiguous() for m in range(n)])
+    before = conv_module.fused_conv_module_split.launches
+    got = conv_module.fused_conv_module_split(*args)
+    want = conv_module.conv_module_split_plain(*args)
+    whole = conv_module.fused_conv_module(x, mask, ln_s, ln_b, pw1, dw,
+                                          dl_s, dl_b, pw2)
+    torch.cuda.synchronize()
+    assert conv_module.fused_conv_module_split.launches == before + n
+    assert bool(torch.isfinite(got[0]).all())
+    assert float((got[0] - want[0]).abs().max()) <= card_cases.TOL_K3
+    assert float((got[0] - whole).abs().max()) <= card_cases.TOL_K3
+    with pytest.raises(ValueError, match="64"):     # 32 channels a shard
+        conv_module.split_stage1_kernel(x, mask, ln_s, ln_b,
+                                        pw1[:, :64].contiguous(),
+                                        dw[:, :32].contiguous())
+
+
 # Backward kernels against their plain versions, per element
 # |g - g_ref| <= FLASH_BWD_ABS * max|g_ref| + 2^-7 |g_ref|: both round an
 # f32 sum to bf16 (one ulp, 2^-8 relative, apart where they straddle a

@@ -320,10 +320,10 @@ def test_cpu_construction_works(tmp_path):
         decode=DecodeConfig(spk_frame_stride=2))},
 ])
 def test_unported_modes_raise(kwargs):
-    """Only a mesh whose ``model`` axis is above 1 (tensor parallelism,
-    A10) is unported and raises; ``long_mode="sequence"`` and the other
-    modes that raised before they were ported now construct, with the mode
-    in force."""
+    """Every mode that raised before it was ported now constructs, with
+    the mode in force: ``long_mode="sequence"``, a mesh whose ``model``
+    axis is above 1 (tensor parallelism: one replica a data row holding
+    the row's model shards) and the others."""
     from omnilingual_asr_torch.config import MeshConfig
     from omnilingual_asr_torch.parallel.mesh import build_mesh
 
@@ -333,9 +333,10 @@ def test_unported_modes_raise(kwargs):
         model = kwargs.pop("mesh_model")
         mesh = build_mesh(MeshConfig(data=1, model=model),
                           [torch.device("cpu")] * model)
-        with pytest.raises(NotImplementedError, match="A10.*ROADMAP"):
-            TranscriptionEngine(mesh=mesh, speaker_mode=speaker_mode,
-                                **kwargs)
+        eng = TranscriptionEngine(mesh=mesh, speaker_mode=speaker_mode,
+                                  **kwargs)
+        assert eng.n_model == model
+        assert [len(r.shards) for r in eng._replicas] == [model]
         return
     eng = TranscriptionEngine(device="cpu", speaker_mode=speaker_mode,
                               **kwargs)

@@ -177,6 +177,20 @@ def test_walk_reaches_the_mesh_layer():
         assert f"omnilingual_asr_torch.{name}" in names
 
 
+def test_walk_reaches_the_tensor_parallel_layer():
+    """The import walk covers tensor parallelism's layers (and so holds
+    them to the rule); the conformer and the conv module that call them
+    are reached too."""
+    import pkgutil
+
+    import omnilingual_asr_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pkg.__path__, "omnilingual_asr_torch.")}
+    for name in ("parallel.tensor", "models.conformer", "ops.conv_module"):
+        assert f"omnilingual_asr_torch.{name}" in names
+
+
 _HELP = """
 import runpy, sys
 FORBIDDEN = {forbidden!r}

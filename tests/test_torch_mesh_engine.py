@@ -108,11 +108,31 @@ def test_collectives_follow_jax_semantics():
         pm.scatter(full, [CPU] * 3)
 
 
-def test_engine_refuses_tensor_parallel_mesh():
+def test_engine_serves_tensor_parallel_mesh(tmp_path):
+    """The (1, 2) mesh the engine once refused serves: one replica holding
+    the row's two model shards, every window through the tensor-parallel
+    forward, the same segments as one device."""
+    params = asr_init(torch.Generator().manual_seed(0), tiny_config())
     mesh = pm.build_mesh(MeshConfig(data=1, model=2), [CPU] * 2)
-    with pytest.raises(NotImplementedError, match="A10 tensor parallelism"):
+    eng = TranscriptionEngine(config=tiny_config(), mesh=mesh,
+                              params=params, speaker_mode="inline")
+    assert eng.n_model == 2 and len(eng._replicas[0].shards) == 2
+    one = TranscriptionEngine(config=tiny_config(), device="cpu",
+                              params=params, speaker_mode="inline")
+    path = _tiled_golden(tmp_path / "g.wav", 8.0)
+    got, want = eng.transcribe(path).to_dict(), one.transcribe(path)
+    assert golden.result_mismatches(want.to_dict(), got) == []
+
+
+@pytest.mark.parametrize("quantize", ["a8", "w8"])
+def test_engine_a8_rejects_tensor_parallel(quantize):
+    """The int8 kernel modes need a model axis of 1, as in the JAX engine
+    (``tests/test_quant.py::test_engine_a8_rejects_tensor_parallel``);
+    ``quantize=True`` serves there."""
+    mesh = pm.build_mesh(MeshConfig(data=1, model=2), [CPU] * 2)
+    with pytest.raises(ValueError, match="model-parallel axis 1"):
         TranscriptionEngine(config=tiny_config(), mesh=mesh,
-                            speaker_mode="inline")
+                            quantize=quantize, speaker_mode="inline")
 
 
 def test_engine_device_builds_a_one_device_mesh():
