@@ -3,8 +3,9 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4k)
-    python3 chip_smoke.py --profile    # and, before the report, phase 4c
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4l)
+    python3 chip_smoke.py --profile    # and phase 4c before the report, and
+                                       # phase 4l's step profiles
 
 Phases, each printed with its elapsed seconds; any failure exits non-zero
 with no result line:
@@ -16,15 +17,17 @@ with no result line:
              crop re-embedding's frames, [16 x 768], the eval
              drivers' [4 x 1024] and [1 x 3072], the trainers'
              [64 x 512], [64 x 1024] and [16 x 1024], the pretrainer's
-             [64 x 1024], the manifest trainer's [16 x 1536] and sequence
-             mode's [11 x 3072] (a 330 s file's chunks); its bound
+             [64 x 1024], the manifest trainer's [16 x 1536], sequence
+             mode's [11 x 3072] (a 330 s file's chunks) and a training
+             mesh's data row [8 x 1024]; its bound
              counted for
              the function as an FFT computes it, the dense DFT's beside
              it), flash attention (K2, at head dims 64 and 128, at the
              training shape, at a ragged T of 200, at the d512 seed's
              [4, 768, 8, 64], at the eval drivers' [4, 256, 4, 64] and
-             [1, 768, 8, 64], at a data shard's [2, 768, 4, 64] and at one
-             model shard's heads [4, 768, 2, 64] and [4, 768, 1, 64]),
+             [1, 768, 8, 64], at a data shard's [2, 768, 4, 64], at one
+             model shard's heads [4, 768, 2, 64] and [4, 768, 1, 64] and
+             at a training mesh's [8, 256, 4, 64] and [16, 256, 2, 64]),
              the fused conv module (K3, at the serving
              and the training shape, at large_config's width, D 1024, at
              the d512 seed's [4, 768, 512], at the eval drivers'
@@ -32,14 +35,17 @@ with no result line:
              [2, 768, 256], each with its launch plan:
              both launches' blocks and pw1's rows a frame; then split over
              2 and 4 model shards at the release's and the d512 seed's
-             serving batch, against the plain split and whole K3), the
+             serving batch and at a training mesh's [8, 256, 512] over 2
+             and [16, 256, 512] over 4, against the plain split and whole
+             K3), the
              int8 matmuls W8A16 (K4) and W8A8 (K5, at the
              three widths of the quantized main path, K5 also at a data
              shard's M 1536) and the
              flash-attention backward, dQ (K6) and dK/dV (K7), at the
-             training shape, at large_config's head dim 128 and at a
-             ragged T of 200 (with the o and lse they read held to the
-             plain forward), on seeded inputs
+             training shape, at large_config's head dim 128, at a
+             ragged T of 200 and at a training mesh's shard shapes (with
+             the o and lse they read held to the plain forward), on
+             seeded inputs
              with masked rows, each held against its plain
              PyTorch version, and timed beside its plain version, a PyTorch
              yardstick where one exists, and the card's bound. Times are
@@ -167,7 +173,8 @@ with no result line:
              steps and data: ``pretrain_cli.pretrain_main`` at its
              defaults (batch 64 of 8 s, the mu-law wire, English
              sentences at 0.65, a codebook of 8192 x 16) for 12 steps with
-             2 of warmup, its masked CE falling; its ``last/asr.npz``
+             2 of warmup on one producer thread (an ordered stream, the
+             same every call), its masked CE falling; its ``last/asr.npz``
              warm-starting one ``train_synth --init-encoder`` step (the
              trunk equal to the file after it); ``train_synth`` in kernel
              mode with a device pool of 512 on the mu-law wire, English
@@ -227,6 +234,21 @@ with no result line:
              (h) warm 120 s request seconds and card memory at model 1, 2
              and 4 (reported). (c) and (d), the split K3 and K2 at one
              shard's heads, run in phase 3.
+4l. mesh training - training over a (data, model) mesh at
+             ``PipelineConfig()`` width (d512 x 12, 8 heads), kernel mode,
+             batch 16 of 8 s, the translator on, meshes as shards on the
+             card: ``train_synth`` over (2, 2) for 3 steps from host
+             batches (finite losses; a step's launches exactly K1 2, K2,
+             K6, K7 and split K3 48, whole K3 0), its checkpoint equal to
+             the gathered parameters and served by the one-device engine;
+             one update at (2, 1), (1, 2), (2, 2) and (1, 4) (again over
+             distinct cards where more than one is visible), one pool step
+             at (2, 2) and one pretraining update at (2, 1), each against
+             the same update on one device of the card (loss within 1e-3,
+             every leaf's gradient within 5e-2, the worst leaf printed);
+             step seconds, launches and peak memory at (1, 1), (2, 2)
+             and (1, 4), printed, not held (with ``--profile`` one more
+             step of each under the profiler: device events, busy share).
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -239,7 +261,8 @@ with no result line:
              and optimizer seconds, and one step under the profiler.
 5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
              over the serving, training, decoders, server, d512, evals,
-             trainers, rest_of_training, mesh and tp paths, K3's whole
+             trainers, rest_of_training, mesh, tp and mesh_training paths,
+             K3's whole
              and split over a model axis (one a shard),
              by path beside it), the
              ``nvidia-smi`` name and power limit, and the result line
@@ -494,11 +517,15 @@ def check_k1(dev, peaks, cfg):
     seq = _k1_case(dev, peaks, cfg, math.ceil(MESH_SEQ_SECONDS
                                               / WINDOW_SECONDS),
                    math.ceil(seq_valid / 256) * 256, seq_valid, SEED + 28)
+    # Training over a mesh (phase 4l): a data row's 8 windows.
+    mesh_rows = [_k1_case(dev, peaks, cfg, B, t_pad, valid, SEED + 29 + i)
+                 for i, (B, t_pad, valid) in enumerate(
+                     card_cases.K1_MESH_SHAPES.values())]
     return {"name": "log_mel", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/mel.cu",
             "replaces": "omnilingual_asr_tpu/ops/mel_pallas.py:66",
             **main, "shapes": [main, train, crop, eval10, lat, *trainers,
-                               *rest, seq]}
+                               *rest, seq, *mesh_rows]}
 
 
 def _k1_case(dev, peaks, cfg, B, t_pad, n_frames, seed):
@@ -659,7 +686,8 @@ def check_k2(dev, peaks, cfg):
     batch slot (every key masked). Then the mesh paths' shapes
     (card_cases.K2_MESH_SHAPES)."""
     from omnilingual_asr_torch.config import PipelineConfig
-    from omnilingual_asr_torch.ops.card_cases import K2_MESH_SHAPES
+    from omnilingual_asr_torch.ops.card_cases import (FLASH_TRAIN_MESH_SHAPES,
+                                                      K2_MESH_SHAPES)
 
     H = cfg.encoder.n_heads
     main = _k2_case(dev, peaks, WINDOWS_PER_BATCH, 768, H,
@@ -684,9 +712,12 @@ def check_k2(dev, peaks, cfg):
                    SEED + 23)
     # The mesh paths' (card_cases.K2_MESH_SHAPES): a data shard's batch of
     # 2 windows, and one model shard's heads at model 2 and 4.
+    # Training over a mesh (phase 4l): one shard's heads of a (2, 2)
+    # mesh's data row and of a (1, 4) mesh's batch.
     mesh = [_k2_case(dev, peaks, B, T, Hm, Dm, list(valid), SEED + 70 + i)
             for i, (B, T, Hm, Dm, valid) in enumerate(
-                K2_MESH_SHAPES.values())]
+                [*K2_MESH_SHAPES.values(),
+                 *FLASH_TRAIN_MESH_SHAPES.values()])]
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/attention.cu",
             "replaces": "omnilingual_asr_tpu/ops/attention.py:34",
@@ -783,12 +814,18 @@ def check_flash_bwd(dev, peaks, cfg):
     and, under "head_dims", at large_config's (B 4, T 768, 8 heads of 128)
     and at a T of 200 (a partial last tile of queries and keys, a partly
     masked row and a fully masked slot)."""
+    from omnilingual_asr_torch.ops.card_cases import FLASH_TRAIN_MESH_SHAPES
+
     enc = cfg.encoder
     train = _bwd_case(dev, peaks, TRAIN_BATCH, 256, enc.n_heads,
                       enc.head_dim, TRAIN_VALID_KEYS, SEED + 21)
     wide = _bwd_case(dev, peaks, WINDOWS_PER_BATCH, 768, 8, 128,
                      [768, 700, 300, 0], SEED + 22)
     ragged = _bwd_case(dev, peaks, 3, 200, 4, 64, [200, 130, 0], SEED + 23)
+    # Training over a mesh (phase 4l): one shard's heads.
+    mesh = [_bwd_case(dev, peaks, B, T, H, D, list(valid), SEED + 80 + i)
+            for i, (B, T, H, D, valid) in enumerate(
+                FLASH_TRAIN_MESH_SHAPES.values())]
     entries = []
     for i, (name, line) in enumerate((
             ("flash_attention_bwd_dq", 79), ("flash_attention_bwd_dkv", 110))):
@@ -796,7 +833,8 @@ def check_flash_bwd(dev, peaks, cfg):
             "name": name, "route": "cuda",
             "source": "omnilingual_asr_torch/csrc/attention_bwd.cu",
             "replaces": f"omnilingual_asr_tpu/ops/attention.py:{line}",
-            **train[i], "head_dims": [train[i], wide[i], ragged[i]]})
+            **train[i], "head_dims": [train[i], wide[i], ragged[i],
+                                      *[m[i] for m in mesh]]})
     return entries
 
 
@@ -847,8 +885,11 @@ def check_k3(dev, peaks, cfg, params, ptxas):
     shard = _k3_case(dev, peaks, K3_SHAPES["dp_shard"], p, SEED + 26)
     # Split over the shards of a model axis: the release's serving batch at
     # model 2 and 4 and the d512 seed's (card_cases.K3_SPLIT_SHAPES).
+    # Training over a mesh at PipelineConfig()'s width (phase 4l): random
+    # d512 weights.
     split = [_k3_split_case(dev, peaks, K3_SPLIT_SHAPES[name],
-                            p512 if name.startswith("d512") else p,
+                            p512 if name.startswith("d512")
+                            else pt if name.startswith("train") else p,
                             SEED + 27 + i)
              for i, name in enumerate(K3_SPLIT_SHAPES)]
     return {"name": "conv_module", "route": "cuda",
@@ -2923,6 +2964,17 @@ def _timed_batches(cls, parts, key="synth"):
     return Timed
 
 
+def _one_producer(cls):
+    """A batcher class that draws with one producer thread, whatever the
+    caller asks: its batches come in the order of its one seeded
+    generator."""
+    class Ordered(cls):
+        def __init__(self, *args, **kwargs):
+            kwargs["n_threads"] = 1
+            super().__init__(*args, **kwargs)
+    return Ordered
+
+
 def _per_step(k1=0, flash=0):
     """Launches of each kernel a step: ``flash`` counts K2, K3, K6 and K7
     (one each a layer in kernel mode); K3 split over a model axis none."""
@@ -2981,6 +3033,8 @@ class _StepWatch:
                 captured.append(init(seed))
                 st = captured[-1]
                 p = st.params if hasattr(st, "params") else st[0]
+                if hasattr(p, "full"):          # a mesh's MeshParams
+                    p = p.full()
                 self.initial = tree_map(
                     lambda t: t.detach().cpu().clone(), p)
                 return st
@@ -3099,8 +3153,13 @@ def run_rest_of_training(dev, smi) -> dict:
             st.enter_context(_patched(
                 pretrain_cli, "make_pretrain_step",
                 watch.factory(pretrain_cli.make_pretrain_step, captured)))
+            # One producer thread: one seeded generator hands the batches
+            # over in one order, so every call trains on the same stream
+            # (pretrain_main's own 2 threads fill one queue in timing
+            # order, and the gate below read differently call to call).
             st.enter_context(_patched(pretrain_cli, "SynthBatcher",
-                                      _timed_batches(SynthBatcher, parts)))
+                                      _timed_batches(_one_producer(
+                                          SynthBatcher), parts)))
             st.enter_context(_patched(zoo, "save_checkpoint", _timed(
                 parts, "save", zoo.save_checkpoint)))
             st.enter_context(_patched(pretrain_cli, "save_train_state",
@@ -4262,6 +4321,311 @@ def run_tp(dev, cfg, params, xvector, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4l: training over the (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MT_STEPS = 3                 # train_synth steps over MT_MESH
+MT_MESH = (2, 2)             # train_synth's (data, model) mesh
+MT_CHECK_MESHES = ((2, 1), (1, 2), (2, 2), (1, 4))  # updates against (1, 1)
+MT_TIMED = ((1, 1), (2, 2), (1, 4))   # step seconds and peak memory
+MT_TIMED_STEPS = 3           # timed steps a mesh, after one warm step
+MT_POOL = 32                 # entries of the pool step's pool
+# One update over a mesh against the same update on one device of the
+# card: the loss within TOL_MT_LOSS_REL (bf16 roundings of each shard's
+# partial sums), the gradients per leaf within TOL_GRAD_REL (phase 4b's).
+TOL_MT_LOSS_REL = 1e-3
+MT_SCALARS = {"w_spk": 1.0, "w_trans": 1.0, "w_aug": 1.0, "w_fce": 0.5,
+              "w_ctc": 1.0}
+
+
+def _mt_launches(shape, layers: int) -> dict:
+    """The kernels a kernel-mode mesh train step launches from a sample
+    wire: K1 once a data row; K2, K6 and K7 once a model shard a layer a
+    row; K3 whole once a layer a row at model 1, split (counted once a
+    shard) above it; no int8 kernel."""
+    data, model = shape
+    split = model > 1
+    return {"log_mel_frames": data,
+            "flash_attention": layers * data * model,
+            "flash_attention_bwd_dq": layers * data * model,
+            "flash_attention_bwd_dkv": layers * data * model,
+            "fused_conv_module": 0 if split else layers * data,
+            "fused_conv_module_split": layers * data * model if split else 0,
+            "quantized_matmul": 0, "quantized_matmul_a8": 0}
+
+
+def _mt_host_batch(cfg, seed, bake=False):
+    """One SynthBatcher batch of TRAIN_BATCH 8 s windows padded for the
+    flash blocks (one producer: the same batch every call)."""
+    from omnilingual_asr_torch.ops.attention import REFERENCE_BLOCK_Q
+    from omnilingual_asr_torch.train.synth import SynthBatcher
+
+    b = SynthBatcher(cfg, batch_size=TRAIN_BATCH, seed=seed, n_threads=1,
+                     frame_multiple=REFERENCE_BLOCK_Q * 4, bake_mode=bake)
+    try:
+        return next(iter(b))
+    finally:
+        b.close()
+
+
+def _mt_worst(got, want, names):
+    """(worst per-leaf relative L2, its leaf's name)."""
+    worst, worst_i = 0.0, 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        nb = float(b.norm())
+        err = float((a - b).norm()) / nb if nb > 0 else float(a.norm())
+        if not math.isfinite(err):
+            raise PhaseError(f"mesh training: gradient leaf {names[i]} is "
+                             f"not finite")
+        if err > worst:
+            worst, worst_i = err, i
+    return worst, names[worst_i]
+
+
+def _mt_compare(label, one, mesh, names) -> dict:
+    """One device's (loss, grads) against a mesh's: the loss within
+    TOL_MT_LOSS_REL, each leaf within TOL_GRAD_REL, or the phase fails."""
+    loss_rel = abs(mesh[0] - one[0]) / max(abs(one[0]), 1e-30)
+    worst, leaf = _mt_worst(mesh[1], one[1], names)
+    out = {"check": label, "loss_1x1": one[0], "loss_mesh": mesh[0],
+           "loss_rel": loss_rel, "grad_worst_rel": worst,
+           "grad_worst_leaf": leaf}
+    log("  mesh training update " + json.dumps(out))
+    if (not math.isfinite(mesh[0]) or loss_rel > TOL_MT_LOSS_REL
+            or worst > TOL_GRAD_REL):
+        raise PhaseError(f"mesh training {label}: {out} (loss tol "
+                         f"{TOL_MT_LOSS_REL}, grads {TOL_GRAD_REL})")
+    return out
+
+
+def _mt_grads(make, where, params, args, place_kw=None):
+    """``make(where)`` -> (init, step, loss_and_grads); the loss and the
+    whole leaves' gradients (on the CPU) from ``params`` (a whole tree)."""
+    import torch
+    from omnilingual_asr_torch.parallel.mesh import Mesh
+    from omnilingual_asr_torch.train.step import tree_leaves, trainable
+
+    init, _, lg = make(where)
+    if isinstance(where, Mesh):
+        p = init.place(params, **(place_kw or {}))
+        m, g = lg(p, *args)
+        grads = p.merge(g)
+    else:
+        p = trainable(params, where)
+        m, g = lg(p, *args)
+        grads = [torch.zeros_like(x) if a is None else a
+                 for a, x in zip(g, tree_leaves(p))]
+    torch.cuda.synchronize()
+    return float(m["loss"]), [x.detach().cpu() for x in grads]
+
+
+def run_mesh_training(dev, smi, profile: bool = False) -> dict:
+    """Phase 4l. Training over a (data, model) mesh at ``PipelineConfig()``
+    width (d512 x 12, 8 heads), kernel mode, the translator on, meshes as
+    shards of ``dev`` (and the update checks again over distinct cards
+    where more than one is visible): (1) ``train_synth`` over MT_MESH for
+    MT_STEPS steps from host batches of 16 8 s windows, each step's
+    launches exactly (``_mt_launches``) and finite losses; (2) one update
+    at each of MT_CHECK_MESHES against the (1, 1) update on the card from
+    the same parameters and batch (SpecAugment on: its draws over the
+    global batch); (3) one pool step at (2, 2) and one pretraining update
+    at (2, 1) against one device; (4) (1)'s checkpoint equal to the
+    gathered parameters and serving from the one-device engine; (5) step
+    seconds and peak memory at MT_TIMED, printed, not held, and with
+    ``profile`` (``--profile``) one more step of each under the profiler
+    (device events, busy share). Returns the launches of each kernel."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.config import MeshConfig, PipelineConfig
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.models import zoo
+    from omnilingual_asr_torch.models.conformer import asr_init
+    from omnilingual_asr_torch.models.translation import translator_init
+    from omnilingual_asr_torch.parallel.mesh import build_mesh
+    from omnilingual_asr_torch.train import device_pool, synth_train
+    from omnilingual_asr_torch.train import pretrain as pre
+    from omnilingual_asr_torch.train.augment import SpecAugmentConfig
+    from omnilingual_asr_torch.train.step import (CTC_INFEASIBLE, ctc_rows,
+                                                  make_optimizer,
+                                                  make_train_step,
+                                                  trainable, tree_leaves)
+
+    base = PipelineConfig()
+    cfg = base.replace(encoder=dataclasses.replace(
+        base.encoder, use_flash_attention=True, use_fused_conv=True))
+    L = cfg.encoder.n_layers
+    total: dict = {}
+
+    def mesh_of(shape, distinct=False):
+        data, model = shape
+        return build_mesh(MeshConfig(data=data, model=model),
+                          _mesh_devices(dev, data * model, distinct))
+
+    # (1) train_synth over MT_MESH, host batches, kernel mode.
+    parts, captured = {}, []
+    watch = _StepWatch("mesh train_synth", _mt_launches(MT_MESH, L))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with contextlib.ExitStack() as st:
+            st.enter_context(_patched(synth_train, "make_train_step",
+                                      watch.factory(
+                                          synth_train.make_train_step,
+                                          captured)))
+            st.enter_context(_patched(synth_train, "SynthBatcher",
+                                      _timed_batches(_one_producer(
+                                          synth_train.SynthBatcher), parts)))
+            (params, _), launches = _rest_drive(
+                "mesh train_synth", lambda: synth_train.train_synth(
+                    steps=MT_STEPS, batch_size=TRAIN_BATCH,
+                    cfg=base.replace(mesh=MeshConfig(*MT_MESH)),
+                    pallas_kernels=True, seed=SEED, ckpt_dir=str(tmp),
+                    log_every=1, eval_every=1000, device=dev), parts, watch)
+        _add(total, launches)
+        # (4) The checkpoint: equal to the gathered parameters, and the
+        # one-device engine serves from it.
+        whole = params.full()
+        saved = zoo.load_checkpoint(tmp / "last" / "asr.npz", base, dev)
+        for k, v in zoo.flatten(whole["asr"]).items():
+            if not torch.equal(zoo.flatten(saved)[k], v):
+                raise PhaseError(f"mesh checkpoint: leaf {k} differs from "
+                                 f"the gathered parameters")
+        engine = TranscriptionEngine(config=base, params=saved, device=dev)
+        before = _read_counters(reset=False)
+        res = engine.transcribe(golden.GOLDEN_WAV).to_dict()
+        after = _read_counters(reset=False)
+        _add(total, {k: after[k] - before[k] for k in after})
+        log("  mesh checkpoint " + json.dumps({
+            "leaves": len(zoo.flatten(whole["asr"])), "equal": True,
+            "engine_segments": len(res["segments"])}))
+        del engine, params, whole, saved, captured
+
+    # (2) One update at each mesh against (1, 1), from the same parameters
+    # and batch, SpecAugment on.
+    full = {"asr": asr_init(torch.Generator().manual_seed(SEED), base),
+            "translator": translator_init(
+                torch.Generator().manual_seed(SEED + 1), base)}
+    names = list(zoo.flatten(full).keys())
+    hb = _mt_host_batch(cfg, SEED + 60)
+    batch = {k: torch.from_numpy(device_pool.encode_wire(v, "i16")
+                                 if k == "samples" else v).to(dev)
+             for k, v in hb.items()}
+    batch[CTC_INFEASIBLE] = ctc_rows(hb, cfg)
+    batch.update(MT_SCALARS)
+    aug = SpecAugmentConfig(n_freq_masks=1, freq_mask_width=16,
+                            n_time_masks=1, time_mask_width=24)
+
+    def train_make(where):
+        return make_train_step(cfg, where, tx=make_optimizer(),
+                               from_samples=True, augment=aug,
+                               with_translator=True)
+
+    _read_counters()
+    one = _mt_grads(train_make, dev, full, (batch, 0))
+    variants = [False] + ([True] if torch.cuda.device_count() > 1 else [])
+    for distinct in variants:
+        for shape in MT_CHECK_MESHES:
+            got = _mt_grads(train_make, mesh_of(shape, distinct), full,
+                            (batch, 0))
+            _mt_compare(f"{shape}{' distinct cards' if distinct else ''}",
+                        one, got, names)
+    _add(total, _read_counters())
+
+    # (3) One pool step at (2, 2) and one pretraining update at (2, 1)
+    # against one device.
+    pool_np = device_pool.build_pool(iter([_mt_host_batch(
+        cfg, SEED + 61 + i, bake=True) for i in range(2)]), MT_POOL,
+        wire="mulaw")
+    pool = device_pool.pool_to_device(pool_np, dev)
+    idx = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, MT_POOL, TRAIN_BATCH).astype(np.int32)).to(dev)
+    scalars = dict(MT_SCALARS)
+    scalars[CTC_INFEASIBLE] = ctc_rows(
+        {k: v[idx.cpu().numpy()] for k, v in pool_np.items()}, cfg)
+
+    def pool_make(where):
+        out = device_pool.make_pool_train_step(
+            cfg, where, tx=make_optimizer(), augment=aug,
+            with_translator=True)
+        return out[0], out[1], out[3]
+
+    _read_counters()
+    one_pool = _mt_grads(pool_make, dev, full, (pool, idx, 0, scalars))
+    _mt_compare("pool (2, 2)", one_pool,
+                _mt_grads(pool_make, mesh_of((2, 2)), full,
+                          (pool, idx, 0, scalars)), names)
+    pcfg = pre.PretrainConfig()
+    pfull = pre.pretrain_init(torch.Generator().manual_seed(SEED + 2), base,
+                              pcfg)
+    quantizer = {k: v.to(dev) for k, v in pre.make_quantizer(
+        torch.Generator().manual_seed(SEED + 3), base, pcfg).items()}
+    pbatch = {"samples": torch.from_numpy(device_pool.encode_wire(
+        hb["samples"], "mulaw")).to(dev),
+        "mask": torch.from_numpy(hb["mask"]).to(dev)}
+
+    def pre_make(where):
+        return pre.make_pretrain_step(base, where, pcfg,
+                                      tx=make_optimizer(lr=2e-3),
+                                      from_samples=True)
+
+    _mt_compare("pretrain (2, 1)",
+                _mt_grads(pre_make, dev, pfull, (quantizer, pbatch, 0)),
+                _mt_grads(pre_make, mesh_of((2, 1)), pfull,
+                          (quantizer, pbatch, 0)),
+                list(zoo.flatten(pfull).keys()))
+    _add(total, _read_counters())
+    del pool
+
+    # (5) Step seconds and peak memory a mesh (printed, not held).
+    costs = {}
+    for shape in MT_TIMED:
+        if shape == (1, 1):
+            _, step_fn, _ = train_make(dev)
+            state = trainable(full, dev)
+            leaves = tree_leaves(state)
+        else:
+            init, step_fn, _ = train_make(mesh_of(shape))
+            state = init.place(full)
+            leaves = state.leaves
+        opt = make_optimizer().init(leaves)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _read_counters()
+        secs = []
+        for i in range(1 + MT_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step_fn(state, opt, batch, i)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = _read_counters()
+        want = {k: v * (1 + MT_TIMED_STEPS)
+                for k, v in _mt_launches(shape, L).items()}
+        bad = {k: (counts.get(k, 0), n) for k, n in want.items()
+               if counts.get(k, 0) != n}
+        if bad:
+            raise PhaseError(f"mesh training {shape} timed steps: launches "
+                             f"(got, want) {bad}")
+        _add(total, counts)
+        costs[str(shape)] = {
+            "step_s": secs[1:], "median_s": statistics.median(secs[1:]),
+            "warm_step_s": secs[0],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if profile:      # where the step's time goes (--profile only)
+            device_profile(f"mesh training step {shape}", lambda: step_fn(
+                state, opt, batch, 1 + MT_TIMED_STEPS), top=4)
+            _add(total, _read_counters())
+        del state, opt
+    log("  mesh training step costs (d512 x 12, batch 16, kernel mode, "
+        "translator) " + json.dumps(costs))
+    log(f"  mesh training launches {json.dumps(total)} ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 4c (--profile): where a request's and a train step's time goes
 # ---------------------------------------------------------------------------
 
@@ -4572,6 +4936,11 @@ def main(argv=None) -> int:
         tp_path = run_tp(dev, cfg, params, xvector, smi)
         log(f"[tp] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "mesh_training"
+        t0 = time.perf_counter()
+        mesh_training = run_mesh_training(dev, smi, profile=args.profile)
+        log(f"[mesh_training] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -4592,7 +4961,8 @@ def main(argv=None) -> int:
         paths = {"serving": serving, "training": training,
                  "decoders": decoding, "server": served, "d512": d512,
                  "evals": evals, "trainers": trainers,
-                 "rest_of_training": rest, "mesh": mesh, "tp": tp_path}
+                 "rest_of_training": rest, "mesh": mesh, "tp": tp_path,
+                 "mesh_training": mesh_training}
         line = {"kernels": []}
         for k in kernels:
             fns = by_fn[k["name"]]

@@ -18,11 +18,13 @@ dispatch, or with ``encoder.moe_dispatch="alltoall"`` and a mesh whose
 ``model`` axis is above 1, the all-to-all dispatch of
 ``parallel/expert_dispatch.py``.
 
-Tensor parallelism (serving): :func:`asr_param_specs` places the tree on
-a (data, model) mesh as the reference's does, :func:`shard_for_tp` cuts
-it into one tree per model shard, and :func:`tp_asr_forward` runs the
-forward over those trees (``parallel/tensor.py``'s column- and
-row-parallel layers, K2 on each shard's heads, K3 split over channels).
+Tensor parallelism: :func:`asr_param_specs` places the tree on a (data,
+model) mesh as the reference's does, :func:`shard_for_tp` cuts it into
+one tree per model shard, and :func:`tp_asr_forward` runs the forward
+over those trees (``parallel/tensor.py``'s column- and row-parallel
+layers, K2 on each shard's heads, K3 split over channels), for serving
+and, differentiable and with dropout, for training;
+:func:`mesh_asr_forward` runs it over every data row of a mesh.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import torch.utils.checkpoint
 from ..config import EncoderConfig, PipelineConfig
 from ..ops.conv_module import convmod_apply_fused, tp_convmod_apply_fused
 from ..parallel import tensor as tp
-from ..parallel.mesh import AXIS_MODEL, Split, all_gather, gather, replicate
+from ..parallel.mesh import (AXIS_MODEL, Split, all_gather, gather,
+                             replicate, scatter)
 from . import layers as L
 from .moe import moe_ffn_apply, moe_ffn_init, moe_ffn_shapes, moe_ffn_spec
 
@@ -189,10 +192,25 @@ def dropout(x: torch.Tensor, rate: float, seed: int,
     (seed, salt), as the reference folds a salt into its step key: each
     element is kept with probability 1 - rate and scaled by 1/(1 - rate).
     The bits differ from ``jax.random``'s."""
-    gen = torch.Generator(device=x.device).manual_seed(
+    return apply_dropout(x, dropout_mask(x.shape, rate, seed, salt,
+                                         x.device), rate)
+
+
+def dropout_mask(shape, rate: float, seed: int, salt: int,
+                 device) -> torch.Tensor:
+    """The kept elements of :func:`dropout` over ``shape`` (bool), drawn
+    on ``device``. A mesh draws it over the global batch's shape on one
+    device and hands each data row its rows, so that the mesh keeps the
+    elements one device keeps."""
+    gen = torch.Generator(device=device).manual_seed(
         (seed * 1_000_003 + salt) % (2 ** 63))
+    return torch.rand(tuple(shape), generator=gen, device=device) \
+        < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, hit: torch.Tensor,
+                  rate: float) -> torch.Tensor:
     keep = 1.0 - rate
-    hit = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return torch.where(hit, x / keep, torch.zeros_like(x))
 
 
@@ -263,7 +281,7 @@ def asr_forward(params, mel: torch.Tensor, mask: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism (serving)
+# Tensor parallelism
 # ---------------------------------------------------------------------------
 
 def conformer_block_spec(enc: EncoderConfig):
@@ -350,23 +368,39 @@ def tp_conformer_block_apply(ps, xs, masks, cos, sin, enc: EncoderConfig,
 
 
 def tp_asr_forward(shards, mel: torch.Tensor, mask: torch.Tensor,
-                   cfg: PipelineConfig):
-    """:func:`asr_forward` (serving) over the model shards of one data
-    row: ``shards`` from :func:`shard_for_tp`, shard m's tree on its
-    device; mel and mask on shard 0's device. The mel goes to every
-    shard's device; the subsampler and the LID head are column-parallel
-    and gathered, the blocks run on ``parallel/tensor.py``'s layers (K2 on
-    each shard's heads, K3 split over channels under the encoder's flags),
-    and the replicated heads run once, on shard 0. Returns
-    :func:`asr_forward`'s dict on shard 0's device. Under tensor
-    parallelism the int8 kernel modes do not run (the reference's rule):
-    a quantized tree dequantizes into the bf16 products."""
+                   cfg: PipelineConfig, dropout_keep=None):
+    """:func:`asr_forward` over the model shards of one data row:
+    ``shards`` from :func:`shard_for_tp` (or a training
+    ``parallel.tensor.MeshParams`` row), shard m's tree on its device; mel
+    and mask on shard 0's device. The mel goes to every shard's device;
+    the subsampler and the LID head are column-parallel and gathered, the
+    blocks run on ``parallel/tensor.py``'s layers (K2 on each shard's
+    heads, K3 split over channels under the encoder's flags), and the
+    replicated heads run once, on shard 0. Returns :func:`asr_forward`'s
+    dict on shard 0's device. Under tensor parallelism the int8 kernel
+    modes do not run (the reference's rule): a quantized tree dequantizes
+    into the bf16 products.
+
+    Training: the layers are differentiable (K3's split through
+    ``ops.conv_module.FusedConvModuleSplit``, K2 with K6/K7 through
+    ``FlashAttention``), ``encoder.remat`` recomputes each block in the
+    backward pass, and ``dropout_keep`` (the row's kept elements of salts
+    0 .. n_layers, :func:`dropout_mask`'s) applies :func:`asr_forward`'s
+    residual dropout at the same places."""
     enc = cfg.encoder
     n = len(shards)
     check_tp_dims(cfg, n)
     dtype = compute_dtype(enc)
     sub = enc.subsample_factor
     devices = [_tree_device(s) for s in shards]
+
+    def drop(xs, salt):
+        if dropout_keep is None:
+            return xs
+        hits = replicate(dropout_keep[salt], devices)
+        return tp.per_copy(lambda x, h: apply_dropout(x, h, enc.dropout),
+                           xs, hits)
+
     frames = tp.per_copy(lambda m: subsample_frames(m, sub),
                          replicate(mel, devices))
     m_sub = subsampled_mask(mask, sub)
@@ -375,15 +409,23 @@ def tp_asr_forward(shards, mel: torch.Tensor, mask: torch.Tensor,
                                     frames, dtype), dim=-1)
     xs = tp.per_copy(lambda x, s: L.layernorm_apply(s["in_ln"], x), xs,
                      shards)
+    xs = drop(xs, 0)
     rope = tp.per_copy(lambda x: L.rope_angles(x.shape[1], enc.head_dim,
                                                device=x.device), xs)
     cos = [r[0] for r in rope]
     sin = [r[1] for r in rope]
+    remat = enc.remat and torch.is_grad_enabled()
     moe_aux = torch.zeros((), device=mel.device)
     for bi in range(enc.n_layers):
-        xs, aux = tp_conformer_block_apply(
-            [s["blocks"][bi] for s in shards], xs, masks, cos, sin, enc,
-            dtype)
+        blocks = [s["blocks"][bi] for s in shards]
+        if remat:
+            xs, aux = torch.utils.checkpoint.checkpoint(
+                tp_conformer_block_apply, blocks, xs, masks, cos, sin, enc,
+                dtype, use_reentrant=False)
+        else:
+            xs, aux = tp_conformer_block_apply(blocks, xs, masks, cos, sin,
+                                               enc, dtype)
+        xs = drop(xs, bi + 1)
         moe_aux = moe_aux + aux.to(mel.device)
     x, p0 = xs[0], shards[0]
     out = {}
@@ -399,6 +441,48 @@ def tp_asr_forward(shards, mel: torch.Tensor, mask: torch.Tensor,
         (spk_frames * spk_frames).sum(dim=-1, keepdim=True) + 1e-8)
     return {**out, "speaker_frames": spk_frames, "speaker_embed": spk,
             "encoder_states": x, "mask": m_sub, "moe_aux": moe_aux}
+
+
+def mesh_asr_forward(rows, mel: torch.Tensor, mask: torch.Tensor,
+                     cfg: PipelineConfig, dropout_seed: Optional[int] = None):
+    """:func:`asr_forward` (training) over data rows x model shards.
+
+    ``rows[r]`` is data row r's model shards' trees (``parallel.tensor.
+    MeshParams.grid``); mel [B, T, n_mels] and mask [B, T], the global
+    batch, on shard (0, 0)'s device. The batch is scattered over the rows
+    (``P("data", ...)``); each row runs :func:`tp_asr_forward` on its
+    model shards. ``dropout_seed``: the dropout masks are drawn over the
+    global batch's shape on shard (0, 0)'s device, as one device draws
+    them, and each row takes its rows. Returns the rows' output dicts,
+    each on its row's first device."""
+    enc = cfg.encoder
+    if enc.n_experts > 0:
+        raise NotImplementedError(
+            "mixture-of-experts training over a (data, model) mesh is not "
+            "ported (A10 training over the mesh in ROADMAP.md, Queue A); "
+            "train experts on one device")
+    data = len(rows)
+    firsts = [_tree_device(r[0]) for r in rows]
+    mels = scatter(mel, firsts)
+    masks = scatter(mask, firsts)
+    keeps = [None] * data
+    if dropout_seed is not None and enc.dropout > 0.0:
+        B, T = mask.shape
+        keeps = row_dropout_masks((B, T // enc.subsample_factor,
+                                   enc.d_model), enc, dropout_seed,
+                                  mel.device, firsts)
+    return [tp_asr_forward(rows[r], mels[r], masks[r], cfg, keeps[r])
+            for r in range(data)]
+
+
+def row_dropout_masks(shape, enc: EncoderConfig, seed: int, device,
+                      firsts):
+    """Each data row's kept elements of salts 0 .. n_layers: each salt's
+    mask drawn over the global batch's ``shape`` on ``device`` (as one
+    device draws it), scattered over the rows (on their ``firsts``)."""
+    draws = [scatter(dropout_mask(shape, enc.dropout, seed, salt, device),
+                     firsts) for salt in range(enc.n_layers + 1)]
+    return [[d[r] for d in draws] for r in range(len(firsts))]
 
 
 def _tree_device(tree) -> torch.device:

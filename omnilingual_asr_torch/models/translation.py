@@ -182,6 +182,104 @@ def decoder_forward(params, tokens: torch.Tensor, enc: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism (training over a (data, model) mesh)
+# ---------------------------------------------------------------------------
+
+def decoder_block_spec():
+    """The reference's ``decoder_block_spec`` but for the fused
+    projections: ``self_qkv`` [d, 3d] is split within each of q, k and v
+    and ``cross_kv`` [d, 2d] within each of k and v (``Split(..., halves)``),
+    so that shard m holds heads [m H / n, (m + 1) H / n) of each; the
+    reference's contiguous split of the fused columns hands a shard q and
+    half of k at model 2, which GSPMD repairs by moving activations and a
+    shard-local layer cannot."""
+    from ..parallel.mesh import AXIS_MODEL, Split
+
+    return {
+        "ln1": L.layernorm_spec(),
+        "self_qkv": {"w": Split(AXIS_MODEL, 1, halves=3)},
+        "self_o": L.dense_spec(AXIS_MODEL, None, use_bias=False),
+        "ln2": L.layernorm_spec(),
+        "cross_q": L.dense_spec(None, AXIS_MODEL, use_bias=False),
+        "cross_kv": {"w": Split(AXIS_MODEL, 1, halves=2)},
+        "cross_o": L.dense_spec(AXIS_MODEL, None, use_bias=False),
+        "ffn": L.ffn_spec(),
+    }
+
+
+def translator_specs(n_layers: int = N_LAYERS):
+    """The joint translator's placement (the reference's
+    ``translator_specs``): the embeddings and positions split by columns,
+    the blocks by :func:`decoder_block_spec`. The output head is
+    replicated: its vocabulary's 1 + 256 columns split evenly over no
+    model axis above 1 (the reference's GSPMD pads them; as the encoder's
+    CTC head)."""
+    from ..parallel.mesh import AXIS_MODEL
+
+    return {
+        "embed": (None, AXIS_MODEL),
+        "pos": (None, AXIS_MODEL),
+        "blocks": [decoder_block_spec() for _ in range(n_layers)],
+        "ln_out": L.layernorm_spec(),
+        "out": L.dense_spec(None, None),
+    }
+
+
+def tp_decoder_forward(shards, tokens: torch.Tensor, enc: torch.Tensor,
+                       enc_mask: torch.Tensor, cfg: PipelineConfig,
+                       n_heads: Optional[int] = None) -> torch.Tensor:
+    """:func:`decoder_forward` over the model shards of one data row:
+    ``shards`` the row's translator trees under :func:`translator_specs`;
+    tokens, the encoder states and their mask on shard 0's device. Each
+    shard embeds its columns (gathered), runs self- and cross-attention
+    on its heads (q/k/v column-parallel, the output projections
+    row-parallel) and its FFN columns; the replicated head runs once, on
+    shard 0. Returns the logits [B, Tt, V] f32 on shard 0's device."""
+    from ..parallel import tensor as tp
+    from ..parallel.mesh import all_gather, replicate
+
+    n = len(shards)
+    if n_heads is None:
+        n_heads = cfg.encoder.n_heads
+    if n_heads % n:
+        raise ValueError(f"a model axis of {n} does not divide the "
+                         f"translator's {n_heads} heads")
+    heads = n_heads // n
+    devices = [s["embed"].device for s in shards]
+    B, Tt = tokens.shape
+    toks = replicate(tokens.to(torch.long), devices)
+    cols = [s["embed"][t] + s["pos"][:Tt][None, :, :]
+            for s, t in zip(shards, toks)]
+    xs = all_gather(cols, dim=-1)
+    pos = torch.arange(Tt, device=tokens.device)
+    causal = (pos[None, :, None] >= pos[None, None, :]).expand(B, Tt, Tt)
+    causals = replicate(causal, devices)
+    crosses = replicate(enc_mask[:, None, :].expand(B, Tt, enc_mask.shape[1]),
+                        devices)
+    encs = replicate(enc, devices)
+    for bi in range(len(shards[0]["blocks"])):
+        ps = [s["blocks"][bi] for s in shards]
+        hs = tp.per_copy(lambda x, p: L.layernorm_apply(p["ln1"], x), xs, ps)
+        att = []
+        for p, h, c in zip(ps, hs, causals):
+            q, k, v = L.dense_apply(p["self_qkv"], h).chunk(3, dim=-1)
+            att.append(_attend(q, k, v, c, heads))
+        ys = tp.row_dense([p["self_o"] for p in ps], att)
+        xs = tp.per_copy(lambda x, y: x + y, xs, ys)
+        hs = tp.per_copy(lambda x, p: L.layernorm_apply(p["ln2"], x), xs, ps)
+        att = []
+        for p, h, e, c in zip(ps, hs, encs, crosses):
+            cq = L.dense_apply(p["cross_q"], h)
+            ck, cv = L.dense_apply(p["cross_kv"], e).chunk(2, dim=-1)
+            att.append(_attend(cq, ck, cv, c, heads))
+        ys = tp.row_dense([p["cross_o"] for p in ps], att)
+        xs = tp.per_copy(lambda x, y: x + y, xs, ys)
+        xs = tp.tp_ffn_apply([p["ffn"] for p in ps], xs, half_step=False)
+    x = L.layernorm_apply(shards[0]["ln_out"], xs[0])
+    return L.dense_apply(shards[0]["out"], x)
+
+
+# ---------------------------------------------------------------------------
 # Greedy decoding
 # ---------------------------------------------------------------------------
 

@@ -1,8 +1,8 @@
 """Shapes and tolerances at which the card holds K3 (the fused conv module,
 whole and split over the shards of a model axis), K4 (the W8A16 matmul)
 and K5 (the W8A8 matmul) against their plain versions, the flash
-attention (K2) shapes of the mesh paths, and the log-mel (K1) shapes of
-the trainers.
+attention (K2, and K6/K7 in training) shapes of the mesh paths, and the
+log-mel (K1) shapes of the trainers and of training over a mesh.
 
 ``chip_smoke.py`` checks and times the kernels at these shapes, and
 ``ops/conv_quant_sweep.py`` times its candidate tilings at the same ones;
@@ -41,15 +41,24 @@ K3_SHAPES = {"serving": (4, 768, 256, (768, 700, 301, 0)),
              "eval10s": (4, 256, 256, (249, 200, 77, 0)),
              "latency": (1, 768, 512, (749,))}
 
+# Training over a (data, model) mesh at PipelineConfig()'s width, batch 16
+# of 8 s windows (T' 256): valid frames of a (2, 2) mesh's data row of 8
+# and of a (1, 4) mesh's one row of 16.
+TRAIN_ROW_VALID = (256,) * 5 + (200, 77, 1)
+TRAIN_BATCH_VALID = (256,) * 12 + (200, 77, 1, 0)
+
 # K3 split over n shards of a model axis as (B, T, D, n, valid frames of
 # each row): the release's serving batch at D / n = 128 and 64, a data
 # row's batch of a (2, 2) mesh and the d512 seed's serving batch at 256
-# and 128 (tensor parallelism at model 2 and 4).
+# and 128 (tensor parallelism at model 2 and 4); training at d512, a data
+# row of 8 at model 2 (the (2, 2) mesh) and the batch of 16 at model 4.
 K3_SPLIT_SHAPES = {"serving_tp2": (4, 768, 256, 2, (768, 700, 301, 0)),
                    "dp_shard_tp2": (2, 768, 256, 2, (768, 301)),
                    "serving_tp4": (4, 768, 256, 4, (768, 700, 301, 0)),
                    "d512_tp2": (4, 768, 512, 2, (768, 700, 301, 0)),
-                   "d512_tp4": (4, 768, 512, 4, (768, 700, 301, 0))}
+                   "d512_tp4": (4, 768, 512, 4, (768, 700, 301, 0)),
+                   "train_2x2": (8, 256, 512, 2, TRAIN_ROW_VALID),
+                   "train_1x4": (16, 256, 512, 4, TRAIN_BATCH_VALID)}
 
 # K2 on the mesh paths as (B, T, H, head dim, valid keys of each row): a
 # data shard's batch of the release (2 windows), the release's serving
@@ -59,6 +68,13 @@ K2_MESH_SHAPES = {"dp_shard": (2, 768, 4, 64, (768, 300)),
                   "dp_shard_tp2": (2, 768, 2, 64, (768, 300)),
                   "tp2": (4, 768, 2, 64, (768, 700, 300, 0)),
                   "tp4": (4, 768, 1, 64, (768, 700, 300, 0))}
+
+# K2 forward and K6/K7 backward when training over a mesh at
+# PipelineConfig()'s width (8 heads of 64), as (B, T, H, head dim, valid
+# keys of each row): a (2, 2) mesh's data row of 8 on one shard's 4 heads
+# and a (1, 4) mesh's batch of 16 on one shard's 2 heads.
+FLASH_TRAIN_MESH_SHAPES = {"train_2x2": (8, 256, 4, 64, TRAIN_ROW_VALID),
+                           "train_1x4": (16, 256, 2, 64, TRAIN_BATCH_VALID)}
 
 # K1 as (windows, frames a window padded to the 256-frame blocks, valid
 # frames) on the trainers' paths: the x-vector trainer's batch of 64 4 s
@@ -74,6 +90,10 @@ K1_TRAINER_SHAPES = {"xvector": (64, 512, 398),
 # and AED's batches of 16 8 s windows are the training shape.
 K1_REST_SHAPES = {"pretrain": (64, 1024, 798),
                   "manifest": (16, 1536, 1498)}
+
+# K1 when training over a mesh: a data row's 8 of a batch of 16 8 s windows
+# (the (2, 2) and (2, 1) meshes: host batches, the pool and pretraining).
+K1_MESH_SHAPES = {"train_row": (8, 1024, 798)}
 
 # K5 as (M, K, N): a serving batch's 4 x 768 frames through the release
 # layers that take it, by width N (512 the CTC head, 1024 the FFN

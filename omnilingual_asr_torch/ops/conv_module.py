@@ -380,23 +380,108 @@ def fused_conv_module_split(xs: Sequence[torch.Tensor], masks, ln_scales,
 fused_conv_module_split.launches = 0
 
 
+def _unique(outs: Sequence[torch.Tensor]):
+    """(each distinct tensor once, in order; each entry's index into
+    them)."""
+    seen, uniq, where = {}, [], []
+    for o in outs:
+        if id(o) not in seen:
+            seen[id(o)] = len(uniq)
+            uniq.append(o)
+        where.append(seen[id(o)])
+    return uniq, where
+
+
+class FusedConvModuleSplit(torch.autograd.Function):
+    """Differentiable split conv module over all n shards:
+    ``FusedConvModuleSplit.apply(n, *xs, *masks, *ln_scales, *ln_biases,
+    *pw1s, *dws, *dwln_scales, *dwln_biases, *pw2s)`` -> the distinct
+    results of :func:`conv_module_split_plain` (shards on one device share
+    one; :func:`tp_convmod_apply_fused` maps them back to the shards).
+
+    Forward: :func:`fused_conv_module_split` (K3's split launches on the
+    card, given bf16 copies of pw1 and pw2, or the plain split on the
+    CPU). Backward: recompute :func:`conv_module_split_plain` under
+    autograd on the same inputs and backpropagate through it, as
+    :class:`FusedConvModule` does for the whole module. An argument that
+    is one tensor at several positions (a replicated activation or leaf on
+    one device) is one input of the recompute, as in the forward, and its
+    gradient is returned once; the masks get none."""
+
+    @staticmethod
+    def forward(ctx, n, *args):
+        ctx.n = n
+        first = {}
+        ctx.first = [first.setdefault(id(a), i) for i, a in enumerate(args)]
+        ctx.save_for_backward(*args)
+        lists = [list(args[i * n:(i + 1) * n]) for i in range(9)]
+        if lists[0][0].is_cuda:
+            for k in (4, 8):            # pw1, pw2
+                lists[k] = [w.to(torch.bfloat16).contiguous()
+                            for w in lists[k]]
+        uniq, where = _unique(fused_conv_module_split(*lists))
+        ctx.where = where
+        return tuple(uniq)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        n = ctx.n
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        wants = {}
+        for i, f in enumerate(ctx.first):
+            wants[f] = wants.get(f, False) or need[i]
+        with torch.enable_grad():
+            inputs = {f: saved[f].detach().requires_grad_(wants[f])
+                      for f in wants}
+            args = [inputs[f] for f in ctx.first]
+            lists = [args[i * n:(i + 1) * n] for i in range(9)]
+            uniq, where = _unique(conv_module_split_plain(*lists))
+            if where != ctx.where:
+                raise RuntimeError("the split conv module's recompute "
+                                   "shares its results otherwise than its "
+                                   "forward")
+            wrt = [f for f in wants if wants[f]]
+            grads = torch.autograd.grad(
+                uniq, [inputs[f] for f in wrt],
+                [torch.zeros_like(u) if g is None else g
+                 for u, g in zip(uniq, gouts)], allow_unused=True)
+        by_first = dict(zip(wrt, grads))
+        out = [by_first.get(f) if f == i else None
+               for i, f in enumerate(ctx.first)]
+        return (None, *out)
+
+
 def tp_convmod_apply_fused(ps, xs, masks) -> List[torch.Tensor]:
     """The conv module over the model shards' ``conv`` trees ``ps``
     (``layers.convmod_spec``'s placement) through
-    :func:`fused_conv_module_split` (serving: not differentiable). On
-    the card pw1 and pw2 should be bf16 already (the engine holds them so
-    from load time); others are rounded here each call."""
-    def weight(leaf, x):
-        w = dense_weight(leaf)
-        return w.to(torch.bfloat16).contiguous() if x.is_cuda else w
-
-    return fused_conv_module_split(
-        [x.to(torch.float32).contiguous() for x in xs], masks,
-        [p["ln"]["scale"] for p in ps], [p["ln"]["bias"] for p in ps],
-        [weight(p["pw1"], x) for p, x in zip(ps, xs)],
-        [p["dw"] for p in ps],
-        [p["dw_ln"]["scale"] for p in ps], [p["dw_ln"]["bias"] for p in ps],
-        [weight(p["pw2"], x) for p, x in zip(ps, xs)])
+    :func:`fused_conv_module_split`. Where gradients are taken it runs
+    through :class:`FusedConvModuleSplit` (K3's split launches forward,
+    autograd of the plain split backward) with the f32 weights; serving
+    passes pw1 and pw2 as they are held, bf16 on the card already (the
+    engine holds them so from load time), others rounded here each
+    call. One shard (a mesh's model axis of 1) is the whole module, kernel
+    K3 (:func:`convmod_apply_fused`)."""
+    if len(ps) == 1:
+        return [convmod_apply_fused(ps[0], xs[0], masks[0])]
+    xs = [x.to(torch.float32).contiguous() for x in xs]
+    args = [xs, masks,
+            [p["ln"]["scale"] for p in ps], [p["ln"]["bias"] for p in ps],
+            [dense_weight(p["pw1"]) for p in ps], [p["dw"] for p in ps],
+            [p["dw_ln"]["scale"] for p in ps], [p["dw_ln"]["bias"] for p in ps],
+            [dense_weight(p["pw2"]) for p in ps]]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for a in args for t in a):
+        uniq = FusedConvModuleSplit.apply(len(xs),
+                                          *[t for a in args for t in a])
+        order = {}
+        where = [order.setdefault((id(x), x.device), len(order))
+                 for x in xs]
+        return [uniq[w] for w in where]
+    for k in (4, 8):
+        args[k] = [w.to(torch.bfloat16).contiguous() if x.is_cuda else w
+                   for w, x in zip(args[k], xs)]
+    return fused_conv_module_split(*args)
 
 
 def dense_weight(leaf) -> torch.Tensor:

@@ -189,6 +189,20 @@ def split_block(t: torch.Tensor, spec, index: int, n: int) -> torch.Tensor:
     return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=sp.dim)
 
 
+def merge_blocks(blocks: Sequence[torch.Tensor], spec) -> torch.Tensor:
+    """The inverse of :func:`split_block`: the whole leaf from its ``n``
+    blocks under ``spec``, on the first block's device (a replicated spec
+    gives the first block)."""
+    sp = as_split(spec)
+    if sp is None:
+        return blocks[0]
+    dev = blocks[0].device
+    parts = [torch.chunk(to_device(b, dev), sp.halves, dim=sp.dim)
+             for b in blocks]
+    return torch.cat([torch.cat([p[h] for p in parts], dim=sp.dim)
+                      for h in range(sp.halves)], dim=sp.dim)
+
+
 def shard_params(params, specs, mesh: Mesh):
     """Place a parameter tree on the mesh by a tree of specs.
 

@@ -30,7 +30,7 @@ replicated work on them runs once per distinct object (:func:`per_copy`).
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,8 +40,9 @@ from ..models.moe import expert_combine, load_balance, route
 from ..ops.attention import FlashAttention
 from ..ops.conv_module import (layernorm_from_moments, merge_moments,
                                moments)
-from .mesh import (Mesh, _sub, all_gather, as_split, device_guard, psum,
-                   replicate, split_block, to_device)
+from .mesh import (AXIS_MODEL, Mesh, _sub, all_gather, as_split,
+                   device_guard, merge_blocks, psum, replicate, split_block,
+                   to_device)
 
 F32 = torch.float32
 
@@ -73,6 +74,162 @@ def shard_trees(params, specs, devices: Sequence[torch.device]) -> List:
         return to_device(split_block(t, spec, m, n), d).contiguous()
 
     return [visit(params, specs, m) for m in range(n)]
+
+
+def _leaves_with_specs(tree, specs):
+    """(leaf, spec) pairs of a tree in ``train.step.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _leaves_with_specs(v, _sub(specs, k))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _leaves_with_specs(v, _sub(specs, i))]
+    return [(tree, specs)]
+
+
+def _rebuild(tree, values):
+    """``tree``'s structure with its leaves taken from the iterator
+    ``values`` in leaf order."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, values) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rebuild(v, values) for v in tree]
+    return next(values)
+
+
+class MeshParams:
+    """A parameter tree placed on a (data, model) mesh for training.
+
+    Leaf by leaf, as ``specs`` place it: a leaf split over the model axis
+    has one block a model shard, a replicated leaf one block. Each block
+    has one copy a distinct device that holds it (every data row's shard m
+    holds block m), or, with ``copy_per_shard``, one copy a mesh position
+    even where devices repeat (what distinct cards give, on one device).
+    The copies are f32 tensors that require a gradient; ``leaves`` lists
+    them once each, in leaf order (the optimizer's order), and
+    ``grid[r][m]`` is the tree that data row r's model shard m computes
+    with (``shard_trees``' layout). On one device a block's copy is one
+    tensor shared by every row, so autograd sums the rows' gradients into
+    it; on distinct devices each copy gets a partial gradient, which
+    :meth:`reduce` sums over the copies (``psum`` over the group that
+    holds the block) so that every copy takes the same update."""
+
+    def __init__(self, params, specs, mesh: Mesh,
+                 copy_per_shard: bool = False):
+        data, model = mesh.devices.shape
+        if mesh.axis_names != ("data", AXIS_MODEL):
+            raise ValueError(f"a (data, model) mesh, got {mesh.axis_names}")
+        self.mesh, self.specs, self._template = mesh, specs, params
+        self.leaves: List[torch.Tensor] = []
+        self._specs = []
+        #: per leaf, per block: indices into ``leaves`` of its copies
+        self.blocks: List[List[List[int]]] = []
+        at = [[[] for _ in range(model)] for _ in range(data)]
+        for t, spec in _leaves_with_specs(params, specs):
+            sp = as_split(spec)
+            if sp is not None and sp.axis != AXIS_MODEL:
+                raise ValueError(f"training places leaves over the model "
+                                 f"axis only, got {spec!r}")
+            t = t if isinstance(t, torch.Tensor) else torch.tensor(
+                np.asarray(t))
+            t = t.detach()
+            blocks = []
+            for b in range(model if sp is not None else 1):
+                value = split_block(t, sp, b, model) if sp is not None else t
+                copies = {}
+                for r in range(data):
+                    for m in range(model):
+                        if sp is not None and m != b:
+                            continue
+                        d = mesh.devices[r, m]
+                        key = (r, m) if copy_per_shard else d
+                        if key not in copies:
+                            copies[key] = len(self.leaves)
+                            self.leaves.append(
+                                value.to(d, torch.float32).contiguous()
+                                .clone().requires_grad_(True))
+                        at[r][m].append(self.leaves[copies[key]])
+                blocks.append(list(copies.values()))
+            self.blocks.append(blocks)
+            self._specs.append(spec)
+        self.grid = [[_rebuild(params, iter(at[r][m])) for m in range(model)]
+                     for r in range(data)]
+
+    @property
+    def device(self) -> torch.device:
+        """Shard (0, 0)'s device: where the loss and the gathers run."""
+        return self.mesh.devices[0, 0]
+
+    def reduce(self, grads: Sequence[Optional[torch.Tensor]]
+               ) -> List[torch.Tensor]:
+        """Gradients aligned with ``leaves`` (None: zero) -> each copy's
+        gradient summed over its block's copies, a tensor of its own on
+        its copy's device."""
+        grads = [torch.zeros_like(p) if g is None else g.detach()
+                 for p, g in zip(self.leaves, grads)]
+        out = list(grads)
+        for blocks in self.blocks:
+            for idx in blocks:
+                if len(idx) == 1:
+                    continue
+                sums = psum([grads[i] for i in idx])
+                seen = set()
+                for i, s in zip(idx, sums):
+                    out[i] = s.clone() if id(s) in seen else s
+                    seen.add(id(s))
+        return out
+
+    def counted(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients a global norm counts: one copy of each block, so
+        that every logical element counts once (the split blocks of one
+        model row, each replicated leaf once)."""
+        return [grads[idx[0]] for blocks in self.blocks for idx in blocks]
+
+    def merge(self, values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-copy tensors aligned with ``leaves`` -> the whole leaves (in
+        ``tree_leaves`` order of the full tree), each merged from its
+        blocks' first copies on :attr:`device`."""
+        return [to_device(merge_blocks([values[idx[0]] for idx in blocks],
+                                       spec), self.device)
+                for blocks, spec in zip(self.blocks, self._specs)]
+
+    def split(self, whole: Sequence) -> List[torch.Tensor]:
+        """The inverse of :meth:`merge`: whole leaves (tensors or arrays,
+        in leaf order) -> one tensor a copy, aligned with ``leaves``."""
+        out: List[Optional[torch.Tensor]] = [None] * len(self.leaves)
+        model = self.mesh.devices.shape[1]
+        for t, blocks, spec in zip(whole, self.blocks, self._specs):
+            t = t if isinstance(t, torch.Tensor) else torch.tensor(
+                np.asarray(t))
+            sp = as_split(spec)
+            for b, idx in enumerate(blocks):
+                value = split_block(t, sp, b, model) if sp is not None else t
+                for i in idx:
+                    out[i] = value.to(self.leaves[i].device,
+                                      self.leaves[i].dtype).contiguous()
+        return out
+
+    def full(self):
+        """The whole parameter tree on :attr:`device` (detached): the
+        inverse of the placement, what a checkpoint saves."""
+        merged = self.merge([p.detach() for p in self.leaves])
+        return _rebuild(self._template, iter(merged))
+
+    def assign(self, tree) -> None:
+        """Copy a whole tree (tensors or arrays, the placed tree's
+        structure) into every copy, in place, so that the optimizer keeps
+        holding the same tensors."""
+        whole = [t for t, _ in _leaves_with_specs(tree, self.specs)]
+        if len(whole) != len(self.blocks):
+            raise ValueError(f"a tree of {len(whole)} leaves for "
+                             f"{len(self.blocks)} placed")
+        with torch.no_grad():
+            for p, v in zip(self.leaves, self.split(whole)):
+                if tuple(p.shape) != tuple(v.shape):
+                    raise ValueError(f"loaded block of shape "
+                                     f"{tuple(v.shape)} for a copy of "
+                                     f"{tuple(p.shape)}")
+                p.copy_(v)
 
 
 def per_copy(fn: Callable, *lists) -> List:
@@ -109,13 +266,16 @@ def row_dense(ps, hs, dtype=torch.bfloat16) -> List[torch.Tensor]:
     return per_copy(lambda s, p: s + p["b"].to(F32), sums, ps)
 
 
-def tp_ffn_apply(ps, xs, dtype=torch.bfloat16) -> List[torch.Tensor]:
-    """Half-step FFN: w1 column-parallel, SiLU, w2 row-parallel."""
+def tp_ffn_apply(ps, xs, dtype=torch.bfloat16,
+                 half_step: bool = True) -> List[torch.Tensor]:
+    """FFN (half-step by default): w1 column-parallel, SiLU, w2
+    row-parallel."""
     hs = per_copy(lambda x, p: L.layernorm_apply(p["ln"], x), xs, ps)
     mids = [torch.nn.functional.silu(h)
             for h in column_dense([p["w1"] for p in ps], hs, dtype)]
     ys = row_dense([p["w2"] for p in ps], mids, dtype)
-    return per_copy(lambda x, y: x + 0.5 * y, xs, ys)
+    scale = 0.5 if half_step else 1.0
+    return per_copy(lambda x, y: x + scale * y, xs, ys)
 
 
 def tp_mhsa_apply(ps, xs, n_heads: int, masks, cos, sin,

@@ -1,4 +1,4 @@
-"""Training CLI: multi-task ASR training over a JSONL manifest, on one GPU.
+"""Training CLI: multi-task ASR training over a JSONL manifest.
 
 The PyTorch port of ``omnilingual_asr_tpu/train/cli.py``:
 
@@ -11,11 +11,12 @@ warm-starts supervised training (``synth_train --init-encoder``). Each
 checkpoint is one ``.npz`` in the release's keystr layout: ``--ckpt X.npz``
 writes that file, any other ``--ckpt`` writes ``X/asr.npz``; the engine
 and ``models/zoo.py::load_checkpoint`` read it. Samples travel as f32 and
-the log-mel (kernel K1 on the card) runs on the device. One device:
-``--mesh-data`` is accepted and means the one card, ``--mesh-model`` above
-1 (tensor-parallel training) is A10 training over the mesh in
-ROADMAP.md. Everything runs on CUDA
-unless the caller passes ``device="cpu"`` (``--device cpu``).
+the log-mel (kernel K1 on the card) runs on the device. ``--mesh-data``
+and ``--mesh-model`` train over a (data, model) mesh
+(``train/mesh_step.py``: the batch over the data rows, the parameters
+over the model shards; without ``--device`` the visible cards, with it
+shards of that device). Everything runs on CUDA unless the caller passes
+``device="cpu"`` (``--device cpu``).
 """
 
 from __future__ import annotations
@@ -25,22 +26,24 @@ import time
 
 import torch
 
-from ..config import PipelineConfig, tiny_config
+from ..config import MeshConfig, PipelineConfig, tiny_config
 from ..models.zoo import checkpoint_path, save_checkpoint
 from .data import BatchLoader
+from .mesh_step import training_mesh
 from .step import (CTC_INFEASIBLE, ctc_rows, make_optimizer, make_train_step,
-                   mel_from_samples, training_device)
+                   mel_from_samples, training_device, whole_params)
 
 
 def train(manifest: str, *, steps: int, batch_size: int,
           cfg: PipelineConfig, lr: float = 1e-3,
           window_seconds: float = 15.0, ckpt: str | None = None,
           log_every: int = 10, seed: int = 0, device=None):
-    dev = training_device(device)
+    mesh = training_mesh(cfg.mesh, device)
+    dev = training_device(device if mesh is None else mesh.devices[0, 0])
     loader = BatchLoader(manifest, cfg, batch_size=batch_size,
                          window_seconds=window_seconds, seed=seed)
     init_state, train_step, _ = make_train_step(
-        cfg, dev, tx=make_optimizer(lr=lr), from_samples=True)
+        cfg, mesh or dev, tx=make_optimizer(lr=lr), from_samples=True)
     state = init_state(seed=seed)
     params, opt_state = state.params, state.opt_state
 
@@ -68,7 +71,7 @@ def train(manifest: str, *, steps: int, batch_size: int,
         loader.close()
     if ckpt:
         path = checkpoint_path(ckpt, "asr.npz")
-        save_checkpoint(path, params)
+        save_checkpoint(path, whole_params(params))
         print(f"saved checkpoint to {path}")
     return params
 
@@ -83,11 +86,12 @@ def pretrain(manifest: str, *, steps: int, batch_size: int,
     from ..ops.mel import MelFrontend
     from .pretrain import make_pretrain_step
 
-    dev = training_device(device)
+    mesh = training_mesh(cfg.mesh, device)
+    dev = training_device(device if mesh is None else mesh.devices[0, 0])
     loader = BatchLoader(manifest, cfg, batch_size=batch_size,
                          window_seconds=window_seconds, seed=seed)
     init_state, step_fn, _ = make_pretrain_step(
-        cfg, dev, tx=make_optimizer(lr=lr))
+        cfg, mesh or dev, tx=make_optimizer(lr=lr))
     params, quantizer, opt_state = init_state(seed=seed)
     fe = MelFrontend(cfg.frontend, dev)
     try:
@@ -108,7 +112,7 @@ def pretrain(manifest: str, *, steps: int, batch_size: int,
         loader.close()
     if ckpt:
         path = checkpoint_path(ckpt, "asr.npz")
-        save_checkpoint(path, params["encoder"])
+        save_checkpoint(path, whole_params(params)["encoder"])
         print(f"saved pretrained encoder to {path}")
     return params
 
@@ -124,10 +128,11 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--window-seconds", type=float, default=15.0)
     ap.add_argument("--mesh-data", type=int, default=-1,
-                    help="accepted for the reference's flags: one card")
+                    help="data rows of the mesh (-1: every visible card "
+                         "over the model axis; with --device, 1)")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="training over a model axis above 1 is not "
-                         "ported (A10 training over the mesh)")
+                    help="model shards of each data row (tensor "
+                         "parallelism)")
     ap.add_argument("--ckpt", default=None,
                     help="X.npz, or a directory that gets asr.npz")
     ap.add_argument("--tiny", action="store_true",
@@ -137,13 +142,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' or 'cuda[:N]' (default: CUDA)")
     args = ap.parse_args(argv)
-    if args.mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh-model {args.mesh_model}: tensor-parallel training is "
-            f"not ported to the PyTorch trainer yet (A10 training over the "
-            f"mesh in ROADMAP.md, Queue A)")
 
     cfg = tiny_config() if args.tiny else PipelineConfig()
+    cfg = cfg.replace(mesh=MeshConfig(data=args.mesh_data,
+                                      model=args.mesh_model))
     fn = pretrain if args.pretrain else train
     fn(args.manifest, steps=args.steps, batch_size=args.batch_size,
        cfg=cfg, lr=args.lr, window_seconds=args.window_seconds,

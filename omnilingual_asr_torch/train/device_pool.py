@@ -33,8 +33,9 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from .step import (Optimizer, OptState, decode_wire, make_optimizer,
-                   make_train_step)
+from ..parallel.mesh import Mesh
+from .step import (Optimizer, OptState, counted_grads, decode_wire,
+                   make_optimizer, make_train_step)
 
 __all__ = ["build_pool", "make_pool_train_step", "encode_wire"]
 
@@ -120,7 +121,12 @@ def make_pool_train_step(cfg: PipelineConfig, device="cpu",
                          = (15.0, 40.0),
                          gain_range: Tuple[float, float] = (0.7, 1.3),
                          dropout: bool = False):
-    """Returns ``(init_state, pool_step, refresh_pool, loss_and_grads)``.
+    """Returns ``(init_state, pool_step, refresh_pool, loss_and_grads)``,
+    on one device or over a (data, model) mesh when ``device`` is a
+    ``parallel.mesh.Mesh``: the pool then lives on shard (0, 0)'s device
+    (the reference replicates it; a row's entries read from one copy are
+    the same), the step's rows and draws are gathered and drawn there, and
+    ``make_train_step``'s mesh step splits the rows over ``data``.
 
     ``init_state(seed)``: ``make_train_step``'s. ``pool_step(params,
     opt_state, pool, idx, step, scalars, draws=None)`` — one training step
@@ -136,11 +142,13 @@ def make_pool_train_step(cfg: PipelineConfig, device="cpu",
     ``refresh_pool(pool, start, new)`` — overwrite pool rows
     [start:start+R) with a freshly baked slice, in place; returns the pool.
     """
-    device = torch.device(device)
     tx = tx or make_optimizer()
     init_state, _, batch_grads = make_train_step(
         cfg, device, tx=tx, from_samples=True, augment=augment,
         with_translator=with_translator, dropout=dropout)
+    if isinstance(device, Mesh):
+        device = device.devices[0, 0]
+    device = torch.device(device)
 
     def gathered(pool, idx, step: int, scalars, draws=None):
         n_valid = pool["n_samples"].index_select(0, idx)
@@ -166,7 +174,7 @@ def make_pool_train_step(cfg: PipelineConfig, device="cpu",
                   scalars, draws=None):
         metrics, grads = loss_and_grads(params, pool, idx, step, scalars,
                                         draws)
-        tx.update(opt_state, grads)
+        tx.update(opt_state, grads, counted_grads(params, grads))
         return params, opt_state, step + 1, metrics
 
     def refresh_pool(pool, start: int, new):

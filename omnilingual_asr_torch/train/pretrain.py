@@ -20,8 +20,8 @@ of :func:`pretrain_loss`; :func:`make_pretrain_step` draws them from a
 into ``PRNGKey(0)`` (the bits differ from ``jax.random``'s). The quantizer's
 targets are an argmax over the codebook: TF32 stays off for that product on
 the card (PyTorch's default, and the entry points set it), as for every
-f32 GEMM of the port. One device; the reference's sharding is the identity
-there.
+f32 GEMM of the port. Over a (data, model) mesh the step is
+``train/mesh_step.py``'s, with the reference's ``pretrain_param_specs``.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from ..config import PipelineConfig
 from ..models import layers as L
 from ..models.conformer import (asr_forward, asr_init, subsample_frames,
                                 subsampled_mask)
+from ..parallel.mesh import Mesh
 from .step import (Optimizer, OptState, make_optimizer, mel_from_samples,
                    tree_leaves, tree_map)
 
@@ -109,11 +110,14 @@ def pretrain_init(gen: torch.Generator, cfg: PipelineConfig,
 def pretrain_loss(params, quantizer, batch, starts: torch.Tensor,
                   noise: torch.Tensor, cfg: PipelineConfig,
                   pcfg: PretrainConfig,
-                  targets: Optional[torch.Tensor] = None):
+                  targets: Optional[torch.Tensor] = None, forward=None):
     """Masked-prediction CE -> (loss, metrics). batch: mel [B, T, F], mask
     [B, T] (valid). ``starts`` [B, T'] bool span starts and ``noise`` [B, T,
     F] standard normal: the step's random draws. ``targets`` [B, T']: the
-    quantizer's ids, computed from the mel when None."""
+    quantizer's ids, computed from the mel when None. ``forward(corrupted,
+    valid)`` -> the head's logits [B, T', codebook] over the whole batch
+    (default: the encoder and the head of ``params`` on one device; a mesh
+    computes them over its shards, ``train/mesh_step.py``)."""
     mel, valid = batch["mel"], batch["mask"]
     sub = cfg.encoder.subsample_factor
     T = mel.shape[1]
@@ -126,8 +130,11 @@ def pretrain_loss(params, quantizer, batch, starts: torch.Tensor,
     corrupted = torch.where(frame_mask[:, :, None],
                             pcfg.noise_scale * noise, mel)
 
-    out = asr_forward(params["encoder"], corrupted, valid, cfg)
-    logits = L.dense_apply(params["head"], out["encoder_states"])
+    if forward is None:
+        out = asr_forward(params["encoder"], corrupted, valid, cfg)
+        logits = L.dense_apply(params["head"], out["encoder_states"])
+    else:
+        logits = forward(corrupted, valid)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, targets.to(torch.long)[..., None])[..., 0]
     w = span_mask.to(torch.float32)
@@ -158,7 +165,10 @@ def make_pretrain_step(cfg: PipelineConfig, device="cpu",
                        tx: Optional[Optimizer] = None,
                        from_samples: bool = False):
     """Returns ``(init_state, pretrain_step, loss_and_grads)`` on one
-    device.
+    device, or over a (data, model) mesh when ``device`` is a
+    ``parallel.mesh.Mesh`` (``train/mesh_step.py``: the parameters a
+    ``MeshParams`` placed by ``pretrain_param_specs``, the head split over
+    its codes; the same functions otherwise).
 
     ``init_state(seed)`` -> (params, quantizer, opt_state): params from
     ``seed``, the quantizer from ``seed + 1``, on ``device``.
@@ -172,6 +182,10 @@ def make_pretrain_step(cfg: PipelineConfig, device="cpu",
     ``tree_leaves(params)``), the step without the update.
     """
     tx = tx or make_optimizer(lr=2e-3)
+    if isinstance(device, Mesh):
+        from .mesh_step import make_mesh_pretrain_step
+
+        return make_mesh_pretrain_step(cfg, device, pcfg, tx, from_samples)
     device = torch.device(device)
     frontend = None
     if from_samples:

@@ -1,5 +1,4 @@
-"""BEST-RQ pretraining CLI: masked prediction over synth + real audio, on
-one GPU.
+"""BEST-RQ pretraining CLI: masked prediction over synth + real audio.
 
 The PyTorch port of ``omnilingual_asr_tpu/train/pretrain_cli.py``. BEST-RQ
 needs no labels, so every unique real recording the reference ships
@@ -15,7 +14,10 @@ warm-starts supervised training through ``synth_train --init-encoder``;
 ``head.npz``, ``config.json`` and ``train_state.npz`` sit beside it.
 Everything runs on CUDA unless the caller passes ``device="cpu"``
 (``--device cpu``). Crops never touch gettysburg's held-out tail (the
-engine-level CER eval window).
+engine-level CER eval window). The mesh is pinned as the reference pins
+it, data-parallel over every visible card (``cfg.mesh`` (-1, 1); one card,
+or an explicit ``--device``, is one device); ``pretrain_main`` trains over
+whatever ``cfg.mesh`` it is given (``train/mesh_step.py``).
 """
 
 from __future__ import annotations
@@ -30,11 +32,11 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..config import PipelineConfig, tiny_config
+from ..config import MeshConfig, PipelineConfig, tiny_config
 from .device_pool import encode_wire
 from .pretrain import PretrainConfig, make_pretrain_step
 from .synth import SAMPLE_RATE, SynthBatcher, _channel_sim, unique_real_audio
-from .synth_train import (_assign, _not_ported, load_train_state,
+from .synth_train import (_assign_part, _not_ported, load_train_state,
                           save_train_state)
 
 
@@ -113,14 +115,16 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
                   device=None) -> float:
     """Pretrain; returns the last logged masked accuracy. ``device``: CUDA
     unless "cpu" is asked for."""
-    from .step import make_optimizer, training_device
+    from .mesh_step import training_mesh
+    from .step import make_optimizer, training_device, whole_params
 
-    dev = training_device(device)
+    mesh = training_mesh(cfg.mesh, device)
+    dev = training_device(device if mesh is None else mesh.devices[0, 0])
     pcfg = PretrainConfig()
     horizon = max(total_steps or steps, warmup_steps + 1)
     tx = make_optimizer(lr=lr, warmup_steps=warmup_steps,
                         decay_steps=horizon)
-    init_state, pstep, _ = make_pretrain_step(cfg, dev, pcfg, tx=tx,
+    init_state, pstep, _ = make_pretrain_step(cfg, mesh or dev, pcfg, tx=tx,
                                               from_samples=True)
     params, quantizer, opt_state = init_state(seed=seed)
 
@@ -149,13 +153,15 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
         if not (root / "asr.npz").is_file():
             raise _not_ported(f"resuming {root} (no asr.npz: a JAX Orbax "
                               f"checkpoint)")
-        _assign(params["encoder"], load_checkpoint(root / "asr.npz", cfg))
+        _assign_part(params, "encoder",
+                     load_checkpoint(root / "asr.npz", cfg))
         with np.load(root / "head.npz") as z:
-            _assign(params["head"], {k: torch.from_numpy(z[k])
-                                     for k in params["head"]})
+            _assign_part(params, "head", {k: torch.from_numpy(z[k])
+                                          for k in ("w", "b")})
         ts = root / "train_state.npz"
         if ts.exists():
-            opt_state, start_step, _ = load_train_state(ts, opt_state)
+            opt_state, start_step, _ = load_train_state(ts, opt_state,
+                                                        params)
         print(f"resumed from {resume_from} (step {start_step})", flush=True)
 
     def save(tag: str, step_now: int):
@@ -164,11 +170,13 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
         from ..models.zoo import save_checkpoint
 
         out = Path(ckpt_dir) / tag
-        save_checkpoint(out / "asr.npz", params["encoder"])
+        whole = whole_params(params)
+        save_checkpoint(out / "asr.npz", whole["encoder"])
         np.savez(out / "head.npz", **{
-            k: v.detach().cpu().numpy() for k, v in params["head"].items()})
+            k: v.detach().cpu().numpy() for k, v in whole["head"].items()})
         (out / "config.json").write_text(cfg.to_json())
-        save_train_state(out / "train_state.npz", opt_state, step_now, 0.0)
+        save_train_state(out / "train_state.npz", opt_state, step_now, 0.0,
+                         params)
         print(f"saved pretrain checkpoint -> {out}", flush=True)
 
     mlog = open(metrics_log, "a") if metrics_log else None
@@ -254,6 +262,7 @@ def main(argv=None):
         cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
                                                       **enc_over))
         print(f"encoder overrides: {enc_over}", flush=True)
+    cfg = cfg.replace(mesh=MeshConfig(data=-1, model=1))
     pretrain_main(steps=args.steps, batch_size=args.batch_size, cfg=cfg,
                   lr=args.lr, warmup_steps=args.warmup_steps,
                   window_seconds=args.window_seconds,

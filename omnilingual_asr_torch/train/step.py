@@ -1,4 +1,4 @@
-"""Multi-task training step on one device.
+"""Multi-task training step.
 
 The PyTorch port of ``omnilingual_asr_tpu/train/step.py``: CTC over byte
 labels, cross-entropy for the LID and emotion heads, the optional
@@ -8,8 +8,10 @@ frame-level LID, dense byte-CE, AAM-softmax speaker and translation terms
 AdamW) with the other trainers' variants of it. It also holds what the
 x-vector, translator and summarizer trainers share: one update
 (:func:`train_update`), the decoders' masked cross-entropy and a run's
-log (:class:`RunLog`). One device; training over a (data, model) mesh
-is A10 training over the mesh in ROADMAP.md.
+log (:class:`RunLog`). On one device here; over a (data, model) mesh
+``make_train_step`` builds ``train/mesh_step.py``'s step (the batch over
+``data``, the parameters over ``model``, one update equal to one
+device's).
 
 Parameters are trees of leaf tensors (``requires_grad``), updated in place
 by the optimizer; the step function returns them as the reference's does.
@@ -108,25 +110,36 @@ class Optimizer:
                                 eps=self.eps, weight_decay=self.weight_decay)
         return OptState(opt, leaves, 0)
 
-    def clip_and_zero_nans(self, grads: List[torch.Tensor]) -> None:
-        """Steps 2 and 3, in place, in f32."""
-        norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum()
-                              for g in grads))
+    def clip_and_zero_nans(self, grads: List[torch.Tensor],
+                           counted: Optional[List[torch.Tensor]] = None
+                           ) -> List[torch.Tensor]:
+        """Steps 2 and 3 in f32 -> the clipped gradients. The global norm
+        runs over ``counted`` (default: ``grads``): over a mesh, one copy
+        of each block of each leaf (``parallel.tensor.MeshParams.
+        counted``), so that a leaf held by several shards counts once."""
+        counted = grads if counted is None else counted
+        dev = counted[0].device
+        norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum().to(dev)
+                              for g in counted))
+        out = []
         for g in grads:
-            clipped = torch.where(norm < self.max_norm, g,
-                                  g / norm * self.max_norm)
+            n = norm.to(g.device)
+            clipped = torch.where(n < self.max_norm, g, g / n * self.max_norm)
             if self.zero_nans:
                 clipped = torch.where(torch.isnan(clipped),
                                       torch.zeros_like(clipped), clipped)
-            g.copy_(clipped)
+            out.append(clipped)
+        return out
 
-    def update(self, state: "OptState", grads: List[Optional[torch.Tensor]]
-               ) -> None:
+    def update(self, state: "OptState", grads: List[Optional[torch.Tensor]],
+               counted: Optional[List[torch.Tensor]] = None) -> None:
         """Apply one update in place; ``grads`` align with the state's
-        leaves (None: no gradient reached the leaf, which counts as 0)."""
+        leaves (None: no gradient reached the leaf, which counts as 0).
+        ``counted``: what the global norm counts (:meth:`clip_and_zero_nans`;
+        over a mesh the step passes it)."""
         grads = [torch.zeros_like(p) if g is None else g.detach()
                  for p, g in zip(state.leaves, grads)]
-        self.clip_and_zero_nans(grads)
+        grads = self.clip_and_zero_nans(grads, counted)
         for p, g in zip(state.leaves, grads):
             p.grad = g
         for group in state.opt.param_groups:
@@ -152,6 +165,23 @@ def value_and_grads(loss, params, *args):
     value = loss(params, *args)
     grads = torch.autograd.grad(value, tree_leaves(params), allow_unused=True)
     return value.detach(), list(grads)
+
+
+def counted_grads(params, grads):
+    """What a step's global norm counts (``Optimizer.update``'s
+    ``counted``): None on one device, over a mesh one copy of each block
+    (``parallel.tensor.MeshParams.counted``)."""
+    from ..parallel.tensor import MeshParams
+
+    return params.counted(grads) if isinstance(params, MeshParams) else None
+
+
+def whole_params(params):
+    """The whole parameter tree: ``params`` on one device, the gathered
+    tree over a mesh (``MeshParams.full``, what a checkpoint saves)."""
+    from ..parallel.tensor import MeshParams
+
+    return params.full() if isinstance(params, MeshParams) else params
 
 
 def train_update(tx: "Optimizer", opt_state: "OptState", loss, params,
@@ -267,8 +297,27 @@ def masked_ce(logits: torch.Tensor, tgt: torch.Tensor,
     return -(pick * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
+def forward_outputs(params, batch: Dict[str, Any], cfg: PipelineConfig,
+                    trans_params=None, dropout_seed: Optional[int] = None):
+    """What :func:`loss_fn` reads of the model on one device:
+    ``asr_forward``'s dict, with the translator's teacher-forced logits as
+    ``trans_logits`` when ``trans_params`` and ``trans_in`` are given.
+    A mesh computes the same dict over its shards (``train/mesh_step.py``)
+    and hands it to :func:`loss_fn` as ``out``."""
+    out = asr_forward(params, batch["mel"], batch["mask"], cfg,
+                      dropout_seed=dropout_seed)
+    if trans_params is not None and "trans_in" in batch:
+        from ..models.translation import decoder_forward
+
+        out["trans_logits"] = decoder_forward(
+            trans_params, batch["trans_in"], out["encoder_states"],
+            out["mask"], cfg)
+    return out
+
+
 def loss_fn(params, batch: Dict[str, Any], cfg: PipelineConfig,
-            trans_params=None, dropout_seed: Optional[int] = None):
+            trans_params=None, dropout_seed: Optional[int] = None,
+            out: Optional[Dict[str, torch.Tensor]] = None):
     """Joint multi-task loss -> (total, metrics), as the reference's.
 
     Always: per-token CTC + 0.1 (LID CE + emotion CE); with experts, 0.01
@@ -279,9 +328,14 @@ def loss_fn(params, batch: Dict[str, Any], cfg: PipelineConfig,
     ``trans_params`` (teacher-forced translation CE), and the ramp scalars
     ``w_ctc``, ``w_fce``, ``w_spk``, ``w_trans``. ``CTC_INFEASIBLE``, if
     present, gives the CTC loss its unalignable rows from the host.
+
+    ``out``: the model's outputs over the whole batch
+    (:func:`forward_outputs`' dict), computed elsewhere; every term is
+    then normalised over the whole batch exactly as on one device, and
+    ``params`` serves only the replicated speaker leaves.
     """
-    out = asr_forward(params, batch["mel"], batch["mask"], cfg,
-                      dropout_seed=dropout_seed)
+    if out is None:
+        out = forward_outputs(params, batch, cfg, trans_params, dropout_seed)
     lmask = batch["label_mask"]
     l_ctc_seq = ctc_loss(out["ctc_logits"], out["mask"], batch["labels"],
                          lmask, blank_id=cfg.vocab.blank_id,
@@ -339,12 +393,9 @@ def loss_fn(params, batch: Dict[str, Any], cfg: PipelineConfig,
         total = total + 0.3 * batch.get("w_spk", 1.0) * l_spk
         metrics["speaker"] = l_spk
 
-    if trans_params is not None and "trans_in" in batch:
-        from ..models.translation import decoder_forward
-
-        tlogits = decoder_forward(trans_params, batch["trans_in"],
-                                  out["encoder_states"], out["mask"], cfg)
-        l_tr = masked_ce(tlogits, batch["trans_tgt"], batch["trans_mask"])
+    if "trans_logits" in out:
+        l_tr = masked_ce(out["trans_logits"], batch["trans_tgt"],
+                         batch["trans_mask"])
         total = total + 0.5 * batch.get("w_trans", 1.0) * l_tr
         metrics["translation"] = l_tr
 
@@ -411,7 +462,11 @@ def make_train_step(cfg: PipelineConfig, device="cpu",
                     augment: Optional["SpecAugmentConfig"] = None,
                     with_translator: bool = False,
                     dropout: bool = False):
-    """Returns ``(init_state, train_step, loss_and_grads)`` on one device.
+    """Returns ``(init_state, train_step, loss_and_grads)`` on one device,
+    or over a (data, model) mesh when ``device`` is a
+    ``parallel.mesh.Mesh`` (``train/mesh_step.py``: the parameters a
+    ``parallel.tensor.MeshParams``, the batch the global batch on shard
+    (0, 0)'s device, one update equal to one device's).
 
     ``init_state(seed)`` -> :class:`TrainState` with fresh parameters
     (``asr_init`` from seed, the translator from seed + 1) on ``device``.
@@ -425,6 +480,13 @@ def make_train_step(cfg: PipelineConfig, device="cpu",
     loss terms (the reference's ``batch_keys`` only set its shardings).
     """
     tx = tx or make_optimizer()
+    from ..parallel.mesh import Mesh
+
+    if isinstance(device, Mesh):
+        from .mesh_step import make_mesh_train_step
+
+        return make_mesh_train_step(cfg, device, tx, from_samples, augment,
+                                    with_translator, dropout)
     device = torch.device(device)
     frontend = None
     if from_samples:

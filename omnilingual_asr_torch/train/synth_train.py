@@ -1,4 +1,4 @@
-"""Synthetic-corpus multi-task training on one GPU.
+"""Synthetic-corpus multi-task training on one GPU or over a mesh.
 
 The PyTorch port of ``omnilingual_asr_tpu/train/synth_train.py``: trains
 every head at once (byte CTC, frame LID, emotion, AAM-softmax speaker and
@@ -20,6 +20,13 @@ the reference's 256-row flash blocks; the log-mel (K1) runs on the card in
 every mode. It needs a CUDA device. Everything runs on CUDA unless the
 caller passes ``device="cpu"`` (``--device cpu``).
 
+``--mesh-data D --mesh-model M`` (the reference's flags) trains over a
+(data, model) mesh (``train/mesh_step.py``): the batch split over D data
+rows, the parameters and the optimizer state over M model shards, one
+update equal to one device's. Without ``--device`` the mesh spans the
+visible cards (``--mesh-data -1``: all of them over the model axis); with
+it every shard runs on that device, one after another.
+
 Checkpoints are ``.npz`` files in the release's keystr layout
 (``<ckpt-dir>/{best,last}/{asr,translator}.npz`` with ``config.json``;
 ``last/train_state.npz`` holds the optimizer).
@@ -37,7 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import PipelineConfig, tiny_config
+from ..config import MeshConfig, PipelineConfig, tiny_config
 from ..models.conformer import asr_forward
 from ..ops.attention import REFERENCE_BLOCK_Q
 from ..ops.ctc import collapse_ctc
@@ -55,19 +62,27 @@ def _not_ported(what: str) -> NotImplementedError:
                                f"trainer yet (A11 in ROADMAP.md)")
 
 
+def _moments(opt_state, key: str) -> List[torch.Tensor]:
+    return [opt_state.opt.state.get(p, {}).get(key, torch.zeros_like(p))
+            .detach() for p in opt_state.leaves]
+
+
 def save_train_state(path: Path, opt_state, step: int,
-                     best_score: float) -> None:
+                     best_score: float, params=None) -> None:
     """Persist the optimizer (Adam moments and update count), the step and
     the selection score next to the parameter checkpoint, atomically.
-    Moments are stored per parameter leaf in ``tree_leaves`` order."""
+    Moments are stored per parameter leaf in ``tree_leaves`` order; over a
+    mesh (``params`` a ``parallel.tensor.MeshParams``) each leaf's are
+    gathered from its blocks, so the file is one device's."""
+    from ..parallel.tensor import MeshParams
+
+    m, v = _moments(opt_state, "exp_avg"), _moments(opt_state, "exp_avg_sq")
+    if isinstance(params, MeshParams):
+        m, v = params.merge(m), params.merge(v)
     flat = {}
-    for i, p in enumerate(opt_state.leaves):
-        st = opt_state.opt.state.get(p, {})
-        zeros = np.zeros(tuple(p.shape), np.float32)
-        flat[f"m{i:05d}"] = (st["exp_avg"].detach().cpu().numpy()
-                             if "exp_avg" in st else zeros)
-        flat[f"v{i:05d}"] = (st["exp_avg_sq"].detach().cpu().numpy()
-                             if "exp_avg_sq" in st else zeros)
+    for i, (mi, vi) in enumerate(zip(m, v)):
+        flat[f"m{i:05d}"] = mi.cpu().numpy()
+        flat[f"v{i:05d}"] = vi.cpu().numpy()
     flat["__count__"] = np.asarray(int(opt_state.count), np.int64)
     flat["__step__"] = np.asarray(int(step), np.int64)
     flat["__best__"] = np.asarray(float(best_score), np.float64)
@@ -78,29 +93,57 @@ def save_train_state(path: Path, opt_state, step: int,
     tmp.replace(path)
 
 
-def load_train_state(path: Path, opt_state):
+def load_train_state(path: Path, opt_state, params=None):
     """Restore (opt_state, step, best_score) saved by
     :func:`save_train_state` into a fresh ``opt_state`` of the same model;
-    leaves are matched by position and shape-checked."""
+    leaves are matched by position and shape-checked. Over a mesh
+    (``params`` a ``MeshParams``) each leaf's moments are split onto its
+    blocks' copies."""
+    from ..parallel.tensor import MeshParams
+
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
-    leaves = opt_state.leaves
+    mesh = isinstance(params, MeshParams)
+    n_leaves = len(params.blocks) if mesh else len(opt_state.leaves)
     n_saved = sum(1 for k in data if k.startswith("m"))
-    if n_saved != len(leaves):
-        raise ValueError(f"{path}: {n_saved} saved leaves vs {len(leaves)} "
+    if n_saved != n_leaves:
+        raise ValueError(f"{path}: {n_saved} saved leaves vs {n_leaves} "
                          f"in the optimizer (different model dims)")
     count = int(data["__count__"])
-    for i, p in enumerate(leaves):
-        m, v = data[f"m{i:05d}"], data[f"v{i:05d}"]
-        if tuple(m.shape) != tuple(p.shape):
+    ms = [data[f"m{i:05d}"] for i in range(n_leaves)]
+    vs = [data[f"v{i:05d}"] for i in range(n_leaves)]
+    if mesh:
+        shapes = [tuple(t.shape) for t in params.merge(
+            [p.detach() for p in params.leaves])]
+    else:
+        shapes = [tuple(p.shape) for p in opt_state.leaves]
+    for i, (m, shape) in enumerate(zip(ms, shapes)):
+        if tuple(m.shape) != shape:
             raise ValueError(f"{path}: leaf {i} has shape {m.shape}, the "
-                             f"model expects {tuple(p.shape)}")
+                             f"model expects {shape}")
+    if mesh:
+        ms, vs = params.split(ms), params.split(vs)
+    for p, m, v in zip(opt_state.leaves, ms, vs):
         opt_state.opt.state[p] = {
             "step": torch.tensor(float(count)),
-            "exp_avg": torch.from_numpy(m).to(p.device),
-            "exp_avg_sq": torch.from_numpy(v).to(p.device)}
+            "exp_avg": torch.as_tensor(m).to(p.device),
+            "exp_avg_sq": torch.as_tensor(v).to(p.device)}
     opt_state.count = count
     return opt_state, int(data["__step__"]), float(data["__best__"])
+
+
+def _assign_part(params, key: str, tree) -> None:
+    """Copy a loaded subtree (``"asr"``, ``"translator"``, ``"encoder"``,
+    ``"head"``) into the live parameters: the leaves themselves on one
+    device, every block's copies over a mesh."""
+    from ..parallel.tensor import MeshParams
+
+    if isinstance(params, MeshParams):
+        whole = params.full()
+        whole[key] = tree
+        params.assign(whole)
+    else:
+        _assign(params[key], tree)
 
 
 def _assign(dst, src) -> None:
@@ -213,8 +256,16 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
     """Train; returns (params, best selection score). The knobs are the
     reference's. ``device``: CUDA unless "cpu" is asked for."""
     from ..engine import resolve_device
+    from .mesh_step import training_mesh
+    from .step import whole_params
 
-    dev = resolve_device(device)
+    mesh = training_mesh(cfg.mesh, device)
+    # The batch, the pool and the evaluator live on shard (0, 0)'s device.
+    dev = mesh.devices[0, 0] if mesh is not None else resolve_device(device)
+    where = mesh if mesh is not None else dev
+    if mesh is not None:
+        print(f"training over a {mesh.shape} mesh: "
+              f"{[str(d) for d in mesh.devices.flat]}", flush=True)
     use_pool = device_pool > 0
     if use_pool:
         # Round up so that refresh slices tile the pool.
@@ -297,7 +348,7 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                                 n_time_masks=1, time_mask_width=24)
     if use_pool:
         init_state, pool_step, refresh_pool, _ = make_pool_train_step(
-            cfg, dev, tx=tx, augment=aug_cfg, with_translator=True,
+            cfg, where, tx=tx, augment=aug_cfg, with_translator=True,
             snr_range=(15.0, 40.0), dropout=use_dropout)
         print(f"building device pool: {device_pool} entries "
               f"({wire} wire)...", flush=True)
@@ -320,7 +371,7 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
         idx_rng = np.random.default_rng(seed + 104729)
     else:
         init_state, train_step, _ = make_train_step(
-            cfg, dev, tx=tx, from_samples=True, with_translator=True,
+            cfg, where, tx=tx, from_samples=True, with_translator=True,
             augment=aug_cfg, dropout=use_dropout)
     state = init_state(seed=seed)
     params, opt_state = state.params, state.opt_state
@@ -334,25 +385,27 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
         if not (root / "asr.npz").is_file():
             raise _not_ported(f"resuming {root} (no asr.npz: a JAX Orbax "
                               f"checkpoint)")
-        _assign(params["asr"], load_checkpoint(root / "asr.npz", cfg, dev))
+        _assign_part(params, "asr",
+                     load_checkpoint(root / "asr.npz", cfg, dev))
         try:
-            _assign(params["translator"],
-                    load_translator(root / "translator.npz", cfg,
-                                    device=dev))
+            _assign_part(params, "translator",
+                         load_translator(root / "translator.npz", cfg,
+                                         device=dev))
         except (OSError, KeyError, ValueError, NotImplementedError) as e:
             print(f"translator resume skipped ({str(e)[:120]}); the joint "
                   f"translator starts fresh", flush=True)
         print(f"resumed params from {resume_from}", flush=True)
         ts_path = root / "train_state.npz"
         if resume_opt and ts_path.exists():
-            opt_state, start_step, best_wer = load_train_state(ts_path,
-                                                               opt_state)
+            opt_state, start_step, best_wer = load_train_state(
+                ts_path, opt_state, params)
             print(f"resumed optimizer/schedule from {ts_path} (step "
                   f"{start_step}, best {best_wer:.4f})", flush=True)
     elif init_encoder:
         from ..models.zoo import load_checkpoint
 
-        _assign(params["asr"], load_checkpoint(Path(init_encoder), cfg, dev))
+        _assign_part(params, "asr",
+                     load_checkpoint(Path(init_encoder), cfg, dev))
         print(f"encoder warm-started from {init_encoder}", flush=True)
 
     evaluator = Evaluator(cfg, window_seconds=window_seconds,
@@ -366,8 +419,9 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
         from ..models.zoo import save_checkpoint
 
         out = Path(ckpt_dir) / tag
-        save_checkpoint(out / "asr.npz", params["asr"])
-        save_translator(out / "translator.npz", params["translator"])
+        whole = whole_params(params)
+        save_checkpoint(out / "asr.npz", whole["asr"])
+        save_translator(out / "translator.npz", whole["translator"])
         (out / "config.json").write_text(cfg.to_json())
         print(f"saved checkpoint -> {out}", flush=True)
 
@@ -438,7 +492,7 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                     mlog.write(json.dumps(line) + "\n")
                     mlog.flush()
             if (i + 1) % eval_every == 0 or i + 1 == end_step:
-                report = evaluator.run(params["asr"])
+                report = evaluator.run(whole_params(params)["asr"])
                 rline = {"step": i + 1, "eval": {
                     k: {m: round(v, 4) for m, v in r.items()}
                     for k, r in report.items()}}
@@ -463,7 +517,7 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                 if ckpt_dir:
                     save_train_state(
                         Path(ckpt_dir) / "last" / "train_state.npz",
-                        opt_state, i + 1, best_wer)
+                        opt_state, i + 1, best_wer, params)
     finally:
         batcher.close()
         if mlog:
@@ -504,6 +558,13 @@ def main(argv=None):
                          "pads T to tile the flash blocks); needs a GPU")
     ap.add_argument("--device", default=None,
                     help="'cpu' or 'cuda[:N]' (default: CUDA)")
+    ap.add_argument("--mesh-data", type=int, default=-1,
+                    help="data rows of the (data, model) mesh (-1: every "
+                         "visible card over the model axis; with --device, "
+                         "1)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="model shards of each data row (tensor "
+                         "parallelism); with --device, every shard on it")
     ap.add_argument("--stage1-steps", type=int, default=0)
     ap.add_argument("--stage2-steps", type=int, default=0)
     ap.add_argument("--pool-schedule", default=None)
@@ -548,6 +609,8 @@ def main(argv=None):
         cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
                                                       **enc_over))
         print(f"encoder overrides: {enc_over}", flush=True)
+    cfg = cfg.replace(mesh=MeshConfig(data=args.mesh_data,
+                                      model=args.mesh_model))
     train_synth(steps=args.steps, batch_size=args.batch_size, cfg=cfg,
                 lr=args.lr, window_seconds=args.window_seconds,
                 ckpt_dir=args.ckpt_dir, log_every=args.log_every,

@@ -154,6 +154,81 @@ def test_split_conv_module_kernel_matches_plain_split(dev, T, valid, D, n):
                                         dw[:, :32].contiguous())
 
 
+@pytest.mark.parametrize("B,T,D,n,valid", [
+    card_cases.K3_SPLIT_SHAPES["train_2x2"],
+    card_cases.K3_SPLIT_SHAPES["train_1x4"]])
+def test_split_conv_module_function_matches_plain_split(dev, B, T, D, n,
+                                                        valid):
+    """``FusedConvModuleSplit`` (K3's split launches forward, autograd of
+    the plain split backward), as training over a mesh calls it through
+    ``tp_convmod_apply_fused``, against ``conv_module_split_plain`` under
+    autograd on the same f32 weights: the forward within TOL_K3 and each
+    input's gradient within 5e-2 relative L2 (the forward's bf16 roundings
+    of LN and SiLU outputs flip where f32 sums differ in order, which moves
+    the loss's gradient by about a bf16 ulp, as phase 4b's criterion)."""
+    from omnilingual_asr_torch.parallel.mesh import Split, split_block
+
+    K = 32
+    gen = torch.Generator(device=dev).manual_seed(B + n)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    x = rnd(B, T, D)
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(
+        valid, device=dev)[:, None]
+    whole = {"ln": {"scale": 1 + rnd(D, scale=0.1),
+                    "bias": rnd(D, scale=0.1)},
+             "pw1": {"w": rnd(D, 2 * D, scale=D ** -0.5)},
+             "dw": rnd(K, D, scale=K ** -0.5),
+             "dw_ln": {"scale": 1 + rnd(D, scale=0.1),
+                       "bias": rnd(D, scale=0.1)},
+             "pw2": {"w": rnd(D, D, scale=D ** -0.5)}}
+    specs = {"pw1": Split("model", 1, 2), "dw": Split("model", 1),
+             "pw2": Split("model", 0)}
+    cot = rnd(B, T, D)
+
+    def run(fused):
+        leaves = {k: (whole[k]["w"] if k in ("pw1", "pw2") else whole[k])
+                  for k in specs}
+        ps, params = [], []
+        xr = x.clone().requires_grad_(True)
+        shared = {k: {n_: t.clone().requires_grad_(True)
+                      for n_, t in whole[k].items()}
+                  for k in ("ln", "dw_ln")}
+        for m in range(n):
+            blocks = {k: split_block(t, specs[k], m, n).contiguous()
+                      .requires_grad_(True) for k, t in leaves.items()}
+            params += list(blocks.values())
+            ps.append({"ln": shared["ln"], "dw_ln": shared["dw_ln"],
+                       "pw1": {"w": blocks["pw1"]}, "dw": blocks["dw"],
+                       "pw2": {"w": blocks["pw2"]}})
+        params += [t for d in shared.values() for t in d.values()]
+        if fused:
+            out = conv_module.tp_convmod_apply_fused(ps, [xr] * n,
+                                                     [mask] * n)[0]
+        else:
+            out = conv_module.conv_module_split_plain(
+                [xr] * n, [mask] * n, [p["ln"]["scale"] for p in ps],
+                [p["ln"]["bias"] for p in ps], [p["pw1"]["w"] for p in ps],
+                [p["dw"] for p in ps], [p["dw_ln"]["scale"] for p in ps],
+                [p["dw_ln"]["bias"] for p in ps],
+                [p["pw2"]["w"] for p in ps])[0]
+        grads = torch.autograd.grad((out * cot).sum(), [xr] + params)
+        return out.detach(), grads
+
+    before = conv_module.fused_conv_module_split.launches
+    got, g_got = run(True)
+    assert conv_module.fused_conv_module_split.launches == before + n
+    want, g_want = run(False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= card_cases.TOL_K3
+    for a, b in zip(g_got, g_want):
+        rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        assert rel <= 5e-2, rel
+
+
 # Backward kernels against their plain versions, per element
 # |g - g_ref| <= FLASH_BWD_ABS * max|g_ref| + 2^-7 |g_ref|: both round an
 # f32 sum to bf16 (one ulp, 2^-8 relative, apart where they straddle a

@@ -168,16 +168,17 @@ def test_cli_train_two_steps_match_jax(manifest, tmp_path, monkeypatch):
 
 def test_cli_main_pretrain_and_refusals(manifest, tmp_path):
     """``python -m omnilingual_asr_torch.train.cli manifest --pretrain``
-    (``--tiny``, one step on the CPU) writes the pretrained encoder as one
-    ``.npz`` that both packages' ``load_checkpoint`` read; ``--ckpt DIR``
-    without ``.npz`` writes ``DIR/asr.npz``; ``--mesh-model 2`` raises
-    naming A10; without a card the default device raises."""
+    (``--tiny``, one step on the CPU, over 2 data rows of CPU shards)
+    writes the pretrained encoder as one ``.npz`` that both packages'
+    ``load_checkpoint`` read; ``--ckpt DIR`` without ``.npz`` writes
+    ``DIR/asr.npz``; ``--mesh-model 2`` trains over two model shards and
+    saves the whole tree; without a card the default device raises."""
     old = signal.getsignal(signal.SIGTERM)
     try:
         ck = tmp_path / "pre.npz"
         cli.main([str(manifest), "--tiny", "--steps", "1", "--batch-size",
                   "2", "--window-seconds", "1", "--pretrain", "--ckpt",
-                  str(ck), "--device", "cpu", "--mesh-data", "4"])
+                  str(ck), "--device", "cpu", "--mesh-data", "2"])
         enc = zoo.flatten(zoo.load_checkpoint(ck, tiny_config()))
         jenc = jax_zoo.load_checkpoint(ck, jax_tiny_config())
         assert len(enc) == len(jax.tree_util.tree_leaves(jenc))
@@ -185,8 +186,15 @@ def test_cli_main_pretrain_and_refusals(manifest, tmp_path):
                   "2", "--window-seconds", "1", "--ckpt",
                   str(tmp_path / "out"), "--device", "cpu"])
         assert (tmp_path / "out" / "asr.npz").is_file()
-        with pytest.raises(NotImplementedError, match="A10"):
-            cli.main([str(manifest), "--mesh-model", "2"])
+        tp = tmp_path / "tp.npz"
+        cli.main([str(manifest), "--tiny", "--steps", "1", "--batch-size",
+                  "2", "--window-seconds", "1", "--ckpt", str(tp),
+                  "--device", "cpu", "--mesh-model", "2"])
+        got = zoo.flatten(zoo.load_checkpoint(tp, tiny_config()))
+        want = zoo.flatten(zoo.load_checkpoint(tmp_path / "out" / "asr.npz",
+                                               tiny_config()))
+        assert {k: tuple(v.shape) for k, v in got.items()} == {
+            k: tuple(v.shape) for k, v in want.items()}
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 cli.main([str(manifest), "--tiny", "--steps", "1"])
