@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4l)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4m)
     python3 chip_smoke.py --profile    # and phase 4c before the report, and
                                        # phase 4l's step profiles
 
@@ -44,9 +44,10 @@ with no result line:
              flash-attention backward, dQ (K6) and dK/dV (K7), at the
              training shape, at large_config's head dim 128, at a
              ragged T of 200 and at a training mesh's shard shapes (with
-             the o and lse they read held to the plain forward), on
-             seeded inputs
-             with masked rows, each held against its plain
+             the o and lse they read held to the plain forward), and the
+             f32 variants of K2, K6 and K7 (the f32 encoder's, at
+             ``card_cases.F32_FLASH_SHAPES``; SDPA at f32 their
+             yardstick), on seeded inputs with masked rows, each held against its plain
              PyTorch version, and timed beside its plain version, a PyTorch
              yardstick where one exists, and the card's bound. Times are
              device times: 20 calls captured back to back in a CUDA graph,
@@ -249,6 +250,25 @@ with no result line:
              step seconds, launches and peak memory at (1, 1), (2, 2)
              and (1, 4), printed, not held (with ``--profile`` one more
              step of each under the profiler: device events, busy share).
+4m. f32 and moe mesh - (a) the release with the f32 encoder
+             (``encoder.dtype="float32"``) serves the golden and the 120 s
+             file with one model shard and at (data, model) (1, 2): the
+             golden result held to ``golden_f32.json``, both files' ids
+             on 99.5 %, each batch's launches exactly (K1 once, the f32
+             K2 once a shard a layer, K3 whole or split, no bf16
+             attention kernel), warm 120 s seconds beside bf16 in turns;
+             (b) ``train_synth`` at f32, ``PipelineConfig()`` dims, batch
+             16 of 8 s, kernel mode, 3 steps (each step's launches
+             exactly: the f32 K2, K6, K7 and K3 12 each), one f32 update
+             on the card against the CPU (``TOL_GRAD_REL``, the worst leaf
+             printed), and f32 against bf16 on phase 4l's (1, 1) step in
+             turns; (c) ``PipelineConfig()`` with 8 experts, kernel mode,
+             batch 16: one update at (2, 1), (1, 2), (2, 2), (1, 4) of
+             the card's shards against one device (loss and ``moe_aux``
+             within ``TOL_MM_REL``, every leaf within ``TOL_GRAD_REL``,
+             the routing choices that differ counted), then 3 steps at
+             (1, 1), (2, 2), (1, 4) with exact launches, seconds and peak
+             memory.
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -259,9 +279,10 @@ with no result line:
              kernel-mode training step at ``PipelineConfig()`` dims, batch
              16: the host's batch wait, upload, forward + loss, backward
              and optimizer seconds, and one step under the profiler.
-5. report  - one ``{"kernels": [...]}`` line (K1-K7; ``launches`` summed
-             over the serving, training, decoders, server, d512, evals,
-             trainers, rest_of_training, mesh, tp and mesh_training paths,
+5. report  - one ``{"kernels": [...]}`` line (K1-K7 and the f32 K2, K6,
+             K7; ``launches`` summed over the serving, training,
+             decoders, server, d512, evals, trainers, rest_of_training,
+             mesh, tp, mesh_training and f32_moe_mesh paths,
              K3's whole
              and split over a model axis (one a shard),
              by path beside it), the
@@ -275,6 +296,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -838,6 +860,138 @@ def check_flash_bwd(dev, peaks, cfg):
     return entries
 
 
+def _f32_flash_case(dev, peaks, B, T, H, D, valid, seed):
+    """The f32 variants of K2, K6 and K7 on one shape against their plain
+    versions (``card_cases.TOL_F32_FLASH`` / ``TOL_F32_LSE``; masked keys
+    and fully-masked rows exactly 0), each timed beside its plain version,
+    SDPA at f32 (the forward for K2, its backward for the pair) and the
+    bound at the f32 CUDA-core rate. Returns (K2, K6, K7) entries."""
+    import torch
+    import torch.nn.functional as F
+    from omnilingual_asr_torch.ops import attention as A
+    from omnilingual_asr_torch.ops.card_cases import (TOL_F32_FLASH,
+                                                      TOL_F32_LSE)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device=dev)
+                   for _ in range(4))
+    nv = torch.tensor(valid, device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < nv[:, None]
+    o, lse = A.flash_attention_f32(q, k, v, mask)
+    o_ref, lse_ref = A.flash_attention_plain(q, k, v, mask)
+    delta = A.flash_delta(o_ref, do)
+    args = (q, k, v, mask, do, lse_ref, delta)
+    dq = A.flash_attention_bwd_dq_f32(*args)
+    dk, dv = A.flash_attention_bwd_dkv_f32(*args)
+    dq_ref = A.flash_attention_bwd_dq_plain(*args)
+    dk_ref, dv_ref = A.flash_attention_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    label = f"{[B, T, H, D]} f32"
+    errs = {}
+    for name, got, want in (("o", o, o_ref), ("dq", dq, dq_ref),
+                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        errs[name] = err
+        if (not bool(torch.isfinite(got).all()) or got.dtype != torch.float32
+                or err > TOL_F32_FLASH * scale):
+            raise PhaseError(f"f32 flash {label}: {name} max abs err "
+                             f"{err:.3e} > {TOL_F32_FLASH} x {scale:.3e}")
+    live = lse_ref < 1e29
+    lse_err = float((lse - lse_ref)[live].abs().max())
+    dead_row, dead_key = ~mask.any(dim=1), ~mask
+    zeros = (bool((lse[~live] == 1e30).all())
+             and bool((o[dead_row] == 0).all())
+             and bool((dq[dead_row] == 0).all())
+             and bool((dk[dead_key] == 0).all())
+             and bool((dv[dead_key] == 0).all()))
+    if lse_err > TOL_F32_LSE or not zeros:
+        raise PhaseError(f"f32 flash {label}: lse err {lse_err:.3e} (tol "
+                         f"{TOL_F32_LSE}), masked entries exactly 0: {zeros}")
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    amask = mask[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
+
+    ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=amask)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(ol, (ql, kl, vl), do.transpose(1, 2),
+                                   retain_graph=True)
+
+    try:
+        bwd_lib = time_ms(sdpa_bwd, stream=stream)
+    except RuntimeError as e:     # the yardstick only; the port never calls it
+        log(f"  SDPA f32 backward could not be timed in a CUDA graph ({e}); "
+            f"library_ms null")
+        bwd_lib = None
+    work = H * T * D * int(nv.sum())
+    m32 = mask.to(torch.int32)
+    io = nbytes(q, k, v, do, m32, lse, delta)
+    b2 = bound({"f32": 4 * work}, nbytes(q, k, v, m32, o, lse), peaks)
+    b6 = bound({"f32": 6 * work}, io + nbytes(dq), peaks)
+    b7 = bound({"f32": 8 * work}, io + nbytes(dk, dv), peaks)
+    shape = f"q/k/v [{B}, {T}, {H}, {D}] f32, valid keys {valid}"
+    tol = f"{TOL_F32_FLASH} max|ref| per element"
+    k2 = {"D": D, "max_abs_err": errs["o"], "lse_max_abs_err": lse_err,
+          "tol": tol + f", lse {TOL_F32_LSE}",
+          "ms": time_ms(lambda: A.flash_attention_f32(q, k, v, mask)),
+          "call_ms": call_ms(lambda: A.flash_attention_f32(q, k, v, mask)),
+          "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v,
+                                                              mask)),
+          "bound_ms": b2[0], "bound_by": b2[1], "library_ms": time_ms(sdpa),
+          "library": "SDPA forward at f32", "shape": shape,
+          "gflop": 4 * work / 1e9}
+    k6 = {"D": D, "max_abs_err": errs["dq"], "tol": tol,
+          "ms": time_ms(lambda: A.flash_attention_bwd_dq_f32(*args)),
+          "call_ms": call_ms(lambda: A.flash_attention_bwd_dq_f32(*args)),
+          "plain_ms": time_ms(lambda: A.flash_attention_bwd_dq_plain(*args)),
+          "bound_ms": b6[0], "bound_by": b6[1], "library_ms": bwd_lib,
+          "library": "SDPA backward at f32 (dQ, dK, dV together), forward "
+                     "outside the timed region",
+          "shape": shape, "gflop": 6 * work / 1e9}
+    k7 = {"D": D, "max_abs_err": max(errs["dk"], errs["dv"]), "tol": tol,
+          "ms": time_ms(lambda: A.flash_attention_bwd_dkv_f32(*args)),
+          "call_ms": call_ms(lambda: A.flash_attention_bwd_dkv_f32(*args)),
+          "plain_ms": time_ms(lambda: A.flash_attention_bwd_dkv_plain(
+              *args)),
+          "bound_ms": b7[0], "bound_by": b7[1], "library_ms": None,
+          "shape": shape, "gflop": 8 * work / 1e9}
+    return k2, k6, k7
+
+
+def check_flash_f32(dev, peaks):
+    """The f32 variants of K2, K6 and K7 (``csrc/attention_f32.cu``, the
+    f32 encoder's attention) at ``card_cases.F32_FLASH_SHAPES``: K2's
+    entry at the release's f32 serving batch, K6's and K7's at the f32
+    training step's shape, every shape under "head_dims"."""
+    from omnilingual_asr_torch.ops.card_cases import F32_FLASH_SHAPES
+
+    cases = {}
+    for i, (name, (B, T, H, D, valid)) in enumerate(
+            F32_FLASH_SHAPES.items()):
+        cases[name] = [dict(c, case=name) for c in _f32_flash_case(
+            dev, peaks, B, T, H, D, list(valid), SEED + 90 + i)]
+    out = []
+    for i, (name, line, main) in enumerate((
+            ("flash_attention_fwd_f32", 34, "serving"),
+            ("flash_attention_bwd_dq_f32", 79, "training"),
+            ("flash_attention_bwd_dkv_f32", 110, "training"))):
+        out.append({"name": name, "route": "cuda",
+                    "source": "omnilingual_asr_torch/csrc/attention_f32.cu",
+                    "replaces": f"omnilingual_asr_tpu/ops/attention.py:{line}",
+                    **cases[main][i],
+                    "head_dims": [c[i] for c in cases.values()]})
+    return out
+
+
 def check_k3(dev, peaks, cfg, params, ptxas):
     """K3 at the serving path's shape with the release weights, and at the
     training path's (batch 16, T' 256, D 512, random weights),
@@ -1195,9 +1349,10 @@ def write_tiled_wav(src: Path, dst: Path, seconds: float) -> float:
 
 
 def _counters():
-    from omnilingual_asr_torch.ops.attention import (flash_attention,
-                                                     flash_attention_bwd_dkv,
-                                                     flash_attention_bwd_dq)
+    from omnilingual_asr_torch.ops.attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_f32,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_f32,
+        flash_attention_f32)
     from omnilingual_asr_torch.ops.conv_module import (
         fused_conv_module, fused_conv_module_split)
     from omnilingual_asr_torch.ops.mel import log_mel_frames
@@ -1206,7 +1361,9 @@ def _counters():
 
     return (log_mel_frames, flash_attention, fused_conv_module,
             quantized_matmul, quantized_matmul_a8, flash_attention_bwd_dq,
-            flash_attention_bwd_dkv, fused_conv_module_split)
+            flash_attention_bwd_dkv, fused_conv_module_split,
+            flash_attention_f32, flash_attention_bwd_dq_f32,
+            flash_attention_bwd_dkv_f32)
 
 
 def _read_counters(reset: bool = True) -> dict:
@@ -2987,10 +3144,13 @@ def _per_step(k1=0, flash=0):
 class _StepWatch:
     """Wraps a train step: each call waited for, its seconds, its metrics
     (finite, or the phase fails) and the launches since the previous step
-    ended (``want`` of each kernel exactly, or the phase fails)."""
+    ended (``want`` of each kernel exactly, every kernel it does not name
+    0, or the phase fails)."""
 
     def __init__(self, label, want):
-        self.label, self.want = label, want
+        self.label = label
+        self.want = {**{fn.__name__: 0 for fn in _counters()}, **want}
+        want = self.want
         self.rows, self.seconds = [], 0.0
         self.last = {k: 0 for k in want}
 
@@ -4626,6 +4786,425 @@ def run_mesh_training(dev, smi, profile: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4m: the f32 encoder, and a mixture of experts trained over the mesh
+# ---------------------------------------------------------------------------
+
+F32_ROUNDS = 3               # warm 120 s requests at f32 and bf16 (medians)
+F32_TRAIN_STEPS = 3          # kernel-mode f32 train_synth steps at d512 x 12
+F32_TIMED_STEPS = 3          # f32 and bf16 steps timed in turn, after a warm one
+MM_CHECK_MESHES = ((2, 1), (1, 2), (2, 2), (1, 4))  # updates against (1, 1)
+MM_TIMED = ((1, 1), (2, 2), (1, 4))   # steps timed a mesh
+MM_STEPS = 3                 # steps a timed mesh
+# A mixture of experts over a mesh against one device of the card: the
+# loss and moe_aux within TOL_MM_REL (each data row's and model shard's
+# bf16 partial sums round where one device rounds the whole; moe_aux's
+# router sums are f32), every leaf's gradient within TOL_GRAD_REL (phase
+# 4l's gate).
+TOL_MM_REL = 1e-4
+
+
+def _f32(cfg):
+    """``cfg`` with the f32 encoder."""
+    import dataclasses
+
+    return cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                   dtype="float32"))
+
+
+def _f32_serving_launches(layers: int, model: int) -> dict:
+    """A batch of the f32 engine: K1 once; the f32 K2 once a model shard a
+    layer; K3 whole once a layer at model 1, split (once a shard) above
+    it; no bf16 attention kernel and no int8 kernel."""
+    split = model > 1
+    return {"log_mel_frames": 1, "flash_attention_f32": layers * model,
+            "flash_attention": 0,
+            "fused_conv_module": 0 if split else layers,
+            "fused_conv_module_split": layers * model if split else 0,
+            "quantized_matmul": 0, "quantized_matmul_a8": 0}
+
+
+def _f32_serving(dev, cfg, params, xvector, tiled, total) -> None:
+    """(a) The release with the f32 encoder serves the golden file (its
+    result held to ``golden_f32.json`` by ``result_mismatches``, its ids
+    on MIN_CTC_AGREEMENT) and the 120 s file (ids on MIN_CTC_AGREEMENT:
+    one of its frames is a tie at f32), with one model shard and at
+    (data, model) (1, 2); then warm 120 s seconds at f32 beside bf16."""
+    import torch
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+
+    fcfg = _f32(cfg)
+    L = cfg.encoder.n_layers
+    stored = golden.load_golden_f32()
+    requests = [("golden", golden.GOLDEN_WAV), ("tiled", tiled)]
+    engines = {}
+    for shape in ((1, 1), (1, 2)):
+        label = f"f32 engine {shape}"
+        engine = (TranscriptionEngine(config=fcfg, params=params,
+                                      xvector_params=xvector, device=dev)
+                  if shape == (1, 1) else
+                  _tp_engine(dev, fcfg, params, xvector, shape, False))
+        results, counts = drive_path(
+            label, lambda path, cb, e=engine: e.transcribe(
+                path, progress_callback=cb).to_dict(),
+            engine, requests, _f32_serving_launches(L, shape[1]))
+        _add(total, counts)
+        bad = golden.result_mismatches(stored["result"], results[0],
+                                       tone_mass=stored["tone_mass"])
+        if bad:
+            raise PhaseError(f"{label}: golden_f32 mismatch: "
+                             + "; ".join(bad))
+        agree = {name: golden.ctc_agreement(want["ctc_ids"],
+                                            _win_ids(engine, path))
+                 for (name, path), want in zip(requests,
+                                               (stored, stored["tiled"]))}
+        log(f"  {label} " + json.dumps({
+            "golden_segments": len(results[0]["segments"]),
+            "tiled_segments": len(results[1]["segments"]),
+            "ids_agree": agree}))
+        if min(agree.values()) < golden.MIN_CTC_AGREEMENT:
+            raise PhaseError(f"{label}: ids agree {agree}")
+        _add(total, _read_counters())
+        engines[shape] = engine
+    bf16 = TranscriptionEngine(config=cfg, params=params,
+                               xvector_params=xvector, device=dev)
+    secs = {"bf16": [], "f32": []}
+    for _ in range(F32_ROUNDS):
+        for name, e in (("bf16", bf16), ("f32", engines[(1, 1)])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.transcribe(tiled)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+    _add(total, _read_counters())
+    log("  f32 request seconds (120 s, warm, interleaved) " + json.dumps({
+        k: {"s": v, "median_s": statistics.median(v)}
+        for k, v in secs.items()}))
+
+
+def _f32_training(dev, total) -> None:
+    """(b) ``train_synth`` with the f32 encoder at ``PipelineConfig()``
+    (d512 x 12), kernel mode, batch TRAIN_BATCH of 8 s, F32_TRAIN_STEPS
+    steps: finite losses, each step's launches exactly (K1 1; the f32 K2,
+    K6, K7 and K3 12 each; no bf16 attention kernel); then one update on
+    the card against the CPU (phase 4b's gate, the worst leaf printed)."""
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.models import zoo
+    from omnilingual_asr_torch.models.conformer import asr_init
+    from omnilingual_asr_torch.ops.attention import REFERENCE_BLOCK_Q
+    from omnilingual_asr_torch.train import synth_train
+    from omnilingual_asr_torch.train.step import (CTC_INFEASIBLE, ctc_rows,
+                                                  make_train_step)
+    from omnilingual_asr_torch.train.synth import SynthBatcher
+
+    base = _f32(PipelineConfig())
+    L = base.encoder.n_layers
+    watch = _StepWatch("f32 train_synth", {
+        "log_mel_frames": 1, "flash_attention_f32": L,
+        "flash_attention_bwd_dq_f32": L, "flash_attention_bwd_dkv_f32": L,
+        "fused_conv_module": L})
+    parts, captured = {}, []
+    with contextlib.ExitStack() as st:
+        st.enter_context(_patched(synth_train, "make_train_step",
+                                  watch.factory(synth_train.make_train_step,
+                                                captured)))
+        st.enter_context(_patched(synth_train, "SynthBatcher",
+                                  _timed_batches(_one_producer(
+                                      synth_train.SynthBatcher), parts)))
+        (params, _), launches = _rest_drive(
+            "f32 train_synth", lambda: synth_train.train_synth(
+                steps=F32_TRAIN_STEPS, batch_size=TRAIN_BATCH, cfg=base,
+                pallas_kernels=True, seed=SEED, log_every=1,
+                eval_every=1000, device=dev), parts, watch)
+    _add(total, launches)
+    steps = [r["step_s"] for r in watch.rows]
+    log("  f32 train step seconds " + json.dumps({
+        "steps_s": steps, "median_after_first_s":
+            statistics.median(steps[1:])}))
+    del params, captured
+
+    cfg = base.replace(encoder=dataclasses.replace(
+        base.encoder, use_flash_attention=True, use_fused_conv=True))
+    batcher = SynthBatcher(cfg, batch_size=CHECK_ROWS, seed=SEED + 80,
+                           frame_multiple=REFERENCE_BLOCK_Q * 4,
+                           n_threads=1)
+    try:
+        hb = next(iter(batcher))
+    finally:
+        batcher.close()
+    hb["samples"] = np.clip(hb["samples"] * 32768.0, -32768,
+                            32767).astype(np.int16)
+    full = asr_init(torch.Generator().manual_seed(SEED + 81), cfg)
+    names = list(zoo.flatten(full).keys())
+
+    def make(where):
+        return make_train_step(cfg, where, from_samples=True)
+
+    got = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        b = {k: torch.from_numpy(v).to(where) for k, v in hb.items()}
+        b[CTC_INFEASIBLE] = ctc_rows(hb, cfg)
+        got[label] = _mt_grads(make, where, full, (b, 0))
+    _add(total, _read_counters())
+    worst, leaf = _mt_worst(got["card"][1], got["cpu"][1], names)
+    loss_rel = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    out = {"loss_card": got["card"][0], "loss_cpu": got["cpu"][0],
+           "loss_rel": loss_rel, "grad_worst_rel": worst,
+           "grad_worst_leaf": leaf}
+    log("  f32 update on the card against the CPU " + json.dumps(out))
+    if worst > TOL_GRAD_REL or loss_rel > TOL_REST_LOSS_REL:
+        raise PhaseError(f"f32 update: {out} (grads {TOL_GRAD_REL}, loss "
+                         f"{TOL_REST_LOSS_REL})")
+    _f32_step_costs(dev, total)
+
+
+def _f32_step_costs(dev, total) -> None:
+    """Step seconds of the f32 encoder beside bf16, on phase 4l's (1, 1)
+    step (``make_train_step`` at d512 x 12 from a device batch of 16 8 s
+    windows, kernel mode, SpecAugment and the translator on): one warm
+    step each, then F32_TIMED_STEPS each in turn; the launches exactly
+    (each dtype's attention kernels only)."""
+    import torch
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.models.conformer import asr_init
+    from omnilingual_asr_torch.models.translation import translator_init
+    from omnilingual_asr_torch.train import device_pool
+    from omnilingual_asr_torch.train.augment import SpecAugmentConfig
+    from omnilingual_asr_torch.train.step import (CTC_INFEASIBLE, ctc_rows,
+                                                  make_optimizer,
+                                                  make_train_step, trainable)
+
+    base = PipelineConfig()
+    cfg = base.replace(encoder=dataclasses.replace(
+        base.encoder, use_flash_attention=True, use_fused_conv=True))
+    L = cfg.encoder.n_layers
+    full = {"asr": asr_init(torch.Generator().manual_seed(SEED), base),
+            "translator": translator_init(
+                torch.Generator().manual_seed(SEED + 1), base)}
+    hb = _mt_host_batch(cfg, SEED + 60)
+    batch = {k: torch.from_numpy(device_pool.encode_wire(v, "i16")
+                                 if k == "samples" else v).to(dev)
+             for k, v in hb.items()}
+    batch[CTC_INFEASIBLE] = ctc_rows(hb, cfg)
+    batch.update(MT_SCALARS)
+    aug = SpecAugmentConfig(n_freq_masks=1, freq_mask_width=16,
+                            n_time_masks=1, time_mask_width=24)
+    runs = {}
+    for name, c in (("bf16", cfg), ("f32", _f32(cfg))):
+        _, step_fn, _ = make_train_step(c, dev, tx=make_optimizer(),
+                                        from_samples=True, augment=aug,
+                                        with_translator=True)
+        state = trainable(full, dev)
+        runs[name] = (step_fn, state, make_optimizer().init(state))
+    n = 1 + F32_TIMED_STEPS
+    secs = {"bf16": [], "f32": []}
+    _read_counters()
+    for i in range(n):
+        for name, (step_fn, state, opt) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(state, opt, batch, i)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+    counts = _read_counters()
+    _add(total, counts)
+    want = {"log_mel_frames": 2 * n, "fused_conv_module": 2 * L * n,
+            **{f"{k}{sfx}": L * n for k in (
+                "flash_attention", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv") for sfx in ("", "_f32")}}
+    bad = {k: (counts.get(k, 0), v) for k, v in want.items()
+           if counts.get(k, 0) != v}
+    if bad:
+        raise PhaseError(f"f32 and bf16 timed steps: launches (got, want) "
+                         f"{bad}")
+    log("  f32 step costs (d512 x 12, batch 16, kernel mode, translator, "
+        "phase 4l's (1, 1) step) " + json.dumps({
+            k: {"step_s": v, "median_after_first_s":
+                statistics.median(v[1:])} for k, v in secs.items()}))
+    del runs, full
+
+
+@contextlib.contextmanager
+def _routing_recorded(tops):
+    """Every top-1 routing choice of a forward appended to ``tops`` (the
+    one-device MoE and the tensor-parallel one both route through
+    ``models.moe.route``)."""
+    from omnilingual_asr_torch.models import moe
+    from omnilingual_asr_torch.parallel import tensor
+
+    route = moe.route
+
+    def recorded(p, h):
+        out = route(p, h)
+        tops.append(out[1].detach().cpu())
+        return out
+
+    with _patched(moe, "route", recorded), \
+            _patched(tensor, "route", recorded):
+        yield
+
+
+def _moe_mesh_training(dev, total) -> None:
+    """(c) A mixture of MESH_EXPERTS experts at ``PipelineConfig()`` width,
+    kernel mode, batch TRAIN_BATCH of 8 s, trained over meshes as shards
+    of ``dev``: one update at each of MM_CHECK_MESHES against one device
+    (the loss and moe_aux within TOL_MM_REL, every leaf within
+    TOL_GRAD_REL, the routing choices that differ from one device's
+    counted); then MM_STEPS steps at each of MM_TIMED, each step's
+    launches exactly (``_mt_launches``), finite metrics with moe_aux,
+    seconds and peak memory printed."""
+    import torch
+    from omnilingual_asr_torch.config import MeshConfig, PipelineConfig
+    from omnilingual_asr_torch.models import zoo
+    from omnilingual_asr_torch.models.conformer import asr_init
+    from omnilingual_asr_torch.parallel.mesh import build_mesh
+    from omnilingual_asr_torch.train import device_pool
+    from omnilingual_asr_torch.train.step import (CTC_INFEASIBLE, ctc_rows,
+                                                  make_optimizer,
+                                                  make_train_step,
+                                                  trainable, tree_leaves)
+
+    base = PipelineConfig()
+    cfg = base.replace(encoder=dataclasses.replace(
+        base.encoder, n_experts=MESH_EXPERTS, use_flash_attention=True,
+        use_fused_conv=True))
+    L = cfg.encoder.n_layers
+    full = asr_init(torch.Generator().manual_seed(SEED + 70), cfg)
+    names = list(zoo.flatten(full).keys())
+    hb = _mt_host_batch(cfg, SEED + 71)
+    batch = {k: torch.from_numpy(device_pool.encode_wire(v, "i16")
+                                 if k == "samples" else v).to(dev)
+             for k, v in hb.items()}
+    batch[CTC_INFEASIBLE] = ctc_rows(hb, cfg)
+
+    def make(where):
+        return make_train_step(cfg, where, tx=make_optimizer(),
+                               from_samples=True)
+
+    def mesh_of(shape):
+        data, model = shape
+        return build_mesh(MeshConfig(data=data, model=model),
+                          [dev] * (data * model))
+
+    def update(shape):
+        """(loss, moe_aux, whole-leaf grads on the CPU, each block's
+        routing over the batch) of one update at ``shape``."""
+        tops = []
+        one_device = shape == (1, 1)
+        init, _, lg = make(dev if one_device else mesh_of(shape))
+        with _routing_recorded(tops):
+            if one_device:
+                p = trainable(full, dev)
+                m, g = lg(p, batch, 0)
+                g = [torch.zeros_like(x) if a is None else a
+                     for a, x in zip(g, tree_leaves(p))]
+            else:
+                p = init.place(full)
+                m, g = lg(p, batch, 0)
+                g = p.merge(g)
+        torch.cuda.synchronize()
+        data = shape[0]
+        rows = [tops[r * L:(r + 1) * L] for r in range(data)]
+        routing = [torch.cat([r[b] for r in rows]) for b in range(L)]
+        return (float(m["loss"]), float(m["moe_aux"]),
+                [x.detach().cpu() for x in g], routing)
+
+    _read_counters()
+    one = update((1, 1))
+    choices = sum(t.numel() for t in one[3])
+    for shape in MM_CHECK_MESHES:
+        got = update(shape)
+        worst, leaf = _mt_worst(got[2], one[2], names)
+        out = {"check": shape, "loss_1x1": one[0], "loss_mesh": got[0],
+               "loss_rel": abs(got[0] - one[0]) / abs(one[0]),
+               "moe_aux_1x1": one[1], "moe_aux_mesh": got[1],
+               "moe_aux_rel": abs(got[1] - one[1]) / abs(one[1]),
+               "grad_worst_rel": worst, "grad_worst_leaf": leaf,
+               "routing_differs": sum(int((a != b).sum()) for a, b in zip(
+                   got[3], one[3])), "routing_choices": choices}
+        log("  moe mesh update " + json.dumps(out))
+        if (out["loss_rel"] > TOL_MM_REL or out["moe_aux_rel"] > TOL_MM_REL
+                or worst > TOL_GRAD_REL):
+            raise PhaseError(f"moe mesh {shape}: {out} (loss and moe_aux "
+                             f"{TOL_MM_REL}, grads {TOL_GRAD_REL})")
+    _add(total, _read_counters())
+
+    costs = {}
+    for shape in MM_TIMED:
+        init, step_fn, _ = make(dev if shape == (1, 1) else mesh_of(shape))
+        if shape == (1, 1):
+            state = trainable(full, dev)
+            leaves = tree_leaves(state)
+        else:
+            state = init.place(full)
+            leaves = state.leaves
+        opt = make_optimizer().init(leaves)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _read_counters()
+        secs, auxes = [], []
+        for i in range(MM_STEPS):
+            t0 = time.perf_counter()
+            m = step_fn(state, opt, batch, i)[3]
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            m = {k: float(v) for k, v in m.items()}
+            if "moe_aux" not in m or not all(math.isfinite(v)
+                                             for v in m.values()):
+                raise PhaseError(f"moe mesh {shape} step {i}: {m}")
+            auxes.append(m["moe_aux"])
+        counts = _read_counters()
+        want = {k: v * MM_STEPS for k, v in _mt_launches(shape, L).items()}
+        bad = {k: (counts.get(k, 0), n) for k, n in want.items()
+               if counts.get(k, 0) != n}
+        if bad:
+            raise PhaseError(f"moe mesh {shape} steps: launches (got, want) "
+                             f"{bad}")
+        _add(total, counts)
+        costs[str(shape)] = {
+            "step_s": secs, "median_after_first_s":
+                statistics.median(secs[1:]), "moe_aux": auxes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": counts}
+        del state, opt
+    log(f"  moe mesh step costs (d512 x 12, {MESH_EXPERTS} experts, batch "
+        f"{TRAIN_BATCH}, kernel mode) " + json.dumps(costs))
+    del full
+
+
+def run_f32_moe_mesh(dev, cfg, params, xvector, smi) -> dict:
+    """Phase 4m. (a) The release with the f32 encoder serving, with one
+    model shard and at (1, 2), held to ``golden_f32.json``; (b) kernel-mode
+    f32 training at d512 x 12 and one f32 update on the card against the
+    CPU; (c) a mixture of experts trained over (data, model) meshes as
+    shards of ``dev``, held to one device. Returns the launches of each
+    kernel."""
+    import torch
+
+    tiled = PKG / "_build" / "smoke_tiled.wav"
+    write_tiled_wav(PKG / "testdata" / "golden.wav", tiled, TILED_SECONDS)
+    total: dict = {}
+    for label, fn in (
+            ("(a) f32 serving", lambda: _f32_serving(
+                dev, cfg, params, xvector, tiled, total)),
+            ("(b) f32 training", lambda: _f32_training(dev, total)),
+            ("(c) moe over the mesh", lambda: _moe_mesh_training(
+                dev, total))):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        log(f"  {label} {time.perf_counter() - t0:.2f} s, peak card "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        torch.cuda.empty_cache()
+    log(f"  f32 and moe mesh launches {json.dumps(total)} ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 4c (--profile): where a request's and a train step's time goes
 # ---------------------------------------------------------------------------
 
@@ -4870,7 +5449,8 @@ def main(argv=None) -> int:
         kernels = [check_k1(dev, peaks, cfg), check_k2(dev, peaks, cfg),
                    check_k3(dev, peaks, cfg, params, ptxas),
                    *check_quant(dev, peaks, params, ptxas),
-                   *check_flash_bwd(dev, peaks, PipelineConfig())]
+                   *check_flash_bwd(dev, peaks, PipelineConfig()),
+                   *check_flash_f32(dev, peaks)]
         for k in kernels:
             log(f"  {k['name']}: max abs err {k['max_abs_err']:.3e} (tol "
                 f"{k['tol']}), {k['ms']:.4f} ms (one eager call "
@@ -4941,6 +5521,11 @@ def main(argv=None) -> int:
         mesh_training = run_mesh_training(dev, smi, profile=args.profile)
         log(f"[mesh_training] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "f32_moe_mesh"
+        t0 = time.perf_counter()
+        f32_moe_mesh = run_f32_moe_mesh(dev, cfg, params, xvector, smi)
+        log(f"[f32_moe_mesh] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -4957,12 +5542,17 @@ def main(argv=None) -> int:
                  "q_matmul_w8a16": ("quantized_matmul",),
                  "q8a8_matmul": ("quantized_matmul_a8",),
                  "flash_attention_bwd_dq": ("flash_attention_bwd_dq",),
-                 "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv",)}
+                 "flash_attention_bwd_dkv": ("flash_attention_bwd_dkv",),
+                 "flash_attention_fwd_f32": ("flash_attention_f32",),
+                 "flash_attention_bwd_dq_f32": ("flash_attention_bwd_dq_f32",),
+                 "flash_attention_bwd_dkv_f32": (
+                     "flash_attention_bwd_dkv_f32",)}
         paths = {"serving": serving, "training": training,
                  "decoders": decoding, "server": served, "d512": d512,
                  "evals": evals, "trainers": trainers,
                  "rest_of_training": rest, "mesh": mesh, "tp": tp_path,
-                 "mesh_training": mesh_training}
+                 "mesh_training": mesh_training,
+                 "f32_moe_mesh": f32_moe_mesh}
         line = {"kernels": []}
         for k in kernels:
             fns = by_fn[k["name"]]

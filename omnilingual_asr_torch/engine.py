@@ -85,6 +85,7 @@ from .audio.decode import decode_audio, get_audio_duration
 from .audio.native_lib import native_available, native_decode
 from .audio.resample import resample
 from .config import MeshConfig, PipelineConfig
+from .device import exact_f32, resolve_device
 from .diarization.cluster import DEFAULT_THRESHOLD as CLUSTER_DEFAULT_THRESHOLD
 from .diarization.cluster import cluster_speakers
 from .models import languages as lang_table
@@ -148,30 +149,6 @@ def ctc_topk(logits: torch.Tensor, k: int):
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     top_lp, top_ids = torch.sort(logp, dim=-1, descending=True, stable=True)
     return top_lp[..., :k], top_ids[..., :k]
-
-
-def resolve_device(device) -> torch.device:
-    """The engine's device: CUDA unless the caller asks for the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; the engine runs on CUDA unless "
-                "it is constructed with device='cpu'")
-        return torch.device("cuda", torch.cuda.current_device())
-    try:
-        dev = torch.device(device)
-    except RuntimeError as e:
-        raise ValueError(f"device must be 'cuda[:N]' or 'cpu', got "
-                         f"{device!r}") from e
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but no CUDA "
-                               f"device is available")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be 'cuda[:N]' or 'cpu', got {device!r}")
-    return dev
 
 
 @dataclasses.dataclass
@@ -339,9 +316,7 @@ class TranscriptionEngine:
             check_tp_dims(self.config, self.n_model)
         self.mesh = mesh
         self.device = mesh.devices.flat[0]
-        if any(d.type == "cuda" for d in mesh.distinct_devices()):
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        exact_f32(mesh.distinct_devices())
         self.last_trace: Optional[StageTrace] = None
         #: Held around the work that shares device state: the batched
         #: device program (enqueue) and the decoders.

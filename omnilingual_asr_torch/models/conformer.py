@@ -41,7 +41,8 @@ from ..parallel import tensor as tp
 from ..parallel.mesh import (AXIS_MODEL, Split, all_gather, gather,
                              replicate, scatter)
 from . import layers as L
-from .moe import moe_ffn_apply, moe_ffn_init, moe_ffn_shapes, moe_ffn_spec
+from .moe import (load_balance_from_sums, moe_ffn_apply, moe_ffn_init,
+                  moe_ffn_shapes, moe_ffn_spec)
 
 # Head dimensions (as the JAX package's).
 N_LANGS = 2048
@@ -50,12 +51,22 @@ SPK_DIM = 256
 N_SPEAKER_CLASSES = 1024
 
 
+#: The encoder's compute dtypes that the port runs, by config name.
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
 def compute_dtype(enc: EncoderConfig) -> torch.dtype:
-    if enc.dtype != "bfloat16":
+    """The dtype the encoder's products round their operands to (the
+    reference's ``jnp.dtype(enc.dtype)``): bf16, or f32, where every dense
+    product is an exact f32 product and attention takes the f32 flash
+    kernels. Kernel K3 computes its products in bf16 at either dtype, as
+    the reference's does. Other names (e.g. "float16", which no config of
+    the repo uses) are not ported."""
+    if enc.dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(
-            f"encoder dtype {enc.dtype!r} is not ported (bfloat16 only; "
-            f"A14 in ROADMAP.md, Queue A)")
-    return torch.bfloat16
+            f"encoder dtype {enc.dtype!r} is not ported (bfloat16 and "
+            f"float32 only; A14 in ROADMAP.md, Queue A)")
+    return COMPUTE_DTYPES[enc.dtype]
 
 
 def _dense_shapes(i: int, o: int, bias: bool = True):
@@ -345,10 +356,15 @@ def shard_for_tp(params, cfg: PipelineConfig, devices, specs=None):
 
 
 def tp_conformer_block_apply(ps, xs, masks, cos, sin, enc: EncoderConfig,
-                             dtype):
+                             dtype, dense_experts: bool = False):
     """One conformer block over the model shards' trees ``ps`` and
-    replicated activations ``xs`` -> (xs, moe_aux)."""
-    aux = torch.zeros((), device=xs[0].device)
+    replicated activations ``xs`` -> (xs, routing): with experts under
+    dense dispatch, ``routing`` is the block's ``models.moe.routing_sums``
+    over these rows, else None. ``dense_experts`` dispatches densely
+    whatever ``encoder.moe_dispatch`` says (training: the reference's
+    loss runs ``asr_forward`` with no mesh, so the all-to-all path only
+    serves)."""
+    routing = None
     xs = tp.tp_ffn_apply([p["ffn1"] for p in ps], xs, dtype)
     xs = tp.tp_mhsa_apply([p["mhsa"] for p in ps], xs, enc.n_heads, masks,
                           cos, sin, dtype, use_flash=enc.use_flash_attention)
@@ -357,18 +373,20 @@ def tp_conformer_block_apply(ps, xs, masks, cos, sin, enc: EncoderConfig,
           else tp.tp_convmod_apply(convs, xs, masks, dtype))
     ffn2 = [p["ffn2"] for p in ps]
     if enc.n_experts > 0:
-        if enc.moe_dispatch == "alltoall" and len(ps) > 1:
+        if (enc.moe_dispatch == "alltoall" and len(ps) > 1
+                and not dense_experts):
             xs = tp.tp_moe_alltoall(ffn2, xs, enc.moe_capacity_factor)
         else:
-            xs, aux = tp.tp_moe_dense(ffn2, xs)
+            xs, routing = tp.tp_moe_dense(ffn2, xs)
     else:
         xs = tp.tp_ffn_apply(ffn2, xs, dtype)
     xs = tp.per_copy(lambda x, p: L.layernorm_apply(p["ln_out"], x), xs, ps)
-    return xs, aux
+    return xs, routing
 
 
 def tp_asr_forward(shards, mel: torch.Tensor, mask: torch.Tensor,
-                   cfg: PipelineConfig, dropout_keep=None):
+                   cfg: PipelineConfig, dropout_keep=None,
+                   dense_experts: bool = False):
     """:func:`asr_forward` over the model shards of one data row:
     ``shards`` from :func:`shard_for_tp` (or a training
     ``parallel.tensor.MeshParams`` row), shard m's tree on its device; mel
@@ -386,7 +404,13 @@ def tp_asr_forward(shards, mel: torch.Tensor, mask: torch.Tensor,
     ``FlashAttention``), ``encoder.remat`` recomputes each block in the
     backward pass, and ``dropout_keep`` (the row's kept elements of salts
     0 .. n_layers, :func:`dropout_mask`'s) applies :func:`asr_forward`'s
-    residual dropout at the same places."""
+    residual dropout at the same places. With experts the blocks dispatch
+    densely under ``dense_experts`` (training) whatever
+    ``encoder.moe_dispatch`` says; under dense dispatch the dict also
+    holds ``moe_routing``, each block's ``models.moe.routing_sums`` over
+    this row on shard 0's device, and ``moe_aux`` is this row's
+    load-balance term (:func:`mesh_asr_forward`'s caller combines the rows'
+    sums into the whole batch's)."""
     enc = cfg.encoder
     n = len(shards)
     check_tp_dims(cfg, n)
@@ -416,17 +440,23 @@ def tp_asr_forward(shards, mel: torch.Tensor, mask: torch.Tensor,
     sin = [r[1] for r in rope]
     remat = enc.remat and torch.is_grad_enabled()
     moe_aux = torch.zeros((), device=mel.device)
+    moe_routing = []
     for bi in range(enc.n_layers):
         blocks = [s["blocks"][bi] for s in shards]
         if remat:
-            xs, aux = torch.utils.checkpoint.checkpoint(
+            xs, routing = torch.utils.checkpoint.checkpoint(
                 tp_conformer_block_apply, blocks, xs, masks, cos, sin, enc,
-                dtype, use_reentrant=False)
+                dtype, dense_experts, use_reentrant=False)
         else:
-            xs, aux = tp_conformer_block_apply(blocks, xs, masks, cos, sin,
-                                               enc, dtype)
+            xs, routing = tp_conformer_block_apply(
+                blocks, xs, masks, cos, sin, enc, dtype, dense_experts)
         xs = drop(xs, bi + 1)
-        moe_aux = moe_aux + aux.to(mel.device)
+        if routing is not None:
+            prob_sum, counts, frames = routing
+            routing = (prob_sum.to(mel.device), counts.to(mel.device),
+                       frames)
+            moe_routing.append(routing)
+            moe_aux = moe_aux + load_balance_from_sums(*routing)
     x, p0 = xs[0], shards[0]
     out = {}
     for key, spec in asr_output_specs().items():
@@ -439,8 +469,11 @@ def tp_asr_forward(shards, mel: torch.Tensor, mask: torch.Tensor,
     spk_frames = L.dense_apply(p0["spk_head2"], h, dtype)
     spk = spk_frames * torch.rsqrt(
         (spk_frames * spk_frames).sum(dim=-1, keepdim=True) + 1e-8)
-    return {**out, "speaker_frames": spk_frames, "speaker_embed": spk,
-            "encoder_states": x, "mask": m_sub, "moe_aux": moe_aux}
+    out = {**out, "speaker_frames": spk_frames, "speaker_embed": spk,
+           "encoder_states": x, "mask": m_sub, "moe_aux": moe_aux}
+    if moe_routing:
+        out["moe_routing"] = moe_routing
+    return out
 
 
 def mesh_asr_forward(rows, mel: torch.Tensor, mask: torch.Tensor,
@@ -451,16 +484,15 @@ def mesh_asr_forward(rows, mel: torch.Tensor, mask: torch.Tensor,
     MeshParams.grid``); mel [B, T, n_mels] and mask [B, T], the global
     batch, on shard (0, 0)'s device. The batch is scattered over the rows
     (``P("data", ...)``); each row runs :func:`tp_asr_forward` on its
-    model shards. ``dropout_seed``: the dropout masks are drawn over the
+    model shards, experts (split over the shards by expert) under dense
+    dispatch whatever ``encoder.moe_dispatch`` says, as the reference's
+    loss runs them. ``dropout_seed``: the dropout masks are drawn over the
     global batch's shape on shard (0, 0)'s device, as one device draws
     them, and each row takes its rows. Returns the rows' output dicts,
-    each on its row's first device."""
+    each on its row's first device; with experts, each row's
+    ``moe_routing`` sums make the whole batch's load-balance term
+    (:func:`mesh_moe_aux`)."""
     enc = cfg.encoder
-    if enc.n_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts training over a (data, model) mesh is not "
-            "ported (A10 training over the mesh in ROADMAP.md, Queue A); "
-            "train experts on one device")
     data = len(rows)
     firsts = [_tree_device(r[0]) for r in rows]
     mels = scatter(mel, firsts)
@@ -471,8 +503,26 @@ def mesh_asr_forward(rows, mel: torch.Tensor, mask: torch.Tensor,
         keeps = row_dropout_masks((B, T // enc.subsample_factor,
                                    enc.d_model), enc, dropout_seed,
                                   mel.device, firsts)
-    return [tp_asr_forward(rows[r], mels[r], masks[r], cfg, keeps[r])
+    return [tp_asr_forward(rows[r], mels[r], masks[r], cfg, keeps[r],
+                           dense_experts=True)
             for r in range(data)]
+
+
+def mesh_moe_aux(rows, device) -> torch.Tensor:
+    """The blocks' summed load-balance term over the whole batch from the
+    data rows' outputs of :func:`mesh_asr_forward`, on ``device``: each
+    block's router probabilities and routed frames summed over the rows,
+    then ``E * sum_e f_e * p_e`` with f and p means over every frame of the
+    batch, as one device computes it (0 without experts)."""
+    aux = torch.zeros((), device=device)
+    if "moe_routing" not in rows[0]:
+        return aux
+    for blocks in zip(*(o["moe_routing"] for o in rows)):
+        prob_sum = sum(b[0].to(device) for b in blocks)
+        counts = sum(b[1].to(device) for b in blocks)
+        aux = aux + load_balance_from_sums(prob_sum, counts,
+                                           sum(b[2] for b in blocks))
+    return aux
 
 
 def row_dropout_masks(shape, enc: EncoderConfig, seed: int, device,

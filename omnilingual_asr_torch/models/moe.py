@@ -96,9 +96,25 @@ def load_balance(probs: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
     """The Switch Transformer's load-balance term ``E * sum_e f_e * p_e``
     (f: the share of tokens routed to e, p: e's mean router
     probability), about 1 when balanced."""
+    return load_balance_from_sums(*routing_sums(probs, top))
+
+
+def routing_sums(probs: torch.Tensor, top: torch.Tensor):
+    """One block's routing over some rows of a batch, in sums that add over
+    rows: (the router probabilities summed over every (B, T) frame [E]
+    (differentiable), the frames routed to each expert [E], the frames)."""
     E = probs.shape[-1]
-    f = torch.nn.functional.one_hot(top, E).to(F32).mean(dim=(0, 1))
-    return E * torch.sum(f * probs.mean(dim=(0, 1)))
+    counts = torch.nn.functional.one_hot(top, E).to(F32).sum(dim=(0, 1))
+    return probs.sum(dim=(0, 1)), counts, top.shape[0] * top.shape[1]
+
+
+def load_balance_from_sums(prob_sum: torch.Tensor, counts: torch.Tensor,
+                           frames: int) -> torch.Tensor:
+    """:func:`load_balance` from :func:`routing_sums` added over the rows
+    of the whole batch: f and p are means over every frame of the batch,
+    padding included, so the term is not a mean of the rows' terms."""
+    E = prob_sum.shape[-1]
+    return E * torch.sum((counts / frames) * (prob_sum / frames))
 
 
 def moe_ffn_apply(p, x: torch.Tensor, dtype=F32,

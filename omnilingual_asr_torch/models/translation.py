@@ -264,7 +264,9 @@ def tp_decoder_forward(shards, tokens: torch.Tensor, enc: torch.Tensor,
         for p, h, c in zip(ps, hs, causals):
             q, k, v = L.dense_apply(p["self_qkv"], h).chunk(3, dim=-1)
             att.append(_attend(q, k, v, c, heads))
-        ys = tp.row_dense([p["self_o"] for p in ps], att)
+        # bf16 products, the reference decoder's default whatever the
+        # encoder's dtype.
+        ys = tp.row_dense([p["self_o"] for p in ps], att, torch.bfloat16)
         xs = tp.per_copy(lambda x, y: x + y, xs, ys)
         hs = tp.per_copy(lambda x, p: L.layernorm_apply(p["ln2"], x), xs, ps)
         att = []
@@ -272,9 +274,10 @@ def tp_decoder_forward(shards, tokens: torch.Tensor, enc: torch.Tensor,
             cq = L.dense_apply(p["cross_q"], h)
             ck, cv = L.dense_apply(p["cross_kv"], e).chunk(2, dim=-1)
             att.append(_attend(cq, ck, cv, c, heads))
-        ys = tp.row_dense([p["cross_o"] for p in ps], att)
+        ys = tp.row_dense([p["cross_o"] for p in ps], att, torch.bfloat16)
         xs = tp.per_copy(lambda x, y: x + y, xs, ys)
-        xs = tp.tp_ffn_apply([p["ffn"] for p in ps], xs, half_step=False)
+        xs = tp.tp_ffn_apply([p["ffn"] for p in ps], xs, torch.bfloat16,
+                             half_step=False)
     x = L.layernorm_apply(shards[0]["ln_out"], xs[0])
     return L.dense_apply(shards[0]["out"], x)
 
@@ -583,7 +586,9 @@ def save_translator(path, params) -> None:
 def load_translator(path, cfg: PipelineConfig, n_layers: int = N_LAYERS,
                     device="cpu"):
     """Load decoder parameters saved by :func:`save_translator` or a JAX
-    release ``.npz``, validated against the shape tree of the init.
+    release ``.npz``, validated against the shape tree of the init, as
+    host tensors unless ``device`` says otherwise (the callers place
+    them).
 
     A text-mode checkpoint (a ``"src"`` subtree) loads against
     :func:`text_translator_param_shapes`; a fact-conditioned summarizer's

@@ -71,6 +71,10 @@ def tree_from_arrays(arrays: dict, shapes, source: str, device="cpu"):
     """Build a parameter tree from ``{keystr: array}`` against ``shapes``.
 
     Raises KeyError for a missing leaf and ValueError for a wrong shape.
+
+    The loaders default to ``device="cpu"``: they only read a file into
+    host tensors, which every caller then places (unlike the compute
+    entry points, which default to the card).
     """
     def fetch(path, shape):
         key = keystr(path)
@@ -141,7 +145,8 @@ def checkpoint_path(out, name: str) -> Path:
 
 
 def load_release(path, shapes, device="cpu"):
-    """Load a release ``.npz`` against a shape tree."""
+    """Load a release ``.npz`` against a shape tree (on the CPU unless
+    ``device`` says otherwise: see :func:`tree_from_arrays`)."""
     with np.load(Path(path)) as z:
         arrays = {k: z[k] for k in z.files}
     for k in arrays:
@@ -151,7 +156,8 @@ def load_release(path, shapes, device="cpu"):
 
 
 def load_checkpoint(path, cfg: PipelineConfig, device="cpu"):
-    """Load the ASR parameters of a release ``.npz``."""
+    """Load the ASR parameters of a release ``.npz`` (host tensors unless
+    ``device`` says otherwise)."""
     path = Path(path)
     if path.suffix != ".npz":
         raise NotImplementedError(
@@ -161,7 +167,8 @@ def load_checkpoint(path, cfg: PipelineConfig, device="cpu"):
 
 
 def load_xvector(path, cfg: PipelineConfig, device="cpu"):
-    """Load x-vector embedder parameters from a release ``.npz``."""
+    """Load x-vector embedder parameters from a release ``.npz`` (host
+    tensors unless ``device`` says otherwise)."""
     return load_release(path, xvector_param_shapes(cfg), device)
 
 
@@ -169,7 +176,8 @@ def params_from_jax(tree, device="cpu"):
     """Carry a JAX parameter tree (nested dicts/lists, leaves convertible
     with ``numpy.asarray``) across into the port's parameter structure, on
     ``device``. Floating leaves become f32 tensors; integer and boolean
-    leaves (a quantized tree's int8 ``w_q``) keep their dtype."""
+    leaves (a quantized tree's int8 ``w_q``) keep their dtype. Host
+    tensors unless ``device`` says otherwise: the callers place them."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

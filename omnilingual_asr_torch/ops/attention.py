@@ -3,15 +3,21 @@ plain PyTorch versions, and the autograd Function that joins them.
 
 Port of ``omnilingual_asr_tpu/ops/attention.py``: non-causal attention with
 a key-validity mask, scale 1/sqrt(D), f32 softmax, output in q's dtype
-(bf16) and the row logsumexp (``_flash_fwd_lse_kernel`` via ``_fwd_lse``);
+(bf16 or f32) and the row logsumexp (``_flash_fwd_lse_kernel`` via
+``_fwd_lse``);
 its backward recomputes ``p = exp(s - lse) * keymask`` from the forward's
 lse (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``), with
 ``delta = sum_d dO * O`` computed outside the kernels. A fully-masked query
 row (a padded batch slot) gets output 0, lse +1e30 and zero gradients.
 
-Each wrapper launches its CUDA kernel (``csrc/attention.cu``,
-``csrc/attention_bwd.cu``) for CUDA tensors and runs its plain version for
-CPU tensors. Layouts follow the caller: q, k, v, o, dO [B, T, H, D], mask
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+version for CPU tensors. The Pallas kernels are generic in their input
+type, so each entry point dispatches on q's dtype: bf16 to the tensor-core
+kernels (``csrc/attention.cu``, ``csrc/attention_bwd.cu``), f32 (the f32
+encoder, ``EncoderConfig.dtype == "float32"``) to their f32 variants on
+the CUDA cores (``csrc/attention_f32.cu``: ``flash_attention_f32``,
+``flash_attention_bwd_dq_f32``, ``flash_attention_bwd_dkv_f32``). Each
+kernel keeps its own launch count, so a count says which dtype ran. Layouts follow the caller: q, k, v, o, dO [B, T, H, D], mask
 [B, T], lse and delta [B, H, T]. :class:`FlashAttention` is the
 differentiable entry point that the model calls.
 """
@@ -69,7 +75,9 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
     over bf16 inputs, and P rounded to bf16 for the P V product, either as
     hi + lo (``split_p``, hi = bf16(p), lo = bf16(p - hi), two products, as
     the kernel does) or as hi alone. The running sum takes the f32 p.
-    Same arguments and results as :func:`flash_attention_plain`."""
+    Same arguments and results as :func:`flash_attention_plain`; bf16
+    operands only (the f32 kernels round nothing)."""
+    _bf16_only(q)
     B, T, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     f32 = torch.float32
@@ -103,6 +111,12 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
     lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
                       torch.full_like(l, 1e30))
     return out.permute(0, 2, 1, 3).to(q.dtype), lse
+
+
+def _bf16_only(q: torch.Tensor) -> None:
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the emulated kernels model bf16 tensor cores; got "
+                        f"{q.dtype} operands")
 
 
 def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -160,7 +174,9 @@ def flash_attention_bwd_emulated(q, k, v, mask, do, lse, delta,
     two products, as the kernels do) or as hi alone. Sums in f32; dQ and
     dK times ``scale`` once, after the sum. Same arguments and results as
     :func:`flash_attention_bwd_dq_plain` and
-    :func:`flash_attention_bwd_dkv_plain` together: (dq, dk, dv)."""
+    :func:`flash_attention_bwd_dkv_plain` together: (dq, dk, dv); bf16
+    operands only."""
+    _bf16_only(q)
     f32 = torch.float32
     scale = 1.0 / math.sqrt(q.shape[-1])
     p, ds = _recompute(q, k, v, mask, do, lse, delta)
@@ -189,16 +205,22 @@ def flash_attention_bwd_plain(q, k, v, mask, o, lse, do):
     return dq, dk, dv
 
 
-def _check_kernel_args(q, k, v, mask, extra=()):
-    """Validate the operands every flash kernel reads; returns
-    (B, T, H, D, int32 mask)."""
+#: The dtypes the flash kernels take: bf16 (K2, K6, K7 on the tensor
+#: cores) and f32 (their variants on the CUDA cores).
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check_kernel_args(q, k, v, mask, extra=(), dtype=torch.bfloat16):
+    """Validate the operands a flash kernel of ``dtype`` reads (q, k, v and
+    ``extra``'s (name, tensor) pairs each against ``dtype``, the mask
+    against int32); returns (B, T, H, D, int32 mask)."""
     B, T, H, D = q.shape
     dev = q.device
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernels take head dim in {KERNEL_HEAD_DIMS}, "
                          f"got {D}")
     for name, t in (("q", q), ("k", k), ("v", v), *extra):
-        cuda_build.check_tensor(t, name, torch.bfloat16, (B, T, H, D), dev)
+        cuda_build.check_tensor(t, name, dtype, (B, T, H, D), dev)
     mask_i = mask.to(torch.int32).contiguous()
     cuda_build.check_tensor(mask_i, "mask", torch.int32, (B, T), dev)
     return B, T, H, D, mask_i
@@ -209,49 +231,102 @@ def _check_rows(lse, delta, B, H, T, dev):
     cuda_build.check_tensor(delta, "delta", torch.float32, (B, H, T), dev)
 
 
+def _kernel_dtype(q: torch.Tensor) -> torch.dtype:
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"flash kernels take q in {KERNEL_DTYPES}, got "
+                        f"{q.dtype}")
+    return q.dtype
+
+
+def _launch_fwd(entry, dtype, q, k, v, mask):
+    B, T, H, D, mask_i = _check_kernel_args(q, k, v, mask, dtype=dtype)
+    dev = q.device
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    err = getattr(cuda_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, T, H, D, 1.0 / math.sqrt(D),
+        cuda_build.stream_ptr(dev))
+    cuda_build.check(err, f"flash-attention kernel ({entry})")
+    return out, lse
+
+
+def _launch_dq(entry, dtype, q, k, v, mask, do, lse, delta):
+    B, T, H, D, mask_i = _check_kernel_args(q, k, v, mask, (("do", do),),
+                                            dtype)
+    dev = q.device
+    _check_rows(lse, delta, B, H, T, dev)
+    dq = torch.empty_like(q)
+    err = getattr(cuda_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        B, T, H, D, 1.0 / math.sqrt(D), cuda_build.stream_ptr(dev))
+    cuda_build.check(err, f"flash-attention dQ kernel ({entry})")
+    return dq
+
+
+def _launch_dkv(entry, dtype, q, k, v, mask, do, lse, delta):
+    B, T, H, D, mask_i = _check_kernel_args(q, k, v, mask, (("do", do),),
+                                            dtype)
+    dev = q.device
+    _check_rows(lse, delta, B, H, T, dev)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    err = getattr(cuda_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, T, H, D, 1.0 / math.sqrt(D),
+        cuda_build.stream_ptr(dev))
+    cuda_build.check(err, f"flash-attention dK/dV kernel ({entry})")
+    return dk, dv
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor):
     """Flash attention forward; see :func:`flash_attention_plain`.
 
-    A CUDA tensor goes to kernel K2 (bf16 q/k/v, head dim 64 or 128); a CPU
-    tensor to the plain version. Returns (o, lse); not differentiable (use
+    A CUDA tensor goes to kernel K2 (bf16 q/k/v, head dim 64 or 128), or
+    at f32 to :func:`flash_attention_f32`; a CPU tensor to the plain
+    version. Returns (o, lse); not differentiable (use
     :class:`FlashAttention`).
     """
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, mask)
-    B, T, H, D, mask_i = _check_kernel_args(q, k, v, mask)
-    dev = q.device
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
-    lib = cuda_build.library()
-    err = lib.omni_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             mask_i.data_ptr(), out.data_ptr(),
-                             lse.data_ptr(), B, T, H, D,
-                             1.0 / math.sqrt(D), cuda_build.stream_ptr(dev))
-    cuda_build.check(err, "flash-attention kernel")
+    if _kernel_dtype(q) == torch.float32:
+        return flash_attention_f32(q, k, v, mask)
+    out = _launch_fwd("omni_flash_fwd", torch.bfloat16, q, k, v, mask)
     flash_attention.launches += 1
-    return out, lse
+    return out
 
 
 flash_attention.launches = 0
 
 
+def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: torch.Tensor):
+    """K2 at f32 (``csrc/attention_f32.cu``): f32 q/k/v, head dim 64 or
+    128, for a CUDA tensor; the plain version for a CPU tensor."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, mask)
+    out = _launch_fwd("omni_flash_fwd_f32", torch.float32, q, k, v, mask)
+    flash_attention_f32.launches += 1
+    return out
+
+
+flash_attention_f32.launches = 0
+
+
 def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta) -> torch.Tensor:
     """dQ; see :func:`flash_attention_bwd_dq_plain`. A CUDA tensor goes to
-    kernel K6 (bf16 q/k/v/dO, f32 lse/delta [B, H, T]); a CPU tensor to the
-    plain version."""
+    kernel K6 (bf16 q/k/v/dO, f32 lse/delta [B, H, T]), or at f32 to
+    :func:`flash_attention_bwd_dq_f32`; a CPU tensor to the plain
+    version."""
     if not q.is_cuda:
         return flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta)
-    B, T, H, D, mask_i = _check_kernel_args(q, k, v, mask, (("do", do),))
-    dev = q.device
-    _check_rows(lse, delta, B, H, T, dev)
-    dq = torch.empty_like(q)
-    lib = cuda_build.library()
-    err = lib.omni_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        B, T, H, D, 1.0 / math.sqrt(D), cuda_build.stream_ptr(dev))
-    cuda_build.check(err, "flash-attention dQ kernel")
+    if _kernel_dtype(q) == torch.float32:
+        return flash_attention_bwd_dq_f32(q, k, v, mask, do, lse, delta)
+    dq = _launch_dq("omni_flash_bwd_dq", torch.bfloat16, q, k, v, mask, do,
+                    lse, delta)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -259,29 +334,51 @@ def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta) -> torch.Tensor:
 flash_attention_bwd_dq.launches = 0
 
 
+def flash_attention_bwd_dq_f32(q, k, v, mask, do, lse, delta
+                               ) -> torch.Tensor:
+    """K6 at f32 (``csrc/attention_f32.cu``) for a CUDA tensor; the plain
+    version for a CPU tensor."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta)
+    dq = _launch_dq("omni_flash_bwd_dq_f32", torch.float32, q, k, v, mask,
+                    do, lse, delta)
+    flash_attention_bwd_dq_f32.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq_f32.launches = 0
+
+
 def flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta):
     """(dK, dV); see :func:`flash_attention_bwd_dkv_plain`. A CUDA tensor
-    goes to kernel K7 (arguments as K6's); a CPU tensor to the plain
+    goes to kernel K7 (arguments as K6's), or at f32 to
+    :func:`flash_attention_bwd_dkv_f32`; a CPU tensor to the plain
     version."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta)
-    B, T, H, D, mask_i = _check_kernel_args(q, k, v, mask, (("do", do),))
-    dev = q.device
-    _check_rows(lse, delta, B, H, T, dev)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    lib = cuda_build.library()
-    err = lib.omni_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_i.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, T, H, D, 1.0 / math.sqrt(D),
-        cuda_build.stream_ptr(dev))
-    cuda_build.check(err, "flash-attention dK/dV kernel")
+    if _kernel_dtype(q) == torch.float32:
+        return flash_attention_bwd_dkv_f32(q, k, v, mask, do, lse, delta)
+    out = _launch_dkv("omni_flash_bwd_dkv", torch.bfloat16, q, k, v, mask,
+                      do, lse, delta)
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return out
 
 
 flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dkv_f32(q, k, v, mask, do, lse, delta):
+    """K7 at f32 (``csrc/attention_f32.cu``) for a CUDA tensor; the plain
+    version for a CPU tensor."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta)
+    out = _launch_dkv("omni_flash_bwd_dkv_f32", torch.float32, q, k, v,
+                      mask, do, lse, delta)
+    flash_attention_bwd_dkv_f32.launches += 1
+    return out
+
+
+flash_attention_bwd_dkv_f32.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -291,6 +388,8 @@ class FlashAttention(torch.autograd.Function):
     Forward: K2 (or its plain version on the CPU), saving o and lse.
     Backward: delta in plain PyTorch, then K6 and K7 (or their plain
     versions); gradients in q's dtype from f32 sums, none for the mask.
+    bf16 operands take the tensor-core kernels, f32 ones their f32
+    variants.
     Under ``torch.inference_mode`` nothing is saved and it costs nothing
     beyond the forward.
     """

@@ -1,8 +1,9 @@
 """Shapes and tolerances at which the card holds K3 (the fused conv module,
 whole and split over the shards of a model axis), K4 (the W8A16 matmul)
 and K5 (the W8A8 matmul) against their plain versions, the flash
-attention (K2, and K6/K7 in training) shapes of the mesh paths, and the
-log-mel (K1) shapes of the trainers and of training over a mesh.
+attention (K2, and K6/K7 in training) shapes of the mesh paths and of the
+f32 encoder, and the log-mel (K1) shapes of the trainers and of training
+over a mesh.
 
 ``chip_smoke.py`` checks and times the kernels at these shapes, and
 ``ops/conv_quant_sweep.py`` times its candidate tilings at the same ones;
@@ -75,6 +76,29 @@ K2_MESH_SHAPES = {"dp_shard": (2, 768, 4, 64, (768, 300)),
 # and a (1, 4) mesh's batch of 16 on one shard's 2 heads.
 FLASH_TRAIN_MESH_SHAPES = {"train_2x2": (8, 256, 4, 64, TRAIN_ROW_VALID),
                            "train_1x4": (16, 256, 2, 64, TRAIN_BATCH_VALID)}
+
+# K2, K6 and K7 at f32 (the f32 encoder, chip_smoke.py's phase 4m) as (B,
+# T, H, head dim, valid keys of each row): the release's serving batch
+# (4 windows of 768 frames, 4 heads of 64) and one model shard's 2 heads at
+# model 2, the training step at PipelineConfig()'s width (batch 16 of 8 s,
+# 8 heads of 64), large_config's head dim 128 at the serving length, and a
+# ragged T of 200 (partial tiles of queries and keys).
+F32_FLASH_SHAPES = {"serving": (4, 768, 4, 64, (768, 700, 300, 0)),
+                    "serving_tp2": (4, 768, 2, 64, (768, 700, 300, 0)),
+                    "training": (16, 256, 8, 64, TRAIN_BATCH_VALID),
+                    "d128": (4, 768, 8, 128, (768, 700, 300, 0)),
+                    "ragged": (3, 200, 4, 64, (200, 130, 0))}
+# The f32 kernels against their plain versions, per element |got - want| <=
+# TOL_F32_FLASH * max|want| (o, dQ, dK, dV) and |lse - lse_ref| <=
+# TOL_F32_LSE: both compute exact f32 products and f32 sums, in another
+# order (the kernel in 64-key tiles with an online softmax, the plain
+# version in one pass), ~1e-7 of the largest element over up to 768 keys
+# (a CPU emulation of the kernels measured 2e-7 on o and 1.2e-7 on the
+# gradients). A dropped key, a bf16 rounding or a wrong p moves them by
+# 1e-3 or more. Masked keys' dK and dV and fully-masked rows' dQ and o are
+# exactly 0.
+TOL_F32_FLASH = 1e-5
+TOL_F32_LSE = 1e-5
 
 # K1 as (windows, frames a window padded to the 256-frame blocks, valid
 # frames) on the trainers' paths: the x-vector trainer's batch of 64 4 s

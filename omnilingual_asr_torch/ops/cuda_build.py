@@ -169,6 +169,12 @@ _SIGNATURES = {
     # q, k, v, mask, dO, lse, delta, dk, dv, B, T, H, D, scale, stream
     "omni_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _F, _P],
+    # the f32 variants (csrc/attention_f32.cu), the same arguments
+    "omni_flash_fwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "omni_flash_bwd_dq_f32": [_P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _F, _P],
+    "omni_flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _F, _P],
     # x, mask, ln_s, ln_b, pw1, dw, dwln_s, dwln_b, pw2, scratch, out, B,
     # T, D, K, stream
     "omni_conv_module": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -29,6 +29,7 @@ import torch
 from ..audio.frontend import (dft_matrices, hann_window, mel_filterbank,
                               preemphasis)
 from ..config import FrontendConfig
+from ..device import resolve_device
 from . import cuda_build
 
 #: Frames are padded to a multiple of this, as the reference pads them for
@@ -95,9 +96,11 @@ def twiddle_table(n_fft: int) -> np.ndarray:
     return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
 
 
-def mel_plan(cw, sw, fb, device="cpu") -> MelPlan:
+def mel_plan(cw, sw, fb, device=None) -> MelPlan:
     """Derive and check the FFT kernel's plan from the dense constants
-    (numpy arrays, or tensors, which are read back to the host once).
+    (numpy arrays, or tensors, which are read back to the host once), on
+    ``device`` (the card when None, which raises without one; ``"cpu"``
+    for the CPU).
 
     Raises unless cw and sw are the windowed DFT of the window in their
     first column (cos 0 = 1) with zero padding bins, and fb is zero on the
@@ -130,6 +133,7 @@ def mel_plan(cw, sw, fb, device="cpu") -> MelPlan:
             else (0, 0)
         bands.append((lo, cnt, off))
         off += cnt
+    device = resolve_device(device)
     return MelPlan(torch.from_numpy(win[:n_win].copy()).to(device),
                    torch.from_numpy(twiddle_table(n_fft)).to(device),
                    torch.tensor(bands, dtype=torch.int32, device=device), off)
@@ -259,16 +263,18 @@ log_mel_frames.launches = 0
 
 
 class MelFrontend:
-    """Holds the mel constants on a device and cuts frames from samples.
+    """Holds the mel constants on a device (the card when ``device`` is
+    None, which raises without one; ``"cpu"`` for the CPU) and cuts frames
+    from samples.
 
     Frames are cut at length n_fft (not win_length); the zero tail of the
     folded window kills the extra samples, so the result equals
     window-then-zero-pad.
     """
 
-    def __init__(self, cfg: FrontendConfig, device="cpu"):
+    def __init__(self, cfg: FrontendConfig, device=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         cw, sw, fb = build_mel_constants(cfg)
         self.cw = torch.from_numpy(cw).to(self.device)
         self.sw = torch.from_numpy(sw).to(self.device)

@@ -18,6 +18,7 @@ from typing import List
 import torch
 
 from ..config import PipelineConfig
+from ..device import exact_f32
 from ..models.conformer import compute_dtype, conformer_block_apply
 from .mesh import Mesh, ppermute, psum, replicate, ring_perm, to_device
 
@@ -75,6 +76,7 @@ def pipeline_forward(stacked, x_mb: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"{L} blocks do not split into {S} stages")
     per = L // S
     dtype = compute_dtype(cfg.encoder)
+    exact_f32(devices)
     stages = [_to(_slice(stacked, s * per, (s + 1) * per), d)
               for s, d in enumerate(devices)]
     consts = [tuple(replicate(t, [d])[0] for t in (x_mb, mask, cos, sin))

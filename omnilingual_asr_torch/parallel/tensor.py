@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..models import layers as L
-from ..models.moe import expert_combine, load_balance, route
+from ..models.moe import expert_combine, route, routing_sums
 from ..ops.attention import FlashAttention
 from ..ops.conv_module import (layernorm_from_moments, merge_moments,
                                moments)
@@ -350,7 +350,10 @@ def tp_moe_dense(ps, xs):
     """Dense-dispatch mixture of experts with the experts split over the
     shards: the replicated router on each shard, each shard's experts over
     every token, the partial combines summed (exact: a token's partials
-    are zero but on its expert's shard). Returns (xs, aux)."""
+    are zero but on its expert's shard). Returns (xs, the routing's
+    ``models.moe.routing_sums`` over these rows, from shard 0's router),
+    from which the load-balance term of one row or of a whole batch
+    follows."""
     hs = per_copy(lambda x, p: L.layernorm_apply(p["ln"], x), xs, ps)
     routed = per_copy(lambda h, p: route(p, h), hs, ps)
     e_local = ps[0]["w1"].shape[0]
@@ -358,8 +361,8 @@ def tp_moe_dense(ps, xs):
              for m, (p, h, (_, top, gate)) in enumerate(zip(ps, hs, routed))]
     ys = psum(parts)
     probs, top, _ = routed[0]
-    return per_copy(lambda x, y: x + 0.5 * y, xs, ys), load_balance(probs,
-                                                                    top)
+    return (per_copy(lambda x, y: x + 0.5 * y, xs, ys),
+            routing_sums(probs, top))
 
 
 def tp_moe_alltoall(ps, xs, capacity_factor: float) -> List[torch.Tensor]:

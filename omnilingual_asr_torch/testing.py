@@ -62,6 +62,7 @@ GOLDEN_WAV = TESTDATA / "golden.wav"
 GOLDEN_JSON = TESTDATA / "golden.json"
 GOLDEN_DECODERS_JSON = TESTDATA / "golden_decoders.json"
 GOLDEN_SEQUENCE_JSON = TESTDATA / "golden_sequence.json"
+GOLDEN_F32_JSON = TESTDATA / "golden_f32.json"
 GOLDEN_D512_JSON = TESTDATA / "golden_d512_crop.json"
 GOLDEN_D512_FEED = TESTDATA / "golden_d512_crop_topk.npz"
 GOLDEN_EVALS_JSON = TESTDATA / "golden_evals.json"
@@ -223,6 +224,14 @@ def load_golden_sequence() -> dict:
     device), its greedy ids over the file's frames (one list) and its tone
     mass."""
     return json.loads(GOLDEN_SEQUENCE_JSON.read_text())
+
+
+def load_golden_f32() -> dict:
+    """The JAX engine's result with the release weights and the f32
+    encoder (``encoder.dtype="float32"``), window mode: on the golden file
+    (result, greedy ids, tone mass) and, under ``"tiled"``, on the golden
+    audio tiled to 120 s (the same keys)."""
+    return json.loads(GOLDEN_F32_JSON.read_text())
 
 
 def load_golden_d512() -> dict:

@@ -35,7 +35,7 @@ import torch
 from ..config import PipelineConfig
 from ..parallel.mesh import Mesh
 from .step import (Optimizer, OptState, counted_grads, decode_wire,
-                   make_optimizer, make_train_step)
+                   make_optimizer, make_train_step, training_device)
 
 __all__ = ["build_pool", "make_pool_train_step", "encode_wire"]
 
@@ -113,7 +113,7 @@ def augment_samples(x: torch.Tensor, n_valid: torch.Tensor,
     return torch.clamp(x + noise * valid, -1.0, 1.0)
 
 
-def make_pool_train_step(cfg: PipelineConfig, device="cpu",
+def make_pool_train_step(cfg: PipelineConfig, device=None,
                          tx: Optional[Optimizer] = None,
                          augment=None,
                          with_translator: bool = False,
@@ -122,7 +122,9 @@ def make_pool_train_step(cfg: PipelineConfig, device="cpu",
                          gain_range: Tuple[float, float] = (0.7, 1.3),
                          dropout: bool = False):
     """Returns ``(init_state, pool_step, refresh_pool, loss_and_grads)``,
-    on one device or over a (data, model) mesh when ``device`` is a
+    on one device (the card when ``device`` is None, which raises without
+    one; ``"cpu"`` for the CPU) or over a (data, model) mesh when
+    ``device`` is a
     ``parallel.mesh.Mesh``: the pool then lives on shard (0, 0)'s device
     (the reference replicates it; a row's entries read from one copy are
     the same), the step's rows and draws are gathered and drawn there, and
@@ -148,7 +150,7 @@ def make_pool_train_step(cfg: PipelineConfig, device="cpu",
         with_translator=with_translator, dropout=dropout)
     if isinstance(device, Mesh):
         device = device.devices[0, 0]
-    device = torch.device(device)
+    device = training_device(device)
 
     def gathered(pool, idx, step: int, scalars, draws=None):
         n_valid = pool["n_samples"].index_select(0, idx)

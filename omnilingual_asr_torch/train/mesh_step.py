@@ -35,8 +35,9 @@ from typing import Dict, List, Optional
 import torch
 
 from ..config import MeshConfig, PipelineConfig
+from ..device import exact_f32, resolve_device
 from ..models.conformer import (asr_init, asr_param_specs, check_tp_dims,
-                                mesh_asr_forward)
+                                mesh_asr_forward, mesh_moe_aux)
 from ..parallel import tensor as tp
 from ..parallel.mesh import Mesh, build_mesh, gather, replicate, scatter
 from ..parallel.tensor import MeshParams
@@ -52,8 +53,6 @@ def training_mesh(mcfg: MeshConfig, device) -> Optional[Mesh]:
     every visible CUDA device, as the reference's ``build_mesh`` spans
     ``jax.devices()`` (``data=-1``: all the rest); an explicit device
     (``"cpu"``, ``"cuda:0"``) holds every shard, one after another."""
-    from ..engine import resolve_device
-
     dev = resolve_device(device)
     visible = ([torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
@@ -130,16 +129,17 @@ def global_loss(p0, batch: Dict, cfg: PipelineConfig, rows: List[Dict]):
     """The rows' outputs gathered onto shard (0, 0)'s device, then the
     one-device ``loss_fn`` over the whole batch: CTC per label token over
     the batch's tokens, the pooled CEs as means over the batch, the frame
-    CEs over the batch's valid frames, the translation CE over its mask.
-    ``p0``: shard (0, 0)'s ASR tree (the speaker leaves it reads are
-    replicated). -> (total, metrics)."""
+    CEs over the batch's valid frames, the translation CE over its mask,
+    and with experts the load-balance term over every frame of the batch
+    (``mesh_moe_aux``). ``p0``: shard (0, 0)'s ASR tree (the speaker
+    leaves it reads are replicated). -> (total, metrics)."""
     from .step import loss_fn
 
     dev = p0["spk_aam"].device
     out = {k: gather([o[k] for o in rows], dim=0, device=dev)
            for k in _OUT_KEYS + (("trans_logits",)
                                  if "trans_logits" in rows[0] else ())}
-    out["moe_aux"] = torch.zeros((), device=dev)
+    out["moe_aux"] = mesh_moe_aux(rows, dev)
     return loss_fn(p0, batch, cfg, out=out)
 
 
@@ -156,6 +156,7 @@ def make_mesh_train_step(cfg: PipelineConfig, mesh: Mesh, tx,
     from .step import _AUG_SALT, _DROPOUT_SALT, TrainState
 
     check_tp_dims(cfg, mesh.devices.shape[1])
+    exact_f32(mesh.distinct_devices())
     specs = train_specs(cfg, with_translator)
     dev0 = mesh.devices[0, 0]
     frontends = {}
@@ -232,6 +233,7 @@ def make_mesh_pretrain_step(cfg: PipelineConfig, mesh: Mesh, pcfg, tx,
                            step_draws)
 
     check_tp_dims(cfg, mesh.devices.shape[1])
+    exact_f32(mesh.distinct_devices())
     specs = pretrain_param_specs(cfg)
     dev0 = mesh.devices[0, 0]
     firsts = _row_devices(mesh)
@@ -262,7 +264,10 @@ def make_mesh_pretrain_step(cfg: PipelineConfig, mesh: Mesh, pcfg, tx,
                 shards = params.grid[r]
                 devices = [g["head"]["w"].device for g in shards]
                 xs = replicate(o["encoder_states"], devices)
-                cols = tp.column_dense([g["head"] for g in shards], xs)
+                # bf16, as the reference's head (its dense_apply default)
+                # at either encoder dtype.
+                cols = tp.column_dense([g["head"] for g in shards], xs,
+                                       torch.bfloat16)
                 out.append(gather(cols, dim=-1, device=firsts[r]))
             return gather(out, dim=0, device=dev0)
         return logits_of

@@ -37,7 +37,7 @@ from ..models.conformer import (asr_forward, asr_init, subsample_frames,
                                 subsampled_mask)
 from ..parallel.mesh import Mesh
 from .step import (Optimizer, OptState, make_optimizer, mel_from_samples,
-                   tree_leaves, tree_map)
+                   training_device, tree_leaves, tree_map)
 
 #: Generator seed of a step's span starts and noise: the step plus this
 #: salt (the reference folds the step into PRNGKey(0)).
@@ -160,13 +160,14 @@ def step_draws(step: int, B: int, T: int, cfg: PipelineConfig,
     return starts, noise
 
 
-def make_pretrain_step(cfg: PipelineConfig, device="cpu",
+def make_pretrain_step(cfg: PipelineConfig, device=None,
                        pcfg: PretrainConfig = PretrainConfig(),
                        tx: Optional[Optimizer] = None,
                        from_samples: bool = False):
     """Returns ``(init_state, pretrain_step, loss_and_grads)`` on one
-    device, or over a (data, model) mesh when ``device`` is a
-    ``parallel.mesh.Mesh`` (``train/mesh_step.py``: the parameters a
+    device (the card when ``device`` is None, which raises without one;
+    ``"cpu"`` for the CPU), or over a (data, model) mesh when ``device`` is
+    a ``parallel.mesh.Mesh`` (``train/mesh_step.py``: the parameters a
     ``MeshParams`` placed by ``pretrain_param_specs``, the head split over
     its codes; the same functions otherwise).
 
@@ -186,7 +187,7 @@ def make_pretrain_step(cfg: PipelineConfig, device="cpu",
         from .mesh_step import make_mesh_pretrain_step
 
         return make_mesh_pretrain_step(cfg, device, pcfg, tx, from_samples)
-    device = torch.device(device)
+    device = training_device(device)
     frontend = None
     if from_samples:
         from ..ops.mel import MelFrontend

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..device import exact_f32, resolve_device
 from ..models.conformer import asr_forward, asr_init, pooled_speaker_embed
 from ..ops.ctc import ctc_loss, infeasible_rows
 
@@ -417,14 +418,11 @@ def ctc_rows(batch, cfg: PipelineConfig) -> np.ndarray:
 
 def training_device(device) -> torch.device:
     """A trainer's device: CUDA unless the caller asks for the CPU
-    (``engine.resolve_device``), with TF32 off on the card, so that f32
-    products (the quantizer's code similarities, the mel) stay f32."""
-    from ..engine import resolve_device
-
+    (``device.resolve_device``: None is the card, and raises without
+    one), with TF32 off on the card, so that f32 products (an f32
+    encoder's, the quantizer's code similarities, the mel) stay f32."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    exact_f32([dev])
     return dev
 
 
@@ -456,14 +454,15 @@ def mel_from_samples(batch, frontend):
     return out
 
 
-def make_train_step(cfg: PipelineConfig, device="cpu",
+def make_train_step(cfg: PipelineConfig, device=None,
                     tx: Optional[Optimizer] = None,
                     from_samples: bool = False,
                     augment: Optional["SpecAugmentConfig"] = None,
                     with_translator: bool = False,
                     dropout: bool = False):
-    """Returns ``(init_state, train_step, loss_and_grads)`` on one device,
-    or over a (data, model) mesh when ``device`` is a
+    """Returns ``(init_state, train_step, loss_and_grads)`` on one device
+    (``device``: the card when None, which raises without one; ``"cpu"``
+    for the CPU), or over a (data, model) mesh when ``device`` is a
     ``parallel.mesh.Mesh`` (``train/mesh_step.py``: the parameters a
     ``parallel.tensor.MeshParams``, the batch the global batch on shard
     (0, 0)'s device, one update equal to one device's).
@@ -487,7 +486,7 @@ def make_train_step(cfg: PipelineConfig, device="cpu",
 
         return make_mesh_train_step(cfg, device, tx, from_samples, augment,
                                     with_translator, dropout)
-    device = torch.device(device)
+    device = training_device(device)
     frontend = None
     if from_samples:
         from ..ops.mel import MelFrontend

@@ -145,7 +145,7 @@ class WindowEncoder(UtteranceEncoder):
     ``SummaryDecoder.pool_states``); the slots past the conversation are
     zero."""
 
-    def __init__(self, cfg: PipelineConfig, asr_params, device="cpu", *,
+    def __init__(self, cfg: PipelineConfig, asr_params, device=None, *,
                  window_seconds: float = 8.0, max_windows: int = POOL_SLOTS):
         super().__init__(cfg, asr_params, device,
                          window_seconds=window_seconds)
@@ -315,7 +315,7 @@ def train_summarizer(*, asr_ckpt: str, out_dir: str, steps: int = 4000,
     ``init_params`` (tests and ``chip_smoke.py``): a decoder tree to start
     from instead of ``translator_init(seed, n_layers=2)``. Returns (the
     saved tree, :class:`RunLog`)."""
-    from ..engine import resolve_device
+    from ..device import resolve_device
 
     dev = resolve_device(device)
     cfg = cfg or PipelineConfig()

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..config import MeshConfig, PipelineConfig, tiny_config
+from ..device import resolve_device
 from ..models.conformer import asr_forward
 from ..ops.attention import REFERENCE_BLOCK_Q
 from ..ops.ctc import collapse_ctc
@@ -166,15 +167,17 @@ def _ids_to_text(frame_ids: np.ndarray, vocab) -> str:
 
 class Evaluator:
     """Greedy-CTC WER/CER on fixed held-out sets (the synthetic eval set,
-    plus the held-out real windows where the reference recordings exist)."""
+    plus the held-out real windows where the reference recordings exist),
+    on ``device`` (the card when None, which raises without one; ``"cpu"``
+    for the CPU)."""
 
     def __init__(self, cfg: PipelineConfig, *, window_seconds: float,
                  n_synth: int = 48, batch: int = 8, frame_multiple: int = 0,
-                 device="cpu"):
+                 device=None):
         from ..ops.mel import MelFrontend
 
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         fe = cfg.frontend
         self.window_samples = int(window_seconds * fe.sample_rate)
         n_frames = fe.frames_for_samples(self.window_samples)
@@ -255,7 +258,6 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                 device=None):
     """Train; returns (params, best selection score). The knobs are the
     reference's. ``device``: CUDA unless "cpu" is asked for."""
-    from ..engine import resolve_device
     from .mesh_step import training_mesh
     from .step import whole_params
 

@@ -418,7 +418,7 @@ def train_translator(out_dir: str, *, steps: int = 4000,
     ``init_params`` (tests and ``chip_smoke.py``): a parameter tree to
     start from instead of ``text_translator_init(seed)``. Returns
     (best parameters, :class:`RunLog`)."""
-    from ..engine import resolve_device
+    from ..device import resolve_device
     from .synth import LEXICON_SIZE
 
     dev = resolve_device(device)

@@ -46,7 +46,7 @@ from ..models.translation import (GreedyDecoder, decoder_forward,
 from ..models.zoo import checkpoint_path, load_checkpoint, tree_to
 from ..ops.mel import MelFrontend
 from .step import (RunLog, make_translator_optimizer, masked_ce,
-                   train_update, trainable, tree_map)
+                   train_update, trainable, training_device, tree_map)
 
 MAX_TRANS_BYTES = 128
 WINDOW_SECONDS = 8.0
@@ -58,13 +58,15 @@ class UtteranceEncoder:
     """The frozen encoder: padded samples -> encoder states.
 
     :meth:`encode_batch` returns [B, T', D] states rounded to bf16 (the
-    reference's memory-bank dtype) and the [B, T'] validity mask (the
-    decoder's cross-attention mask), both on the device."""
+    reference's memory-bank dtype at either encoder dtype) and the [B, T']
+    validity mask (the decoder's cross-attention mask), both on the
+    device: the card when ``device`` is None (raising without one, TF32
+    off), ``"cpu"`` for the CPU."""
 
-    def __init__(self, cfg: PipelineConfig, asr_params, device="cpu", *,
+    def __init__(self, cfg: PipelineConfig, asr_params, device=None, *,
                  window_seconds: float = WINDOW_SECONDS):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = training_device(device)
         fe = cfg.frontend
         self.window_samples = int(window_seconds * fe.sample_rate)
         n_frames = fe.frames_for_samples(self.window_samples)
@@ -258,7 +260,7 @@ def train_translator(*, asr_ckpt: str, out_dir: str,
     ``init_params`` (tests and ``chip_smoke.py``): a parameter tree to
     start from instead of ``translator_init(seed)`` (``init_from`` wins).
     Returns (parameters, :class:`RunLog`)."""
-    from ..engine import resolve_device
+    from ..device import resolve_device
 
     dev = resolve_device(device)
     cfg = cfg or config_for_checkpoint(asr_ckpt)

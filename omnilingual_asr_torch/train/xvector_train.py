@@ -228,7 +228,7 @@ def train_xvector(*, steps: int, batch_size: int, lr: float = 1e-3,
     ``init_params`` (tests and ``chip_smoke.py``): a parameter tree to start
     from instead of ``xvector_init(seed)``. Returns (params, :class:`RunLog`).
     """
-    from ..engine import resolve_device
+    from ..device import resolve_device
 
     dev = resolve_device(device)
     cfg = PipelineConfig()

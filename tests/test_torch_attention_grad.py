@@ -247,7 +247,7 @@ def test_wrappers_pass_grads_through_their_plain_path():
             assert torch.equal(g, h)
 
     cfg = FrontendConfig()
-    fe = mel.MelFrontend(cfg)
+    fe = mel.MelFrontend(cfg, "cpu")
     frames = (0.1 * rng.standard_normal((8, cfg.n_fft))).astype(np.float32)
     check(mel.log_mel_frames, mel.log_mel_frames_plain, frames,
           extra=(fe.cw, fe.sw, fe.fb, cfg.log_floor))

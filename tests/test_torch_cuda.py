@@ -307,6 +307,67 @@ def test_flash_bwd_kernels_are_deterministic(dev, B, T, H, D, valid):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+@pytest.mark.parametrize("name", sorted(card_cases.F32_FLASH_SHAPES))
+def test_flash_f32_kernels_match_plain(dev, name):
+    """The f32 variants of K2, K6 and K7 against their plain versions at
+    the f32 encoder's shapes (card_cases.F32_FLASH_SHAPES, tolerances
+    there): each launches once, counted by its own f32 counter and by no
+    bf16 one; masked keys and fully-masked rows get exactly 0."""
+    B, T, H, D, valid = card_cases.F32_FLASH_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(T + D)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device=dev)
+                   for _ in range(4))
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(
+        valid, device=dev)[:, None]
+    fns = (attention.flash_attention_f32,
+           attention.flash_attention_bwd_dq_f32,
+           attention.flash_attention_bwd_dkv_f32, attention.flash_attention,
+           attention.flash_attention_bwd_dq,
+           attention.flash_attention_bwd_dkv)
+    before = [f.launches for f in fns]
+    o, lse = attention.flash_attention(q, k, v, mask)
+    o_ref, lse_ref = attention.flash_attention_plain(q, k, v, mask)
+    delta = attention.flash_delta(o_ref, do)
+    args = (q, k, v, mask, do, lse_ref, delta)
+    dq = attention.flash_attention_bwd_dq(*args)
+    dk, dv = attention.flash_attention_bwd_dkv(*args)
+    dq_ref = attention.flash_attention_bwd_dq_plain(*args)
+    dk_ref, dv_ref = attention.flash_attention_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 0, 0, 0]
+    for got, want in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.float32
+        err = float((got - want).abs().max())
+        assert err <= card_cases.TOL_F32_FLASH * float(want.abs().max())
+    live = lse_ref < 1e29
+    assert float((lse - lse_ref)[live].abs().max()) <= card_cases.TOL_F32_LSE
+    assert bool((lse[~live] == 1e30).all())
+    dead_row = ~mask.any(dim=1)
+    assert bool((o[dead_row] == 0).all()) and bool((dq[dead_row] == 0).all())
+    assert bool((dk[~mask] == 0).all()) and bool((dv[~mask] == 0).all())
+
+
+def test_flash_f32_function_grads_match_plain(dev):
+    """FlashAttention at f32 on the card (the f32 K2, K6, K7) against
+    autograd through the plain forward on the same inputs."""
+    B, T, H, D = 4, 256, 4, 64
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device=dev)
+                   for _ in range(4))
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(
+        [256, 100, 3, 0], device=dev)[:, None]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = attention.FlashAttention.apply(*leaves, mask)
+    o.backward(do)
+    o_ref, lse_ref = attention.flash_attention_plain(q, k, v, mask)
+    want = attention.flash_attention_bwd_plain(q, k, v, mask, o_ref,
+                                               lse_ref, do)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == torch.float32
+        err = float((leaf.grad - w).abs().max())
+        assert err <= card_cases.TOL_F32_FLASH * float(w.abs().max())
+
+
 def test_flash_attention_function_grads_match_plain(dev):
     """FlashAttention on the card (K2, K6, K7) against autograd through the
     plain forward in f32 on the same bf16 inputs; tolerance as above on
@@ -481,10 +542,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head dim"):
         attention.flash_attention(q, q, q, torch.ones(1, 64, dtype=torch.bool,
                                                       device=dev))
-    q = torch.zeros(1, 64, 2, 64, dtype=torch.float32, device=dev)
+    # bf16 and f32 take the kernels (f32: their f32 variants); f16 none.
+    q = torch.zeros(1, 64, 2, 64, dtype=torch.float16, device=dev)
     with pytest.raises(TypeError):
         attention.flash_attention(q, q, q, torch.ones(1, 64, dtype=torch.bool,
                                                       device=dev))
+    # The f32 kernels check each operand against f32.
+    q = torch.zeros(1, 64, 2, 64, dtype=torch.float32, device=dev)
+    with pytest.raises(TypeError):
+        attention.flash_attention_f32(q, q.bfloat16(), q, torch.ones(
+            1, 64, dtype=torch.bool, device=dev))
     D = conv_module.KERNEL_MAX_D + 64          # over the width limit
     x = torch.zeros(1, 32, D, device=dev)
     v = torch.zeros(D, device=dev)
@@ -955,3 +1022,32 @@ def test_trainer_update_on_card_equals_cpu(dev, name):
     assert abs(lc - lp) <= 1e-3 * abs(lp)
     for i, (a, b) in enumerate(zip(gc, gp)):
         assert float((a - b).norm()) <= 5e-2 * float(b.norm()) + 1e-12, i
+
+
+def test_entry_points_default_to_the_card(dev):
+    """Given no device, the compute entry points run on the card (the CPU
+    tests check that they raise without one): the train, pretrain and
+    pool steps' parameters, the log-mel frontend and its plan, the
+    held-out evaluator and the trainers' frozen encoders."""
+    from omnilingual_asr_torch.config import tiny_config
+    from omnilingual_asr_torch.models.conformer import asr_init
+    from omnilingual_asr_torch.train import (device_pool, pretrain, step,
+                                             summary_train, synth_train,
+                                             translator_train)
+
+    cfg = tiny_config()
+    params = asr_init(torch.Generator().manual_seed(0), cfg)
+    placed = [
+        step.tree_leaves(step.make_train_step(cfg)[0](0).params)[0],
+        step.tree_leaves(pretrain.make_pretrain_step(cfg)[0](0)[0])[0],
+        step.tree_leaves(
+            device_pool.make_pool_train_step(cfg)[0](0).params)[0],
+        mel.MelFrontend(cfg.frontend).cw,
+        mel.mel_plan(*mel.build_mel_constants(cfg.frontend)).window]
+    assert all(t.is_cuda for t in placed)
+    assert synth_train.Evaluator(cfg, window_seconds=2.0).device.type == \
+        "cuda"
+    for enc in (translator_train.UtteranceEncoder(cfg, params),
+                summary_train.WindowEncoder(cfg, params)):
+        assert enc.device.type == "cuda"
+        assert step.tree_leaves(enc.params)[0].is_cuda

@@ -71,7 +71,7 @@ def test_mel_of_each_wire_matches_jax(wire):
         mel_pallas.MelFrontend(jcfg.frontend, interpret=True))["mel"])
     got = step.mel_from_samples(
         {"samples": torch.from_numpy(enc), "mask": torch.from_numpy(mask)},
-        MelFrontend(PipelineConfig().frontend))
+        MelFrontend(PipelineConfig().frontend, "cpu"))
     assert "samples" not in got and got["mask"].shape == (2, T)
     got = got["mel"].numpy()
     assert got.shape == want.shape == (2, T, 128)

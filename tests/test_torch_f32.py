@@ -1,0 +1,404 @@
+"""PyTorch port: the f32 encoder (``EncoderConfig.dtype == "float32"``)
+against the JAX package on the CPU.
+
+The JAX kernels K2, K6 and K7 are generic in their input type: at f32 they
+compute every product in exact f32. The port sends f32 operands to its f32
+kernels on a card and to the same plain versions as bf16 on the CPU, so
+these tests hold the plain versions and the f32 model around them to the
+JAX package's f32 functions (its Pallas kernels in interpret mode). Inputs
+are drawn from seeds with numpy; each test states its tolerance. The
+kernels themselves are held to the plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 4m).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import wave
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from omnilingual_asr_tpu.config import MeshConfig as JaxMeshConfig
+from omnilingual_asr_tpu.config import tiny_config as jax_tiny_config
+from omnilingual_asr_tpu.models import conformer as jax_conformer
+from omnilingual_asr_tpu.ops import attention as jax_attention
+from omnilingual_asr_tpu.parallel.mesh import build_mesh as jax_build_mesh
+from omnilingual_asr_tpu.train import step as jax_step
+from omnilingual_asr_torch.config import MeshConfig, tiny_config
+from omnilingual_asr_torch.models import conformer, zoo
+from omnilingual_asr_torch.ops import attention
+from omnilingual_asr_torch.parallel.mesh import build_mesh
+from omnilingual_asr_torch.parallel.sequence import sp_conformer_forward
+from omnilingual_asr_torch.train import step
+
+torch.set_num_threads(2)
+
+CPU = torch.device("cpu")
+#: f32 attention against the JAX kernels at f32: both take exact f32
+#: products and an f32 softmax, in another order (the JAX kernel sums keys
+#: in blocks of 256, the plain version in one pass), so elements differ by
+#: a few f32 ulps of the largest term (measured 1.6e-7 to 5.2e-7 in a dozen
+#: runs; one early run, not reproduced since, read 3.3e-5 on the output).
+#: A dropped key or a bf16 rounding anywhere moves them by 1e-3 or more, so
+#: 1e-4 of each output's largest magnitude still tells them apart.
+REL_FLASH = 1e-4
+#: The whole f32 model against JAX's f32 model, max abs error over each
+#: output's largest magnitude. With the plain paths every product is f32 in
+#: both (measured 6e-7 to 1.0e-6 over two blocks: summation order); a bf16
+#: rounding left in a dense layer would show as ~1e-3. With the kernel
+#: flags, K3 computes its products in bf16 at either dtype (the reference's
+#: rule), so an f32 difference upstream can flip single bf16 roundings
+#: there, each a 2^-8 relative step of one term (measured 6.8e-4 to
+#: 8.4e-4).
+REL_F32_MODEL = 1e-4
+REL_K3_MODEL = 5e-3
+#: Gradients of the f32 kernel-mode forward: the attention path is exact
+#: f32 in both, K3's products bf16 in both, so only K3's rounding flips
+#: move a leaf (worst leaf measured 2.2e-3 relative L2; the bf16
+#: kernel-mode test of tests/test_torch_train.py allows 5e-2).
+GRAD_REL = 2e-2
+
+
+def _flash_inputs(B, T, H, D, valid, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal((B, T, H, D)).astype(np.float32)
+                   for _ in range(4))
+    mask = np.arange(T)[None, :] < np.asarray(valid)[:, None]
+    return q, k, v, do, mask
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-6))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_f32_forward_and_grads_match_jax(D):
+    """``FlashAttention`` at f32 (the plain versions of K2, K6, K7 on the
+    CPU) against JAX's ``flash_attention`` at f32 (Pallas, interpret mode)
+    and its custom VJP, at [2, 256, 2, D] with a ragged row: the output
+    and dq, dk, dv within REL_FLASH, in f32, masked keys' dk and dv
+    exactly 0."""
+    q, k, v, do, mask = _flash_inputs(2, 256, 2, D, [256, 100], seed=D)
+
+    def jloss(q_, k_, v_):
+        o = jax_attention.flash_attention(q_, k_, v_, jnp.asarray(mask),
+                                          interpret=True)
+        return jnp.sum(o * do), o
+
+    (_, want_o), want_g = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True))(q, k, v)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v))
+    o = attention.FlashAttention.apply(qt, kt, vt, torch.from_numpy(mask))
+    assert o.dtype == torch.float32
+    o.backward(torch.from_numpy(do))
+    assert _rel(o.detach().numpy(), want_o) <= REL_FLASH
+    for t, w in zip((qt, kt, vt), want_g):
+        assert t.grad.dtype == torch.float32
+        assert _rel(t.grad.numpy(), w) <= REL_FLASH
+    masked = ~torch.from_numpy(mask)
+    assert (kt.grad[masked] == 0).all() and (vt.grad[masked] == 0).all()
+
+
+def test_f32_wrappers_route_and_count():
+    """On the CPU the f32 wrappers take the plain versions and count no
+    launch; the dispatching wrappers hand f32 operands there too; the
+    emulated kernels model bf16 tensor cores and refuse f32."""
+    q, k, v, do, mask = (torch.from_numpy(x) for x in _flash_inputs(
+        1, 64, 1, 64, [40], seed=0))
+    fns = (attention.flash_attention, attention.flash_attention_f32,
+           attention.flash_attention_bwd_dq_f32,
+           attention.flash_attention_bwd_dkv_f32)
+    before = [f.launches for f in fns]
+    o, lse = attention.flash_attention_f32(q, k, v, mask)
+    o2, lse2 = attention.flash_attention(q, k, v, mask)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    delta = attention.flash_delta(o, do)
+    dq = attention.flash_attention_bwd_dq_f32(q, k, v, mask, do, lse, delta)
+    assert torch.equal(dq, attention.flash_attention_bwd_dq_plain(
+        q, k, v, mask, do, lse, delta))
+    attention.flash_attention_bwd_dkv_f32(q, k, v, mask, do, lse, delta)
+    assert [f.launches for f in fns] == before
+    with pytest.raises(TypeError, match="bf16"):
+        attention.flash_attention_emulated(q, k, v, mask)
+    with pytest.raises(TypeError, match="bf16"):
+        attention.flash_attention_bwd_emulated(q, k, v, mask, do, lse,
+                                               delta)
+
+
+def test_compute_dtype_names():
+    """bfloat16 and float32 are the ported compute dtypes; any other name
+    (float16, which no config of the repo uses) raises naming A14."""
+    enc = tiny_config().encoder
+    assert conformer.compute_dtype(enc) == torch.bfloat16
+    assert conformer.compute_dtype(dataclasses.replace(
+        enc, dtype="float32")) == torch.float32
+    with pytest.raises(NotImplementedError, match="A14"):
+        conformer.compute_dtype(dataclasses.replace(enc, dtype="float16"))
+
+
+def _f32_cfgs(kernels: bool):
+    """tiny_config() at f32 in both packages; the port's with the kernel
+    flags (their plain versions here) when ``kernels``."""
+    j = jax_tiny_config()
+    j = j.replace(encoder=dataclasses.replace(
+        j.encoder, dtype="float32", use_flash_attention=kernels,
+        use_fused_conv=kernels))
+    t = tiny_config()
+    t = t.replace(encoder=dataclasses.replace(
+        t.encoder, dtype="float32", use_flash_attention=kernels,
+        use_fused_conv=kernels))
+    return j, t
+
+
+def _mel(B, T, valid, seed):
+    rng = np.random.default_rng(seed)
+    mel = (rng.standard_normal((B, T, 128)) * 2.0 - 5.0).astype(np.float32)
+    return mel, np.arange(T)[None, :] < np.asarray(valid)[:, None]
+
+
+@pytest.mark.parametrize("kernels", [False, True],
+                         ids=["plain", "kernels"])
+def test_asr_forward_f32_matches_jax(kernels):
+    """``asr_forward`` at f32 on tiny_config against JAX's jitted f32
+    ``asr_forward`` on the same tree (B 3, T 1024, one row ragged, one
+    padded): every head within REL_F32_MODEL on the plain paths, within
+    REL_K3_MODEL with the kernel flags (K3's bf16 products); the mask
+    exactly."""
+    jcfg, cfg = _f32_cfgs(kernels)
+    jp = jax_conformer.asr_init(jax.random.PRNGKey(4), jcfg)
+    mel, mask = _mel(3, 1024, [1024, 601, 0], seed=5)
+    want = jax.jit(lambda p, m, k: jax_conformer.asr_forward(
+        p, m, k, jcfg, flash_interpret=True))(jp, mel, mask)
+    with torch.inference_mode():
+        got = conformer.asr_forward(zoo.params_from_jax(jp),
+                                    torch.from_numpy(mel),
+                                    torch.from_numpy(mask), cfg)
+    np.testing.assert_array_equal(got["mask"].numpy(),
+                                  np.asarray(want["mask"]))
+    rel = REL_K3_MODEL if kernels else REL_F32_MODEL
+    for key in ("ctc_logits", "lid_logits", "emotion_logits",
+                "speaker_frames", "speaker_embed", "encoder_states"):
+        # Padded rows: the plain path's uniform softmax over no valid key
+        # and the flash path's zeros agree in both packages.
+        err = _rel(got[key].numpy(), want[key])
+        assert err <= rel, f"{key}: {err:.3e}"
+
+
+def _flat(tree):
+    return {k: v.detach().float().numpy() for k, v in zoo.flatten(
+        tree).items()}
+
+
+def _flat_jax(tree):
+    return {jax.tree_util.keystr(p): np.asarray(x, np.float32)
+            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _rel_l2(got, want):
+    assert set(got) == set(want)
+    out = {}
+    for k in want:
+        nw = float(np.linalg.norm(want[k]))
+        d = float(np.linalg.norm(got[k] - want[k]))
+        out[k] = d / nw if nw > 0 else d
+    return out
+
+
+def test_kernel_mode_f32_grads_match_jax():
+    """The kernel-mode f32 forward's gradients (FlashAttention's backward:
+    the f32 K6/K7 path; K3's backward), B 2, T 1024, a ragged row, the loss
+    a fixed random projection of the CTC logits, speaker frames and
+    encoder states: the loss within 1e-5 of its terms' magnitudes and every
+    leaf's gradient within GRAD_REL relative L2 of JAX's (jitted
+    value_and_grad of its f32 ``asr_forward``, Pallas in interpret
+    mode)."""
+    jcfg, cfg = _f32_cfgs(True)
+    jp = jax_conformer.asr_init(jax.random.PRNGKey(3), jcfg)
+    mel, mask = _mel(2, 1024, [1024, 768], seed=1)
+    rng = np.random.default_rng(2)
+    proj = {k: rng.standard_normal(s).astype(np.float32) for k, s in (
+        ("ctc_logits", (2, 256, 512)), ("speaker_frames", (2, 256, 256)),
+        ("encoder_states", (2, 256, 128)))}
+
+    def jloss(p):
+        out = jax_conformer.asr_forward(p, jnp.asarray(mel),
+                                        jnp.asarray(mask), jcfg,
+                                        flash_interpret=True)
+        return sum(jnp.sum(out[k] * v) for k, v in proj.items())
+
+    want_loss, jg = jax.jit(jax.value_and_grad(jloss))(jp)
+    tp = step.tree_map(lambda t: t.requires_grad_(True),
+                       zoo.params_from_jax(jp))
+    out = conformer.asr_forward(tp, torch.from_numpy(mel),
+                                torch.from_numpy(mask), cfg)
+    terms = [out[k] * torch.from_numpy(v) for k, v in proj.items()]
+    loss = sum(t.sum() for t in terms)
+    loss.backward()
+    scale = float(sum(t.detach().abs().sum() for t in terms))
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * scale
+    got = {k: (np.zeros(tuple(v.shape), np.float32) if v.grad is None
+               else v.grad.numpy()) for k, v in zoo.flatten(tp).items()}
+    errs = _rel_l2(got, _flat_jax(jg))
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= GRAD_REL, (worst, errs[worst])
+
+
+def test_train_step_f32_matches_jax():
+    """One ``make_train_step`` update at f32 (the plain paths: the
+    reference's loss calls its kernels without interpret mode, so its
+    kernel-mode step runs only on a TPU) against the reference's
+    ``make_train_step`` at f32 on a one-device CPU mesh, from the same
+    parameters and batch (a ragged mask, one row without labels, every
+    supervised key): the loss within 1e-4 relative (f32 throughout, only
+    summation order differs) and every leaf's update (p - p0) within 1e-2
+    relative L2 of the reference's (Adam's first update is about
+    lr * sign(g): an element whose gradient is near 0 may take the other
+    sign; worst leaf measured 3.6e-3)."""
+    jcfg, cfg = _f32_cfgs(False)
+    jcfg = jcfg.replace(mesh=JaxMeshConfig(data=1, model=1))
+    rng = np.random.default_rng(7)
+    B, T, L = 2, 256, 10
+    b = {"mel": (rng.standard_normal((B, T, 128)) * 2.0 - 5.0).astype(
+             np.float32),
+         "mask": np.arange(T)[None, :] < np.array([T, 190])[:, None],
+         "labels": rng.integers(1, 257, (B, L)).astype(np.int32),
+         "label_mask": np.arange(L)[None, :] < np.array([L, 0])[:, None],
+         "lid_label": rng.integers(0, 2048, B).astype(np.int32),
+         "emotion_label": rng.integers(0, 4, B).astype(np.int32),
+         "speaker_label": rng.integers(0, 1024, B).astype(np.int32),
+         "char_frame_label": rng.integers(-1, 257, (B, T // 4)).astype(
+             np.int32)}
+    kw = dict(lr=1e-3, warmup_steps=0, decay_steps=10)
+    init, jstep = jax_step.make_train_step(
+        jcfg, jax_build_mesh(jcfg.mesh), tx=jax_step.make_optimizer(**kw),
+        batch_keys=tuple(b))
+    state = init(seed=0)
+    p0 = _flat_jax(state.params)
+    jp, _, _, jm = jstep(state.params, state.opt_state,
+                         {k: jnp.asarray(v) for k, v in b.items()},
+                         state.step)
+    tx = step.make_optimizer(**kw)
+    _, tstep, _ = step.make_train_step(cfg, "cpu", tx=tx)
+    tp = step.tree_map(lambda t: t.requires_grad_(True),
+                       zoo.params_from_jax(jax.device_get(state.params)))
+    tp, _, _, m = tstep(tp, tx.init(tp),
+                        {k: torch.from_numpy(v) for k, v in b.items()}, 0)
+    assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-4 * abs(
+        float(jm["loss"]))
+    want = {k: v - p0[k] for k, v in _flat_jax(jp).items()}
+    got = {k: v - p0[k] for k, v in _flat(tp).items()}
+    errs = _rel_l2(got, want)
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-2, (worst, errs[worst])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sequence_mode_matches_window_mode_f32(n):
+    """The port's sequence-parallel forward at f32 over n shards against
+    its dense one-device ``asr_forward`` on the whole sequence (the
+    counterpart of tests/test_sequence_parallel.py's f32 check, at its
+    tolerance: atol 5e-3 and rtol 5e-3 on the CTC logits), with a ragged
+    tail across shard edges."""
+    _, cfg = _f32_cfgs(False)
+    params = conformer.asr_init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    T = 512
+    mel = torch.from_numpy(rng.standard_normal((T, 128)).astype(np.float32))
+    mask = torch.arange(T) < 400
+    with torch.inference_mode():
+        want = conformer.asr_forward(params, mel[None], mask[None],
+                                     cfg)["ctc_logits"][0]
+        got = sp_conformer_forward(params, mel, mask, cfg, build_mesh(
+            MeshConfig(data=n), [CPU] * n))["ctc_logits"]
+    nv = 400 // cfg.encoder.subsample_factor
+    np.testing.assert_allclose(got[:nv].numpy(), want[:nv].numpy(),
+                               atol=5e-3, rtol=5e-3)
+
+
+@pytest.fixture(scope="module")
+def f32_engine_weights():
+    """tiny_config at f32, JAX-initialised (no x-vector: crop mode)."""
+    from omnilingual_asr_tpu.config import tiny_config as jax_tiny
+
+    jcfg = jax_tiny()
+    jcfg = jcfg.replace(encoder=dataclasses.replace(jcfg.encoder,
+                                                    dtype="float32"))
+    jp = jax_conformer.asr_init(jax.random.PRNGKey(0), jcfg)
+    return jcfg, jp, zoo.params_from_jax(jp)
+
+
+def _window_ids(engine, path):
+    samples = engine._load_audio(path)
+    windows = engine._windows(samples)
+    n_last = len(samples) - (len(windows) - 1) * engine.window_samples
+    return [np.asarray(o["ctc_ids"]).astype(int).tolist()
+            for outs in engine._forward_batches(windows, n_last)
+            for o in outs]
+
+
+@pytest.mark.parametrize("mode", ["window", "data_parallel", "crop"])
+def test_f32_engine_modes_match_jax(mode, f32_engine_weights, tmp_path):
+    """The port's engine with the f32 encoder against the JAX engine at
+    f32 on the same tiny weights, on the golden audio tiled to two
+    windows: window mode and data-parallel windows (a mesh of 2 CPU
+    shards, a window each) give the JAX engine's greedy ids on
+    MIN_CTC_AGREEMENT of the frames (measured: every id equal); crop
+    mode's re-embeddings are within
+    rel-L2 1e-4 of the JAX engine's (f32 in both; the bf16 engine's test
+    allows 1e-3) and its result equals the JAX result by
+    ``testing.result_mismatches``."""
+    from omnilingual_asr_tpu.config import MeshConfig as JaxMesh
+    from omnilingual_asr_tpu.engine import TranscriptionEngine as JaxEngine
+    from omnilingual_asr_tpu.parallel.mesh import build_mesh as jax_mesh
+    from omnilingual_asr_torch import testing
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+
+    jcfg, jp, tp = f32_engine_weights
+    _, cfg = _f32_cfgs(False)
+    path = tmp_path / "two_windows.wav"
+    pcm = np.frombuffer(testing.GOLDEN_WAV.read_bytes()[44:], "<i2")
+    two = np.zeros(int(30.0 * 16000) + len(pcm), np.int16)
+    two[:len(pcm)] = pcm
+    two[int(30.0 * 16000):] = pcm
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(two.tobytes())
+    jeng = JaxEngine(config=jcfg, params=jp, batch_windows_per_device=2,
+                     mesh=jax_mesh(JaxMesh(data=1), devices=jax.devices()[:1]))
+    kw = {"batch_windows_per_device": 2}
+    if mode == "data_parallel":
+        kw = {"batch_windows_per_device": 1,
+              "mesh": build_mesh(MeshConfig(data=2), [CPU] * 2)}
+    else:
+        kw["device"] = "cpu"
+    port = TranscriptionEngine(config=cfg, params=tp, **kw)
+    assert jeng.speaker_mode == port.speaker_mode == "crop"
+    if mode != "crop":
+        agree = testing.ctc_agreement(_window_ids(jeng, path),
+                                      _window_ids(port, path))
+        assert agree >= testing.MIN_CTC_AGREEMENT, agree
+        return
+    samples = jeng._load_audio(path)
+    samples_windows = jeng._windows(samples)
+    n_last = len(samples) - (len(samples_windows) - 1) * jeng.window_samples
+    outs = [o for b in jeng._forward_batches(samples_windows, n_last)
+            for o in b]
+    decoded = jeng._extract_windows(outs)[0]
+    want = jeng._segment_crop_embeds(samples, decoded)
+    got = port._segment_crop_embeds(samples, decoded)
+    rel = (np.linalg.norm(got - want, axis=1)
+           / np.linalg.norm(want, axis=1))
+    assert rel.max() <= 1e-4, rel.max()
+    w = dataclasses.asdict(jeng.transcribe(path))
+    g = port.transcribe(path).to_dict()
+    assert testing.result_mismatches(
+        w, g, tone_mass=testing.tone_mass(jeng, path)) == []

@@ -51,7 +51,7 @@ def test_framing_equals_jax(n):
     x = _signal(n)
     jfe = mel_pallas.MelFrontend(JaxFrontendConfig(), interpret=True)
     want, want_n = jfe.frames_from_signal(x)
-    tfe = mel.MelFrontend(FrontendConfig())
+    tfe = mel.MelFrontend(FrontendConfig(), "cpu")
     got, got_n = tfe.frames_from_signal(torch.from_numpy(x))
     assert got_n == want_n
     assert tuple(got.shape) == tuple(want.shape)
@@ -63,7 +63,7 @@ def test_batched_framing_restarts_preemphasis_per_row():
     """Each window is its own signal: pre-emphasis restarts at its first
     sample, as the JAX engine's vmap over windows does."""
     x = np.stack([_signal(4000, 1), _signal(4000, 2)])
-    tfe = mel.MelFrontend(FrontendConfig())
+    tfe = mel.MelFrontend(FrontendConfig(), "cpu")
     both, _ = tfe.frames_from_signal(torch.from_numpy(x))
     for i in range(2):
         one, _ = tfe.frames_from_signal(torch.from_numpy(x[i]))
@@ -84,7 +84,7 @@ def test_k1_plain_matches_pallas_kernel(n_frames):
     cfg = FrontendConfig()
     jc = JaxFrontendConfig()
     x = _signal(160 * n_frames + 1024, seed=3)
-    tfe = mel.MelFrontend(cfg)
+    tfe = mel.MelFrontend(cfg, "cpu")
     frames, _ = tfe.frames_from_signal(torch.from_numpy(x))
     frames = frames[:n_frames].contiguous()
     cw, sw, fb = mel_pallas.build_mel_constants(jc)
@@ -110,7 +110,7 @@ def test_k1_plain_matches_mel_frontend():
     x = _signal(32_000, seed=4)
     want = np.asarray(mel_pallas.MelFrontend(JaxFrontendConfig(),
                                              interpret=True)(x))
-    got = mel.MelFrontend(FrontendConfig())(torch.from_numpy(x)).numpy()
+    got = mel.MelFrontend(FrontendConfig(), "cpu")(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape
     lin_w, lin_g = np.exp(want), np.exp(got)
     peak = lin_w.max(axis=1, keepdims=True)
@@ -122,7 +122,7 @@ def test_k1_plain_matches_mel_frontend():
 def test_k1_wrapper_counts_only_kernel_launches():
     """On a CPU tensor the wrapper runs the plain version and counts
     nothing: the counter is of kernel launches."""
-    tfe = mel.MelFrontend(FrontendConfig())
+    tfe = mel.MelFrontend(FrontendConfig(), "cpu")
     before = mel.log_mel_frames.launches
     tfe.log_mel(torch.zeros(1, 256, 1024))
     assert mel.log_mel_frames.launches == before
@@ -142,8 +142,8 @@ def test_k1_fft_emulation_matches_pallas_kernel():
     cfg = FrontendConfig()
     jc = JaxFrontendConfig()
     cw, sw, fb = mel_pallas.build_mel_constants(jc)
-    tfe = mel.MelFrontend(cfg)
-    plan = mel.mel_plan(tfe.cw, tfe.sw, tfe.fb)
+    tfe = mel.MelFrontend(cfg, "cpu")
+    plan = mel.mel_plan(tfe.cw, tfe.sw, tfe.fb, "cpu")
     rng = np.random.default_rng(5)
     noise = (0.1 * rng.standard_normal((512, cfg.n_fft))).astype(np.float32)
     x = _signal(160 * 512 + 1024, seed=6)
@@ -177,7 +177,7 @@ def test_mel_plan_reads_the_constants():
     DFT are refused."""
     cfg = FrontendConfig()
     cw, sw, fb = mel.build_mel_constants(cfg)
-    plan = mel.mel_plan(cw, sw, fb)
+    plan = mel.mel_plan(cw, sw, fb, "cpu")
     np.testing.assert_array_equal(plan.window.numpy(),
                                   frontend.hann_window(cfg.win_length))
     t = np.arange(cfg.n_fft)
@@ -192,6 +192,6 @@ def test_mel_plan_reads_the_constants():
         off += cnt
     assert plan.n_weights == off <= mel.KERNEL_MAX_WEIGHTS
     with pytest.raises(ValueError, match="windowed DFT"):
-        mel.mel_plan(cw * 1.01, sw, fb)
+        mel.mel_plan(cw * 1.01, sw, fb, "cpu")
     with pytest.raises(ValueError, match="windowed DFT"):
-        mel.mel_plan(cw, np.roll(sw, 1, axis=0), fb)
+        mel.mel_plan(cw, np.roll(sw, 1, axis=0), fb, "cpu")

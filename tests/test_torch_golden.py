@@ -29,6 +29,11 @@ ids over the file's frames and its tone mass; the port's CPU engine in
 sequence mode, on one shard and on two, is held to it, and
 ``chip_smoke.py`` holds the card's to it.
 
+``golden_f32.json`` is the JAX engine's result with the release weights
+and the f32 encoder (``encoder.dtype="float32"``) in window mode, on the
+golden file and on the golden audio tiled to 120 s; the port's CPU engine
+at f32 is held to it, and ``chip_smoke.py`` phase 4m holds the card's.
+
 ``golden_evals.json`` (with ``golden_evals_ids.npz``) holds the JAX
 package's evaluation drivers with the release weights: ``eval_synth``'s 96
 files at 10 s windows, ``eval_heads``' 64 files and 8 conversations with
@@ -40,7 +45,7 @@ the port's drivers to that subset.
 
 Regenerate the files with ``JAX_PLATFORMS=cpu OMNIASR_RELEASE_DIR=
 python tests/test_torch_golden.py`` (or name some of ``plain a8 w8
-decoders sequence d512_crop evals`` to regenerate only those; ``evals`` takes
+decoders sequence f32 d512_crop evals`` to regenerate only those; ``evals`` takes
 ~21 min on a CPU, almost all of it eval_heads with both decoders).
 """
 
@@ -111,7 +116,7 @@ def tiled_pcm(pcm: np.ndarray, seconds: float) -> np.ndarray:
     return np.resize(pcm, int(seconds * 16_000))
 
 
-def jax_engine(quantize=False, engine_cls=None, **kwargs):
+def jax_engine(quantize=False, engine_cls=None, dtype=None, **kwargs):
     import jax
     from omnilingual_asr_tpu.config import MeshConfig, PipelineConfig
     from omnilingual_asr_tpu.engine import TranscriptionEngine
@@ -122,6 +127,9 @@ def jax_engine(quantize=False, engine_cls=None, **kwargs):
     cfg = PipelineConfig.from_json(
         (RELEASE / "config.json").read_text(),
         checkpoint_path=str(RELEASE / "asr.npz"))
+    if dtype is not None:
+        cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                      dtype=dtype))
     kwargs.setdefault("batch_windows_per_device", 4)
     return TranscriptionEngine(
         config=cfg, xvector_path=str(RELEASE / "xvector.npz"),
@@ -147,6 +155,29 @@ def jax_golden(path: Path, quantize=False) -> dict:
     return {"result": dataclasses.asdict(res),
             "ctc_ids": greedy_ids(eng, path),
             "tone_mass": golden.tone_mass(eng, path)}
+
+
+#: The tiled file of the f32 fixture (chip_smoke.py's TILED_SECONDS).
+F32_TILED_SECONDS = 120.0
+
+
+def jax_golden_f32(path: Path, tiled: Path) -> dict:
+    """The JAX engine at f32 on the golden file and on its 120 s tiling."""
+    eng = jax_engine(dtype="float32")
+
+    def one(p: Path) -> dict:
+        return {"result": dataclasses.asdict(eng.transcribe(p)),
+                "ctc_ids": greedy_ids(eng, p),
+                "tone_mass": golden.tone_mass(eng, p)}
+
+    return {**one(path), "tiled": one(tiled)}
+
+
+def write_tiled(path: Path, seconds: float) -> Path:
+    """The golden audio tiled to ``seconds`` beside ``path``."""
+    out = path.with_name(f"golden_tiled_{int(seconds)}s.wav")
+    out.write_bytes(wav_bytes(tiled_pcm(golden_samples(), seconds)))
+    return out
 
 
 def sequence_ids(engine, path: Path):
@@ -567,6 +598,47 @@ def test_tone_tie_rule():
 
 
 # ---------------------------------------------------------------------------
+# The f32 encoder: the JAX engine's encoder.dtype="float32" results
+# ---------------------------------------------------------------------------
+
+def test_golden_f32_json_is_current(regenerated):
+    """golden_f32.json equals a fresh JAX run at f32 (the golden file and
+    its 120 s tiling) by the port's criterion."""
+    path, _ = regenerated
+    stored = golden.load_golden_f32()
+    fresh = jax_golden_f32(path, write_tiled(path, F32_TILED_SECONDS))
+    _assert_current(stored, fresh)
+    _assert_current(stored["tiled"], fresh["tiled"])
+
+
+def test_port_cpu_matches_golden_f32(tmp_path):
+    """The port's CPU engine with the f32 encoder against the JAX engine's
+    f32 results: on the golden file the result by
+    ``testing.result_mismatches`` and the greedy ids on
+    MIN_CTC_AGREEMENT; on its 120 s tiling the ids on MIN_CTC_AGREEMENT.
+    The tiling's result is not held exactly: one of its 3000 frames is a
+    tie at f32 (top two CTC logits 1.1e-5 apart in the port, where the
+    bf16 model's are 1.2e-2 apart), whose flip changes one segment's
+    text."""
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+
+    cfg = _release_port_config()
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
+                                                  dtype="float32"))
+    eng = TranscriptionEngine(config=cfg, device="cpu",
+                              xvector_path=str(RELEASE / "xvector.npz"))
+    stored = golden.load_golden_f32()
+    res = eng.transcribe(golden.GOLDEN_WAV).to_dict()
+    assert golden.result_mismatches(stored["result"], res,
+                                    tone_mass=stored["tone_mass"]) == []
+    tiled = write_tiled(tmp_path / "golden.wav", F32_TILED_SECONDS)
+    for want, path in ((stored, golden.GOLDEN_WAV),
+                       (stored["tiled"], tiled)):
+        assert golden.ctc_agreement(want["ctc_ids"],
+                                    greedy_ids(eng, path)) >= \
+            golden.MIN_CTC_AGREEMENT
+
+
 # Int8 serving: the JAX engine's quantize="a8" / "w8" results
 # ---------------------------------------------------------------------------
 
@@ -1072,8 +1144,8 @@ def test_golden_evals_long_criterion_admits_the_reference_under_noise():
                for a in perturbed)
 
 
-FIXTURES = ("plain", "a8", "w8", "decoders", "sequence", "d512_crop",
-            "evals")
+FIXTURES = ("plain", "a8", "w8", "decoders", "sequence", "f32",
+            "d512_crop", "evals")
 
 
 def main(argv=None) -> None:
@@ -1098,6 +1170,12 @@ def main(argv=None) -> None:
         elif name == "sequence":
             data = jax_golden_sequence(golden.GOLDEN_WAV)
             out = golden.GOLDEN_SEQUENCE_JSON
+        elif name == "f32":
+            with tempfile.TemporaryDirectory() as d:
+                tiled = write_tiled(Path(d) / "golden.wav",
+                                    F32_TILED_SECONDS)
+                data = jax_golden_f32(golden.GOLDEN_WAV, tiled)
+            out = golden.GOLDEN_F32_JSON
         elif name == "evals":
             with tempfile.TemporaryDirectory() as d:
                 data, ids = jax_golden_evals(Path(d))

@@ -215,3 +215,24 @@ def test_cli_flags_and_defaults_equal_jax(monkeypatch):
         signal.signal(signal.SIGTERM, old)
     assert got.pop("--device") is None
     assert got == want
+
+
+def test_cli_train_takes_experts_over_the_model_axis(manifest, tmp_path):
+    """``cli.train`` (the manifest trainer behind ``--mesh-model``) with a
+    mixture of experts (tiny_config with 2 experts) over two model shards
+    of the CPU: the experts split by expert, one step, and the saved tree
+    has every expert whole."""
+    import dataclasses
+
+    from omnilingual_asr_torch.config import MeshConfig as PortMeshConfig
+
+    cfg = tiny_config()
+    cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder, n_experts=2),
+                      mesh=PortMeshConfig(data=1, model=2))
+    ck = tmp_path / "moe.npz"
+    cli.train(str(manifest), steps=1, batch_size=2, cfg=cfg,
+              window_seconds=1.0, ckpt=str(ck), device="cpu")
+    got = zoo.flatten(zoo.load_checkpoint(ck, cfg))
+    w1 = got["['blocks'][0]['ffn2']['w1']"]
+    assert tuple(w1.shape) == (2, 128, 512)
+    assert all(bool(torch.isfinite(v).all()) for v in got.values())

@@ -387,6 +387,117 @@ def test_mesh_gradients_match_jax_gspmd(shape, translator, jinit):
 
 
 # ---------------------------------------------------------------------------
+# 3. A mixture of experts over the mesh
+# ---------------------------------------------------------------------------
+
+N_EXPERTS = 4
+MOE_MESHES = [(2, 1), (1, 2), (2, 2)]
+
+
+def _moe_cfgs(fused: bool = True, dtype: str = "bfloat16"):
+    """_cfgs() with 4 experts in each block's second FFN (and ``dtype``)."""
+    j, t = _cfgs(fused)
+    j = j.replace(encoder=dataclasses.replace(
+        j.encoder, n_experts=N_EXPERTS, dtype=dtype))
+    t = t.replace(encoder=dataclasses.replace(
+        t.encoder, n_experts=N_EXPERTS, dtype=dtype))
+    return j, t
+
+
+@pytest.fixture(scope="module")
+def moe_init():
+    """The JAX init of the MoE tree (4 heads, 4 experts) with the
+    translator, as numpy."""
+    j, _ = _moe_cfgs()
+    p = {"asr": jax_conformer.asr_init(jax.random.PRNGKey(5), j),
+         "translator": jax_translation.translator_init(
+             jax.random.PRNGKey(6), j)}
+    return jax.tree.map(np.asarray, p)
+
+
+def _moe_grads(cfg, params, batch, where, translator: bool = True):
+    """(metrics, whole-leaf gradients) of one step's ``loss_and_grads`` on
+    one device (``where`` a device) or over a mesh."""
+    if not translator:
+        params = params["asr"]
+    init, _, lg = step.make_train_step(cfg, where,
+                                       tx=step.make_optimizer(**OPT),
+                                       with_translator=translator)
+    if isinstance(where, pm.Mesh):
+        mp = init.place(params)
+        m, g = lg(mp, batch, 3)
+        return m, mp.merge(g)
+    p = step.trainable(zoo.params_from_jax(params), where)
+    m, g = lg(p, batch, 3)
+    return m, [torch.zeros_like(x) if a is None else a
+               for a, x in zip(g, step.tree_leaves(p))]
+
+
+@pytest.fixture(scope="module")
+def moe_one_device(moe_init):
+    """The one-device MoE step (kernel flags on, their plain versions)."""
+    _, cfg = _moe_cfgs()
+    batch = _port_batch(_host_batch(4), cfg)
+    return cfg, batch, _moe_grads(cfg, moe_init, batch, CPU)
+
+
+@pytest.mark.parametrize("shape", MOE_MESHES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_moe_mesh_step_equals_one_device(shape, moe_init, moe_one_device):
+    """``make_train_step`` with 4 experts over the mesh (the experts split
+    by expert over the model shards, dense dispatch, the router and the
+    MoE LayerNorm replicated) against the same step on one device: the
+    loss within MESH_LOSS_REL, ``moe_aux`` (the load-balance term over
+    every frame of the global batch, from the rows' routing sums) within
+    1e-4 relative (measured under 1e-6), every leaf's gradient within
+    MESH_GRAD_REL."""
+    cfg, batch, (m1, g1) = moe_one_device
+    m, g = _moe_grads(cfg, moe_init, batch, _mesh(shape))
+    assert abs(float(m["loss"]) - float(m1["loss"])) <= \
+        testing.MESH_LOSS_REL * abs(float(m1["loss"]))
+    assert abs(float(m["moe_aux"]) - float(m1["moe_aux"])) <= \
+        1e-4 * float(m1["moe_aux"])
+    errs = _rel_errs(g, g1)
+    assert max(errs) <= testing.MESH_GRAD_REL, max(errs)
+
+
+def test_moe_mesh_step_equals_one_device_in_f32(moe_init):
+    """The f32 encoder with experts at (2, 2) (the plain layers, no
+    translator, whose decoder computes in bf16 at either encoder dtype):
+    every product f32, so the gradients equal one device's up to the f32
+    order of sums (MESH_F32_GRAD_REL; measured 6.7e-6), the experts' and
+    the router's included, and ``moe_aux`` within 1e-6 relative. The batch
+    is ``test_mesh_step_equals_one_device_in_f32``'s. (On _host_batch(5)
+    the speaker head's leaves measure 2.3e-4 at model 2: the forward's
+    outputs agree within 4e-7 there and every other leaf within 1e-5, so
+    the AAM speaker term alone magnifies the f32 order of sums on that
+    batch; without it the worst leaf is 6.5e-6.)"""
+    _, cfg = _moe_cfgs(fused=False, dtype="float32")
+    batch = _port_batch(_host_batch(1, translator=False), cfg)
+    m1, g1 = _moe_grads(cfg, moe_init, batch, CPU, translator=False)
+    m, g = _moe_grads(cfg, moe_init, batch, _mesh((2, 2)), translator=False)
+    assert abs(float(m["moe_aux"]) - float(m1["moe_aux"])) <= \
+        1e-6 * float(m1["moe_aux"])
+    assert max(_rel_errs(g, g1)) <= testing.MESH_F32_GRAD_REL
+
+
+def test_moe_aux_is_not_a_mean_of_rows(moe_init):
+    """The load-balance term is not linear in the batch: at (2, 1) the
+    mean of the two rows' own terms misses the global term by more than
+    the 1e-4 the mesh is held to, so the mesh comparison would catch a
+    per-row aux (measured 1.2e-3 on this batch)."""
+    _, cfg = _moe_cfgs(fused=False)
+    batch = _port_batch(_host_batch(5), cfg)
+    mp = step.make_train_step(cfg, _mesh((2, 1)), with_translator=True)[
+        0].place(moe_init)
+    with torch.no_grad():
+        rows = mesh_step.mesh_outputs(mp, batch, cfg, True)
+    whole = float(conformer.mesh_moe_aux(rows, CPU))
+    mean = float(sum(o["moe_aux"] for o in rows)) / len(rows)
+    assert abs(mean - whole) > 5e-4 * whole, (mean, whole)
+
+
+# ---------------------------------------------------------------------------
 # 4. Checkpoints, the mesh's resolution, refusals
 # ---------------------------------------------------------------------------
 
@@ -452,7 +563,10 @@ def test_training_mesh_resolution_and_refusals():
     """``training_mesh``: one shard is the one-device step (None); an
     explicit device holds every shard; a batch that does not split over
     the data rows and a model axis that does not divide the heads raise;
-    experts over a mesh raise naming A10."""
+    a mixture of experts trains over a mesh (here at (2, 1): a finite
+    loss and its load-balance term), and experts that the model axis does
+    not divide raise ValueError (the reference's ``device_put`` refuses
+    them too: ``tests/test_torch_mesh_train_gspmd.py``)."""
     assert mesh_step.training_mesh(MeshConfig(), "cpu") is None
     m = mesh_step.training_mesh(MeshConfig(data=-1, model=2), "cpu")
     assert m.shape == {"data": 1, "model": 2}
@@ -471,6 +585,29 @@ def test_training_mesh_resolution_and_refusals():
         step.make_train_step(tiny_config(), _mesh((1, 4)))
     moe = cfg.replace(encoder=dataclasses.replace(cfg.encoder, n_experts=2))
     init, _, lg = step.make_train_step(moe, _mesh((2, 1)))
-    with pytest.raises(NotImplementedError, match="A10"):
-        lg(init(0).params, _port_batch(_host_batch(translator=False), cfg),
-           0)
+    metrics, grads = lg(init(0).params, _port_batch(
+        _host_batch(translator=False), cfg), 0)
+    assert np.isfinite(float(metrics["loss"]))
+    assert 0.5 < float(metrics["moe_aux"]) < 2.0 * moe.encoder.n_layers
+    assert all(g is not None and bool(torch.isfinite(g).all())
+               for g in grads)
+    with pytest.raises(ValueError, match="n_experts"):
+        step.make_train_step(moe, _mesh((1, 4)))
+
+
+def test_train_synth_trains_experts_over_a_mesh():
+    """``train_synth`` (``synth_train --mesh-data 2 --mesh-model 2``) with
+    a mixture of 4 experts over a (2, 2) mesh of CPU shards: two steps,
+    the experts placed a block of 2 a model shard, the router and the MoE
+    LayerNorm one copy on the CPU, finite parameters after the updates."""
+    _, cfg = _moe_cfgs(fused=False)
+    cfg = cfg.replace(mesh=MeshConfig(data=2, model=2))
+    params, _ = synth_train.train_synth(
+        steps=2, batch_size=4, cfg=cfg, window_seconds=1.0, log_every=1,
+        eval_every=1000, device="cpu")
+    assert isinstance(params, MeshParams)
+    ffn2 = params.grid[1][1]["asr"]["blocks"][0]["ffn2"]
+    assert ffn2["w1"].shape[0] == N_EXPERTS // 2
+    assert ffn2["router"]["w"] is params.grid[0][0]["asr"]["blocks"][0][
+        "ffn2"]["router"]["w"]
+    assert all(bool(torch.isfinite(x).all()) for x in params.leaves)

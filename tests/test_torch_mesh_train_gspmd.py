@@ -8,6 +8,8 @@ The helpers, the batch and the criteria are ``test_torch_mesh_train``'s.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -211,3 +213,54 @@ def test_pretrain_update_over_mesh_matches_jax(shape):
         [torch.from_numpy(np.array(x)) for x in step.tree_leaves(host)],
         kw["lr"])
     assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# 4. A mixture of experts over the mesh against JAX
+# ---------------------------------------------------------------------------
+
+def test_moe_mesh_step_matches_jax_gspmd():
+    """One ``make_train_step`` update with 4 experts over a (2, 2) mesh
+    (the experts split by expert over the model shards, dense dispatch)
+    against the reference's ``make_train_step`` over the same mesh (GSPMD
+    with the experts placed ``P("model", ...)``), from the same parameters
+    and batch: the loss, its ``moe_aux`` term included, within 1e-3
+    relative, ``moe_aux`` within 1e-4 relative, and the update by
+    ``_update_mismatches``. A model axis that does not divide the experts
+    raises ValueError in both packages."""
+    from test_torch_mesh_train import _moe_cfgs
+
+    j, cfg = _moe_cfgs()
+    jcfg, jmesh = _jax_mesh(j, (2, 2))
+    hb = _host_batch(4, translator=False)
+    kw = dict(lr=1e-3, warmup_steps=0, decay_steps=10)
+    jinit_s, jstep = jax_step.make_train_step(
+        jcfg, jmesh, tx=jax_step.make_optimizer(**kw),
+        batch_keys=tuple(hb) + tuple(SCALARS))
+    state = jinit_s(seed=0)
+    host = jax.tree.map(np.asarray, state.params)
+    jb = {k: jnp.asarray(v) for k, v in hb.items()}
+    jb.update({k: jnp.float32(v) for k, v in SCALARS.items()})
+    jp, _, _, jm = jstep(state.params, state.opt_state, jb, state.step)
+    tx = step.make_optimizer(**kw)
+    init, mstep, _ = step.make_train_step(cfg, _mesh((2, 2)), tx=tx)
+    mp = init.place(host)
+    _, _, _, m = mstep(mp, tx.init(mp.leaves), _port_batch(hb, cfg), 0)
+    assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-3 * abs(
+        float(jm["loss"]))
+    assert abs(float(m["moe_aux"]) - float(jm["moe_aux"])) <= 1e-4 * float(
+        jm["moe_aux"])
+    bad = _update_mismatches(
+        mp.merge([x.detach() for x in mp.leaves]),
+        [torch.from_numpy(np.array(x)) for x in
+         step.tree_leaves(jax.tree.map(np.asarray, jp))],
+        [torch.from_numpy(np.array(x)) for x in step.tree_leaves(host)],
+        kw["lr"])
+    assert not bad, bad
+    j2 = j.replace(encoder=dataclasses.replace(j.encoder, n_experts=2))
+    j2cfg, j2mesh = _jax_mesh(j2, (1, 4))
+    with pytest.raises(ValueError, match="divisible"):
+        jax_step.make_train_step(j2cfg, j2mesh)[0](seed=0)
+    c2 = cfg.replace(encoder=dataclasses.replace(cfg.encoder, n_experts=2))
+    with pytest.raises(ValueError, match="n_experts"):
+        step.make_train_step(c2, _mesh((1, 4)))

@@ -651,3 +651,38 @@ def test_unported_training_options_raise(tmp_path):
                                 device="cpu", resume_from=str(tmp_path))
     for kw in ({"english_sentence_p": 0.5}, {"bake_mode": True}):
         synth.SynthBatcher(cfg, batch_size=2, n_threads=1, **kw).close()
+
+
+def _entry_points():
+    from omnilingual_asr_torch.ops import mel
+    from omnilingual_asr_torch.train import (device_pool, pretrain,
+                                             summary_train, translator_train)
+
+    cfg = tiny_config()
+    params = conformer.asr_init(torch.Generator().manual_seed(0), cfg)
+    consts = mel.build_mel_constants(cfg.frontend)
+    return {
+        "make_train_step": lambda: step.make_train_step(cfg),
+        "make_pretrain_step": lambda: pretrain.make_pretrain_step(cfg),
+        "make_pool_train_step": lambda: device_pool.make_pool_train_step(cfg),
+        "MelFrontend": lambda: mel.MelFrontend(cfg.frontend),
+        "mel_plan": lambda: mel.mel_plan(*consts),
+        "Evaluator": lambda: synth_train.Evaluator(cfg, window_seconds=2.0),
+        "UtteranceEncoder": lambda: translator_train.UtteranceEncoder(
+            cfg, params),
+        "WindowEncoder": lambda: summary_train.WindowEncoder(cfg, params),
+    }
+
+
+@pytest.mark.parametrize("name", ["make_train_step", "make_pretrain_step",
+                                  "make_pool_train_step", "MelFrontend",
+                                  "mel_plan", "Evaluator",
+                                  "UtteranceEncoder", "WindowEncoder"])
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """Each compute entry point that names no device runs on the card, as
+    the engine does: without one (``torch.cuda.is_available()`` False, as
+    here) it raises a RuntimeError naming device='cpu' instead of running
+    on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
