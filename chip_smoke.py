@@ -47,13 +47,16 @@ with no result line:
              the o and lse they read held to the plain forward), and the
              f32 variants of K2, K6 and K7 (the f32 encoder's, at
              ``card_cases.F32_FLASH_SHAPES``; SDPA at f32 their
-             yardstick), on seeded inputs with masked rows, each held against its plain
+             yardstick; K6 and K7 on 3xTF32 ``mma.sync``, bound at three
+             TF32 products a product, the f32 FMA-rate bound beside it),
+             on seeded inputs with masked rows, each held against its plain
              PyTorch version, and timed beside its plain version, a PyTorch
              yardstick where one exists, and the card's bound. Times are
              device times: 20 calls captured back to back in a CUDA graph,
              replayed between CUDA events (``call_ms`` adds one eager
-             call's time, host launch included). K3's, K4's and K5's
-             entries carry their kernels' registers; their previous
+             call's time, host launch included). K3's, K4's, K5's and
+             the f32 K6's and K7's entries carry their kernels'
+             registers; K3's, K4's and K5's previous
              design's recorded times (RECORDED_EARLIER_MS, not measured
              here) follow on a line of their own.
 4. e2e     - ``TranscriptionEngine`` on the card with the release weights
@@ -328,10 +331,10 @@ EVAL_WINDOW_SECONDS = 10.0  # eval.synth's windows (1024 frames, T' 256)
 TRAIN_VALID_KEYS = [256] * 12 + [200, 77, 1, 0]
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W): f32 on
-# the CUDA cores, bf16 and int8 on the tensor cores, and HBM3 bandwidth. The
-# SXM part names itself "NVIDIA H100 80GB HBM3".
+# the CUDA cores, bf16, int8 and tf32 on the tensor cores, and HBM3
+# bandwidth. The SXM part names itself "NVIDIA H100 80GB HBM3".
 H100_SXM_PEAKS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12,
-                  "bytes": 3.35e12}
+                  "tf32": 495e12, "bytes": 3.35e12}
 
 # Tolerances of each kernel against its plain version on the same inputs.
 TOL_K1 = 1e-3   # log-mel, abs: both are f32; the sums run in another order
@@ -864,8 +867,11 @@ def _f32_flash_case(dev, peaks, B, T, H, D, valid, seed):
     """The f32 variants of K2, K6 and K7 on one shape against their plain
     versions (``card_cases.TOL_F32_FLASH`` / ``TOL_F32_LSE``; masked keys
     and fully-masked rows exactly 0), each timed beside its plain version,
-    SDPA at f32 (the forward for K2, its backward for the pair) and the
-    bound at the f32 CUDA-core rate. Returns (K2, K6, K7) entries."""
+    SDPA at f32 (the forward for K2, its backward for the pair) and its
+    bound: K2's at the f32 CUDA-core rate; K6's and K7's at the rate their
+    design uses, three TF32 tensor-core products a product (3xTF32), with
+    the f32 FMA-rate bound of the earlier design beside it under
+    ``bound_fma_ms``. Returns (K2, K6, K7) entries."""
     import torch
     import torch.nn.functional as F
     from omnilingual_asr_torch.ops import attention as A
@@ -936,8 +942,10 @@ def _f32_flash_case(dev, peaks, B, T, H, D, valid, seed):
     m32 = mask.to(torch.int32)
     io = nbytes(q, k, v, do, m32, lse, delta)
     b2 = bound({"f32": 4 * work}, nbytes(q, k, v, m32, o, lse), peaks)
-    b6 = bound({"f32": 6 * work}, io + nbytes(dq), peaks)
-    b7 = bound({"f32": 8 * work}, io + nbytes(dk, dv), peaks)
+    b6 = bound({"tf32": 3 * 6 * work}, io + nbytes(dq), peaks)
+    b7 = bound({"tf32": 3 * 8 * work}, io + nbytes(dk, dv), peaks)
+    fma6 = bound({"f32": 6 * work}, io + nbytes(dq), peaks)[0]
+    fma7 = bound({"f32": 8 * work}, io + nbytes(dk, dv), peaks)[0]
     shape = f"q/k/v [{B}, {T}, {H}, {D}] f32, valid keys {valid}"
     tol = f"{TOL_F32_FLASH} max|ref| per element"
     k2 = {"D": D, "max_abs_err": errs["o"], "lse_max_abs_err": lse_err,
@@ -953,7 +961,8 @@ def _f32_flash_case(dev, peaks, B, T, H, D, valid, seed):
           "ms": time_ms(lambda: A.flash_attention_bwd_dq_f32(*args)),
           "call_ms": call_ms(lambda: A.flash_attention_bwd_dq_f32(*args)),
           "plain_ms": time_ms(lambda: A.flash_attention_bwd_dq_plain(*args)),
-          "bound_ms": b6[0], "bound_by": b6[1], "library_ms": bwd_lib,
+          "bound_ms": b6[0], "bound_by": b6[1], "bound_fma_ms": fma6,
+          "library_ms": bwd_lib,
           "library": "SDPA backward at f32 (dQ, dK, dV together), forward "
                      "outside the timed region",
           "shape": shape, "gflop": 6 * work / 1e9}
@@ -962,16 +971,28 @@ def _f32_flash_case(dev, peaks, B, T, H, D, valid, seed):
           "call_ms": call_ms(lambda: A.flash_attention_bwd_dkv_f32(*args)),
           "plain_ms": time_ms(lambda: A.flash_attention_bwd_dkv_plain(
               *args)),
-          "bound_ms": b7[0], "bound_by": b7[1], "library_ms": None,
-          "shape": shape, "gflop": 8 * work / 1e9}
+          "bound_ms": b7[0], "bound_by": b7[1], "bound_fma_ms": fma7,
+          "library_ms": None, "shape": shape, "gflop": 8 * work / 1e9}
     return k2, k6, k7
 
 
-def check_flash_f32(dev, peaks):
+# The designs of the f32 kernels (csrc/attention_f32.cu), and the bound
+# each entry's bound_ms reckons at.
+F32_DESIGNS = {
+    "flash_attention_fwd_f32": ("f32 FMAs on the CUDA cores", "ops at 67 "
+                                "TFLOP/s f32 or bytes at 3.35 TB/s"),
+    "flash_attention_bwd_dq_f32": ("3xTF32 mma.sync", "3 x ops at 495 "
+                                   "TFLOP/s tf32 or bytes at 3.35 TB/s"),
+    "flash_attention_bwd_dkv_f32": ("3xTF32 mma.sync", "3 x ops at 495 "
+                                    "TFLOP/s tf32 or bytes at 3.35 TB/s")}
+
+
+def check_flash_f32(dev, peaks, ptxas):
     """The f32 variants of K2, K6 and K7 (``csrc/attention_f32.cu``, the
     f32 encoder's attention) at ``card_cases.F32_FLASH_SHAPES``: K2's
     entry at the release's f32 serving batch, K6's and K7's at the f32
-    training step's shape, every shape under "head_dims"."""
+    training step's shape, every shape under "head_dims"; K6's and K7's
+    with their registers and spills."""
     from omnilingual_asr_torch.ops.card_cases import F32_FLASH_SHAPES
 
     cases = {}
@@ -984,11 +1005,19 @@ def check_flash_f32(dev, peaks):
             ("flash_attention_fwd_f32", 34, "serving"),
             ("flash_attention_bwd_dq_f32", 79, "training"),
             ("flash_attention_bwd_dkv_f32", 110, "training"))):
+        design, bound_at = F32_DESIGNS[name]
+        kernel = {"flash_attention_bwd_dq_f32": "flash_bwd_dq_tf32_kernel",
+                  "flash_attention_bwd_dkv_f32": "flash_bwd_dkv_tf32_kernel"
+                  }.get(name)
         out.append({"name": name, "route": "cuda",
                     "source": "omnilingual_asr_torch/csrc/attention_f32.cu",
                     "replaces": f"omnilingual_asr_tpu/ops/attention.py:{line}",
+                    "design": design, "bound_at": bound_at,
                     **cases[main][i],
-                    "head_dims": [c[i] for c in cases.values()]})
+                    "head_dims": [c[i] for c in cases.values()],
+                    **({"ptxas": {k: v for k, v in ptxas.items()
+                                  if k.startswith(kernel)}} if kernel
+                       else {})})
     return out
 
 
@@ -5450,13 +5479,17 @@ def main(argv=None) -> int:
                    check_k3(dev, peaks, cfg, params, ptxas),
                    *check_quant(dev, peaks, params, ptxas),
                    *check_flash_bwd(dev, peaks, PipelineConfig()),
-                   *check_flash_f32(dev, peaks)]
+                   *check_flash_f32(dev, peaks, ptxas)]
         for k in kernels:
             log(f"  {k['name']}: max abs err {k['max_abs_err']:.3e} (tol "
                 f"{k['tol']}), {k['ms']:.4f} ms (one eager call "
                 f"{k['call_ms']:.4f} ms), plain {k['plain_ms']:.4f} ms, "
                 f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms "
                 f"({k['bound_by']}), {k['shape']}")
+            extra = {x: k[x] for x in ("design", "bound_at", "bound_fma_ms",
+                                       "ptxas") if x in k}
+            if extra:
+                log(f"    {json.dumps(extra)}")
             for w in (k.get("widths", []) + k.get("head_dims", [])
                       + k.get("shapes", [])):
                 log(f"    {json.dumps(w)}")
@@ -5565,7 +5598,8 @@ def main(argv=None) -> int:
                 "launches_by_path": by_path,
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+                "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                **({"design": k["design"]} if "design" in k else {})})
         log(f"[report] total {time.perf_counter() - t_start:.2f} s")
         print(json.dumps(line), flush=True)
         print(nvidia_smi_line(), flush=True)

@@ -101,11 +101,21 @@ __device__ __forceinline__ void zero(float (*acc)[4]) {
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 }
 
-// K6. Blocks an SM the register budget must allow: four at D 64 keep the
-// training shape's 512 blocks in one wave, three at D 128 the 384 of
-// [4, 768, 8, 128].
+// Blocks an SM that each kernel's register budget must allow, by head
+// dim (python -m omnilingual_asr_torch.ops.flash_bwd_sweep times others).
+// K6: four at D 64 keep the training shape's 512 blocks in one wave,
+// three at D 128 the 384 of [4, 768, 8, 128]. K7: four at D 64; two at
+// D 128, where K and V fragments and the dK and dV accumulators alone
+// take 192 registers.
+constexpr int DQ_MIN_BLOCKS_64 = 4;
+constexpr int DQ_MIN_BLOCKS_128 = 3;
+constexpr int DKV_MIN_BLOCKS_64 = 4;
+constexpr int DKV_MIN_BLOCKS_128 = 2;
+
+// K6.
 template <int D>
-__global__ void __launch_bounds__(THREADS, D == 128 ? 3 : 4)
+__global__ void __launch_bounds__(
+    THREADS, D == 128 ? DQ_MIN_BLOCKS_128 : DQ_MIN_BLOCKS_64)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ mask,
                     const bf16* __restrict__ dout,
@@ -210,11 +220,10 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 row0, T, lane);
 }
 
-// K7. Blocks an SM: four at D 64 (the training shape's 512 blocks in one
-// wave); two at D 128, where K and V fragments and the dK and dV
-// accumulators alone take 192 registers.
+// K7.
 template <int D>
-__global__ void __launch_bounds__(THREADS, D == 128 ? 2 : 4)
+__global__ void __launch_bounds__(
+    THREADS, D == 128 ? DKV_MIN_BLOCKS_128 : DKV_MIN_BLOCKS_64)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ mask,
                      const bf16* __restrict__ dout,

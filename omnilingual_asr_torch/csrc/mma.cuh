@@ -1,10 +1,11 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a): asynchronous
 // global -> shared copies (cp.async), shared -> register fragment loads
 // (ldmatrix) and the bf16 m16n8k16 matrix product with f32 accumulation
-// (mma.sync), bf16 and int8. Used by the flash-attention kernels (K2,
-// attention.cu; K6 and K7, attention_bwd.cu) through flash.cuh, by the
-// conv module (K3, conv_module.cu) and by the W8A16 and W8A8 matmuls (K4,
-// K5, quant.cu).
+// (mma.sync), bf16 and int8, and the tf32 m16n8k8 product with its
+// 3xTF32 split. Used by the flash-attention kernels (K2, attention.cu; K6
+// and K7, attention_bwd.cu) through flash.cuh, by the f32 K6 and K7
+// (attention_f32.cu), by the conv module (K3, conv_module.cu) and by the
+// W8A16 and W8A8 matmuls (K4, K5, quant.cu).
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
 //   A 16x16 bf16, 4 x b32: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same),
@@ -175,6 +176,59 @@ __device__ __forceinline__ void split_a_frag(float (*c)[4], uint32_t hi[4],
   split_bf16(c[0][2], c[0][3], &hi[1], &lo[1]);
   split_bf16(c[1][0], c[1][1], &hi[2], &lo[2]);
   split_bf16(c[1][2], c[1][3], &hi[3], &lo[3]);
+}
+
+// f32 -> tf32, rounded to nearest with ties away from zero, as an f32 bit
+// pattern with its 13 low mantissa bits cleared: cvt.rna.tf32.f32's
+// rounding, by two integer operations (cvt.rna compiles to four: it also
+// guards Inf and NaN, which no operand here holds).
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to ~22 significant bits (3xTF32): hi = tf32(x) and
+// lo = tf32(x - hi), where x - hi is exact in f32. a b is then taken as
+// a_hi b_lo + a_lo b_hi + a_hi b_hi: every tf32 product is exact in f32,
+// and the dropped a_lo b_lo and the roundings of lo are ~2^-22 of |a b|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
+}
+
+// c += a b for a 16x8 tf32 A, an 8x8 tf32 B, f32 C. Fragments of
+// mma.sync.m16n8k8.row.col with tf32 operands (lane = 4 g + t):
+//   A 4 x b32: a0 (row g, col t), a1 (row g+8, col t), a2 (row g,
+//              col t+4), a3 (row g+8, col t+4)
+//   B 2 x b32: b0 (row t, col g), b1 (row t+4, col g)
+//   C 4 x f32: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8, same)
+// Unlike bf16's, C's columns are not A's, so a C fragment feeds a next
+// product as A only with its contraction index permuted (attention_f32.cu).
+// The f32 sum of the 8 products and c is not rounded to nearest: the
+// tensor cores truncate, so a long chain of products into one c drifts
+// by an ulp of c a product (attention_f32.cu sums each short chain into
+// a zeroed c and adds that to its accumulator in f32).
+__device__ __forceinline__ void mma_tf32_1688(float c[4], const uint32_t a[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b (c = 0) for the same fragments.
+__device__ __forceinline__ void mma_tf32_1688_zero(float d[4],
+                                                   const uint32_t a[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
 }
 
 }  // namespace omni

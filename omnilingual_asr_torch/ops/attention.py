@@ -14,9 +14,11 @@ Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors. The Pallas kernels are generic in their input
 type, so each entry point dispatches on q's dtype: bf16 to the tensor-core
 kernels (``csrc/attention.cu``, ``csrc/attention_bwd.cu``), f32 (the f32
-encoder, ``EncoderConfig.dtype == "float32"``) to their f32 variants on
-the CUDA cores (``csrc/attention_f32.cu``: ``flash_attention_f32``,
-``flash_attention_bwd_dq_f32``, ``flash_attention_bwd_dkv_f32``). Each
+encoder, ``EncoderConfig.dtype == "float32"``) to their f32 variants
+(``csrc/attention_f32.cu``: ``flash_attention_f32`` on the CUDA cores,
+``flash_attention_bwd_dq_f32`` and ``flash_attention_bwd_dkv_f32`` on TF32
+tensor cores, three products a product; their arithmetic in plain PyTorch:
+``flash_attention_bwd_tf32_emulated``). Each
 kernel keeps its own launch count, so a count says which dtype ran. Layouts follow the caller: q, k, v, o, dO [B, T, H, D], mask
 [B, T], lse and delta [B, H, T]. :class:`FlashAttention` is the
 differentiable entry point that the model calls.
@@ -76,7 +78,7 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
     hi + lo (``split_p``, hi = bf16(p), lo = bf16(p - hi), two products, as
     the kernel does) or as hi alone. The running sum takes the f32 p.
     Same arguments and results as :func:`flash_attention_plain`; bf16
-    operands only (the f32 kernels round nothing)."""
+    operands only (the f32 forward rounds nothing)."""
     _bf16_only(q)
     B, T, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
@@ -196,6 +198,57 @@ def flash_attention_bwd_emulated(q, k, v, mask, do, lse, delta,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest tf32 value (10 mantissa bits; ties away from
+    zero), as an f32 tensor: ``cvt.rna.tf32.f32`` with the 13 low bits
+    cleared, by bit operations on an int32 view (finite values)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int):
+    """einsum(eq, a, b) as the f32 K6 and K7 take it: a = a_hi + a_lo,
+    b = b_hi + b_lo (hi = tf32(x), lo = tf32(x - hi)), summed as
+    a_hi b_lo + a_lo b_hi + a_hi b_hi (``terms`` 3) or a_hi b_hi alone
+    (``terms`` 1: one TF32 product)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    out = torch.einsum(eq, ah, bh)
+    if terms == 3:
+        small = (torch.einsum(eq, ah, tf32_round(b - bh))
+                 + torch.einsum(eq, tf32_round(a - ah), bh))
+        out = small + out
+    elif terms != 1:
+        raise ValueError(f"terms must be 3 or 1, got {terms}")
+    return out
+
+
+def flash_attention_bwd_tf32_emulated(q, k, v, mask, do, lse, delta,
+                                      terms: int = 3):
+    """The f32 kernels K6 and K7's arithmetic (``csrc/attention_f32.cu``)
+    in plain PyTorch, to show on the CPU what their TF32 tensor-core
+    products do to the gradients: each of the five products (S = Q K^T,
+    dP = dO V^T, dQ = dS K, dV = P^T dO, dK = dS^T Q) from operands
+    rounded to tf32 and split as hi + lo, three products summed in f32
+    (:func:`_tf32x3`; ``terms=1`` keeps only hi hi). The kernels' order of
+    sums and the tensor cores' truncation inside a product are not
+    modelled. Same arguments and results as
+    :func:`flash_attention_bwd_dq_plain` and
+    :func:`flash_attention_bwd_dkv_plain` together: (dq, dk, dv), f32
+    operands only."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"the TF32 emulation models the f32 kernels; got "
+                        f"{q.dtype} operands")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _tf32x3("bthd,bshd->bhts", q, k, terms) * scale
+    p = torch.exp(s - lse[..., None]) * mask.to(torch.bool)[:, None, None, :]
+    dp = _tf32x3("bthd,bshd->bhts", do, v, terms)
+    ds = p * (dp - delta[..., None])
+    dq = _tf32x3("bhts,bshd->bthd", ds, k, terms) * scale
+    dk = _tf32x3("bhts,bthd->bshd", ds, q, terms) * scale
+    dv = _tf32x3("bhts,bthd->bshd", p, do, terms)
+    return dq, dk, dv
+
+
 def flash_attention_bwd_plain(q, k, v, mask, o, lse, do):
     """The whole backward from the forward's o and lse: (dq, dk, dv) in
     q's dtype. Recomputes p from lse; does not call autograd."""
@@ -206,7 +259,8 @@ def flash_attention_bwd_plain(q, k, v, mask, o, lse, do):
 
 
 #: The dtypes the flash kernels take: bf16 (K2, K6, K7 on the tensor
-#: cores) and f32 (their variants on the CUDA cores).
+#: cores) and f32 (their variants: K2 on the CUDA cores, K6 and K7 on TF32
+#: tensor cores).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -336,8 +390,8 @@ flash_attention_bwd_dq.launches = 0
 
 def flash_attention_bwd_dq_f32(q, k, v, mask, do, lse, delta
                                ) -> torch.Tensor:
-    """K6 at f32 (``csrc/attention_f32.cu``) for a CUDA tensor; the plain
-    version for a CPU tensor."""
+    """K6 at f32 (``csrc/attention_f32.cu``: 3xTF32 ``mma.sync``) for a
+    CUDA tensor; the plain version for a CPU tensor."""
     if not q.is_cuda:
         return flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta)
     dq = _launch_dq("omni_flash_bwd_dq_f32", torch.float32, q, k, v, mask,
@@ -368,8 +422,8 @@ flash_attention_bwd_dkv.launches = 0
 
 
 def flash_attention_bwd_dkv_f32(q, k, v, mask, do, lse, delta):
-    """K7 at f32 (``csrc/attention_f32.cu``) for a CUDA tensor; the plain
-    version for a CPU tensor."""
+    """K7 at f32 (``csrc/attention_f32.cu``: 3xTF32 ``mma.sync``) for a
+    CUDA tensor; the plain version for a CPU tensor."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta)
     out = _launch_dkv("omni_flash_bwd_dkv_f32", torch.float32, q, k, v,

@@ -36,61 +36,30 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import shutil
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from . import conv_module, cuda_build, quant
+from . import conv_module, cuda_build, quant, sweep
 from .card_cases import (K3_SHAPES, K4_SHAPES, K5_SHAPES, TOL_K3,
                          k4_error_share)
-from .flash_bwd_sweep import device_ms
+from .sweep import CONST, device_ms, parse  # noqa: F401 (re-exported)
 
 SOURCES = {"k3": "conv_module.cu", "k4": "quant.cu", "k5": "quant.cu"}
 KERNELS = {"k3": ("conv_stage1_kernel", "conv_stage2_kernel"),
            "k4": ("bf16_rows_kernel", "q_matmul_kernel"),
            "k5": ("quantize_rows_kernel", "q8a8_matmul_kernel")}
-CONST = r"(constexpr int {name} = )(\d+);"
-
-
-def parse(spec: str) -> dict:
-    return {k: int(v) for k, v in (p.split("=") for p in spec.split(","))}
 
 
 def source_values(kernel: str, names) -> dict:
     """The source's own values of the constants ``names``."""
-    name = SOURCES[kernel]
-    text = (cuda_build.CSRC_DIR / name).read_text()
-    out = {}
-    for n in names:
-        m = re.search(CONST.format(name=n), text)
-        if m is None:
-            raise ValueError(f"{name} has no constant {n}")
-        out[n] = int(m[2])
-    return out
+    return sweep.source_values(SOURCES[kernel], names)
 
 
 def variant_dir(kernel: str, values: dict):
     """common.cu, the kernel's source with ``values`` set, and the headers,
     in a directory of their own."""
-    name = SOURCES[kernel]
-    text = (cuda_build.CSRC_DIR / name).read_text()
-    for k, v in values.items():
-        text, n = re.subn(CONST.format(name=k), rf"\g<1>{v};", text)
-        if n != 1:
-            raise ValueError(f"{name} has no constant {k}")
-    tag = "_".join(f"{k}{v}" for k, v in sorted(values.items())) or "source"
-    out = cuda_build.BUILD_ROOT / "sweep" / kernel / tag
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    for p in cuda_build.CSRC_DIR.glob("*.cuh"):
-        shutil.copy(p, out)
-    shutil.copy(cuda_build.CSRC_DIR / "common.cu", out)
-    (out / name).write_text(text)
-    return out
+    return sweep.variant_dir(SOURCES[kernel], values, kernel)
 
 
 class K3Case:
@@ -192,9 +161,7 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    print(sweep.card_line(), flush=True)
     jobs = []
     for kernel, specs in (("k3", args.k3), ("k4", args.k4),
                           ("k5", args.k5)):
@@ -203,22 +170,9 @@ def main(argv=None) -> int:
         base = source_values(kernel, names)
         jobs.append((kernel, {}, base))
         jobs += [(kernel, c, {**base, **c}) for c in cands if c]
-    def build(key):
-        try:
-            return cuda_build.build(variant_dir(*key))
-        except RuntimeError as e:    # a tiling the source's asserts refuse
-            return str(e).splitlines()[-3:]
-
-    # One build per distinct source: K4's and K5's own values are the same
-    # quant.cu, which would build into one directory twice at once.
-    keys = {}
-    for kernel, cand, _ in jobs:
-        keys.setdefault((SOURCES[kernel], tuple(sorted(cand.items()))),
-                        (kernel, cand))
-    with ThreadPoolExecutor(len(keys)) as pool:
-        built = dict(zip(keys, pool.map(build, keys.values())))
-    builds = [built[(SOURCES[k], tuple(sorted(c.items())))]
-              for k, c, _ in jobs]
+    # One build per distinct source and values: K4's and K5's own values
+    # are the same quant.cu.
+    builds = sweep.build_variants([(SOURCES[k], c, k) for k, c, _ in jobs])
     cases = {"k3": {n: K3Case(dev, *s, seed=i)
                     for i, (n, s) in enumerate(K3_SHAPES.items())},
              "k4": {n: QuantCase(dev, *s, seed=20 + i, mode="w8")

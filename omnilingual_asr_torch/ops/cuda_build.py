@@ -62,8 +62,9 @@ class BuildInfo:
 
 
 def kernel_name(mangled: str) -> str:
-    """``name`` or ``name<D>`` of a kernel from its mangled symbol: the
-    length-prefixed identifier that ends in ``_kernel``."""
+    """``name``, ``name<D>`` or ``name<D, flag>`` of a kernel from its
+    mangled symbol: the length-prefixed identifier that ends in
+    ``_kernel``, and its int and bool template arguments."""
     if "_kernel" not in mangled:
         return mangled
     end = mangled.find("_kernel") + len("_kernel")
@@ -71,8 +72,12 @@ def kernel_name(mangled: str) -> str:
         digits = re.search(r"\d+$", mangled[:start])
         if digits and any(int(digits[0][-k:]) == end - start
                           for k in range(1, len(digits[0]) + 1)):
-            arg = re.match(r"ILi(\d+)E", mangled[end:])
-            return mangled[start:end] + (f"<{arg[1]}>" if arg else "")
+            args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+            if not args:
+                return mangled[start:end]
+            vals = [v if t == "i" else ("true" if v == "1" else "false")
+                    for t, v in re.findall(r"L([ib])(\d+)E", args[1])]
+            return mangled[start:end] + f"<{', '.join(vals)}>"
     return mangled
 
 

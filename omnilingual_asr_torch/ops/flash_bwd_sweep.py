@@ -1,19 +1,32 @@
-"""Time kernels K6 and K7 on the card at each choice of their launch bounds.
+"""Time kernels K6 and K7, bf16 and f32, on the card at each candidate of
+their tile and launch-bound constants.
 
-For each choice of the minimum blocks an SM in the ``__launch_bounds__`` of
-``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``
-(``csrc/attention_bwd.cu``; the source's own choice first), builds the
-kernels with that choice into a library of its own under ``_build/``,
-prints each kernel's registers and spills, checks K6 and K7 against their
-plain versions (chip_smoke.py's tolerance) and times them as chip_smoke.py
-does (device ms of one call, 20 calls in one CUDA graph) at the training
-shape [16, 256, 8, 64] and at large_config's [4, 768, 8, 128]. Run on the
-card from the repository root, before anything else has built the same
-sources (a cached build prints no registers):
+Each candidate sets some constants of ``csrc/attention_bwd.cu`` (the bf16
+K6 and K7: ``DQ_MIN_BLOCKS_64`` / ``_128`` and ``DKV_MIN_BLOCKS_64`` /
+``_128``, the blocks an SM in ``__launch_bounds__`` by head dim) or of
+``csrc/attention_f32.cu`` (the f32 K6 and K7 on 3xTF32 ``mma.sync``: by
+head dim, ``DQ_TILE_*`` / ``DKV_TILE_*`` the rows of a streamed tile,
+``DQ_STEP_*`` / ``DKV_STEP_*`` the rows a step of the score products
+takes, ``DQ_MIN_BLOCKS_*`` / ``DKV_MIN_BLOCKS_*``, and at D 64 the same
+three under ``DQ_FEW_*`` / ``DKV_FEW_*`` for a grid too small to fill
+every SM, as the serving batch's). For each, the sweep
+builds that source with those values through ``ops/sweep.py`` (the
+source's own values first), prints the kernels' registers and spills,
+checks both kernels against their plain versions (bf16: chip_smoke.py's
+tolerance; f32: ``card_cases.TOL_F32_FLASH`` of the largest element,
+masked keys' dK, dV and fully-masked rows' dQ exactly 0) and times them
+as chip_smoke.py does (device ms of one call, 20 calls in one CUDA graph)
+at the training shape [16, 256, 8, 64], the serving batch
+[4, 768, 4, 64] and large_config's head dim 128 ([4, 768, 8, 128]),
+SDPA's backward at the same dtype beside them. Run on the card from the
+repository root:
 
-    python -m omnilingual_asr_torch.ops.flash_bwd_sweep 3,2,3,3 2,1,2,1
+    python -m omnilingual_asr_torch.ops.flash_bwd_sweep \\
+        --bf16 DQ_MIN_BLOCKS_64=3 DKV_MIN_BLOCKS_128=1 \\
+        --f32 DQ_TILE_64=64,DQ_MIN_BLOCKS_64=1 DKV_STEP_64=32
 
-each argument giving K6 at D 64, K6 at D 128, K7 at D 64, K7 at D 128.
+each argument one candidate (``NAME=VALUE`` pairs joined by commas). A
+candidate that the source's static_asserts refuse is reported, not fatal.
 """
 
 from __future__ import annotations
@@ -21,111 +34,84 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import re
-import shutil
-import statistics
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from . import attention, cuda_build
+from . import attention, cuda_build, sweep
+from .card_cases import F32_FLASH_SHAPES, TOL_F32_FLASH
 
-KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-BOUNDS = re.compile(r"__launch_bounds__\(THREADS, D == 128 \? (\d+) : (\d+)\)"
-                    r"\n(flash_bwd_dq_kernel|flash_bwd_dkv_kernel)\(")
-# (B, T, H, D, valid keys): chip_smoke.py's training and head-dim-128 cases.
-SHAPES = {"train": (16, 256, 8, 64, [256] * 12 + [200, 77, 1, 0]),
-          "d128": (4, 768, 8, 128, [768, 700, 300, 0])}
-
-
-def source_bounds(text: str) -> tuple:
-    """(K6 D 64, K6 D 128, K7 D 64, K7 D 128) as ``text`` has them."""
-    got = {m[3]: (int(m[2]), int(m[1])) for m in BOUNDS.finditer(text)}
-    return tuple(b for name in KERNELS for b in got[name])
-
-
-def variant_dir(blocks: tuple):
-    """A copy of csrc/ with the launch bounds set to ``blocks``."""
-    want = dict(zip(KERNELS, (blocks[:2], blocks[2:])))
-
-    def repl(m):
-        b64, b128 = want[m[3]]
-        return (f"__launch_bounds__(THREADS, D == 128 ? {b128} : {b64})"
-                f"\n{m[3]}(")
-
-    text, n = BOUNDS.subn(
-        repl, (cuda_build.CSRC_DIR / "attention_bwd.cu").read_text())
-    assert n == 2, n
-    out = cuda_build.BUILD_ROOT / "sweep" / "_".join(map(str, blocks))
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(cuda_build.CSRC_DIR, out)
-    (out / "attention_bwd.cu").write_text(text)
-    return out
-
-
-def device_ms(fn, n: int = 20, reps: int = 5) -> float:
-    """Median device ms of one ``fn()`` over ``reps`` replays of a CUDA
-    graph of ``n`` calls."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return statistics.median(times)
+SOURCES = {"bf16": "attention_bwd.cu", "f32": "attention_f32.cu"}
+KERNELS = {"bf16": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+           "f32": ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel")}
+ENTRIES = {"bf16": ("omni_flash_bwd_dq", "omni_flash_bwd_dkv"),
+           "f32": ("omni_flash_bwd_dq_f32", "omni_flash_bwd_dkv_f32")}
+# (B, T, H, D, valid keys): chip_smoke.py's training, serving and
+# head-dim-128 cases.
+SHAPES = {"train": F32_FLASH_SHAPES["training"],
+          "serving": F32_FLASH_SHAPES["serving"],
+          "d128": F32_FLASH_SHAPES["d128"]}
 
 
 class Case:
-    """Seeded inputs of one shape, the plain versions' gradients, and
-    launches of a library's K6 and K7 into fixed outputs."""
+    """Seeded inputs of one shape at one dtype, the plain versions'
+    gradients, SDPA's backward time, and launches of a library's K6 and
+    K7 into fixed outputs."""
 
-    def __init__(self, dev, B, T, H, D, valid, seed):
+    def __init__(self, dev, dtype, B, T, H, D, valid, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
         q, k, v, do = (torch.randn(B, T, H, D, generator=gen,
-                                   device=dev).to(torch.bfloat16)
-                       for _ in range(4))
-        mask = torch.arange(T, device=dev)[None] < torch.tensor(
+                                   device=dev).to(dtype) for _ in range(4))
+        self.mask = torch.arange(T, device=dev)[None] < torch.tensor(
             valid, device=dev)[:, None]
-        o, lse = attention.flash_attention(q, k, v, mask)
-        args = (q, k, v, mask, do, lse, attention.flash_delta(o, do))
+        o, lse = attention.flash_attention_plain(q, k, v, self.mask)
+        args = (q, k, v, self.mask, do, lse, attention.flash_delta(o, do))
         self.want = (attention.flash_attention_bwd_dq_plain(*args),
                      *attention.flash_attention_bwd_dkv_plain(*args))
         self.got = tuple(torch.empty_like(q) for _ in range(3))
-        self.inputs = (q, k, v, mask.to(torch.int32), do, *args[5:])
+        self.inputs = (q, k, v, self.mask.to(torch.int32), do, *args[5:])
         self.ptrs = [t.data_ptr() for t in self.inputs]
         self.dims = (B, T, H, D, 1.0 / math.sqrt(D))
+        self.f32 = dtype == torch.float32
+        self.sdpa_ms = self._sdpa_ms(q, k, v, do)
 
-    def k6(self, lib):
-        cuda_build.check(lib.omni_flash_bwd_dq(
-            *self.ptrs, self.got[0].data_ptr(), *self.dims,
-            torch.cuda.current_stream().cuda_stream), "K6")
+    def _sdpa_ms(self, q, k, v, do):
+        """SDPA's backward (dQ, dK, dV), its forward outside the timed
+        region; None where it cannot be captured in a CUDA graph."""
+        import torch.nn.functional as F
 
-    def k7(self, lib):
-        cuda_build.check(lib.omni_flash_bwd_dkv(
-            *self.ptrs, self.got[1].data_ptr(), self.got[2].data_ptr(),
-            *self.dims, torch.cuda.current_stream().cuda_stream), "K7")
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                      for x in (q, k, v))
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream), torch.enable_grad():
+            ot = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=self.mask[:, None, None, :])
+        dot = do.transpose(1, 2)
+        try:
+            return sweep.device_ms(lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), dot, retain_graph=True), stream=stream)
+        except RuntimeError:    # the yardstick only
+            return None
+
+    def launch(self, lib, which: int, entries):
+        outs = self.got[:1] if which == 0 else self.got[1:]
+        cuda_build.check(getattr(lib, entries[which])(
+            *self.ptrs, *[t.data_ptr() for t in outs], *self.dims,
+            torch.cuda.current_stream().cuda_stream), entries[which])
 
     def correct(self) -> bool:
         torch.cuda.synchronize()
-        for got, want in zip(self.got, self.want):
+        dead_row, dead_key = ~self.mask.any(dim=1), ~self.mask
+        for i, (got, want) in enumerate(zip(self.got, self.want)):
             got, want = got.float(), want.float()
-            tol = 2.0 ** -10 * want.abs().max() + 2.0 ** -7 * want.abs()
+            if self.f32:
+                tol = TOL_F32_FLASH * want.abs().max()
+                zeros = got[dead_row if i == 0 else dead_key]
+                if not bool((zeros == 0).all()):
+                    return False
+            else:
+                tol = 2.0 ** -10 * want.abs().max() + 2.0 ** -7 * want.abs()
             if not bool(((got - want).abs() <= tol).all()):
                 return False
         return True
@@ -133,40 +119,51 @@ class Case:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("blocks", nargs="*",
-                    help="K6@64,K6@128,K7@64,K7@128 minimum blocks an SM")
+    for group in SOURCES:
+        ap.add_argument(f"--{group}", nargs="*", default=[],
+                        help=f"{SOURCES[group]} candidates, "
+                             f"NAME=VALUE[,NAME=VALUE...]")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    choices = [source_bounds(
-        (cuda_build.CSRC_DIR / "attention_bwd.cu").read_text())]
-    for b in args.blocks:
-        if tuple(map(int, b.split(","))) not in choices:
-            choices.append(tuple(map(int, b.split(","))))
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    with ThreadPoolExecutor(len(choices)) as pool:
-        builds = list(pool.map(lambda b: cuda_build.build(variant_dir(b)),
-                               choices))
-    cases = {name: Case(dev, *shape, seed=i)
-             for i, (name, shape) in enumerate(SHAPES.items())}
+    print(sweep.card_line(), flush=True)
+    jobs = []
+    for group in SOURCES:
+        cands = [sweep.parse(s) for s in getattr(args, group)]
+        names = sorted({k for c in cands for k in c})
+        base = sweep.source_values(SOURCES[group], names)
+        jobs.append((group, {}, base))
+        jobs += [(group, c, {**base, **c}) for c in cands if c]
+    builds = sweep.build_variants([(SOURCES[g], c, g) for g, c, _ in jobs])
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    cases = {group: {name: Case(dev, dtypes[group], *shape[:4],
+                                list(shape[4]), seed=i)
+                     for i, (name, shape) in enumerate(SHAPES.items())}
+             for group in SOURCES}
+    for group, by_shape in cases.items():
+        print(json.dumps({"group": group, "sdpa_backward_ms": {
+            n: c.sdpa_ms for n, c in by_shape.items()}}), flush=True)
     ok = True
-    for blocks, info in zip(choices, builds):
+    for (group, cand, values), info in zip(jobs, builds):
+        if not isinstance(info, cuda_build.BuildInfo):
+            print(json.dumps({"group": group, "values": values,
+                              "build_error": info}), flush=True)
+            continue
         lib = cuda_build.load(info.lib_path)
-        row = {"blocks": dict(zip(("k6_64", "k6_128", "k7_64", "k7_128"),
-                                  blocks)),
+        row = {"group": group, "values": values, "source": not cand,
                "ptxas": [k for k in info.kernels()
-                         if k[0].startswith(KERNELS)],
+                         if k[0].startswith(KERNELS[group])],
                "correct": True, "ms": {}}
-        for name, case in cases.items():
-            case.k6(lib)
-            case.k7(lib)
+        for name, case in cases[group].items():
+            for which in (0, 1):
+                case.launch(lib, which, ENTRIES[group])
             row["correct"] &= case.correct()
-            row["ms"][f"k6_{name}"] = device_ms(lambda c=case: c.k6(lib))
-            row["ms"][f"k7_{name}"] = device_ms(lambda c=case: c.k7(lib))
+            for which, kernel in enumerate(("k6", "k7")):
+                row["ms"][f"{kernel}_{name}"] = sweep.device_ms(
+                    lambda c=case, w=which: c.launch(lib, w, ENTRIES[group]))
         ok &= row["correct"]
         print(json.dumps(row), flush=True)
     return 0 if ok else 1

@@ -125,7 +125,7 @@ def main() -> int:
 
     from .card_cases import K4_SHAPES
     from .conv_quant_sweep import QuantCase
-    from .flash_bwd_sweep import device_ms
+    from .sweep import device_ms
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)

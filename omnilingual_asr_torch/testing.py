@@ -35,6 +35,11 @@ of the audio). ``synth_mismatches``, ``heads_mismatches``,
 ``diar_mismatches`` and ``long_mismatches`` hold the port's drivers to it
 by the tolerances below.
 
+The tests that regenerate and read the fixtures share the helpers below
+the tolerances: ``wav_bytes`` and ``tiled_pcm`` write the golden audio,
+``greedy_ids`` and ``sequence_ids`` read an engine's greedy CTC ids (the
+JAX engine's or the port's).
+
 It also holds the port's copies of the JAX package's test doubles
 (``omnilingual_asr_tpu/testing.py``): ``demo_result``, the canned
 code-switching transcript that the server's ``/api/demo`` route serves, and
@@ -44,10 +49,12 @@ code-switching transcript that the server's ``/api/demo`` route serves, and
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import re
 import time
+import wave
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -636,6 +643,42 @@ def long_mismatches(want: dict, result: dict, stages: dict,
 # ---------------------------------------------------------------------------
 # Test doubles (the JAX package's, kept in step)
 # ---------------------------------------------------------------------------
+
+def wav_bytes(pcm: np.ndarray, sr: int = 16_000) -> bytes:
+    """16-bit mono WAV bytes of int16 ``pcm`` at ``sr``."""
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def tiled_pcm(pcm: np.ndarray, seconds: float) -> np.ndarray:
+    """``pcm`` repeated and cut to ``seconds`` at 16 kHz (the tiled file
+    that ``chip_smoke.py`` writes)."""
+    return np.resize(pcm, int(seconds * 16_000))
+
+
+def greedy_ids(engine, path: Path):
+    """Per-window greedy CTC ids over valid frames (either engine)."""
+    samples = engine._load_audio(path)
+    windows = engine._windows(samples)
+    n_last = len(samples) - (len(windows) - 1) * engine.window_samples
+    ids = []
+    for outs in engine._forward_batches(windows, n_last):
+        ids.extend(np.asarray(o["ctc_ids"]).astype(int).tolist()
+                   for o in outs)
+    return ids
+
+
+def sequence_ids(engine, path: Path):
+    """Sequence mode's greedy CTC ids over the file's frames, as one list
+    in a list (either engine)."""
+    outs = engine._forward_sequence(engine._load_audio(path))
+    return [np.asarray(outs[0]["ctc_ids"]).astype(int).tolist()]
+
 
 def demo_result() -> TranscriptionResult:
     """Canned code-switching result in the reference's result shape."""

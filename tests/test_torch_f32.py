@@ -5,7 +5,8 @@ The JAX kernels K2, K6 and K7 are generic in their input type: at f32 they
 compute every product in exact f32. The port sends f32 operands to its f32
 kernels on a card and to the same plain versions as bf16 on the CPU, so
 these tests hold the plain versions and the f32 model around them to the
-JAX package's f32 functions (its Pallas kernels in interpret mode). Inputs
+JAX package's f32 functions (its Pallas kernels in interpret mode), and
+the CPU model of the f32 K6 and K7's 3xTF32 products to both. Inputs
 are drawn from seeds with numpy; each test states its tolerance. The
 kernels themselves are held to the plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 4m).
@@ -31,6 +32,7 @@ from omnilingual_asr_tpu.train import step as jax_step
 from omnilingual_asr_torch.config import MeshConfig, tiny_config
 from omnilingual_asr_torch.models import conformer, zoo
 from omnilingual_asr_torch.ops import attention
+from omnilingual_asr_torch.ops.card_cases import TOL_F32_FLASH
 from omnilingual_asr_torch.parallel.mesh import build_mesh
 from omnilingual_asr_torch.parallel.sequence import sp_conformer_forward
 from omnilingual_asr_torch.train import step
@@ -77,6 +79,29 @@ def _rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-6))
 
 
+_JAX_FLASH = {}
+
+
+def _jax_flash_f32(D):
+    """Inputs at [2, 256, 2, D] with a ragged row (the JAX kernel takes T
+    in whole 256-key blocks), and JAX's ``flash_attention`` at f32 on them
+    (Pallas, interpret mode) with its custom VJP: (inputs, o, (dq, dk,
+    dv)), computed once a head dim for the tests that share them."""
+    if D not in _JAX_FLASH:
+        q, k, v, do, mask = _flash_inputs(2, 256, 2, D, [256, 100], seed=D)
+
+        def jloss(q_, k_, v_):
+            o = jax_attention.flash_attention(q_, k_, v_, jnp.asarray(mask),
+                                              interpret=True)
+            return jnp.sum(o * do), o
+
+        (_, want_o), want_g = jax.jit(jax.value_and_grad(
+            jloss, argnums=(0, 1, 2), has_aux=True))(q, k, v)
+        _JAX_FLASH[D] = ((q, k, v, do, mask), np.array(want_o),
+                         tuple(np.array(g) for g in want_g))
+    return _JAX_FLASH[D]
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_f32_forward_and_grads_match_jax(D):
     """``FlashAttention`` at f32 (the plain versions of K2, K6, K7 on the
@@ -84,15 +109,7 @@ def test_flash_f32_forward_and_grads_match_jax(D):
     and its custom VJP, at [2, 256, 2, D] with a ragged row: the output
     and dq, dk, dv within REL_FLASH, in f32, masked keys' dk and dv
     exactly 0."""
-    q, k, v, do, mask = _flash_inputs(2, 256, 2, D, [256, 100], seed=D)
-
-    def jloss(q_, k_, v_):
-        o = jax_attention.flash_attention(q_, k_, v_, jnp.asarray(mask),
-                                          interpret=True)
-        return jnp.sum(o * do), o
-
-    (_, want_o), want_g = jax.jit(jax.value_and_grad(
-        jloss, argnums=(0, 1, 2), has_aux=True))(q, k, v)
+    (q, k, v, do, mask), want_o, want_g = _jax_flash_f32(D)
     qt, kt, vt = (torch.from_numpy(x).requires_grad_(True)
                   for x in (q, k, v))
     o = attention.FlashAttention.apply(qt, kt, vt, torch.from_numpy(mask))
@@ -104,6 +121,72 @@ def test_flash_f32_forward_and_grads_match_jax(D):
         assert _rel(t.grad.numpy(), w) <= REL_FLASH
     masked = ~torch.from_numpy(mask)
     assert (kt.grad[masked] == 0).all() and (vt.grad[masked] == 0).all()
+
+
+def _tf32_case(D):
+    """A small ragged case at f32 ([3, 200, 2, D]: a partial last tile of
+    the kernels' 64-row blocks, a partly masked row and a fully masked
+    slot): (args of the backward, the plain versions' (dq, dk, dv))."""
+    q, k, v, do, mask = (torch.from_numpy(x) for x in _flash_inputs(
+        3, 200, 2, D, [200, 130, 0], seed=D + 7))
+    o, lse = attention.flash_attention_plain(q, k, v, mask)
+    args = (q, k, v, mask, do, lse, attention.flash_delta(o, do))
+    return args, (attention.flash_attention_bwd_dq_plain(*args),
+                  *attention.flash_attention_bwd_dkv_plain(*args))
+
+
+def _rel_t(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_tf32_model_of_the_f32_backward(D):
+    """``flash_attention_bwd_tf32_emulated``, the f32 K6 and K7's 3xTF32
+    rounding on the CPU, on a small ragged case: within
+    ``card_cases.TOL_F32_FLASH`` of the exact-f32 plain versions (measured
+    1.0e-6 to 1.3e-6), in f32; masked keys' dK and dV and the fully masked
+    row's dQ exactly 0. The planted fault, one TF32 product (the hi lo
+    terms dropped), misses that gate by far (measured 6e-4 to 1e-3)."""
+    args, want = _tf32_case(D)
+    got = attention.flash_attention_bwd_tf32_emulated(*args)
+    mask = args[3]
+    assert all(g.dtype == torch.float32 for g in got)
+    assert max(_rel_t(g, w) for g, w in zip(got, want)) <= TOL_F32_FLASH
+    dq, dk, dv = got
+    assert (dq[~mask.any(dim=1)] == 0).all()
+    assert (dk[~mask] == 0).all() and (dv[~mask] == 0).all()
+    fault = attention.flash_attention_bwd_tf32_emulated(*args, terms=1)
+    assert min(_rel_t(g, w) for g, w in zip(fault, want)) > TOL_F32_FLASH
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_tf32_model_matches_jax(D):
+    """The 3xTF32 model against JAX's f32 gradients (Pallas, interpret
+    mode; the inputs of ``test_flash_f32_forward_and_grads_match_jax``):
+    dq, dk, dv within REL_FLASH."""
+    (q, k, v, do, mask), want_o, want_g = _jax_flash_f32(D)
+    qt, kt, vt, dot, mt = (torch.from_numpy(x) for x in (q, k, v, do, mask))
+    _, lse = attention.flash_attention_plain(qt, kt, vt, mt)
+    delta = attention.flash_delta(torch.from_numpy(want_o), dot)
+    got = attention.flash_attention_bwd_tf32_emulated(qt, kt, vt, mt, dot,
+                                                      lse, delta)
+    for g, w in zip(got, want_g):
+        assert _rel(g.numpy(), w) <= REL_FLASH
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    """``tf32_round`` keeps 10 mantissa bits, rounds to nearest with ties
+    away from zero (cvt.rna) and clears the 13 low bits."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp + ulp / 2, -(1 + ulp / 2),
+                      1 + ulp / 2 - 2.0 ** -23, 3.14159265, 0.0],
+                     dtype=torch.float32)
+    want = [1.0, 1 + ulp, 1 + 2 * ulp, -(1 + ulp), 1.0, 3.140625, 0.0]
+    got = attention.tf32_round(x)
+    assert got.tolist() == want
+    assert ((got.view(torch.int32) & 0x1FFF) == 0).all()
+    with pytest.raises(ValueError, match="terms"):
+        attention._tf32x3("ij,jk->ik", x[:2, None], x[None, :2], terms=2)
 
 
 def test_f32_wrappers_route_and_count():

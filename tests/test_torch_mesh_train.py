@@ -468,10 +468,11 @@ def test_moe_mesh_step_equals_one_device_in_f32(moe_init):
     order of sums (MESH_F32_GRAD_REL; measured 6.7e-6), the experts' and
     the router's included, and ``moe_aux`` within 1e-6 relative. The batch
     is ``test_mesh_step_equals_one_device_in_f32``'s. (On _host_batch(5)
-    the speaker head's leaves measure 2.3e-4 at model 2: the forward's
-    outputs agree within 4e-7 there and every other leaf within 1e-5, so
-    the AAM speaker term alone magnifies the f32 order of sums on that
-    batch; without it the worst leaf is 6.5e-6.)"""
+    the speaker leaves read 2.3e-4 at model 2 and the encoder's up to
+    7e-5: the speaker projection rounds its inputs to bf16 at either
+    encoder dtype, as the reference's does, and the mesh's f32 order of
+    sums flips one of those roundings there;
+    ``test_moe_f32_batch_5_reading_is_the_bf16_speaker_projection``.)"""
     _, cfg = _moe_cfgs(fused=False, dtype="float32")
     batch = _port_batch(_host_batch(1, translator=False), cfg)
     m1, g1 = _moe_grads(cfg, moe_init, batch, CPU, translator=False)
@@ -479,6 +480,52 @@ def test_moe_mesh_step_equals_one_device_in_f32(moe_init):
     assert abs(float(m["moe_aux"]) - float(m1["moe_aux"])) <= \
         1e-6 * float(m1["moe_aux"])
     assert max(_rel_errs(g, g1)) <= testing.MESH_F32_GRAD_REL
+
+
+def _f32_speaker_projection(params, frames, weights):
+    """``conformer.pooled_speaker_embed`` with its projection at f32 (the
+    model's rounds the pooled statistics to bf16, as the reference's)."""
+    w = weights[..., None].to(torch.float32)
+    denom = torch.clamp(w.sum(dim=-2), min=1e-6)
+    mean = (frames * w).sum(dim=-2) / denom
+    var = (w * (frames - mean[..., None, :]) ** 2).sum(dim=-2) / denom
+    e = layers.dense_apply(params["spk_proj"], torch.cat(
+        [mean, torch.sqrt(var + 1e-6)], dim=-1), torch.float32)
+    return e * torch.rsqrt((e * e).sum(dim=-1, keepdim=True) + 1e-8)
+
+
+def test_moe_f32_batch_5_reading_is_the_bf16_speaker_projection(
+        moe_init, monkeypatch):
+    """Why the f32 MoE mesh step reads 2.3e-4 on _host_batch(5)'s speaker
+    leaves: not the mesh. On one device, the batch's rows permuted move no
+    leaf by more than MESH_F32_GRAD_REL (measured 2.7e-6: the order of the
+    batch's sums), but the mel times (1 + 1e-7 N(0, 1)), a change of the
+    size of the mesh's own f32 order of sums, moves the speaker leaves by
+    more than it (measured 2.3e-4, as the mesh): the speaker projection
+    rounds the pooled statistics to bf16 (``layers.dense_apply``'s
+    default, as in the reference), and the change flips one rounding.
+    With that projection at f32 the (2, 2) mesh equals one device on this
+    batch within MESH_F32_GRAD_REL (measured 4.9e-6)."""
+    _, cfg = _moe_cfgs(fused=False, dtype="float32")
+    hb = _host_batch(5, translator=False)
+    batch = _port_batch(hb, cfg)
+    _, g1 = _moe_grads(cfg, moe_init, batch, CPU, translator=False)
+    perm = np.random.default_rng(123).permutation(B)
+    _, gp = _moe_grads(cfg, moe_init, _port_batch(
+        {k: v[perm] for k, v in hb.items()}, cfg), CPU, translator=False)
+    assert max(_rel_errs(gp, g1)) <= testing.MESH_F32_GRAD_REL
+    noise = np.random.default_rng(1).standard_normal(hb["mel"].shape)
+    nudged = dict(hb, mel=(hb["mel"] * (1 + 1e-7 * noise)).astype(
+        np.float32))
+    _, gn = _moe_grads(cfg, moe_init, _port_batch(nudged, cfg), CPU,
+                       translator=False)
+    assert max(_rel_errs(gn, g1)) > testing.MESH_F32_GRAD_REL
+    monkeypatch.setattr(step, "pooled_speaker_embed",
+                        _f32_speaker_projection)
+    _, g1 = _moe_grads(cfg, moe_init, batch, CPU, translator=False)
+    _, gm = _moe_grads(cfg, moe_init, batch, _mesh((2, 2)),
+                       translator=False)
+    assert max(_rel_errs(gm, g1)) <= testing.MESH_F32_GRAD_REL
 
 
 def test_moe_aux_is_not_a_mean_of_rows(moe_init):
