@@ -47,7 +47,7 @@ with no result line:
              the o and lse they read held to the plain forward), and the
              f32 variants of K2, K6 and K7 (the f32 encoder's, at
              ``card_cases.F32_FLASH_SHAPES``; SDPA at f32 their
-             yardstick; K6 and K7 on 3xTF32 ``mma.sync``, bound at three
+             yardstick; all three on 3xTF32 ``mma.sync``, bound at three
              TF32 products a product, the f32 FMA-rate bound beside it),
              on seeded inputs with masked rows, each held against its plain
              PyTorch version, and timed beside its plain version, a PyTorch
@@ -55,7 +55,7 @@ with no result line:
              device times: 20 calls captured back to back in a CUDA graph,
              replayed between CUDA events (``call_ms`` adds one eager
              call's time, host launch included). K3's, K4's, K5's and
-             the f32 K6's and K7's entries carry their kernels'
+             the f32 K2's, K6's and K7's entries carry their kernels'
              registers; K3's, K4's and K5's previous
              design's recorded times (RECORDED_EARLIER_MS, not measured
              here) follow on a line of their own.
@@ -868,10 +868,9 @@ def _f32_flash_case(dev, peaks, B, T, H, D, valid, seed):
     versions (``card_cases.TOL_F32_FLASH`` / ``TOL_F32_LSE``; masked keys
     and fully-masked rows exactly 0), each timed beside its plain version,
     SDPA at f32 (the forward for K2, its backward for the pair) and its
-    bound: K2's at the f32 CUDA-core rate; K6's and K7's at the rate their
-    design uses, three TF32 tensor-core products a product (3xTF32), with
-    the f32 FMA-rate bound of the earlier design beside it under
-    ``bound_fma_ms``. Returns (K2, K6, K7) entries."""
+    bound at the rate their design uses, three TF32 tensor-core products a
+    product (3xTF32), with the f32 FMA-rate bound of the earlier designs
+    beside it under ``bound_fma_ms``. Returns (K2, K6, K7) entries."""
     import torch
     import torch.nn.functional as F
     from omnilingual_asr_torch.ops import attention as A
@@ -941,7 +940,8 @@ def _f32_flash_case(dev, peaks, B, T, H, D, valid, seed):
     work = H * T * D * int(nv.sum())
     m32 = mask.to(torch.int32)
     io = nbytes(q, k, v, do, m32, lse, delta)
-    b2 = bound({"f32": 4 * work}, nbytes(q, k, v, m32, o, lse), peaks)
+    b2 = bound({"tf32": 3 * 4 * work}, nbytes(q, k, v, m32, o, lse), peaks)
+    fma2 = bound({"f32": 4 * work}, nbytes(q, k, v, m32, o, lse), peaks)[0]
     b6 = bound({"tf32": 3 * 6 * work}, io + nbytes(dq), peaks)
     b7 = bound({"tf32": 3 * 8 * work}, io + nbytes(dk, dv), peaks)
     fma6 = bound({"f32": 6 * work}, io + nbytes(dq), peaks)[0]
@@ -954,7 +954,8 @@ def _f32_flash_case(dev, peaks, B, T, H, D, valid, seed):
           "call_ms": call_ms(lambda: A.flash_attention_f32(q, k, v, mask)),
           "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v,
                                                               mask)),
-          "bound_ms": b2[0], "bound_by": b2[1], "library_ms": time_ms(sdpa),
+          "bound_ms": b2[0], "bound_by": b2[1], "bound_fma_ms": fma2,
+          "library_ms": time_ms(sdpa),
           "library": "SDPA forward at f32", "shape": shape,
           "gflop": 4 * work / 1e9}
     k6 = {"D": D, "max_abs_err": errs["dq"], "tol": tol,
@@ -979,8 +980,8 @@ def _f32_flash_case(dev, peaks, B, T, H, D, valid, seed):
 # The designs of the f32 kernels (csrc/attention_f32.cu), and the bound
 # each entry's bound_ms reckons at.
 F32_DESIGNS = {
-    "flash_attention_fwd_f32": ("f32 FMAs on the CUDA cores", "ops at 67 "
-                                "TFLOP/s f32 or bytes at 3.35 TB/s"),
+    "flash_attention_fwd_f32": ("3xTF32 mma.sync", "3 x ops at 495 "
+                                "TFLOP/s tf32 or bytes at 3.35 TB/s"),
     "flash_attention_bwd_dq_f32": ("3xTF32 mma.sync", "3 x ops at 495 "
                                    "TFLOP/s tf32 or bytes at 3.35 TB/s"),
     "flash_attention_bwd_dkv_f32": ("3xTF32 mma.sync", "3 x ops at 495 "
@@ -991,8 +992,8 @@ def check_flash_f32(dev, peaks, ptxas):
     """The f32 variants of K2, K6 and K7 (``csrc/attention_f32.cu``, the
     f32 encoder's attention) at ``card_cases.F32_FLASH_SHAPES``: K2's
     entry at the release's f32 serving batch, K6's and K7's at the f32
-    training step's shape, every shape under "head_dims"; K6's and K7's
-    with their registers and spills."""
+    training step's shape, every shape under "head_dims"; each with its
+    kernel's registers and spills."""
     from omnilingual_asr_torch.ops.card_cases import F32_FLASH_SHAPES
 
     cases = {}
@@ -1006,18 +1007,18 @@ def check_flash_f32(dev, peaks, ptxas):
             ("flash_attention_bwd_dq_f32", 79, "training"),
             ("flash_attention_bwd_dkv_f32", 110, "training"))):
         design, bound_at = F32_DESIGNS[name]
-        kernel = {"flash_attention_bwd_dq_f32": "flash_bwd_dq_tf32_kernel",
+        kernel = {"flash_attention_fwd_f32": "flash_fwd_tf32_kernel",
+                  "flash_attention_bwd_dq_f32": "flash_bwd_dq_tf32_kernel",
                   "flash_attention_bwd_dkv_f32": "flash_bwd_dkv_tf32_kernel"
-                  }.get(name)
+                  }[name]
         out.append({"name": name, "route": "cuda",
                     "source": "omnilingual_asr_torch/csrc/attention_f32.cu",
                     "replaces": f"omnilingual_asr_tpu/ops/attention.py:{line}",
                     "design": design, "bound_at": bound_at,
                     **cases[main][i],
                     "head_dims": [c[i] for c in cases.values()],
-                    **({"ptxas": {k: v for k, v in ptxas.items()
-                                  if k.startswith(kernel)}} if kernel
-                       else {})})
+                    "ptxas": {k: v for k, v in ptxas.items()
+                              if k.startswith(kernel)}})
     return out
 
 

@@ -22,49 +22,67 @@
 // adds nothing; a fully-masked query row's lse of +1e30 makes its p 0 in
 // the backward, so its dQ is 0 and it adds nothing to dK, dV. Query and
 // key rows at or past T are zero-filled, count as masked and are not
-// stored, so T may be any length. dQ and dK are scaled once, at the end.
+// stored, so T may be any length. q times scale is rounded to f32 before
+// its product, as JAX does; dQ and dK are scaled once, at the end.
 //
-// The forward (K2 at f32). What bounds it on an H100: it computes every
-// product as an FMA on the CUDA cores, at 67 TFLOP/s. At the training
-// shape [16, 256, 8, 64] it does 4 B H T T_valid D operations (2.1 GFLOP,
-// 32 us) against 8.4 MB of q/k/v/o (2.5 us): operations bound it by far.
-// Design (simple and right first; a tensor-core design is later work): one
-// block of 256 threads per (64-row tile, b*h). The block's query rows and
-// each streamed 64-key tile sit in shared memory as f32 rows padded by one
-// word, so that 16 threads reading 16 rows at one column hit 16 banks.
-// Thread (ty, tx) = (tid / 16, tid % 16) computes a 4 x 4 block of the
-// 64 x 64 score tile, rows 4 ty .. 4 ty + 3 and columns tx + 16 c, as FMAs
-// over D from shared memory; the 16 threads of a row are 16 lanes of one
-// warp, so the row max and sum take four shuffles. P V reads the 64 x 64
-// tile of p back from shared memory, each thread accumulating its 4 rows x
-// D / 16 columns (tx + 16 c) in registers. Shared memory 66.8 KB at D 64,
-// 116 KB at D 128.
+// All three run on TF32 tensor cores (mma.sync.m16n8k8). One TF32 product
+// keeps 10 mantissa bits, so each f32 product is taken as three (3xTF32:
+// a = a_hi + a_lo, b likewise, a b ~ a_hi b_lo + a_lo b_hi + a_hi b_hi,
+// mma.cuh::split_tf32), ~2^-21 of |a b| where f32 gives 2^-24, at three
+// times the tensor-core work. What bounds them on an H100, at the training
+// shape [16, 256, 8, 64] (H T D times the valid keys = 0.44 G):
+//   forward   3 x 4 H T D T_valid operations at 495 TFLOP/s, 10.6 us,
+//             against 33.7 MB of q, k, v, o and lse (10.1 us at 3.35 TB/s);
+//   dQ, dK/dV 3 x 6 and 3 x 8 H T D T_valid operations, 16 and 21 us,
+//             against 42 and 50 MB of f32 operands (12.5 and 15 us):
+// operations bound all three, the forward barely. Beside every three MMAs
+// a warp loads and splits operands and sums chains; what that costs the
+// forward is below.
 //
-// The backward (K6 and K7 at f32), on TF32 tensor cores. What bounds it:
-// one TF32 product keeps 10 mantissa bits, so each f32 product is taken as
-// three (3xTF32: a = a_hi + a_lo, b likewise, a b ~ a_hi b_lo + a_lo b_hi +
-// a_hi b_hi, mma.cuh::split_tf32), ~2^-21 of |a b| where f32 gives 2^-24,
-// at three times the tensor-core work: 3 x 6 (dQ) and 3 x 8 (dK, dV)
-// B H T T_valid D operations at 495 TFLOP/s, 16 and 21 us at the training
-// shape, against 42 and 50 MB of f32 operands (12.5 and 15 us at 3.35
-// TB/s): operations bound both, barely.
+// The forward (K2; FlashAttention-2's forward on the backward's pieces):
+// one block per (query tile, b*h), of 4 warps (8 for the FEW choices,
+// below). The block's Q rows, times
+// scale, sit raw in shared memory, and a warp splits its Q fragments as
+// it loads them. K and V stream in tiles of FWD_TILE keys by cp.async into
+// raw staging while the block computes on the tile before, and are split
+// once a tile (split_tile). Per step of FWD_STEP keys a warp computes
+// S = Q K^T, then the online softmax in f32 on the C fragments (a lane
+// holds rows g and g + 8: the row max and sum over its quad take two
+// shuffles; p = 2^(s log2 e - m log2 e) on valid keys, 0 on masked ones;
+// O and l times alpha = 2^((m_old - m_new) log2 e), skipped while no row
+// of the tile has a new max), and adds P V with P's C fragments as the A
+// fragments of the product (a_from_c, note 1): no P tile goes through
+// shared memory. A key tile with no valid key is neither loaded, split
+// nor computed, tested on the mask itself (a padded batch row runs no
+// tile and stores o = 0, lse = +1e30). What the card meets first is
+// shared-memory traffic and latency more than the tensor cores. Counted
+// from the code, a warp step of 32 keys over 16 rows moves ~52 KB through
+// shared memory (K's and V's split fragments, Q, the split pass) for 192
+// MMAs. So at D 64, where the grid fills the card, each warp owns two
+// tiles of 16 rows (FWD_MTILES_64; 128-row blocks) and every K and V
+// fragment it loads serves both. A grid too small to give every SM
+// FWD_MIN_BLOCKS_64 blocks of 64 rows (a serving batch, a model shard's
+// heads, a short T) is bound by one block's chain of steps: it runs the
+// FEW choices, 64-row blocks of 8 warps, the two groups of 4 taking
+// alternate steps of each 128-key tile, merged once at the end through
+// shared memory. At D 128 O takes 64 registers a row tile, so a warp owns
+// 16 rows. ops/k2_f32_parts.py times the kernel with each part taken out
+// (PERF.md): without two of each three products the training shape runs
+// about a third faster, the serving batch less than a tenth.
 //
-// Design (FlashAttention-2's backward, as the bf16 K6 and K7 of
-// attention_bwd.cu, on mma.sync.m16n8k8 tf32): K6 is one block of 4 warps
-// per (64-query tile, b*h); each warp owns 16 query rows with their lse
-// and delta. The block's Q and dO rows sit in shared memory as raw f32;
-// K and V stream through it in tiles of DQ_TILE keys. A tile lands by
-// cp.async in a raw staging area while the block computes on the one
-// before; then the block splits it once (split_tile) into (hi, lo) pairs,
-// so that no warp splits a streamed value itself. For each step of
-// DQ_STEP keys a warp computes S = Q K^T and dP = dO V^T (splitting its
-// Q and dO fragments as it loads them), P and dS = P (dP - delta) in
-// registers, and adds dS K to its dQ accumulators. K7 is the mirror: the
-// block owns 64 keys (K and V raw in shared memory), and Q, dO, lse and
-// delta stream; per step S^T = K Q^T, dP^T = V dO^T, P^T and dS^T with
-// lse and delta by column, then dV += P^T dO and dK += dS^T Q. Each block
-// owns its output rows: no atomics, the same result on every run. dQ and
-// dK times scale once, at the end. Where the design meets the card:
+// The backward (K6 and K7; FlashAttention-2's backward, as the bf16 K6 and
+// K7 of attention_bwd.cu): K6 is one block of 4 warps per (64-query tile,
+// b*h); each warp owns 16 query rows with their lse and delta. The block's
+// Q and dO rows sit in shared memory as raw f32; K and V stream through it
+// as the forward's do, in tiles of DQ_TILE keys. For each step of DQ_STEP
+// keys a warp computes S = Q K^T and dP = dO V^T (splitting its Q and dO
+// fragments as it loads them), P and dS = P (dP - delta) in registers, and
+// adds dS K to its dQ accumulators. K7 is the mirror: the block owns 64
+// keys (K and V raw in shared memory), and Q, dO, lse and delta stream;
+// per step S^T = K Q^T, dP^T = V dO^T, P^T and dS^T with lse and delta by
+// column, then dV += P^T dO and dK += dS^T Q. Each block owns its output
+// rows: no atomics, the same result on every run. Where the designs meet
+// the card:
 //   1. tf32's C fragment (row g, cols 2t, 2t+1) is not its A fragment (row
 //      g, cols t, t+4), so P and dS could not feed the next product from
 //      the accumulators as at bf16. The contraction order is free, so
@@ -73,10 +91,10 @@
 //      fragment as it stands (a_from_c), and a lane's two values of a row
 //      are adjacent (one 8- or 16-byte load).
 //   2. ldmatrix has no 32-bit transpose, so fragments are plain shared
-//      loads, along rows (S, dP: A and B) and down columns (the B of dS K,
-//      P^T dO, dS^T Q). One XOR swizzle of 16-byte chunks (sw) makes both
-//      conflict-free on raw and on split tiles without padding, and keeps
-//      cp.async's chunks whole.
+//      loads, along rows (S, dP: A and B) and down columns (the B of P V,
+//      dS K, P^T dO, dS^T Q). One XOR swizzle of 16-byte chunks (sw) makes
+//      both conflict-free on raw and on split tiles without padding, and
+//      keeps cp.async's chunks whole.
 //   3. At D 128 the dK and dV accumulators take 128 registers a thread,
 //      so K7 takes 8 queries a step there (DKV_STEP_128) and 16-row
 //      streamed tiles keep two blocks an SM within shared memory. At D 64
@@ -88,13 +106,13 @@
 //      and a block's warps splitting each tile: both slower.
 //   4. Masks stay exact: a masked key has p = 0 and a fully-masked query
 //      row (lse +1e30) p = 2^-huge = 0, and hi = lo = 0 for 0, so their
-//      dK, dV and dQ are exactly 0; rows past T are zero-filled, count as
-//      masked (queries past T read lse +1e30) and are not stored. Work
-//      that adds exactly nothing is skipped: K6 neither splits nor
-//      computes a key tile with no valid key, and a K7 block none of
-//      whose keys is valid stores zeros without a tile (a padded batch
-//      row and keys past a short row's length: two fifths of the
-//      serving batch's key tiles).
+//      o, dK, dV and dQ are exactly 0; rows past T are zero-filled, count
+//      as masked (queries past T read lse +1e30) and are not stored. Work
+//      that adds exactly nothing is skipped: the forward and K6 neither
+//      split nor compute a key tile with no valid key, and a K7 block none
+//      of whose keys is valid stores zeros without a tile (a padded batch
+//      row and keys past a short row's length: two fifths of the serving
+//      batch's key tiles).
 //   5. No atomics: each block writes only its own rows.
 //   6. The tensor cores truncate the f32 sum inside a product, so a chain
 //      of at most two 8-wide steps of a contraction sums into a fragment
@@ -107,232 +125,50 @@
 //      instructions a product each. Every fragment load is a lane offset
 //      (Lane) plus a constant, the split two integer operations a value
 //      (mma.cuh::tf32_round), p = 2^(s scale log2 e - lse log2 e).
-// Shared memory: 80.1 KB (dQ) and 80.3 KB (dK/dV) at D 64 (32-row
-// tiles; 128.3 and 128.5 KB for the FEW 64-row tiles), 112.1 KB each at
-// D 128 (16-row tiles), above 48 KB by cudaFuncSetAttribute.
+// Shared memory: the forward 80.1 KB at D 64 (128 rows, 32-key tiles;
+// 208.5 KB for the FEW 64 rows and 128-key tiles), 80.1 KB at D 128
+// (16-key tiles); dQ 80.1 KB and dK/dV 80.3 KB at D 64 (32-row tiles;
+// 128.3 and 128.5 KB for the FEW 64-row tiles), 112.1 KB each at D 128
+// (16-row tiles); above 48 KB by cudaFuncSetAttribute.
 #include "mma.cuh"
 
 namespace {
 
-constexpr int R = 64;            // rows a block owns; rows a tile streams
-constexpr int THREADS = 256;     // 16 x 16 threads, each 4 x 4 of a tile
-constexpr int PLD = R + 1;       // row stride of a p / ds tile in shared memory
+constexpr int R = 64;            // rows a backward block owns
 constexpr float NEG_INF = -1e30f;
 constexpr float FULLY_MASKED_LSE = 1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-struct Rows {
-  static constexpr int LD = D + 1;           // f32 row, padded one word
-  static constexpr int ELEMS = R * LD;
-  static constexpr int DC = D / 16;          // output columns a thread owns
-};
-
-// Rows t0 .. t0 + 64 of one head of a [B, T, H, D] f32 operand (src at the
-// head's row 0, frame stride ts) into a padded shared tile, times mul; rows
-// at or past T are zero. Every thread takes part (16-byte loads).
-template <int D>
-__device__ __forceinline__ void load_rows(float* tile, const float* src,
-                                          size_t ts, int t0, int T, int tid,
-                                          float mul) {
-  constexpr int V = D / 4;
-  for (int i = tid; i < R * V; i += THREADS) {
-    const int r = i / V;
-    const int c = (i % V) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t0 + r < T)
-      x = *reinterpret_cast<const float4*>(
-          src + static_cast<size_t>(t0 + r) * ts + c);
-    float* d = tile + r * Rows<D>::LD + c;
-    d[0] = x.x * mul;
-    d[1] = x.y * mul;
-    d[2] = x.z * mul;
-    d[3] = x.w * mul;
-  }
+// 2^x by one MUFU.EX2 (~2 ulp, as exp2f; results below 2^-126 flush to
+// 0, which no sum here can see). exp2f adds a scaling for such results.
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Values t0 .. t0 + 64 of a length-T row (a key mask, lse or delta) into
-// shared memory; those at or past T are `fill`.
-template <typename W>
-__device__ __forceinline__ void load_words(W* dst, const W* src, int t0,
-                                           int T, int tid, W fill) {
-  if (tid < R) dst[tid] = t0 + tid < T ? src[t0 + tid] : fill;
-}
-
-// acc[i][c] += sum_d A[4 ty + i][d] * B[tx + 16 c][d] over two padded
-// tiles: the thread's 4 x 4 block of A B^T.
-template <int D>
-__device__ __forceinline__ void rows_by_rows(float (*acc)[4], const float* A,
-                                             const float* Bt, int ty,
-                                             int tx) {
-  constexpr int LD = Rows<D>::LD;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(4 * ty + i) * LD + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = Bt[(tx + 16 * c) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
-  }
-}
-
-// acc[i][c] += sum_j P[4 ty + i][j] * V[j][tx + 16 c] over a 64 x 64 tile P
-// (row stride PLD) and a padded 64-row tile V: the thread's 4 rows x D / 16
-// columns of P V.
-template <int D>
-__device__ __forceinline__ void tile_by_rows(float (*acc)[Rows<D>::DC],
-                                             const float* P, const float* V,
-                                             int ty, int tx) {
-  constexpr int LD = Rows<D>::LD;
-#pragma unroll 2
-  for (int j = 0; j < R; ++j) {
-    float p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(4 * ty + i) * PLD + j];
-#pragma unroll
-    for (int c = 0; c < Rows<D>::DC; ++c) {
-      const float v = V[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], v, acc[i][c]);
-    }
-  }
-}
-
-// Reduce over the 16 lanes that share a row (lanes differing in bits 0-3).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Store a thread's 4 rows x D / 16 columns (times mul) of the block's rows
-// r0 .. r0 + 64 that lie below T; dst at the head's row 0.
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst,
-                                           float (*acc)[Rows<D>::DC],
-                                           float mul, size_t ts, int r0,
-                                           int T, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = r0 + 4 * ty + i;
-    if (t >= T) continue;
-    float* row = dst + static_cast<size_t>(t) * ts;
-#pragma unroll
-    for (int c = 0; c < Rows<D>::DC; ++c) row[tx + 16 * c] = acc[i][c] * mul;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const int* __restrict__ mask, float* __restrict__ o,
-                     float* __restrict__ lse, int T, int H, float scale) {
-  constexpr int E = Rows<D>::ELEMS;
-  constexpr int DC = Rows<D>::DC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + E;
-  float* Vs = Ks + E;
-  float* Ps = Vs + E;                               // [R][PLD]
-  int* Ms = reinterpret_cast<int*>(Ps + R * PLD);   // [R]
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * R;
-  const size_t ts = static_cast<size_t>(H) * D;
-  const size_t base =
-      static_cast<size_t>(b) * T * ts + static_cast<size_t>(h) * D;
-  const int* mrow = mask + static_cast<size_t>(b) * T;
-
-  load_rows<D>(Qs, q + base, ts, q0, T, tid, scale);   // q * scale, as JAX
-  float acc[4][DC];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < T; j0 += R) {
-    __syncthreads();                 // the previous tile's readers are done
-    load_rows<D>(Ks, k + base, ts, j0, T, tid, 1.f);
-    load_rows<D>(Vs, v + base, ts, j0, T, tid, 1.f);
-    load_words(Ms, mrow, j0, T, tid, 0);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    rows_by_rows<D>(s, Qs, Ks, ty, tx);
-    bool valid[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) valid[c] = Ms[tx + 16 * c] > 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[i][c] = valid[c] ? s[i][c] : NEG_INF;
-        mx = fmaxf(mx, s[i][c]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = valid[c] ? expf(s[i][c] - m_new) : 0.f;
-        l[i] += p;                   // this thread's share of the row sum
-        Ps[(4 * ty + i) * PLD + tx + 16 * c] = p;
-      }
-    }
-    __syncthreads();
-    tile_by_rows<D>(acc, Ps, Vs, ty, tx);
-  }
-
-  float inv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l[i] = row_sum(l[i]);
-    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] *= inv[i];
-  }
-  store_rows<D>(o + base, acc, 1.f, ts, q0, T, ty, tx);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = q0 + 4 * ty + i;
-      if (t < T)
-        lse[static_cast<size_t>(bh) * T + t] =
-            l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-30f)) : FULLY_MASKED_LSE;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K6 and K7 at f32 on TF32 tensor cores (3xTF32 mma.sync)
-// ---------------------------------------------------------------------------
+// The forward's tile and launch-bound choices, by head dim: keys of a
+// streamed tile, keys a step of a warp takes, the minimum blocks an SM in
+// __launch_bounds__, the groups of 4 warps that split each tile's steps
+// over the same rows (1 or 2), the tiles of 16 query rows a warp owns
+// (FWD_MTILES_*: 1 or 2, so a block owns 64 or 128 rows; each K and V
+// fragment a warp loads serves all its row tiles). A grid too small to
+// give every SM MIN_BLOCKS blocks of 64 rows takes the FEW choices.
+constexpr int FWD_TILE_64 = 32;
+constexpr int FWD_STEP_64 = 16;
+constexpr int FWD_MIN_BLOCKS_64 = 2;
+constexpr int FWD_SPLIT_64 = 1;
+constexpr int FWD_MTILES_64 = 2;
+constexpr int FWD_FEW_TILE_64 = 128;
+constexpr int FWD_FEW_STEP_64 = 16;
+constexpr int FWD_FEW_MIN_BLOCKS_64 = 1;
+constexpr int FWD_FEW_SPLIT_64 = 2;
+constexpr int FWD_FEW_MTILES_64 = 1;
+constexpr int FWD_TILE_128 = 16;
+constexpr int FWD_STEP_128 = 16;
+constexpr int FWD_MIN_BLOCKS_128 = 2;
+constexpr int FWD_SPLIT_128 = 1;
+constexpr int FWD_MTILES_128 = 1;
 
 // The backward's tile and launch-bound choices, by head dim: rows of a
 // streamed tile (keys for dQ, queries for dK/dV), rows a step of the
@@ -389,6 +225,41 @@ struct Bwd {
   }
 };
 
+template <int D, bool FEW>
+struct Fwd {
+  static_assert(D == 64 || !FEW, "the FEW choices are D 64's");
+  static constexpr int TILE =
+      D == 128 ? FWD_TILE_128 : FEW ? FWD_FEW_TILE_64 : FWD_TILE_64;
+  static constexpr int STEP =
+      D == 128 ? FWD_STEP_128 : FEW ? FWD_FEW_STEP_64 : FWD_STEP_64;
+  static constexpr int BLOCKS =
+      D == 128 ? FWD_MIN_BLOCKS_128
+               : FEW ? FWD_FEW_MIN_BLOCKS_64 : FWD_MIN_BLOCKS_64;
+  static constexpr int SPLIT =
+      D == 128 ? FWD_SPLIT_128 : FEW ? FWD_FEW_SPLIT_64 : FWD_SPLIT_64;
+  static constexpr int MTILES =
+      D == 128 ? FWD_MTILES_128 : FEW ? FWD_FEW_MTILES_64 : FWD_MTILES_64;
+  static constexpr int ROWS = 64 * MTILES;         // rows a block owns
+  static constexpr int THREADS = TF_THREADS * SPLIT;
+  // What group 1 hands to group 0 at the end, in words: each warp's O
+  // (D / 8 fragments of 4 values a lane a row tile), then m and l of its
+  // rows.
+  static constexpr int MERGE =
+      4 * MTILES * ((D / 8) * 4 * 32 + 2 * 2 * 32);
+  static_assert(SPLIT == 1 || SPLIT == 2, "one or two groups of 4 warps");
+  static_assert(MTILES == 1 || MTILES == 2, "16 or 32 rows a warp");
+  static_assert(TILE % (SPLIT * STEP) == 0 && STEP % 16 == 0 &&
+                    TILE <= THREADS,
+                "a tile holds whole steps of 16 keys for every group");
+  static_assert(SPLIT == 1 || MERGE <= 6 * TILE * D,
+                "the merge fits the streamed tiles' area");
+  // Dynamic shared memory: Q (ROWS raw rows), K's and V's raw staging
+  // and split tiles, the tile's key mask.
+  static constexpr size_t bytes() {
+    return (ROWS * D + 6 * TILE * D + TILE) * 4;
+  }
+};
+
 // Word (r, c) of a tile of rows of W words in shared memory. Bits 3 and 4
 // of each row's word index are XORed with bits of r (r1; r0 ^ r2), so
 // that the fragment loads hit distinct banks: 8-byte loads along raw f32
@@ -411,17 +282,17 @@ __device__ __forceinline__ int sw(int r, int c) {
 // Rows t0 .. t0 + ROWS (t0 < T) of one head of an f32 [B, T, H, D] operand
 // (src at the head's row 0, frame stride ts) into shared memory by
 // cp.async, rows at or past T zero-filled: a swizzled raw tile (SW), or a
-// dense staging tile (16-byte chunk i at 4 i). Thread tid copies chunks
-// tid, tid + TF_THREADS, ..., the ones that split_tile reads back, so a
-// thread's own cp.async.wait_group publishes them to it: no barrier
-// between the copy and the split.
-template <int ROWS, int D, bool SW>
+// dense staging tile (16-byte chunk i at 4 i). Thread tid of NT copies
+// chunks tid, tid + NT, ..., the ones that split_tile (and scale_tile)
+// read back, so a thread's own cp.async.wait_group publishes them to it:
+// no barrier between the copy and the split.
+template <int ROWS, int D, bool SW, int NT = TF_THREADS>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           size_t ts, int t0, int T, int tid) {
   constexpr int CH = D / 4;               // 16-byte chunks a row
   const int valid = T - t0;
 #pragma unroll
-  for (int i = tid; i < ROWS * CH; i += TF_THREADS) {
+  for (int i = tid; i < ROWS * CH; i += NT) {
     const int r = i / CH;
     const int c = (i % CH) * 4;
     omni::cp_async_16(dst + (SW ? sw<D>(r, c) : 4 * i),
@@ -433,13 +304,13 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
 
 // A staged tile split once for every warp: each value x as the pair
 // (tf32(x), tf32(x - tf32(x))) at words 2 c, 2 c + 1 of a swizzled row of
-// 2 D words.
-template <int ROWS, int D>
+// 2 D words. Thread tid of NT splits the chunks it copied.
+template <int ROWS, int D, int NT = TF_THREADS>
 __device__ __forceinline__ void split_tile(uint32_t* split,
                                            const float* stage, int tid) {
   constexpr int CH = D / 4;
 #pragma unroll
-  for (int i = tid; i < ROWS * CH; i += TF_THREADS) {
+  for (int i = tid; i < ROWS * CH; i += NT) {
     const float4 x = *reinterpret_cast<const float4*>(stage + 4 * i);
     uint4 a, b;
     omni::split_tf32(x.x, a.x, a.y);
@@ -661,6 +532,346 @@ __device__ __forceinline__ void store_acc(float* dst, float (*acc)[4],
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<float2*>(p + 8 * j) =
           make_float2(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+  }
+}
+
+// A raw swizzled tile of ROWS rows times mul, in place; thread tid of NT
+// scales the chunks it copied (load_tile), after its own wait.
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void scale_tile(float* tile, float mul, int tid) {
+  constexpr int CH = D / 4;
+#pragma unroll
+  for (int i = tid; i < ROWS * CH; i += NT) {
+    float4* p = reinterpret_cast<float4*>(tile + sw<D>(i / CH, (i % CH) * 4));
+    float4 x = *p;
+    x.x *= mul;
+    x.y *= mul;
+    x.z *= mul;
+    x.w *= mul;
+    *p = x;
+  }
+}
+
+// The A fragments of 16 query rows (own at the first, raw in shared
+// memory) over the 8-wide step kk of D, split as they are loaded.
+template <int D>
+struct QFrags {
+  const float* own;
+  uint32_t hi[4], lo[4];
+
+  __device__ __forceinline__ void load(int kk, const Lane<D>& L) {
+    a_rows<D>(hi, lo, own + 32 * (kk / 4), L, kk % 4);
+  }
+};
+
+// s[mt][n] = Q K^T (n < NS) for a warp's MT tiles of 16 rows (q[mt]) and
+// 8 NS keys of a split K tile (split at the step's first key), over D in
+// chains of two 8-wide steps. Each B fragment serves all MT tiles.
+template <int D, int NS, int MT>
+__device__ __forceinline__ void scores_tf32(float (*s)[NS][4], QFrags<D>* q,
+                                            const uint32_t* split,
+                                            const Lane<D>& L) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; kk += 2) {
+    float part[MT][NS][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      uint32_t bh[NS][2], bl[NS][2];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        b_rows<D>(bh[n], bl[n], split + 16 * D * n + 16 * kk, L, u);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        q[mt].load(kk + u, L);
+        // The first chain is s itself.
+        mma3<NS>(kk == 0 ? s[mt] : part[mt], q[mt].hi, q[mt].lo, bh, bl,
+                 u == 0);
+      }
+    }
+    if (kk > 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) add_parts<NS>(s[mt], part[mt]);
+    }
+  }
+}
+
+// acc[mt][j] (j < D / 8) += P V for a warp's MT tiles of 16 rows: P the C
+// fragments p[mt][n] over 8 NS keys, V their rows of a split tile (split
+// at the step's first key), in chains of two 8-key steps. Each B fragment
+// serves all MT tiles.
+template <int D, int NS, int MT>
+__device__ __forceinline__ void pv_tf32(float (*acc)[D / 8][4],
+                                        float (*p)[NS][4],
+                                        const uint32_t* split,
+                                        const Lane<D>& L) {
+  static_assert(NS % 2 == 0, "chains of two 8-key steps");
+#pragma unroll
+  for (int n = 0; n < NS; n += 2) {
+    uint32_t ah[MT][2][4], al[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      a_from_c(p[mt][n], ah[mt][0], al[mt][0]);
+      a_from_c(p[mt][n + 1], ah[mt][1], al[mt][1]);
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < D / 8; j0 += 4) {
+      float part[MT][4][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          b_cols<D>(bh[i], bl[i],
+                    split + 16 * D * (n + u) + 16 * (j0 + i - (i & 1)), L,
+                    i & 1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma3<4>(part[mt], ah[mt][u], al[mt][u], bh, bl, u == 0);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) add_parts<4>(acc[mt] + j0, part[mt]);
+    }
+  }
+}
+
+// One step of 8 NS keys for a warp's MT tiles of 16 rows (rows g and
+// g + 8 of each, in a lane): S = Q K^T, the online softmax in f32 on S's C
+// fragments (m the rows' running max, l this lane's share of their sums;
+// ms the keys' mask), then O += P V.
+template <int D, int NS, int MT>
+__device__ __forceinline__ void fwd_step(float (*acc)[D / 8][4],
+                                         float (*m)[2], float (*l)[2],
+                                         QFrags<D>* q,
+                                         const uint32_t* ksplit,
+                                         const uint32_t* vsplit,
+                                         const int* ms, const Lane<D>& L,
+                                         int tq) {
+  float s[MT][NS][4];
+  scores_tf32<D, NS, MT>(s, q, ksplit, L);
+  bool valid[NS][2];
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    const int2 mk = *reinterpret_cast<const int2*>(ms + 8 * n + 2 * tq);
+    valid[n][0] = mk.x > 0;
+    valid[n][1] = mk.y > 0;
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (valid[n][e & 1]) mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][n][e]);
+    float ml[2], alpha[2];           // the new max times log2 e
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[mt][r], mx[r]);
+      alpha[r] = exp2_fast((m[mt][r] - m_new) * LOG2E);
+      m[mt][r] = m_new;
+      ml[r] = m_new * LOG2E;
+      l[mt][r] *= alpha[r];
+    }
+    // O times alpha, unless no row of the tile has a new max (alpha 1).
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] *= alpha[e >> 1];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            valid[n][e & 1]
+                ? exp2_fast(fmaf(s[mt][n][e], LOG2E, -ml[e >> 1]))
+                : 0.f;
+        l[mt][e >> 1] += p;
+        s[mt][n][e] = p;
+      }
+  }
+  pv_tf32<D, NS, MT>(acc, s, vsplit, L);
+}
+
+// K2 at f32: one block of 4 SPLIT warps per (64 MTILES-query tile, b*h).
+template <int D, bool FEW>
+__global__ void __launch_bounds__(Fwd<D, FEW>::THREADS, Fwd<D, FEW>::BLOCKS)
+flash_fwd_tf32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const int* __restrict__ mask, float* __restrict__ o,
+                      float* __restrict__ lse, int T, int H, float scale) {
+  using C = Fwd<D, FEW>;
+  constexpr int BN = C::TILE;
+  constexpr int KS = C::STEP;
+  constexpr int NT = C::THREADS;
+  constexpr int MT = C::MTILES;
+  constexpr int RB = C::ROWS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);         // [RB][D]
+  float* Kst = Qs + RB * D;                                // staging [BN][D]
+  float* Vst = Kst + BN * D;
+  uint32_t* Ksp = reinterpret_cast<uint32_t*>(Vst + BN * D);  // [BN][2D]
+  uint32_t* Vsp = Ksp + 2 * BN * D;
+  int* Ms = reinterpret_cast<int*>(Vsp + 2 * BN * D);      // [BN]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w4 = (tid >> 5) & 3;     // the warp's rows in the block
+  const int wr = w4 * 16 * MT;
+  const int grp = tid >> 7;          // its group: steps grp, grp + SPLIT, ..
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const Lane<D> L(g, tq);
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.x * RB;
+  const size_t ts = static_cast<size_t>(H) * D;
+  const size_t base =
+      static_cast<size_t>(b) * T * ts + static_cast<size_t>(h) * D;
+  const int* mrow = mask + static_cast<size_t>(b) * T;
+  const int n_tiles = (T + BN - 1) / BN;
+  // This thread's key of tile j (threads below BN): its mask, 0 past T.
+  const auto key_mask = [&](int j) {
+    const int t = j * BN + tid;
+    return tid < BN && t < T ? mrow[t] : 0;
+  };
+
+  load_tile<RB, D, true, NT>(Qs, q + base, ts, q0, T, tid);
+  omni::cp_async_commit();
+  int mk = key_mask(0), mk_next = key_mask(1);
+  // A key tile with no valid key adds exactly nothing (p = 0, alpha = 1),
+  // so it is neither loaded, split nor computed.
+  bool live = __syncthreads_or(mk > 0);
+  if (live) {
+    load_tile<BN, D, false, NT>(Kst, k + base, ts, 0, T, tid);
+    load_tile<BN, D, false, NT>(Vst, v + base, ts, 0, T, tid);
+  }
+  omni::cp_async_commit();
+  omni::cp_async_wait<1>();          // this thread's chunks of Q
+  scale_tile<RB, D, NT>(Qs, scale, tid);   // q * scale in f32, as JAX
+  __syncthreads();                   // Q whole
+  QFrags<D> qf[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) qf[mt].own = Qs + (wr + 16 * mt) * D;
+
+  float acc[MT][D / 8][4];           // O: 8-column tiles, rows g and g + 8
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    zero<D / 8>(acc[mt]);
+    m[mt][0] = m[mt][1] = NEG_INF;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int mk_far = key_mask(j + 2);   // lands while tile j computes
+    if (live) omni::cp_async_wait<0>();   // this thread's chunks of tile j
+    // Every warp is done with tile j - 1.
+    const bool live_next = __syncthreads_or(mk_next > 0);
+    if (live) {
+      split_tile<BN, D, NT>(Ksp, Kst, tid);
+      split_tile<BN, D, NT>(Vsp, Vst, tid);
+      if (tid < BN) Ms[tid] = mk;
+    }
+    if (live_next) {                 // tile j + 1 lands while j computes
+      load_tile<BN, D, false, NT>(Kst, k + base, ts, (j + 1) * BN, T, tid);
+      load_tile<BN, D, false, NT>(Vst, v + base, ts, (j + 1) * BN, T, tid);
+    }
+    omni::cp_async_commit();
+    if (live) {
+      __syncthreads();               // split tile j is whole
+#pragma unroll 1
+      for (int st = 0; st < BN / (C::SPLIT * KS); ++st) {
+        const int k0 = (st * C::SPLIT + grp) * KS;   // the group's steps
+        fwd_step<D, KS / 8, MT>(acc, m, l, qf, Ksp + 2 * D * k0,
+                                Vsp + 2 * D * k0, Ms + k0, L, tq);
+      }
+    }
+    live = live_next;
+    mk = mk_next;
+    mk_next = mk_far;
+  }
+
+  if constexpr (C::SPLIT > 1) {
+    // Group 1 hands its rows' O, m and l to group 0 through the streamed
+    // tiles' area, once every warp is done with it (every copy into it
+    // was waited for).
+    float* xo = Kst;                 // [warp][mt][j][e][lane]
+    float* xm = xo + 4 * MT * (D / 8) * 4 * 32;  // [warp][mt][row][lane]
+    float* xl = xm + 4 * MT * 2 * 32;
+    __syncthreads();
+    if (grp == 1) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int wt = w4 * MT + mt;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            xo[((wt * (D / 8) + j) * 4 + e) * 32 + lane] = acc[mt][j][e];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          xm[(wt * 2 + r) * 32 + lane] = m[mt][r];
+          xl[(wt * 2 + r) * 32 + lane] = l[mt][r];
+        }
+      }
+    }
+    __syncthreads();
+    if (grp == 1) return;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int wt = w4 * MT + mt;
+      float a0[2], a1[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m1 = xm[(wt * 2 + r) * 32 + lane];
+        const float m_new = fmaxf(m[mt][r], m1);
+        a0[r] = exp2_fast((m[mt][r] - m_new) * LOG2E);
+        a1[r] = exp2_fast((m1 - m_new) * LOG2E);
+        m[mt][r] = m_new;
+        l[mt][r] = l[mt][r] * a0[r] + xl[(wt * 2 + r) * 32 + lane] * a1[r];
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mt][j][e] =
+              acc[mt][j][e] * a0[e >> 1] +
+              xo[((wt * (D / 8) + j) * 4 + e) * 32 + lane] * a1[e >> 1];
+    }
+  }
+
+  // o = O / max(l, 1e-30), lse = m + log l (+1e30 without a valid key).
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
+      inv[r] = 1.f / fmaxf(l[mt][r], 1e-30f);
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] *= inv[e >> 1];
+    const int row0 = q0 + wr + 16 * mt;
+    store_acc<D>(o + base, acc[mt], 1.f, ts, row0, T, g, tq);
+    if (tq == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + g + 8 * r;
+        if (row < T)
+          lse[static_cast<size_t>(bh) * T + row] =
+              l[mt][r] > 0.f ? m[mt][r] + logf(fmaxf(l[mt][r], 1e-30f))
+                             : FULLY_MASKED_LSE;
+      }
+    }
   }
 }
 
@@ -904,23 +1115,19 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q,
   store_acc<D>(dv + base, dva, 1.f, ts, k0b + wr, T, g, tq);
 }
 
-template <int D>
-constexpr size_t fwd_smem() {
-  return (3 * Rows<D>::ELEMS + R * PLD + R) * 4;
-}
-
-template <int D>
+template <int D, bool FEW>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* mask, void* o, float* lse, int B, int T,
                        int H, float scale, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<D>();
-  cudaError_t err = omni::allow_smem(flash_fwd_f32_kernel<D>, smem);
+  constexpr size_t smem = Fwd<D, FEW>::bytes();
+  cudaError_t err = omni::allow_smem(flash_fwd_tf32_kernel<D, FEW>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + R - 1) / R, B * H);
-  flash_fwd_f32_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), mask, static_cast<float*>(o), lse, T, H,
-      scale);
+  const dim3 grid((T + Fwd<D, FEW>::ROWS - 1) / Fwd<D, FEW>::ROWS, B * H);
+  flash_fwd_tf32_kernel<D, FEW>
+      <<<grid, Fwd<D, FEW>::THREADS, smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), mask, static_cast<float*>(o), lse, T,
+          H, scale);
   return cudaGetLastError();
 }
 
@@ -959,8 +1166,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Whether a backward grid at D 64 gives some SM fewer than `min_blocks`
-// blocks of 64 rows: then the FEW tiles run.
+// Whether a grid at D 64 gives some SM fewer than `min_blocks` blocks of
+// 64 rows: then the FEW choices run.
 bool few_blocks(int B, int T, int H, int min_blocks) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -984,10 +1191,13 @@ OMNI_API int omni_flash_fwd_f32(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64:
       return static_cast<int>(
-          launch_fwd<64>(q, k, v, mask, o, lse, B, T, H, scale, s));
+          few_blocks(B, T, H, FWD_MIN_BLOCKS_64)
+              ? launch_fwd<64, true>(q, k, v, mask, o, lse, B, T, H, scale, s)
+              : launch_fwd<64, false>(q, k, v, mask, o, lse, B, T, H, scale,
+                                      s));
     case 128:
       return static_cast<int>(
-          launch_fwd<128>(q, k, v, mask, o, lse, B, T, H, scale, s));
+          launch_fwd<128, false>(q, k, v, mask, o, lse, B, T, H, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,13 +15,15 @@ version for CPU tensors. The Pallas kernels are generic in their input
 type, so each entry point dispatches on q's dtype: bf16 to the tensor-core
 kernels (``csrc/attention.cu``, ``csrc/attention_bwd.cu``), f32 (the f32
 encoder, ``EncoderConfig.dtype == "float32"``) to their f32 variants
-(``csrc/attention_f32.cu``: ``flash_attention_f32`` on the CUDA cores,
-``flash_attention_bwd_dq_f32`` and ``flash_attention_bwd_dkv_f32`` on TF32
-tensor cores, three products a product; their arithmetic in plain PyTorch:
-``flash_attention_bwd_tf32_emulated``). Each
-kernel keeps its own launch count, so a count says which dtype ran. Layouts follow the caller: q, k, v, o, dO [B, T, H, D], mask
-[B, T], lse and delta [B, H, T]. :class:`FlashAttention` is the
-differentiable entry point that the model calls.
+(``csrc/attention_f32.cu``: ``flash_attention_f32``,
+``flash_attention_bwd_dq_f32`` and ``flash_attention_bwd_dkv_f32``, all on
+TF32 tensor cores, three products a product; their arithmetic in plain
+PyTorch: ``flash_attention_fwd_tf32_emulated`` and
+``flash_attention_bwd_tf32_emulated``). Each kernel keeps its own launch
+count, so a count says which dtype ran. Layouts follow the caller: q, k,
+v, o, dO [B, T, H, D], mask [B, T], lse and delta [B, H, T].
+:class:`FlashAttention` is the differentiable entry point that the model
+calls.
 """
 
 from __future__ import annotations
@@ -207,7 +209,7 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int):
-    """einsum(eq, a, b) as the f32 K6 and K7 take it: a = a_hi + a_lo,
+    """einsum(eq, a, b) as the f32 K2, K6 and K7 take it: a = a_hi + a_lo,
     b = b_hi + b_lo (hi = tf32(x), lo = tf32(x - hi)), summed as
     a_hi b_lo + a_lo b_hi + a_hi b_hi (``terms`` 3) or a_hi b_hi alone
     (``terms`` 1: one TF32 product)."""
@@ -220,6 +222,37 @@ def _tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int):
     elif terms != 1:
         raise ValueError(f"terms must be 3 or 1, got {terms}")
     return out
+
+
+def _f32_only(q: torch.Tensor) -> None:
+    if q.dtype != torch.float32:
+        raise TypeError(f"the TF32 emulation models the f32 kernels; got "
+                        f"{q.dtype} operands")
+
+
+def flash_attention_fwd_tf32_emulated(q, k, v, mask, terms: int = 3):
+    """The f32 kernel K2's arithmetic (``csrc/attention_f32.cu``) in plain
+    PyTorch, to show on the CPU what its TF32 tensor-core products do to o
+    and lse: s = (q scale) k^T and o = p v, each from operands rounded to
+    tf32 and split as hi + lo, three products summed in f32
+    (:func:`_tf32x3`; ``terms=1`` keeps only hi hi), with q times scale
+    rounded to f32 first and the softmax in f32 in one pass (the kernel's
+    online softmax, its order of sums and the tensor cores' truncation
+    inside a product are not modelled). Same arguments and results as
+    :func:`flash_attention_plain`; f32 operands only."""
+    _f32_only(q)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _tf32x3("bthd,bshd->bhts", q * scale, k, terms)
+    valid = mask.to(torch.bool)[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid
+    l = p.sum(dim=-1)
+    out = _tf32x3("bhts,bshd->bthd", p, v, terms)
+    out = out / torch.clamp(l, min=1e-30).permute(0, 2, 1)[..., None]
+    lse = torch.where(l > 0, m[..., 0] + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.full_like(l, 1e30))
+    return out, lse
 
 
 def flash_attention_bwd_tf32_emulated(q, k, v, mask, do, lse, delta,
@@ -235,9 +268,7 @@ def flash_attention_bwd_tf32_emulated(q, k, v, mask, do, lse, delta,
     :func:`flash_attention_bwd_dq_plain` and
     :func:`flash_attention_bwd_dkv_plain` together: (dq, dk, dv), f32
     operands only."""
-    if q.dtype != torch.float32:
-        raise TypeError(f"the TF32 emulation models the f32 kernels; got "
-                        f"{q.dtype} operands")
+    _f32_only(q)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = _tf32x3("bthd,bshd->bhts", q, k, terms) * scale
     p = torch.exp(s - lse[..., None]) * mask.to(torch.bool)[:, None, None, :]
@@ -259,8 +290,7 @@ def flash_attention_bwd_plain(q, k, v, mask, o, lse, do):
 
 
 #: The dtypes the flash kernels take: bf16 (K2, K6, K7 on the tensor
-#: cores) and f32 (their variants: K2 on the CUDA cores, K6 and K7 on TF32
-#: tensor cores).
+#: cores) and f32 (their variants, on TF32 tensor cores).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -358,8 +388,10 @@ flash_attention.launches = 0
 
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor):
-    """K2 at f32 (``csrc/attention_f32.cu``): f32 q/k/v, head dim 64 or
-    128, for a CUDA tensor; the plain version for a CPU tensor."""
+    """K2 at f32 (``csrc/attention_f32.cu``: 3xTF32 ``mma.sync``, its
+    rounding modelled by :func:`flash_attention_fwd_tf32_emulated`): f32
+    q/k/v, head dim 64 or 128, for a CUDA tensor; the plain version for a
+    CPU tensor."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, mask)
     out = _launch_fwd("omni_flash_fwd_f32", torch.float32, q, k, v, mask)

@@ -90,17 +90,17 @@ F32_FLASH_SHAPES = {"serving": (4, 768, 4, 64, (768, 700, 300, 0)),
                     "ragged": (3, 200, 4, 64, (200, 130, 0))}
 # The f32 kernels against their plain versions, per element |got - want| <=
 # TOL_F32_FLASH * max|want| (o, dQ, dK, dV) and |lse - lse_ref| <=
-# TOL_F32_LSE. The f32 forward computes exact f32 products and f32 sums
-# like the plain version, in another order (64-key tiles with an online
-# softmax against one pass): ~1e-7 of the largest element over up to 768
-# keys (a CPU emulation of the kernels measured 2e-7 on o and 1.2e-7 on
-# the gradients). The f32 backward takes each product as three TF32
-# products (3xTF32: operands split into tf32 hi + lo, ~2^-21 of a
-# product), which its CPU model (ops/attention.py::
-# flash_attention_bwd_tf32_emulated) puts at ~1e-6 of the largest
-# gradient. A dropped key, a bf16 rounding or a wrong p moves them by 1e-3
-# or more, one TF32 product in place of three by 6e-4 or more (the model).
-# Masked keys' dK and dV and fully-masked rows' dQ and o are exactly 0.
+# TOL_F32_LSE. The f32 kernels take each product as three TF32 products
+# (3xTF32: operands split into tf32 hi + lo, ~2^-21 of a product) and sum
+# in f32, in another order than the plain version (streamed key tiles with
+# an online softmax in the forward, against one pass). Their CPU models
+# (ops/attention.py::flash_attention_fwd_tf32_emulated and
+# ::flash_attention_bwd_tf32_emulated) put that at ~1e-6 of the largest
+# element of o and of the gradients, and at ~1e-6 on lse. A dropped key, a
+# bf16 rounding or a wrong p moves them by 1e-3 or more, one TF32 product
+# in place of three by 5e-4 or more on o and the gradients and 1.8e-4 or
+# more on lse (the models). Masked keys' dK and dV and fully-masked rows'
+# dQ and o are exactly 0.
 TOL_F32_FLASH = 1e-5
 TOL_F32_LSE = 1e-5
 

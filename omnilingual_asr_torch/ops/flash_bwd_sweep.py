@@ -1,29 +1,33 @@
-"""Time kernels K6 and K7, bf16 and f32, on the card at each candidate of
-their tile and launch-bound constants.
+"""Time kernels K6 and K7, bf16 and f32, and the f32 K2 on the card at
+each candidate of their tile and launch-bound constants.
 
 Each candidate sets some constants of ``csrc/attention_bwd.cu`` (the bf16
 K6 and K7: ``DQ_MIN_BLOCKS_64`` / ``_128`` and ``DKV_MIN_BLOCKS_64`` /
 ``_128``, the blocks an SM in ``__launch_bounds__`` by head dim) or of
-``csrc/attention_f32.cu`` (the f32 K6 and K7 on 3xTF32 ``mma.sync``: by
-head dim, ``DQ_TILE_*`` / ``DKV_TILE_*`` the rows of a streamed tile,
-``DQ_STEP_*`` / ``DKV_STEP_*`` the rows a step of the score products
-takes, ``DQ_MIN_BLOCKS_*`` / ``DKV_MIN_BLOCKS_*``, and at D 64 the same
-three under ``DQ_FEW_*`` / ``DKV_FEW_*`` for a grid too small to fill
-every SM, as the serving batch's). For each, the sweep
+``csrc/attention_f32.cu`` (the f32 K2, K6 and K7 on 3xTF32 ``mma.sync``:
+by head dim, ``FWD_TILE_*`` / ``DQ_TILE_*`` / ``DKV_TILE_*`` the rows of a
+streamed tile, ``FWD_STEP_*`` / ``DQ_STEP_*`` / ``DKV_STEP_*`` the rows a
+step of a warp takes, ``FWD_MIN_BLOCKS_*`` / ``DQ_MIN_BLOCKS_*`` /
+``DKV_MIN_BLOCKS_*``, ``FWD_SPLIT_*`` the groups of 4 warps that share a
+K2 tile's steps, ``FWD_MTILES_*`` the tiles of 16 query rows a K2 warp
+owns, and at D 64 the tile, step, blocks (and K2's groups and row tiles)
+under ``FWD_FEW_*`` / ``DQ_FEW_*`` / ``DKV_FEW_*`` for a grid too small to
+fill every SM, as the serving batch's). For each, the sweep
 builds that source with those values through ``ops/sweep.py`` (the
 source's own values first), prints the kernels' registers and spills,
-checks both kernels against their plain versions (bf16: chip_smoke.py's
-tolerance; f32: ``card_cases.TOL_F32_FLASH`` of the largest element,
-masked keys' dK, dV and fully-masked rows' dQ exactly 0) and times them
-as chip_smoke.py does (device ms of one call, 20 calls in one CUDA graph)
-at the training shape [16, 256, 8, 64], the serving batch
-[4, 768, 4, 64] and large_config's head dim 128 ([4, 768, 8, 128]),
-SDPA's backward at the same dtype beside them. Run on the card from the
+checks the kernels against their plain versions (bf16: chip_smoke.py's
+tolerance; f32: ``card_cases.TOL_F32_FLASH`` of the largest element and
+``TOL_F32_LSE``, masked keys' dK, dV and fully-masked rows' o and dQ
+exactly 0, their lse +1e30) and times them as chip_smoke.py does (device
+ms of one call, 20 calls in one CUDA graph) at the training shape
+[16, 256, 8, 64], the serving batch [4, 768, 4, 64] and large_config's
+head dim 128 ([4, 768, 8, 128]), SDPA's backward (and at f32 its
+forward) at the same dtype beside them. Run on the card from the
 repository root:
 
     python -m omnilingual_asr_torch.ops.flash_bwd_sweep \\
         --bf16 DQ_MIN_BLOCKS_64=3 DKV_MIN_BLOCKS_128=1 \\
-        --f32 DQ_TILE_64=64,DQ_MIN_BLOCKS_64=1 DKV_STEP_64=32
+        --f32 DQ_TILE_64=64,DQ_MIN_BLOCKS_64=1 FWD_FEW_SPLIT_64=1
 
 each argument one candidate (``NAME=VALUE`` pairs joined by commas). A
 candidate that the source's static_asserts refuse is reported, not fatal.
@@ -39,13 +43,16 @@ import sys
 import torch
 
 from . import attention, cuda_build, sweep
-from .card_cases import F32_FLASH_SHAPES, TOL_F32_FLASH
+from .card_cases import F32_FLASH_SHAPES, TOL_F32_FLASH, TOL_F32_LSE
 
 SOURCES = {"bf16": "attention_bwd.cu", "f32": "attention_f32.cu"}
 KERNELS = {"bf16": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
-           "f32": ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel")}
+           "f32": ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
+                   "flash_fwd_tf32_kernel")}
 ENTRIES = {"bf16": ("omni_flash_bwd_dq", "omni_flash_bwd_dkv"),
            "f32": ("omni_flash_bwd_dq_f32", "omni_flash_bwd_dkv_f32")}
+# The forward the sweep also checks and times, by group.
+FWD_ENTRIES = {"f32": "omni_flash_fwd_f32"}
 # (B, T, H, D, valid keys): chip_smoke.py's training, serving and
 # head-dim-128 cases.
 SHAPES = {"train": F32_FLASH_SHAPES["training"],
@@ -55,8 +62,9 @@ SHAPES = {"train": F32_FLASH_SHAPES["training"],
 
 class Case:
     """Seeded inputs of one shape at one dtype, the plain versions'
-    gradients, SDPA's backward time, and launches of a library's K6 and
-    K7 into fixed outputs."""
+    gradients (and at f32 o and lse), SDPA's backward (and at f32 forward)
+    time, and launches of a library's K6 and K7 (and f32 K2) into fixed
+    outputs."""
 
     def __init__(self, dev, dtype, B, T, H, D, valid, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -74,6 +82,20 @@ class Case:
         self.dims = (B, T, H, D, 1.0 / math.sqrt(D))
         self.f32 = dtype == torch.float32
         self.sdpa_ms = self._sdpa_ms(q, k, v, do)
+        self.sdpa_fwd_ms = None
+        if self.f32:
+            self.fwd_want = (o, lse)
+            self.fwd_got = (torch.empty_like(q), torch.empty_like(lse))
+            self.sdpa_fwd_ms = self._sdpa_fwd_ms(q, k, v)
+
+    def _sdpa_fwd_ms(self, q, k, v):
+        """SDPA's forward on the same inputs, the f32 K2's yardstick."""
+        import torch.nn.functional as F
+
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        amask = self.mask[:, None, None, :]
+        return sweep.device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=amask))
 
     def _sdpa_ms(self, q, k, v, do):
         """SDPA's backward (dQ, dK, dV), its forward outside the timed
@@ -99,6 +121,24 @@ class Case:
         cuda_build.check(getattr(lib, entries[which])(
             *self.ptrs, *[t.data_ptr() for t in outs], *self.dims,
             torch.cuda.current_stream().cuda_stream), entries[which])
+
+    def launch_fwd(self, lib, entry):
+        """The forward into fwd_got: q, k, v, mask in, o and lse out."""
+        cuda_build.check(getattr(lib, entry)(
+            *self.ptrs[:4], *[t.data_ptr() for t in self.fwd_got],
+            *self.dims, torch.cuda.current_stream().cuda_stream), entry)
+
+    def correct_fwd(self) -> bool:
+        """The f32 K2's o and lse against the plain forward's."""
+        torch.cuda.synchronize()
+        (o, lse), (want_o, want_lse) = self.fwd_got, self.fwd_want
+        live = want_lse < 1e29
+        dead_row = ~self.mask.any(dim=1)
+        return (bool(((o - want_o).abs().max()
+                      <= TOL_F32_FLASH * want_o.abs().max()))
+                and bool((lse - want_lse)[live].abs().max() <= TOL_F32_LSE)
+                and bool((o[dead_row] == 0).all())
+                and bool((lse[~live] == 1e30).all()))
 
     def correct(self) -> bool:
         torch.cuda.synchronize()
@@ -145,7 +185,8 @@ def main(argv=None) -> int:
              for group in SOURCES}
     for group, by_shape in cases.items():
         print(json.dumps({"group": group, "sdpa_backward_ms": {
-            n: c.sdpa_ms for n, c in by_shape.items()}}), flush=True)
+            n: c.sdpa_ms for n, c in by_shape.items()}, "sdpa_forward_ms": {
+            n: c.sdpa_fwd_ms for n, c in by_shape.items()}}), flush=True)
     ok = True
     for (group, cand, values), info in zip(jobs, builds):
         if not isinstance(info, cuda_build.BuildInfo):
@@ -164,6 +205,12 @@ def main(argv=None) -> int:
             for which, kernel in enumerate(("k6", "k7")):
                 row["ms"][f"{kernel}_{name}"] = sweep.device_ms(
                     lambda c=case, w=which: c.launch(lib, w, ENTRIES[group]))
+            if group in FWD_ENTRIES:
+                entry = FWD_ENTRIES[group]
+                case.launch_fwd(lib, entry)
+                row["correct"] &= case.correct_fwd()
+                row["ms"][f"k2_{name}"] = sweep.device_ms(
+                    lambda c=case: c.launch_fwd(lib, entry))
         ok &= row["correct"]
         print(json.dumps(row), flush=True)
     return 0 if ok else 1

@@ -6,7 +6,8 @@ compute every product in exact f32. The port sends f32 operands to its f32
 kernels on a card and to the same plain versions as bf16 on the CPU, so
 these tests hold the plain versions and the f32 model around them to the
 JAX package's f32 functions (its Pallas kernels in interpret mode), and
-the CPU model of the f32 K6 and K7's 3xTF32 products to both. Inputs
+the CPU models of the f32 K2's and of the f32 K6 and K7's 3xTF32 products
+to both. Inputs
 are drawn from seeds with numpy; each test states its tolerance. The
 kernels themselves are held to the plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 4m).
@@ -32,7 +33,7 @@ from omnilingual_asr_tpu.train import step as jax_step
 from omnilingual_asr_torch.config import MeshConfig, tiny_config
 from omnilingual_asr_torch.models import conformer, zoo
 from omnilingual_asr_torch.ops import attention
-from omnilingual_asr_torch.ops.card_cases import TOL_F32_FLASH
+from omnilingual_asr_torch.ops.card_cases import TOL_F32_FLASH, TOL_F32_LSE
 from omnilingual_asr_torch.parallel.mesh import build_mesh
 from omnilingual_asr_torch.parallel.sequence import sp_conformer_forward
 from omnilingual_asr_torch.train import step
@@ -172,6 +173,47 @@ def test_tf32_model_matches_jax(D):
                                                       lse, delta)
     for g, w in zip(got, want_g):
         assert _rel(g.numpy(), w) <= REL_FLASH
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_tf32_model_of_the_f32_forward(D):
+    """``flash_attention_fwd_tf32_emulated``, the f32 K2's 3xTF32 rounding
+    on the CPU, on the small ragged case: o within
+    ``card_cases.TOL_F32_FLASH`` of the exact-f32 plain version's largest
+    element (measured 9.9e-7 at D 64, 1.2e-6 at D 128) and lse within
+    ``TOL_F32_LSE`` (4.8e-7, 9.5e-7), in f32; the fully masked row's o
+    exactly 0 and its lse +1e30. The planted fault, one TF32 product,
+    misses both gates by far (measured o 9.6e-4 and 5.5e-4, lse 2.8e-4 and
+    1.8e-4). bf16 operands are refused."""
+    (q, k, v, mask, *_), _ = _tf32_case(D)
+    want_o, want_lse = attention.flash_attention_plain(q, k, v, mask)
+    live = want_lse < 1e29
+
+    def errs(o, lse):
+        return _rel_t(o, want_o), float((lse - want_lse)[live].abs().max())
+
+    o, lse = attention.flash_attention_fwd_tf32_emulated(q, k, v, mask)
+    assert o.dtype == lse.dtype == torch.float32
+    err_o, err_lse = errs(o, lse)
+    assert err_o <= TOL_F32_FLASH and err_lse <= TOL_F32_LSE
+    assert (o[~mask.any(dim=1)] == 0).all() and (lse[~live] == 1e30).all()
+    fault_o, fault_lse = errs(*attention.flash_attention_fwd_tf32_emulated(
+        q, k, v, mask, terms=1))
+    assert fault_o > TOL_F32_FLASH and fault_lse > TOL_F32_LSE
+    with pytest.raises(TypeError, match="f32 kernels"):
+        attention.flash_attention_fwd_tf32_emulated(q.bfloat16(), k, v, mask)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_tf32_forward_model_matches_jax(D):
+    """The f32 K2's 3xTF32 model against JAX's f32 forward (Pallas,
+    interpret mode; the inputs and output that
+    ``test_flash_f32_forward_and_grads_match_jax`` computes, no compile of
+    its own): o within REL_FLASH."""
+    (q, k, v, _, mask), want_o, _ = _jax_flash_f32(D)
+    o, _ = attention.flash_attention_fwd_tf32_emulated(
+        *(torch.from_numpy(x) for x in (q, k, v, mask)))
+    assert _rel(o.numpy(), want_o) <= REL_FLASH
 
 
 def test_tf32_round_is_round_to_nearest_ties_away():
