@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4m)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4n)
     python3 chip_smoke.py --profile    # and phase 4c before the report, and
                                        # phase 4l's step profiles
 
@@ -272,6 +272,28 @@ with no result line:
              the routing choices that differ counted), then 3 steps at
              (1, 1), (2, 2), (1, 4) with exact launches, seconds and peak
              memory.
+4n. multiprocess - training over a mesh whose data rows lie in 2
+             processes joined by ``parallel.mesh.init_distributed`` (both
+             on the card: gloo, every crossing staged through the host;
+             again over NCCL with a card a process where two are
+             visible), ``PipelineConfig()``, kernel mode, translator,
+             SpecAugment, dropout 0.1, batch 16 of 8 s, from parameters
+             and a batch the parent writes as ``.npz`` after building the
+             kernels: one update over 2 x (1, 1) and 2 x (1, 2) and one
+             pretraining update over 2 x (1, 1), each against the
+             single-process mesh of the same global shape on the card
+             (loss within ``MESH_LOSS_REL``, every leaf's gradient and
+             clipped gradient within ``MESH_GRAD_REL``; the single
+             process's own repeat printed), rank 1's loss and gradients
+             equal to rank 0's; each process's launches exactly
+             (``_mt_launches`` of its shards); 3 ``train_synth`` steps over
+             2 x (1, 2) with finite losses and exact launches, rank 0's
+             checkpoint equal to both processes' gathered parameters. A
+             child that fails or runs past MP_CHILD_TIMEOUT_S (killed)
+             fails the phase. Prints the backend, each process's step
+             seconds beside the single process's, the gradients' sum over
+             processes alone and the bytes a process hands to
+             collectives (not held).
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -285,7 +307,8 @@ with no result line:
 5. report  - one ``{"kernels": [...]}`` line (K1-K7 and the f32 K2, K6,
              K7; ``launches`` summed over the serving, training,
              decoders, server, d512, evals, trainers, rest_of_training,
-             mesh, tp, mesh_training and f32_moe_mesh paths,
+             mesh, tp, mesh_training, f32_moe_mesh and multiprocess
+             paths,
              K3's whole
              and split over a model axis (one a shard),
              by path beside it), the
@@ -5235,6 +5258,468 @@ def run_f32_moe_mesh(dev, cfg, params, xvector, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4n: the multi-controller mesh (processes joined by init_distributed)
+# ---------------------------------------------------------------------------
+
+MP_PROCESSES = 2
+MP_UPDATES = ((1, 1), (1, 2))   # each process's (data rows, model shards)
+MP_PRETRAIN = (1, 1)
+MP_SYNTH = (1, 2)               # train_synth's rows and shards a process
+MP_SYNTH_STEPS = 3
+MP_TIMED_STEPS = 2              # timed steps a shape, after one warm step
+MP_DROPOUT = 0.1
+MP_CHILD_TIMEOUT_S = 480        # a child past it is killed and fails
+
+
+def _unflatten(flat: dict):
+    """``models.zoo.flatten``'s inverse: a tree from ``{keystr: leaf}``."""
+    from omnilingual_asr_torch.models.zoo import parse_keystr
+
+    root: dict = {}
+    for key, v in flat.items():
+        path = parse_keystr(key)
+        node = root
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(root)
+
+
+def _mp_save(path: Path, flat: dict) -> None:
+    import numpy as np
+
+    np.savez(path, **{k: (v.detach().cpu().numpy() if hasattr(v, "detach")
+                          else np.asarray(v)) for k, v in flat.items()})
+
+
+def _mp_inputs(work: Path):
+    """Phase 4n's parameters, batches and configs, from SEED: written by
+    the parent (``.npz``), read by each process."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.models import zoo
+    from omnilingual_asr_torch.train import pretrain as pre
+    from omnilingual_asr_torch.train.augment import SpecAugmentConfig
+    from omnilingual_asr_torch.train.step import CTC_INFEASIBLE
+
+    base = PipelineConfig()
+    cfg = base.replace(encoder=dc.replace(
+        base.encoder, use_flash_attention=True, use_fused_conv=True,
+        dropout=MP_DROPOUT))
+    aug = SpecAugmentConfig(n_freq_masks=1, freq_mask_width=16,
+                            n_time_masks=1, time_mask_width=24)
+    with np.load(work / "params.npz") as z:
+        full = _unflatten({k: torch.from_numpy(z[k]) for k in z.files})
+    with np.load(work / "pretrain.npz") as z:
+        pflat = {k: torch.from_numpy(z[k]) for k in z.files}
+    quantizer = {k[len("q/"):]: v for k, v in pflat.items()
+                 if k.startswith("q/")}
+    pfull = _unflatten({k: v for k, v in pflat.items()
+                        if not k.startswith("q/")})
+    with np.load(work / "batch.npz") as z:
+        host = {k: z[k] for k in z.files}
+    batch = {k: torch.from_numpy(v) for k, v in host.items()
+             if k not in MT_SCALARS and k != CTC_INFEASIBLE}
+    batch[CTC_INFEASIBLE] = host[CTC_INFEASIBLE]
+    batch.update({k: float(host[k]) for k in MT_SCALARS})
+    pbatch = {"samples": torch.from_numpy(host["pre_samples"]),
+              "mask": batch["mask"]}
+    batch.pop("pre_samples")
+    return dict(base=base, cfg=cfg, aug=aug, full=full, pfull=pfull,
+                quantizer=quantizer, pcfg=pre.PretrainConfig(),
+                batch=batch, pbatch=pbatch)
+
+
+def _mp_to(batch: dict, dev) -> dict:
+    import torch
+
+    return {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in batch.items()}
+
+
+def _mp_update(make, mesh, params, args, place=True):
+    """One ``loss_and_grads`` of ``make(mesh)`` from ``params``: (loss,
+    whole gradients, whole clipped gradients) on the CPU, and the step
+    function and placed state for timing."""
+    import torch
+    from omnilingual_asr_torch.train.step import make_optimizer
+
+    tx = make_optimizer()
+    init, step_fn, lg = make(mesh, tx)
+    mp = init.place(params)
+    m, g = lg(mp, *args)
+    clipped = tx.clip_and_zero_nans(g, mp.counted(g))
+    torch.cuda.synchronize()
+    return ((float(m["loss"]), [x.detach().cpu() for x in mp.merge(g)],
+             [x.detach().cpu() for x in mp.merge(clipped)]),
+            step_fn, mp, tx)
+
+
+def _mp_makers(inp):
+    from omnilingual_asr_torch.train import pretrain as pre
+    from omnilingual_asr_torch.train.step import make_train_step
+
+    def train_make(mesh, tx):
+        return make_train_step(inp["cfg"], mesh, tx=tx, from_samples=True,
+                               augment=inp["aug"], with_translator=True,
+                               dropout=True)
+
+    def pre_make(mesh, tx):
+        return pre.make_pretrain_step(inp["cfg"], mesh, inp["pcfg"], tx=tx,
+                                      from_samples=True)
+    return train_make, pre_make
+
+
+def _mp_timed(step_fn, mp, tx, args_of, n) -> list:
+    """Seconds of one warm and ``n`` timed steps (the first dropped)."""
+    import torch
+
+    opt = tx.init(mp.leaves)
+    secs = []
+    for i in range(1 + n):
+        t0 = time.perf_counter()
+        step_fn(mp, opt, *args_of(i))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs[1:]
+
+
+def _mp_child(rank: int, port: int, work: str, device: str) -> None:
+    """One process of phase 4n: join the others over ``init_distributed``
+    on ``device``, run the updates, the timed steps, the pretraining
+    update and ``train_synth``, count its own launches, and write
+    ``rank<r>.json`` and rank 0's gradients (``rank0_<job>.npz``) into
+    ``work``."""
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch.config import MeshConfig
+    from omnilingual_asr_torch.models import zoo
+    from omnilingual_asr_torch.ops import cuda_build
+    from omnilingual_asr_torch.parallel import mesh as pm
+    from omnilingual_asr_torch.train import synth_train
+
+    work = Path(work)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    pm.init_distributed(f"127.0.0.1:{port}", MP_PROCESSES, rank,
+                        devices=[dev], timeout_s=MP_CHILD_TIMEOUT_S)
+    try:
+        if dev.type == "cuda":
+            # The parent built the library: each process only loads it.
+            if not cuda_build.build().cached:
+                raise PhaseError("the kernel library was not built before "
+                                 "the processes started")
+            cuda_build.library()
+        inp = _mp_inputs(work)
+        L = inp["cfg"].encoder.n_layers
+        train_make, pre_make = _mp_makers(inp)
+        batch = _mp_to(inp["batch"], dev) if rank == 0 else None
+        pbatch = _mp_to(inp["pbatch"], dev) if rank == 0 else None
+        out = {"backend": pm.distributed_backend(), "updates": {},
+               "launches": {}, "device": str(dev)}
+
+        def launches(label, want):
+            got = _read_counters()
+            _add(out["launches"], got)
+            bad = {k: (got.get(k, 0), n) for k, n in want.items()
+                   if got.get(k, 0) != n}
+            if bad:
+                raise PhaseError(f"multiprocess rank {rank} {label}: "
+                                 f"launches (got, want) {bad}")
+            return got
+
+        def mesh_of(local):
+            rows, model = local
+            return pm.build_mesh(MeshConfig(data=rows * MP_PROCESSES,
+                                            model=model),
+                                 [dev] * (rows * model))
+
+        quantizer = {k: v.to(dev) for k, v in inp["quantizer"].items()}
+        jobs = [(f"train {MP_PROCESSES} x {local}", local, train_make,
+                 inp["full"], lambda i: (batch, i)) for local in MP_UPDATES]
+        jobs.append((f"pretrain {MP_PROCESSES} x {MP_PRETRAIN}",
+                     MP_PRETRAIN, pre_make, inp["pfull"],
+                     lambda i: (quantizer, pbatch, i)))
+        _read_counters()
+        for label, local, make, params, args_of in jobs:
+            mesh = mesh_of(local)
+            pm.process_bytes(reset=True)
+            res, step_fn, mp, tx = _mp_update(make, mesh, params,
+                                              args_of(0))
+            crossed = pm.process_bytes(reset=True)
+            launches(label, _mt_launches(local, L))
+            secs, reduce_s = [], []
+            if not label.startswith("pretrain"):
+                secs = _mp_timed(step_fn, mp, tx, args_of, MP_TIMED_STEPS)
+                launches(label + " timed", {
+                    k: v * (1 + MP_TIMED_STEPS)
+                    for k, v in _mt_launches(local, L).items()})
+                # What the step's sum of the gradients over the processes
+                # costs alone: the same bytes, one collective a bucket.
+                blocks = [mp.leaves[idx[0]].detach()
+                          for b in mp.blocks for idx in b]
+                for _ in range(MP_TIMED_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pm.process_all_reduce_many(blocks)
+                    torch.cuda.synchronize()
+                    reduce_s.append(time.perf_counter() - t0)
+            out["updates"][label] = {
+                "loss": res[0], "bytes_crossed": crossed, "step_s": secs,
+                "grad_all_reduce_s": reduce_s,
+                "grad_sums": [float(x.double().sum()) for x in res[1]]}
+            if rank == 0:
+                _mp_save(work / f"rank0_{len(out['updates'])}.npz",
+                         {f"g{i}": x for i, x in enumerate(res[1])}
+                         | {f"c{i}": x for i, x in enumerate(res[2])})
+            del step_fn, mp, tx, res
+            torch.cuda.empty_cache()
+
+        # train_synth over the processes' mesh, each step's launches exact.
+        watch = _StepWatch(f"multiprocess train_synth rank {rank}",
+                           _mt_launches(MP_SYNTH, L))
+        captured = []
+        rows, model = MP_SYNTH
+        with _patched(synth_train, "make_train_step", watch.factory(
+                synth_train.make_train_step, captured)):
+            params, _ = synth_train.train_synth(
+                steps=MP_SYNTH_STEPS, batch_size=TRAIN_BATCH,
+                cfg=inp["base"].replace(mesh=MeshConfig(
+                    data=rows * MP_PROCESSES, model=model)),
+                pallas_kernels=True, dropout=MP_DROPOUT, seed=SEED,
+                ckpt_dir=str(work / "ckpt"), log_every=1, eval_every=1000,
+                device=str(dev))
+        _add(out["launches"], _read_counters())
+        out["train_synth"] = watch.rows
+        whole = params.full()
+        _mp_save(work / f"rank{rank}_synth.npz", zoo.flatten(whole["asr"]))
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        pm.shutdown_distributed()
+
+
+def _mp_run(work: Path, devices) -> list:
+    """Start phase 4n's processes (rank r on ``devices[r]``), wait for them
+    (killing one past MP_CHILD_TIMEOUT_S) and read what each wrote."""
+    import multiprocessing
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for f in work.glob("rank*"):
+        f.unlink()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mp_child, args=(r, port, str(work), d))
+             for r, d in enumerate(devices)]
+    hung = []
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MP_CHILD_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if hung:
+        raise PhaseError(f"multiprocess: rank(s) {hung} ran past "
+                         f"{MP_CHILD_TIMEOUT_S} s and were killed")
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * MP_PROCESSES:
+        raise PhaseError(f"multiprocess: the processes exited {codes}")
+    return [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(MP_PROCESSES)]
+
+
+def run_multiprocess(dev, smi) -> dict:
+    """Phase 4n. Training over a (data, model) mesh whose data rows lie in
+    MP_PROCESSES processes joined by ``parallel.mesh.init_distributed``
+    (both on ``dev``, so gloo, each tensor that crosses staged through the
+    host; again with one card a process, NCCL, where more than one is
+    visible), at ``PipelineConfig()`` width, kernel mode, the translator,
+    SpecAugment and dropout 0.1, batch 16 of 8 s, from the parameters and
+    batch the parent writes as ``.npz``: (1) one update over
+    MP_PROCESSES x (1, 1) and x (1, 2) and one pretraining update over
+    MP_PROCESSES x (1, 1), each against the single-process mesh of the
+    same global shape on the card (the loss within ``MESH_LOSS_REL``,
+    each leaf's gradient and clipped gradient within ``MESH_GRAD_REL``),
+    rank 1 holding rank 0's loss and gradient sums; (2) each process's
+    launches exact (``_mt_launches`` of its own shards); (3)
+    ``train_synth`` for MP_SYNTH_STEPS steps over MP_PROCESSES x (1, 2)
+    (rank 0 alone making the batches): finite losses, every step's
+    launches exact, rank 0's checkpoint equal to both processes' gathered
+    parameters. Prints the backend, each process's step seconds beside
+    the single-process step, and the bytes a process hands to collectives
+    in an update (not held). Returns the launches of both processes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch import testing
+    from omnilingual_asr_torch.config import MeshConfig, PipelineConfig
+    from omnilingual_asr_torch.models import zoo
+    from omnilingual_asr_torch.models.conformer import asr_init
+    from omnilingual_asr_torch.models.translation import translator_init
+    from omnilingual_asr_torch.parallel.mesh import build_mesh
+    from omnilingual_asr_torch.train import device_pool
+    from omnilingual_asr_torch.train import pretrain as pre
+    from omnilingual_asr_torch.train.step import CTC_INFEASIBLE, ctc_rows
+
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        base = PipelineConfig()
+        full = {"asr": asr_init(torch.Generator().manual_seed(SEED), base),
+                "translator": translator_init(
+                    torch.Generator().manual_seed(SEED + 1), base)}
+        _mp_save(work / "params.npz", zoo.flatten(full))
+        pcfg = pre.PretrainConfig()
+        pfull = pre.pretrain_init(torch.Generator().manual_seed(SEED + 2),
+                                  base, pcfg)
+        quant = pre.make_quantizer(torch.Generator().manual_seed(SEED + 3),
+                                   base, pcfg)
+        _mp_save(work / "pretrain.npz", zoo.flatten(pfull) | {
+            f"q/{k}": v for k, v in quant.items()})
+        hb = _mt_host_batch(base, SEED + 60)
+        arrays = {k: (device_pool.encode_wire(v, "i16") if k == "samples"
+                      else v) for k, v in hb.items()}
+        arrays["pre_samples"] = device_pool.encode_wire(hb["samples"],
+                                                        "mulaw")
+        arrays[CTC_INFEASIBLE] = ctc_rows(hb, base)
+        arrays.update({k: np.float32(v) for k, v in MT_SCALARS.items()})
+        _mp_save(work / "batch.npz", arrays)
+        inp0 = _mp_inputs(work)
+        train_make, pre_make = _mp_makers(inp0)
+        L = inp0["cfg"].encoder.n_layers
+        batch = _mp_to(inp0["batch"], dev)
+        pbatch = _mp_to(inp0["pbatch"], dev)
+        quantizer = {k: v.to(dev) for k, v in inp0["quantizer"].items()}
+        names = list(zoo.flatten(full).keys())
+        pnames = list(zoo.flatten(pfull).keys())
+
+        # The single-process meshes of the same global shapes (and their
+        # step seconds), before the processes take the card.
+        refs, single_s, repeat = [], {}, {}
+        _read_counters()
+        for local in MP_UPDATES:
+            shape = (local[0] * MP_PROCESSES, local[1])
+            mesh = build_mesh(MeshConfig(*shape), [dev] * (shape[0]
+                                                           * shape[1]))
+            res, step_fn, mp, tx = _mp_update(train_make, mesh, full,
+                                              (batch, 0))
+            single_s[str(shape)] = _mp_timed(step_fn, mp, tx,
+                                             lambda i: (batch, i),
+                                             MP_TIMED_STEPS)
+            refs.append((res, names))
+            # The card's own spread: the same update again in one process.
+            again = _mp_update(train_make, mesh, full, (batch, 0))[0]
+            repeat[str(shape)] = {
+                "loss_rel": abs(again[0] - res[0]) / abs(res[0]),
+                "grad_worst_rel": _mt_worst(again[1], res[1], names)[0]}
+            del step_fn, mp, tx, again
+        log("  multiprocess single-process repeat " + json.dumps(repeat))
+        shape = (MP_PRETRAIN[0] * MP_PROCESSES, MP_PRETRAIN[1])
+        res, *_ = _mp_update(pre_make, build_mesh(MeshConfig(*shape), [dev] * (
+            shape[0] * shape[1])), pfull, (quantizer, pbatch, 0))
+        refs.append((res, pnames))
+        _add(total, _read_counters())
+        del batch, pbatch, quantizer, inp0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+        runs = [([str(dev)] * MP_PROCESSES, "gloo")]
+        if torch.cuda.device_count() >= MP_PROCESSES:
+            runs.append(([f"cuda:{r}" for r in range(MP_PROCESSES)], "nccl"))
+        for devices, want in runs:
+            outs = _mp_run(work, devices)
+            for out in outs:
+                _add(total, out["launches"])
+            backend = outs[0]["backend"]
+            if any(o["backend"] != want for o in outs):
+                raise PhaseError(f"multiprocess: backends "
+                                 f"{[o['backend'] for o in outs]}, "
+                                 f"expected {want}")
+            rows = []
+            for k, ((ref, leaf_names), label) in enumerate(zip(
+                    refs, outs[0]["updates"])):
+                with np.load(work / f"rank0_{k + 1}.npz") as z:
+                    grads = [torch.from_numpy(z[f"g{i}"])
+                             for i in range(len(leaf_names))]
+                    clipped = [torch.from_numpy(z[f"c{i}"])
+                               for i in range(len(leaf_names))]
+                got = outs[0]["updates"][label]
+                other = outs[1]["updates"][label]
+                loss_rel = abs(got["loss"] - ref[0]) / max(abs(ref[0]),
+                                                           1e-30)
+                worst, leaf = _mt_worst(grads, ref[1], leaf_names)
+                worst_c, leaf_c = _mt_worst(clipped, ref[2], leaf_names)
+                row = {"check": label, "backend": backend,
+                       "loss_single": ref[0], "loss_processes": got["loss"],
+                       "loss_rel": loss_rel, "grad_worst_rel": worst,
+                       "grad_worst_leaf": leaf, "clipped_worst_rel": worst_c,
+                       "bytes_crossed_a_process": got["bytes_crossed"],
+                       "step_s": {f"rank{r}": o["updates"][label]["step_s"]
+                                  for r, o in enumerate(outs)},
+                       "grad_all_reduce_s": got["grad_all_reduce_s"]}
+                single = single_s.get(str((MP_PROCESSES * MP_UPDATES[k][0],
+                                           MP_UPDATES[k][1]))
+                                      if k < len(MP_UPDATES) else "")
+                if single:
+                    row["single_process_step_s"] = single
+                log("  multiprocess update " + json.dumps(row))
+                if (not math.isfinite(got["loss"])
+                        or loss_rel > testing.MESH_LOSS_REL
+                        or worst > testing.MESH_GRAD_REL
+                        or worst_c > testing.MESH_GRAD_REL):
+                    raise PhaseError(f"multiprocess {label}: {row} (loss tol "
+                                     f"{testing.MESH_LOSS_REL}, grads "
+                                     f"{testing.MESH_GRAD_REL})")
+                if (other["loss"] != got["loss"]
+                        or other["grad_sums"] != got["grad_sums"]):
+                    raise PhaseError(f"multiprocess {label}: rank 1's loss "
+                                     f"or gradients differ from rank 0's")
+                rows.append(row)
+            synth = [o["train_synth"] for o in outs]
+            if any(len(s) != MP_SYNTH_STEPS for s in synth):
+                raise PhaseError(f"multiprocess train_synth: steps "
+                                 f"{[len(s) for s in synth]}")
+            with np.load(work / "rank0_synth.npz") as z0, \
+                    np.load(work / "rank1_synth.npz") as z1:
+                saved = zoo.load_checkpoint(work / "ckpt" / "last" /
+                                            "asr.npz", base, "cpu")
+                for k, v in zoo.flatten(saved).items():
+                    a = v.numpy()
+                    if not (np.array_equal(a, z0[k])
+                            and np.array_equal(a, z1[k])):
+                        raise PhaseError(f"multiprocess train_synth: leaf "
+                                         f"{k} of rank 0's checkpoint "
+                                         f"differs from a process's "
+                                         f"gathered parameters")
+            log("  multiprocess train_synth " + json.dumps({
+                "backend": backend, "mesh": f"{MP_PROCESSES} x {MP_SYNTH}",
+                "losses": [[r["loss"] for r in s] for s in synth],
+                "step_s": [[r["step_s"] for r in s] for s in synth],
+                "checkpoint_equal": True}))
+    log(f"  multiprocess launches {json.dumps(total)} ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 4c (--profile): where a request's and a train step's time goes
 # ---------------------------------------------------------------------------
 
@@ -5560,6 +6045,11 @@ def main(argv=None) -> int:
         f32_moe_mesh = run_f32_moe_mesh(dev, cfg, params, xvector, smi)
         log(f"[f32_moe_mesh] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "multiprocess"
+        t0 = time.perf_counter()
+        multiprocess = run_multiprocess(dev, smi)
+        log(f"[multiprocess] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -5586,7 +6076,7 @@ def main(argv=None) -> int:
                  "evals": evals, "trainers": trainers,
                  "rest_of_training": rest, "mesh": mesh, "tp": tp_path,
                  "mesh_training": mesh_training,
-                 "f32_moe_mesh": f32_moe_mesh}
+                 "f32_moe_mesh": f32_moe_mesh, "multiprocess": multiprocess}
         line = {"kernels": []}
         for k in kernels:
             fns = by_fn[k["name"]]

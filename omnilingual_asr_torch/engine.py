@@ -112,7 +112,7 @@ from .ops.mel import BLOCK_T, MelFrontend
 from .ops.pack import layout_of, pack_tree, unpack_buffer
 from .ops.quant import (add_kernel_layouts, quantize_param_tree,
                         quantize_spec_tree)
-from .parallel.mesh import Mesh, build_mesh
+from .parallel.mesh import Mesh, build_mesh, require_one_process
 from .parallel.sequence import sp_conformer_forward
 from .types import EMOTIONS, TranscriptSegment, TranscriptionResult
 from .utils.tracing import StageTrace
@@ -295,8 +295,9 @@ class TranscriptionEngine:
         self.model = model
         if mesh is None:
             if device is not None:
-                mesh = build_mesh(MeshConfig(data=1, model=1),
-                                  [resolve_device(device)])
+                # This process's one device (build_mesh would span the
+                # processes after init_distributed).
+                mesh = Mesh([[resolve_device(device)]], ("data", "model"))
             else:
                 resolve_device(None)   # raises without CUDA
                 mesh = build_mesh(cfg.mesh)
@@ -304,6 +305,7 @@ class TranscriptionEngine:
                 mesh.devices.flat[0]:
             raise ValueError(f"device {device!r} is not the mesh's first "
                              f"device {mesh.devices.flat[0]}")
+        require_one_process(mesh, "serving")
         #: Model shards a data row's forward splits over (1: no tensor
         #: parallelism).
         self.n_model = mesh.shape.get("model", 1)

@@ -38,8 +38,9 @@ import torch.utils.checkpoint
 from ..config import EncoderConfig, PipelineConfig
 from ..ops.conv_module import convmod_apply_fused, tp_convmod_apply_fused
 from ..parallel import tensor as tp
-from ..parallel.mesh import (AXIS_MODEL, Split, all_gather, gather,
-                             replicate, scatter)
+from ..parallel.mesh import (AXIS_MODEL, Split, all_gather, block_of,
+                             gather, process_all_reduce, replicate, scatter,
+                             to_device)
 from . import layers as L
 from .moe import (load_balance_from_sums, moe_ffn_apply, moe_ffn_init,
                   moe_ffn_shapes, moe_ffn_spec)
@@ -477,7 +478,8 @@ def tp_asr_forward(shards, mel: torch.Tensor, mask: torch.Tensor,
 
 
 def mesh_asr_forward(rows, mel: torch.Tensor, mask: torch.Tensor,
-                     cfg: PipelineConfig, dropout_seed: Optional[int] = None):
+                     cfg: PipelineConfig, dropout_seed: Optional[int] = None,
+                     part=(0, 1)):
     """:func:`asr_forward` (training) over data rows x model shards.
 
     ``rows[r]`` is data row r's model shards' trees (``parallel.tensor.
@@ -488,40 +490,50 @@ def mesh_asr_forward(rows, mel: torch.Tensor, mask: torch.Tensor,
     dispatch whatever ``encoder.moe_dispatch`` says, as the reference's
     loss runs them. ``dropout_seed``: the dropout masks are drawn over the
     global batch's shape on shard (0, 0)'s device, as one device draws
-    them, and each row takes its rows. Returns the rows' output dicts,
-    each on its row's first device; with experts, each row's
+    them, and each row takes its rows. ``part`` (index, count): the rows
+    are this process's, and it takes block ``index`` of ``count`` of the
+    batch and of the masks (``Mesh.process_block``). Returns the rows'
+    output dicts, each on its row's first device; with experts, each row's
     ``moe_routing`` sums make the whole batch's load-balance term
     (:func:`mesh_moe_aux`)."""
     enc = cfg.encoder
     data = len(rows)
+    index, count = part
     firsts = [_tree_device(r[0]) for r in rows]
-    mels = scatter(mel, firsts)
-    masks = scatter(mask, firsts)
+    mels = scatter(block_of(mel, index, count), firsts)
+    masks = scatter(block_of(mask, index, count), firsts)
     keeps = [None] * data
     if dropout_seed is not None and enc.dropout > 0.0:
         B, T = mask.shape
-        keeps = row_dropout_masks((B, T // enc.subsample_factor,
+        every = row_dropout_masks((B, T // enc.subsample_factor,
                                    enc.d_model), enc, dropout_seed,
-                                  mel.device, firsts)
+                                  mel.device, [mel.device] * (data * count))
+        keeps = [[to_device(k, d) for k in ks] for ks, d in
+                 zip(every[index * data:(index + 1) * data], firsts)]
     return [tp_asr_forward(rows[r], mels[r], masks[r], cfg, keeps[r],
                            dense_experts=True)
             for r in range(data)]
 
 
-def mesh_moe_aux(rows, device) -> torch.Tensor:
+def mesh_moe_aux(rows, device, processes: int = 1) -> torch.Tensor:
     """The blocks' summed load-balance term over the whole batch from the
     data rows' outputs of :func:`mesh_asr_forward`, on ``device``: each
-    block's router probabilities and routed frames summed over the rows,
-    then ``E * sum_e f_e * p_e`` with f and p means over every frame of the
-    batch, as one device computes it (0 without experts)."""
+    block's router probabilities and routed frames summed over the rows
+    (and over the ``processes`` whose rows hold equal blocks of the
+    batch), then ``E * sum_e f_e * p_e`` with f and p means over every
+    frame of the batch, as one device computes it (0 without experts)."""
     aux = torch.zeros((), device=device)
     if "moe_routing" not in rows[0]:
         return aux
     for blocks in zip(*(o["moe_routing"] for o in rows)):
         prob_sum = sum(b[0].to(device) for b in blocks)
         counts = sum(b[1].to(device) for b in blocks)
-        aux = aux + load_balance_from_sums(prob_sum, counts,
-                                           sum(b[2] for b in blocks))
+        frames = sum(b[2] for b in blocks)
+        if processes > 1:
+            prob_sum = process_all_reduce(prob_sum)
+            counts = process_all_reduce(counts)
+            frames *= processes
+        aux = aux + load_balance_from_sums(prob_sum, counts, frames)
     return aux
 
 

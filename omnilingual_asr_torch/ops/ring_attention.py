@@ -17,7 +17,8 @@ from typing import List, Sequence
 
 import torch
 
-from ..parallel.mesh import Mesh, gather, ppermute, ring_perm, scatter
+from ..parallel.mesh import (Mesh, gather, ppermute, require_one_process,
+                             ring_perm, scatter)
 
 NEG_INF = -1e30
 
@@ -79,6 +80,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v: [B, T, H, D] (T divisible by the axis size); mask: [B, T] key
     validity. Returns [B, T, H, D] f32 on q's device.
     """
+    require_one_process(mesh, "ring attention")
     devices = mesh.axis_devices(axis)
     out = ring_attention_shards(scatter(q, devices, 1),
                                 scatter(k, devices, 1),

@@ -1,12 +1,13 @@
 """Device mesh and the collectives between its shards.
 
 The PyTorch port of ``omnilingual_asr_tpu/parallel/mesh.py``. The JAX
-package is single-controller: one process drives every device of a
-``jax.sharding.Mesh``, and XLA emits the collectives. The port keeps that
-model. A :class:`Mesh` is a numpy object array of ``torch.device``s with
-named axes; a sharded tensor is a Python list of per-shard tensors, one
-per device along an axis, and the functions below are the only way one
-shard reaches another:
+package is multi-controller: one process a host, each driving its local
+devices, joined by ``jax.distributed.initialize``; ``jax.devices()`` then
+spans every host and XLA emits the collectives. The port has the same
+shape. Within a process, a :class:`Mesh` is a numpy object array of
+``torch.device``s with named axes; a sharded tensor is a Python list of
+per-shard tensors, one per device along an axis, and the functions below
+are the only way one shard reaches another:
 
 - :func:`ppermute` (``jax.lax.ppermute``), :func:`all_to_all`
   (``jax.lax.all_to_all`` with ``tiled=False``), :func:`psum` and
@@ -14,6 +15,15 @@ shard reaches another:
   mesh within each group of the other axes);
 - :func:`scatter` and :func:`gather` along a tensor dimension (what a
   ``shard_map`` in_spec / out_spec does).
+
+Across processes (:func:`init_distributed`, over ``torch.distributed``), a
+mesh built by :func:`build_mesh` spans every process's devices in rank
+order, and each process holds whole data rows (a model group never spans
+processes): :meth:`Mesh.local` is its own rows, on which the code above
+runs unchanged. Only what crosses the ``data`` axis between processes goes
+over ``torch.distributed``: :func:`process_all_gather`,
+:func:`process_all_reduce`, :func:`process_all_reduce_many` and
+:func:`process_broadcast`.
 
 A parameter's placement is a spec (:func:`shard_params`): replicated, or
 one dimension split over one axis (:class:`Split`, the port's
@@ -44,9 +54,11 @@ AXIS_MODEL = "model"
 
 class Mesh:
     """Devices on a grid with named axes (``devices.shape`` follows
-    ``axis_names``)."""
+    ``axis_names``). ``processes``: the rank that drives each position,
+    for a mesh that :func:`build_mesh` built over several processes (None:
+    this process drives every position)."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], processes=None):
         src = np.asarray(devices, dtype=object)
         arr = np.empty(src.shape, dtype=object)
         for i, d in enumerate(src.flat):
@@ -56,6 +68,9 @@ class Mesh:
                              f"{tuple(axis_names)}")
         self.devices = arr
         self.axis_names = tuple(axis_names)
+        self.processes = (None if processes is None else
+                          np.asarray(processes, dtype=np.int64).reshape(
+                              arr.shape))
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -64,6 +79,30 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether positions of this mesh lie in other processes."""
+        return (self.processes is not None
+                and len(set(self.processes.flat)) > 1)
+
+    def local(self) -> "Mesh":
+        """This process's data rows, as a mesh of their own (the whole
+        mesh where one process drives it)."""
+        if self.processes is None:
+            return self
+        rows = [r for r in range(self.devices.shape[0])
+                if self.processes[r, 0] == process_index()]
+        return Mesh(self.devices[rows], self.axis_names)
+
+    def process_block(self) -> Tuple[int, int]:
+        """(index, count): this process's block of a batch split into
+        ``count`` equal blocks over the processes, in rank order (each
+        process holds the same number of data rows); (0, 1) in one
+        process."""
+        if not self.spans_processes:
+            return 0, 1
+        return process_index(), len(set(self.processes.flat))
 
     def distinct_devices(self) -> List[torch.device]:
         """Each device once, in mesh order."""
@@ -84,8 +123,10 @@ class Mesh:
         return out
 
     def __repr__(self) -> str:
+        procs = ("" if self.processes is None
+                 else f", processes={self.processes.tolist()}")
         return (f"Mesh({self.shape}, devices="
-                f"{[str(d) for d in self.devices.flat]})")
+                f"{[str(d) for d in self.devices.flat]}{procs})")
 
 
 def _indexed(device) -> torch.device:
@@ -105,32 +146,198 @@ def _visible_cuda_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+#: The port of ``jax.distributed``'s default coordinator port, for a
+#: coordinator named by ``TPU_WORKER_HOSTNAMES`` alone.
+DEFAULT_COORDINATOR_PORT = 8476
+#: How long a process waits for the others at start-up and in a
+#: collective before the group fails.
+DEFAULT_TIMEOUT_S = 1800.0
+A10 = "multi-host mesh, A10 in ROADMAP.md, Queue A"
+
+
+class _Processes:
+    """This process's place among the processes :func:`init_distributed`
+    joined: its rank, their count, its local devices, the backend chosen
+    and the group that carries tensors, and the bytes it has handed to
+    collectives."""
+
+    def __init__(self, rank: int, count: int, devices, backend: str,
+                 group, stage: torch.device):
+        self.rank, self.count, self.devices = rank, count, devices
+        self.backend, self.group, self.stage = backend, group, stage
+        self.bytes = 0
+
+
+_PROCESSES: Optional[_Processes] = None
+
+
+def _process_setting(value, name: str, default=None) -> int:
+    """An integer from the argument, else the environment variable
+    ``name``, else ``default``; a ValueError naming ``name`` when none
+    gives one."""
+    if value is None:
+        value = os.getenv(name) or default
+    if value is None:
+        raise ValueError(f"a multi-process start-up needs {name} (the "
+                         f"argument or the environment variable)")
+    return int(value)
+
+
+def local_devices() -> List[torch.device]:
+    """This process's devices (``jax.local_devices()``): those given to
+    :func:`init_distributed`, else every visible CUDA device, else the
+    CPU."""
+    if _PROCESSES is not None:
+        return list(_PROCESSES.devices)
+    if torch.cuda.is_available():
+        return _visible_cuda_devices()
+    return [torch.device("cpu")]
+
+
+def _device_facts(devices: Sequence[torch.device]) -> dict:
+    """What the backend choice reads of one process's devices: whether
+    one is not a card, and the cards' UUIDs."""
+    cards = sorted({str(torch.cuda.get_device_properties(d).uuid)
+                    for d in devices if d.type == "cuda"})
+    return {"host": any(d.type != "cuda" for d in devices), "cards": cards}
+
+
+def choose_backend(facts: Sequence[dict], nccl_available: bool) -> str:
+    """The backend the tensors cross on, from every process's
+    :func:`_device_facts`: ``gloo`` where a process's devices are not all
+    cards, or where two processes share a card (NCCL refuses two ranks on
+    one GPU; gloo stages each tensor through host memory while the kernels
+    still run on the card); ``nccl`` where every process has cards of its
+    own (and this PyTorch has NCCL)."""
+    if any(f["host"] or not f["cards"] for f in facts):
+        return "gloo"
+    cards = [c for f in facts for c in f["cards"]]
+    if len(cards) != len(set(cards)) or not nccl_available:
+        return "gloo"
+    return "nccl"
+
+
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> bool:
-    """Multi-host start-up, by the JAX package's environment rules.
+                     process_id: Optional[int] = None,
+                     devices: Optional[Sequence] = None,
+                     timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
+    """Multi-host start-up, by the JAX package's argument and environment
+    rules: one process a host, called once in each before a mesh is built.
 
     Returns False on one host: no coordinator address (argument or
-    ``COORDINATOR_ADDRESS``) and no ``TPU_WORKER_HOSTNAMES``. A mesh over
-    several hosts needs one process per host, which a single controller
-    cannot be, so any other case raises."""
+    ``COORDINATOR_ADDRESS``) and no ``TPU_WORKER_HOSTNAMES``. Otherwise the
+    coordinator is ``host:port`` (``TPU_WORKER_HOSTNAMES``' first host at
+    :data:`DEFAULT_COORDINATOR_PORT` where no address is given), the
+    process count the argument, ``NUM_PROCESSES`` or the number of
+    ``TPU_WORKER_HOSTNAMES``, the rank the argument or ``PROCESS_ID``; a
+    missing one is a ValueError naming it. ``devices``: this process's
+    devices (default: :func:`local_devices`).
+
+    The group starts on gloo (``tcp://`` at the coordinator, every wait
+    bounded by ``timeout_s``), over which the processes' device facts are
+    gathered; :func:`choose_backend` then decides from them alone where
+    tensors cross, and where it picks NCCL a group of that backend carries
+    them. Afterwards :func:`build_mesh` spans every process's devices.
+    Returns True."""
+    global _PROCESSES
+    import datetime
+
+    import torch.distributed as dist
+
+    hosts = os.getenv("TPU_WORKER_HOSTNAMES")
     coordinator_address = coordinator_address or os.getenv(
         "COORDINATOR_ADDRESS")
-    if coordinator_address is None and os.getenv(
-            "TPU_WORKER_HOSTNAMES") is None:
+    if coordinator_address is None and hosts is None:
         return False
-    raise NotImplementedError(
-        "a multi-host mesh is not ported: the port drives every device of "
-        "a mesh from one process (multi-host init_distributed, A10 in "
-        "ROADMAP.md, Queue A)")
+    if _PROCESSES is not None:
+        raise RuntimeError("init_distributed was already called in this "
+                           "process")
+    names = [h for h in (hosts or "").split(",") if h]
+    if coordinator_address is None:
+        coordinator_address = f"{names[0]}:{DEFAULT_COORDINATOR_PORT}"
+    count = _process_setting(num_processes, "NUM_PROCESSES",
+                             len(names) or None)
+    rank = _process_setting(process_id, "PROCESS_ID")
+    if not 0 <= rank < count:
+        raise ValueError(f"process id {rank} outside 0..{count - 1}")
+    local = [_indexed(d) for d in (devices if devices is not None
+                                   else local_devices())]
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
+                            world_size=count, rank=rank, timeout=timeout)
+    facts: List[Optional[dict]] = [None] * count
+    dist.all_gather_object(facts, _device_facts(local))
+    backend = choose_backend(facts, dist.is_nccl_available())
+    group, stage = None, torch.device("cpu")
+    if backend == "nccl":
+        stage = local[0]
+        torch.cuda.set_device(stage)
+        group = dist.new_group(backend="nccl", timeout=timeout)
+    _PROCESSES = _Processes(rank, count, local, backend, group, stage)
+    return True
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (the counterpart of
+    ``jax.distributed.shutdown``); a no-op in one process."""
+    global _PROCESSES
+    if _PROCESSES is None:
+        return
+    import torch.distributed as dist
+
+    _PROCESSES = None
+    dist.destroy_process_group()
+
+
+def distributed_backend() -> Optional[str]:
+    """``"gloo"`` or ``"nccl"``: what tensors cross processes on; None in
+    one process."""
+    return None if _PROCESSES is None else _PROCESSES.backend
+
+
+def process_index() -> int:
+    """This process's rank (``jax.process_index``)."""
+    return 0 if _PROCESSES is None else _PROCESSES.rank
+
+
+def process_count() -> int:
+    """The number of processes (``jax.process_count``)."""
+    return 1 if _PROCESSES is None else _PROCESSES.count
+
+
+def require_one_process(mesh: Mesh, what: str) -> None:
+    """NotImplementedError naming A10 where ``mesh`` spans processes and
+    ``what`` runs only within one."""
+    if mesh.spans_processes:
+        raise NotImplementedError(f"{what} over a mesh that spans "
+                                  f"processes is not ported ({A10})")
+
+
+def _gathered_objects(obj) -> list:
+    import torch.distributed as dist
+
+    out: list = [None] * process_count()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def build_mesh(cfg: Optional[MeshConfig] = None,
                devices: Optional[Sequence] = None) -> Mesh:
     """A (data, model) mesh over ``devices`` (default: every visible CUDA
     device, as the JAX package spans ``jax.devices()``). Devices may
-    repeat."""
+    repeat.
+
+    After :func:`init_distributed`, ``devices`` are this process's
+    (default: :func:`local_devices`) and the mesh spans every process's,
+    in rank order, as ``jax.devices()`` spans hosts: each process learns
+    the whole grid and which positions are its own (``Mesh.processes``).
+    Every process must then hold whole data rows, as many as each other
+    process: a model group that would span processes raises
+    NotImplementedError (A10)."""
     cfg = cfg or MeshConfig()
+    if _PROCESSES is not None:
+        return _process_mesh(cfg, devices)
     devices = (list(devices) if devices is not None
                else _visible_cuda_devices())
     n = len(devices)
@@ -142,6 +349,36 @@ def build_mesh(cfg: Optional[MeshConfig] = None,
     for i in range(data * model):
         grid.flat[i] = _indexed(devices[i])
     return Mesh(grid, (AXIS_DATA, AXIS_MODEL))
+
+
+def _process_mesh(cfg: MeshConfig, devices: Optional[Sequence]) -> Mesh:
+    local = [str(_indexed(d)) for d in (devices if devices is not None
+                                        else local_devices())]
+    flat = [(rank, torch.device(d))
+            for rank, names in enumerate(_gathered_objects(local))
+            for d in names]
+    n = len(flat)
+    data, model = cfg.resolve(n)
+    if data * model > n:
+        raise ValueError(f"mesh {data}x{model} needs {data * model} "
+                         f"devices, have {n} over {process_count()} "
+                         f"processes")
+    grid = np.empty((data, model), dtype=object)
+    procs = np.empty((data, model), dtype=np.int64)
+    for i in range(data * model):
+        procs.flat[i], grid.flat[i] = flat[i]
+    for r in range(data):
+        if len(set(procs[r])) > 1:
+            raise NotImplementedError(
+                f"data row {r} of a {data}x{model} mesh spans processes "
+                f"{sorted(set(procs[r].tolist()))}: a model group over "
+                f"processes is not ported ({A10})")
+    rows = [int((procs[:, 0] == p).sum()) for p in range(process_count())]
+    if len(set(rows)) > 1:
+        raise ValueError(f"a {data}x{model} mesh gives the processes "
+                         f"{rows} data rows: each needs as many as the "
+                         f"others (their blocks of a batch are equal)")
+    return Mesh(grid, (AXIS_DATA, AXIS_MODEL), processes=procs)
 
 
 class Split(NamedTuple):
@@ -383,3 +620,175 @@ def all_gather(shards: Sequence[torch.Tensor], dim: int = 0,
                 cats[d] = gather([shards[j] for j in g], dim, d)
             out[i] = cats[d]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Across processes (after init_distributed)
+# ---------------------------------------------------------------------------
+#
+# Every process of a training step computes the same loss from the same
+# gathered outputs, so the gradient of a gathered tensor is the same in
+# every process: the backward of a gather is this process's own block of
+# it, and that of a sum over processes passes the gradient through. What
+# each process's parameters got is summed over the processes once, at the
+# end (``parallel.tensor.MeshParams.reduce``).
+
+#: The largest flat buffer :func:`process_all_reduce_many` sums in one
+#: call (gloo pays per call; a bucket bounds the staging memory).
+BUCKET_BYTES = 64 << 20
+
+
+def block_of(t: torch.Tensor, index: int, count: int,
+             dim: int = 0) -> torch.Tensor:
+    """Block ``index`` of ``count`` equal blocks of ``t`` along ``dim`` (a
+    process's part of a batch split over processes, as ``P("data")``
+    splits it); ``t`` itself for one block."""
+    if count == 1:
+        return t
+    if t.shape[dim] % count:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                         f"split into {count} processes' blocks")
+    return torch.chunk(t, count, dim=dim)[index]
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` where it crosses processes (the host for
+    gloo, this process's first card for NCCL), counted in the bytes this
+    process hands to collectives."""
+    buf = t.detach().to(_PROCESSES.stage, copy=True).contiguous()
+    _PROCESSES.bytes += buf.numel() * buf.element_size()
+    return buf
+
+
+class _ProcessAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim):
+        import torch.distributed as dist
+
+        ctx.dim = dim
+        buf = _staged(t)
+        parts = [torch.empty_like(buf) for _ in range(_PROCESSES.count)]
+        dist.all_gather(parts, buf, group=_PROCESSES.group)
+        return torch.cat(parts, dim=dim).to(t.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (torch.chunk(g, _PROCESSES.count, dim=ctx.dim)[
+            _PROCESSES.rank].contiguous(), None)
+
+
+class _ProcessAllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        import torch.distributed as dist
+
+        buf = _staged(t)
+        dist.all_reduce(buf, group=_PROCESSES.group)
+        return buf.to(t.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def process_all_gather(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every process's ``t`` (equal shapes) concatenated along ``dim`` in
+    rank order, on ``t``'s device; ``t`` in one process. Differentiable:
+    the backward is this process's block of the gradient (every process
+    computes the same loss)."""
+    if process_count() == 1:
+        return t
+    return _ProcessAllGather.apply(t, dim)
+
+
+def process_all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """The sum of every process's ``t``, on ``t``'s device; ``t`` in one
+    process. Differentiable: the gradient passes through (every process
+    computes the same loss from the sum)."""
+    if process_count() == 1:
+        return t
+    return _ProcessAllReduce.apply(t)
+
+
+def process_all_reduce_many(tensors: Sequence[torch.Tensor]
+                            ) -> List[torch.Tensor]:
+    """Each tensor (of one dtype) summed over the processes, not
+    differentiable: the tensors flattened into buckets of at most
+    :data:`BUCKET_BYTES`, one collective a bucket; each sum on its
+    tensor's device."""
+    if process_count() == 1:
+        return list(tensors)
+    import torch.distributed as dist
+
+    if len({t.dtype for t in tensors}) > 1:
+        raise ValueError("process_all_reduce_many sums tensors of one "
+                         "dtype")
+    out: List[torch.Tensor] = []
+    bucket: List[torch.Tensor] = []
+
+    def flush():
+        flat = torch.cat([t.detach().reshape(-1).to(_PROCESSES.stage)
+                          for t in bucket])
+        _PROCESSES.bytes += flat.numel() * flat.element_size()
+        dist.all_reduce(flat, group=_PROCESSES.group)
+        for t, part in zip(bucket, torch.split(
+                flat, [t.numel() for t in bucket])):
+            out.append(part.reshape(t.shape).to(t.device))
+        bucket.clear()
+
+    size = 0
+    for t in tensors:
+        nb = t.numel() * t.element_size()
+        if bucket and size + nb > BUCKET_BYTES:
+            flush()
+            size = 0
+        bucket.append(t)
+        size += nb
+    if bucket:
+        flush()
+    return out
+
+
+def process_broadcast(t: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """Process ``src``'s ``t`` in every process, on ``t``'s device (``t``
+    elsewhere gives only the shape and dtype); ``t`` in one process. The
+    bytes cross as they are (gloo has no int16, the int16 sample wire's
+    dtype)."""
+    if process_count() == 1:
+        return t
+    import torch.distributed as dist
+
+    buf = _staged(t).reshape(-1).view(torch.uint8)
+    dist.broadcast(buf, src, group=_PROCESSES.group)
+    return buf.view(t.dtype).reshape(t.shape).to(t.device)
+
+
+def process_broadcast_object(obj, src: int = 0):
+    """Process ``src``'s picklable ``obj`` in every process (over the gloo
+    group that every process joined); ``obj`` in one process."""
+    if process_count() == 1:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src)
+    return box[0]
+
+
+def process_barrier() -> None:
+    """Wait until every process reaches this call (a no-op in one)."""
+    if process_count() > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def process_bytes(reset: bool = False) -> int:
+    """The bytes this process has handed to collectives across processes
+    since the last reset (0 in one process)."""
+    if _PROCESSES is None:
+        return 0
+    n = _PROCESSES.bytes
+    if reset:
+        _PROCESSES.bytes = 0
+    return n

@@ -26,7 +26,8 @@ import torch
 from ..config import PipelineConfig
 from ..models import layers as L
 from ..ops.ring_attention import ring_attention_shards
-from .mesh import Mesh, gather, ppermute, replicate, ring_perm, scatter
+from .mesh import (Mesh, gather, ppermute, replicate, require_one_process,
+                   ring_perm, scatter)
 
 F32 = torch.float32
 
@@ -147,6 +148,7 @@ def sp_conformer_forward(params, mel: torch.Tensor, mask: torch.Tensor,
     A mixture-of-experts tree raises ValueError (the reference applies a
     dense FFN to ``ffn2`` here and fails).
     """
+    require_one_process(mesh, "sequence mode's ring")
     enc = cfg.encoder
     sub = enc.subsample_factor
     devices = mesh.axis_devices(axis)

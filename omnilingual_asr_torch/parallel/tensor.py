@@ -41,8 +41,8 @@ from ..ops.attention import FlashAttention
 from ..ops.conv_module import (layernorm_from_moments, merge_moments,
                                moments)
 from .mesh import (AXIS_MODEL, Mesh, _sub, all_gather, as_split,
-                   device_guard, merge_blocks, psum, replicate, split_block,
-                   to_device)
+                   device_guard, merge_blocks, process_all_reduce_many, psum,
+                   replicate, split_block, to_device)
 
 F32 = torch.float32
 
@@ -112,13 +112,22 @@ class MeshParams:
     tensor shared by every row, so autograd sums the rows' gradients into
     it; on distinct devices each copy gets a partial gradient, which
     :meth:`reduce` sums over the copies (``psum`` over the group that
-    holds the block) so that every copy takes the same update."""
+    holds the block) so that every copy takes the same update.
+
+    On a mesh that spans processes (``parallel.mesh.init_distributed``)
+    this process holds the copies of its own rows only (``mesh``,
+    ``grid`` and ``leaves`` are its :meth:`Mesh.local`'s), and
+    :meth:`reduce` sums each block over the processes as well. Each
+    process holds a whole model row, so :meth:`counted`, :meth:`merge`,
+    :meth:`full` and :meth:`assign` need no other process."""
 
     def __init__(self, params, specs, mesh: Mesh,
                  copy_per_shard: bool = False):
-        data, model = mesh.devices.shape
         if mesh.axis_names != ("data", AXIS_MODEL):
             raise ValueError(f"a (data, model) mesh, got {mesh.axis_names}")
+        self.processes = mesh.process_block()[1]
+        mesh = mesh.local()
+        data, model = mesh.devices.shape
         self.mesh, self.specs, self._template = mesh, specs, params
         self.leaves: List[torch.Tensor] = []
         self._specs = []
@@ -163,8 +172,8 @@ class MeshParams:
     def reduce(self, grads: Sequence[Optional[torch.Tensor]]
                ) -> List[torch.Tensor]:
         """Gradients aligned with ``leaves`` (None: zero) -> each copy's
-        gradient summed over its block's copies, a tensor of its own on
-        its copy's device."""
+        gradient summed over its block's copies (in every process), a
+        tensor of its own on its copy's device."""
         grads = [torch.zeros_like(p) if g is None else g.detach()
                  for p, g in zip(self.leaves, grads)]
         out = list(grads)
@@ -177,6 +186,15 @@ class MeshParams:
                 for i, s in zip(idx, sums):
                     out[i] = s.clone() if id(s) in seen else s
                     seen.add(id(s))
+        if self.processes > 1:
+            idxs = [idx for blocks in self.blocks for idx in blocks]
+            sums = process_all_reduce_many([out[idx[0]] for idx in idxs])
+            for idx, s in zip(idxs, sums):
+                seen = set()
+                for i in idx:
+                    g = to_device(s, self.leaves[i].device)
+                    out[i] = g.clone() if id(g) in seen else g
+                    seen.add(id(g))
         return out
 
     def counted(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:

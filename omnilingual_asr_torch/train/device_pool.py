@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import Mesh, require_one_process
 from .step import (Optimizer, OptState, counted_grads, decode_wire,
                    make_optimizer, make_train_step, training_device)
 
@@ -145,6 +145,8 @@ def make_pool_train_step(cfg: PipelineConfig, device=None,
     [start:start+R) with a freshly baked slice, in place; returns the pool.
     """
     tx = tx or make_optimizer()
+    if isinstance(device, Mesh):
+        require_one_process(device, "the device-pool step")
     init_state, _, batch_grads = make_train_step(
         cfg, device, tx=tx, from_samples=True, augment=augment,
         with_translator=with_translator, dropout=dropout)

@@ -6,26 +6,35 @@ batch split over the ``data`` rows (``P("data", ...)``), the parameters
 and the optimizer state split over ``model`` as
 ``models/conformer.py::asr_param_specs`` (and the translator's and the
 pretraining head's specs) place them, one update equal to one device's.
-The port is single-controller: one process drives every shard, and
-devices may repeat (shards of one card run in turn).
+Within a process one controller drives every shard of its rows, and
+devices may repeat (shards of one card run in turn). A mesh may span
+processes (``parallel.mesh.init_distributed``, one process a host as in
+the reference's multi-host training): each process drives its own data
+rows and their model shards, and only the ``data`` axis crosses
+processes.
 
 A step:
 
-1. scatters the global batch over the data rows; from a sample wire each
-   row runs the log-mel (kernel K1) on its own rows;
+1. takes the global batch (over processes: rank 0's, broadcast,
+   :func:`broadcast_batch`), scatters it over the data rows (each process
+   its block); from a sample wire each row runs the log-mel (kernel K1)
+   on its own rows;
 2. draws every random input over the global batch's shape on shard
    (0, 0)'s device, as one device draws it (SpecAugment on the gathered
    mel, the dropout masks, the pool's gain and noise, pretraining's span
-   starts and noise), and hands each row its rows;
+   starts and noise), and hands each row its rows; every process draws
+   the same with the same seed;
 3. runs each row's model shards (``models/conformer.py::
    mesh_asr_forward``, the translator's ``tp_decoder_forward``), gathers
-   the rows' outputs onto shard (0, 0)'s device and runs the unchanged
-   one-device loss there, so that every term is normalised over the whole
-   batch (:func:`global_loss`);
+   the rows' outputs onto shard (0, 0)'s device (and over processes, so
+   that each holds the whole batch's) and runs the unchanged one-device
+   loss there, so that every term is normalised over the whole batch
+   (:func:`global_loss`);
 4. takes autograd's gradients through the gathers and the collectives,
-   sums each block's copies (``parallel.tensor.MeshParams.reduce``) and
-   clips by a global norm that counts each logical element once
-   (``MeshParams.counted``); AdamW then gives every copy the same update.
+   sums each block's copies (``parallel.tensor.MeshParams.reduce``, and
+   over processes) and clips by a global norm that counts each logical
+   element once (``MeshParams.counted``); AdamW then gives every copy the
+   same update.
 """
 
 from __future__ import annotations
@@ -39,7 +48,11 @@ from ..device import exact_f32, resolve_device
 from ..models.conformer import (asr_init, asr_param_specs, check_tp_dims,
                                 mesh_asr_forward, mesh_moe_aux)
 from ..parallel import tensor as tp
-from ..parallel.mesh import Mesh, build_mesh, gather, replicate, scatter
+from ..parallel.mesh import (Mesh, block_of, build_mesh, gather,
+                             local_devices, process_all_gather,
+                             process_broadcast, process_broadcast_object,
+                             process_count, process_index, replicate,
+                             scatter, to_device)
 from ..parallel.tensor import MeshParams
 
 #: The outputs of ``asr_forward`` that the loss reads, gathered over rows.
@@ -52,16 +65,23 @@ def training_mesh(mcfg: MeshConfig, device) -> Optional[Mesh]:
     one-device step), else a (data, model) mesh. ``device`` None spans
     every visible CUDA device, as the reference's ``build_mesh`` spans
     ``jax.devices()`` (``data=-1``: all the rest); an explicit device
-    (``"cpu"``, ``"cuda:0"``) holds every shard, one after another."""
+    (``"cpu"``, ``"cuda:0"``) holds every shard, one after another. After
+    ``parallel.mesh.init_distributed`` the mesh spans the processes:
+    ``data`` counts every process's rows, and this process holds its share
+    of them (``device`` None: over its visible cards)."""
     dev = resolve_device(device)
-    visible = ([torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-               if device is None else [dev])
+    visible = (local_devices() if device is None else [dev])
     model = max(1, mcfg.model)
-    data = mcfg.data if mcfg.data > 0 else max(1, len(visible) // model)
-    if data * model == 1:
+    procs = process_count()
+    data = (mcfg.data if mcfg.data > 0
+            else procs * max(1, len(visible) // model))
+    if data * model == 1 and procs == 1:
         return None
-    devices = [visible[i % len(visible)] for i in range(data * model)]
+    if data % procs:
+        raise ValueError(f"{data} data rows do not split over {procs} "
+                         f"processes")
+    n = data // procs * model
+    devices = [visible[i % len(visible)] for i in range(n)]
     return build_mesh(MeshConfig(data=data, model=model), devices)
 
 
@@ -87,37 +107,66 @@ def _row_devices(mesh: Mesh) -> List[torch.device]:
     return [mesh.devices[r, 0] for r in range(mesh.devices.shape[0])]
 
 
-def mesh_mel(batch: Dict, mesh: Mesh, frontends: Dict) -> Dict:
+def broadcast_batch(batch: Optional[Dict], device) -> Dict:
+    """Rank 0's batch in every process, its tensors on ``device`` (the
+    processes do not each make the same batch: only rank 0 draws one, and
+    another process's ``batch`` is ignored). The keys, dtypes, shapes and
+    the batch's other values (the ramp scalars, the host's unalignable
+    rows) go as one object, then each tensor."""
+    rank0 = process_index() == 0
+    layout = None
+    if rank0:
+        layout = {k: (("tensor", v.dtype, tuple(v.shape))
+                      if isinstance(v, torch.Tensor) else ("value", v))
+                  for k, v in batch.items()}
+    layout = process_broadcast_object(layout)
+    out = {}
+    for k, (kind, *rest) in layout.items():
+        if kind == "value":
+            out[k] = rest[0]
+            continue
+        t = (to_device(batch[k], device) if rank0 else
+             torch.empty(rest[1], dtype=rest[0], device=device))
+        out[k] = process_broadcast(t)
+    return out
+
+
+def mesh_mel(batch: Dict, mesh: Mesh, frontends: Dict,
+             part=(0, 1)) -> Dict:
     """The batch's sample wire -> ``mel`` on shard (0, 0)'s device: each
     data row decodes its rows and runs the log-mel (K1, once a row) on its
-    device; the rows' mels are gathered."""
+    device; the rows' mels are gathered (``part``: this process's rows and
+    its block of the batch, the mel gathered over the processes too)."""
     from .step import mel_from_samples
 
     firsts = _row_devices(mesh)
-    samples = scatter(batch["samples"], firsts)
-    masks = scatter(batch["mask"], firsts)
+    samples = scatter(block_of(batch["samples"], *part), firsts)
+    masks = scatter(block_of(batch["mask"], *part), firsts)
     mels = [mel_from_samples({"samples": s, "mask": m}, frontends[d])["mel"]
             for s, m, d in zip(samples, masks, firsts)]
     out = dict(batch)
     out.pop("samples")
-    out["mel"] = gather(mels, dim=0, device=firsts[0])
+    out["mel"] = process_all_gather(gather(mels, dim=0, device=firsts[0]))
     return out
 
 
 def mesh_outputs(params: MeshParams, batch: Dict, cfg: PipelineConfig,
                  with_translator: bool,
-                 dropout_seed: Optional[int] = None) -> List[Dict]:
+                 dropout_seed: Optional[int] = None,
+                 part=(0, 1)) -> List[Dict]:
     """Each data row's outputs (``asr_forward``'s keys, and
-    ``trans_logits`` with the translator), on its row's first device."""
+    ``trans_logits`` with the translator), on its row's first device
+    (``part``: the rows are this process's, on its block of the batch)."""
     data = len(params.grid)
     asr = [[g["asr"] if with_translator else g for g in row]
            for row in params.grid]
     rows = mesh_asr_forward(asr, batch["mel"], batch["mask"], cfg,
-                            dropout_seed=dropout_seed)
+                            dropout_seed=dropout_seed, part=part)
     if with_translator and "trans_in" in batch:
         from ..models.translation import tp_decoder_forward
 
-        tins = scatter(batch["trans_in"], _row_devices(params.mesh))
+        tins = scatter(block_of(batch["trans_in"], *part),
+                       _row_devices(params.mesh))
         for r in range(data):
             rows[r]["trans_logits"] = tp_decoder_forward(
                 [g["translator"] for g in params.grid[r]], tins[r],
@@ -125,22 +174,40 @@ def mesh_outputs(params: MeshParams, batch: Dict, cfg: PipelineConfig,
     return rows
 
 
-def global_loss(p0, batch: Dict, cfg: PipelineConfig, rows: List[Dict]):
+def loss_tree(p0, part=(0, 1)):
+    """The tree whose leaves the loss reads directly (the speaker
+    projection and the AAM classes, ``step.loss_fn``): shard (0, 0)'s. Over
+    processes every process runs the same loss, so only rank 0's copies
+    take that term's gradient, and the others' are detached: the sum over
+    processes then counts it once."""
+    if part[0] == 0:
+        return p0
+    from .step import tree_map
+
+    return tree_map(lambda t: t.detach(), p0)
+
+
+def global_loss(p0, batch: Dict, cfg: PipelineConfig, rows: List[Dict],
+                part=(0, 1)):
     """The rows' outputs gathered onto shard (0, 0)'s device, then the
     one-device ``loss_fn`` over the whole batch: CTC per label token over
     the batch's tokens, the pooled CEs as means over the batch, the frame
     CEs over the batch's valid frames, the translation CE over its mask,
     and with experts the load-balance term over every frame of the batch
     (``mesh_moe_aux``). ``p0``: shard (0, 0)'s ASR tree (the speaker
-    leaves it reads are replicated). -> (total, metrics)."""
+    leaves it reads are replicated). ``part``: the rows are this
+    process's, and the outputs are gathered over the processes as well
+    (:func:`loss_tree` keeps the speaker leaves' term on rank 0). ->
+    (total, metrics)."""
     from .step import loss_fn
 
     dev = p0["spk_aam"].device
-    out = {k: gather([o[k] for o in rows], dim=0, device=dev)
+    out = {k: process_all_gather(gather([o[k] for o in rows], dim=0,
+                                        device=dev))
            for k in _OUT_KEYS + (("trans_logits",)
                                  if "trans_logits" in rows[0] else ())}
-    out["moe_aux"] = mesh_moe_aux(rows, dev)
-    return loss_fn(p0, batch, cfg, out=out)
+    out["moe_aux"] = mesh_moe_aux(rows, dev, part[1])
+    return loss_fn(loss_tree(p0, part), batch, cfg, out=out)
 
 
 def make_mesh_train_step(cfg: PipelineConfig, mesh: Mesh, tx,
@@ -152,19 +219,21 @@ def make_mesh_train_step(cfg: PipelineConfig, mesh: Mesh, tx,
     parameter tree. ``loss_and_grads``' gradients align with
     ``params.leaves`` and are already summed over each block's copies
     (``params.merge`` gives the whole leaves'). The batch is the global
-    batch on shard (0, 0)'s device."""
+    batch on shard (0, 0)'s device; over processes, rank 0's (the others
+    may pass None), and each process's ``MeshParams`` holds its rows."""
     from .step import _AUG_SALT, _DROPOUT_SALT, TrainState
 
+    local, part = mesh.local(), mesh.process_block()
     check_tp_dims(cfg, mesh.devices.shape[1])
-    exact_f32(mesh.distinct_devices())
+    exact_f32(local.distinct_devices())
     specs = train_specs(cfg, with_translator)
-    dev0 = mesh.devices[0, 0]
+    dev0 = local.devices[0, 0]
     frontends = {}
     if from_samples:
         from ..ops.mel import MelFrontend
 
         frontends = {d: MelFrontend(cfg.frontend, d)
-                     for d in _row_devices(mesh)}
+                     for d in _row_devices(local)}
 
     def place(params, copy_per_shard: bool = False) -> MeshParams:
         """A whole tree (tensors or arrays) placed on the mesh."""
@@ -181,9 +250,11 @@ def make_mesh_train_step(cfg: PipelineConfig, mesh: Mesh, tx,
         return TrainState(placed, tx.init(placed.leaves), 0)
 
     def loss_and_grads(params: MeshParams, batch, step: int):
+        if part[1] > 1:
+            batch = broadcast_batch(batch, dev0)
         _check(cfg, mesh, batch["mask"].shape[0])
         if from_samples:
-            batch = mesh_mel(batch, mesh, frontends)
+            batch = mesh_mel(batch, local, frontends, part)
         if augment is not None:
             from .augment import spec_augment
 
@@ -193,10 +264,10 @@ def make_mesh_train_step(cfg: PipelineConfig, mesh: Mesh, tx,
             w = batch.get("w_aug", 1.0)
             batch = dict(batch, mel=batch["mel"] + w * (aug - batch["mel"]))
         seed = _DROPOUT_SALT + int(step) if dropout else None
-        rows = mesh_outputs(params, batch, cfg, with_translator, seed)
+        rows = mesh_outputs(params, batch, cfg, with_translator, seed, part)
         p0 = params.grid[0][0]
         total, metrics = global_loss(p0["asr"] if with_translator else p0,
-                                     batch, cfg, rows)
+                                     batch, cfg, rows, part)
         grads = torch.autograd.grad(total, params.leaves, allow_unused=True)
         return ({k: v.detach() for k, v in metrics.items()},
                 params.reduce(grads))
@@ -228,15 +299,17 @@ def make_mesh_pretrain_step(cfg: PipelineConfig, mesh: Mesh, pcfg, tx,
     from the global batch on shard (0, 0)'s device; each row runs its
     encoder shards and its head columns, the rows' logits (each row's
     columns gathered over its model shards) are gathered onto shard (0,
-    0)'s device and the one-device masked CE runs there."""
+    0)'s device (and over processes, whose batch is rank 0's) and the
+    one-device masked CE runs there."""
     from .pretrain import (make_quantizer, pretrain_init, pretrain_loss,
                            step_draws)
 
+    local, part = mesh.local(), mesh.process_block()
     check_tp_dims(cfg, mesh.devices.shape[1])
-    exact_f32(mesh.distinct_devices())
+    exact_f32(local.distinct_devices())
     specs = pretrain_param_specs(cfg)
-    dev0 = mesh.devices[0, 0]
-    firsts = _row_devices(mesh)
+    dev0 = local.devices[0, 0]
+    firsts = _row_devices(local)
     frontends = {}
     if from_samples:
         from ..ops.mel import MelFrontend
@@ -258,7 +331,7 @@ def make_mesh_pretrain_step(cfg: PipelineConfig, mesh: Mesh, pcfg, tx,
         def logits_of(corrupted, valid):
             rows = mesh_asr_forward([[g["encoder"] for g in row]
                                      for row in params.grid],
-                                    corrupted, valid, cfg)
+                                    corrupted, valid, cfg, part=part)
             out = []
             for r, o in enumerate(rows):
                 shards = params.grid[r]
@@ -269,14 +342,16 @@ def make_mesh_pretrain_step(cfg: PipelineConfig, mesh: Mesh, pcfg, tx,
                 cols = tp.column_dense([g["head"] for g in shards], xs,
                                        torch.bfloat16)
                 out.append(gather(cols, dim=-1, device=firsts[r]))
-            return gather(out, dim=0, device=dev0)
+            return process_all_gather(gather(out, dim=0, device=dev0))
         return logits_of
 
     def loss_and_grads(params: MeshParams, quantizer, batch, step: int,
                        draws=None):
+        if part[1] > 1:
+            batch = broadcast_batch(batch, dev0)
         _check(cfg, mesh, batch["mask"].shape[0])
         if from_samples:
-            batch = mesh_mel(batch, mesh, frontends)
+            batch = mesh_mel(batch, local, frontends, part)
         if draws is None:
             B, T = batch["mask"].shape
             draws = step_draws(step, B, T, cfg, pcfg, dev0)

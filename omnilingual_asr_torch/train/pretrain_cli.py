@@ -36,8 +36,8 @@ from ..config import MeshConfig, PipelineConfig, tiny_config
 from .device_pool import encode_wire
 from .pretrain import PretrainConfig, make_pretrain_step
 from .synth import SAMPLE_RATE, SynthBatcher, _channel_sim, unique_real_audio
-from .synth_train import (_assign_part, _not_ported, load_train_state,
-                          save_train_state)
+from .synth_train import (_NoBatches, _assign_part, _not_ported, _quiet,
+                          load_train_state, save_train_state)
 
 
 class RealCropSampler:
@@ -114,12 +114,19 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
                   metrics_log: str | None = None,
                   device=None) -> float:
     """Pretrain; returns the last logged masked accuracy. ``device``: CUDA
-    unless "cpu" is asked for."""
+    unless "cpu" is asked for. After ``parallel.mesh.init_distributed``
+    every process runs it with the same arguments over the mesh that spans
+    the processes; rank 0 alone makes the batches (the step broadcasts
+    them), prints and saves, and every process takes the same steps."""
+    from ..parallel.mesh import process_barrier, process_index
     from .mesh_step import training_mesh
     from .step import make_optimizer, training_device, whole_params
 
+    main = process_index() == 0
+    log = print if main else _quiet
     mesh = training_mesh(cfg.mesh, device)
-    dev = training_device(device if mesh is None else mesh.devices[0, 0])
+    dev = training_device(device if mesh is None
+                          else mesh.local().devices[0, 0])
     pcfg = PretrainConfig()
     horizon = max(total_steps or steps, warmup_steps + 1)
     tx = make_optimizer(lr=lr, warmup_steps=warmup_steps,
@@ -138,9 +145,10 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
                            n_threads=2, snr_range=(10.0, 40.0),
                            reuse_pool=4096, reuse_p=0.93,
                            channel_aug_p=0.25, english_fraction=0.3,
-                           english_sentence_p=0.65, real_fraction=0.0)
-    real = RealCropSampler(window_samples, seed=seed)
-    if not real:
+                           english_sentence_p=0.65,
+                           real_fraction=0.0) if main else _NoBatches()
+    real = RealCropSampler(window_samples, seed=seed) if main else None
+    if main and not real:
         print("no real recordings found; pretraining on synth only",
               flush=True)
         real_fraction = 0.0
@@ -162,10 +170,10 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
         if ts.exists():
             opt_state, start_step, _ = load_train_state(ts, opt_state,
                                                         params)
-        print(f"resumed from {resume_from} (step {start_step})", flush=True)
+        log(f"resumed from {resume_from} (step {start_step})", flush=True)
 
     def save(tag: str, step_now: int):
-        if not ckpt_dir:
+        if not ckpt_dir or not main:
             return
         from ..models.zoo import save_checkpoint
 
@@ -179,7 +187,7 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
                          params)
         print(f"saved pretrain checkpoint -> {out}", flush=True)
 
-    mlog = open(metrics_log, "a") if metrics_log else None
+    mlog = open(metrics_log, "a") if metrics_log and main else None
     end_step = start_step + steps
     if total_steps:
         end_step = min(end_step, total_steps)
@@ -189,22 +197,24 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
         it = iter(batcher)
         for i in range(start_step, end_step):
             b = next(it)
-            samples = b["samples"]
-            mask = b["mask"].copy()
-            if real_fraction > 0:
-                n_real = int(np.random.default_rng(seed + i).binomial(
-                    batch_size, real_fraction))
-                for r in range(n_real):
-                    crop, n = real.draw()
-                    samples[r] = crop
-                    nf = fe.frames_for_samples(n)
-                    mask[r] = np.arange(mask.shape[1]) < nf
-            batch = {"samples": torch.from_numpy(
-                         encode_wire(samples, wire)).to(dev),
-                     "mask": torch.from_numpy(mask).to(dev)}
+            batch = None          # another process's: rank 0's, sent
+            if b is not None:
+                samples = b["samples"]
+                mask = b["mask"].copy()
+                if real_fraction > 0:
+                    n_real = int(np.random.default_rng(seed + i).binomial(
+                        batch_size, real_fraction))
+                    for r in range(n_real):
+                        crop, n = real.draw()
+                        samples[r] = crop
+                        nf = fe.frames_for_samples(n)
+                        mask[r] = np.arange(mask.shape[1]) < nf
+                batch = {"samples": torch.from_numpy(
+                             encode_wire(samples, wire)).to(dev),
+                         "mask": torch.from_numpy(mask).to(dev)}
             params, opt_state, _, metrics = pstep(
                 params, quantizer, opt_state, batch, i)
-            if (i + 1) % log_every == 0:
+            if main and (i + 1) % log_every == 0:
                 m = {k: round(float(v), 4) for k, v in metrics.items()}
                 acc = m.get("masked_acc", acc)
                 dt = time.perf_counter() - t0
@@ -216,6 +226,7 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
                     mlog.flush()
             if (i + 1) % save_every == 0 or i + 1 == end_step:
                 save("last", i + 1)
+        process_barrier()
     finally:
         batcher.close()
         if mlog:

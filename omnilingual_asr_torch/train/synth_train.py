@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import time
 from pathlib import Path
@@ -257,18 +258,34 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                 dropout: float = 0.0, weight_decay: float = 1e-6,
                 device=None):
     """Train; returns (params, best selection score). The knobs are the
-    reference's. ``device``: CUDA unless "cpu" is asked for."""
+    reference's. ``device``: CUDA unless "cpu" is asked for.
+
+    Called after ``parallel.mesh.init_distributed``, every process runs it
+    with the same arguments and it trains over the mesh that spans the
+    processes (``cfg.mesh``'s data rows counted over all of them): rank 0
+    alone makes the batches (the step broadcasts them), evaluates, prints
+    and writes the checkpoints, and every process takes the same steps
+    and returns together."""
+    from ..parallel.mesh import (process_barrier, process_index,
+                                 require_one_process)
     from .mesh_step import training_mesh
     from .step import whole_params
 
+    main = process_index() == 0
+    log = print if main else _quiet
     mesh = training_mesh(cfg.mesh, device)
     # The batch, the pool and the evaluator live on shard (0, 0)'s device.
-    dev = mesh.devices[0, 0] if mesh is not None else resolve_device(device)
+    dev = (mesh.local().devices[0, 0] if mesh is not None
+           else resolve_device(device))
     where = mesh if mesh is not None else dev
-    if mesh is not None:
-        print(f"training over a {mesh.shape} mesh: "
-              f"{[str(d) for d in mesh.devices.flat]}", flush=True)
     use_pool = device_pool > 0
+    if mesh is not None:
+        if use_pool:
+            require_one_process(mesh, "the device-pool step")
+        log(f"training over a {mesh.shape} mesh: "
+            f"{[str(d) for d in mesh.devices.flat]}"
+            + (f", processes {mesh.processes.tolist()}"
+               if mesh.spans_processes else ""), flush=True)
     if use_pool:
         # Round up so that refresh slices tile the pool.
         device_pool = ((device_pool + batch_size - 1)
@@ -298,7 +315,7 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                            voice_match_p=voice_match,
                            english_sentence_p=english_sentences,
                            real_fraction=real_fraction,
-                           bake_mode=use_pool)
+                           bake_mode=use_pool) if main else _NoBatches()
     # Pool-size curriculum "max:reuse_p:steps,..." (the last entry holds).
     pool_stages: List[Tuple[int, float, int]] = []
     if pool_schedule:
@@ -307,7 +324,7 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
             pool_stages.append((int(pmax), float(rp), int(n)))
         p0 = pool_stages[0]
         batcher.set_pool(p0[0], p0[1])
-        print(f"pool stage 0: max={p0[0]} reuse_p={p0[1]}", flush=True)
+        log(f"pool stage 0: max={p0[0]} reuse_p={p0[1]}", flush=True)
     pool_boundaries = []
     acc = 0
     for (_, _, n) in pool_stages[:-1]:
@@ -342,8 +359,8 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
     if use_dropout:
         cfg = cfg.replace(encoder=dataclasses.replace(cfg.encoder,
                                                       dropout=dropout))
-        print(f"training dropout: {dropout} (weight decay {weight_decay})",
-              flush=True)
+        log(f"training dropout: {dropout} (weight decay {weight_decay})",
+            flush=True)
     # Milder than the ASR default: a synthetic character spans 2-3
     # subsampled frames, so 0.6 s time masks would erase whole words.
     aug_cfg = SpecAugmentConfig(n_freq_masks=1, freq_mask_width=16,
@@ -352,8 +369,8 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
         init_state, pool_step, refresh_pool, _ = make_pool_train_step(
             cfg, where, tx=tx, augment=aug_cfg, with_translator=True,
             snr_range=(15.0, 40.0), dropout=use_dropout)
-        print(f"building device pool: {device_pool} entries "
-              f"({wire} wire)...", flush=True)
+        log(f"building device pool: {device_pool} entries "
+            f"({wire} wire)...", flush=True)
         t_bake = time.perf_counter()
         refresh_iter = iter(batcher)
         pool_np = build_pool(refresh_iter, device_pool, wire=wire)
@@ -365,9 +382,9 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
         pool_infeasible[ctc_rows(pool_np, cfg)] = True
         pool = pool_to_device(pool_np, dev)
         pool_mb = sum(v.nbytes for v in pool_np.values()) / 1e6
-        print(f"device pool resident: {pool_mb:.0f} MB (baked in "
-              f"{t_bake:.1f} s); per-step H2D is now {4 * batch_size} B of "
-              f"indices", flush=True)
+        log(f"device pool resident: {pool_mb:.0f} MB (baked in "
+            f"{t_bake:.1f} s); per-step H2D is now {4 * batch_size} B of "
+            f"indices", flush=True)
         del pool_np
         pool_cursor = 0
         idx_rng = np.random.default_rng(seed + 104729)
@@ -394,25 +411,26 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                          load_translator(root / "translator.npz", cfg,
                                          device=dev))
         except (OSError, KeyError, ValueError, NotImplementedError) as e:
-            print(f"translator resume skipped ({str(e)[:120]}); the joint "
-                  f"translator starts fresh", flush=True)
-        print(f"resumed params from {resume_from}", flush=True)
+            log(f"translator resume skipped ({str(e)[:120]}); the joint "
+                f"translator starts fresh", flush=True)
+        log(f"resumed params from {resume_from}", flush=True)
         ts_path = root / "train_state.npz"
         if resume_opt and ts_path.exists():
             opt_state, start_step, best_wer = load_train_state(
                 ts_path, opt_state, params)
-            print(f"resumed optimizer/schedule from {ts_path} (step "
-                  f"{start_step}, best {best_wer:.4f})", flush=True)
+            log(f"resumed optimizer/schedule from {ts_path} (step "
+                f"{start_step}, best {best_wer:.4f})", flush=True)
     elif init_encoder:
         from ..models.zoo import load_checkpoint
 
         _assign_part(params, "asr",
                      load_checkpoint(Path(init_encoder), cfg, dev))
-        print(f"encoder warm-started from {init_encoder}", flush=True)
+        log(f"encoder warm-started from {init_encoder}", flush=True)
 
     evaluator = Evaluator(cfg, window_seconds=window_seconds,
-                          frame_multiple=frame_multiple, device=dev)
-    mlog = open(metrics_log, "a") if metrics_log else None
+                          frame_multiple=frame_multiple,
+                          device=dev) if main else None
+    mlog = open(metrics_log, "a") if metrics_log and main else None
 
     def save(tag: str):
         if not ckpt_dir:
@@ -425,7 +443,7 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
         save_checkpoint(out / "asr.npz", whole["asr"])
         save_translator(out / "translator.npz", whole["translator"])
         (out / "config.json").write_text(cfg.to_json())
-        print(f"saved checkpoint -> {out}", flush=True)
+        log(f"saved checkpoint -> {out}", flush=True)
 
     t0 = time.perf_counter()
     audio_s = 0.0
@@ -441,15 +459,15 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                 pool_boundaries.pop(0)
                 nxt = pool_stages[len(pool_stages) - len(pool_boundaries) - 1]
                 batcher.set_pool(nxt[0], nxt[1])
-                print(f"pool stage at step {i}: max={nxt[0]} "
-                      f"reuse_p={nxt[1]}", flush=True)
+                log(f"pool stage at step {i}: max={nxt[0]} "
+                    f"reuse_p={nxt[1]}", flush=True)
             if curriculum and stage1_steps and i == stage1_steps:
                 batcher.set_curriculum(min_words=1, max_words=5,
                                        clear_pool=True)
-                print(f"curriculum stage 2 at step {i}", flush=True)
+                log(f"curriculum stage 2 at step {i}", flush=True)
             if curriculum and stage2_steps and i == stage1_steps + stage2_steps:
                 batcher.set_curriculum()
-                print(f"curriculum stage 3 at step {i}", flush=True)
+                log(f"curriculum stage 3 at step {i}", flush=True)
             if use_pool:
                 idx = idx_rng.integers(0, device_pool, batch_size)
                 scalars = dict(stage_weights(i))
@@ -474,22 +492,26 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                     pool_infeasible[pool_cursor + ctc_rows(nb, cfg)] = True
                     pool_cursor = (pool_cursor + batch_size) % device_pool
             else:
-                dev_batch = {k: torch.from_numpy(
-                    encode_wire(v, wire) if k == "samples" else v).to(dev)
-                    for k, v in batch.items()}
-                dev_batch[CTC_INFEASIBLE] = ctc_rows(batch, cfg)
-                dev_batch.update(stage_weights(i))
+                dev_batch = None      # another process's: rank 0's, sent
+                if batch is not None:
+                    dev_batch = {k: torch.from_numpy(
+                        encode_wire(v, wire) if k == "samples" else v).to(
+                        dev) for k, v in batch.items()}
+                    dev_batch[CTC_INFEASIBLE] = ctc_rows(batch, cfg)
+                    dev_batch.update(stage_weights(i))
+                    audio_s += float(batch["mask"].sum()) * \
+                        fe.hop_length / fe.sample_rate
                 params, opt_state, _, metrics = train_step(
                     params, opt_state, dev_batch, i)
-                audio_s += float(batch["mask"].sum()) * fe.hop_length \
-                    / fe.sample_rate
+            if not main:
+                continue
             if (i + 1) % log_every == 0:
                 m = {k: round(float(v), 4) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
                 line = {"step": i + 1, **m,
                         "steps_per_s": round((i + 1 - start_step) / dt, 2),
                         "audio_h": round(audio_s / 3600, 2)}
-                print(json.dumps(line), flush=True)
+                log(json.dumps(line), flush=True)
                 if mlog:
                     mlog.write(json.dumps(line) + "\n")
                     mlog.flush()
@@ -498,7 +520,7 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                 rline = {"step": i + 1, "eval": {
                     k: {m: round(v, 4) for m, v in r.items()}
                     for k, r in report.items()}}
-                print(json.dumps(rline), flush=True)
+                log(json.dumps(rline), flush=True)
                 if mlog:
                     mlog.write(json.dumps(rline) + "\n")
                     mlog.flush()
@@ -520,11 +542,33 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
                     save_train_state(
                         Path(ckpt_dir) / "last" / "train_state.npz",
                         opt_state, i + 1, best_wer, params)
+        process_barrier()
     finally:
         batcher.close()
         if mlog:
             mlog.close()
     return params, best_wer
+
+
+def _quiet(*args, **kwargs) -> None:
+    """A process other than rank 0 prints nothing."""
+
+
+class _NoBatches:
+    """A process other than rank 0's batcher: the mesh step broadcasts
+    rank 0's batch, so it draws none (each step's batch is None)."""
+
+    def __iter__(self):
+        return itertools.repeat(None)
+
+    def set_pool(self, *args) -> None:
+        pass
+
+    def set_curriculum(self, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def main(argv=None):

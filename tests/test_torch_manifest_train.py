@@ -17,6 +17,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from omnilingual_asr_tpu.config import MeshConfig
 from omnilingual_asr_tpu.config import tiny_config as jax_tiny_config
@@ -120,6 +121,12 @@ def test_cli_train_two_steps_match_jax(manifest, tmp_path, monkeypatch):
             return seen["init"]
 
         def watched(params, opt_state, batch, s):
+            if not seen["jax"]:
+                # The jitted step hands its optimizer state and step back
+                # committed to its mesh: commit them so for the first call
+                # too, or the second compiles the step again.
+                opt_state, s = jax.device_put(
+                    (opt_state, s), NamedSharding(args[1], PartitionSpec()))
             out = jstep(params, opt_state, batch, s)
             seen["jax"].append({k: float(v) for k, v in out[3].items()})
             return out

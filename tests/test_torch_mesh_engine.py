@@ -52,12 +52,43 @@ def test_build_mesh_shapes_defaults_and_refusals(monkeypatch):
     if not torch.cuda.is_available():   # the default spans CUDA devices
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pm.build_mesh(MeshConfig())
-    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES", raising=False)
+    for name in ("COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
+                 "NUM_PROCESSES", "PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
     assert pm.init_distributed() is False
+    assert (pm.process_index(), pm.process_count()) == (0, 1)
+    assert pm.distributed_backend() is None
+    # A coordinator without a process count or id is refused before any
+    # connection is tried.
     monkeypatch.setenv("COORDINATOR_ADDRESS", "10.0.0.1:1234")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="NUM_PROCESSES"):
         pm.init_distributed()
+    with pytest.raises(ValueError, match="PROCESS_ID"):
+        pm.init_distributed(num_processes=2)
+    monkeypatch.delenv("COORDINATOR_ADDRESS")
+    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "h0,h1")
+    with pytest.raises(ValueError, match="PROCESS_ID"):
+        pm.init_distributed()       # the count from the host names
+    # What crosses processes: gloo on host devices or a shared card, NCCL
+    # where every process has cards of its own.
+    host = {"host": True, "cards": []}
+    card = [{"host": False, "cards": [u]} for u in ("GPU-a", "GPU-b")]
+    assert pm.choose_backend([host, host], True) == "gloo"
+    assert pm.choose_backend([card[0], card[0]], True) == "gloo"
+    assert pm.choose_backend(card, True) == "nccl"
+    assert pm.choose_backend(card, False) == "gloo"
+    # Over two processes (one device each, faked): a model group that
+    # spans them, and serving over the mesh, raise naming A10.
+    monkeypatch.setattr(pm, "_PROCESSES", pm._Processes(
+        0, 2, [CPU], "gloo", None, CPU))
+    monkeypatch.setattr(pm, "_gathered_objects", lambda obj: [obj, obj])
+    with pytest.raises(NotImplementedError, match="A10"):
+        pm.build_mesh(MeshConfig(data=1, model=2), [CPU])
+    spans = pm.build_mesh(MeshConfig(data=2), [CPU])
+    assert spans.spans_processes and spans.processes.tolist() == [[0], [1]]
+    assert spans.local().shape == {"data": 1, "model": 1}
+    with pytest.raises(NotImplementedError, match="A10"):
+        TranscriptionEngine(mesh=spans)
 
 
 def test_build_mesh_matches_jax_resolve():

@@ -64,13 +64,17 @@ def test_three_mesh_steps_match_jax_gspmd():
     # The reference's jitted step pins its parameters' input shardings but
     # not its outputs', and at model 2 GSPMD hands a bias back split over
     # the model axis, which its next call refuses: put them back first.
+    # Its optimizer state and step come back committed to the mesh, which
+    # would make the second call compile the step again (10 s): they go in
+    # from the host each time, as the first call takes them.
     sh = jax.tree.map(lambda sp: NamedSharding(jmesh, sp),
                       jax_conformer.asr_param_specs(jcfg),
                       is_leaf=lambda x: isinstance(x, P))
     for i, hb in enumerate(batches):
         jb = {k: jnp.asarray(v) for k, v in hb.items()}
         jb.update({k: jnp.float32(v) for k, v in SCALARS.items()})
-        jp, jo, js, jm = jstep(jax.device_put(jp, sh), jo, jb, js)
+        jp, jo, js, jm = jstep(jax.device_put(jp, sh), jax.device_get(jo),
+                               jb, jax.device_get(js))
         _, _, _, m = mstep(mp, opt, _port_batch(hb, cfg), i)
         assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-3 * abs(
             float(jm["loss"]))

@@ -16,6 +16,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from omnilingual_asr_tpu.config import MeshConfig
 from omnilingual_asr_tpu.config import tiny_config as jax_tiny_config
@@ -371,6 +372,10 @@ def test_three_train_steps_match_jax():
         batch_keys=tuple(batches[0]), with_translator=True)
     state = init(seed=0)
     jp, jo, js = state.params, state.opt_state, state.step
+    # The jitted step hands its optimizer state and step back committed to
+    # the mesh; commit them so before the first call too, or the second
+    # call compiles the step again (15 s).
+    jo, js = jax.device_put((jo, js), NamedSharding(mesh, PartitionSpec()))
     p0 = _flat_jax(jp)
     _, tstep, _ = step.make_train_step(cfg, "cpu",
                                        tx=step.make_optimizer(**kw),
