@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4n)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4o)
     python3 chip_smoke.py --profile    # and phase 4c before the report, and
                                        # phase 4l's step profiles
 
@@ -49,14 +49,18 @@ with no result line:
              ``card_cases.F32_FLASH_SHAPES``; SDPA at f32 their
              yardstick; all three on 3xTF32 ``mma.sync``, bound at three
              TF32 products a product, the f32 FMA-rate bound beside it),
+             and the f16 variants of K2, K6 and K7 (the f16 encoder's, at
+             ``card_cases.F16_FLASH_SHAPES``, K6 and K7 again at dO x
+             ``F16_TINY_DO``, gradients under f16's normal range; SDPA at
+             f16 their yardstick, bound at the f16 tensor-core rate),
              on seeded inputs with masked rows, each held against its plain
              PyTorch version, and timed beside its plain version, a PyTorch
              yardstick where one exists, and the card's bound. Times are
              device times: 20 calls captured back to back in a CUDA graph,
              replayed between CUDA events (``call_ms`` adds one eager
              call's time, host launch included). K3's, K4's, K5's and
-             the f32 K2's, K6's and K7's entries carry their kernels'
-             registers; K3's, K4's and K5's previous
+             the f32 and f16 K2's, K6's and K7's entries carry their
+             kernels' registers; K3's, K4's and K5's previous
              design's recorded times (RECORDED_EARLIER_MS, not measured
              here) follow on a line of their own.
 4. e2e     - ``TranscriptionEngine`` on the card with the release weights
@@ -294,6 +298,18 @@ with no result line:
              seconds beside the single process's, the gradients' sum over
              processes alone and the bytes a process hands to
              collectives (not held).
+4o. f16     - (a) the release with the f16 encoder
+             (``encoder.dtype="float16"``) serves the golden and the 120 s
+             file with one model shard and at (data, model) (1, 2): the
+             golden result held to ``golden_f16.json``, both files' ids
+             on 99.5 %, each batch's launches exactly (K1 once, the f16
+             K2 once a shard a layer, K3 whole or split, no bf16 or f32
+             attention kernel), warm 120 s seconds beside bf16 in turns;
+             (b) ``train_synth`` at f16, ``PipelineConfig()`` dims, batch
+             16 of 8 s, kernel mode, 3 steps (finite losses; each step's
+             launches exactly: the f16 K2, K6, K7 and K3 12 each), one f16
+             update on the card against the CPU (``TOL_GRAD_REL``, the
+             worst leaf printed).
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -304,10 +320,10 @@ with no result line:
              kernel-mode training step at ``PipelineConfig()`` dims, batch
              16: the host's batch wait, upload, forward + loss, backward
              and optimizer seconds, and one step under the profiler.
-5. report  - one ``{"kernels": [...]}`` line (K1-K7 and the f32 K2, K6,
-             K7; ``launches`` summed over the serving, training,
+5. report  - one ``{"kernels": [...]}`` line (K1-K7 and the f32 and f16
+             K2, K6, K7; ``launches`` summed over the serving, training,
              decoders, server, d512, evals, trainers, rest_of_training,
-             mesh, tp, mesh_training, f32_moe_mesh and multiprocess
+             mesh, tp, mesh_training, f32_moe_mesh, multiprocess and f16
              paths,
              K3's whole
              and split over a model axis (one a shard),
@@ -354,10 +370,10 @@ EVAL_WINDOW_SECONDS = 10.0  # eval.synth's windows (1024 frames, T' 256)
 TRAIN_VALID_KEYS = [256] * 12 + [200, 77, 1, 0]
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W): f32 on
-# the CUDA cores, bf16, int8 and tf32 on the tensor cores, and HBM3
+# the CUDA cores, bf16, f16, int8 and tf32 on the tensor cores, and HBM3
 # bandwidth. The SXM part names itself "NVIDIA H100 80GB HBM3".
-H100_SXM_PEAKS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12,
-                  "tf32": 495e12, "bytes": 3.35e12}
+H100_SXM_PEAKS = {"f32": 67e12, "bf16": 989e12, "f16": 989e12,
+                  "int8": 1979e12, "tf32": 495e12, "bytes": 3.35e12}
 
 # Tolerances of each kernel against its plain version on the same inputs.
 TOL_K1 = 1e-3   # log-mel, abs: both are f32; the sums run in another order
@@ -1045,6 +1061,171 @@ def check_flash_f32(dev, peaks, ptxas):
     return out
 
 
+def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
+    """The f16 variants of K2, K6 and K7 on one shape against their plain
+    versions (``card_cases.TOL_F16_*``; masked keys and fully-masked rows
+    exactly 0), K6 and K7 again at dO times ``F16_TINY_DO`` (gradients
+    under f16's normal range, where a flushed dS shows), each timed beside
+    its plain version, SDPA at f16 (the forward for K2, its backward for
+    the pair) and its bound at the f16 tensor-core rate. Returns (K2, K6,
+    K7) entries."""
+    import torch
+    import torch.nn.functional as F
+    from omnilingual_asr_torch.ops import attention as A
+    from omnilingual_asr_torch.ops.card_cases import (F16_TINY_DO,
+                                                      TOL_F16_LSE, f16_share)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device=dev).half()
+                   for _ in range(4))
+    nv = torch.tensor(valid, device=dev)
+    mask = torch.arange(T, device=dev)[None, :] < nv[:, None]
+    o, lse = A.flash_attention_f16(q, k, v, mask)
+    o_ref, lse_ref = A.flash_attention_plain(q, k, v, mask)
+    label = f"{[B, T, H, D]} f16"
+    shares, errs, tiny, args_at = {}, {}, {}, {}
+    for scale in (1.0, F16_TINY_DO):
+        d = do if scale == 1.0 else (do.float() * scale).half()
+        args = args_at[scale] = (q, k, v, mask, d, lse_ref,
+                                 A.flash_delta(o_ref, d))
+        dq = A.flash_attention_bwd_dq_f16(*args)
+        dk, dv = A.flash_attention_bwd_dkv_f16(*args)
+        dq_ref = A.flash_attention_bwd_dq_plain(*args)
+        dk_ref, dv_ref = A.flash_attention_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        pairs = [("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)]
+        if scale == 1.0:
+            pairs.insert(0, ("o", o, o_ref))
+        for name, got, want in pairs:
+            share = f16_share(got, want, sub=scale != 1.0)
+            err = float((got.float() - want.float()).abs().max())
+            if (not bool(torch.isfinite(got.float()).all())
+                    or got.dtype != torch.float16 or share > 1.0):
+                raise PhaseError(f"f16 flash {label}: {name} at dO x {scale}"
+                                 f" max abs err {err:.3e} uses {share:.2f} "
+                                 f"of its tolerance")
+            if scale == 1.0:
+                shares[name], errs[name] = share, err
+            else:
+                tiny[name] = {"max_abs_err": err, "max_ref": float(
+                    want.float().abs().max()), "share": share}
+        dead_row, dead_key = ~mask.any(dim=1), ~mask
+        zeros = (bool((dq[dead_row] == 0).all())
+                 and bool((dk[dead_key] == 0).all())
+                 and bool((dv[dead_key] == 0).all()))
+        if not zeros:
+            raise PhaseError(f"f16 flash {label}: masked gradients at dO x "
+                             f"{scale} not exactly 0")
+    live = lse_ref < 1e29
+    lse_err = float((lse - lse_ref)[live].abs().max())
+    zeros = (bool((lse[~live] == 1e30).all())
+             and bool((o[~mask.any(dim=1)] == 0).all()))
+    if lse_err > TOL_F16_LSE or not zeros:
+        raise PhaseError(f"f16 flash {label}: lse err {lse_err:.3e} (tol "
+                         f"{TOL_F16_LSE}), masked rows exactly 0: {zeros}")
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    amask = mask[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=amask)
+
+    ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=amask)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(ol, (ql, kl, vl), do.transpose(1, 2),
+                                   retain_graph=True)
+
+    try:
+        bwd_lib = time_ms(sdpa_bwd, stream=stream)
+    except RuntimeError as e:     # the yardstick only; the port never calls it
+        log(f"  SDPA f16 backward could not be timed in a CUDA graph ({e}); "
+            f"library_ms null")
+        bwd_lib = None
+    args = args_at[1.0]
+    work = H * T * D * int(nv.sum())
+    m32 = mask.to(torch.int32)
+    io = nbytes(q, k, v, do, m32, lse, args[-1])
+    b2 = bound({"f16": 4 * work}, nbytes(q, k, v, m32, o, lse), peaks)
+    b6 = bound({"f16": 6 * work}, io + nbytes(q), peaks)
+    b7 = bound({"f16": 8 * work}, io + nbytes(k, v), peaks)
+    shape = f"q/k/v [{B}, {T}, {H}, {D}] f16, valid keys {valid}"
+    tol = ("TOL_F16_ABS max|ref| + TOL_F16_REL |ref| (+ TOL_F16_SUB at dO x "
+           "F16_TINY_DO), max share")
+    k2 = {"D": D, "max_abs_err": errs["o"], "lse_max_abs_err": lse_err,
+          "tol": f"{tol} {shares['o']:.3f}, lse {TOL_F16_LSE}",
+          "ms": time_ms(lambda: A.flash_attention_f16(q, k, v, mask)),
+          "call_ms": call_ms(lambda: A.flash_attention_f16(q, k, v, mask)),
+          "plain_ms": time_ms(lambda: A.flash_attention_plain(q, k, v,
+                                                              mask)),
+          "bound_ms": b2[0], "bound_by": b2[1],
+          "library_ms": time_ms(sdpa),
+          "library": "SDPA forward at f16", "shape": shape,
+          "gflop": 4 * work / 1e9}
+    k6 = {"D": D, "max_abs_err": errs["dq"],
+          "tol": f"{tol} {shares['dq']:.3f}", "tiny_do": tiny["dq"],
+          "ms": time_ms(lambda: A.flash_attention_bwd_dq_f16(*args)),
+          "call_ms": call_ms(lambda: A.flash_attention_bwd_dq_f16(*args)),
+          "plain_ms": time_ms(lambda: A.flash_attention_bwd_dq_plain(*args)),
+          "bound_ms": b6[0], "bound_by": b6[1], "library_ms": bwd_lib,
+          "library": "SDPA backward at f16 (dQ, dK, dV together), forward "
+                     "outside the timed region",
+          "shape": shape, "gflop": 6 * work / 1e9}
+    k7 = {"D": D, "max_abs_err": max(errs["dk"], errs["dv"]),
+          "tol": f"{tol} dk {shares['dk']:.3f}, dv {shares['dv']:.3f}",
+          "tiny_do": {"dk": tiny["dk"], "dv": tiny["dv"]},
+          "ms": time_ms(lambda: A.flash_attention_bwd_dkv_f16(*args)),
+          "call_ms": call_ms(lambda: A.flash_attention_bwd_dkv_f16(*args)),
+          "plain_ms": time_ms(lambda: A.flash_attention_bwd_dkv_plain(
+              *args)),
+          "bound_ms": b7[0], "bound_by": b7[1], "library_ms": None,
+          "shape": shape, "gflop": 8 * work / 1e9}
+    return k2, k6, k7
+
+
+def check_flash_f16(dev, peaks, ptxas):
+    """The f16 variants of K2, K6 and K7 (``csrc/attention.cu`` and
+    ``csrc/attention_bwd.cu`` over f16 operands, the f16 encoder's
+    attention) at ``card_cases.F16_FLASH_SHAPES``: K2's entry at the
+    release's f16 serving batch, K6's and K7's at the f16 training step's
+    shape, every shape under "head_dims"; each with its kernel's registers
+    and spills."""
+    from omnilingual_asr_torch.ops.card_cases import F16_FLASH_SHAPES
+
+    cases = {}
+    for i, (name, (B, T, H, D, valid)) in enumerate(
+            F16_FLASH_SHAPES.items()):
+        cases[name] = [dict(c, case=name) for c in _f16_flash_case(
+            dev, peaks, B, T, H, D, list(valid), SEED + 110 + i)]
+    out = []
+    for i, (name, line, main, src, kernel) in enumerate((
+            ("flash_attention_fwd_f16", 34, "serving", "attention.cu",
+             "flash_fwd_kernel"),
+            ("flash_attention_bwd_dq_f16", 79, "training",
+             "attention_bwd.cu", "flash_bwd_dq_kernel"),
+            ("flash_attention_bwd_dkv_f16", 110, "training",
+             "attention_bwd.cu", "flash_bwd_dkv_kernel"))):
+        out.append({"name": name, "route": "cuda",
+                    "source": f"omnilingual_asr_torch/csrc/{src}",
+                    "replaces": f"omnilingual_asr_tpu/ops/attention.py:{line}",
+                    "design": "f16 mma.sync for S and dP; the f16 operand of "
+                              "P V, dS K, dS^T Q, P^T dO split into bf16 hi + "
+                              "lo against P or dS as bf16 hi + lo (three "
+                              "bf16 products)",
+                    "bound_at": "ops at 989 TFLOP/s f16 or bytes at "
+                                "3.35 TB/s",
+                    **cases[main][i],
+                    "head_dims": [c[i] for c in cases.values()],
+                    "ptxas": {k: v for k, v in ptxas.items()
+                              if k.startswith(kernel) and "true" in k}})
+    return out
+
+
 def check_k3(dev, peaks, cfg, params, ptxas):
     """K3 at the serving path's shape with the release weights, and at the
     training path's (batch 16, T' 256, D 512, random weights),
@@ -1403,9 +1584,10 @@ def write_tiled_wav(src: Path, dst: Path, seconds: float) -> float:
 
 def _counters():
     from omnilingual_asr_torch.ops.attention import (
-        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_f32,
-        flash_attention_bwd_dq, flash_attention_bwd_dq_f32,
-        flash_attention_f32)
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dkv_f16,
+        flash_attention_bwd_dkv_f32, flash_attention_bwd_dq,
+        flash_attention_bwd_dq_f16, flash_attention_bwd_dq_f32,
+        flash_attention_f16, flash_attention_f32)
     from omnilingual_asr_torch.ops.conv_module import (
         fused_conv_module, fused_conv_module_split)
     from omnilingual_asr_torch.ops.mel import log_mel_frames
@@ -1416,7 +1598,8 @@ def _counters():
             quantized_matmul, quantized_matmul_a8, flash_attention_bwd_dq,
             flash_attention_bwd_dkv, fused_conv_module_split,
             flash_attention_f32, flash_attention_bwd_dq_f32,
-            flash_attention_bwd_dkv_f32)
+            flash_attention_bwd_dkv_f32, flash_attention_f16,
+            flash_attention_bwd_dq_f16, flash_attention_bwd_dkv_f16)
 
 
 def _read_counters(reset: bool = True) -> dict:
@@ -4856,61 +5039,74 @@ MM_STEPS = 3                 # steps a timed mesh
 TOL_MM_REL = 1e-4
 
 
-def _f32(cfg):
-    """``cfg`` with the f32 encoder."""
-    import dataclasses
+#: The encoder dtypes beyond bf16 that phases 4m (f32) and 4o (f16)
+#: serve and train: (``EncoderConfig.dtype``, the suffix of its flash
+#: kernels' counters, its golden fixture's loader in
+#: ``omnilingual_asr_torch.testing``).
+ENCODER_DTYPES = {"f32": ("float32", "_f32", "load_golden_f32"),
+                  "f16": ("float16", "_f16", "load_golden_f16")}
 
-    return cfg.replace(encoder=dataclasses.replace(cfg.encoder,
-                                                   dtype="float32"))
+
+def _at(cfg, name: str):
+    """``cfg`` with the encoder at ENCODER_DTYPES[name]'s dtype."""
+    return cfg.replace(encoder=dataclasses.replace(
+        cfg.encoder, dtype=ENCODER_DTYPES[name][0]))
 
 
-def _f32_serving_launches(layers: int, model: int) -> dict:
-    """A batch of the f32 engine: K1 once; the f32 K2 once a model shard a
-    layer; K3 whole once a layer at model 1, split (once a shard) above
-    it; no bf16 attention kernel and no int8 kernel."""
+def _dtype_serving_launches(name: str, layers: int, model: int) -> dict:
+    """A batch of the engine at ENCODER_DTYPES[name]: K1 once; that
+    dtype's K2 once a model shard a layer; K3 whole once a layer at model
+    1, split (once a shard) above it; no other attention kernel and no
+    int8 kernel."""
     split = model > 1
-    return {"log_mel_frames": 1, "flash_attention_f32": layers * model,
-            "flash_attention": 0,
+    sfx = ENCODER_DTYPES[name][1]
+    return {"log_mel_frames": 1,
+            **{f"flash_attention{s}": layers * model if s == sfx else 0
+               for s in ("", "_f32", "_f16")},
             "fused_conv_module": 0 if split else layers,
             "fused_conv_module_split": layers * model if split else 0,
             "quantized_matmul": 0, "quantized_matmul_a8": 0}
 
 
-def _f32_serving(dev, cfg, params, xvector, tiled, total) -> None:
-    """(a) The release with the f32 encoder serves the golden file (its
-    result held to ``golden_f32.json`` by ``result_mismatches``, its ids
-    on MIN_CTC_AGREEMENT) and the 120 s file (ids on MIN_CTC_AGREEMENT:
-    one of its frames is a tie at f32), with one model shard and at
-    (data, model) (1, 2); then warm 120 s seconds at f32 beside bf16."""
+def _dtype_serving(name, dev, cfg, params, xvector, tiled, total,
+                   rounds) -> None:
+    """(a) The release with the encoder at ENCODER_DTYPES[name] serves the
+    golden file (its result held to that dtype's golden fixture by
+    ``result_mismatches``, its ids on MIN_CTC_AGREEMENT) and the 120 s
+    file (ids on MIN_CTC_AGREEMENT: one of its frames is a tie at f32),
+    with one model shard and at (data, model) (1, 2), each batch's
+    launches exactly; then ``rounds`` warm 120 s requests at that dtype
+    and at bf16 in turns, their seconds printed."""
     import torch
     from omnilingual_asr_torch import testing as golden
     from omnilingual_asr_torch.engine import TranscriptionEngine
 
-    fcfg = _f32(cfg)
+    dcfg = _at(cfg, name)
     L = cfg.encoder.n_layers
-    stored = golden.load_golden_f32()
+    stored = getattr(golden, ENCODER_DTYPES[name][2])()
     requests = [("golden", golden.GOLDEN_WAV), ("tiled", tiled)]
     engines = {}
     for shape in ((1, 1), (1, 2)):
-        label = f"f32 engine {shape}"
-        engine = (TranscriptionEngine(config=fcfg, params=params,
+        label = f"{name} engine {shape}"
+        engine = (TranscriptionEngine(config=dcfg, params=params,
                                       xvector_params=xvector, device=dev)
                   if shape == (1, 1) else
-                  _tp_engine(dev, fcfg, params, xvector, shape, False))
-        results, counts = drive_path(
+                  _tp_engine(dev, dcfg, params, xvector, shape, False))
+        # drive_path leaves its launches in the counters: the read after
+        # _win_ids below adds them to ``total`` once, with _win_ids' own.
+        results, _ = drive_path(
             label, lambda path, cb, e=engine: e.transcribe(
                 path, progress_callback=cb).to_dict(),
-            engine, requests, _f32_serving_launches(L, shape[1]))
-        _add(total, counts)
+            engine, requests, _dtype_serving_launches(name, L, shape[1]))
         bad = golden.result_mismatches(stored["result"], results[0],
                                        tone_mass=stored["tone_mass"])
         if bad:
-            raise PhaseError(f"{label}: golden_f32 mismatch: "
+            raise PhaseError(f"{label}: golden_{name} mismatch: "
                              + "; ".join(bad))
-        agree = {name: golden.ctc_agreement(want["ctc_ids"],
-                                            _win_ids(engine, path))
-                 for (name, path), want in zip(requests,
-                                               (stored, stored["tiled"]))}
+        agree = {n: golden.ctc_agreement(want["ctc_ids"],
+                                         _win_ids(engine, path))
+                 for (n, path), want in zip(requests,
+                                            (stored, stored["tiled"]))}
         log(f"  {label} " + json.dumps({
             "golden_segments": len(results[0]["segments"]),
             "tiled_segments": len(results[1]["segments"]),
@@ -4921,26 +5117,27 @@ def _f32_serving(dev, cfg, params, xvector, tiled, total) -> None:
         engines[shape] = engine
     bf16 = TranscriptionEngine(config=cfg, params=params,
                                xvector_params=xvector, device=dev)
-    secs = {"bf16": [], "f32": []}
-    for _ in range(F32_ROUNDS):
-        for name, e in (("bf16", bf16), ("f32", engines[(1, 1)])):
+    secs = {"bf16": [], name: []}
+    for _ in range(rounds):
+        for n, e in (("bf16", bf16), (name, engines[(1, 1)])):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             e.transcribe(tiled)
             torch.cuda.synchronize()
-            secs[name].append(time.perf_counter() - t0)
+            secs[n].append(time.perf_counter() - t0)
     _add(total, _read_counters())
-    log("  f32 request seconds (120 s, warm, interleaved) " + json.dumps({
-        k: {"s": v, "median_s": statistics.median(v)}
-        for k, v in secs.items()}))
+    log(f"  {name} request seconds (120 s, warm, interleaved) " + json.dumps(
+        {k: {"s": v, "median_s": statistics.median(v)}
+         for k, v in secs.items()}))
 
 
-def _f32_training(dev, total) -> None:
-    """(b) ``train_synth`` with the f32 encoder at ``PipelineConfig()``
-    (d512 x 12), kernel mode, batch TRAIN_BATCH of 8 s, F32_TRAIN_STEPS
-    steps: finite losses, each step's launches exactly (K1 1; the f32 K2,
-    K6, K7 and K3 12 each; no bf16 attention kernel); then one update on
-    the card against the CPU (phase 4b's gate, the worst leaf printed)."""
+def _dtype_training(name, dev, total, steps) -> None:
+    """(b) ``train_synth`` with the encoder at ENCODER_DTYPES[name] at
+    ``PipelineConfig()`` (d512 x 12), kernel mode, batch TRAIN_BATCH of
+    8 s, ``steps`` steps: finite losses, each step's launches exactly (K1
+    1; that dtype's K2, K6, K7 and K3 12 each; no other attention
+    kernel); then one update on the card against the CPU (phase 4b's
+    gate, the worst leaf printed)."""
     import numpy as np
     import torch
     from omnilingual_asr_torch.config import PipelineConfig
@@ -4952,11 +5149,12 @@ def _f32_training(dev, total) -> None:
                                                   make_train_step)
     from omnilingual_asr_torch.train.synth import SynthBatcher
 
-    base = _f32(PipelineConfig())
+    base = _at(PipelineConfig(), name)
     L = base.encoder.n_layers
-    watch = _StepWatch("f32 train_synth", {
-        "log_mel_frames": 1, "flash_attention_f32": L,
-        "flash_attention_bwd_dq_f32": L, "flash_attention_bwd_dkv_f32": L,
+    sfx = ENCODER_DTYPES[name][1]
+    watch = _StepWatch(f"{name} train_synth", {
+        "log_mel_frames": 1, f"flash_attention{sfx}": L,
+        f"flash_attention_bwd_dq{sfx}": L, f"flash_attention_bwd_dkv{sfx}": L,
         "fused_conv_module": L})
     parts, captured = {}, []
     with contextlib.ExitStack() as st:
@@ -4967,15 +5165,15 @@ def _f32_training(dev, total) -> None:
                                   _timed_batches(_one_producer(
                                       synth_train.SynthBatcher), parts)))
         (params, _), launches = _rest_drive(
-            "f32 train_synth", lambda: synth_train.train_synth(
-                steps=F32_TRAIN_STEPS, batch_size=TRAIN_BATCH, cfg=base,
+            f"{name} train_synth", lambda: synth_train.train_synth(
+                steps=steps, batch_size=TRAIN_BATCH, cfg=base,
                 pallas_kernels=True, seed=SEED, log_every=1,
                 eval_every=1000, device=dev), parts, watch)
     _add(total, launches)
-    steps = [r["step_s"] for r in watch.rows]
-    log("  f32 train step seconds " + json.dumps({
-        "steps_s": steps, "median_after_first_s":
-            statistics.median(steps[1:])}))
+    secs = [r["step_s"] for r in watch.rows]
+    log(f"  {name} train step seconds " + json.dumps({
+        "steps_s": secs, "median_after_first_s":
+            statistics.median(secs[1:])}))
     del params, captured
 
     cfg = base.replace(encoder=dataclasses.replace(
@@ -5006,11 +5204,10 @@ def _f32_training(dev, total) -> None:
     out = {"loss_card": got["card"][0], "loss_cpu": got["cpu"][0],
            "loss_rel": loss_rel, "grad_worst_rel": worst,
            "grad_worst_leaf": leaf}
-    log("  f32 update on the card against the CPU " + json.dumps(out))
+    log(f"  {name} update on the card against the CPU " + json.dumps(out))
     if worst > TOL_GRAD_REL or loss_rel > TOL_REST_LOSS_REL:
-        raise PhaseError(f"f32 update: {out} (grads {TOL_GRAD_REL}, loss "
-                         f"{TOL_REST_LOSS_REL})")
-    _f32_step_costs(dev, total)
+        raise PhaseError(f"{name} update: {out} (grads {TOL_GRAD_REL}, "
+                         f"loss {TOL_REST_LOSS_REL})")
 
 
 def _f32_step_costs(dev, total) -> None:
@@ -5045,7 +5242,7 @@ def _f32_step_costs(dev, total) -> None:
     aug = SpecAugmentConfig(n_freq_masks=1, freq_mask_width=16,
                             n_time_masks=1, time_mask_width=24)
     runs = {}
-    for name, c in (("bf16", cfg), ("f32", _f32(cfg))):
+    for name, c in (("bf16", cfg), ("f32", _at(cfg, "f32"))):
         _, step_fn, _ = make_train_step(c, dev, tx=make_optimizer(),
                                         from_samples=True, augment=aug,
                                         with_translator=True)
@@ -5241,9 +5438,12 @@ def run_f32_moe_mesh(dev, cfg, params, xvector, smi) -> dict:
     write_tiled_wav(PKG / "testdata" / "golden.wav", tiled, TILED_SECONDS)
     total: dict = {}
     for label, fn in (
-            ("(a) f32 serving", lambda: _f32_serving(
-                dev, cfg, params, xvector, tiled, total)),
-            ("(b) f32 training", lambda: _f32_training(dev, total)),
+            ("(a) f32 serving", lambda: _dtype_serving(
+                "f32", dev, cfg, params, xvector, tiled, total,
+                F32_ROUNDS)),
+            ("(b) f32 training", lambda: (
+                _dtype_training("f32", dev, total, F32_TRAIN_STEPS),
+                _f32_step_costs(dev, total))),
             ("(c) moe over the mesh", lambda: _moe_mesh_training(
                 dev, total))):
         t0 = time.perf_counter()
@@ -5720,6 +5920,41 @@ def run_multiprocess(dev, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4o: the f16 encoder
+# ---------------------------------------------------------------------------
+
+F16_ROUNDS = 3               # warm 120 s requests at f16 and bf16 (medians)
+F16_TRAIN_STEPS = 3          # kernel-mode f16 train_synth steps at d512 x 12
+
+
+def run_f16(dev, cfg, params, xvector, smi) -> dict:
+    """Phase 4o. (a) The release with the f16 encoder serving, with one
+    model shard and at (1, 2), held to ``golden_f16.json``, beside bf16 in
+    turns; (b) kernel-mode f16 training at d512 x 12 and one f16 update on
+    the card against the CPU. Returns the launches of each kernel."""
+    import torch
+
+    tiled = PKG / "_build" / "smoke_tiled.wav"
+    write_tiled_wav(PKG / "testdata" / "golden.wav", tiled, TILED_SECONDS)
+    total: dict = {}
+    for label, fn in (
+            ("(a) f16 serving", lambda: _dtype_serving(
+                "f16", dev, cfg, params, xvector, tiled, total,
+                F16_ROUNDS)),
+            ("(b) f16 training", lambda: _dtype_training(
+                "f16", dev, total, F16_TRAIN_STEPS))):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        log(f"  {label} {time.perf_counter() - t0:.2f} s, peak card "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        torch.cuda.empty_cache()
+    log(f"  f16 launches {json.dumps(total)} ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 4c (--profile): where a request's and a train step's time goes
 # ---------------------------------------------------------------------------
 
@@ -5965,7 +6200,8 @@ def main(argv=None) -> int:
                    check_k3(dev, peaks, cfg, params, ptxas),
                    *check_quant(dev, peaks, params, ptxas),
                    *check_flash_bwd(dev, peaks, PipelineConfig()),
-                   *check_flash_f32(dev, peaks, ptxas)]
+                   *check_flash_f32(dev, peaks, ptxas),
+                   *check_flash_f16(dev, peaks, ptxas)]
         for k in kernels:
             log(f"  {k['name']}: max abs err {k['max_abs_err']:.3e} (tol "
                 f"{k['tol']}), {k['ms']:.4f} ms (one eager call "
@@ -5973,7 +6209,7 @@ def main(argv=None) -> int:
                 f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms "
                 f"({k['bound_by']}), {k['shape']}")
             extra = {x: k[x] for x in ("design", "bound_at", "bound_fma_ms",
-                                       "ptxas") if x in k}
+                                       "tiny_do", "ptxas") if x in k}
             if extra:
                 log(f"    {json.dumps(extra)}")
             for w in (k.get("widths", []) + k.get("head_dims", [])
@@ -6050,6 +6286,11 @@ def main(argv=None) -> int:
         multiprocess = run_multiprocess(dev, smi)
         log(f"[multiprocess] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "f16"
+        t0 = time.perf_counter()
+        f16 = run_f16(dev, cfg, params, xvector, smi)
+        log(f"[f16] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -6070,13 +6311,18 @@ def main(argv=None) -> int:
                  "flash_attention_fwd_f32": ("flash_attention_f32",),
                  "flash_attention_bwd_dq_f32": ("flash_attention_bwd_dq_f32",),
                  "flash_attention_bwd_dkv_f32": (
-                     "flash_attention_bwd_dkv_f32",)}
+                     "flash_attention_bwd_dkv_f32",),
+                 "flash_attention_fwd_f16": ("flash_attention_f16",),
+                 "flash_attention_bwd_dq_f16": ("flash_attention_bwd_dq_f16",),
+                 "flash_attention_bwd_dkv_f16": (
+                     "flash_attention_bwd_dkv_f16",)}
         paths = {"serving": serving, "training": training,
                  "decoders": decoding, "server": served, "d512": d512,
                  "evals": evals, "trainers": trainers,
                  "rest_of_training": rest, "mesh": mesh, "tp": tp_path,
                  "mesh_training": mesh_training,
-                 "f32_moe_mesh": f32_moe_mesh, "multiprocess": multiprocess}
+                 "f32_moe_mesh": f32_moe_mesh, "multiprocess": multiprocess,
+                 "f16": f16}
         line = {"kernels": []}
         for k in kernels:
             fns = by_fn[k["name"]]

@@ -1,5 +1,6 @@
 // K6 and K7: the flash-attention backward, dQ and dK/dV, on bf16 tensor
-// cores.
+// cores; and K6 and K7 at f16 (the f16 encoder), the same kernels over f16
+// operands (F16 = true; see the end of this comment).
 //
 // Replace omnilingual_asr_tpu/ops/attention.py::_flash_bwd_dq_kernel (K6)
 // and ::_flash_bwd_dkv_kernel (K7), both launched by _flash_bh_bwd. Over
@@ -64,21 +65,34 @@
 // at the training shape fewer blocks an SM (more registers, no spills)
 // took 1.3x as long for K6 and 1.1-1.2x for K7; at D 128 K6 at 2 blocks
 // 1.2x as long as at 3, K7 at 3 blocks 1.7x as long as at 2.
+//
+// At f16 (omni_flash_bwd_dq_f16, omni_flash_bwd_dkv_f16): S = Q K^T and
+// dP = dO V^T take mma.sync over the f16 operands (exact products). P and
+// dS cannot become f16 values: dS scales with dO, and a mean loss over a
+// batch gives dO of 1e-6 and below, where f16 (normal down to 2^-14,
+// nothing below 2^-24) would lose dS's bits or flush it to 0, and its
+// 65504 would overflow at large dO. So P and dS stay split in bf16 hi + lo
+// (f32's exponent range) as above, and each f16 B fragment (K for dQ, dO
+// for dV, Q for dK) is split in registers into two bf16 halves whose sum
+// it is exactly (mma.cuh::split_f16x2): three bf16 products where bf16
+// takes two (flash.cuh::mma_split_cols). dQ, dK and dV are rounded to f16
+// once, at the end, as the reference rounds them. Registers at f16 under
+// the same launch bounds: K6 128 at D 64 (12 bytes of spill stores) and
+// 168 at D 128 (16); K7 128 at D 64 (60) and 255 at D 128 (100).
 #include "flash.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 using omni::FlashTile;
 
 constexpr int BR = omni::FLASH_ROWS;      // rows a block owns; tile rows
 constexpr int THREADS = omni::FLASH_THREADS;
 
 // Round a warp's accumulators acc[D / 8] (its rows g and g + 8, times mul)
-// to bf16 and store those below T; dst is the warp's first row, row0 its
-// index.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, float (*acc)[4],
+// to the element type E and store those below T; dst is the warp's first
+// row, row0 its index.
+template <int D, typename E>
+__device__ __forceinline__ void store_rows(E* dst, float (*acc)[4],
                                            float mul, size_t ts, int row0,
                                            int T, int lane) {
   const int g = lane >> 2;
@@ -86,11 +100,11 @@ __device__ __forceinline__ void store_rows(bf16* dst, float (*acc)[4],
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row0 + g + 8 * r >= T) continue;
-    bf16* p = dst + static_cast<size_t>(g + 8 * r) * ts + 2 * tq;
+    E* p = dst + static_cast<size_t>(g + 8 * r) * ts + 2 * tq;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(p + i * 8) =
-          omni::pack_bf16(acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
+      *reinterpret_cast<uint32_t*>(p + i * 8) = omni::pack_pair<E>(
+          acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
   }
 }
 
@@ -113,22 +127,26 @@ constexpr int DKV_MIN_BLOCKS_64 = 4;
 constexpr int DKV_MIN_BLOCKS_128 = 2;
 
 // K6.
-template <int D>
+template <int D, bool F16>
 __global__ void __launch_bounds__(
     THREADS, D == 128 ? DQ_MIN_BLOCKS_128 : DQ_MIN_BLOCKS_64)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ mask,
-                    const bf16* __restrict__ dout,
+flash_bwd_dq_kernel(const omni::flash_elem<F16>* __restrict__ q,
+                    const omni::flash_elem<F16>* __restrict__ k,
+                    const omni::flash_elem<F16>* __restrict__ v,
+                    const int* __restrict__ mask,
+                    const omni::flash_elem<F16>* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int T, int H, float scale) {
+                    const float* __restrict__ delta,
+                    omni::flash_elem<F16>* __restrict__ dq, int T, int H,
+                    float scale) {
+  using E = omni::flash_elem<F16>;
   constexpr int TILE = FlashTile<D>::ELEMS;
   constexpr int KD = D / 16;
   constexpr int KS = D == 128 ? 16 : 32;   // keys a step takes
   constexpr int NS = KS / 8;               // 8-key column tiles a step
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);         // [2][TILE]
-  bf16* Vs = Ks + 2 * TILE;                             // [2][TILE]
+  E* Ks = reinterpret_cast<E*>(smem_raw);         // [2][TILE]
+  E* Vs = Ks + 2 * TILE;                             // [2][TILE]
   int* Ms = reinterpret_cast<int*>(Vs + 2 * TILE);      // [2][BR]
 
   const int tid = threadIdx.x;
@@ -182,8 +200,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     omni::cp_async_commit();
     omni::cp_async_wait<1>();       // tile j has landed
     __syncthreads();
-    const bf16* kt = Ks + buf * TILE;
-    const bf16* vt = Vs + buf * TILE;
+    const E* kt = Ks + buf * TILE;
+    const E* vt = Vs + buf * TILE;
     const int* mt = Ms + buf * BR;
 
 #pragma unroll
@@ -206,7 +224,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           s[n][e] = p * (dp[n][e] - rd[e >> 1]);
         }
       }
-      // dQ += dS K, dS = hi + lo in bf16, 16 keys a k-step.
+      // dQ += dS K, dS = hi + lo in bf16, 16 keys a k-step (at f16 K split
+      // too).
 #pragma unroll
       for (int kk = 0; kk < KS / 16; ++kk) {
         uint32_t hi[4], lo[4];
@@ -221,21 +240,26 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // K7.
-template <int D>
+template <int D, bool F16>
 __global__ void __launch_bounds__(
     THREADS, D == 128 ? DKV_MIN_BLOCKS_128 : DKV_MIN_BLOCKS_64)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const int* __restrict__ mask,
-                     const bf16* __restrict__ dout,
+flash_bwd_dkv_kernel(const omni::flash_elem<F16>* __restrict__ q,
+                     const omni::flash_elem<F16>* __restrict__ k,
+                     const omni::flash_elem<F16>* __restrict__ v,
+                     const int* __restrict__ mask,
+                     const omni::flash_elem<F16>* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int T, int H, float scale) {
+                     const float* __restrict__ delta,
+                     omni::flash_elem<F16>* __restrict__ dk,
+                     omni::flash_elem<F16>* __restrict__ dv, int T, int H,
+                     float scale) {
+  using E = omni::flash_elem<F16>;
   constexpr int TILE = FlashTile<D>::ELEMS;
   constexpr int KD = D / 16;
   constexpr int QS = 16;                   // queries a step takes
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);         // [2][TILE]
-  bf16* Os = Qs + 2 * TILE;                             // dO, [2][TILE]
+  E* Qs = reinterpret_cast<E*>(smem_raw);         // [2][TILE]
+  E* Os = Qs + 2 * TILE;                             // dO, [2][TILE]
   float* Ls = reinterpret_cast<float*>(Os + 2 * TILE);  // lse, [2][BR]
   float* Ds = Ls + 2 * BR;                              // delta, [2][BR]
 
@@ -295,8 +319,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     omni::cp_async_commit();
     omni::cp_async_wait<1>();       // tile j has landed
     __syncthreads();
-    const bf16* qt = Qs + buf * TILE;
-    const bf16* ot = Os + buf * TILE;
+    const E* qt = Qs + buf * TILE;
+    const E* ot = Os + buf * TILE;
     const float* lt = Ls + buf * BR;
     const float* dt = Ds + buf * BR;
 
@@ -323,7 +347,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           dpt[n][e] = p * (dpt[n][e] - dl);
         }
       }
-      // dV += P^T dO, dK += dS^T Q; P and dS = hi + lo in bf16.
+      // dV += P^T dO, dK += dS^T Q; P and dS = hi + lo in bf16 (at f16 dO
+      // and Q split too).
       uint32_t hi[4], lo[4];
       omni::split_a_frag(st, hi, lo);
       omni::mma_split_cols<D>(dva, hi, lo, ot, i0, lane);
@@ -337,36 +362,37 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dv + at, dva, 1.f, ts, row0, T, lane);
 }
 
-template <int D>
+template <int D, bool F16>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const int* mask, const void* dout, const float* lse,
                        const float* delta, void* dq, void* dk, void* dv,
                        int B, int T, int H, float scale,
                        cudaStream_t stream) {
+  using E = omni::flash_elem<F16>;
   const dim3 grid((T + BR - 1) / BR, B * H);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* ob = static_cast<const bf16*>(dout);
+  const E* qb = static_cast<const E*>(q);
+  const E* kb = static_cast<const E*>(k);
+  const E* vb = static_cast<const E*>(v);
+  const E* ob = static_cast<const E*>(dout);
   cudaError_t err;
   if (dq != nullptr) {
     const size_t smem = FlashTile<D>::bytes(1);
-    err = omni::allow_smem(flash_bwd_dq_kernel<D>, smem);
+    err = omni::allow_smem(flash_bwd_dq_kernel<D, F16>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-        qb, kb, vb, mask, ob, lse, delta, static_cast<bf16*>(dq), T, H,
-        scale);
+    flash_bwd_dq_kernel<D, F16><<<grid, THREADS, smem, stream>>>(
+        qb, kb, vb, mask, ob, lse, delta, static_cast<E*>(dq), T, H, scale);
   } else {
     const size_t smem = FlashTile<D>::bytes(2);
-    err = omni::allow_smem(flash_bwd_dkv_kernel<D>, smem);
+    err = omni::allow_smem(flash_bwd_dkv_kernel<D, F16>, smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
-        qb, kb, vb, mask, ob, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), T, H, scale);
+    flash_bwd_dkv_kernel<D, F16><<<grid, THREADS, smem, stream>>>(
+        qb, kb, vb, mask, ob, lse, delta, static_cast<E*>(dk),
+        static_cast<E*>(dv), T, H, scale);
   }
   return cudaGetLastError();
 }
 
+template <bool F16>
 int dispatch(const void* q, const void* k, const void* v, const int* mask,
              const void* dout, const float* lse, const float* delta,
              void* dq, void* dk, void* dv, int B, int T, int H, int head_dim,
@@ -376,12 +402,11 @@ int dispatch(const void* q, const void* k, const void* v, const int* mask,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 64:
-      return static_cast<int>(launch_bwd<64>(q, k, v, mask, dout, lse, delta,
-                                             dq, dk, dv, B, T, H, scale, s));
+      return static_cast<int>(launch_bwd<64, F16>(
+          q, k, v, mask, dout, lse, delta, dq, dk, dv, B, T, H, scale, s));
     case 128:
-      return static_cast<int>(launch_bwd<128>(q, k, v, mask, dout, lse,
-                                              delta, dq, dk, dv, B, T, H,
-                                              scale, s));
+      return static_cast<int>(launch_bwd<128, F16>(
+          q, k, v, mask, dout, lse, delta, dq, dk, dv, B, T, H, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -395,8 +420,8 @@ OMNI_API int omni_flash_bwd_dq(const void* q, const void* k, const void* v,
                                int B, int T, int H, int head_dim, float scale,
                                void* stream) {
   if (dq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(q, k, v, mask, dout, lse, delta, dq, nullptr, nullptr, B,
-                  T, H, head_dim, scale, stream);
+  return dispatch<false>(q, k, v, mask, dout, lse, delta, dq, nullptr,
+                         nullptr, B, T, H, head_dim, scale, stream);
 }
 
 OMNI_API int omni_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -406,6 +431,30 @@ OMNI_API int omni_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 int head_dim, float scale, void* stream) {
   if (dk == nullptr || dv == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(q, k, v, mask, dout, lse, delta, nullptr, dk, dv, B, T, H,
-                  head_dim, scale, stream);
+  return dispatch<false>(q, k, v, mask, dout, lse, delta, nullptr, dk, dv, B,
+                         T, H, head_dim, scale, stream);
+}
+
+// K6 and K7 at f16: the same arguments over f16 q, k, v, dO and outputs.
+OMNI_API int omni_flash_bwd_dq_f16(const void* q, const void* k,
+                                   const void* v, const int* mask,
+                                   const void* dout, const float* lse,
+                                   const float* delta, void* dq, int B, int T,
+                                   int H, int head_dim, float scale,
+                                   void* stream) {
+  if (dq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k, v, mask, dout, lse, delta, dq, nullptr,
+                        nullptr, B, T, H, head_dim, scale, stream);
+}
+
+OMNI_API int omni_flash_bwd_dkv_f16(const void* q, const void* k,
+                                    const void* v, const int* mask,
+                                    const void* dout, const float* lse,
+                                    const float* delta, void* dk, void* dv,
+                                    int B, int T, int H, int head_dim,
+                                    float scale, void* stream) {
+  if (dk == nullptr || dv == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k, v, mask, dout, lse, delta, nullptr, dk, dv, B,
+                        T, H, head_dim, scale, stream);
 }

@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #define OMNI_API extern "C" __attribute__((visibility("default")))

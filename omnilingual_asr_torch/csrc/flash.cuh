@@ -1,19 +1,27 @@
 // Shared layout of the flash-attention kernels: the forward (K2,
 // attention.cu) and the backward's dQ (K6) and dK/dV (K7,
-// attention_bwd.cu), all on the warp-level tensor-core tiles of mma.cuh.
+// attention_bwd.cu), all on the warp-level tensor-core tiles of mma.cuh,
+// each for bf16 operands and (the f16 encoder) for f16 ones.
 //
-// q, k, v, o and dO are bf16 [B, T, H, D] (D in {64, 128}), read in place;
-// the key mask is int32 [B, T]; lse and delta are f32 [B, H, T]. A block of
-// 4 warps owns 64 rows of one (b, h) (queries, or keys for K7), 16 a warp,
-// and streams the other side's rows through shared memory in 64-row bf16
-// tiles, double-buffered with cp.async, each row padded by 16 bytes so that
-// ldmatrix reads 8 rows without bank conflicts. Rows at or past T are
-// zero-filled and never stored, so T may be any length.
+// q, k, v, o and dO are bf16 or f16 [B, T, H, D] (D in {64, 128}), read in
+// place; the key mask is int32 [B, T]; lse and delta are f32 [B, H, T]. A
+// block of 4 warps owns 64 rows of one (b, h) (queries, or keys for K7),
+// 16 a warp, and streams the other side's rows through shared memory in
+// 64-row tiles of 16-bit elements, double-buffered with cp.async, each row
+// padded by 16 bytes so that ldmatrix reads 8 rows without bank conflicts.
+// Rows at or past T are zero-filled and never stored, so T may be any
+// length.
 #pragma once
+
+#include <type_traits>
 
 #include "mma.cuh"
 
 namespace omni {
+
+// The operands' element type of a flash kernel: f16 or bf16.
+template <bool F16>
+using flash_elem = std::conditional_t<F16, __half, __nv_bfloat16>;
 
 constexpr float NEG_INF = -1e30f;
 // A fully-masked query row's logsumexp: exp(s - FULLY_MASKED_LSE) is 0.
@@ -25,8 +33,8 @@ constexpr int FLASH_THREADS = FLASH_WARPS * 32;
 
 template <int D>
 struct FlashTile {
-  static constexpr int LD = D + 8;                // bf16 row, padded 16 B
-  static constexpr int ELEMS = FLASH_ROWS * LD;   // bf16 elements a tile
+  static constexpr int LD = D + 8;                // 16-bit row, padded 16 B
+  static constexpr int ELEMS = FLASH_ROWS * LD;   // 16-bit elements a tile
   // Dynamic shared memory of two double-buffered operand tiles and
   // `words` double-buffered rows of 4-byte values (mask, lse, delta).
   static constexpr size_t bytes(int words) {
@@ -37,10 +45,9 @@ struct FlashTile {
 // Rows t0 .. t0 + 64 (t0 < T) of one head of a [B, T, H, D] operand (src
 // at the head's row 0, frame stride ts) into a padded shared tile, by
 // cp.async; rows at or past T are zero-filled. Every thread takes part.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* src,
-                                          size_t ts, int t0, int T, int tid) {
+template <int D, typename E>
+__device__ __forceinline__ void load_tile(E* tile, const E* src, size_t ts,
+                                          int t0, int T, int tid) {
   load_rows_async<FLASH_ROWS, D * 2, FLASH_THREADS>(
       tile, FlashTile<D>::LD * 2, src + static_cast<size_t>(t0) * ts, ts * 2,
       tid, T - t0);
@@ -63,9 +70,8 @@ __device__ __forceinline__ void load_words(W* dst, const W* src, int t0,
 
 // The A fragments of a warp's 16 rows (from r0) of a padded tile, all D
 // columns: f[kk] covers columns 16 kk .. 16 kk + 16.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t (*f)[4],
-                                             const __nv_bfloat16* tile,
+template <int D, typename E>
+__device__ __forceinline__ void load_a_frags(uint32_t (*f)[4], const E* tile,
                                              int r0, int lane) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
@@ -73,12 +79,12 @@ __device__ __forceinline__ void load_a_frags(uint32_t (*f)[4],
 }
 
 // acc[n] (n < NT) += A B over D: A the 16 x D fragments a[D / 16] held in
-// registers, B^T the tile's rows n0 .. n0 + 8 NT (S = Q K^T: one row a key).
-template <int D, int NT>
+// registers, B^T the tile's rows n0 .. n0 + 8 NT (S = Q K^T: one row a key),
+// both of the element type E (exact products of bf16 or f16 values).
+template <int D, int NT, typename E>
 __device__ __forceinline__ void mma_a_rows(float (*acc)[4],
-                                           uint32_t (*a)[4],
-                                           const __nv_bfloat16* tile, int n0,
-                                           int lane) {
+                                           uint32_t (*a)[4], const E* tile,
+                                           int n0, int lane) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
@@ -86,8 +92,8 @@ __device__ __forceinline__ void mma_a_rows(float (*acc)[4],
       uint32_t b[4];
       ldmatrix_x4(b, b_frag_at(tile, FlashTile<D>::LD, n0 + 16 * n2,
                                16 * kk, lane));
-      mma_bf16_16816(acc[2 * n2], a[kk], b[0], b[1]);
-      mma_bf16_16816(acc[2 * n2 + 1], a[kk], b[2], b[3]);
+      mma_16816<E>(acc[2 * n2], a[kk], b[0], b[1]);
+      mma_16816<E>(acc[2 * n2 + 1], a[kk], b[2], b[3]);
     }
   }
 }
@@ -111,6 +117,48 @@ __device__ __forceinline__ void mma_split_cols(float (*acc)[4],
     mma_bf16_16816(acc[2 * d2 + 1], hi, b[2], b[3]);
     mma_bf16_16816(acc[2 * d2 + 1], lo, b[2], b[3]);
   }
+}
+
+// mma_split_cols over an f16 tile: each f16 B fragment is split in
+// registers into bf16 halves (split_f16x2, exact), and acc += hi B_hi +
+// lo B_hi + hi B_lo, three bf16 products (lo B_lo, ~2^-18 of a term, is
+// left out). Every product then keeps f32's range: P and dS never become
+// f16 values.
+template <int D>
+__device__ __forceinline__ void mma_split_cols(float (*acc)[4],
+                                               const uint32_t hi[4],
+                                               const uint32_t lo[4],
+                                               const __half* tile, int k0,
+                                               int lane) {
+#pragma unroll
+  for (int d2 = 0; d2 < D / 16; ++d2) {
+    uint32_t b[4], bh[4], bl[4];
+    ldmatrix_x4_trans(b, b_frag_trans_at(tile, FlashTile<D>::LD, k0,
+                                         16 * d2, lane));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_f16x2(b[i], &bh[i], &bl[i]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float* c = acc[2 * d2 + n];
+      mma_bf16_16816(c, lo, bh[2 * n], bh[2 * n + 1]);
+      mma_bf16_16816(c, hi, bl[2 * n], bl[2 * n + 1]);
+      mma_bf16_16816(c, hi, bh[2 * n], bh[2 * n + 1]);
+    }
+  }
+}
+
+// Two f32 values rounded to the element type E's packed pair (lo in the
+// low half).
+template <typename E>
+__device__ __forceinline__ uint32_t pack_pair(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack_pair<__nv_bfloat16>(float lo,
+                                                             float hi) {
+  return pack_bf16(lo, hi);
+}
+template <>
+__device__ __forceinline__ uint32_t pack_pair<__half>(float lo, float hi) {
+  return pack_f16(lo, hi);
 }
 
 }  // namespace omni

@@ -1,11 +1,12 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a): asynchronous
 // global -> shared copies (cp.async), shared -> register fragment loads
-// (ldmatrix) and the bf16 m16n8k16 matrix product with f32 accumulation
-// (mma.sync), bf16 and int8, and the tf32 m16n8k8 product with its
-// 3xTF32 split. Used by the flash-attention kernels (K2, attention.cu; K6
-// and K7, attention_bwd.cu) through flash.cuh, by the f32 K6 and K7
-// (attention_f32.cu), by the conv module (K3, conv_module.cu) and by the
-// W8A16 and W8A8 matmuls (K4, K5, quant.cu).
+// (ldmatrix) and the m16n8k16 matrix products with f32 accumulation
+// (mma.sync), bf16, f16 and int8, the f16 -> bf16 hi + lo split, and the
+// tf32 m16n8k8 product with its 3xTF32 split. Used by the flash-attention
+// kernels (K2, attention.cu; K6 and K7, attention_bwd.cu; bf16 and f16)
+// through flash.cuh, by the f32 K6 and K7 (attention_f32.cu), by the conv
+// module (K3, conv_module.cu) and by the W8A16 and W8A8 matmuls (K4, K5,
+// quant.cu).
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
 //   A 16x16 bf16, 4 x b32: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same),
@@ -100,8 +101,8 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       : "memory");
 }
 
-// Where lane must point for ldmatrix_x4 to load, from a row-major bf16
-// tile with row stride ld (elements):
+// Where lane must point for ldmatrix_x4 to load, from a row-major tile of
+// 16-bit elements E (bf16 or f16) with row stride ld (elements):
 //   a_frag_at: the A fragment of rows r0 .. r0 + 16, columns c0 .. c0 + 16;
 //   b_frag_at: as non-transposed B (k = column), the B fragments of the
 //     8-row n-tiles r0 and r0 + 8 over columns c0 .. c0 + 16, in r[0..1]
@@ -109,19 +110,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
 //   b_frag_trans_at: with ldmatrix_x4_trans (k = row), the B fragments of
 //     the 8-column n-tiles c0 and c0 + 8 over rows r0 .. r0 + 16, in
 //     r[0..1] and r[2..3] (the tile holds B, e.g. keys x dims for P V).
-__device__ __forceinline__ const __nv_bfloat16* a_frag_at(
-    const __nv_bfloat16* tile, int ld, int r0, int c0, int lane) {
+template <typename E>
+__device__ __forceinline__ const E* a_frag_at(
+    const E* tile, int ld, int r0, int c0, int lane) {
   return tile + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * 8;
 }
 
-__device__ __forceinline__ const __nv_bfloat16* b_frag_at(
-    const __nv_bfloat16* tile, int ld, int r0, int c0, int lane) {
+template <typename E>
+__device__ __forceinline__ const E* b_frag_at(
+    const E* tile, int ld, int r0, int c0, int lane) {
   return tile + (r0 + (lane & 7) + ((lane >> 4) << 3)) * ld + c0 +
          ((lane >> 3) & 1) * 8;
 }
 
-__device__ __forceinline__ const __nv_bfloat16* b_frag_trans_at(
-    const __nv_bfloat16* tile, int ld, int r0, int c0, int lane) {
+template <typename E>
+__device__ __forceinline__ const E* b_frag_trans_at(
+    const E* tile, int ld, int r0, int c0, int lane) {
   return tile + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + c0 +
          (lane >> 4) * 8;
 }
@@ -136,6 +140,33 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for a 16x16 f16 A, a 16x8 f16 B, f32 C (exact products, f32
+// sums); the fragments are laid out as bf16's.
+__device__ __forceinline__ void mma_f16_16816(float c[4], const uint32_t a[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The m16n8k16 product of the element type E's operands.
+template <typename E>
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
+                                          uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma_16816<__nv_bfloat16>(
+    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  mma_bf16_16816(c, a, b0, b1);
+}
+template <>
+__device__ __forceinline__ void mma_16816<__half>(
+    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  mma_f16_16816(c, a, b0, b1);
 }
 
 // c += a b for a 16x32 int8 A, a 32x8 int8 B, int32 C (exact). The
@@ -176,6 +207,27 @@ __device__ __forceinline__ void split_a_frag(float (*c)[4], uint32_t hi[4],
   split_bf16(c[0][2], c[0][3], &hi[1], &lo[1]);
   split_bf16(c[1][0], c[1][1], &hi[2], &lo[2]);
   split_bf16(c[1][2], c[1][3], &hi[3], &lo[3]);
+}
+
+// Two f32 values rounded to an f16 pair (lo in the low half).
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A pair of f16 values (a b32 fragment register) as two bf16 pairs whose
+// sum it is exactly: hi = bf16(x), lo = x - hi. An f16 value has 11
+// significant bits and lies within bf16's range (subnormals included), so
+// x - hi is exact in f32 and has at most 3 significant bits: lo is exact
+// in bf16. A product of an f32 value split as bf16 hi + lo with x then
+// needs no f16 rounding of the f32 side, whose range f16 lacks.
+__device__ __forceinline__ void split_f16x2(uint32_t x, uint32_t* hi,
+                                            uint32_t* lo) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&x));
+  __nv_bfloat162 h = __floats2bfloat162_rn(f.x, f.y);
+  const float2 hf = __bfloat1622float2(h);
+  *hi = *reinterpret_cast<uint32_t*>(&h);
+  *lo = pack_bf16(f.x - hf.x, f.y - hf.y);
 }
 
 // f32 -> tf32, rounded to nearest with ties away from zero, as an f32 bit

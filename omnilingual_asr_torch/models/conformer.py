@@ -53,20 +53,21 @@ N_SPEAKER_CLASSES = 1024
 
 
 #: The encoder's compute dtypes that the port runs, by config name.
-COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                  "float16": torch.float16}
 
 
 def compute_dtype(enc: EncoderConfig) -> torch.dtype:
     """The dtype the encoder's products round their operands to (the
-    reference's ``jnp.dtype(enc.dtype)``): bf16, or f32, where every dense
+    reference's ``jnp.dtype(enc.dtype)``): bf16; f32, where every dense
     product is an exact f32 product and attention takes the f32 flash
-    kernels. Kernel K3 computes its products in bf16 at either dtype, as
-    the reference's does. Other names (e.g. "float16", which no config of
-    the repo uses) are not ported."""
+    kernels; or f16, where attention takes the f16 flash kernels. Kernel
+    K3 computes its products in bf16 at every dtype, as the reference's
+    does. Another name raises ValueError."""
     if enc.dtype not in COMPUTE_DTYPES:
-        raise NotImplementedError(
-            f"encoder dtype {enc.dtype!r} is not ported (bfloat16 and "
-            f"float32 only; A14 in ROADMAP.md, Queue A)")
+        raise ValueError(
+            f"encoder dtype {enc.dtype!r} is not a compute dtype (one of "
+            f"{sorted(COMPUTE_DTYPES)})")
     return COMPUTE_DTYPES[enc.dtype]
 
 

@@ -3,7 +3,7 @@ plain PyTorch versions, and the autograd Function that joins them.
 
 Port of ``omnilingual_asr_tpu/ops/attention.py``: non-causal attention with
 a key-validity mask, scale 1/sqrt(D), f32 softmax, output in q's dtype
-(bf16 or f32) and the row logsumexp (``_flash_fwd_lse_kernel`` via
+(bf16, f16 or f32) and the row logsumexp (``_flash_fwd_lse_kernel`` via
 ``_fwd_lse``);
 its backward recomputes ``p = exp(s - lse) * keymask`` from the forward's
 lse (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``), with
@@ -19,7 +19,13 @@ encoder, ``EncoderConfig.dtype == "float32"``) to their f32 variants
 ``flash_attention_bwd_dq_f32`` and ``flash_attention_bwd_dkv_f32``, all on
 TF32 tensor cores, three products a product; their arithmetic in plain
 PyTorch: ``flash_attention_fwd_tf32_emulated`` and
-``flash_attention_bwd_tf32_emulated``). Each kernel keeps its own launch
+``flash_attention_bwd_tf32_emulated``), and f16 (the f16 encoder,
+``EncoderConfig.dtype == "float16"``) to the bf16 kernels built over f16
+operands (``flash_attention_f16``, ``flash_attention_bwd_dq_f16`` and
+``flash_attention_bwd_dkv_f16``: the score products on f16 tensor cores,
+each f16 operand of the second products split into two bf16 halves; their
+arithmetic in plain PyTorch: ``flash_attention_fwd_f16_emulated`` and
+``flash_attention_bwd_f16_emulated``). Each kernel keeps its own launch
 count, so a count says which dtype ran. Layouts follow the caller: q, k,
 v, o, dO [B, T, H, D], mask [B, T], lse and delta [B, H, T].
 :class:`FlashAttention` is the differentiable entry point that the model
@@ -70,25 +76,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 KERNEL_KEY_TILE = 64
 
 
-def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, mask: torch.Tensor,
-                             split_p: bool = True):
-    """Kernel K2's arithmetic in plain PyTorch, to predict on the CPU what
-    its bf16 tensor-core products do to the result: keys in tiles of
-    ``KERNEL_KEY_TILE`` with an f32 online softmax, s = (q k^T) * scale
-    over bf16 inputs, and P rounded to bf16 for the P V product, either as
-    hi + lo (``split_p``, hi = bf16(p), lo = bf16(p - hi), two products, as
-    the kernel does) or as hi alone. The running sum takes the f32 p.
-    Same arguments and results as :func:`flash_attention_plain`; bf16
-    operands only (the f32 forward rounds nothing)."""
-    _bf16_only(q)
+def _hi_lo(x: torch.Tensor, dtype=torch.bfloat16):
+    """x = hi + lo as two ``dtype`` values held in f32: hi = dtype(x), lo =
+    dtype(x - hi). In bf16, f32's exponent range; an f16 value splits so
+    exactly."""
+    f32 = torch.float32
+    hi = x.to(dtype).to(f32)
+    return hi, (x - hi).to(dtype).to(f32)
+
+
+def _emulated_fwd(q, k, v, mask, pv):
+    """Kernel K2's tile loop in plain PyTorch: keys in tiles of
+    ``KERNEL_KEY_TILE`` with an f32 online softmax, s = (q k^T) * scale over
+    q's values, and ``pv(p, v_tile)`` the f32 P V product of a tile as the
+    kernel takes it. Returns (o f32 [B, T, H, D], lse)."""
     B, T, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     f32 = torch.float32
-
-    def bf16(t):
-        return t.to(torch.bfloat16).to(f32)
-
     qf, kf, vf = (x.to(f32).permute(0, 2, 1, 3) for x in (q, k, v))
     acc = torch.zeros((B, H, T, D), dtype=f32, device=q.device)
     m = torch.full((B, H, T), NEG_INF, dtype=f32, device=q.device)
@@ -105,16 +109,33 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
         p = torch.where(valid, torch.exp(s - m_new[..., None]),
                         torch.zeros_like(s))
         l = l * alpha + p.sum(dim=-1)
-        hi = bf16(p)
-        pv = hi @ vt
-        if split_p:
-            pv = pv + bf16(p - hi) @ vt
-        acc = acc * alpha[..., None] + pv
+        acc = acc * alpha[..., None] + pv(p, vt)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
                       torch.full_like(l, 1e30))
-    return out.permute(0, 2, 1, 3).to(q.dtype), lse
+    return out.permute(0, 2, 1, 3), lse
+
+
+def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, mask: torch.Tensor,
+                             split_p: bool = True):
+    """Kernel K2's arithmetic in plain PyTorch, to predict on the CPU what
+    its bf16 tensor-core products do to the result: keys in tiles of
+    ``KERNEL_KEY_TILE`` with an f32 online softmax, s = (q k^T) * scale
+    over bf16 inputs, and P rounded to bf16 for the P V product, either as
+    hi + lo (``split_p``, hi = bf16(p), lo = bf16(p - hi), two products, as
+    the kernel does) or as hi alone. The running sum takes the f32 p.
+    Same arguments and results as :func:`flash_attention_plain`; bf16
+    operands only (the f32 forward rounds nothing)."""
+    _bf16_only(q)
+
+    def pv(p, vt):
+        hi, lo = _hi_lo(p)
+        return hi @ vt + lo @ vt if split_p else hi @ vt
+
+    out, lse = _emulated_fwd(q, k, v, mask, pv)
+    return out.to(q.dtype), lse
 
 
 def _bf16_only(q: torch.Tensor) -> None:
@@ -186,10 +207,7 @@ def flash_attention_bwd_emulated(q, k, v, mask, do, lse, delta,
     p, ds = _recompute(q, k, v, mask, do, lse, delta)
 
     def parts(x, name):
-        hi = x.to(torch.bfloat16).to(f32)
-        if name not in split:
-            return (hi,)
-        return hi, (x - hi).to(torch.bfloat16).to(f32)
+        return _hi_lo(x) if name in split else _hi_lo(x)[:1]
 
     qf, kf, dof = (t.to(f32) for t in (q, k, do))
     dq = sum(torch.einsum("bhts,bshd->bthd", x, kf)
@@ -280,6 +298,67 @@ def flash_attention_bwd_tf32_emulated(q, k, v, mask, do, lse, delta,
     return dq, dk, dv
 
 
+def _f16_only(q: torch.Tensor) -> None:
+    if q.dtype != torch.float16:
+        raise TypeError(f"the f16 emulation models the f16 kernels; got "
+                        f"{q.dtype} operands")
+
+
+def _f16_product(eq: str, a: torch.Tensor, b: torch.Tensor, b_lo: bool,
+                 split_dtype) -> torch.Tensor:
+    """einsum(eq, a, b) as the f16 K2, K6 and K7 take a second product:
+    the f32 a (P or dS) split as ``split_dtype`` hi + lo (bf16 in the
+    kernels), the f16 b split exactly into bf16 hi + lo, and a_hi b_hi +
+    a_lo b_hi + a_hi b_lo summed in f32 (``b_lo=False`` leaves out the
+    last: b rounded to bf16, the bf16 kernels' arithmetic)."""
+    ah, al = _hi_lo(a, split_dtype)
+    bh, bl = _hi_lo(b.to(torch.float32))
+    out = torch.einsum(eq, ah, bh) + torch.einsum(eq, al, bh)
+    if b_lo:
+        out = out + torch.einsum(eq, ah, bl)
+    return out
+
+
+def flash_attention_fwd_f16_emulated(q, k, v, mask, v_lo: bool = True,
+                                     split_dtype=torch.bfloat16):
+    """The f16 kernel K2's arithmetic (``csrc/attention.cu`` at F16) in
+    plain PyTorch, to show on the CPU what its products do to o and lse:
+    the key tiles and online softmax of :func:`flash_attention_emulated`,
+    s an f32 sum of exact products of the f16 values, and P V as
+    :func:`_f16_product` takes it (``v_lo=False``: V rounded to bf16;
+    ``split_dtype=torch.float16``: P split in f16, both planted faults).
+    Same arguments and results as :func:`flash_attention_plain`; f16
+    operands only."""
+    _f16_only(q)
+    out, lse = _emulated_fwd(q, k, v, mask, lambda p, vt: _f16_product(
+        "bhts,bhsd->bhtd", p, vt, v_lo, split_dtype))
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd_f16_emulated(q, k, v, mask, do, lse, delta,
+                                     b_lo: bool = True,
+                                     split_dtype=torch.bfloat16):
+    """The f16 kernels K6 and K7's arithmetic (``csrc/attention_bwd.cu`` at
+    F16) in plain PyTorch, to show on the CPU what their products do to
+    the gradients: S and dP f32 sums of exact products of the f16 values
+    (as in the plain version), then dQ = dS K, dK = dS^T Q and dV = P^T dO
+    each as :func:`_f16_product` takes it, dQ and dK times ``scale`` after
+    the sum. ``b_lo=False`` (the f16 operand rounded to bf16) and
+    ``split_dtype=torch.float16`` (P and dS split in f16: flushed at small
+    dO) are planted faults. The kernels' order of sums and the tensor
+    cores' truncation inside a product are not modelled. Same arguments
+    and results as :func:`flash_attention_bwd_dq_plain` and
+    :func:`flash_attention_bwd_dkv_plain` together: (dq, dk, dv), f16
+    operands only."""
+    _f16_only(q)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _recompute(q, k, v, mask, do, lse, delta)
+    dq = _f16_product("bhts,bshd->bthd", ds, k, b_lo, split_dtype) * scale
+    dk = _f16_product("bhts,bthd->bshd", ds, q, b_lo, split_dtype) * scale
+    dv = _f16_product("bhts,bthd->bshd", p, do, b_lo, split_dtype)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_bwd_plain(q, k, v, mask, o, lse, do):
     """The whole backward from the forward's o and lse: (dq, dk, dv) in
     q's dtype. Recomputes p from lse; does not call autograd."""
@@ -290,8 +369,9 @@ def flash_attention_bwd_plain(q, k, v, mask, o, lse, do):
 
 
 #: The dtypes the flash kernels take: bf16 (K2, K6, K7 on the tensor
-#: cores) and f32 (their variants, on TF32 tensor cores).
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+#: cores), f32 (their variants, on TF32 tensor cores) and f16 (the bf16
+#: kernels over f16 operands).
+KERNEL_DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 
 
 def _check_kernel_args(q, k, v, mask, extra=(), dtype=torch.bfloat16):
@@ -370,14 +450,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention forward; see :func:`flash_attention_plain`.
 
     A CUDA tensor goes to kernel K2 (bf16 q/k/v, head dim 64 or 128), or
-    at f32 to :func:`flash_attention_f32`; a CPU tensor to the plain
-    version. Returns (o, lse); not differentiable (use
-    :class:`FlashAttention`).
+    at f32 to :func:`flash_attention_f32`, at f16 to
+    :func:`flash_attention_f16`; a CPU tensor to the plain version.
+    Returns (o, lse); not differentiable (use :class:`FlashAttention`).
     """
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, mask)
-    if _kernel_dtype(q) == torch.float32:
+    dtype = _kernel_dtype(q)
+    if dtype == torch.float32:
         return flash_attention_f32(q, k, v, mask)
+    if dtype == torch.float16:
+        return flash_attention_f16(q, k, v, mask)
     out = _launch_fwd("omni_flash_fwd", torch.bfloat16, q, k, v, mask)
     flash_attention.launches += 1
     return out
@@ -402,15 +485,35 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_f32.launches = 0
 
 
+def flash_attention_f16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: torch.Tensor):
+    """K2 at f16 (``csrc/attention.cu`` over f16 operands, its rounding
+    modelled by :func:`flash_attention_fwd_f16_emulated`): f16 q/k/v, head
+    dim 64 or 128, for a CUDA tensor; the plain version for a CPU
+    tensor."""
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, mask)
+    out = _launch_fwd("omni_flash_fwd_f16", torch.float16, q, k, v, mask)
+    flash_attention_f16.launches += 1
+    return out
+
+
+flash_attention_f16.launches = 0
+
+
 def flash_attention_bwd_dq(q, k, v, mask, do, lse, delta) -> torch.Tensor:
     """dQ; see :func:`flash_attention_bwd_dq_plain`. A CUDA tensor goes to
     kernel K6 (bf16 q/k/v/dO, f32 lse/delta [B, H, T]), or at f32 to
-    :func:`flash_attention_bwd_dq_f32`; a CPU tensor to the plain
+    :func:`flash_attention_bwd_dq_f32`, at f16 to
+    :func:`flash_attention_bwd_dq_f16`; a CPU tensor to the plain
     version."""
     if not q.is_cuda:
         return flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta)
-    if _kernel_dtype(q) == torch.float32:
+    dtype = _kernel_dtype(q)
+    if dtype == torch.float32:
         return flash_attention_bwd_dq_f32(q, k, v, mask, do, lse, delta)
+    if dtype == torch.float16:
+        return flash_attention_bwd_dq_f16(q, k, v, mask, do, lse, delta)
     dq = _launch_dq("omni_flash_bwd_dq", torch.bfloat16, q, k, v, mask, do,
                     lse, delta)
     flash_attention_bwd_dq.launches += 1
@@ -435,15 +538,34 @@ def flash_attention_bwd_dq_f32(q, k, v, mask, do, lse, delta
 flash_attention_bwd_dq_f32.launches = 0
 
 
+def flash_attention_bwd_dq_f16(q, k, v, mask, do, lse, delta
+                               ) -> torch.Tensor:
+    """K6 at f16 (``csrc/attention_bwd.cu`` over f16 operands) for a CUDA
+    tensor; the plain version for a CPU tensor."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta)
+    dq = _launch_dq("omni_flash_bwd_dq_f16", torch.float16, q, k, v, mask,
+                    do, lse, delta)
+    flash_attention_bwd_dq_f16.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq_f16.launches = 0
+
+
 def flash_attention_bwd_dkv(q, k, v, mask, do, lse, delta):
     """(dK, dV); see :func:`flash_attention_bwd_dkv_plain`. A CUDA tensor
     goes to kernel K7 (arguments as K6's), or at f32 to
-    :func:`flash_attention_bwd_dkv_f32`; a CPU tensor to the plain
+    :func:`flash_attention_bwd_dkv_f32`, at f16 to
+    :func:`flash_attention_bwd_dkv_f16`; a CPU tensor to the plain
     version."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta)
-    if _kernel_dtype(q) == torch.float32:
+    dtype = _kernel_dtype(q)
+    if dtype == torch.float32:
         return flash_attention_bwd_dkv_f32(q, k, v, mask, do, lse, delta)
+    if dtype == torch.float16:
+        return flash_attention_bwd_dkv_f16(q, k, v, mask, do, lse, delta)
     out = _launch_dkv("omni_flash_bwd_dkv", torch.bfloat16, q, k, v, mask,
                       do, lse, delta)
     flash_attention_bwd_dkv.launches += 1
@@ -467,6 +589,20 @@ def flash_attention_bwd_dkv_f32(q, k, v, mask, do, lse, delta):
 flash_attention_bwd_dkv_f32.launches = 0
 
 
+def flash_attention_bwd_dkv_f16(q, k, v, mask, do, lse, delta):
+    """K7 at f16 (``csrc/attention_bwd.cu`` over f16 operands) for a CUDA
+    tensor; the plain version for a CPU tensor."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta)
+    out = _launch_dkv("omni_flash_bwd_dkv_f16", torch.float16, q, k, v,
+                      mask, do, lse, delta)
+    flash_attention_bwd_dkv_f16.launches += 1
+    return out
+
+
+flash_attention_bwd_dkv_f16.launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: ``FlashAttention.apply(q, k, v,
     mask) -> o`` [B, T, H, D] in q's dtype.
@@ -475,7 +611,7 @@ class FlashAttention(torch.autograd.Function):
     Backward: delta in plain PyTorch, then K6 and K7 (or their plain
     versions); gradients in q's dtype from f32 sums, none for the mask.
     bf16 operands take the tensor-core kernels, f32 ones their f32
-    variants.
+    variants, f16 ones their f16 variants.
     Under ``torch.inference_mode`` nothing is saved and it costs nothing
     beyond the forward.
     """

@@ -2,7 +2,7 @@
 whole and split over the shards of a model axis), K4 (the W8A16 matmul)
 and K5 (the W8A8 matmul) against their plain versions, the flash
 attention (K2, and K6/K7 in training) shapes of the mesh paths and of the
-f32 encoder, and the log-mel (K1) shapes of the trainers and of training
+f32 and f16 encoders, and the log-mel (K1) shapes of the trainers and of training
 over a mesh.
 
 ``chip_smoke.py`` checks and times the kernels at these shapes, and
@@ -103,6 +103,48 @@ F32_FLASH_SHAPES = {"serving": (4, 768, 4, 64, (768, 700, 300, 0)),
 # dQ and o are exactly 0.
 TOL_F32_FLASH = 1e-5
 TOL_F32_LSE = 1e-5
+
+# K2, K6 and K7 at f16 (the f16 encoder, chip_smoke.py's phase 4o): the
+# f32 shapes above (the release's serving batch and one model shard's
+# heads at model 2, the training step at PipelineConfig()'s width,
+# large_config's head dim 128, a ragged T of 200).
+F16_FLASH_SHAPES = F32_FLASH_SHAPES
+# The f16 kernels against their plain versions, per element |got - want|
+# <= TOL_F16_ABS * max|want| + TOL_F16_REL * |want| (+ TOL_F16_SUB where
+# the outputs are f16 subnormals) and |lse - lse_ref| <= TOL_F16_LSE. Both
+# round an f32 result to f16 once; the kernels' f32 values differ from the
+# plain version's by the bf16 split of P and dS (~2^-17 of a term, the
+# lo half's rounding) and the dropped lo lo product (~2^-18), and by the
+# order of sums. Where the two straddle an f16 rounding boundary they land
+# one f16 ulp apart, at most 2^-10 |want| (TOL_F16_REL), or, for outputs
+# under f16's normal range (the gradients at dO ~ 1e-6), one step of its
+# subnormal grid, 2^-24 (TOL_F16_SUB). TOL_F16_ABS bounds the f32
+# difference itself where terms cancel. The CPU models
+# (ops/attention.py::flash_attention_fwd_f16_emulated and
+# ::flash_attention_bwd_f16_emulated) put the f32 difference near 2^-17 of
+# the largest term. The f16 operand rounded to bf16 (the bf16 kernels'
+# arithmetic) moves o and the gradients by ~2e-3 of their largest
+# element; P and dS split in f16 rather than bf16 flush the gradients at
+# dO ~ 1e-6 by two steps or more. lse takes exact products of f16 values
+# and an f32 softmax in another order.
+TOL_F16_ABS = 2.0 ** -13
+TOL_F16_REL = 2.0 ** -10
+TOL_F16_SUB = 2.0 ** -24
+TOL_F16_LSE = 1e-4
+
+
+def f16_share(got, want, sub: bool = False) -> float:
+    """The largest share of its tolerance that an element of an f16
+    kernel's result ``got`` (a tensor) uses against the plain version's
+    ``want`` (<= 1 passes): TOL_F16_ABS max|want| + TOL_F16_REL |want|,
+    plus TOL_F16_SUB when ``sub`` (outputs under f16's normal range)."""
+    g, w = got.double(), want.double()
+    tol = (TOL_F16_ABS * w.abs().max() + TOL_F16_REL * w.abs()
+           + (TOL_F16_SUB if sub else 0.0))
+    return float(((g - w).abs() / tol).max())
+# dO's scale in the second backward check at each f16 shape: a mean loss
+# over a batch gives gradients this small, under f16's normal range.
+F16_TINY_DO = 1e-6
 
 # K1 as (windows, frames a window padded to the 256-frame blocks, valid
 # frames) on the trainers' paths: the x-vector trainer's batch of 64 4 s

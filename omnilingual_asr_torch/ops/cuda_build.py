@@ -180,6 +180,13 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _F, _P],
     "omni_flash_bwd_dkv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _F, _P],
+    # the f16 variants (csrc/attention.cu, csrc/attention_bwd.cu), the
+    # same arguments
+    "omni_flash_fwd_f16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "omni_flash_bwd_dq_f16": [_P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _F, _P],
+    "omni_flash_bwd_dkv_f16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _F, _P],
     # x, mask, ln_s, ln_b, pw1, dw, dwln_s, dwln_b, pw2, scratch, out, B,
     # T, D, K, stream
     "omni_conv_module": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

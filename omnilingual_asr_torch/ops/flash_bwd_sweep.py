@@ -1,9 +1,11 @@
-"""Time kernels K6 and K7, bf16 and f32, and the f32 K2 on the card at
-each candidate of their tile and launch-bound constants.
+"""Time kernels K6 and K7, bf16, f16 and f32, and the f32 K2 on the card
+at each candidate of their tile and launch-bound constants.
 
 Each candidate sets some constants of ``csrc/attention_bwd.cu`` (the bf16
-K6 and K7: ``DQ_MIN_BLOCKS_64`` / ``_128`` and ``DKV_MIN_BLOCKS_64`` /
-``_128``, the blocks an SM in ``__launch_bounds__`` by head dim) or of
+K6 and K7 and, under ``--f16``, their f16 variants, which share the
+source and its constants: ``DQ_MIN_BLOCKS_64`` / ``_128`` and
+``DKV_MIN_BLOCKS_64`` / ``_128``, the blocks an SM in
+``__launch_bounds__`` by head dim) or of
 ``csrc/attention_f32.cu`` (the f32 K2, K6 and K7 on 3xTF32 ``mma.sync``:
 by head dim, ``FWD_TILE_*`` / ``DQ_TILE_*`` / ``DKV_TILE_*`` the rows of a
 streamed tile, ``FWD_STEP_*`` / ``DQ_STEP_*`` / ``DKV_STEP_*`` the rows a
@@ -16,7 +18,9 @@ fill every SM, as the serving batch's). For each, the sweep
 builds that source with those values through ``ops/sweep.py`` (the
 source's own values first), prints the kernels' registers and spills,
 checks the kernels against their plain versions (bf16: chip_smoke.py's
-tolerance; f32: ``card_cases.TOL_F32_FLASH`` of the largest element and
+tolerance; f16: ``card_cases.TOL_F16_*`` per element, masked keys' dK, dV
+and fully-masked rows' dQ exactly 0; f32: ``card_cases.TOL_F32_FLASH`` of
+the largest element and
 ``TOL_F32_LSE``, masked keys' dK, dV and fully-masked rows' o and dQ
 exactly 0, their lse +1e30) and times them as chip_smoke.py does (device
 ms of one call, 20 calls in one CUDA graph) at the training shape
@@ -27,6 +31,7 @@ repository root:
 
     python -m omnilingual_asr_torch.ops.flash_bwd_sweep \\
         --bf16 DQ_MIN_BLOCKS_64=3 DKV_MIN_BLOCKS_128=1 \\
+        --f16 DKV_MIN_BLOCKS_128=1 \\
         --f32 DQ_TILE_64=64,DQ_MIN_BLOCKS_64=1 FWD_FEW_SPLIT_64=1
 
 each argument one candidate (``NAME=VALUE`` pairs joined by commas). A
@@ -43,18 +48,22 @@ import sys
 import torch
 
 from . import attention, cuda_build, sweep
-from .card_cases import F32_FLASH_SHAPES, TOL_F32_FLASH, TOL_F32_LSE
+from .card_cases import (F32_FLASH_SHAPES, TOL_F32_FLASH, TOL_F32_LSE,
+                         f16_share)
 
-SOURCES = {"bf16": "attention_bwd.cu", "f32": "attention_f32.cu"}
+SOURCES = {"bf16": "attention_bwd.cu", "f16": "attention_bwd.cu",
+           "f32": "attention_f32.cu"}
 KERNELS = {"bf16": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+           "f16": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
            "f32": ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
                    "flash_fwd_tf32_kernel")}
 ENTRIES = {"bf16": ("omni_flash_bwd_dq", "omni_flash_bwd_dkv"),
+           "f16": ("omni_flash_bwd_dq_f16", "omni_flash_bwd_dkv_f16"),
            "f32": ("omni_flash_bwd_dq_f32", "omni_flash_bwd_dkv_f32")}
 # The forward the sweep also checks and times, by group.
 FWD_ENTRIES = {"f32": "omni_flash_fwd_f32"}
 # (B, T, H, D, valid keys): chip_smoke.py's training, serving and
-# head-dim-128 cases.
+# head-dim-128 cases (card_cases.F16_FLASH_SHAPES are the same).
 SHAPES = {"train": F32_FLASH_SHAPES["training"],
           "serving": F32_FLASH_SHAPES["serving"],
           "d128": F32_FLASH_SHAPES["d128"]}
@@ -81,6 +90,7 @@ class Case:
         self.ptrs = [t.data_ptr() for t in self.inputs]
         self.dims = (B, T, H, D, 1.0 / math.sqrt(D))
         self.f32 = dtype == torch.float32
+        self.f16 = dtype == torch.float16
         self.sdpa_ms = self._sdpa_ms(q, k, v, do)
         self.sdpa_fwd_ms = None
         if self.f32:
@@ -145,14 +155,16 @@ class Case:
         dead_row, dead_key = ~self.mask.any(dim=1), ~self.mask
         for i, (got, want) in enumerate(zip(self.got, self.want)):
             got, want = got.float(), want.float()
-            if self.f32:
-                tol = TOL_F32_FLASH * want.abs().max()
-                zeros = got[dead_row if i == 0 else dead_key]
-                if not bool((zeros == 0).all()):
-                    return False
+            if self.f16:
+                ok = f16_share(got, want) <= 1.0
             else:
-                tol = 2.0 ** -10 * want.abs().max() + 2.0 ** -7 * want.abs()
-            if not bool(((got - want).abs() <= tol).all()):
+                tol = (TOL_F32_FLASH * want.abs().max() if self.f32 else
+                       2.0 ** -10 * want.abs().max() + 2.0 ** -7 * want.abs())
+                ok = bool(((got - want).abs() <= tol).all())
+            if self.f32 or self.f16:
+                zeros = got[dead_row if i == 0 else dead_key]
+                ok = ok and bool((zeros == 0).all())
+            if not ok:
                 return False
         return True
 
@@ -178,7 +190,8 @@ def main(argv=None) -> int:
         jobs.append((group, {}, base))
         jobs += [(group, c, {**base, **c}) for c in cands if c]
     builds = sweep.build_variants([(SOURCES[g], c, g) for g, c, _ in jobs])
-    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    dtypes = {"bf16": torch.bfloat16, "f16": torch.float16,
+              "f32": torch.float32}
     cases = {group: {name: Case(dev, dtypes[group], *shape[:4],
                                 list(shape[4]), seed=i)
                      for i, (name, shape) in enumerate(SHAPES.items())}

@@ -70,6 +70,7 @@ GOLDEN_JSON = TESTDATA / "golden.json"
 GOLDEN_DECODERS_JSON = TESTDATA / "golden_decoders.json"
 GOLDEN_SEQUENCE_JSON = TESTDATA / "golden_sequence.json"
 GOLDEN_F32_JSON = TESTDATA / "golden_f32.json"
+GOLDEN_F16_JSON = TESTDATA / "golden_f16.json"
 GOLDEN_D512_JSON = TESTDATA / "golden_d512_crop.json"
 GOLDEN_D512_FEED = TESTDATA / "golden_d512_crop_topk.npz"
 GOLDEN_EVALS_JSON = TESTDATA / "golden_evals.json"
@@ -239,6 +240,12 @@ def load_golden_f32() -> dict:
     (result, greedy ids, tone mass) and, under ``"tiled"``, on the golden
     audio tiled to 120 s (the same keys)."""
     return json.loads(GOLDEN_F32_JSON.read_text())
+
+
+def load_golden_f16() -> dict:
+    """The JAX engine's results at f16 (``encoder.dtype="float16"``), with
+    the keys of :func:`load_golden_f32`."""
+    return json.loads(GOLDEN_F16_JSON.read_text())
 
 
 def load_golden_d512() -> dict:

@@ -368,6 +368,73 @@ def test_flash_f32_function_grads_match_plain(dev):
         assert err <= card_cases.TOL_F32_FLASH * float(w.abs().max())
 
 
+@pytest.mark.parametrize("scale", [1.0, card_cases.F16_TINY_DO])
+@pytest.mark.parametrize("name", sorted(card_cases.F16_FLASH_SHAPES))
+def test_flash_f16_kernels_match_plain(dev, name, scale):
+    """The f16 variants of K2, K6 and K7 against their plain versions at
+    the f16 encoder's shapes (card_cases.F16_FLASH_SHAPES, tolerances
+    there), at dO x 1 and x F16_TINY_DO (gradients under f16's normal
+    range, where dS split in f16 would flush): each launches once,
+    counted by its own f16 counter and by no bf16 or f32 one; masked keys
+    and fully-masked rows get exactly 0."""
+    B, T, H, D, valid = card_cases.F16_FLASH_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(T + D + 16)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device=dev)
+                   for _ in range(4))
+    q, k, v, do = q.half(), k.half(), v.half(), (do * scale).half()
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(
+        valid, device=dev)[:, None]
+    fns = (attention.flash_attention_f16,
+           attention.flash_attention_bwd_dq_f16,
+           attention.flash_attention_bwd_dkv_f16, attention.flash_attention,
+           attention.flash_attention_bwd_dq,
+           attention.flash_attention_bwd_dkv,
+           attention.flash_attention_f32)
+    before = [f.launches for f in fns]
+    o, lse = attention.flash_attention(q, k, v, mask)
+    o_ref, lse_ref = attention.flash_attention_plain(q, k, v, mask)
+    delta = attention.flash_delta(o_ref, do)
+    args = (q, k, v, mask, do, lse_ref, delta)
+    dq = attention.flash_attention_bwd_dq(*args)
+    dk, dv = attention.flash_attention_bwd_dkv(*args)
+    dq_ref = attention.flash_attention_bwd_dq_plain(*args)
+    dk_ref, dv_ref = attention.flash_attention_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 0, 0,
+                                                             0, 0]
+    assert card_cases.f16_share(o, o_ref, False) <= 1.0
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.float16
+        assert card_cases.f16_share(got, want, scale != 1.0) <= 1.0
+    live = lse_ref < 1e29
+    assert float((lse - lse_ref)[live].abs().max()) <= card_cases.TOL_F16_LSE
+    assert bool((lse[~live] == 1e30).all())
+    dead_row = ~mask.any(dim=1)
+    assert bool((o[dead_row] == 0).all()) and bool((dq[dead_row] == 0).all())
+    assert bool((dk[~mask] == 0).all()) and bool((dv[~mask] == 0).all())
+
+
+def test_flash_f16_function_grads_match_plain(dev):
+    """FlashAttention at f16 on the card (the f16 K2, K6, K7) against the
+    plain backward from the plain forward on the same inputs, within
+    card_cases' f16 tolerance."""
+    B, T, H, D = 4, 256, 4, 64
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen,
+                               device=dev).half() for _ in range(4))
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(
+        [256, 100, 3, 0], device=dev)[:, None]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = attention.FlashAttention.apply(*leaves, mask)
+    o.backward(do)
+    o_ref, lse_ref = attention.flash_attention_plain(q, k, v, mask)
+    want = attention.flash_attention_bwd_plain(q, k, v, mask, o_ref,
+                                               lse_ref, do)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == torch.float16
+        assert card_cases.f16_share(leaf.grad, w, False) <= 1.0
+
+
 def test_flash_attention_function_grads_match_plain(dev):
     """FlashAttention on the card (K2, K6, K7) against autograd through the
     plain forward in f32 on the same bf16 inputs; tolerance as above on
@@ -542,16 +609,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head dim"):
         attention.flash_attention(q, q, q, torch.ones(1, 64, dtype=torch.bool,
                                                       device=dev))
-    # bf16 and f32 take the kernels (f32: their f32 variants); f16 none.
-    q = torch.zeros(1, 64, 2, 64, dtype=torch.float16, device=dev)
+    # bf16, f32 and f16 take the kernels (f32 and f16: their variants);
+    # f64 none.
+    q = torch.zeros(1, 64, 2, 64, dtype=torch.float64, device=dev)
     with pytest.raises(TypeError):
         attention.flash_attention(q, q, q, torch.ones(1, 64, dtype=torch.bool,
                                                       device=dev))
-    # The f32 kernels check each operand against f32.
+    # The f32 and f16 kernels check each operand against their dtype.
     q = torch.zeros(1, 64, 2, 64, dtype=torch.float32, device=dev)
     with pytest.raises(TypeError):
         attention.flash_attention_f32(q, q.bfloat16(), q, torch.ones(
             1, 64, dtype=torch.bool, device=dev))
+    with pytest.raises(TypeError):
+        attention.flash_attention_f16(q.half(), q.bfloat16(), q.half(),
+                                      torch.ones(1, 64, dtype=torch.bool,
+                                                 device=dev))
     D = conv_module.KERNEL_MAX_D + 64          # over the width limit
     x = torch.zeros(1, 32, D, device=dev)
     v = torch.zeros(D, device=dev)

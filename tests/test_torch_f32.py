@@ -19,17 +19,12 @@ import dataclasses
 import wave
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from omnilingual_asr_tpu.config import MeshConfig as JaxMeshConfig
-from omnilingual_asr_tpu.config import tiny_config as jax_tiny_config
+import torch_dtype_cases as cases
 from omnilingual_asr_tpu.models import conformer as jax_conformer
-from omnilingual_asr_tpu.ops import attention as jax_attention
-from omnilingual_asr_tpu.parallel.mesh import build_mesh as jax_build_mesh
-from omnilingual_asr_tpu.train import step as jax_step
 from omnilingual_asr_torch.config import MeshConfig, tiny_config
 from omnilingual_asr_torch.models import conformer, zoo
 from omnilingual_asr_torch.ops import attention
@@ -66,20 +61,8 @@ REL_K3_MODEL = 5e-3
 GRAD_REL = 2e-2
 
 
-def _flash_inputs(B, T, H, D, valid, seed):
-    rng = np.random.default_rng(seed)
-    q, k, v, do = (rng.standard_normal((B, T, H, D)).astype(np.float32)
-                   for _ in range(4))
-    mask = np.arange(T)[None, :] < np.asarray(valid)[:, None]
-    return q, k, v, do, mask
-
-
-def _rel(got, want) -> float:
-    got = np.asarray(got, np.float64)
-    want = np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-6))
-
-
+_flash_inputs = cases.flash_inputs
+_rel = cases.rel
 _JAX_FLASH = {}
 
 
@@ -90,16 +73,8 @@ def _jax_flash_f32(D):
     dv)), computed once a head dim for the tests that share them."""
     if D not in _JAX_FLASH:
         q, k, v, do, mask = _flash_inputs(2, 256, 2, D, [256, 100], seed=D)
-
-        def jloss(q_, k_, v_):
-            o = jax_attention.flash_attention(q_, k_, v_, jnp.asarray(mask),
-                                              interpret=True)
-            return jnp.sum(o * do), o
-
-        (_, want_o), want_g = jax.jit(jax.value_and_grad(
-            jloss, argnums=(0, 1, 2), has_aux=True))(q, k, v)
-        _JAX_FLASH[D] = ((q, k, v, do, mask), np.array(want_o),
-                         tuple(np.array(g) for g in want_g))
+        _JAX_FLASH[D] = ((q, k, v, do, mask),
+                         *cases.jax_flash(q, k, v, mask, do))
     return _JAX_FLASH[D]
 
 
@@ -258,34 +233,23 @@ def test_f32_wrappers_route_and_count():
 
 
 def test_compute_dtype_names():
-    """bfloat16 and float32 are the ported compute dtypes; any other name
-    (float16, which no config of the repo uses) raises naming A14."""
+    """bfloat16, float32 and float16 are the ported compute dtypes; a name
+    that neither package runs as an encoder dtype raises ValueError."""
     enc = tiny_config().encoder
     assert conformer.compute_dtype(enc) == torch.bfloat16
     assert conformer.compute_dtype(dataclasses.replace(
         enc, dtype="float32")) == torch.float32
-    with pytest.raises(NotImplementedError, match="A14"):
-        conformer.compute_dtype(dataclasses.replace(enc, dtype="float16"))
+    assert conformer.compute_dtype(dataclasses.replace(
+        enc, dtype="float16")) == torch.float16
+    for name in ("int8", "float64", "half"):
+        with pytest.raises(ValueError, match="not a compute dtype"):
+            conformer.compute_dtype(dataclasses.replace(enc, dtype=name))
 
 
 def _f32_cfgs(kernels: bool):
     """tiny_config() at f32 in both packages; the port's with the kernel
     flags (their plain versions here) when ``kernels``."""
-    j = jax_tiny_config()
-    j = j.replace(encoder=dataclasses.replace(
-        j.encoder, dtype="float32", use_flash_attention=kernels,
-        use_fused_conv=kernels))
-    t = tiny_config()
-    t = t.replace(encoder=dataclasses.replace(
-        t.encoder, dtype="float32", use_flash_attention=kernels,
-        use_fused_conv=kernels))
-    return j, t
-
-
-def _mel(B, T, valid, seed):
-    rng = np.random.default_rng(seed)
-    mel = (rng.standard_normal((B, T, 128)) * 2.0 - 5.0).astype(np.float32)
-    return mel, np.arange(T)[None, :] < np.asarray(valid)[:, None]
+    return cases.dtype_cfgs("float32", kernels)
 
 
 @pytest.mark.parametrize("kernels", [False, True],
@@ -296,44 +260,10 @@ def test_asr_forward_f32_matches_jax(kernels):
     padded): every head within REL_F32_MODEL on the plain paths, within
     REL_K3_MODEL with the kernel flags (K3's bf16 products); the mask
     exactly."""
-    jcfg, cfg = _f32_cfgs(kernels)
-    jp = jax_conformer.asr_init(jax.random.PRNGKey(4), jcfg)
-    mel, mask = _mel(3, 1024, [1024, 601, 0], seed=5)
-    want = jax.jit(lambda p, m, k: jax_conformer.asr_forward(
-        p, m, k, jcfg, flash_interpret=True))(jp, mel, mask)
-    with torch.inference_mode():
-        got = conformer.asr_forward(zoo.params_from_jax(jp),
-                                    torch.from_numpy(mel),
-                                    torch.from_numpy(mask), cfg)
-    np.testing.assert_array_equal(got["mask"].numpy(),
-                                  np.asarray(want["mask"]))
+    errs = cases.asr_forward_errors("float32", kernels)
     rel = REL_K3_MODEL if kernels else REL_F32_MODEL
-    for key in ("ctc_logits", "lid_logits", "emotion_logits",
-                "speaker_frames", "speaker_embed", "encoder_states"):
-        # Padded rows: the plain path's uniform softmax over no valid key
-        # and the flash path's zeros agree in both packages.
-        err = _rel(got[key].numpy(), want[key])
+    for key, err in errs.items():
         assert err <= rel, f"{key}: {err:.3e}"
-
-
-def _flat(tree):
-    return {k: v.detach().float().numpy() for k, v in zoo.flatten(
-        tree).items()}
-
-
-def _flat_jax(tree):
-    return {jax.tree_util.keystr(p): np.asarray(x, np.float32)
-            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
-
-
-def _rel_l2(got, want):
-    assert set(got) == set(want)
-    out = {}
-    for k in want:
-        nw = float(np.linalg.norm(want[k]))
-        d = float(np.linalg.norm(got[k] - want[k]))
-        out[k] = d / nw if nw > 0 else d
-    return out
 
 
 def test_kernel_mode_f32_grads_match_jax():
@@ -344,33 +274,8 @@ def test_kernel_mode_f32_grads_match_jax():
     leaf's gradient within GRAD_REL relative L2 of JAX's (jitted
     value_and_grad of its f32 ``asr_forward``, Pallas in interpret
     mode)."""
-    jcfg, cfg = _f32_cfgs(True)
-    jp = jax_conformer.asr_init(jax.random.PRNGKey(3), jcfg)
-    mel, mask = _mel(2, 1024, [1024, 768], seed=1)
-    rng = np.random.default_rng(2)
-    proj = {k: rng.standard_normal(s).astype(np.float32) for k, s in (
-        ("ctc_logits", (2, 256, 512)), ("speaker_frames", (2, 256, 256)),
-        ("encoder_states", (2, 256, 128)))}
-
-    def jloss(p):
-        out = jax_conformer.asr_forward(p, jnp.asarray(mel),
-                                        jnp.asarray(mask), jcfg,
-                                        flash_interpret=True)
-        return sum(jnp.sum(out[k] * v) for k, v in proj.items())
-
-    want_loss, jg = jax.jit(jax.value_and_grad(jloss))(jp)
-    tp = step.tree_map(lambda t: t.requires_grad_(True),
-                       zoo.params_from_jax(jp))
-    out = conformer.asr_forward(tp, torch.from_numpy(mel),
-                                torch.from_numpy(mask), cfg)
-    terms = [out[k] * torch.from_numpy(v) for k, v in proj.items()]
-    loss = sum(t.sum() for t in terms)
-    loss.backward()
-    scale = float(sum(t.detach().abs().sum() for t in terms))
-    assert abs(float(loss) - float(want_loss)) <= 1e-5 * scale
-    got = {k: (np.zeros(tuple(v.shape), np.float32) if v.grad is None
-               else v.grad.numpy()) for k, v in zoo.flatten(tp).items()}
-    errs = _rel_l2(got, _flat_jax(jg))
+    loss, want_loss, scale, errs = cases.kernel_mode_grads("float32")
+    assert abs(loss - want_loss) <= 1e-5 * scale
     worst = max(errs, key=errs.get)
     assert errs[worst] <= GRAD_REL, (worst, errs[worst])
 
@@ -386,40 +291,8 @@ def test_train_step_f32_matches_jax():
     relative L2 of the reference's (Adam's first update is about
     lr * sign(g): an element whose gradient is near 0 may take the other
     sign; worst leaf measured 3.6e-3)."""
-    jcfg, cfg = _f32_cfgs(False)
-    jcfg = jcfg.replace(mesh=JaxMeshConfig(data=1, model=1))
-    rng = np.random.default_rng(7)
-    B, T, L = 2, 256, 10
-    b = {"mel": (rng.standard_normal((B, T, 128)) * 2.0 - 5.0).astype(
-             np.float32),
-         "mask": np.arange(T)[None, :] < np.array([T, 190])[:, None],
-         "labels": rng.integers(1, 257, (B, L)).astype(np.int32),
-         "label_mask": np.arange(L)[None, :] < np.array([L, 0])[:, None],
-         "lid_label": rng.integers(0, 2048, B).astype(np.int32),
-         "emotion_label": rng.integers(0, 4, B).astype(np.int32),
-         "speaker_label": rng.integers(0, 1024, B).astype(np.int32),
-         "char_frame_label": rng.integers(-1, 257, (B, T // 4)).astype(
-             np.int32)}
-    kw = dict(lr=1e-3, warmup_steps=0, decay_steps=10)
-    init, jstep = jax_step.make_train_step(
-        jcfg, jax_build_mesh(jcfg.mesh), tx=jax_step.make_optimizer(**kw),
-        batch_keys=tuple(b))
-    state = init(seed=0)
-    p0 = _flat_jax(state.params)
-    jp, _, _, jm = jstep(state.params, state.opt_state,
-                         {k: jnp.asarray(v) for k, v in b.items()},
-                         state.step)
-    tx = step.make_optimizer(**kw)
-    _, tstep, _ = step.make_train_step(cfg, "cpu", tx=tx)
-    tp = step.tree_map(lambda t: t.requires_grad_(True),
-                       zoo.params_from_jax(jax.device_get(state.params)))
-    tp, _, _, m = tstep(tp, tx.init(tp),
-                        {k: torch.from_numpy(v) for k, v in b.items()}, 0)
-    assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-4 * abs(
-        float(jm["loss"]))
-    want = {k: v - p0[k] for k, v in _flat_jax(jp).items()}
-    got = {k: v - p0[k] for k, v in _flat(tp).items()}
-    errs = _rel_l2(got, want)
+    loss, want_loss, errs = cases.train_step_errors("float32")
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
     worst = max(errs, key=errs.get)
     assert errs[worst] <= 1e-2, (worst, errs[worst])
 
@@ -448,15 +321,31 @@ def test_sequence_mode_matches_window_mode_f32(n):
 
 
 @pytest.fixture(scope="module")
-def f32_engine_weights():
-    """tiny_config at f32, JAX-initialised (no x-vector: crop mode)."""
-    from omnilingual_asr_tpu.config import tiny_config as jax_tiny
+def f32_engines(tmp_path_factory):
+    """tiny_config at f32, JAX-initialised (no x-vector: crop mode), the
+    golden audio tiled to two windows, and the JAX engine at f32 with its
+    greedy ids over those windows: built once for the engine tests."""
+    from omnilingual_asr_tpu.config import MeshConfig as JaxMesh
+    from omnilingual_asr_tpu.engine import TranscriptionEngine as JaxEngine
+    from omnilingual_asr_tpu.parallel.mesh import build_mesh as jax_mesh
+    from omnilingual_asr_torch import testing
 
-    jcfg = jax_tiny()
-    jcfg = jcfg.replace(encoder=dataclasses.replace(jcfg.encoder,
-                                                    dtype="float32"))
+    jcfg, cfg = _f32_cfgs(False)
     jp = jax_conformer.asr_init(jax.random.PRNGKey(0), jcfg)
-    return jcfg, jp, zoo.params_from_jax(jp)
+    path = tmp_path_factory.mktemp("f32_engine") / "two_windows.wav"
+    pcm = np.frombuffer(testing.GOLDEN_WAV.read_bytes()[44:], "<i2")
+    two = np.zeros(int(cases.TWO_WINDOWS_S * 16000) + len(pcm), np.int16)
+    two[:len(pcm)] = pcm
+    two[int(cases.TWO_WINDOWS_S * 16000):] = pcm
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(two.tobytes())
+    jeng = JaxEngine(config=jcfg, params=jp, batch_windows_per_device=2,
+                     mesh=jax_mesh(JaxMesh(data=1), devices=jax.devices()[:1]))
+    return {"cfg": cfg, "params": zoo.params_from_jax(jp), "path": path,
+            "jax": jeng, "jax_ids": _window_ids(jeng, path)}
 
 
 def _window_ids(engine, path):
@@ -469,7 +358,7 @@ def _window_ids(engine, path):
 
 
 @pytest.mark.parametrize("mode", ["window", "data_parallel", "crop"])
-def test_f32_engine_modes_match_jax(mode, f32_engine_weights, tmp_path):
+def test_f32_engine_modes_match_jax(mode, f32_engines):
     """The port's engine with the f32 encoder against the JAX engine at
     f32 on the same tiny weights, on the golden audio tiled to two
     windows: window mode and data-parallel windows (a mesh of 2 CPU
@@ -479,26 +368,11 @@ def test_f32_engine_modes_match_jax(mode, f32_engine_weights, tmp_path):
     rel-L2 1e-4 of the JAX engine's (f32 in both; the bf16 engine's test
     allows 1e-3) and its result equals the JAX result by
     ``testing.result_mismatches``."""
-    from omnilingual_asr_tpu.config import MeshConfig as JaxMesh
-    from omnilingual_asr_tpu.engine import TranscriptionEngine as JaxEngine
-    from omnilingual_asr_tpu.parallel.mesh import build_mesh as jax_mesh
     from omnilingual_asr_torch import testing
     from omnilingual_asr_torch.engine import TranscriptionEngine
 
-    jcfg, jp, tp = f32_engine_weights
-    _, cfg = _f32_cfgs(False)
-    path = tmp_path / "two_windows.wav"
-    pcm = np.frombuffer(testing.GOLDEN_WAV.read_bytes()[44:], "<i2")
-    two = np.zeros(int(30.0 * 16000) + len(pcm), np.int16)
-    two[:len(pcm)] = pcm
-    two[int(30.0 * 16000):] = pcm
-    with wave.open(str(path), "wb") as w:
-        w.setnchannels(1)
-        w.setsampwidth(2)
-        w.setframerate(16000)
-        w.writeframes(two.tobytes())
-    jeng = JaxEngine(config=jcfg, params=jp, batch_windows_per_device=2,
-                     mesh=jax_mesh(JaxMesh(data=1), devices=jax.devices()[:1]))
+    cfg, tp, path, jeng = (f32_engines[k] for k in ("cfg", "params", "path",
+                                                     "jax"))
     kw = {"batch_windows_per_device": 2}
     if mode == "data_parallel":
         kw = {"batch_windows_per_device": 1,
@@ -508,7 +382,7 @@ def test_f32_engine_modes_match_jax(mode, f32_engine_weights, tmp_path):
     port = TranscriptionEngine(config=cfg, params=tp, **kw)
     assert jeng.speaker_mode == port.speaker_mode == "crop"
     if mode != "crop":
-        agree = testing.ctc_agreement(_window_ids(jeng, path),
+        agree = testing.ctc_agreement(f32_engines["jax_ids"],
                                       _window_ids(port, path))
         assert agree >= testing.MIN_CTC_AGREEMENT, agree
         return

@@ -26,8 +26,12 @@ FWD = tuple(f"FWD_{what}_{d}" for what in ("TILE", "STEP", "MIN_BLOCKS",
                                            "FEW_STEP", "FEW_MIN_BLOCKS",
                                            "FEW_SPLIT", "FEW_MTILES")
             for d in (64, 128) if d == 64 or "FEW" not in what)
+# The f16 K6 and K7 are the bf16 ones' template over f16 operands: the
+# same source and constants.
 TUNED = {"bf16": ("DQ_MIN_BLOCKS_64", "DQ_MIN_BLOCKS_128",
                   "DKV_MIN_BLOCKS_64", "DKV_MIN_BLOCKS_128"),
+         "f16": ("DQ_MIN_BLOCKS_64", "DQ_MIN_BLOCKS_128",
+                 "DKV_MIN_BLOCKS_64", "DKV_MIN_BLOCKS_128"),
          "f32": tuple(f"{k}_{what}_{d}" for k in ("DQ", "DKV")
                       for what in ("TILE", "STEP", "MIN_BLOCKS",
                                    "FEW_TILE", "FEW_STEP", "FEW_MIN_BLOCKS")

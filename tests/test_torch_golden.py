@@ -38,6 +38,9 @@ sequence mode, on one shard and on two, is held to it, and
 and the f32 encoder (``encoder.dtype="float32"``) in window mode, on the
 golden file and on the golden audio tiled to 120 s; the port's CPU engine
 at f32 is held to it, and ``chip_smoke.py`` phase 4m holds the card's.
+``golden_f16.json`` is the same at f16 (``encoder.dtype="float16"``);
+``tests/test_torch_f16.py`` holds the port's CPU engine at f16 to it (one
+model shard and two), and ``chip_smoke.py`` phase 4o the card's.
 
 ``golden_evals.json`` (with ``golden_evals_ids.npz``) holds the JAX
 package's evaluation drivers with the release weights: ``eval_synth``'s 96
@@ -50,7 +53,7 @@ the port's drivers to that subset.
 
 Regenerate the files with ``JAX_PLATFORMS=cpu OMNIASR_RELEASE_DIR=
 python tests/test_torch_golden.py`` (or name some of ``plain a8 w8
-decoders sequence f32 d512_crop evals`` to regenerate only those; ``evals`` takes
+decoders sequence f32 f16 d512_crop evals`` to regenerate only those; ``evals`` takes
 ~21 min on a CPU, almost all of it eval_heads with both decoders).
 """
 
@@ -137,13 +140,15 @@ def jax_golden(path: Path, quantize=False) -> dict:
             "tone_mass": golden.tone_mass(eng, path)}
 
 
-#: The tiled file of the f32 fixture (chip_smoke.py's TILED_SECONDS).
+#: The tiled file of the f32 and f16 fixtures (chip_smoke.py's
+#: TILED_SECONDS).
 F32_TILED_SECONDS = 120.0
 
 
-def jax_golden_f32(path: Path, tiled: Path) -> dict:
-    """The JAX engine at f32 on the golden file and on its 120 s tiling."""
-    eng = jax_engine(dtype="float32")
+def _jax_golden_dtype(path: Path, tiled: Path, dtype: str) -> dict:
+    """The JAX engine with the encoder at ``dtype`` on the golden file and
+    on its 120 s tiling: result, greedy ids and tone mass of each."""
+    eng = jax_engine(dtype=dtype)
 
     def one(p: Path) -> dict:
         return {"result": dataclasses.asdict(eng.transcribe(p)),
@@ -151,6 +156,16 @@ def jax_golden_f32(path: Path, tiled: Path) -> dict:
                 "tone_mass": golden.tone_mass(eng, p)}
 
     return {**one(path), "tiled": one(tiled)}
+
+
+def jax_golden_f32(path: Path, tiled: Path) -> dict:
+    """The JAX engine at f32 on the golden file and on its 120 s tiling."""
+    return _jax_golden_dtype(path, tiled, "float32")
+
+
+def jax_golden_f16(path: Path, tiled: Path) -> dict:
+    """The JAX engine at f16 on the golden file and on its 120 s tiling."""
+    return _jax_golden_dtype(path, tiled, "float16")
 
 
 def write_tiled(path: Path, seconds: float) -> Path:
@@ -488,6 +503,16 @@ def test_golden_f32_json_is_current(regenerated):
     _assert_current(stored["tiled"], fresh["tiled"])
 
 
+def test_golden_f16_json_is_current(regenerated):
+    """golden_f16.json equals a fresh JAX run at f16 (the golden file and
+    its 120 s tiling) by the port's criterion."""
+    path, _ = regenerated
+    stored = golden.load_golden_f16()
+    fresh = jax_golden_f16(path, write_tiled(path, F32_TILED_SECONDS))
+    _assert_current(stored, fresh)
+    _assert_current(stored["tiled"], fresh["tiled"])
+
+
 # Int8 serving: the JAX engine's quantize="a8" / "w8" results
 # ---------------------------------------------------------------------------
 
@@ -727,7 +752,7 @@ def jax_golden_evals(folder: Path, synth_n: int = EVALS["synth_n"],
     return data, {**ids, **long_ids}
 
 
-FIXTURES = ("plain", "a8", "w8", "decoders", "sequence", "f32",
+FIXTURES = ("plain", "a8", "w8", "decoders", "sequence", "f32", "f16",
             "d512_crop", "evals")
 
 
@@ -753,12 +778,14 @@ def main(argv=None) -> None:
         elif name == "sequence":
             data = jax_golden_sequence(golden.GOLDEN_WAV)
             out = golden.GOLDEN_SEQUENCE_JSON
-        elif name == "f32":
+        elif name in ("f32", "f16"):
             with tempfile.TemporaryDirectory() as d:
                 tiled = write_tiled(Path(d) / "golden.wav",
                                     F32_TILED_SECONDS)
-                data = jax_golden_f32(golden.GOLDEN_WAV, tiled)
-            out = golden.GOLDEN_F32_JSON
+                data = (jax_golden_f32 if name == "f32" else jax_golden_f16)(
+                    golden.GOLDEN_WAV, tiled)
+            out = (golden.GOLDEN_F32_JSON if name == "f32"
+                   else golden.GOLDEN_F16_JSON)
         elif name == "evals":
             with tempfile.TemporaryDirectory() as d:
                 data, ids = jax_golden_evals(Path(d))

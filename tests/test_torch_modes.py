@@ -86,6 +86,25 @@ def _engines(tiny_weights, *, xvector=True, decode=None, **kwargs):
     return jax_eng, port
 
 
+@pytest.fixture(scope="module")
+def plain_engines(tiny_weights):
+    """(JAX engine, port engine) at the default settings, built once for
+    the tests that take them as they are (each JAX engine compiles its
+    own forward)."""
+    return _engines(tiny_weights)
+
+
+@pytest.fixture(scope="module")
+def speaker_base(plain_engines):
+    """The largest difference of the two plain forwards' speaker frames on
+    the golden file (the x-vector's f32 sums in another order, then f16
+    rounding)."""
+    jax_plain, plain = plain_engines
+    return max(float(np.abs(g["speaker_frames"] - w["speaker_frames"]).max())
+               for g, w in zip(_window_outs(plain, golden.GOLDEN_WAV),
+                               _window_outs(jax_plain, golden.GOLDEN_WAV)))
+
+
 def _window_outs(engine, path):
     samples = engine._load_audio(path)
     windows = engine._windows(samples)
@@ -99,7 +118,8 @@ def _window_outs(engine, path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("lexicon", ["synth", "synth_bigram", "words"])
-def test_beam_texts_equal_jax(tiny_weights, tmp_path, lexicon):
+def test_beam_texts_equal_jax(tiny_weights, plain_engines, tmp_path,
+                              lexicon):
     """beam_size 8 with lm_alpha 0.3: the texts of both engines are
     identical, and the beam changed at least one segment's greedy text."""
     if lexicon == "words":
@@ -116,7 +136,7 @@ def test_beam_texts_equal_jax(tiny_weights, tmp_path, lexicon):
     assert golden.result_mismatches(
         want, got, tone_mass=golden.tone_mass(jax_eng, golden.GOLDEN_WAV)) \
         == []
-    _, greedy = _engines(tiny_weights)
+    _, greedy = plain_engines
     plain = greedy.transcribe(golden.GOLDEN_WAV).to_dict()
     assert [s["text"] for s in plain["segments"]] != \
         [s["text"] for s in got["segments"]]
@@ -208,11 +228,11 @@ def _segment_view(seg) -> dict:
                               "language_code", "languages", "emotion")}
 
 
-def test_streaming_equals_jax_and_transcribe(tiny_weights, tiled_wav):
+def test_streaming_equals_jax_and_transcribe(plain_engines, tiled_wav):
     """One partial a batch with the JAX engine's segments (texts,
     speakers, languages, emotions; times within 40 ms), then a final
     result equal to ``transcribe``'s."""
-    jax_eng, port = _engines(tiny_weights)
+    jax_eng, port = plain_engines
     want = list(jax_eng.transcribe_streaming(tiled_wav))
     got = list(port.transcribe_streaming(tiled_wav))
     assert [k for k, _ in got] == [k for k, _ in want] == \
@@ -243,14 +263,14 @@ def test_streaming_crop_beam_final_equals_transcribe(tiny_weights,
     assert final.to_dict() == port.transcribe(tiled_wav).to_dict()
 
 
-def test_streaming_empty_audio(tiny_weights, tmp_path):
+def test_streaming_empty_audio(plain_engines, tmp_path):
     p = tmp_path / "e.wav"
     with wave.open(str(p), "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
         w.setframerate(16000)
         w.writeframes(b"")
-    _, port = _engines(tiny_weights)
+    _, port = plain_engines
     events = list(port.transcribe_streaming(p))
     assert len(events) == 1 and events[0][0] == "final"
     assert events[0][1].to_dict() == {"summary": None, "segments": [],
@@ -296,7 +316,7 @@ def test_mulaw_codec_equals_jax():
                                   jax_codec.mulaw_decode_np(allu))
 
 
-def test_mulaw_ingress_equals_jax(tiny_weights):
+def test_mulaw_ingress_equals_jax(tiny_weights, plain_engines):
     """``ingress="mulaw"``: the result equals the JAX engine's in the same
     mode, and the greedy ids differ from the int16 wire's somewhere."""
     jax_eng, port = _engines(tiny_weights, ingress="mulaw")
@@ -310,7 +330,7 @@ def test_mulaw_ingress_equals_jax(tiny_weights):
                      for o in _window_outs(e, golden.GOLDEN_WAV)]
     assert golden.ctc_agreement(ids(jax_eng), ids(port)) >= \
         golden.MIN_CTC_AGREEMENT
-    _, plain = _engines(tiny_weights)
+    _, plain = plain_engines
     assert ids(plain) != ids(port)
 
 
@@ -318,18 +338,14 @@ def test_mulaw_ingress_equals_jax(tiny_weights):
     {"spk_wire": "i8"}, {"spk_frame_stride": 2},
     {"spk_wire": "i8", "spk_frame_stride": 2},
 ], ids=["i8", "stride2", "i8-stride2"])
-def test_speaker_wire_equals_jax(tiny_weights, decode):
+def test_speaker_wire_equals_jax(tiny_weights, speaker_base, decode):
     """The host's speaker frames after unpacking, at the frame rate, against
     the JAX engine's in the same mode. The two forwards' f16 frames already
     differ by up to ``base`` (the x-vector's f32 sums in another order,
     then f16 rounding; measured here on the full wire); pooling cannot
     widen that, and int8 adds at most one step of the frame's scale (the
     scales themselves differ by at most base / 127)."""
-    _, plain = _engines(tiny_weights)
-    jax_plain, _ = _engines(tiny_weights)
-    base = max(float(np.abs(g["speaker_frames"] - w["speaker_frames"]).max())
-               for g, w in zip(_window_outs(plain, golden.GOLDEN_WAV),
-                               _window_outs(jax_plain, golden.GOLDEN_WAV)))
+    base = speaker_base
     jax_eng, port = _engines(tiny_weights, decode=decode)
     want = _window_outs(jax_eng, golden.GOLDEN_WAV)
     got = _window_outs(port, golden.GOLDEN_WAV)
@@ -364,18 +380,19 @@ def test_speaker_wire_payload(tiny_weights):
 # Health and re-dispatch
 # ---------------------------------------------------------------------------
 
-def test_health_check(tiny_weights):
-    _, port = _engines(tiny_weights)
+def test_health_check(plain_engines):
+    _, port = plain_engines
     report = port.health_check()
     assert report == {"devices": [{"id": "cpu", "ok": True}], "ok": True}
 
 
-def test_dispatch_redispatches_on_transient_error(tiny_weights, monkeypatch):
+def test_dispatch_redispatches_on_transient_error(plain_engines,
+                                                 monkeypatch):
     """A batch whose program raises once is re-run once; a second failure
     surfaces; a kernel build failure is not retried."""
     from omnilingual_asr_torch.ops.cuda_build import KernelBuildError
 
-    _, port = _engines(tiny_weights)
+    _, port = plain_engines
     orig = port._process
     calls = []
 
