@@ -51,8 +51,12 @@ with no result line:
              TF32 products a product, the f32 FMA-rate bound beside it),
              and the f16 variants of K2, K6 and K7 (the f16 encoder's, at
              ``card_cases.F16_FLASH_SHAPES``, K6 and K7 again at dO x
-             ``F16_TINY_DO``, gradients under f16's normal range; SDPA at
-             f16 their yardstick, bound at the f16 tensor-core rate),
+             ``F16_TINY_DO``, gradients under f16's normal range, and x
+             ``F16_LARGE_DO``, where a fixed scale of dS would pass
+             f16's 65504;
+             SDPA at f16 their yardstick, bound at the f16 tensor-core
+             rate; the f16 K6's and K7's registers beside their earlier
+             design's),
              on seeded inputs with masked rows, each held against its plain
              PyTorch version, and timed beside its plain version, a PyTorch
              yardstick where one exists, and the card's bound. Times are
@@ -1065,14 +1069,16 @@ def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
     """The f16 variants of K2, K6 and K7 on one shape against their plain
     versions (``card_cases.TOL_F16_*``; masked keys and fully-masked rows
     exactly 0), K6 and K7 again at dO times ``F16_TINY_DO`` (gradients
-    under f16's normal range, where a flushed dS shows), each timed beside
-    its plain version, SDPA at f16 (the forward for K2, its backward for
-    the pair) and its bound at the f16 tensor-core rate. Returns (K2, K6,
-    K7) entries."""
+    under f16's normal range, where a flushed dS shows) and times
+    ``F16_LARGE_DO`` (where a fixed scale of dS would pass 65504), each
+    timed beside its plain version, SDPA at f16 (the forward for K2, its
+    backward for the pair) and its bound at the f16 tensor-core rate.
+    Returns (K2, K6, K7) entries."""
     import torch
     import torch.nn.functional as F
     from omnilingual_asr_torch.ops import attention as A
-    from omnilingual_asr_torch.ops.card_cases import (F16_TINY_DO,
+    from omnilingual_asr_torch.ops.card_cases import (F16_LARGE_DO,
+                                                      F16_TINY_DO,
                                                       TOL_F16_LSE, f16_share)
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1083,8 +1089,9 @@ def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
     o, lse = A.flash_attention_f16(q, k, v, mask)
     o_ref, lse_ref = A.flash_attention_plain(q, k, v, mask)
     label = f"{[B, T, H, D]} f16"
-    shares, errs, tiny, args_at = {}, {}, {}, {}
-    for scale in (1.0, F16_TINY_DO):
+    shares, errs, args_at = {}, {}, {}
+    scaled = {F16_TINY_DO: {}, F16_LARGE_DO: {}}   # dO x scale: name -> err
+    for scale in (1.0, F16_TINY_DO, F16_LARGE_DO):
         d = do if scale == 1.0 else (do.float() * scale).half()
         args = args_at[scale] = (q, k, v, mask, d, lse_ref,
                                  A.flash_delta(o_ref, d))
@@ -1097,7 +1104,7 @@ def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
         if scale == 1.0:
             pairs.insert(0, ("o", o, o_ref))
         for name, got, want in pairs:
-            share = f16_share(got, want, sub=scale != 1.0)
+            share = f16_share(got, want, sub=scale < 1.0)
             err = float((got.float() - want.float()).abs().max())
             if (not bool(torch.isfinite(got.float()).all())
                     or got.dtype != torch.float16 or share > 1.0):
@@ -1107,7 +1114,7 @@ def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
             if scale == 1.0:
                 shares[name], errs[name] = share, err
             else:
-                tiny[name] = {"max_abs_err": err, "max_ref": float(
+                scaled[scale][name] = {"max_abs_err": err, "max_ref": float(
                     want.float().abs().max()), "share": share}
         dead_row, dead_key = ~mask.any(dim=1), ~mask
         zeros = (bool((dq[dead_row] == 0).all())
@@ -1156,7 +1163,7 @@ def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
     b7 = bound({"f16": 8 * work}, io + nbytes(k, v), peaks)
     shape = f"q/k/v [{B}, {T}, {H}, {D}] f16, valid keys {valid}"
     tol = ("TOL_F16_ABS max|ref| + TOL_F16_REL |ref| (+ TOL_F16_SUB at dO x "
-           "F16_TINY_DO), max share")
+           "F16_TINY_DO; K6, K7 also at dO x F16_LARGE_DO), max share")
     k2 = {"D": D, "max_abs_err": errs["o"], "lse_max_abs_err": lse_err,
           "tol": f"{tol} {shares['o']:.3f}, lse {TOL_F16_LSE}",
           "ms": time_ms(lambda: A.flash_attention_f16(q, k, v, mask)),
@@ -1168,7 +1175,9 @@ def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
           "library": "SDPA forward at f16", "shape": shape,
           "gflop": 4 * work / 1e9}
     k6 = {"D": D, "max_abs_err": errs["dq"],
-          "tol": f"{tol} {shares['dq']:.3f}", "tiny_do": tiny["dq"],
+          "tol": f"{tol} {shares['dq']:.3f}",
+          "tiny_do": scaled[F16_TINY_DO]["dq"],
+          "large_do": scaled[F16_LARGE_DO]["dq"],
           "ms": time_ms(lambda: A.flash_attention_bwd_dq_f16(*args)),
           "call_ms": call_ms(lambda: A.flash_attention_bwd_dq_f16(*args)),
           "plain_ms": time_ms(lambda: A.flash_attention_bwd_dq_plain(*args)),
@@ -1178,7 +1187,8 @@ def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
           "shape": shape, "gflop": 6 * work / 1e9}
     k7 = {"D": D, "max_abs_err": max(errs["dk"], errs["dv"]),
           "tol": f"{tol} dk {shares['dk']:.3f}, dv {shares['dv']:.3f}",
-          "tiny_do": {"dk": tiny["dk"], "dv": tiny["dv"]},
+          "tiny_do": {n: scaled[F16_TINY_DO][n] for n in ("dk", "dv")},
+          "large_do": {n: scaled[F16_LARGE_DO][n] for n in ("dk", "dv")},
           "ms": time_ms(lambda: A.flash_attention_bwd_dkv_f16(*args)),
           "call_ms": call_ms(lambda: A.flash_attention_bwd_dkv_f16(*args)),
           "plain_ms": time_ms(lambda: A.flash_attention_bwd_dkv_plain(
@@ -1188,13 +1198,36 @@ def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
     return k2, k6, k7
 
 
+#: Each f16 flash kernel's design and, where it replaced an earlier one,
+#: that design's registers and spill stores (nvcc -Xptxas -v, sm_90a,
+#: recorded on an H100, not measured in this run).
+F16_DESIGNS = {
+    "flash_attention_fwd_f16": (
+        "f16 mma.sync for S; V of P V split into bf16 hi + lo against P as "
+        "bf16 hi + lo (three bf16 products)", None),
+    "flash_attention_bwd_dq_f16": (
+        "f16 mma.sync for every product: S and dP over the f16 operands, "
+        "dS K with K native against dS split as f16 hi + lo under a "
+        "running power-of-two exponent a query row (two f16 products)",
+        "K split into bf16 hi + lo, three bf16 products: 128 "
+        "registers at D 64, 12 bytes of spill stores; 168 at D 128, 16"),
+    "flash_attention_bwd_dkv_f16": (
+        "f16 mma.sync for every product: S^T and dP^T over the f16 "
+        "operands, P^T dO and dS^T Q with dO and Q native against P x 2^14 "
+        "and dS under a running power-of-two exponent a key row, each "
+        "split as f16 hi + lo (two f16 products)",
+        "dO and Q split into bf16 hi + lo, three bf16 products: "
+        "128 registers at D 64, 60 bytes of spill stores; 255 at D 128, "
+        "100")}
+
+
 def check_flash_f16(dev, peaks, ptxas):
     """The f16 variants of K2, K6 and K7 (``csrc/attention.cu`` and
     ``csrc/attention_bwd.cu`` over f16 operands, the f16 encoder's
     attention) at ``card_cases.F16_FLASH_SHAPES``: K2's entry at the
     release's f16 serving batch, K6's and K7's at the f16 training step's
     shape, every shape under "head_dims"; each with its kernel's registers
-    and spills."""
+    and spills (K6's and K7's beside their earlier design's)."""
     from omnilingual_asr_torch.ops.card_cases import F16_FLASH_SHAPES
 
     cases = {}
@@ -1210,19 +1243,18 @@ def check_flash_f16(dev, peaks, ptxas):
              "attention_bwd.cu", "flash_bwd_dq_kernel"),
             ("flash_attention_bwd_dkv_f16", 110, "training",
              "attention_bwd.cu", "flash_bwd_dkv_kernel"))):
+        design, earlier = F16_DESIGNS[name]
         out.append({"name": name, "route": "cuda",
                     "source": f"omnilingual_asr_torch/csrc/{src}",
                     "replaces": f"omnilingual_asr_tpu/ops/attention.py:{line}",
-                    "design": "f16 mma.sync for S and dP; the f16 operand of "
-                              "P V, dS K, dS^T Q, P^T dO split into bf16 hi + "
-                              "lo against P or dS as bf16 hi + lo (three "
-                              "bf16 products)",
+                    "design": design,
                     "bound_at": "ops at 989 TFLOP/s f16 or bytes at "
                                 "3.35 TB/s",
                     **cases[main][i],
                     "head_dims": [c[i] for c in cases.values()],
                     "ptxas": {k: v for k, v in ptxas.items()
-                              if k.startswith(kernel) and "true" in k}})
+                              if k.startswith(kernel) and "true" in k},
+                    **({"ptxas_earlier": earlier} if earlier else {})})
     return out
 
 
@@ -6209,7 +6241,8 @@ def main(argv=None) -> int:
                 f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms "
                 f"({k['bound_by']}), {k['shape']}")
             extra = {x: k[x] for x in ("design", "bound_at", "bound_fma_ms",
-                                       "tiny_do", "ptxas") if x in k}
+                                       "tiny_do", "large_do", "ptxas",
+                                       "ptxas_earlier") if x in k}
             if extra:
                 log(f"    {json.dumps(extra)}")
             for w in (k.get("widths", []) + k.get("head_dims", [])

@@ -58,27 +58,49 @@
 // Shared memory: two tiles each of the streamed operands, 64 x (D + 8)
 // bf16, and their 4-byte rows (mask; lse and delta): 36.5 / 37 KB at D 64,
 // 68.5 / 69 KB at D 128. Registers (nvcc -Xptxas -v, sm_90a, as
-// chip_smoke.py prints them): K6 128 at D 64 (4 bytes of spill stores) and
-// 168 at D 128 (44); K7 128 at D 64 (132) and 255 at D 128 (60), each
+// chip_smoke.py prints them): K6 128 at D 64 (8 bytes of spill stores) and
+// 168 at D 128 (32); K7 128 at D 64 (108) and 255 at D 128 (72), each
 // capped by its launch bounds. The bounds are the fastest of those that
 // python -m omnilingual_asr_torch.ops.flash_bwd_sweep timed on an H100:
 // at the training shape fewer blocks an SM (more registers, no spills)
 // took 1.3x as long for K6 and 1.1-1.2x for K7; at D 128 K6 at 2 blocks
 // 1.2x as long as at 3, K7 at 3 blocks 1.7x as long as at 2.
 //
-// At f16 (omni_flash_bwd_dq_f16, omni_flash_bwd_dkv_f16): S = Q K^T and
-// dP = dO V^T take mma.sync over the f16 operands (exact products). P and
-// dS cannot become f16 values: dS scales with dO, and a mean loss over a
-// batch gives dO of 1e-6 and below, where f16 (normal down to 2^-14,
-// nothing below 2^-24) would lose dS's bits or flush it to 0, and its
-// 65504 would overflow at large dO. So P and dS stay split in bf16 hi + lo
-// (f32's exponent range) as above, and each f16 B fragment (K for dQ, dO
-// for dV, Q for dK) is split in registers into two bf16 halves whose sum
-// it is exactly (mma.cuh::split_f16x2): three bf16 products where bf16
-// takes two (flash.cuh::mma_split_cols). dQ, dK and dV are rounded to f16
-// once, at the end, as the reference rounds them. Registers at f16 under
-// the same launch bounds: K6 128 at D 64 (12 bytes of spill stores) and
-// 168 at D 128 (16); K7 128 at D 64 (60) and 255 at D 128 (100).
+// At f16 (omni_flash_bwd_dq_f16, omni_flash_bwd_dkv_f16) every product
+// runs on f16 mma.sync: S = Q K^T and dP = dO V^T over the f16 operands
+// (exact products), and the second products take the f16 B fragments (K
+// for dQ, dO for dV, Q for dK) straight from ldmatrix.trans, against P and
+// dS split as f16 hi + lo (hi = f16(x 2^e), lo = f16(x 2^e - hi), ~22
+// significant bits; two products, as at bf16). f16 lacks f32's exponent
+// range (normal from 2^-14, nothing below 2^-24, nothing above 65504), so
+// each is first brought into it by an exact power of two, taken out again
+// from the f32 accumulator at the store:
+// - P <= 1 (exp(s - lse), lse the row's logsumexp), times 2^P_EXP = 2^14:
+//   P 2^14 <= 2^14 cannot overflow, P_hi is normal down to p = 2^-28, and
+//   what lo loses below that is 2^-39 absolute; dV is times 2^-14.
+// - dS = P (dP - delta) scales with dO: a mean loss gives dO ~ 1e-6, where
+//   dS alone would flush, and a large dO overflows 65504. Each row of the
+//   f32 accumulator (a query of dQ in K6, a key of dK in K7: the rows of
+//   dS, or of dS^T, that a product contracts along) carries a running
+//   exponent e. At each step, the quad of lanes that holds the row reduces
+//   its largest |dS| of the step, m; if m 2^e would reach 2^EXP_LIMIT =
+//   2^15, e drops to EXP_RESET - floor(log2 m), so that m 2^e lies in
+//   [2^10, 2^11), and the row's accumulator is scaled by the exact power of
+//   two 2^(new e - old e) (skipped when no row of the warp drops). So
+//   |dS 2^e| < 2^15 always: no overflow; and every dS of the row, at
+//   whichever step, was split under an exponent no smaller than the
+//   final one, under which the row's largest |dS| is at least 2^10: what
+//   the split loses of any dS is ~2^-22 of it and at most 2^-35 of that
+//   largest |dS|, at any dO. e starts at EXP_START = 64 and stays there in
+//   a row whose |dS| stays below 2^-49 (2^-89 lost at most), as in one
+//   whose dS is 0 (masked keys, a fully masked row: its accumulator stays
+//   exactly 0). The store takes dQ and dK times scale 2^-e, one f32
+//   rounding as before.
+// dQ, dK and dV are rounded to f16 once, at the end, as the reference
+// rounds them. Registers at f16 (nvcc -Xptxas -v, sm_90a, as
+// chip_smoke.py prints them; the bf16 kernels of the same build in
+// brackets): K6 128 at D 64, no spill stores (8 bytes), and 168 at D 128,
+// 44 (32); K7 128 at D 64, 120 (108), and 255 at D 128, 112 (72).
 #include "flash.cuh"
 
 namespace {
@@ -88,13 +110,13 @@ using omni::FlashTile;
 constexpr int BR = omni::FLASH_ROWS;      // rows a block owns; tile rows
 constexpr int THREADS = omni::FLASH_THREADS;
 
-// Round a warp's accumulators acc[D / 8] (its rows g and g + 8, times mul)
-// to the element type E and store those below T; dst is the warp's first
-// row, row0 its index.
+// Round a warp's accumulators acc[D / 8] (its rows g and g + 8, times
+// mul[0] and mul[1]) to the element type E and store those below T; dst is
+// the warp's first row, row0 its index.
 template <int D, typename E>
 __device__ __forceinline__ void store_rows(E* dst, float (*acc)[4],
-                                           float mul, size_t ts, int row0,
-                                           int T, int lane) {
+                                           const float mul[2], size_t ts,
+                                           int row0, int T, int lane) {
   const int g = lane >> 2;
   const int tq = lane & 3;
 #pragma unroll
@@ -104,7 +126,7 @@ __device__ __forceinline__ void store_rows(E* dst, float (*acc)[4],
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
       *reinterpret_cast<uint32_t*>(p + i * 8) = omni::pack_pair<E>(
-          acc[i][2 * r] * mul, acc[i][2 * r + 1] * mul);
+          acc[i][2 * r] * mul[r], acc[i][2 * r + 1] * mul[r]);
   }
 }
 
@@ -115,17 +137,70 @@ __device__ __forceinline__ void zero(float (*acc)[4]) {
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 }
 
+// The f16 kernels' scales (see the head of this file).
+constexpr int P_EXP = 14;        // P 2^14 for dV = P^T dO
+constexpr int EXP_START = 64;    // a row's dS exponent before any dS > 0
+constexpr int EXP_LIMIT = 15;    // |dS| 2^e < 2^15
+constexpr int EXP_RESET = 10;    // on a drop, 2^10 <= m 2^e < 2^11
+
+// 2^e as an f32, e in [-126, 127].
+__device__ __forceinline__ float exp2i(int e) {
+  return __uint_as_float(static_cast<uint32_t>(127 + e) << 23);
+}
+
+// The dS exponents ex of a warp's accumulator rows g and g + 8 brought up
+// to date with a step's dS, the NS 8-column C tiles x (the lanes 4 g ..
+// 4 g + 3 hold a row's columns; every lane of the quad reaches the same
+// exponent); where one drops, the row's NA accumulator tiles acc are
+// scaled by the exact power of two. Returns the rows' scales 2^ex in sc.
+template <int NS, int NA>
+__device__ __forceinline__ void track_exponents(float (*x)[4], int ex[2],
+                                                float (*acc)[4],
+                                                float sc[2]) {
+  float m[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+    m[0] = fmaxf(m[0], fmaxf(fabsf(x[n][0]), fabsf(x[n][1])));
+    m[1] = fmaxf(m[1], fmaxf(fabsf(x[n][2]), fabsf(x[n][3])));
+  }
+  float f[2];
+  bool drop = false;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    // floor(log2 m) from m's exponent bits; -127 at 0, which never drops.
+    const int lg = static_cast<int>(__float_as_uint(m[r]) >> 23) - 127;
+    const int e = lg + ex[r] >= EXP_LIMIT ? EXP_RESET - lg : ex[r];
+    f[r] = exp2i(max(e - ex[r], -126));
+    drop |= e != ex[r];
+    ex[r] = e;
+    sc[r] = exp2i(e);
+  }
+  if (__any_sync(0xffffffffu, drop)) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      acc[i][0] *= f[0];
+      acc[i][1] *= f[0];
+      acc[i][2] *= f[1];
+      acc[i][3] *= f[1];
+    }
+  }
+}
+
 // Blocks an SM that each kernel's register budget must allow, by head
 // dim (python -m omnilingual_asr_torch.ops.flash_bwd_sweep times others).
 // K6: four at D 64 keep the training shape's 512 blocks in one wave,
 // three at D 128 the 384 of [4, 768, 8, 128]. K7: four at D 64; two at
 // D 128, where K and V fragments and the dK and dV accumulators alone
-// take 192 registers.
+// take 192 registers. The f16 kernels share them: timed on their own on
+// an H100 (--f16), they were the fastest there too (at the training
+// shape K6 at three blocks took 1.27x as long, K7 at three 1.14x; at
+// D 128 K6 at two 1.33x, K7 at one 1.02x).
 constexpr int DQ_MIN_BLOCKS_64 = 4;
 constexpr int DQ_MIN_BLOCKS_128 = 3;
 constexpr int DKV_MIN_BLOCKS_64 = 4;
 constexpr int DKV_MIN_BLOCKS_128 = 2;
-
 // K6.
 template <int D, bool F16>
 __global__ void __launch_bounds__(
@@ -188,6 +263,7 @@ flash_bwd_dq_kernel(const omni::flash_elem<F16>* __restrict__ q,
   }
   float acc[2 * KD][4];             // dQ: 8-dim tiles, rows g and g + 8
   zero<2 * KD>(acc);
+  int ex[2] = {EXP_START, EXP_START};   // f16: dS exponents of the rows
 
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
@@ -224,18 +300,30 @@ flash_bwd_dq_kernel(const omni::flash_elem<F16>* __restrict__ q,
           s[n][e] = p * (dp[n][e] - rd[e >> 1]);
         }
       }
-      // dQ += dS K, dS = hi + lo in bf16, 16 keys a k-step (at f16 K split
-      // too).
+      // dQ += dS K, 16 keys a k-step: dS = hi + lo in bf16, or at f16 in
+      // f16 under the rows' exponents.
+      float sc[2];
+      if constexpr (F16) track_exponents<NS, 2 * KD>(s, ex, acc, sc);
 #pragma unroll
       for (int kk = 0; kk < KS / 16; ++kk) {
         uint32_t hi[4], lo[4];
-        omni::split_a_frag(s + 2 * kk, hi, lo);
-        omni::mma_split_cols<D>(acc, hi, lo, kt, k0 + 16 * kk, lane);
+        if constexpr (F16) {
+          omni::split_a_frag_f16(s + 2 * kk, sc, hi, lo);
+          omni::mma_pair_cols<D>(acc, hi, lo, kt, k0 + 16 * kk, lane);
+        } else {
+          omni::split_a_frag(s + 2 * kk, hi, lo);
+          omni::mma_split_cols<D>(acc, hi, lo, kt, k0 + 16 * kk, lane);
+        }
       }
     }
     __syncthreads();                // buffer `buf` is refilled next round
   }
-  store_rows<D>(dq + base + static_cast<size_t>(row0) * ts, acc, scale, ts,
+  float mul[2] = {scale, scale};
+  if constexpr (F16) {
+    mul[0] *= exp2i(-ex[0]);
+    mul[1] *= exp2i(-ex[1]);
+  }
+  store_rows<D>(dq + base + static_cast<size_t>(row0) * ts, acc, mul, ts,
                 row0, T, lane);
 }
 
@@ -304,6 +392,7 @@ flash_bwd_dkv_kernel(const omni::flash_elem<F16>* __restrict__ q,
   float dka[2 * KD][4], dva[2 * KD][4];   // 8-dim tiles, keys g and g + 8
   zero<2 * KD>(dka);
   zero<2 * KD>(dva);
+  int ex[2] = {EXP_START, EXP_START};   // f16: dS exponents of the keys
 
   for (int j = 0; j < n_tiles; ++j) {
     const int buf = j & 1;
@@ -347,19 +436,35 @@ flash_bwd_dkv_kernel(const omni::flash_elem<F16>* __restrict__ q,
           dpt[n][e] = p * (dpt[n][e] - dl);
         }
       }
-      // dV += P^T dO, dK += dS^T Q; P and dS = hi + lo in bf16 (at f16 dO
-      // and Q split too).
+      // dV += P^T dO, dK += dS^T Q; P and dS = hi + lo in bf16, or at f16
+      // in f16, P times 2^P_EXP and dS under the key rows' exponents.
       uint32_t hi[4], lo[4];
-      omni::split_a_frag(st, hi, lo);
-      omni::mma_split_cols<D>(dva, hi, lo, ot, i0, lane);
-      omni::split_a_frag(dpt, hi, lo);
-      omni::mma_split_cols<D>(dka, hi, lo, qt, i0, lane);
+      if constexpr (F16) {
+        const float ps[2] = {exp2i(P_EXP), exp2i(P_EXP)};
+        omni::split_a_frag_f16(st, ps, hi, lo);
+        omni::mma_pair_cols<D>(dva, hi, lo, ot, i0, lane);
+        float sc[2];
+        track_exponents<2, 2 * KD>(dpt, ex, dka, sc);
+        omni::split_a_frag_f16(dpt, sc, hi, lo);
+        omni::mma_pair_cols<D>(dka, hi, lo, qt, i0, lane);
+      } else {
+        omni::split_a_frag(st, hi, lo);
+        omni::mma_split_cols<D>(dva, hi, lo, ot, i0, lane);
+        omni::split_a_frag(dpt, hi, lo);
+        omni::mma_split_cols<D>(dka, hi, lo, qt, i0, lane);
+      }
     }
     __syncthreads();                // buffer `buf` is refilled next round
   }
   const size_t at = base + static_cast<size_t>(row0) * ts;
-  store_rows<D>(dk + at, dka, scale, ts, row0, T, lane);
-  store_rows<D>(dv + at, dva, 1.f, ts, row0, T, lane);
+  float kmul[2] = {scale, scale}, vmul[2] = {1.f, 1.f};
+  if constexpr (F16) {
+    kmul[0] *= exp2i(-ex[0]);
+    kmul[1] *= exp2i(-ex[1]);
+    vmul[0] = vmul[1] = exp2i(-P_EXP);
+  }
+  store_rows<D>(dk + at, dka, kmul, ts, row0, T, lane);
+  store_rows<D>(dv + at, dva, vmul, ts, row0, T, lane);
 }
 
 template <int D, bool F16>

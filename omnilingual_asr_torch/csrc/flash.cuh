@@ -99,31 +99,43 @@ __device__ __forceinline__ void mma_a_rows(float (*acc)[4],
 }
 
 // acc[n] (n < D / 8) += (hi + lo) B: hi + lo one 16 x 16 A fragment split
-// in two bf16 halves, B the tile's rows k0 .. k0 + 16, all D columns
-// (O = P V: one row a key).
+// in two halves of the element type E, B the tile's rows k0 .. k0 + 16, all
+// D columns (O = P V: one row a key), as two products of E. The bf16
+// kernels' P V, dS K, P^T dO and dS^T Q (mma_split_cols); the f16 K6's and
+// K7's, with P and dS scaled into f16's range (attention_bwd.cu).
+template <int D, typename E>
+__device__ __forceinline__ void mma_pair_cols(float (*acc)[4],
+                                              const uint32_t hi[4],
+                                              const uint32_t lo[4],
+                                              const E* tile, int k0,
+                                              int lane) {
+#pragma unroll
+  for (int d2 = 0; d2 < D / 16; ++d2) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, b_frag_trans_at(tile, FlashTile<D>::LD, k0,
+                                         16 * d2, lane));
+    mma_16816<E>(acc[2 * d2], hi, b[0], b[1]);
+    mma_16816<E>(acc[2 * d2], lo, b[0], b[1]);
+    mma_16816<E>(acc[2 * d2 + 1], hi, b[2], b[3]);
+    mma_16816<E>(acc[2 * d2 + 1], lo, b[2], b[3]);
+  }
+}
+
+// mma_pair_cols over a bf16 tile, hi + lo in bf16.
 template <int D>
 __device__ __forceinline__ void mma_split_cols(float (*acc)[4],
                                                const uint32_t hi[4],
                                                const uint32_t lo[4],
                                                const __nv_bfloat16* tile,
                                                int k0, int lane) {
-#pragma unroll
-  for (int d2 = 0; d2 < D / 16; ++d2) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, b_frag_trans_at(tile, FlashTile<D>::LD, k0,
-                                         16 * d2, lane));
-    mma_bf16_16816(acc[2 * d2], hi, b[0], b[1]);
-    mma_bf16_16816(acc[2 * d2], lo, b[0], b[1]);
-    mma_bf16_16816(acc[2 * d2 + 1], hi, b[2], b[3]);
-    mma_bf16_16816(acc[2 * d2 + 1], lo, b[2], b[3]);
-  }
+  mma_pair_cols<D>(acc, hi, lo, tile, k0, lane);
 }
 
-// mma_split_cols over an f16 tile: each f16 B fragment is split in
-// registers into bf16 halves (split_f16x2, exact), and acc += hi B_hi +
-// lo B_hi + hi B_lo, three bf16 products (lo B_lo, ~2^-18 of a term, is
-// left out). Every product then keeps f32's range: P and dS never become
-// f16 values.
+// mma_split_cols over an f16 tile, the f16 K2's P V (the f16 K6 and K7
+// take mma_pair_cols over f16 halves instead): P stays bf16 hi + lo, in
+// f32's exponent range, and each f16 B fragment is split in registers
+// into bf16 halves (split_f16x2, exact), so acc += hi B_hi + lo B_hi +
+// hi B_lo, three bf16 products (lo B_lo, ~2^-18 of a term, is left out).
 template <int D>
 __device__ __forceinline__ void mma_split_cols(float (*acc)[4],
                                                const uint32_t hi[4],

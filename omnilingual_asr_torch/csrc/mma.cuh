@@ -1,8 +1,9 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a): asynchronous
 // global -> shared copies (cp.async), shared -> register fragment loads
 // (ldmatrix) and the m16n8k16 matrix products with f32 accumulation
-// (mma.sync), bf16, f16 and int8, the f16 -> bf16 hi + lo split, and the
-// tf32 m16n8k8 product with its 3xTF32 split. Used by the flash-attention
+// (mma.sync), bf16, f16 and int8, the f32 -> bf16 or scaled f16 hi + lo
+// splits, the f16 -> bf16 hi + lo split, and the tf32 m16n8k8 product
+// with its 3xTF32 split. Used by the flash-attention
 // kernels (K2, attention.cu; K6 and K7, attention_bwd.cu; bf16 and f16)
 // through flash.cuh, by the f32 K6 and K7 (attention_f32.cu), by the conv
 // module (K3, conv_module.cu) and by the W8A16 and W8A8 matmuls (K4, K5,
@@ -215,12 +216,40 @@ __device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// x s = hi + lo to ~22 significant bits in f16, both as packed pairs:
+// hi = f16(x s), lo = f16(x s - hi), where x s - hi is exact in f32. s is
+// a power of two chosen by the caller so that |x s| < 2^15 (hi cannot
+// overflow f16's 65504) and the values that matter stay clear of f16's
+// subnormals (lo's rounding is then ~2^-22 of |x s|, and at worst 2^-25
+// absolute).
+__device__ __forceinline__ void split_f16(float x0, float x1, float s,
+                                          uint32_t* hi, uint32_t* lo) {
+  const float y0 = x0 * s, y1 = x1 * s;
+  __half2 h = __floats2half2_rn(y0, y1);
+  const float2 hf = __half22float2(h);
+  *hi = *reinterpret_cast<uint32_t*>(&h);
+  *lo = pack_f16(y0 - hf.x, y1 - hf.y);
+}
+
+// As split_a_frag, in f16 and times s[0] on row g (c[.][0], c[.][1]) and
+// s[1] on row g + 8 (c[.][2], c[.][3]).
+__device__ __forceinline__ void split_a_frag_f16(float (*c)[4],
+                                                 const float s[2],
+                                                 uint32_t hi[4],
+                                                 uint32_t lo[4]) {
+  split_f16(c[0][0], c[0][1], s[0], &hi[0], &lo[0]);
+  split_f16(c[0][2], c[0][3], s[1], &hi[1], &lo[1]);
+  split_f16(c[1][0], c[1][1], s[0], &hi[2], &lo[2]);
+  split_f16(c[1][2], c[1][3], s[1], &hi[3], &lo[3]);
+}
+
 // A pair of f16 values (a b32 fragment register) as two bf16 pairs whose
 // sum it is exactly: hi = bf16(x), lo = x - hi. An f16 value has 11
 // significant bits and lies within bf16's range (subnormals included), so
 // x - hi is exact in f32 and has at most 3 significant bits: lo is exact
 // in bf16. A product of an f32 value split as bf16 hi + lo with x then
-// needs no f16 rounding of the f32 side, whose range f16 lacks.
+// needs no f16 rounding of the f32 side, whose range f16 lacks (the f16
+// K2; the f16 K6 and K7 scale their f32 side into f16's range instead).
 __device__ __forceinline__ void split_f16x2(uint32_t x, uint32_t* hi,
                                             uint32_t* lo) {
   const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&x));

@@ -20,11 +20,12 @@ encoder, ``EncoderConfig.dtype == "float32"``) to their f32 variants
 TF32 tensor cores, three products a product; their arithmetic in plain
 PyTorch: ``flash_attention_fwd_tf32_emulated`` and
 ``flash_attention_bwd_tf32_emulated``), and f16 (the f16 encoder,
-``EncoderConfig.dtype == "float16"``) to the bf16 kernels built over f16
-operands (``flash_attention_f16``, ``flash_attention_bwd_dq_f16`` and
-``flash_attention_bwd_dkv_f16``: the score products on f16 tensor cores,
-each f16 operand of the second products split into two bf16 halves; their
-arithmetic in plain PyTorch: ``flash_attention_fwd_f16_emulated`` and
+``EncoderConfig.dtype == "float16"``) to the kernels built over f16
+operands (``flash_attention_f16``: the bf16 K2 with S on f16 tensor cores
+and V split into two bf16 halves; ``flash_attention_bwd_dq_f16`` and
+``flash_attention_bwd_dkv_f16``: every product on f16 tensor cores, P and
+dS split as f16 hi + lo under exact power-of-two scales; their arithmetic
+in plain PyTorch: ``flash_attention_fwd_f16_emulated`` and
 ``flash_attention_bwd_f16_emulated``). Each kernel keeps its own launch
 count, so a count says which dtype ran. Layouts follow the caller: q, k,
 v, o, dO [B, T, H, D], mask [B, T], lse and delta [B, H, T].
@@ -306,9 +307,9 @@ def _f16_only(q: torch.Tensor) -> None:
 
 def _f16_product(eq: str, a: torch.Tensor, b: torch.Tensor, b_lo: bool,
                  split_dtype) -> torch.Tensor:
-    """einsum(eq, a, b) as the f16 K2, K6 and K7 take a second product:
-    the f32 a (P or dS) split as ``split_dtype`` hi + lo (bf16 in the
-    kernels), the f16 b split exactly into bf16 hi + lo, and a_hi b_hi +
+    """einsum(eq, a, b) as the f16 K2 takes its P V product:
+    the f32 a (P) split as ``split_dtype`` hi + lo (bf16 in the
+    kernel), the f16 b split exactly into bf16 hi + lo, and a_hi b_hi +
     a_lo b_hi + a_hi b_lo summed in f32 (``b_lo=False`` leaves out the
     last: b rounded to bf16, the bf16 kernels' arithmetic)."""
     ah, al = _hi_lo(a, split_dtype)
@@ -335,27 +336,76 @@ def flash_attention_fwd_f16_emulated(q, k, v, mask, v_lo: bool = True,
     return out.to(q.dtype), lse
 
 
+#: The f16 K6 and K7's scales (``csrc/attention_bwd.cu``): P times
+#: 2^F16_P_EXP for dV = P^T dO; dS under an exponent e a row of the
+#: accumulator (a query of dQ, a key of dK), which starts at
+#: F16_EXP_START and, at a step whose largest |dS| of the row m has
+#: floor(log2 m) + e >= F16_EXP_LIMIT, drops to F16_EXP_RESET -
+#: floor(log2 m) (the row's accumulator scaled by the same exact power of
+#: two).
+F16_P_EXP = 14
+F16_EXP_START = 64
+F16_EXP_LIMIT = 15
+F16_EXP_RESET = 10
+
+
+def _f16_row_exponents(ds: torch.Tensor, dim: int) -> torch.Tensor:
+    """The f16 K6 and K7's dS exponent of each row of ``ds`` (f32), the
+    rows running along ``dim`` (the contraction's: -1 for dQ = dS K, -2
+    for dK = dS^T Q), kept as a dimension of size 1: the rule above for
+    the row's largest |dS| taken in one step, the smallest exponent that
+    the kernels' running one can end at (the coarsest split). Rows of
+    zeros keep F16_EXP_START."""
+    m = ds.abs().amax(dim=dim, keepdim=True)
+    lg = (torch.frexp(m).exponent - 1).to(torch.float32)  # floor(log2 m)
+    drop = (m > 0) & (lg + F16_EXP_START >= F16_EXP_LIMIT)
+    return torch.where(drop, F16_EXP_RESET - lg,
+                       torch.full_like(lg, F16_EXP_START))
+
+
+def _f16_scaled_product(eq: str, a: torch.Tensor, b: torch.Tensor, exp,
+                        b_exact: bool) -> torch.Tensor:
+    """einsum(eq, a, b) as the f16 K6 and K7 take a second product: the
+    f32 a (P or dS) times 2^exp (a number, or exponents broadcast over a)
+    split as f16 hi + lo, the f16 b as it is (``b_exact=False``: rounded
+    to bf16), a_hi b + a_lo b summed in f32 and times 2^-exp (exact)."""
+    two = torch.exp2(torch.as_tensor(exp, dtype=torch.float32))
+    hi, lo = _hi_lo(a * two, torch.float16)
+    bf = b.to(torch.float32 if b_exact else torch.bfloat16).to(torch.float32)
+    return torch.einsum(eq, hi / two, bf) + torch.einsum(eq, lo / two, bf)
+
+
 def flash_attention_bwd_f16_emulated(q, k, v, mask, do, lse, delta,
-                                     b_lo: bool = True,
-                                     split_dtype=torch.bfloat16):
+                                     ds_exp=None, b_exact: bool = True):
     """The f16 kernels K6 and K7's arithmetic (``csrc/attention_bwd.cu`` at
     F16) in plain PyTorch, to show on the CPU what their products do to
     the gradients: S and dP f32 sums of exact products of the f16 values
-    (as in the plain version), then dQ = dS K, dK = dS^T Q and dV = P^T dO
-    each as :func:`_f16_product` takes it, dQ and dK times ``scale`` after
-    the sum. ``b_lo=False`` (the f16 operand rounded to bf16) and
-    ``split_dtype=torch.float16`` (P and dS split in f16: flushed at small
-    dO) are planted faults. The kernels' order of sums and the tensor
-    cores' truncation inside a product are not modelled. Same arguments
-    and results as :func:`flash_attention_bwd_dq_plain` and
+    (as in the plain version), then dV = P^T dO with P times 2^F16_P_EXP,
+    and dQ = dS K and dK = dS^T Q with dS under its rows' exponents
+    (:func:`_f16_row_exponents`: queries for dQ, keys for dK), each as
+    :func:`_f16_scaled_product` takes it; dQ and dK times ``scale`` after
+    the sum. Planted faults: ``ds_exp`` a number, one fixed exponent for
+    every dS (0: the unscaled f16 split, which flushes at small dO; a
+    fixed scale that holds dO x 1 overflows f16 at large dO), and
+    ``b_exact=False`` (the f16 operand rounded to bf16). The kernels' order
+    of sums, their running exponents (finer than the model's where a
+    row's |dS| grows across steps) and the tensor cores' truncation
+    inside a product are not modelled. Same arguments and results as
+    :func:`flash_attention_bwd_dq_plain` and
     :func:`flash_attention_bwd_dkv_plain` together: (dq, dk, dv), f16
     operands only."""
     _f16_only(q)
     scale = 1.0 / math.sqrt(q.shape[-1])
     p, ds = _recompute(q, k, v, mask, do, lse, delta)
-    dq = _f16_product("bhts,bshd->bthd", ds, k, b_lo, split_dtype) * scale
-    dk = _f16_product("bhts,bthd->bshd", ds, q, b_lo, split_dtype) * scale
-    dv = _f16_product("bhts,bthd->bshd", p, do, b_lo, split_dtype)
+
+    def exp(dim):
+        return _f16_row_exponents(ds, dim) if ds_exp is None else ds_exp
+
+    dq = _f16_scaled_product("bhts,bshd->bthd", ds, k, exp(-1),
+                             b_exact) * scale
+    dk = _f16_scaled_product("bhts,bthd->bshd", ds, q, exp(-2),
+                             b_exact) * scale
+    dv = _f16_scaled_product("bhts,bthd->bshd", p, do, F16_P_EXP, b_exact)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -369,8 +419,8 @@ def flash_attention_bwd_plain(q, k, v, mask, o, lse, do):
 
 
 #: The dtypes the flash kernels take: bf16 (K2, K6, K7 on the tensor
-#: cores), f32 (their variants, on TF32 tensor cores) and f16 (the bf16
-#: kernels over f16 operands).
+#: cores), f32 (their variants, on TF32 tensor cores) and f16 (their
+#: variants over f16 operands, on f16 tensor cores).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32, torch.float16)
 
 
@@ -540,8 +590,9 @@ flash_attention_bwd_dq_f32.launches = 0
 
 def flash_attention_bwd_dq_f16(q, k, v, mask, do, lse, delta
                                ) -> torch.Tensor:
-    """K6 at f16 (``csrc/attention_bwd.cu`` over f16 operands) for a CUDA
-    tensor; the plain version for a CPU tensor."""
+    """K6 at f16 (``csrc/attention_bwd.cu`` over f16 operands, its
+    rounding modelled by :func:`flash_attention_bwd_f16_emulated`) for a
+    CUDA tensor; the plain version for a CPU tensor."""
     if not q.is_cuda:
         return flash_attention_bwd_dq_plain(q, k, v, mask, do, lse, delta)
     dq = _launch_dq("omni_flash_bwd_dq_f16", torch.float16, q, k, v, mask,
@@ -590,8 +641,9 @@ flash_attention_bwd_dkv_f32.launches = 0
 
 
 def flash_attention_bwd_dkv_f16(q, k, v, mask, do, lse, delta):
-    """K7 at f16 (``csrc/attention_bwd.cu`` over f16 operands) for a CUDA
-    tensor; the plain version for a CPU tensor."""
+    """K7 at f16 (``csrc/attention_bwd.cu`` over f16 operands, its
+    rounding modelled by :func:`flash_attention_bwd_f16_emulated`) for a
+    CUDA tensor; the plain version for a CPU tensor."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_plain(q, k, v, mask, do, lse, delta)
     out = _launch_dkv("omni_flash_bwd_dkv_f16", torch.float16, q, k, v,

@@ -113,20 +113,22 @@ F16_FLASH_SHAPES = F32_FLASH_SHAPES
 # <= TOL_F16_ABS * max|want| + TOL_F16_REL * |want| (+ TOL_F16_SUB where
 # the outputs are f16 subnormals) and |lse - lse_ref| <= TOL_F16_LSE. Both
 # round an f32 result to f16 once; the kernels' f32 values differ from the
-# plain version's by the bf16 split of P and dS (~2^-17 of a term, the
-# lo half's rounding) and the dropped lo lo product (~2^-18), and by the
-# order of sums. Where the two straddle an f16 rounding boundary they land
+# plain version's by the split of P or dS into two halves (K2: bf16 hi +
+# lo, ~2^-17 of a term, and the dropped lo lo product, ~2^-18; K6 and K7:
+# f16 hi + lo under exact power-of-two scales, ~2^-22), and by the order
+# of sums. Where the two straddle an f16 rounding boundary they land
 # one f16 ulp apart, at most 2^-10 |want| (TOL_F16_REL), or, for outputs
 # under f16's normal range (the gradients at dO ~ 1e-6), one step of its
 # subnormal grid, 2^-24 (TOL_F16_SUB). TOL_F16_ABS bounds the f32
 # difference itself where terms cancel. The CPU models
 # (ops/attention.py::flash_attention_fwd_f16_emulated and
-# ::flash_attention_bwd_f16_emulated) put the f32 difference near 2^-17 of
-# the largest term. The f16 operand rounded to bf16 (the bf16 kernels'
-# arithmetic) moves o and the gradients by ~2e-3 of their largest
-# element; P and dS split in f16 rather than bf16 flush the gradients at
-# dO ~ 1e-6 by two steps or more. lse takes exact products of f16 values
-# and an f32 softmax in another order.
+# ::flash_attention_bwd_f16_emulated) put the f32 difference near 2^-17
+# (K2) and 2^-22 (K6, K7) of the largest term. The f16 operand rounded to
+# bf16 (the bf16 kernels' arithmetic) moves o and the gradients by ~2e-3
+# of their largest element; dS split in f16 without a scale flushes the
+# gradients at dO ~ 1e-6 by two steps or more, and under a fixed scale
+# that holds dO x 1 overflows f16 at dO x F16_LARGE_DO. lse takes exact
+# products of f16 values and an f32 softmax in another order.
 TOL_F16_ABS = 2.0 ** -13
 TOL_F16_REL = 2.0 ** -10
 TOL_F16_SUB = 2.0 ** -24
@@ -137,14 +139,24 @@ def f16_share(got, want, sub: bool = False) -> float:
     """The largest share of its tolerance that an element of an f16
     kernel's result ``got`` (a tensor) uses against the plain version's
     ``want`` (<= 1 passes): TOL_F16_ABS max|want| + TOL_F16_REL |want|,
-    plus TOL_F16_SUB when ``sub`` (outputs under f16's normal range)."""
+    plus TOL_F16_SUB when ``sub`` (outputs under f16's normal range);
+    inf where ``got`` is not finite."""
     g, w = got.double(), want.double()
+    if not bool(g.isfinite().all()):
+        return float("inf")
     tol = (TOL_F16_ABS * w.abs().max() + TOL_F16_REL * w.abs()
            + (TOL_F16_SUB if sub else 0.0))
     return float(((g - w).abs() / tol).max())
 # dO's scale in the second backward check at each f16 shape: a mean loss
 # over a batch gives gradients this small, under f16's normal range.
 F16_TINY_DO = 1e-6
+# dO's scale in the third: dS reaches ~5e3, where a fixed scale of dS
+# that holds dO x 1 would overflow f16 (the f16 K6's and K7's running
+# exponents drop below 0), and the gradients stay inside f16's range: ~2e3
+# at tests/test_torch_f16.py's shapes; at the training shape's row with one
+# valid key every query's p is 1 and dV sums 256 queries' dO, 48832 on
+# chip_smoke.py's seed (under 65504; x 2^11 would overflow there).
+F16_LARGE_DO = 2.0 ** 10
 
 # K1 as (windows, frames a window padded to the 256-frame blocks, valid
 # frames) on the trainers' paths: the x-vector trainer's batch of 64 4 s

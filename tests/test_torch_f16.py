@@ -16,12 +16,14 @@ Tolerance of anything rounded to f16 (``F16_TOL``): f16's rounding of
 the output, half an ulp of its largest element, 2^-11 max|want|; where
 every element lies under f16's normal range (the gradients at dO x 1e-6,
 all near 1e-6), one step of f16's subnormal grid, 2^-24, whichever is
-larger.
+larger. The models of the f16 kernels are also held to JAX within the
+card's per-element gate (``card_cases.TOL_F16_*``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ import torch_dtype_cases as cases
 from omnilingual_asr_torch import testing as golden
 from omnilingual_asr_torch.config import MeshConfig
 from omnilingual_asr_torch.ops import attention
+from omnilingual_asr_torch.ops.card_cases import F16_LARGE_DO
 from omnilingual_asr_torch.ops.card_cases import f16_share as f16_share_card
 from omnilingual_asr_torch.parallel.mesh import build_mesh
 from omnilingual_asr_torch.testing import greedy_ids
@@ -42,9 +45,13 @@ torch.set_num_threads(2)
 CPU = torch.device("cpu")
 F16_REL = 2.0 ** -11
 F16_SUB = 2.0 ** -24
-#: dO's scales: 1, and 1e-6 (a mean loss over a batch), where a kernel
-#: that split P or dS into f16 halves would flush dS (f16 ends at 2^-24).
-DO_SCALES = (1.0, 1e-6)
+#: dO's scales: 1; 1e-6 (a mean loss over a batch), where a kernel that
+#: split dS into f16 halves without a scale would flush dS (f16 ends at
+#: 2^-24); and 2^10 (``card_cases.F16_LARGE_DO``: dS up to ~5e3, the
+#: gradients up to ~2e3), where a fixed scale of dS that holds dO x 1
+#: overflows f16's 65504.
+DO_SCALES = (1.0, 1e-6, F16_LARGE_DO)
+DO_IDS = ["do1", "do1e-6", "do2^10"]
 
 
 def f16_share(got, want) -> float:
@@ -56,17 +63,19 @@ def f16_share(got, want) -> float:
     return float(np.abs(got - want).max() / tol)
 
 
+@functools.lru_cache(maxsize=None)
 def _case(D, scale):
     """Inputs at [2, 256, 2, D] with a ragged row (the JAX kernel takes T
     in whole 256-key blocks), f16, dO times ``scale``; and JAX's f16
-    (o, (dq, dk, dv)) on them."""
+    (o, (dq, dk, dv)) on them, run once a (D, scale) for the tests that
+    share them (read only)."""
     q, k, v, do, mask = cases.flash_inputs(2, 256, 2, D, [256, 100], seed=D,
                                            dtype=np.float16)
     do = (do.astype(np.float32) * scale).astype(np.float16)
     return (q, k, v, do, mask), cases.jax_flash(q, k, v, mask, do)
 
 
-@pytest.mark.parametrize("scale", DO_SCALES, ids=["do1", "do1e-6"])
+@pytest.mark.parametrize("scale", DO_SCALES, ids=DO_IDS)
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_f16_forward_and_grads_match_jax(D, scale):
     """``FlashAttention`` at f16 (the plain versions of K2, K6, K7 on the
@@ -74,7 +83,8 @@ def test_flash_f16_forward_and_grads_match_jax(D, scale):
     and its custom VJP, at [2, 256, 2, D] with a ragged row: o, dq, dk and
     dv in f16 within F16_TOL (measured: o 1.1e-4 and 2.9e-4 of its
     largest element at D 64 and 128, the gradients 1.1e-4 to 2.7e-4 at dO
-    x 1; at dO x 1e-6 equal), masked keys' dk and dv exactly 0."""
+    x 1 and x 2^10; at dO x 1e-6 equal), masked keys' dk and dv exactly
+    0."""
     (q, k, v, do, mask), (want_o, want_g) = _case(D, scale)
     qt, kt, vt = (torch.from_numpy(x).requires_grad_(True)
                   for x in (q, k, v))
@@ -89,17 +99,19 @@ def test_flash_f16_forward_and_grads_match_jax(D, scale):
     assert (kt.grad[masked] == 0).all() and (vt.grad[masked] == 0).all()
 
 
-@pytest.mark.parametrize("scale", DO_SCALES, ids=["do1", "do1e-6"])
+@pytest.mark.parametrize("scale", DO_SCALES, ids=DO_IDS)
 @pytest.mark.parametrize("D", [64, 128])
 def test_f16_models_match_jax(D, scale):
     """The CPU models of the f16 kernels' rounding
     (``flash_attention_fwd_f16_emulated``,
-    ``flash_attention_bwd_f16_emulated``) against JAX's f16 forward and
-    gradients (Pallas, interpret mode; the inputs of
-    ``test_flash_f16_forward_and_grads_match_jax``, no compile of their
-    own): o, dq, dk, dv within F16_TOL (measured at dO x 1: 0.44-0.87 of
-    it; at dO x 1e-6 equal but for one subnormal step on two elements of
-    dq at D 128, exactly the tolerance)."""
+    ``flash_attention_bwd_f16_emulated``: dS under its rows' power-of-two
+    exponents, P times 2^14, both split as f16 hi + lo) against JAX's f16
+    forward and gradients (Pallas, interpret mode; the inputs and JAX
+    results of ``test_flash_f16_forward_and_grads_match_jax``, shared): o,
+    dq, dk, dv within F16_TOL and within the card's per-element gate
+    (``card_cases.TOL_F16_*``, with its subnormal step at dO x 1e-6);
+    measured at dO x 1 and x 2^10: 0.28-0.44 of F16_TOL, 0.51-0.60 of the
+    gate; at dO x 1e-6 equal."""
     (q, k, v, do, mask), (want_o, want_g) = _case(D, scale)
     qt, kt, vt, dot, mt = (torch.from_numpy(x) for x in (q, k, v, do, mask))
     o, _ = attention.flash_attention_fwd_f16_emulated(qt, kt, vt, mt)
@@ -111,6 +123,17 @@ def test_f16_models_match_jax(D, scale):
     for g, w in zip(got, want_g):
         assert g.dtype == torch.float16
         assert f16_share(g.numpy(), w) <= 1.0, (f16_share(g.numpy(), w))
+        share = f16_share_card(g, torch.from_numpy(w), scale < 1.0)
+        assert share <= 1.0, share
+
+
+#: The planted faults of the f16 backward's model, each with the dO scale
+#: where it misses the card's gate: the f16 operand rounded to bf16 (the
+#: bf16 kernels' arithmetic), dS split in f16 without a scale (flushed at
+#: small dO), and dS under one fixed scale of 2^12, which holds dO x 1's
+#: dS (up to ~5, 2^14.3 scaled) and overflows at dO x 2^10.
+BWD_FAULTS = {1.0: {"b_exact": False}, 1e-6: {"ds_exp": 0},
+              F16_LARGE_DO: {"ds_exp": 12}}
 
 
 @pytest.mark.parametrize("D", [64, 128])
@@ -119,11 +142,13 @@ def test_f16_models_within_the_card_tolerance(D):
     of the kernels' 64-row blocks, a partly masked row and a fully masked
     slot), the models of the f16 kernels against the plain versions pass
     the card's per-element gate (``card_cases.TOL_F16_*``; the largest
-    share measured 0.62-0.79 at dO x 1, and one subnormal step, 0.995, at
-    dO x 1e-6), with masked keys' dK and dV, the fully masked row's o and
-    dQ exactly 0; the planted faults miss it: the f16 operand rounded to
-    bf16 (the bf16 kernels' arithmetic) at dO x 1 (shares 8.3-16.9), and
-    P and dS split in f16 at dO x 1e-6 (dQ and dK two steps off, 2.0)."""
+    share measured 0.39-0.63 at dO x 1 and x 2^10, and 0 at dO x 1e-6),
+    with masked keys' dK and dV, the fully masked row's o and dQ exactly
+    0, at every dO scale; the planted faults miss it where they should
+    (``BWD_FAULTS``: the bf16-rounded operand 8.3-16.9 at dO x 1, the
+    unscaled f16 split two subnormal steps off at dO x 1e-6, the fixed
+    scale not finite at dO x 2^10), and the fixed scale passes at dO x 1,
+    where it holds."""
     q, k, v, do, mask = (torch.from_numpy(x) for x in cases.flash_inputs(
         3, 200, 2, D, [200, 130, 0], seed=D + 7, dtype=np.float16))
     want_o, lse = attention.flash_attention_plain(q, k, v, mask)
@@ -133,21 +158,28 @@ def test_f16_models_within_the_card_tolerance(D):
     fault, _ = attention.flash_attention_fwd_f16_emulated(q, k, v, mask,
                                                           v_lo=False)
     assert f16_share_card(fault, want_o, False) > 1.0
+
+    def worst(got, want, sub):
+        return max(f16_share_card(g, w, sub) for g, w in zip(got, want))
+
     for scale in DO_SCALES:
         d = (do.float() * scale).half()
         args = (q, k, v, mask, d, lse, attention.flash_delta(want_o, d))
         want = (attention.flash_attention_bwd_dq_plain(*args),
                 *attention.flash_attention_bwd_dkv_plain(*args))
         got = attention.flash_attention_bwd_f16_emulated(*args)
-        sub = scale != 1.0
-        assert max(f16_share_card(g, w, sub) for g, w in zip(got, want)) <= 1.0
+        sub = scale < 1.0
+        assert worst(got, want, sub) <= 1.0, scale
         dq, dk, dv = got
         assert (dq[~mask.any(dim=1)] == 0).all()
         assert (dk[~mask] == 0).all() and (dv[~mask] == 0).all()
         fault = attention.flash_attention_bwd_f16_emulated(
-            *args, **({"split_dtype": torch.float16} if sub
-                      else {"b_lo": False}))
-        assert max(f16_share_card(g, w, sub) for g, w in zip(fault, want)) > 1.0
+            *args, **BWD_FAULTS[scale])
+        assert worst(fault, want, sub) > 1.0, scale
+        if scale == 1.0:
+            held = attention.flash_attention_bwd_f16_emulated(
+                *args, **BWD_FAULTS[F16_LARGE_DO])
+            assert worst(held, want, sub) <= 1.0
 
 
 def test_f16_wrappers_route_and_count():
