@@ -55,8 +55,8 @@ with no result line:
              ``F16_LARGE_DO``, where a fixed scale of dS would pass
              f16's 65504;
              SDPA at f16 their yardstick, bound at the f16 tensor-core
-             rate; the f16 K6's and K7's registers beside their earlier
-             design's),
+             rate; the f16 K2's (wgmma and TMA), K6's and K7's registers
+             beside their earlier design's),
              on seeded inputs with masked rows, each held against its plain
              PyTorch version, and timed beside its plain version, a PyTorch
              yardstick where one exists, and the card's bound. Times are
@@ -1203,8 +1203,15 @@ def _f16_flash_case(dev, peaks, B, T, H, D, valid, seed):
 #: recorded on an H100, not measured in this run).
 F16_DESIGNS = {
     "flash_attention_fwd_f16": (
-        "f16 mma.sync for S; V of P V split into bf16 hi + lo against P as "
-        "bf16 hi + lo (three bf16 products)", None),
+        "a 64-query tile a block, one warpgroup (two splitting the key "
+        "tiles on grids of up to 264 blocks at D 64); Q, K, V by TMA "
+        "(128-byte-swizzled boxes, a ring of K/V stages on mbarriers); S = "
+        "Q K^T on f16 wgmma from shared memory, P x 2^14 (the scale in "
+        "exp2's argument) split as f16 hi + lo against V native, two f16 "
+        "wgmma a 16-key step with P from registers (m64n128k16 at D 128)",
+        "the bf16 K2 templated, f16 mma.sync for S, V of P V split into "
+        "bf16 hi + lo against P as bf16 hi + lo (three bf16 products): 128 "
+        "registers at D 64, 8 bytes of spill stores; 168 at D 128, 44"),
     "flash_attention_bwd_dq_f16": (
         "f16 mma.sync for every product: S and dP over the f16 operands, "
         "dS K with K native against dS split as f16 hi + lo under a "
@@ -1222,12 +1229,12 @@ F16_DESIGNS = {
 
 
 def check_flash_f16(dev, peaks, ptxas):
-    """The f16 variants of K2, K6 and K7 (``csrc/attention.cu`` and
-    ``csrc/attention_bwd.cu`` over f16 operands, the f16 encoder's
-    attention) at ``card_cases.F16_FLASH_SHAPES``: K2's entry at the
-    release's f16 serving batch, K6's and K7's at the f16 training step's
-    shape, every shape under "head_dims"; each with its kernel's registers
-    and spills (K6's and K7's beside their earlier design's)."""
+    """The f16 variants of K2, K6 and K7 (``csrc/attention_f16.cu``, on
+    wgmma and TMA, and ``csrc/attention_bwd.cu`` over f16 operands, the
+    f16 encoder's attention) at ``card_cases.F16_FLASH_SHAPES``: K2's
+    entry at the release's f16 serving batch, K6's and K7's at the f16
+    training step's shape, every shape under "head_dims"; each with its
+    kernel's registers and spills beside its earlier design's."""
     from omnilingual_asr_torch.ops.card_cases import F16_FLASH_SHAPES
 
     cases = {}
@@ -1236,13 +1243,14 @@ def check_flash_f16(dev, peaks, ptxas):
         cases[name] = [dict(c, case=name) for c in _f16_flash_case(
             dev, peaks, B, T, H, D, list(valid), SEED + 110 + i)]
     out = []
+    # K2's kernel is f16 only; K6's and K7's names end in "true>" at f16.
     for i, (name, line, main, src, kernel) in enumerate((
-            ("flash_attention_fwd_f16", 34, "serving", "attention.cu",
-             "flash_fwd_kernel"),
+            ("flash_attention_fwd_f16", 34, "serving", "attention_f16.cu",
+             "flash_fwd_f16_kernel<"),
             ("flash_attention_bwd_dq_f16", 79, "training",
-             "attention_bwd.cu", "flash_bwd_dq_kernel"),
+             "attention_bwd.cu", "flash_bwd_dq_kernel<"),
             ("flash_attention_bwd_dkv_f16", 110, "training",
-             "attention_bwd.cu", "flash_bwd_dkv_kernel"))):
+             "attention_bwd.cu", "flash_bwd_dkv_kernel<"))):
         design, earlier = F16_DESIGNS[name]
         out.append({"name": name, "route": "cuda",
                     "source": f"omnilingual_asr_torch/csrc/{src}",
@@ -1253,7 +1261,8 @@ def check_flash_f16(dev, peaks, ptxas):
                     **cases[main][i],
                     "head_dims": [c[i] for c in cases.values()],
                     "ptxas": {k: v for k, v in ptxas.items()
-                              if k.startswith(kernel) and "true" in k},
+                              if k.startswith(kernel) and (
+                                  i == 0 or k.endswith("true>"))},
                     **({"ptxas_earlier": earlier} if earlier else {})})
     return out
 

@@ -1,6 +1,5 @@
 // K2: flash-attention forward with a key mask and the row logsumexp, on
-// bf16 tensor cores; and K2 at f16 (the f16 encoder), the same kernel over
-// f16 operands (F16 = true; see the end of this comment).
+// bf16 tensor cores. (K2 at f16 is attention_f16.cu, on wgmma and TMA.)
 //
 // Replaces omnilingual_asr_tpu/ops/attention.py::_flash_fwd_lse_kernel
 // (launched by _fwd_lse). Non-causal attention over q, k, v [B, T, H, D]
@@ -48,18 +47,6 @@
 // D 64, 68.5 KB at D 128. Registers (nvcc -Xptxas -v, sm_90a, as
 // chip_smoke.py prints them): 128 at D 64 with no spills, 168 at D 128
 // with 56 bytes of spill stores, both capped by the launch bounds below.
-//
-// At f16 (omni_flash_fwd_f16; the Pallas kernel is generic in its input
-// type and casts to f32 inside, so at f16 every product is an f32 product
-// of f16 values): S = Q K^T takes mma.sync.m16n8k16 over f16 operands, whose
-// products are exact in f32 as bf16's are. P V cannot take P as f16: f16's
-// range ends at 2^-24 below and P's lo half falls under its normal range
-// for every p < 1/8. So P stays split in bf16 as above, and each f16 V
-// fragment is split in registers into two bf16 halves whose sum it is
-// exactly (mma.cuh::split_f16x2): O += P_hi V_hi + P_lo V_hi + P_hi V_lo,
-// three bf16 products where bf16 takes two (flash.cuh::mma_split_cols).
-// o is rounded to f16 once, at the end. Registers at f16 under the same
-// launch bounds: 128 at D 64 (8 bytes of spill stores), 168 at D 128 (44).
 #include "flash.cuh"
 
 namespace {
@@ -75,15 +62,15 @@ constexpr int THREADS = omni::FLASH_THREADS;
 // registers) keep the 384 blocks of [4, 768, 8, 128] in one wave; at D 64
 // four (<= 128) keep the training shape's 512 blocks in one (at 160
 // registers it took 1.3x as long on an H100, chip_smoke.py's timing).
-template <int D, bool F16>
+template <int D>
 __global__ void __launch_bounds__(THREADS, D == 128 ? 3 : 4)
-flash_fwd_kernel(const omni::flash_elem<F16>* __restrict__ q,
-                 const omni::flash_elem<F16>* __restrict__ k,
-                 const omni::flash_elem<F16>* __restrict__ v,
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ mask,
-                 omni::flash_elem<F16>* __restrict__ o,
+                 __nv_bfloat16* __restrict__ o,
                  float* __restrict__ lse, int T, int H, float scale) {
-  using E = omni::flash_elem<F16>;
+  using E = __nv_bfloat16;
   constexpr int TILE = FlashTile<D>::ELEMS;
   constexpr int KD = D / 16;        // k-steps of QK^T; dim-tile pairs of PV
   constexpr int NT = BK / 8;        // 8-key column tiles of S
@@ -186,8 +173,7 @@ flash_fwd_kernel(const omni::flash_elem<F16>* __restrict__ q,
       acc[i][3] *= alpha[1];
     }
 
-    // O += P V, P = hi + lo in bf16, 16 keys per k-step (at f16 V split
-    // too).
+    // O += P V, P = hi + lo in bf16, 16 keys per k-step.
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t ph[4], pl[4];
@@ -220,38 +206,19 @@ flash_fwd_kernel(const omni::flash_elem<F16>* __restrict__ q,
   }
 }
 
-template <int D, bool F16>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const int* mask, void* o, float* lse, int B, int T,
                        int H, float scale, cudaStream_t stream) {
-  using E = omni::flash_elem<F16>;
+  using E = __nv_bfloat16;
   const size_t smem = FlashTile<D>::bytes(1);
-  cudaError_t err = omni::allow_smem(flash_fwd_kernel<D, F16>, smem);
+  cudaError_t err = omni::allow_smem(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D, F16><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
       static_cast<const E*>(v), mask, static_cast<E*>(o), lse, T, H, scale);
   return cudaGetLastError();
-}
-
-template <bool F16>
-int dispatch_fwd(const void* q, const void* k, const void* v,
-                 const int* mask, void* o, float* lse, int B, int T, int H,
-                 int head_dim, float scale, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64:
-      return static_cast<int>(launch_fwd<64, F16>(q, k, v, mask, o, lse, B,
-                                                  T, H, scale, s));
-    case 128:
-      return static_cast<int>(launch_fwd<128, F16>(q, k, v, mask, o, lse, B,
-                                                   T, H, scale, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -260,15 +227,17 @@ OMNI_API int omni_flash_fwd(const void* q, const void* k, const void* v,
                             const int* mask, void* o, float* lse, int B,
                             int T, int H, int head_dim, float scale,
                             void* stream) {
-  return dispatch_fwd<false>(q, k, v, mask, o, lse, B, T, H, head_dim, scale,
-                             stream);
-}
-
-// K2 at f16: the same arguments over f16 q, k, v and o.
-OMNI_API int omni_flash_fwd_f16(const void* q, const void* k, const void* v,
-                                const int* mask, void* o, float* lse, int B,
-                                int T, int H, int head_dim, float scale,
-                                void* stream) {
-  return dispatch_fwd<true>(q, k, v, mask, o, lse, B, T, H, head_dim, scale,
-                            stream);
+  if (B <= 0 || T <= 0 || H <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return static_cast<int>(
+          launch_fwd<64>(q, k, v, mask, o, lse, B, T, H, scale, s));
+    case 128:
+      return static_cast<int>(
+          launch_fwd<128>(q, k, v, mask, o, lse, B, T, H, scale, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

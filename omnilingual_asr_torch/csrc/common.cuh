@@ -13,6 +13,12 @@
 
 namespace omni {
 
+// Errors of an entry point's own checks, beside cudaError_t's values
+// (omni_error_string names them).
+constexpr int OMNI_ERR_MISALIGNED = 10001;     // a TMA operand's base
+constexpr int OMNI_ERR_NO_TENSOR_MAPS = 10002; // no cuTensorMapEncodeTiled
+constexpr int OMNI_ERR_TENSOR_MAP = 10003;     // the driver refused a map
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

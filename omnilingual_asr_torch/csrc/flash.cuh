@@ -1,7 +1,9 @@
-// Shared layout of the flash-attention kernels: the forward (K2,
+// Shared layout of the flash-attention kernels: the bf16 forward (K2,
 // attention.cu) and the backward's dQ (K6) and dK/dV (K7,
 // attention_bwd.cu), all on the warp-level tensor-core tiles of mma.cuh,
-// each for bf16 operands and (the f16 encoder) for f16 ones.
+// the backward for bf16 operands and (the f16 encoder) for f16 ones. The
+// f16 forward (attention_f16.cu, on wgmma and TMA) takes only the
+// constants below.
 //
 // q, k, v, o and dO are bf16 or f16 [B, T, H, D] (D in {64, 128}), read in
 // place; the key mask is int32 [B, T]; lse and delta are f32 [B, H, T]. A
@@ -129,34 +131,6 @@ __device__ __forceinline__ void mma_split_cols(float (*acc)[4],
                                                const __nv_bfloat16* tile,
                                                int k0, int lane) {
   mma_pair_cols<D>(acc, hi, lo, tile, k0, lane);
-}
-
-// mma_split_cols over an f16 tile, the f16 K2's P V (the f16 K6 and K7
-// take mma_pair_cols over f16 halves instead): P stays bf16 hi + lo, in
-// f32's exponent range, and each f16 B fragment is split in registers
-// into bf16 halves (split_f16x2, exact), so acc += hi B_hi + lo B_hi +
-// hi B_lo, three bf16 products (lo B_lo, ~2^-18 of a term, is left out).
-template <int D>
-__device__ __forceinline__ void mma_split_cols(float (*acc)[4],
-                                               const uint32_t hi[4],
-                                               const uint32_t lo[4],
-                                               const __half* tile, int k0,
-                                               int lane) {
-#pragma unroll
-  for (int d2 = 0; d2 < D / 16; ++d2) {
-    uint32_t b[4], bh[4], bl[4];
-    ldmatrix_x4_trans(b, b_frag_trans_at(tile, FlashTile<D>::LD, k0,
-                                         16 * d2, lane));
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_f16x2(b[i], &bh[i], &bl[i]);
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      float* c = acc[2 * d2 + n];
-      mma_bf16_16816(c, lo, bh[2 * n], bh[2 * n + 1]);
-      mma_bf16_16816(c, hi, bl[2 * n], bl[2 * n + 1]);
-      mma_bf16_16816(c, hi, bh[2 * n], bh[2 * n + 1]);
-    }
-  }
 }
 
 // Two f32 values rounded to the element type E's packed pair (lo in the

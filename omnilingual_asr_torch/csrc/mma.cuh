@@ -2,10 +2,10 @@
 // global -> shared copies (cp.async), shared -> register fragment loads
 // (ldmatrix) and the m16n8k16 matrix products with f32 accumulation
 // (mma.sync), bf16, f16 and int8, the f32 -> bf16 or scaled f16 hi + lo
-// splits, the f16 -> bf16 hi + lo split, and the tf32 m16n8k8 product
-// with its 3xTF32 split. Used by the flash-attention
-// kernels (K2, attention.cu; K6 and K7, attention_bwd.cu; bf16 and f16)
-// through flash.cuh, by the f32 K6 and K7 (attention_f32.cu), by the conv
+// splits, and the tf32 m16n8k8 product with its 3xTF32 split. Used by the
+// flash-attention kernels (K2, attention.cu; K6 and K7, attention_bwd.cu;
+// bf16 and f16) through flash.cuh, by the f16 K2 (attention_f16.cu, its
+// P split), by the f32 K6 and K7 (attention_f32.cu), by the conv
 // module (K3, conv_module.cu) and by the W8A16 and W8A8 matmuls (K4, K5,
 // quant.cu).
 //
@@ -241,22 +241,6 @@ __device__ __forceinline__ void split_a_frag_f16(float (*c)[4],
   split_f16(c[0][2], c[0][3], s[1], &hi[1], &lo[1]);
   split_f16(c[1][0], c[1][1], s[0], &hi[2], &lo[2]);
   split_f16(c[1][2], c[1][3], s[1], &hi[3], &lo[3]);
-}
-
-// A pair of f16 values (a b32 fragment register) as two bf16 pairs whose
-// sum it is exactly: hi = bf16(x), lo = x - hi. An f16 value has 11
-// significant bits and lies within bf16's range (subnormals included), so
-// x - hi is exact in f32 and has at most 3 significant bits: lo is exact
-// in bf16. A product of an f32 value split as bf16 hi + lo with x then
-// needs no f16 rounding of the f32 side, whose range f16 lacks (the f16
-// K2; the f16 K6 and K7 scale their f32 side into f16's range instead).
-__device__ __forceinline__ void split_f16x2(uint32_t x, uint32_t* hi,
-                                            uint32_t* lo) {
-  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&x));
-  __nv_bfloat162 h = __floats2bfloat162_rn(f.x, f.y);
-  const float2 hf = __bfloat1622float2(h);
-  *hi = *reinterpret_cast<uint32_t*>(&h);
-  *lo = pack_bf16(f.x - hf.x, f.y - hf.y);
 }
 
 // f32 -> tf32, rounded to nearest with ties away from zero, as an f32 bit

@@ -21,8 +21,9 @@ TF32 tensor cores, three products a product; their arithmetic in plain
 PyTorch: ``flash_attention_fwd_tf32_emulated`` and
 ``flash_attention_bwd_tf32_emulated``), and f16 (the f16 encoder,
 ``EncoderConfig.dtype == "float16"``) to the kernels built over f16
-operands (``flash_attention_f16``: the bf16 K2 with S on f16 tensor cores
-and V split into two bf16 halves; ``flash_attention_bwd_dq_f16`` and
+operands (``flash_attention_f16``: ``csrc/attention_f16.cu``, on Hopper's
+wgmma and TMA, P x 2^14 split as f16 hi + lo against V native;
+``flash_attention_bwd_dq_f16`` and
 ``flash_attention_bwd_dkv_f16``: every product on f16 tensor cores, P and
 dS split as f16 hi + lo under exact power-of-two scales; their arithmetic
 in plain PyTorch: ``flash_attention_fwd_f16_emulated`` and
@@ -305,39 +306,9 @@ def _f16_only(q: torch.Tensor) -> None:
                         f"{q.dtype} operands")
 
 
-def _f16_product(eq: str, a: torch.Tensor, b: torch.Tensor, b_lo: bool,
-                 split_dtype) -> torch.Tensor:
-    """einsum(eq, a, b) as the f16 K2 takes its P V product:
-    the f32 a (P) split as ``split_dtype`` hi + lo (bf16 in the
-    kernel), the f16 b split exactly into bf16 hi + lo, and a_hi b_hi +
-    a_lo b_hi + a_hi b_lo summed in f32 (``b_lo=False`` leaves out the
-    last: b rounded to bf16, the bf16 kernels' arithmetic)."""
-    ah, al = _hi_lo(a, split_dtype)
-    bh, bl = _hi_lo(b.to(torch.float32))
-    out = torch.einsum(eq, ah, bh) + torch.einsum(eq, al, bh)
-    if b_lo:
-        out = out + torch.einsum(eq, ah, bl)
-    return out
-
-
-def flash_attention_fwd_f16_emulated(q, k, v, mask, v_lo: bool = True,
-                                     split_dtype=torch.bfloat16):
-    """The f16 kernel K2's arithmetic (``csrc/attention.cu`` at F16) in
-    plain PyTorch, to show on the CPU what its products do to o and lse:
-    the key tiles and online softmax of :func:`flash_attention_emulated`,
-    s an f32 sum of exact products of the f16 values, and P V as
-    :func:`_f16_product` takes it (``v_lo=False``: V rounded to bf16;
-    ``split_dtype=torch.float16``: P split in f16, both planted faults).
-    Same arguments and results as :func:`flash_attention_plain`; f16
-    operands only."""
-    _f16_only(q)
-    out, lse = _emulated_fwd(q, k, v, mask, lambda p, vt: _f16_product(
-        "bhts,bhsd->bhtd", p, vt, v_lo, split_dtype))
-    return out.to(q.dtype), lse
-
-
-#: The f16 K6 and K7's scales (``csrc/attention_bwd.cu``): P times
-#: 2^F16_P_EXP for dV = P^T dO; dS under an exponent e a row of the
+#: The f16 K2, K6 and K7's scales (``csrc/attention_f16.cu``,
+#: ``csrc/attention_bwd.cu``): P times 2^F16_P_EXP for O = P V and
+#: dV = P^T dO; dS under an exponent e a row of the
 #: accumulator (a query of dQ, a key of dK), which starts at
 #: F16_EXP_START and, at a step whose largest |dS| of the row m has
 #: floor(log2 m) + e >= F16_EXP_LIMIT, drops to F16_EXP_RESET -
@@ -364,15 +335,52 @@ def _f16_row_exponents(ds: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _f16_scaled_product(eq: str, a: torch.Tensor, b: torch.Tensor, exp,
-                        b_exact: bool) -> torch.Tensor:
-    """einsum(eq, a, b) as the f16 K6 and K7 take a second product: the
+                        b_exact: bool, trunc: bool = False) -> torch.Tensor:
+    """einsum(eq, a, b) as the f16 K2, K6 and K7 take a second product: the
     f32 a (P or dS) times 2^exp (a number, or exponents broadcast over a)
     split as f16 hi + lo, the f16 b as it is (``b_exact=False``: rounded
-    to bf16), a_hi b + a_lo b summed in f32 and times 2^-exp (exact)."""
+    to bf16), a_hi b + a_lo b summed in f32 and times 2^-exp (exact). The
+    split rounds hi to f16 (K6, K7) or, with ``trunc`` (K2), clears the 13
+    low mantissa bits of a 2^exp (h) and takes hi = f16(h), lo = f16(a 2^exp
+    - h)."""
     two = torch.exp2(torch.as_tensor(exp, dtype=torch.float32))
-    hi, lo = _hi_lo(a * two, torch.float16)
+    if trunc:
+        x = (a * two).contiguous()
+        h = (x.view(torch.int32) & -0x2000).view(torch.float32)
+        hi = h.to(torch.float16).to(torch.float32)
+        lo = (x - h).to(torch.float16).to(torch.float32)
+    else:
+        hi, lo = _hi_lo(a * two, torch.float16)
     bf = b.to(torch.float32 if b_exact else torch.bfloat16).to(torch.float32)
     return torch.einsum(eq, hi / two, bf) + torch.einsum(eq, lo / two, bf)
+
+
+def flash_attention_fwd_f16_emulated(q, k, v, mask, v_exact: bool = True):
+    """The f16 kernel K2's arithmetic (``csrc/attention_f16.cu``) in plain
+    PyTorch, to show on the CPU what its products do to o and lse: the key
+    tiles and online softmax of :func:`flash_attention_emulated`, s an f32
+    sum of exact products of the f16 values, and P V as
+    :func:`_f16_scaled_product` takes it: p times 2^F16_P_EXP split as f16
+    hi (p 2^14 with its 13 low mantissa bits cleared) + lo against V exact,
+    two products summed in f32 (the running sum takes the same p, so the
+    scale cancels). The kernel's exp2 of the scaled score (the scale in
+    its argument), its order of sums and the tensor cores' truncation
+    inside a product are not modelled. On
+    ``tests/test_torch_f16.py``'s ragged case ([3, 200, 2, D]) the model
+    differs from the plain version by 3.1e-7 and 4.1e-7 of max|o| in f32
+    at D 64 and 128 and uses 0.60 and 0.72 of the card's gate
+    (``card_cases.TOL_F16_*``) once rounded to f16. Planted fault:
+    ``v_exact=False``, V rounded to bf16 (the bf16 kernel's arithmetic),
+    2.9e-3 and 2.8e-3 of max|o|, 8.5 and 12.5 of the gate. P split in
+    f16 without the scale (its lo half leaves f16's normal range for
+    p < 2^-3) is no planted fault: on that case it reads as the model,
+    0.60 and 0.72 of the gate, because the p it flushes are too small to
+    move o. Same arguments and results as :func:`flash_attention_plain`;
+    f16 operands only."""
+    _f16_only(q)
+    out, lse = _emulated_fwd(q, k, v, mask, lambda p, vt: _f16_scaled_product(
+        "bhts,bhsd->bhtd", p, vt, F16_P_EXP, v_exact, trunc=True))
+    return out.to(q.dtype), lse
 
 
 def flash_attention_bwd_f16_emulated(q, k, v, mask, do, lse, delta,
@@ -537,10 +545,11 @@ flash_attention_f32.launches = 0
 
 def flash_attention_f16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor):
-    """K2 at f16 (``csrc/attention.cu`` over f16 operands, its rounding
-    modelled by :func:`flash_attention_fwd_f16_emulated`): f16 q/k/v, head
-    dim 64 or 128, for a CUDA tensor; the plain version for a CPU
-    tensor."""
+    """K2 at f16 (``csrc/attention_f16.cu``: TMA copies and wgmma
+    products, its rounding modelled by
+    :func:`flash_attention_fwd_f16_emulated`): f16 q/k/v, head dim 64 or
+    128, each 16-byte aligned (TMA's rule; a misaligned operand raises),
+    for a CUDA tensor; the plain version for a CPU tensor."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, mask)
     out = _launch_fwd("omni_flash_fwd_f16", torch.float16, q, k, v, mask)

@@ -1,5 +1,5 @@
-"""Time kernels K6 and K7, bf16, f16 and f32, and the f32 K2 on the card
-at each candidate of their tile and launch-bound constants.
+"""Time kernels K6 and K7, bf16, f16 and f32, and the f32 and f16 K2 on
+the card at each candidate of their tile and launch-bound constants.
 
 Each candidate sets some constants of ``csrc/attention_bwd.cu`` (the bf16
 K6 and K7 and, under ``--f16``, their f16 variants, which share the
@@ -14,7 +14,13 @@ step of a warp takes, ``FWD_MIN_BLOCKS_*`` / ``DQ_MIN_BLOCKS_*`` /
 K2 tile's steps, ``FWD_MTILES_*`` the tiles of 16 query rows a K2 warp
 owns, and at D 64 the tile, step, blocks (and K2's groups and row tiles)
 under ``FWD_FEW_*`` / ``DQ_FEW_*`` / ``DKV_FEW_*`` for a grid too small to
-fill every SM, as the serving batch's). For each, the sweep
+fill every SM, as the serving batch's) or, under ``--f16fwd``, of
+``csrc/attention_f16.cu`` (the f16 K2 on wgmma and TMA, by head dim:
+``FWD16_STAGES_*`` the K/V ring's stages, ``FWD16_MIN_BLOCKS_*`` its
+launch bounds, ``FWD16_OVERLAP_*`` 1 to issue a tile's S before the
+previous tile's softmax; timed at every shape of
+``card_cases.F16_FLASH_SHAPES`` beside SDPA's f16 forward, o held to
+``card_cases.TOL_F16_*`` and lse to ``TOL_F16_LSE``). For each, the sweep
 builds that source with those values through ``ops/sweep.py`` (the
 source's own values first), prints the kernels' registers and spills,
 checks the kernels against their plain versions (bf16: chip_smoke.py's
@@ -32,7 +38,8 @@ repository root:
     python -m omnilingual_asr_torch.ops.flash_bwd_sweep \\
         --bf16 DQ_MIN_BLOCKS_64=3 DKV_MIN_BLOCKS_128=1 \\
         --f16 DKV_MIN_BLOCKS_128=1 \\
-        --f32 DQ_TILE_64=64,DQ_MIN_BLOCKS_64=1 FWD_FEW_SPLIT_64=1
+        --f32 DQ_TILE_64=64,DQ_MIN_BLOCKS_64=1 FWD_FEW_SPLIT_64=1 \\
+        --f16fwd FWD16_OVERLAP_64=1,FWD16_OVERLAP_128=1
 
 each argument one candidate (``NAME=VALUE`` pairs joined by commas). A
 candidate that the source's static_asserts refuse is reported, not fatal.
@@ -48,25 +55,31 @@ import sys
 import torch
 
 from . import attention, cuda_build, sweep
-from .card_cases import (F32_FLASH_SHAPES, TOL_F32_FLASH, TOL_F32_LSE,
-                         f16_share)
+from .card_cases import (F16_FLASH_SHAPES, F32_FLASH_SHAPES, TOL_F16_LSE,
+                         TOL_F32_FLASH, TOL_F32_LSE, f16_share)
 
 SOURCES = {"bf16": "attention_bwd.cu", "f16": "attention_bwd.cu",
-           "f32": "attention_f32.cu"}
+           "f32": "attention_f32.cu", "f16fwd": "attention_f16.cu"}
 KERNELS = {"bf16": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
            "f16": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
            "f32": ("flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel",
-                   "flash_fwd_tf32_kernel")}
+                   "flash_fwd_tf32_kernel"),
+           "f16fwd": ("flash_fwd_f16_kernel",)}
 ENTRIES = {"bf16": ("omni_flash_bwd_dq", "omni_flash_bwd_dkv"),
            "f16": ("omni_flash_bwd_dq_f16", "omni_flash_bwd_dkv_f16"),
-           "f32": ("omni_flash_bwd_dq_f32", "omni_flash_bwd_dkv_f32")}
+           "f32": ("omni_flash_bwd_dq_f32", "omni_flash_bwd_dkv_f32"),
+           "f16fwd": ()}
 # The forward the sweep also checks and times, by group.
-FWD_ENTRIES = {"f32": "omni_flash_fwd_f32"}
+FWD_ENTRIES = {"f32": "omni_flash_fwd_f32", "f16fwd": "omni_flash_fwd_f16"}
+DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16,
+          "f32": torch.float32, "f16fwd": torch.float16}
 # (B, T, H, D, valid keys): chip_smoke.py's training, serving and
-# head-dim-128 cases (card_cases.F16_FLASH_SHAPES are the same).
+# head-dim-128 cases (card_cases.F16_FLASH_SHAPES are the same); the f16
+# K2 at every shape of F16_FLASH_SHAPES.
 SHAPES = {"train": F32_FLASH_SHAPES["training"],
           "serving": F32_FLASH_SHAPES["serving"],
           "d128": F32_FLASH_SHAPES["d128"]}
+GROUP_SHAPES = {"f16fwd": F16_FLASH_SHAPES}
 
 
 class Case:
@@ -75,7 +88,7 @@ class Case:
     time, and launches of a library's K6 and K7 (and f32 K2) into fixed
     outputs."""
 
-    def __init__(self, dev, dtype, B, T, H, D, valid, seed):
+    def __init__(self, dev, dtype, B, T, H, D, valid, seed, fwd=False):
         gen = torch.Generator(device=dev).manual_seed(seed)
         q, k, v, do = (torch.randn(B, T, H, D, generator=gen,
                                    device=dev).to(dtype) for _ in range(4))
@@ -93,7 +106,7 @@ class Case:
         self.f16 = dtype == torch.float16
         self.sdpa_ms = self._sdpa_ms(q, k, v, do)
         self.sdpa_fwd_ms = None
-        if self.f32:
+        if fwd:
             self.fwd_want = (o, lse)
             self.fwd_got = (torch.empty_like(q), torch.empty_like(lse))
             self.sdpa_fwd_ms = self._sdpa_fwd_ms(q, k, v)
@@ -139,14 +152,20 @@ class Case:
             *self.dims, torch.cuda.current_stream().cuda_stream), entry)
 
     def correct_fwd(self) -> bool:
-        """The f32 K2's o and lse against the plain forward's."""
+        """The f32 or f16 K2's o and lse against the plain forward's."""
         torch.cuda.synchronize()
         (o, lse), (want_o, want_lse) = self.fwd_got, self.fwd_want
         live = want_lse < 1e29
         dead_row = ~self.mask.any(dim=1)
-        return (bool(((o - want_o).abs().max()
-                      <= TOL_F32_FLASH * want_o.abs().max()))
-                and bool((lse - want_lse)[live].abs().max() <= TOL_F32_LSE)
+        if self.f16:
+            close = (f16_share(o, want_o) <= 1.0 and bool(
+                (lse - want_lse)[live].abs().max() <= TOL_F16_LSE))
+        else:
+            close = (bool((o - want_o).abs().max()
+                          <= TOL_F32_FLASH * want_o.abs().max())
+                     and bool((lse - want_lse)[live].abs().max()
+                              <= TOL_F32_LSE))
+        return (close
                 and bool((o[dead_row] == 0).all())
                 and bool((lse[~live] == 1e30).all()))
 
@@ -190,11 +209,11 @@ def main(argv=None) -> int:
         jobs.append((group, {}, base))
         jobs += [(group, c, {**base, **c}) for c in cands if c]
     builds = sweep.build_variants([(SOURCES[g], c, g) for g, c, _ in jobs])
-    dtypes = {"bf16": torch.bfloat16, "f16": torch.float16,
-              "f32": torch.float32}
-    cases = {group: {name: Case(dev, dtypes[group], *shape[:4],
-                                list(shape[4]), seed=i)
-                     for i, (name, shape) in enumerate(SHAPES.items())}
+    cases = {group: {name: Case(dev, DTYPES[group], *shape[:4],
+                                list(shape[4]), seed=i,
+                                fwd=group in FWD_ENTRIES)
+                     for i, (name, shape) in enumerate(
+                         GROUP_SHAPES.get(group, SHAPES).items())}
              for group in SOURCES}
     for group, by_shape in cases.items():
         print(json.dumps({"group": group, "sdpa_backward_ms": {
@@ -212,10 +231,12 @@ def main(argv=None) -> int:
                          if k[0].startswith(KERNELS[group])],
                "correct": True, "ms": {}}
         for name, case in cases[group].items():
-            for which in (0, 1):
-                case.launch(lib, which, ENTRIES[group])
-            row["correct"] &= case.correct()
-            for which, kernel in enumerate(("k6", "k7")):
+            if ENTRIES[group]:
+                for which in (0, 1):
+                    case.launch(lib, which, ENTRIES[group])
+                row["correct"] &= case.correct()
+            for which, kernel in enumerate(("k6", "k7")[:len(
+                    ENTRIES[group])]):
                 row["ms"][f"{kernel}_{name}"] = sweep.device_ms(
                     lambda c=case, w=which: c.launch(lib, w, ENTRIES[group]))
             if group in FWD_ENTRIES:

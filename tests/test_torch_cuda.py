@@ -416,6 +416,98 @@ def test_flash_f16_kernels_match_plain(dev, name, scale):
     assert bool((dk[~mask] == 0).all()) and bool((dv[~mask] == 0).all())
 
 
+def _f16_fwd_case(dev, B, T, H, D, valid, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev).half()
+               for _ in range(3))
+    mask = torch.arange(T, device=dev)[None] < torch.tensor(
+        valid, device=dev)[:, None]
+    return q, k, v, mask
+
+
+def _check_f16_fwd(q, k, v, mask, o, lse):
+    o_ref, lse_ref = attention.flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float16
+    assert card_cases.f16_share(o, o_ref, False) <= 1.0
+    live = lse_ref < 1e29
+    assert float((lse - lse_ref)[live].abs().max()) <= card_cases.TOL_F16_LSE
+    assert bool((lse[~live] == 1e30).all())
+    assert bool((o[~mask.any(dim=1)] == 0).all())
+
+
+@pytest.mark.parametrize("B,T,H,D,valid", [
+    # T not a multiple of the 64-row TMA box: the last box's rows past T
+    # are zero-filled by the hardware, still counted by expect_tx
+    (3, 200, 4, 64, [200, 130, 0]),
+    (2, 1000, 2, 64, [1000, 999]),
+    # a fully masked batch slot beside full and one-key rows
+    (4, 256, 2, 64, [0, 256, 1, 0]),
+    # D 128: two boxes of 64 columns a tile
+    (2, 1000, 2, 128, [1000, 0]),
+    (3, 77, 1, 128, [77, 1, 0])])
+def test_flash_f16_forward_edges(dev, B, T, H, D, valid):
+    """The f16 K2 (csrc/attention_f16.cu, TMA and wgmma) where its copies
+    reach past T, a slot is fully masked and D 128 takes two boxes a tile:
+    o and lse against the plain forward within card_cases.TOL_F16_*, one
+    launch counted, fully masked rows exactly 0 and lse +1e30."""
+    q, k, v, mask = _f16_fwd_case(dev, B, T, H, D, valid, T + D)
+    before = attention.flash_attention_f16.launches
+    o, lse = attention.flash_attention(q, k, v, mask)
+    assert attention.flash_attention_f16.launches == before + 1
+    _check_f16_fwd(q, k, v, mask, o, lse)
+
+
+def test_flash_f16_forward_takes_aligned_views(dev):
+    """q, k and v as contiguous views of one larger allocation at offsets
+    that keep them 16-byte aligned (8 f16 elements and more): the same
+    o and lse, bit for bit, as from separate tensors."""
+    B, T, H, D = 2, 200, 2, 64
+    q, k, v, mask = _f16_fwd_case(dev, B, T, H, D, [200, 150], 23)
+    n = q.numel()
+    buf = torch.zeros(3 * n + 64, dtype=torch.float16, device=dev)
+    views = []
+    for i, (x, off) in enumerate(zip((q, k, v), (8, 24, 40))):
+        view = buf[i * n + off:(i + 1) * n + off].view(B, T, H, D)
+        view.copy_(x)
+        assert view.data_ptr() % 16 == 0 and view.data_ptr() % 64 != 0
+        views.append(view)
+    o, lse = attention.flash_attention_f16(q, k, v, mask)
+    ov, lsev = attention.flash_attention_f16(*views, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(o, ov) and torch.equal(lse, lsev)
+    _check_f16_fwd(q, k, v, mask, ov, lsev)
+
+
+def test_flash_f16_forward_refuses_a_misaligned_pointer(dev):
+    """An f16 operand 2 bytes off a 16-byte boundary: the wrapper raises
+    and launches nothing, and the C entry point itself refuses to encode
+    its tensor map (no fallback to another kernel)."""
+    import math
+
+    from omnilingual_asr_torch.ops import cuda_build
+
+    B, T, H, D = 1, 64, 1, 64
+    q, k, v, mask = _f16_fwd_case(dev, B, T, H, D, [64], 5)
+    buf = torch.zeros(q.numel() + 8, dtype=torch.float16, device=dev)
+    bad = buf[1:1 + q.numel()].view(B, T, H, D)
+    bad.copy_(q)
+    before = attention.flash_attention_f16.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention.flash_attention_f16(bad, k, v, mask)
+    assert attention.flash_attention_f16.launches == before
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, T, device=dev)
+    m32 = mask.to(torch.int32)
+    lib = cuda_build.library()
+    err = lib.omni_flash_fwd_f16(
+        bad.data_ptr(), k.data_ptr(), v.data_ptr(), m32.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), B, T, H, D, 1.0 / math.sqrt(D),
+        cuda_build.stream_ptr(dev))
+    assert err != 0
+    assert b"16-byte" in lib.omni_error_string(err)
+
+
 def test_flash_f16_function_grads_match_plain(dev):
     """FlashAttention at f16 on the card (the f16 K2, K6, K7) against the
     plain backward from the plain forward on the same inputs, within

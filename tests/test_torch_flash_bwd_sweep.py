@@ -1,4 +1,4 @@
-"""PyTorch port: the K6/K7 (and f32 K2) sweep's hold on the CUDA sources
+"""PyTorch port: the K6/K7 (and f32 and f16 K2) sweep's hold on the CUDA sources
 (``ops/flash_bwd_sweep.py`` through ``ops/sweep.py``), and the f32 K2's
 parts (``ops/k2_f32_parts.py``). Both run on the card; these check, on
 the CPU, that the constants the sweep sets exist in the sources as it
@@ -36,14 +36,18 @@ TUNED = {"bf16": ("DQ_MIN_BLOCKS_64", "DQ_MIN_BLOCKS_128",
                       for what in ("TILE", "STEP", "MIN_BLOCKS",
                                    "FEW_TILE", "FEW_STEP", "FEW_MIN_BLOCKS")
                       for d in (64, 128) if d == 64 or "FEW" not in what)
-         + FWD}
+         + FWD,
+         # the f16 K2's ring stages, launch bounds and two-warpgroup grids
+         "f16fwd": tuple(f"FWD16_{what}_{d}" for what in (
+             "STAGES", "MIN_BLOCKS", "SPLIT_BLOCKS") for d in (64, 128))}
 
 
 @pytest.mark.parametrize("group", sorted(TUNED))
 def test_every_tuned_constant_is_in_the_source(group):
     values = sweep.source_values(fsweep.SOURCES[group], TUNED[group])
     assert set(values) == set(TUNED[group])
-    assert all(v > 0 for v in values.values())
+    assert all(v > 0 for k, v in values.items() if "SPLIT_BLOCKS" not in k)
+    assert all(v >= 0 for v in values.values())
     with pytest.raises(ValueError, match="no constant NOT_A_CONSTANT"):
         sweep.source_values(fsweep.SOURCES[group],
                             TUNED[group] + ("NOT_A_CONSTANT",))
@@ -80,7 +84,8 @@ def test_f32_forward_tiles_hold_whole_steps(d, few):
 
 @pytest.mark.parametrize("group,name", [("bf16", "DQ_MIN_BLOCKS_64"),
                                         ("f32", "DKV_STEP_128"),
-                                        ("f32", "FWD_FEW_SPLIT_64")])
+                                        ("f32", "FWD_FEW_SPLIT_64"),
+                                        ("f16fwd", "FWD16_STAGES_64")])
 def test_variant_dir_sets_one_constant(group, name, tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "BUILD_ROOT", tmp_path)
     src = fsweep.SOURCES[group]
@@ -111,7 +116,9 @@ def test_sweep_shapes_are_the_cards():
         "train": card_cases.F32_FLASH_SHAPES["training"],
         "serving": card_cases.F32_FLASH_SHAPES["serving"],
         "d128": card_cases.F32_FLASH_SHAPES["d128"]}
-    assert set(fsweep.SOURCES) == set(fsweep.KERNELS) == set(fsweep.ENTRIES)
+    assert fsweep.GROUP_SHAPES == {"f16fwd": card_cases.F16_FLASH_SHAPES}
+    assert (set(fsweep.SOURCES) == set(fsweep.KERNELS) == set(fsweep.ENTRIES)
+            == set(fsweep.DTYPES))
     for entries in fsweep.ENTRIES.values():
         assert all(e in cuda_build._SIGNATURES for e in entries)
     assert set(fsweep.FWD_ENTRIES) <= set(fsweep.SOURCES)
@@ -130,8 +137,12 @@ def test_sweep_shapes_are_the_cards():
      "f32_kernelILi64EEEvPKfS2_S2_PKiPfS5_iif", "flash_fwd_f32_kernel<64>"),
     ("_ZN49_GLOBAL__N__0f1a5c70_16_attention_f32_cu_5e4899e021flash_fwd_"
      "tf32_kernelILi64ELb1EEEvPKfS2_S2_PKiPfS5_iif",
-     "flash_fwd_tf32_kernel<64, true>")])
+     "flash_fwd_tf32_kernel<64, true>"),
+    ("_ZN49_GLOBAL__N__fab89847_16_attention_f16_cu_6b133f7b20flash_fwd_"
+     "f16_kernelILi64ELi2EEEv14CUtensorMap_stS1_S1_PKiP6__halfPfiif",
+     "flash_fwd_f16_kernel<64, 2>")])
 def test_kernel_names_carry_their_template_arguments(mangled, name):
     """ptxas's log names the f32 K2, K6 and K7 by head dim and tile
-    choice; the sweep and chip_smoke.py pick their lines by these names."""
+    choice, the f16 K2 by head dim and warpgroups a block; the sweep and
+    chip_smoke.py pick their lines by these names."""
     assert cuda_build.kernel_name(mangled) == name
