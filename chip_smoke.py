@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100 SXM:
 
-    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4o)
+    python3 chip_smoke.py              # phases 1-5 (4, 4b, 4d-4p)
     python3 chip_smoke.py --profile    # and phase 4c before the report, and
                                        # phase 4l's step profiles
 
@@ -314,6 +314,24 @@ with no result line:
              launches exactly: the f16 K2, K6, K7 and K3 12 each), one f16
              update on the card against the CPU (``TOL_GRAD_REL``, the
              worst leaf printed).
+4p. checkpoints - Orbax checkpoints without JAX (``checkpoint/``): (a)
+             the committed fixture ``testdata/orbax_jax/`` (the JAX
+             package's saves) read by the port, every leaf equal to its
+             ``.npz`` twin bit for bit, and the zstd decoder's (libzstd) MB/s
+             on its chunks on this host; (b) the d512 seed and a
+             translator from init written by the port as Orbax ``asr/``
+             and ``translator/``, and a ``train_state.npz`` in the JAX
+             trainer's layout (random moments, a step, count and score),
+             read back bit for bit (write and read seconds beside
+             ``np.load`` of the ``.npz``), then ``train_synth`` resumed
+             from it, ``PipelineConfig()``, kernel mode, batch 16 of 8 s,
+             3 steps: before step 1 the trunk equals the ``.npz``, the
+             translator the one written, and Adam's moments, count, the
+             step and the score what was written; finite losses, each
+             step's launches exactly as in phase 4b; (c) an engine built from the release
+             ASR written as an Orbax directory serves the golden file,
+             held to ``golden.json``, its greedy ids identical to the
+             ``.npz`` engine's.
 4c. profile - (``--profile`` only) median request seconds over 3 warm runs
              and the StageTrace stages at 30, 120 and 330 s of audio (1, 1
              and 3 batches); 120 s requests of the unquantized, a8 and w8
@@ -327,8 +345,8 @@ with no result line:
 5. report  - one ``{"kernels": [...]}`` line (K1-K7 and the f32 and f16
              K2, K6, K7; ``launches`` summed over the serving, training,
              decoders, server, d512, evals, trainers, rest_of_training,
-             mesh, tp, mesh_training, f32_moe_mesh, multiprocess and f16
-             paths,
+             mesh, tp, mesh_training, f32_moe_mesh, multiprocess, f16 and
+             checkpoints paths,
              K3's whole
              and split over a model axis (one a shard),
              by path beside it), the
@@ -2866,13 +2884,15 @@ def run_server(engine, smi: str) -> dict:
 # Phase 4b: kernel-mode training through train_synth
 # ---------------------------------------------------------------------------
 
-def run_train(dev):
-    """``train_synth`` with ``pallas_kernels=True`` for TRAIN_STEPS steps at
-    ``PipelineConfig()`` dims from a seeded init. For this run only, a
+def _drive_train_synth(label, dev, steps, first=None, **train_kwargs):
+    """``train_synth`` in kernel mode for ``steps`` steps at
+    ``PipelineConfig()`` dims, batch TRAIN_BATCH. For this run only, a
     subclass of ``SynthBatcher`` times the host's wait for each batch, and
     the train step that ``make_train_step`` returns is wrapped to read the
-    launch counts and the parameters after each update. Returns the
-    training path's launches of each kernel."""
+    launch counts (exactly K1 once, K2, K3, K6 and K7 once a layer) and
+    the parameters after each update; ``first(params, opt_state)`` sees
+    the parameters and the optimizer before the first. Returns (launches of each kernel,
+    parameter snapshots after steps 1 and 2, the best score)."""
     import torch
     from omnilingual_asr_torch.config import PipelineConfig
     from omnilingual_asr_torch.train import synth_train
@@ -2894,24 +2914,26 @@ def run_train(dev):
 
     total = {k: 0 for k in per_step}
     snaps, times = [], [time.perf_counter()]
+    steps_seen = []
 
     def after_step(step, params, metrics):
         torch.cuda.synchronize()
         now = time.perf_counter()
         counts = _read_counters()
         m = {k: float(v) for k, v in metrics.items()}
-        log("  train step " + json.dumps({
+        log(f"  {label} step " + json.dumps({
             "step": step, **m, "step_s": now - times[-1],
             "batch_wait_s": waits[-1], "launches": counts}))
         times.append(now)
         if not all(math.isfinite(v) for v in m.values()):
-            raise PhaseError(f"step {step}: non-finite metrics {m}")
+            raise PhaseError(f"{label} step {step}: non-finite metrics {m}")
         for name, n in per_step.items():
             if counts[name] != n:
-                raise PhaseError(f"step {step}: {name} launched "
+                raise PhaseError(f"{label} step {step}: {name} launched "
                                  f"{counts[name]} times, expected {n}")
             total[name] += counts[name]
-        if step <= 2:
+        steps_seen.append(step)
+        if len(steps_seen) <= 2:
             snaps.append([p.detach().clone() for p in tree_leaves(params)])
 
     make_train_step = synth_train.make_train_step
@@ -2921,6 +2943,8 @@ def run_train(dev):
                                                                  **kwargs)
 
         def watched_train_step(params, opt_state, batch, step):
+            if first is not None and not steps_seen:
+                first(params, opt_state)
             out = train_step(params, opt_state, batch, step)
             after_step(step + 1, out[0], out[3])
             return out
@@ -2933,25 +2957,36 @@ def run_train(dev):
     synth_train.make_train_step = watched_make_train_step
     try:
         params, best = synth_train.train_synth(
-            steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, cfg=PipelineConfig(),
+            steps=steps, batch_size=TRAIN_BATCH, cfg=PipelineConfig(),
             seed=SEED, pallas_kernels=True, device=dev, log_every=1,
-            eval_every=1000)
+            eval_every=1000, **train_kwargs)
     finally:
         synth_train.SynthBatcher = synth_batcher
         synth_train.make_train_step = make_train_step
     torch.cuda.synchronize()
-    log(f"  evaluation launches {json.dumps(_read_counters())}; best synth "
-        f"WER {best}")
-    if len(snaps) < 2:
-        raise PhaseError(f"{len(snaps)} train steps were watched, expected "
-                         f"{TRAIN_STEPS}")
+    log(f"  {label}: evaluation launches {json.dumps(_read_counters())}; "
+        f"best synth WER {best}; host batch waits "
+        f"{[round(w, 4) for w in waits]} s")
+    if len(steps_seen) != steps:
+        raise PhaseError(f"{label}: {len(steps_seen)} train steps were "
+                         f"watched, expected {steps}")
+    return total, snaps, best
+
+
+def run_train(dev):
+    """``train_synth`` with ``pallas_kernels=True`` for TRAIN_STEPS steps at
+    ``PipelineConfig()`` dims from a seeded init, each step's launches
+    exact (:func:`_drive_train_synth`). Returns the training path's
+    launches of each kernel."""
+    import torch
+
+    total, snaps, _ = _drive_train_synth("train", dev, TRAIN_STEPS)
     moved = sum(int(not torch.equal(a, b)) for a, b in zip(*snaps))
     if moved == 0:
         raise PhaseError("the parameters after step 2 equal those after "
                          "step 1 (the first update has learning rate 0, the "
                          "second must move them)")
-    log(f"  {moved} of {len(snaps[0])} parameter leaves moved in step 2; "
-        f"host batch waits {[round(w, 4) for w in waits]} s")
+    log(f"  {moved} of {len(snaps[0])} parameter leaves moved in step 2")
     return total
 
 
@@ -5961,6 +5996,252 @@ def run_multiprocess(dev, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4p: Orbax checkpoints, read and written without JAX
+# ---------------------------------------------------------------------------
+
+CKPT_TRAIN_STEPS = 3         # train_synth steps resumed from a JAX layout
+CKPT_RESUME = (7, 7, 0.0625)  # the written step, Adam count, best score
+CKPT_DECODE_ROUNDS = 5       # timed decodes of the fixture's chunks
+
+
+def _same_leaves(label, got: dict, want: dict) -> None:
+    """Equal keys; every leaf equal bit for bit, dtype and shape too."""
+    import numpy as np
+
+    if sorted(got) != sorted(want):
+        raise PhaseError(f"{label}: keys differ ({len(got)} against "
+                         f"{len(want)})")
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if (g.dtype, g.shape) != (w.dtype, w.shape) or \
+                g.tobytes() != w.tobytes():
+            raise PhaseError(f"{label}: leaf {k} differs")
+
+
+def _jax_layout_train_state(tree, step: int, count: int, best: float):
+    """A ``train_state.npz`` as the JAX trainer's ``save_train_state``
+    writes it, without JAX: the leaves of its optimizer chain
+    (``clip_by_global_norm``, ``zero_nans``, ``adamw``) as ``l00000``...,
+    that is N ``found_nan`` flags, Adam's count, N first moments, N second
+    moments and the schedule's count, each group in JAX's leaf order (a
+    dict's keys sorted), then ``__step__`` and ``__best__``. The moments
+    are random (seeded). Returns (the file's arrays, {keystr: (first,
+    second moment)})."""
+    import numpy as np
+    from omnilingual_asr_torch.models import zoo
+
+    flat = zoo.flatten(tree)
+    rng = np.random.default_rng(SEED)
+    moments = {}
+    for k, v in flat.items():
+        m = (rng.random(tuple(v.shape), np.float32) - 0.5) * 2e-3
+        moments[k] = (m, rng.random(tuple(v.shape), np.float32) * 1e-6
+                      + 1e-6)
+    order = sorted(flat, key=zoo.parse_keystr)
+    n = len(order)
+    state = {f"l{j:05d}": np.asarray(False) for j in range(n)}
+    state[f"l{n:05d}"] = np.asarray(count, np.int32)
+    for j, k in enumerate(order):
+        state[f"l{n + 1 + j:05d}"] = moments[k][0]
+        state[f"l{2 * n + 1 + j:05d}"] = moments[k][1]
+    state[f"l{3 * n + 1:05d}"] = np.asarray(count, np.int32)
+    state["__step__"] = np.asarray(step, np.int64)
+    state["__best__"] = np.asarray(best, np.float64)
+    return state, moments
+
+
+def _golden_ids(engine) -> list:
+    """The engine's greedy CTC ids over the golden file's windows."""
+    from omnilingual_asr_torch import testing as golden
+
+    samples = engine._load_audio(golden.GOLDEN_WAV)
+    windows = engine._windows(samples)
+    n_last = len(samples) - (len(windows) - 1) * engine.window_samples
+    return [o["ctc_ids"].astype(int).tolist()
+            for outs in engine._forward_batches(windows, n_last)
+            for o in outs]
+
+
+def run_checkpoints(dev, cfg, params, xvector, npz_engine, smi) -> dict:
+    """Phase 4p. (a) The committed fixture ``testdata/orbax_jax/`` (written
+    by the JAX package's Orbax saves) read by the port, every leaf equal to
+    its ``.npz`` twin, and the zstd decoder's (libzstd) rate on its chunks;
+    (b) the d512 seed and a translator written as Orbax directories by the
+    port, and a train state in the JAX trainer's layout (random moments,
+    CKPT_RESUME's step, count and score) beside them, read back bit for
+    bit, then ``train_synth`` resumed from that directory in kernel mode
+    for CKPT_TRAIN_STEPS steps: before step 1 the trunk equals the
+    ``.npz``, the translator the one written, and the optimizer's moments,
+    count, step and score what was written; finite losses, each step's
+    launches exact; (c) an engine built from the release ASR
+    written as an Orbax directory serves the golden file, held to
+    ``golden.json``, with greedy ids identical to the ``.npz`` engine's.
+    Returns the launches of each kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from omnilingual_asr_torch import testing as golden
+    from omnilingual_asr_torch.checkpoint import ocdbt, orbax, zstd
+    from omnilingual_asr_torch.config import PipelineConfig
+    from omnilingual_asr_torch.engine import TranscriptionEngine
+    from omnilingual_asr_torch.models import translation, zoo
+    from omnilingual_asr_torch.train import synth_train
+
+    work = PKG / "_build" / "checkpoints"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    total: dict = {}
+    try:
+        # (a) the fixture
+        fixture = PKG / "testdata" / "orbax_jax"
+        with np.load(PKG / "testdata" / "orbax_jax_twin.npz") as z:
+            twin = {k: z[k] for k in z.files}
+        t0 = time.perf_counter()
+        got = {zoo.keystr((part,) + p): v for part in ("asr", "translator")
+               for p, v in orbax.read_flat(fixture / part).items()}
+        read_s = time.perf_counter() - t0
+        _same_leaves("(a) fixture", got, twin)
+        chunks = []
+        for part in ("asr", "translator"):
+            store = ocdbt.Store(fixture / part)
+            chunks += [store.read(k) for k in store.list()
+                       if not k.endswith(".zarray")]
+        decoded, secs = 0, []
+        for _ in range(CKPT_DECODE_ROUNDS):
+            t0 = time.perf_counter()
+            decoded = sum(len(zstd.decompress(c)) for c in chunks)
+            secs.append(time.perf_counter() - t0)
+        log("  checkpoints (a) fixture " + json.dumps({
+            "leaves": len(got), "equal_to_twin": True, "chunks": len(chunks),
+            "decoded_mb": decoded / 1e6, "read_flat_s": read_s,
+            "zstd_decode_s_median": statistics.median(secs),
+            "zstd_mb_s": decoded / 1e6 / statistics.median(secs),
+            "clock": "host (the card's machine)"}))
+
+        # (b) a JAX-layout run directory, resumed in kernel mode
+        dcfg = PipelineConfig()
+        t0 = time.perf_counter()
+        with np.load(D512) as z:
+            seed_npz = {k: z[k].astype(np.float32) for k in z.files}
+        npz_s = time.perf_counter() - t0
+        seed = zoo.load_checkpoint(D512, dcfg)
+        trans = translation.translator_init(
+            torch.Generator().manual_seed(SEED), dcfg)
+        run = work / "jax_layout"
+        t0 = time.perf_counter()
+        zoo.save_checkpoint(run / "asr", seed)
+        write_s = time.perf_counter() - t0
+        translation.save_translator(run / "translator", trans)
+        want_trans = {k: v.numpy() for k, v in zoo.flatten(trans).items()}
+        step, count, best = CKPT_RESUME
+        state, moments = _jax_layout_train_state(
+            {"asr": seed, "translator": trans}, step, count, best)
+        np.savez(run / "train_state.npz", **state)
+        t0 = time.perf_counter()
+        back = {zoo.keystr(p): v
+                for p, v in orbax.read_flat(run / "asr").items()}
+        read_s = time.perf_counter() - t0
+        _same_leaves("(b) d512 seed", back, seed_npz)
+        _same_leaves("(b) translator", {
+            k: v.numpy() for k, v in zoo.flatten(translation.load_translator(
+                run / "translator", dcfg)).items()}, want_trans)
+        with np.load(run / "train_state.npz") as z:
+            _same_leaves("(b) train_state.npz", {k: z[k] for k in z.files},
+                         state)
+        mb = sum(v.nbytes for v in back.values()) / 1e6
+        log("  checkpoints (b) d512 seed as Orbax " + json.dumps({
+            "leaves": len(back), "mb": mb, "write_s": write_s,
+            "read_s": read_s, "npz_load_s": npz_s,
+            "clock": "host (the card's machine)"}))
+
+        restored = []
+        load_train_state = synth_train.load_train_state
+
+        def recording(*args, **kwargs):
+            out = load_train_state(*args, **kwargs)
+            restored.append(out[1:])
+            return out
+
+        def first(p, opt_state):
+            _same_leaves("(b) the trunk before step 1", {
+                k: v.detach().cpu().numpy()
+                for k, v in zoo.flatten(p["asr"]).items()}, seed_npz)
+            _same_leaves("(b) the translator before step 1", {
+                k: v.detach().cpu().numpy()
+                for k, v in zoo.flatten(p["translator"]).items()},
+                want_trans)
+            keys = list(zoo.flatten(p))
+            if len(keys) != len(opt_state.leaves):
+                raise PhaseError("(b) the optimizer's leaves do not follow "
+                                 "the parameter tree")
+            got = {}
+            for k, leaf in zip(keys, opt_state.leaves):
+                st = opt_state.opt.state.get(leaf, {})
+                if "exp_avg" not in st:
+                    raise PhaseError(f"(b) no restored moments for {k}")
+                got[k] = tuple(st[m].detach().cpu().numpy()
+                               for m in ("exp_avg", "exp_avg_sq"))
+            _same_leaves("(b) first moments before step 1",
+                         {k: m for k, (m, _) in got.items()},
+                         {k: m for k, (m, _) in moments.items()})
+            _same_leaves("(b) second moments before step 1",
+                         {k: v for k, (_, v) in got.items()},
+                         {k: v for k, (_, v) in moments.items()})
+            if int(opt_state.count) != count:
+                raise PhaseError(f"(b) Adam's count {opt_state.count}, "
+                                 f"{count} written")
+
+        synth_train.load_train_state = recording
+        try:
+            counts, _, _ = _drive_train_synth(
+                "checkpoints (b) resumed", dev, CKPT_TRAIN_STEPS,
+                first=first, resume_from=str(run))
+        finally:
+            synth_train.load_train_state = load_train_state
+        if restored != [(step, best)]:
+            raise PhaseError(f"(b) the train state restored as {restored}, "
+                             f"written as step {step}, best {best}")
+        log("  checkpoints (b) resumed " + json.dumps({
+            "step": step, "count": count, "best": best,
+            "moments_equal": True, "translator_equal": True}))
+        _add(total, counts)
+
+        # (c) serving from an Orbax directory
+        rel = work / "release_asr"
+        t0 = time.perf_counter()
+        zoo.save_checkpoint(rel, params)
+        write_s = time.perf_counter() - t0
+        engine = TranscriptionEngine(
+            config=cfg.replace(checkpoint_path=str(rel)),
+            xvector_params=xvector, device=dev)
+        L = cfg.encoder.n_layers
+        results, counts = drive_path(
+            "checkpoints (c) orbax engine",
+            lambda path, cb: engine.transcribe(
+                path, progress_callback=cb).to_dict(),
+            engine, [("golden", golden.GOLDEN_WAV)],
+            {"log_mel_frames": 1, "flash_attention": L,
+             "fused_conv_module": L, "quantized_matmul": 0,
+             "quantized_matmul_a8": 0, "flash_attention_bwd_dq": 0,
+             "flash_attention_bwd_dkv": 0})
+        _add(total, counts)
+        check_golden("checkpoints (c) orbax engine", engine, results[0])
+        _read_counters()
+        if _golden_ids(engine) != _golden_ids(npz_engine):
+            raise PhaseError("(c) the Orbax engine's greedy ids differ from "
+                             "the .npz engine's")
+        _read_counters()
+        log("  checkpoints (c) release ASR as Orbax " + json.dumps({
+            "write_s": write_s, "golden": "held to golden.json",
+            "ids_equal_to_npz_engine": True}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  checkpoints launches {json.dumps(total)} ({smi})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 4o: the f16 encoder
 # ---------------------------------------------------------------------------
 
@@ -6333,6 +6614,12 @@ def main(argv=None) -> int:
         f16 = run_f16(dev, cfg, params, xvector, smi)
         log(f"[f16] ok ({time.perf_counter() - t0:.2f} s)")
 
+        phase = "checkpoints"
+        t0 = time.perf_counter()
+        checkpoints = run_checkpoints(dev, cfg, params, xvector,
+                                      engines["unquantized"], smi)
+        log(f"[checkpoints] ok ({time.perf_counter() - t0:.2f} s)")
+
         if args.profile:
             phase = "profile"
             t0 = time.perf_counter()
@@ -6364,7 +6651,7 @@ def main(argv=None) -> int:
                  "rest_of_training": rest, "mesh": mesh, "tp": tp_path,
                  "mesh_training": mesh_training,
                  "f32_moe_mesh": f32_moe_mesh, "multiprocess": multiprocess,
-                 "f16": f16}
+                 "f16": f16, "checkpoints": checkpoints}
         line = {"kernels": []}
         for k in kernels:
             fns = by_fn[k["name"]]

@@ -576,8 +576,10 @@ def tokens_to_text(tokens, vocab) -> str:
 # ---------------------------------------------------------------------------
 
 def save_translator(path, params) -> None:
-    """Write decoder parameters as one f32 ``.npz`` in the release's keystr
-    layout (``models/zoo.py::save_checkpoint``)."""
+    """Write decoder parameters where both packages' ``load_translator``
+    read them: one f32 ``.npz`` in the release's keystr layout, or an Orbax
+    checkpoint directory for any other path
+    (``models/zoo.py::save_checkpoint``)."""
     from .zoo import save_checkpoint
 
     save_checkpoint(path, params)
@@ -585,28 +587,24 @@ def save_translator(path, params) -> None:
 
 def load_translator(path, cfg: PipelineConfig, n_layers: int = N_LAYERS,
                     device="cpu"):
-    """Load decoder parameters saved by :func:`save_translator` or a JAX
-    release ``.npz``, validated against the shape tree of the init, as
-    host tensors unless ``device`` says otherwise (the callers place
-    them).
+    """Load decoder parameters saved by :func:`save_translator`, a JAX
+    release ``.npz`` or the JAX package's Orbax ``save_translator``,
+    validated against the shape tree of the init, as host tensors unless
+    ``device`` says otherwise (the callers place them).
 
     A text-mode checkpoint (a ``"src"`` subtree) loads against
     :func:`text_translator_param_shapes`; a fact-conditioned summarizer's
     scalar ``"fact_cond"`` marker is kept. A checkpoint from before the
     learned position table gets a zero table, which reproduces its forward
-    exactly, as the reference's loader does."""
-    from .zoo import load_release
+    exactly, as the reference's loader does. Which of these a checkpoint
+    is comes from its keys (an Orbax directory's metadata), as in the
+    reference."""
+    from .zoo import parse_keystr, read_arrays, tree_from_arrays
 
-    path = Path(path)
-    if path.suffix != ".npz":
-        raise NotImplementedError(
-            f"{path}: only .npz translator checkpoints load in the port "
-            f"(Orbax checkpoints need JAX)")
-    with np.load(path) as z:
-        files = set(z.files)
-    has_pos = "['pos']" in files
-    has_src = any(k.startswith("['src']") for k in files)
-    has_fact = "['fact_cond']" in files
+    arrays, source = read_arrays(path)
+    top = {parse_keystr(k)[0] for k in arrays}
+    has_pos, has_src, has_fact = "pos" in top, "src" in top, \
+        "fact_cond" in top
     if has_src:
         shapes = text_translator_param_shapes(cfg, n_layers)
     else:
@@ -615,7 +613,7 @@ def load_translator(path, cfg: PipelineConfig, n_layers: int = N_LAYERS,
             shapes.pop("pos")
     if has_fact:
         shapes["fact_cond"] = ()
-    params = load_release(path, shapes, device)
+    params = tree_from_arrays(arrays, shapes, source, device)
     if not has_src and not has_pos:
         params["pos"] = torch.zeros((MAX_TARGET_LEN, cfg.encoder.d_model),
                                     device=device)

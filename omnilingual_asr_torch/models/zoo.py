@@ -8,6 +8,11 @@ the JAX package's structure), validates every leaf against the shape tree
 of the configuration, and casts up on load. :func:`save_checkpoint` writes
 the same layout in f32 (the port's training checkpoints), which this
 module's and the JAX package's ``load_checkpoint`` both read.
+
+A path that is not an ``.npz`` is an Orbax checkpoint directory, the
+layout of the JAX package's ``save_checkpoint``: :func:`load_checkpoint`
+reads it and :func:`save_checkpoint` writes it through
+``checkpoint/orbax.py``, without JAX.
 """
 
 from __future__ import annotations
@@ -105,13 +110,25 @@ def flatten(tree, path=()):
 
 
 def save_checkpoint(path, params) -> None:
-    """Write a parameter tree as one f32 ``.npz`` (keystr keys), atomically.
+    """Write a parameter tree, atomically, where both packages'
+    ``load_checkpoint`` read it.
 
-    The training checkpoint of the port: the release's layout at full
-    precision, so that the JAX package's ``load_checkpoint`` reads it too.
-    """
-    _save_npz(path, {k: v.detach().to(torch.float32).cpu().numpy()
-                     for k, v in flatten(params).items()})
+    A path ending in ``.npz`` gets one f32 ``.npz`` (keystr keys): the
+    port's training checkpoint, the release's layout at full precision.
+    Any other path gets an Orbax checkpoint directory, as the JAX
+    package's ``save_checkpoint`` writes for any path: floating leaves in
+    f32, integer and boolean leaves kept."""
+    if Path(path).suffix == ".npz":
+        _save_npz(path, {k: v.detach().to(torch.float32).cpu().numpy()
+                         for k, v in flatten(params).items()})
+        return
+    from ..checkpoint import orbax
+
+    orbax.write_flat(path, {
+        parse_keystr(k): (v.detach().to(torch.float32)
+                          if v.is_floating_point() else v.detach())
+        .cpu().numpy()
+        for k, v in flatten(params).items()})
 
 
 def save_release(path, params) -> None:
@@ -135,6 +152,24 @@ def _save_npz(path, flat: dict) -> None:
     tmp.replace(path)
 
 
+def resolve_checkpoint(path, name: str) -> Path:
+    """The checkpoint ``name`` (``"asr"``, ``"translator"``) that ``path``
+    names, as the trainers' ``--ckpt``, ``--init-from`` and
+    ``--resume-from`` take it: ``path`` itself when it is an ``.npz`` or an
+    Orbax checkpoint directory; else the directory's ``<name>.npz`` (the
+    port's trainers write it) or its Orbax ``<name>/`` (the JAX package's
+    trainers), whichever exists (the ``.npz`` when neither does)."""
+    from ..checkpoint.orbax import is_checkpoint
+
+    path = Path(path)
+    if path.suffix == ".npz" or is_checkpoint(path):
+        return path
+    npz = path / f"{name}.npz"
+    if not npz.exists() and is_checkpoint(path / name):
+        return path / name
+    return npz
+
+
 def checkpoint_path(out, name: str) -> Path:
     """Where a trainer's ``--out`` puts its ``.npz``: ``out`` itself when it
     names an ``.npz`` file, else ``out/name`` (``translator.npz``,
@@ -144,25 +179,36 @@ def checkpoint_path(out, name: str) -> Path:
     return out if out.suffix == ".npz" else out / name
 
 
+def read_arrays(path):
+    """``({keystr: array}, source)`` of an ``.npz`` or of an Orbax
+    checkpoint directory (any other path); ``source`` names it in
+    errors."""
+    path = Path(path)
+    if path.suffix == ".npz":
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files}
+        for k in arrays:
+            parse_keystr(k)
+        return arrays, f"release checkpoint {path}"
+    from ..checkpoint import orbax
+
+    return ({keystr(p): a for p, a in orbax.read_flat(path).items()},
+            f"Orbax checkpoint {path}")
+
+
 def load_release(path, shapes, device="cpu"):
-    """Load a release ``.npz`` against a shape tree (on the CPU unless
-    ``device`` says otherwise: see :func:`tree_from_arrays`)."""
-    with np.load(Path(path)) as z:
-        arrays = {k: z[k] for k in z.files}
-    for k in arrays:
-        parse_keystr(k)
-    return tree_from_arrays(arrays, shapes, f"release checkpoint {path}",
-                            device)
+    """Load a release ``.npz`` (or an Orbax directory) against a shape
+    tree (on the CPU unless ``device`` says otherwise: see
+    :func:`tree_from_arrays`)."""
+    arrays, source = read_arrays(path)
+    return tree_from_arrays(arrays, shapes, source, device)
 
 
 def load_checkpoint(path, cfg: PipelineConfig, device="cpu"):
-    """Load the ASR parameters of a release ``.npz`` (host tensors unless
-    ``device`` says otherwise)."""
-    path = Path(path)
-    if path.suffix != ".npz":
-        raise NotImplementedError(
-            f"{path}: only release .npz checkpoints load in the port "
-            f"(Orbax checkpoints need JAX; A11 in ROADMAP.md)")
+    """Load the ASR parameters of an ``.npz`` or of an Orbax checkpoint
+    directory (the JAX package's ``save_checkpoint``), validated against
+    the configuration's shape tree (host tensors unless ``device`` says
+    otherwise)."""
     return load_release(path, asr_param_shapes(cfg), device)
 
 

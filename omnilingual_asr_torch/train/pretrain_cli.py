@@ -12,12 +12,14 @@ transfer. Without those recordings it pretrains on synth only.
 ``<ckpt-dir>/last/asr.npz`` (the encoder in the release's keystr layout)
 warm-starts supervised training through ``synth_train --init-encoder``;
 ``head.npz``, ``config.json`` and ``train_state.npz`` sit beside it.
-Everything runs on CUDA unless the caller passes ``device="cpu"``
-(``--device cpu``). Crops never touch gettysburg's held-out tail (the
-engine-level CER eval window). The mesh is pinned as the reference pins
-it, data-parallel over every visible card (``cfg.mesh`` (-1, 1); one card,
-or an explicit ``--device``, is one device); ``pretrain_main`` trains over
-whatever ``cfg.mesh`` it is given (``train/mesh_step.py``).
+``--resume-from`` also takes the JAX trainer's directory (an Orbax
+``asr/`` beside the same three files). Everything runs on CUDA unless the
+caller passes ``device="cpu"`` (``--device cpu``). Crops never touch
+gettysburg's held-out tail (the engine-level CER eval window). The mesh is
+pinned as the reference pins it, data-parallel over every visible card
+(``cfg.mesh`` (-1, 1); one card, or an explicit ``--device``, is one
+device); ``pretrain_main`` trains over whatever ``cfg.mesh`` it is given
+(``train/mesh_step.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..config import MeshConfig, PipelineConfig, tiny_config
 from .device_pool import encode_wire
 from .pretrain import PretrainConfig, make_pretrain_step
 from .synth import SAMPLE_RATE, SynthBatcher, _channel_sim, unique_real_audio
-from .synth_train import (_NoBatches, _assign_part, _not_ported, _quiet,
+from .synth_train import (_NoBatches, _assign_part, _quiet,
                           load_train_state, save_train_state)
 
 
@@ -155,14 +157,11 @@ def pretrain_main(*, steps: int, batch_size: int, cfg: PipelineConfig,
 
     start_step = 0
     if resume_from:
-        from ..models.zoo import load_checkpoint
+        from ..models.zoo import load_checkpoint, resolve_checkpoint
 
         root = Path(resume_from)
-        if not (root / "asr.npz").is_file():
-            raise _not_ported(f"resuming {root} (no asr.npz: a JAX Orbax "
-                              f"checkpoint)")
         _assign_part(params, "encoder",
-                     load_checkpoint(root / "asr.npz", cfg))
+                     load_checkpoint(resolve_checkpoint(root, "asr"), cfg))
         with np.load(root / "head.npz") as z:
             _assign_part(params, "head", {k: torch.from_numpy(z[k])
                                           for k in ("w", "b")})
@@ -250,8 +249,9 @@ def main(argv=None):
                          "recording crops (the rest is the synth stream)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume-from", default=None,
-                    help="a checkpoint directory this pretrainer wrote "
-                         "(asr.npz, head.npz, train_state.npz)")
+                    help="a checkpoint directory: this pretrainer's "
+                         "(asr.npz, head.npz, train_state.npz) or the JAX "
+                         "pretrainer's (Orbax asr/ and the same .npz files)")
     ap.add_argument("--total-steps", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save-every", type=int, default=500)

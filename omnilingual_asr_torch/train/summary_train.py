@@ -41,7 +41,7 @@ from ..models.zoo import checkpoint_path, load_checkpoint
 from ..types import EMOTIONS
 from .step import (RunLog, make_summarizer_optimizer, masked_ce,
                    train_update, trainable, tree_map)
-from .translator_train import UtteranceEncoder, asr_npz
+from .translator_train import UtteranceEncoder, asr_checkpoint
 
 POOL_SLOTS = 16          # conversations here are <= 16 windows long
 MAX_SUMMARY_BYTES = 128
@@ -373,8 +373,9 @@ def main(argv=None):
     install_sigterm_exit()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ckpt", required=True,
-                    help="trained ASR checkpoint: an .npz, or a directory "
-                         "holding asr.npz (and config.json)")
+                    help="trained ASR checkpoint: an .npz or an Orbax "
+                         "directory, or a run directory holding asr.npz or "
+                         "asr/ (and config.json)")
     ap.add_argument("--out", required=True,
                     help="an .npz file, or a directory for summarizer.npz")
     ap.add_argument("--steps", type=int, default=4000)
@@ -390,7 +391,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' or 'cuda[:N]' (default: CUDA)")
     args = ap.parse_args(argv)
-    ckpt = asr_npz(args.ckpt)
+    ckpt = asr_checkpoint(args.ckpt)
     # The checkpoint's own dims (its config.json), as the reference adopts.
     cfg = tiny_config() if args.tiny else config_for_checkpoint(str(ckpt))
     train_summarizer(asr_ckpt=str(ckpt), out_dir=args.out, steps=args.steps,

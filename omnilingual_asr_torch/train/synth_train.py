@@ -29,7 +29,9 @@ it every shard runs on that device, one after another.
 
 Checkpoints are ``.npz`` files in the release's keystr layout
 (``<ckpt-dir>/{best,last}/{asr,translator}.npz`` with ``config.json``;
-``last/train_state.npz`` holds the optimizer).
+``last/train_state.npz`` holds the optimizer). ``--resume-from`` also
+takes the JAX trainer's directories (Orbax ``asr/`` and ``translator/``,
+its ``train_state.npz``), and ``--init-encoder`` an Orbax ``asr/``.
 """
 
 from __future__ import annotations
@@ -57,11 +59,6 @@ from .device_pool import (build_pool, encode_wire, make_pool_train_step,
 from .step import (CTC_INFEASIBLE, ctc_rows, make_optimizer, make_train_step,
                    tree_leaves)
 from .synth import SynthBatcher, eval_set, real_corpus, trim_to_window
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch "
-                               f"trainer yet (A11 in ROADMAP.md)")
 
 
 def _moments(opt_state, key: str) -> List[torch.Tensor]:
@@ -95,16 +92,47 @@ def save_train_state(path: Path, opt_state, step: int,
     tmp.replace(path)
 
 
+def _from_jax_layout(path: Path, data: dict, params) -> dict:
+    """The JAX trainer's ``train_state.npz`` (``l00000``...: the leaves of
+    the optax chain ``clip_by_global_norm``, ``zero_nans``, ``adamw``, in
+    JAX's tree order) -> :func:`save_train_state`'s keys. JAX orders a
+    dict's leaves by sorted key, so the parameter tree gives the
+    permutation; the chain's leaves are N ``found_nan`` flags, Adam's
+    count, N first moments, N second moments and the schedule's count."""
+    from ..models.zoo import flatten, parse_keystr
+    from ..parallel.tensor import MeshParams
+
+    if params is None:
+        raise ValueError(f"{path}: a JAX train state needs the parameter "
+                         f"tree to order its leaves")
+    tree = params.full() if isinstance(params, MeshParams) else params
+    paths = [parse_keystr(k) for k in flatten(tree)]
+    n = len(paths)
+    n_saved = sum(1 for k in data if k.startswith("l"))
+    if n_saved != 3 * n + 2:
+        raise ValueError(f"{path}: {n_saved} saved leaves, the JAX "
+                         f"optimizer chain of {n} parameters has {3 * n + 2}")
+    out = {"__count__": data[f"l{n:05d}"], "__step__": data["__step__"],
+           "__best__": data["__best__"]}
+    for j, i in enumerate(sorted(range(n), key=lambda i: paths[i])):
+        out[f"m{i:05d}"] = data[f"l{n + 1 + j:05d}"]
+        out[f"v{i:05d}"] = data[f"l{2 * n + 1 + j:05d}"]
+    return out
+
+
 def load_train_state(path: Path, opt_state, params=None):
     """Restore (opt_state, step, best_score) saved by
-    :func:`save_train_state` into a fresh ``opt_state`` of the same model;
-    leaves are matched by position and shape-checked. Over a mesh
-    (``params`` a ``MeshParams``) each leaf's moments are split onto its
-    blocks' copies."""
+    :func:`save_train_state`, or by the JAX trainer's (which needs
+    ``params``), into a fresh ``opt_state`` of the same model; leaves are
+    matched by position and shape-checked. Over a mesh (``params`` a
+    ``MeshParams``) each leaf's moments are split onto its blocks'
+    copies."""
     from ..parallel.tensor import MeshParams
 
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
+    if "__count__" not in data and "l00000" in data:
+        data = _from_jax_layout(path, data, params)
     mesh = isinstance(params, MeshParams)
     n_leaves = len(params.blocks) if mesh else len(opt_state.leaves)
     n_saved = sum(1 for k in data if k.startswith("m"))
@@ -398,28 +426,30 @@ def train_synth(*, steps: int, batch_size: int, cfg: PipelineConfig,
     best_wer = float("inf")
     if resume_from:
         from ..models.translation import load_translator
-        from ..models.zoo import load_checkpoint
+        from ..models.zoo import load_checkpoint, resolve_checkpoint
 
         root = Path(resume_from)
-        if not (root / "asr.npz").is_file():
-            raise _not_ported(f"resuming {root} (no asr.npz: a JAX Orbax "
-                              f"checkpoint)")
-        _assign_part(params, "asr",
-                     load_checkpoint(root / "asr.npz", cfg, dev))
+        _assign_part(params, "asr", load_checkpoint(
+            resolve_checkpoint(root, "asr"), cfg, dev))
         try:
-            _assign_part(params, "translator",
-                         load_translator(root / "translator.npz", cfg,
-                                         device=dev))
-        except (OSError, KeyError, ValueError, NotImplementedError) as e:
+            _assign_part(params, "translator", load_translator(
+                resolve_checkpoint(root, "translator"), cfg, device=dev))
+        except (OSError, KeyError, ValueError) as e:
             log(f"translator resume skipped ({str(e)[:120]}); the joint "
                 f"translator starts fresh", flush=True)
         log(f"resumed params from {resume_from}", flush=True)
         ts_path = root / "train_state.npz"
         if resume_opt and ts_path.exists():
-            opt_state, start_step, best_wer = load_train_state(
-                ts_path, opt_state, params)
-            log(f"resumed optimizer/schedule from {ts_path} (step "
-                f"{start_step}, best {best_wer:.4f})", flush=True)
+            try:
+                opt_state, start_step, best_wer = load_train_state(
+                    ts_path, opt_state, params)
+                log(f"resumed optimizer/schedule from {ts_path} (step "
+                    f"{start_step}, best {best_wer:.4f})", flush=True)
+            except (KeyError, ValueError) as e:
+                # Another optimizer's state (a pretraining run's): the
+                # reference restarts the optimizer and keeps the params.
+                log(f"train_state restore failed ({e}); optimizer restarts "
+                    f"(params-only resume)", flush=True)
     elif init_encoder:
         from ..models.zoo import load_checkpoint
 
@@ -587,16 +617,19 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume-from", default=None,
-                    help="a checkpoint directory this trainer wrote "
-                         "(asr.npz, translator.npz, train_state.npz)")
+                    help="a checkpoint directory: this trainer's (asr.npz, "
+                         "translator.npz, train_state.npz) or the JAX "
+                         "trainer's (Orbax asr/ and translator/, "
+                         "train_state.npz)")
     ap.add_argument("--total-steps", type=int, default=0,
                     help="global schedule horizon for segmented runs; 0 = "
                          "this invocation is the whole run")
     ap.add_argument("--no-resume-opt", action="store_true",
                     help="resume params only, with a fresh optimizer")
     ap.add_argument("--init-encoder", default=None,
-                    help="warm-start the trunk from an asr .npz; ignored "
-                         "with --resume-from")
+                    help="warm-start the trunk from an asr .npz or an "
+                         "Orbax directory (a JAX pretraining run's <dir>/asr); "
+                         "ignored with --resume-from")
     ap.add_argument("--metrics-log", default=None)
     ap.add_argument("--pallas-kernels", action="store_true",
                     help="train through the hand-written CUDA kernels "

@@ -21,8 +21,9 @@ attention and the fused conv module off, so K2 and K3 are not on this
 path). Everything runs on CUDA unless the caller passes ``device="cpu"``
 (``--device cpu``). The draws follow the reference's generator draw for
 draw: the utterances first (training and held-out), then the batches'
-indices. ``--ckpt`` takes an ``.npz`` ASR checkpoint or a directory
-holding ``asr.npz``; the checkpoint is one ``.npz``
+indices. ``--ckpt`` takes an ``.npz`` ASR checkpoint, an Orbax one (the
+JAX package's) or a run directory holding either (``asr.npz``, ``asr/``);
+``--init-from`` a translator the same ways. The checkpoint is one ``.npz``
 (``models/translation.py::save_translator``): ``--out X.npz`` writes that
 file, any other ``--out`` writes ``X/translator.npz``.
 """
@@ -43,7 +44,8 @@ from ..models.conformer import asr_forward
 from ..models.translation import (GreedyDecoder, decoder_forward,
                                   load_translator, save_translator,
                                   tokens_to_text, translator_init)
-from ..models.zoo import checkpoint_path, load_checkpoint, tree_to
+from ..models.zoo import (checkpoint_path, load_checkpoint,
+                          resolve_checkpoint, tree_to)
 from ..ops.mel import MelFrontend
 from .step import (RunLog, make_translator_optimizer, masked_ce,
                    train_update, trainable, training_device, tree_map)
@@ -252,9 +254,11 @@ def train_translator(*, asr_ckpt: str, out_dir: str,
                      log_every: int = 200, metrics_log: Optional[str] = None,
                      device=None, init_params=None):
     """The reference's ``train_translator`` on ``device`` (CUDA unless
-    "cpu"): ``asr_ckpt`` an ASR ``.npz``; ``init_from`` a translator
-    ``.npz`` (or a directory holding ``translator.npz``) to warm-start from
-    where it exists; the result saved to :func:`checkpoint_path`
+    "cpu"): ``asr_ckpt`` an ASR ``.npz`` or Orbax directory; ``init_from``
+    a translator checkpoint (:func:`resolve_checkpoint`: an ``.npz``, an
+    Orbax directory, or a run directory holding ``translator.npz`` or
+    ``translator/``) to warm-start from where it exists; the result saved
+    to :func:`checkpoint_path`
     ``(out_dir, "translator.npz")``.
 
     ``init_params`` (tests and ``chip_smoke.py``): a parameter tree to
@@ -274,8 +278,8 @@ def train_translator(*, asr_ckpt: str, out_dir: str,
     print(f"memory bank: {tuple(bank[0].shape)} bf16 "
           f"({bank[0].numel() * 2 / 1e6:.0f} MB)", flush=True)
 
-    warm = checkpoint_path(init_from, "translator.npz") if init_from else None
-    if warm is not None and warm.is_file():
+    warm = resolve_checkpoint(init_from, "translator") if init_from else None
+    if warm is not None and warm.exists():
         init_params = load_translator(warm, cfg, n_layers=4)
         print(f"warm-started decoder from {warm}", flush=True)
     elif init_params is None:
@@ -311,10 +315,11 @@ def train_translator(*, asr_ckpt: str, out_dir: str,
     return params, run
 
 
-def asr_npz(ckpt) -> Path:
-    """``--ckpt``: an ``.npz`` as given; a directory's ``asr.npz``."""
-    ckpt = Path(ckpt)
-    return ckpt / "asr.npz" if ckpt.is_dir() else ckpt
+def asr_checkpoint(ckpt) -> Path:
+    """``--ckpt``: an ``.npz`` or an Orbax checkpoint directory as given; a
+    run directory's ``asr.npz`` or its Orbax ``asr/`` (the JAX trainer's
+    layout)."""
+    return resolve_checkpoint(ckpt, "asr")
 
 
 def main(argv=None) -> None:
@@ -323,13 +328,15 @@ def main(argv=None) -> None:
     install_sigterm_exit()
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", required=True,
-                    help="trained ASR checkpoint: an .npz, or a directory "
-                         "holding asr.npz (and config.json)")
+                    help="trained ASR checkpoint: an .npz or an Orbax "
+                         "directory, or a run directory holding asr.npz or "
+                         "asr/ (and config.json)")
     ap.add_argument("--out", required=True,
                     help="an .npz file, or a directory for translator.npz")
     ap.add_argument("--init-from", default=None,
                     help="existing translator checkpoint to warm-start "
-                         "(an .npz, or a directory holding translator.npz)")
+                         "(an .npz or an Orbax directory, or a run "
+                         "directory holding translator.npz or translator/)")
     ap.add_argument("--steps", type=int, default=6000)
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -341,7 +348,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="'cpu' or 'cuda[:N]' (default: CUDA)")
     args = ap.parse_args(argv)
-    train_translator(asr_ckpt=str(asr_npz(args.ckpt)), out_dir=args.out,
+    train_translator(asr_ckpt=str(asr_checkpoint(args.ckpt)), out_dir=args.out,
                      init_from=args.init_from, steps=args.steps,
                      batch_size=args.batch_size, lr=args.lr,
                      n_train=args.n_train, n_eval=args.n_eval,

@@ -108,6 +108,24 @@ def _share(got, want):
     return float((np.abs(got - want) / tol).max())
 
 
+@jax.jit                       # one compile a head dim, not one a case
+def _jax_fwd_lse_bwd(q, k, v, do, mask):
+    """The JAX Pallas forward's o and lse and its backward (interpret mode)
+    at bf16 from the same q, k, v, dO: (o, lse, dq, dk, dv), o and the
+    gradients in f32."""
+    shape = q.shape
+    qb, kb, vb, dob = (jax_attention._to_bh(a.astype(jnp.bfloat16), *shape)
+                       for a in (q, k, v, do))
+    maskb = jnp.repeat(mask.astype(jnp.int32), H, axis=0)[:, None, :]
+    o, lse = jax_attention._fwd_lse(qb, kb, vb, maskb,
+                                    1.0 / np.sqrt(shape[-1]), True)
+    grads = jax_attention._flash_bh_bwd(True, (qb, kb, vb, maskb, o, lse),
+                                        dob)[:3]
+    return (jax_attention._from_bh(o, *shape).astype(jnp.float32), lse,
+            *(jax_attention._from_bh(g, *shape).astype(jnp.float32)
+              for g in grads))
+
+
 @pytest.mark.parametrize("case", sorted(MASKS))
 @pytest.mark.parametrize("D", [64, 128])
 def test_k6_k7_bf16_emulation_within_kernel_tolerance(D, case):
@@ -124,19 +142,11 @@ def test_k6_k7_bf16_emulation_within_kernel_tolerance(D, case):
     are ragged (fewer, larger p), which is why both take the second
     product. Masked keys and a fully masked slot stay exactly 0."""
     q, k, v, do, mask = _case(D, MASKS[case], "bf16", seed=D + len(case))
-    shape = q.shape
-    to = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
-    qb, kb, vb, dob = (jax_attention._to_bh(to(a), *shape)
-                       for a in (q, k, v, do))
-    maskb = jnp.repeat(jnp.asarray(mask, jnp.int32), H, axis=0)[:, None, :]
-    o, lse = jax_attention._fwd_lse(qb, kb, vb, maskb, 1.0 / np.sqrt(D),
-                                    True)
-    want = [np.asarray(jax_attention._from_bh(g, *shape).astype(jnp.float32))
-            for g in jax_attention._flash_bh_bwd(
-                True, (qb, kb, vb, maskb, o, lse), dob)[:3]]
+    o, lse, *want = (np.asarray(a) for a in _jax_fwd_lse_bwd(q, k, v, do,
+                                                             mask))
     tt = lambda a: torch.from_numpy(np.array(a, np.float32)).to(  # noqa: E731
         torch.bfloat16)
-    o_t = tt(jax_attention._from_bh(o, *shape).astype(jnp.float32))
+    o_t = tt(o)
     args = (tt(q), tt(k), tt(v), torch.from_numpy(mask), tt(do),
             torch.from_numpy(np.array(lse)).reshape(B, H, T))
     delta = attention.flash_delta(o_t, args[4])

@@ -16,7 +16,7 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "omnilingual_asr_torch"
 FORBIDDEN = ("jax", "jaxlib", "omnilingual_asr_tpu", "omnilingual_asr",
-             "optax", "orbax", "flax")
+             "optax", "orbax", "flax", "tensorstore", "zstandard")
 #: The repository's root scripts (the JAX package's drivers and bench):
 #: the port keeps its own copy of what it needs from them.
 ROOT_SCRIPTS = tuple(sorted(p.stem for p in REPO.glob("*.py")
@@ -226,3 +226,19 @@ def test_training_cli_help_with_jax_blocked(module):
                          text=True, timeout=300, cwd=str(REPO))
     assert out.returncode == 0, out.stderr
     assert "usage:" in out.stdout and "--steps" in out.stdout
+
+
+def test_walk_reaches_the_checkpoint_layer():
+    """The import walk covers the Orbax reader and writer (the native zstd
+    decoder's loader, OCDBT, zarr), which therefore import none of orbax,
+    tensorstore or zstandard."""
+    import pkgutil
+
+    import omnilingual_asr_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(
+        pkg.__path__, "omnilingual_asr_torch.")}
+    for name in ("checkpoint.zstd", "checkpoint.ocdbt", "checkpoint.zarr",
+                 "checkpoint.orbax"):
+        assert f"omnilingual_asr_torch.{name}" in names
+    assert {"orbax", "tensorstore", "zstandard"} <= set(FORBIDDEN)

@@ -25,6 +25,7 @@ from omnilingual_asr_tpu.parallel.mesh import build_mesh
 from omnilingual_asr_tpu.train import pretrain as jax_pretrain
 from omnilingual_asr_tpu.train import pretrain_cli as jax_pretrain_cli
 from omnilingual_asr_tpu.train import step as jax_step
+from omnilingual_asr_tpu.train import synth_train as jax_synth_train
 from omnilingual_asr_torch import testing
 from omnilingual_asr_torch.config import tiny_config
 from omnilingual_asr_torch.models import zoo
@@ -219,9 +220,11 @@ def test_pretrainer_checkpoint_warm_starts_synth_train(tmp_path,
     config.json, train_state.npz}``; its ``asr.npz`` is the trained
     encoder and both packages' ``load_checkpoint`` read it; ``train_synth
     --init-encoder`` starts from it (one step at learning rate 0 leaves
-    the trunk equal to the file). ``--resume-from`` on a JAX Orbax
-    checkpoint directory raises in both trainers (A11's last item); on the
-    pretrainer's own directory it resumes at its step."""
+    the trunk equal to the file). ``--resume-from`` resumes the
+    pretrainer's own directory at its step, and the JAX pretrainer's (Orbax
+    ``asr/``, ``head.npz``, its ``train_state.npz``) in both trainers, and
+    ``train_synth --init-encoder`` takes its ``asr/``: the trunk, head and
+    Adam's moments equal the JAX package's restore."""
     cfg = tiny_config()
     ck = tmp_path / "bestrq"
     captured = {}
@@ -266,18 +269,63 @@ def test_pretrainer_checkpoint_warm_starts_synth_train(tmp_path,
                                warmup_steps=1, device="cpu")
     assert int(np.load(last / "train_state.npz")["__step__"]) == 3
 
+    # The JAX pretrainer's directory, written with the JAX package's own
+    # save functions on an init tree: Orbax asr/, head.npz, train_state.npz
+    # (Adam's moments random, so that their order is checked).
     orbax = tmp_path / "orbax"
-    jax_zoo.save_checkpoint(orbax / "asr", jax.tree.map(
-        np.asarray, jax_pretrain.pretrain_init(
-            jax.random.PRNGKey(0), jax_tiny_config(),
-            jax_pretrain.PretrainConfig(**PCFG))["encoder"]))
-    with pytest.raises(NotImplementedError, match="A11"):
-        synth_train.train_synth(steps=1, batch_size=2, cfg=cfg,
-                                device="cpu", resume_from=str(orbax))
-    with pytest.raises(NotImplementedError, match="A11"):
-        pretrain_cli.pretrain_main(steps=1, batch_size=2, cfg=cfg,
-                                   window_seconds=1.0, device="cpu",
-                                   resume_from=str(orbax))
+    jinit = step.tree_map(lambda t: t.detach().numpy(), pretrain.pretrain_init(
+        torch.Generator().manual_seed(0), cfg,
+        pretrain.PretrainConfig()))             # pretrain_main's own
+    jax_zoo.save_checkpoint(orbax / "asr", jinit["encoder"])
+    np.savez(orbax / "head.npz", **jinit["head"])
+    tx = jax_step.make_optimizer()
+    rng = np.random.default_rng(0)
+    state = tx.init(jinit)
+    adam = state[2][0]._replace(
+        count=np.asarray(4, np.int32),
+        mu=jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(
+            np.float32), jinit),
+        nu=jax.tree.map(lambda x: rng.random(x.shape).astype(np.float32),
+                        jinit))
+    state = (state[0], state[1], (adam,) + tuple(state[2][1:]))
+    jax_synth_train.save_train_state(orbax / "train_state.npz", state, 4,
+                                     0.0)
+    pretrain_cli.pretrain_main(steps=1, batch_size=2, cfg=cfg,
+                               window_seconds=1.0, device="cpu",
+                               resume_from=str(orbax), total_steps=4,
+                               warmup_steps=1)
+    params, opt = captured["state"][0], captured["state"][2]
+    want = _flat_jax(jax_zoo.load_checkpoint(orbax / "asr",
+                                             jax_tiny_config()))
+    got = zoo.flatten(params["encoder"])
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].detach().numpy(), want[k])
+    for k in ("w", "b"):
+        np.testing.assert_array_equal(params["head"][k].detach().numpy(),
+                                      jinit["head"][k])
+    jopt, jstep, _ = jax_synth_train.load_train_state(
+        orbax / "train_state.npz", tx.init(jinit))
+    mu, nu = _flat_jax(jopt[2][0].mu), _flat_jax(jopt[2][0].nu)
+    for k, p in zip(zoo.flatten(params), opt.leaves):
+        np.testing.assert_array_equal(opt.opt.state[p]["exp_avg"].numpy(),
+                                      mu[k])
+        np.testing.assert_array_equal(
+            opt.opt.state[p]["exp_avg_sq"].numpy(), nu[k])
+    assert opt.count == jstep == 4
+    # synth_train from the same directory: the trunk from asr/, a fresh
+    # joint translator (none saved) and optimizer (the pretrainer's state
+    # is another optimizer's), as the reference resumes.
+    # ... and --init-encoder from its Orbax asr/.
+    for kw in ({"resume_from": str(orbax)},
+               {"init_encoder": str(orbax / "asr")}):
+        params, _ = synth_train.train_synth(
+            steps=0, batch_size=2, cfg=cfg, window_seconds=1.0,
+            device="cpu", eval_every=100, warmup_steps=1, **kw)
+        got = zoo.flatten(params["asr"])
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k].detach().numpy(), want[k])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pretrain_cli.pretrain_main(steps=1, batch_size=2, cfg=cfg)

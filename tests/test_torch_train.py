@@ -307,12 +307,14 @@ def test_ctc_loss_matches_jax():
     labels[2] = [1, 2, 3, 4, 5, 6]
     lmask = np.arange(L)[None, :] < np.array([4, 0, 6])[:, None]
 
-    def both(lg, lm, lb, lbm, infeasible=None):
-        def jloss(x):
-            return jax_ctc.ctc_loss(x, jnp.asarray(lm), jnp.asarray(lb),
-                                    jnp.asarray(lbm))
+    @jax.jit                       # one compile for the five cases
+    def jax_value_and_grad(x, lm, lb, lbm):
+        return jax.value_and_grad(
+            lambda y: jax_ctc.ctc_loss(y, lm, lb, lbm))(x)
 
-        want, jg = jax.value_and_grad(jloss)(jnp.asarray(lg))
+    def both(lg, lm, lb, lbm, infeasible=None):
+        want, jg = jax_value_and_grad(jnp.asarray(lg), jnp.asarray(lm),
+                                      jnp.asarray(lb), jnp.asarray(lbm))
         x = torch.from_numpy(lg).requires_grad_(True)
         got = ctc.ctc_loss(x, torch.from_numpy(lm), torch.from_numpy(lb),
                            torch.from_numpy(lbm), infeasible=infeasible)
@@ -644,16 +646,91 @@ def test_train_synth_entry_point(tmp_path):
             synth_train.train_synth(steps=1, batch_size=2, cfg=cfg)
 
 
-def test_unported_training_options_raise(tmp_path):
-    """Of the synthetic trainer's options only resuming a checkpoint
-    directory without ``asr.npz`` (a JAX Orbax checkpoint) still raises,
-    naming A11; the batcher's English sentences and bake mode construct
-    (``tests/test_torch_device_pool.py`` holds them, the mu-law wire and the
-    device pool to the JAX package)."""
-    cfg = tiny_config()
-    with pytest.raises(NotImplementedError, match="A11"):
-        synth_train.train_synth(steps=1, batch_size=2, cfg=cfg,
-                                device="cpu", resume_from=str(tmp_path))
+class _NoEval:
+    """Stands in for the trainer's evaluator (no held-out decode)."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def run(self, params):
+        return {"synth": {"wer": 1.0, "cer": 1.0}}
+
+
+def _jax_moments(opt_state):
+    """{keystr: (mu, nu)} of a JAX ``make_optimizer`` state."""
+    adam = opt_state[2][0]
+    mu, nu = _flat_jax(adam.mu), _flat_jax(adam.nu)
+    return {k: (mu[k], nu[k]) for k in mu}
+
+
+def _port_moments(opt_state, params):
+    """{keystr: (exp_avg, exp_avg_sq)} of the port's optimizer, whose
+    leaves follow the parameter tree's order."""
+    keys = list(zoo.flatten(params))
+    return {k: tuple(opt_state.opt.state[p][m].numpy()
+                     for m in ("exp_avg", "exp_avg_sq"))
+            for k, p in zip(keys, opt_state.leaves)}
+
+
+def test_unported_training_options_raise(tmp_path, monkeypatch):
+    """``--resume-from`` on the JAX trainer's directory (Orbax ``asr/`` and
+    ``translator/``, its ``train_state.npz``, written by the JAX package's
+    own save functions) resumes: the trunk and the decoder equal the JAX
+    package's restore bit for bit, and so do Adam's moments (random here),
+    its count and the step, which the JAX layout orders by sorted key. The
+    batcher's English sentences and bake mode construct
+    (``tests/test_torch_device_pool.py`` holds them, the mu-law wire and
+    the device pool to the JAX package)."""
+    from omnilingual_asr_tpu.train import synth_train as jax_synth_train
+
+    cfg, jcfg = tiny_config(), jax_tiny_config()
+    run = tmp_path / "jax_run"
+    gen = torch.Generator().manual_seed(0)
+    tree = jax.tree.map(lambda t: t.numpy(), {
+        "asr": conformer.asr_init(gen, cfg),
+        "translator": translation.translator_init(gen, cfg)})
+    jax_zoo.save_checkpoint(run / "asr", tree["asr"])
+    jax_translation.save_translator(run / "translator", tree["translator"])
+    rng = np.random.default_rng(0)
+    tx = jax_step.make_optimizer()
+    state = tx.init(tree)
+    adam = state[2][0]._replace(
+        count=jnp.asarray(5, jnp.int32),
+        mu=jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(
+            np.float32), tree),
+        nu=jax.tree.map(lambda x: rng.random(x.shape).astype(np.float32),
+                        tree))
+    state = (state[0], state[1], (adam,) + tuple(state[2][1:]))
+    jax_synth_train.save_train_state(run / "train_state.npz", state, 5, 0.25)
+
+    loaded = {}
+    real = synth_train.load_train_state
+
+    def recording(*args):
+        loaded["opt"], *_ = real(*args)
+        return loaded["opt"], *_
+
+    monkeypatch.setattr(synth_train, "load_train_state", recording)
+    monkeypatch.setattr(synth_train, "Evaluator", _NoEval)
+    params, best = synth_train.train_synth(
+        steps=1, total_steps=5, batch_size=2, cfg=cfg, device="cpu",
+        resume_from=str(run), window_seconds=2.0)
+    assert best == 0.25
+    want = {"asr": jax_zoo.load_checkpoint(run / "asr", jcfg),
+            "translator": jax_translation.load_translator(run / "translator",
+                                                          jcfg)}
+    mine = _flat_port(params)
+    for k, v in _flat_jax(want).items():
+        np.testing.assert_array_equal(mine[k], v)
+    jopt, jstep, jbest = jax_synth_train.load_train_state(
+        run / "train_state.npz", tx.init(tree))
+    theirs = _jax_moments(jopt)
+    ours = _port_moments(loaded["opt"], params)
+    assert sorted(ours) == sorted(theirs) and (jstep, jbest) == (5, 0.25)
+    for k in theirs:
+        np.testing.assert_array_equal(ours[k][0], theirs[k][0])
+        np.testing.assert_array_equal(ours[k][1], theirs[k][1])
+    assert loaded["opt"].count == int(jopt[2][0].count) == 5
     for kw in ({"english_sentence_p": 0.5}, {"bake_mode": True}):
         synth.SynthBatcher(cfg, batch_size=2, n_threads=1, **kw).close()
 

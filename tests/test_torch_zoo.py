@@ -125,6 +125,27 @@ def test_default_release_dir_rules(tmp_path, monkeypatch):
 
 
 def test_orbax_checkpoint_not_ported(tmp_path):
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError):
-        zoo.load_checkpoint(tmp_path / "ckpt_dir", tcfg)
+    """An Orbax checkpoint directory written by the JAX package's
+    ``save_checkpoint`` loads in the port equal bit for bit to the JAX
+    package's own restore; a directory that holds no checkpoint raises."""
+    from omnilingual_asr_tpu.config import tiny_config as jax_tiny_config
+    from omnilingual_asr_tpu.models.zoo import (load_checkpoint as
+                                                jax_load_checkpoint)
+    from omnilingual_asr_tpu.models.zoo import (save_checkpoint as
+                                                jax_save_checkpoint)
+    from omnilingual_asr_torch.config import tiny_config
+    from omnilingual_asr_torch.models.conformer import asr_init as init
+
+    cfg = tiny_config()
+    tree = init(torch.Generator().manual_seed(0), cfg)
+    jax_save_checkpoint(tmp_path / "ckpt_dir", jax.tree.map(
+        lambda t: t.numpy(), tree))
+    want = jax_load_checkpoint(tmp_path / "ckpt_dir", jax_tiny_config())
+    got = zoo.flatten(zoo.load_checkpoint(tmp_path / "ckpt_dir", cfg))
+    leaves = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert set(got) == {jax.tree_util.keystr(p) for p, _ in leaves}
+    for p, leaf in leaves:
+        np.testing.assert_array_equal(got[jax.tree_util.keystr(p)].numpy(),
+                                      np.asarray(leaf))
+    with pytest.raises(FileNotFoundError):
+        zoo.load_checkpoint(tmp_path / "no_ckpt", cfg)
