@@ -115,7 +115,7 @@ from .ops.quant import (add_kernel_layouts, quantize_param_tree,
 from .parallel.mesh import Mesh, build_mesh, require_one_process
 from .parallel.sequence import sp_conformer_forward
 from .types import EMOTIONS, TranscriptSegment, TranscriptionResult
-from .utils.tracing import StageTrace
+from .utils.tracing import StageTrace, row_steps_useful, span
 
 ProgressCallback = Optional[Callable[[str, int], None]]
 
@@ -321,7 +321,8 @@ class TranscriptionEngine:
         exact_f32(mesh.distinct_devices())
         self.last_trace: Optional[StageTrace] = None
         #: Held around the work that shares device state: the batched
-        #: device program (enqueue) and the decoders.
+        #: device program (enqueue) and the decoders. Taken by
+        #: :meth:`_locked`.
         self._device_lock = threading.Lock()
 
         release = default_release_dir()
@@ -716,6 +717,20 @@ class TranscriptionEngine:
             out.append((start / sr, w))
         return out
 
+    @contextlib.contextmanager
+    def _locked(self, site: str):
+        """Holds the engine's device lock over the block: the wait for it
+        and the hold are the spans ``lock.wait`` and ``lock.held``, each
+        with ``site`` (``forward``, ``crop``, ``sequence``, ``translate``
+        or ``summary``)."""
+        with span("lock.wait", site=site):
+            self._device_lock.acquire()
+        try:
+            with span("lock.held", site=site):
+                yield
+        finally:
+            self._device_lock.release()
+
     def _forward_batches(self, windows: Sequence[Tuple[float, np.ndarray]],
                          n_samples_last: int,
                          orthography: Optional[str] = None,
@@ -745,7 +760,7 @@ class TranscriptionEngine:
                        self.window_frames)
 
         pending = []
-        with self._device_lock:
+        with self._locked("forward"):
             mask = torch.from_numpy(ctc_logit_mask(orthography, cfg.vocab))
             masks = {r.device: mask.to(r.device) for r in self._replicas}
             for r in self._replicas:
@@ -946,7 +961,7 @@ class TranscriptionEngine:
                 nv.append(0)
             wire = np.clip(np.stack(chunk) * 32768.0,
                            -32768, 32767).astype(np.int16)
-            with self._device_lock:
+            with self._locked("crop"):
                 out = self._crop_process(
                     torch.from_numpy(wire).to(self.device),
                     torch.tensor(nv, dtype=torch.int32, device=self.device))
@@ -1014,7 +1029,7 @@ class TranscriptionEngine:
         n_frames = fe.frames_for_samples(len(samples))
         if n_frames <= 0:
             return []
-        with self._device_lock:
+        with self._locked("sequence"):
             mel = self._sequence_mel(samples)
             n_dev = self.n_data
             sub = cfg.encoder.subsample_factor
@@ -1140,107 +1155,106 @@ class TranscriptionEngine:
         clustered.
 
         Returns (result, profile) where profile maps each sub-stage
-        (``cluster``, ``segments``, ``translate``, ``summary``) to seconds.
+        (``assemble.cluster``, ``.segments``, ``.translate``, ``.summary``)
+        to seconds; each is a span too, and the decoders' device lock is
+        taken through :meth:`_locked`.
         """
         cfg = self.config
         decoded, seg_meta, states = parts
         lang_hint_id = lang_table.id_for_language(language) if language else -1
-        prof: Dict[str, float] = {}
-        t0 = time.perf_counter()
-
-        def mark(name: str) -> None:
-            nonlocal t0
-            now = time.perf_counter()
-            prof[name] = prof.get(name, 0.0) + (now - t0)
-            t0 = now
+        sub = StageTrace()
 
         if not decoded:
             return TranscriptionResult(summary=None, segments=[],
-                                       detected_languages=None), prof
+                                       detected_languages=None), sub.stages
 
-        n_clusters = None
-        if speaker_count:
-            try:
-                n_clusters = max(1, int(str(speaker_count).strip()))
-            except ValueError:
-                n_clusters = None
-        active = "xvector" if self._xvector is not None else "trunk"
-        want_crop = (self.speaker_mode == "crop"
-                     or (frames_from or active) != active)
-        used_crop = want_crop and samples is not None and len(decoded) > 1
-        if used_crop:
-            embeds = self._segment_crop_embeds(samples, decoded)
-        else:
-            embeds = np.stack([m[1] for m in seg_meta])
-        th = cfg.decode.ahc_threshold
-        if th is None:
-            if self._xvector is not None:
-                th = XVECTOR_AHC_THRESHOLD
-            elif used_crop:
-                th = CROP_AHC_THRESHOLD
+        with sub.stage("assemble.cluster"):
+            n_clusters = None
+            if speaker_count:
+                try:
+                    n_clusters = max(1, int(str(speaker_count).strip()))
+                except ValueError:
+                    n_clusters = None
+            active = "xvector" if self._xvector is not None else "trunk"
+            want_crop = (self.speaker_mode == "crop"
+                         or (frames_from or active) != active)
+            used_crop = (want_crop and samples is not None
+                         and len(decoded) > 1)
+            if used_crop:
+                embeds = self._segment_crop_embeds(samples, decoded)
             else:
-                th = CLUSTER_DEFAULT_THRESHOLD
-        labels = cluster_speakers(embeds, n_clusters=n_clusters, threshold=th,
-                                  count_mode=cfg.decode.count_mode,
-                                  resegment=cfg.decode.resegment)
-        mark("cluster")
+                embeds = np.stack([m[1] for m in seg_meta])
+            th = cfg.decode.ahc_threshold
+            if th is None:
+                if self._xvector is not None:
+                    th = XVECTOR_AHC_THRESHOLD
+                elif used_crop:
+                    th = CROP_AHC_THRESHOLD
+                else:
+                    th = CLUSTER_DEFAULT_THRESHOLD
+            labels = cluster_speakers(embeds, n_clusters=n_clusters,
+                                      threshold=th,
+                                      count_mode=cfg.decode.count_mode,
+                                      resegment=cfg.decode.resegment)
 
-        segments: List[TranscriptSegment] = []
-        all_languages: List[dict] = []
-        seen_codes = set()
-        emotion_counts = np.zeros(len(EMOTIONS))
-        for s, (emo_mean, _, (lid_frames, lid_conf), _), lab in zip(
-                decoded, seg_meta, labels):
-            langs = self._segment_languages(lid_frames, lid_conf,
-                                            lang_hint_id)
-            primary = langs[0] if langs else {"name": None, "code": None}
-            for lg in langs:
-                if lg["code"] and lg["code"] not in seen_codes:
-                    seen_codes.add(lg["code"])
-                    all_languages.append(
-                        {"code": lg["code"], "language": lg["name"]})
-            emo_idx = int(np.argmax(emo_mean[: len(EMOTIONS)]))
-            # Overall tone: duration-weighted probability mass.
-            logits = emo_mean[: len(EMOTIONS)].astype(np.float64)
-            p = np.exp(logits - logits.max())
-            p /= p.sum()
-            emotion_counts += max(s.end - s.start, 1e-3) * p
-            segments.append(TranscriptSegment(
-                start=round(s.start, 3), end=round(s.end, 3),
-                speaker=f"Speaker {int(lab) + 1}", text=s.text,
-                language=primary["name"], language_code=primary["code"],
-                languages=langs, emotion=EMOTIONS[emo_idx],
-                translation=None, words=s.words))
-        mark("segments")
+        with sub.stage("assemble.segments"):
+            segments: List[TranscriptSegment] = []
+            all_languages: List[dict] = []
+            seen_codes = set()
+            emotion_counts = np.zeros(len(EMOTIONS))
+            for s, (emo_mean, _, (lid_frames, lid_conf), _), lab in zip(
+                    decoded, seg_meta, labels):
+                langs = self._segment_languages(lid_frames, lid_conf,
+                                                lang_hint_id)
+                primary = (langs[0] if langs
+                           else {"name": None, "code": None})
+                for lg in langs:
+                    if lg["code"] and lg["code"] not in seen_codes:
+                        seen_codes.add(lg["code"])
+                        all_languages.append(
+                            {"code": lg["code"], "language": lg["name"]})
+                emo_idx = int(np.argmax(emo_mean[: len(EMOTIONS)]))
+                # Overall tone: duration-weighted probability mass.
+                logits = emo_mean[: len(EMOTIONS)].astype(np.float64)
+                p = np.exp(logits - logits.max())
+                p /= p.sum()
+                emotion_counts += max(s.end - s.start, 1e-3) * p
+                segments.append(TranscriptSegment(
+                    start=round(s.start, 3), end=round(s.end, 3),
+                    speaker=f"Speaker {int(lab) + 1}", text=s.text,
+                    language=primary["name"],
+                    language_code=primary["code"], languages=langs,
+                    emotion=EMOTIONS[emo_idx], translation=None,
+                    words=s.words))
 
-        if self._translator is not None:
-            with self._device_lock:
-                self._translate_segments(segments, seg_meta)
-        mark("translate")
+        with sub.stage("assemble.translate"):
+            if self._translator is not None:
+                with self._locked("translate"):
+                    self._translate_segments(segments, seg_meta)
 
-        n_speakers = int(labels.max()) + 1 if len(labels) else 0
-        top_emotion = EMOTIONS[int(np.argmax(emotion_counts))]
-        language_names = [lg["language"] for lg in all_languages]
-        summary = template_summary(
-            duration_s=duration_s, n_speakers=n_speakers,
-            n_segments=len(segments), language_names=language_names,
-            top_emotion=top_emotion)
-        if self._summarizer is not None and states:
-            # The generated summary replaces the template only where it
-            # agrees with the engine's own facts; a fact-conditioned
-            # checkpoint reads them as a forced prefix.
-            with self._device_lock:
-                neural = self._summarizer.summarize(states, facts={
-                    "n_speakers": n_speakers, "tone": top_emotion,
-                    "language_names": language_names})
-            if neural and summary_consistent(neural, n_speakers=n_speakers,
-                                             tone=top_emotion):
-                summary = neural
-        mark("summary")
+        with sub.stage("assemble.summary"):
+            n_speakers = int(labels.max()) + 1 if len(labels) else 0
+            top_emotion = EMOTIONS[int(np.argmax(emotion_counts))]
+            language_names = [lg["language"] for lg in all_languages]
+            summary = template_summary(
+                duration_s=duration_s, n_speakers=n_speakers,
+                n_segments=len(segments), language_names=language_names,
+                top_emotion=top_emotion)
+            if self._summarizer is not None and states:
+                # The generated summary replaces the template only where it
+                # agrees with the engine's own facts; a fact-conditioned
+                # checkpoint reads them as a forced prefix.
+                with self._locked("summary"):
+                    neural = self._summarizer.summarize(states, facts={
+                        "n_speakers": n_speakers, "tone": top_emotion,
+                        "language_names": language_names})
+                if neural and summary_consistent(
+                        neural, n_speakers=n_speakers, tone=top_emotion):
+                    summary = neural
         return TranscriptionResult(
             summary=summary, segments=segments,
             detected_languages=all_languages if all_languages else None,
-        ), prof
+        ), sub.stages
 
     def _decode_lm(self):
         """The lexicon trie LM of the beam search's shallow fusion, built
@@ -1317,12 +1331,17 @@ class TranscriptionEngine:
             enc = np.zeros((B, Te, D), np.float32)
             mask = np.zeros((B, Te), bool)
             for row, i in enumerate(idxs):
-                span = seg_meta[i][3][:Te]
-                enc[row, :len(span)] = span
-                mask[row, :len(span)] = True
-            toks = self._translator.decode(
-                torch.from_numpy(enc), torch.from_numpy(mask),
-                max_len=self.TRANSLATE_MAX_BYTES).cpu().numpy()
+                states = seg_meta[i][3][:Te]
+                enc[row, :len(states)] = states
+                mask[row, :len(states)] = True
+            with span("decode.translate", rows=len(idxs), rows_run=B,
+                      steps_run=self.TRANSLATE_MAX_BYTES) as sp:
+                toks = self._translator.decode(
+                    torch.from_numpy(enc), torch.from_numpy(mask),
+                    max_len=self.TRANSLATE_MAX_BYTES).cpu().numpy()
+                if sp.on:
+                    sp.counts["row_steps_useful"] = row_steps_useful(
+                        toks[:len(idxs)])
             for row, i in enumerate(idxs):
                 text = tokens_to_text(toks[row], self.config.vocab).strip()
                 if text:
@@ -1366,9 +1385,14 @@ class TranscriptionEngine:
             mask = np.zeros((B, MAX_SOURCE_LEN), bool)
             for row, sp in enumerate(batch):
                 ids[row], mask[row] = source_to_tokens(sp, self.config.vocab)
-            toks = self._translator.translate_text(
-                torch.from_numpy(ids), torch.from_numpy(mask),
-                max_len=self.TRANSLATE_MAX_BYTES).cpu().numpy()
+            with span("decode.translate", rows=len(batch), rows_run=B,
+                      steps_run=self.TRANSLATE_MAX_BYTES) as sp:
+                toks = self._translator.translate_text(
+                    torch.from_numpy(ids), torch.from_numpy(mask),
+                    max_len=self.TRANSLATE_MAX_BYTES).cpu().numpy()
+                if sp.on:
+                    sp.counts["row_steps_useful"] = row_steps_useful(
+                        toks[:len(batch)])
             for row, sp in enumerate(batch):
                 memo[sp] = tokens_to_text(toks[row],
                                           self.config.vocab).strip()
@@ -1426,7 +1450,17 @@ class TranscriptionEngine:
         """Transcribe an audio file on the engine's device.
 
         Same signature, progress steps and result semantics as the JAX
-        engine's ``transcribe``, in window and in sequence mode."""
+        engine's ``transcribe``, in window and in sequence mode. The
+        request is the root span of every span it opens, with ``audio_s``.
+        """
+        with span("request", request=True) as req:
+            return self._transcribe(
+                req, audio_path, progress_callback=progress_callback,
+                language=language, speaker_count=speaker_count,
+                orthography=orthography)
+
+    def _transcribe(self, req, audio_path, *, progress_callback,
+                    language, speaker_count, orthography):
         report, report_frac = _progress_reporters(progress_callback)
         trace = StageTrace(n_chips=self.mesh.size)
         audio_path = Path(audio_path)
@@ -1447,6 +1481,8 @@ class TranscriptionEngine:
                 samples = self._load_audio(audio_path)
             duration_s = len(samples) / sr
         trace.audio_seconds = duration_s
+        if req.on:
+            req.counts["audio_s"] = duration_s
 
         report("transcribing", 1)     # step 1: device forward
         frames_from = None
@@ -1467,27 +1503,26 @@ class TranscriptionEngine:
                           if windows else 0)
                 win_iter = windows
             parts = None
-            t_extract = 0.0
+            trace.stages["extract"] = 0.0
             with trace.stage("forward"):
                 for outs_b in self._forward_batches(
                         win_iter, n_last, orthography=orthography,
                         n_windows=n_win,
                         batch_progress=lambda done, total: report_frac(
                             "transcribing", 1, done / total)):
-                    t0 = time.perf_counter()
-                    parts = self._extract_windows(outs_b, *(parts or ()))
-                    t_extract += time.perf_counter() - t0
+                    with trace.stage("extract"):
+                        parts = self._extract_windows(outs_b,
+                                                      *(parts or ()))
+            # The forward's own seconds: its extract spans are its children.
             trace.stages["forward"] = max(
-                0.0, trace.stages.get("forward", 0.0) - t_extract)
-            trace.stages["extract"] = t_extract
+                0.0, trace.stages["forward"] - trace.stages["extract"])
             report("processing", 2)   # step 2: whole-file assembly
         with trace.stage("assemble"):
             result, prof = self._assemble_global(
                 parts or ([], [], []), language=language,
                 speaker_count=speaker_count, duration_s=duration_s,
                 samples=samples, frames_from=frames_from)
-        trace.stages.update(
-            {f"assemble.{k}": round(v, 2) for k, v in prof.items()})
+        trace.stages.update(prof)
         self.last_trace = trace
         trace.log(file=audio_path.name)
         report("done", 3)

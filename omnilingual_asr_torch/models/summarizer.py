@@ -24,6 +24,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..types import EMOTIONS
+from ..utils.tracing import row_steps_useful, span
 from .translation import GreedyDecoder, tokens_to_text, translator_init
 
 
@@ -103,8 +104,13 @@ class SummaryDecoder:
             f = np.full((1, max_len), -1, np.int32)
             f[0, :n_prefix] = prefix_ids
             forced = torch.from_numpy(f)
-        toks = self.decoder.decode(enc, mask, max_len=max_len,
-                                   forced=forced).cpu().numpy()
+        with span("decode.summary", rows=1, rows_run=1,
+                  steps_run=max_len) as sp:
+            toks = self.decoder.decode(enc, mask, max_len=max_len,
+                                       forced=forced).cpu().numpy()
+            if sp.on:
+                sp.counts["row_steps_useful"] = row_steps_useful(toks,
+                                                                 n_prefix)
         text = tokens_to_text(toks[0, n_prefix:], self.cfg.vocab).strip()
         if not text or _degenerate(text):
             return None

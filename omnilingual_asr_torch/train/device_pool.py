@@ -34,6 +34,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..parallel.mesh import Mesh, require_one_process
+from ..utils.tracing import span
 from .step import (Optimizer, OptState, counted_grads, decode_wire,
                    make_optimizer, make_train_step, training_device)
 
@@ -171,14 +172,17 @@ def make_pool_train_step(cfg: PipelineConfig, device=None,
         return batch
 
     def loss_and_grads(params, pool, idx, step: int, scalars, draws=None):
-        return batch_grads(params, gathered(pool, idx, step, scalars, draws),
-                           step)
+        with span("step.gather"):
+            batch = gathered(pool, idx, step, scalars, draws)
+        return batch_grads(params, batch, step)
 
     def pool_step(params, opt_state: OptState, pool, idx, step: int,
                   scalars, draws=None):
-        metrics, grads = loss_and_grads(params, pool, idx, step, scalars,
-                                        draws)
-        tx.update(opt_state, grads, counted_grads(params, grads))
+        with span("train.step", step=step):
+            metrics, grads = loss_and_grads(params, pool, idx, step, scalars,
+                                            draws)
+            with span("step.optimizer"):
+                tx.update(opt_state, grads, counted_grads(params, grads))
         return params, opt_state, step + 1, metrics
 
     def refresh_pool(pool, start: int, new):

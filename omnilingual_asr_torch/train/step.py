@@ -34,6 +34,7 @@ from ..config import PipelineConfig
 from ..device import exact_f32, resolve_device
 from ..models.conformer import asr_forward, asr_init, pooled_speaker_embed
 from ..ops.ctc import ctc_loss, infeasible_rows
+from ..utils.tracing import span
 
 #: Generator seeds of a step's SpecAugment masks and dropout: the step
 #: number plus a salt, as the reference folds the step into PRNGKey(0) and
@@ -505,30 +506,37 @@ def make_train_step(cfg: PipelineConfig, device=None,
         return TrainState(params, tx.init(params), 0)
 
     def loss_and_grads(params, batch, step: int):
-        if from_samples:
-            batch = mel_from_samples(batch, frontend)
-        if augment is not None:
-            from .augment import spec_augment
+        with span("step.forward"):
+            if from_samples:
+                batch = mel_from_samples(batch, frontend)
+            if augment is not None:
+                from .augment import spec_augment
 
-            gen = torch.Generator(device=device).manual_seed(
-                _AUG_SALT + int(step))
-            aug = spec_augment(gen, batch["mel"], batch["mask"], augment)
-            w = batch.get("w_aug", 1.0)
-            batch = dict(batch, mel=batch["mel"] + w * (aug - batch["mel"]))
-        seed = _DROPOUT_SALT + int(step) if dropout else None
-        if with_translator:
-            total, metrics = loss_fn(params["asr"], batch, cfg,
-                                     trans_params=params["translator"],
-                                     dropout_seed=seed)
-        else:
-            total, metrics = loss_fn(params, batch, cfg, dropout_seed=seed)
-        grads = torch.autograd.grad(total, tree_leaves(params),
-                                    allow_unused=True)
+                gen = torch.Generator(device=device).manual_seed(
+                    _AUG_SALT + int(step))
+                aug = spec_augment(gen, batch["mel"], batch["mask"],
+                                   augment)
+                w = batch.get("w_aug", 1.0)
+                batch = dict(batch,
+                             mel=batch["mel"] + w * (aug - batch["mel"]))
+            seed = _DROPOUT_SALT + int(step) if dropout else None
+            if with_translator:
+                total, metrics = loss_fn(params["asr"], batch, cfg,
+                                         trans_params=params["translator"],
+                                         dropout_seed=seed)
+            else:
+                total, metrics = loss_fn(params, batch, cfg,
+                                         dropout_seed=seed)
+        with span("step.backward"):
+            grads = torch.autograd.grad(total, tree_leaves(params),
+                                        allow_unused=True)
         return {k: v.detach() for k, v in metrics.items()}, list(grads)
 
     def train_step(params, opt_state: OptState, batch, step: int):
-        metrics, grads = loss_and_grads(params, batch, step)
-        tx.update(opt_state, grads)
+        with span("train.step", step=step):
+            metrics, grads = loss_and_grads(params, batch, step)
+            with span("step.optimizer"):
+                tx.update(opt_state, grads)
         return params, opt_state, step + 1, metrics
 
     return init_state, train_step, loss_and_grads

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import time
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +32,7 @@ from omnilingual_asr_torch.models import languages, orthography
 from omnilingual_asr_torch.models.conformer import pooled_speaker_embed_np
 from omnilingual_asr_torch.models.summarizer import template_summary
 from omnilingual_asr_torch.ops import ctc
+from omnilingual_asr_torch.utils import tracing
 from omnilingual_asr_torch.utils.tracing import StageTrace
 from test_frontend import make_aiff_bytes
 from test_torch_native_audio import jax_native_ready
@@ -194,13 +196,31 @@ def test_pooled_speaker_embed_equals_jax():
 
 
 def test_stage_trace_accumulates():
+    """A stage's seconds add up over its blocks; under a profiler each
+    block is also a span, and the stage holds the spans' seconds."""
     tr = StageTrace(audio_seconds=10.0)
     with tr.stage("forward"):
-        pass
+        time.sleep(0.01)
     with tr.stage("forward"):
         pass
     tr.stages["extract"] = 0.5
     d = tr.to_dict()
-    assert set(d["stages"]) == {"forward", "extract"}
-    assert d["total_seconds"] >= 0.5
-    assert 0 < tr.rtf <= 20.0
+    assert d == {"stages": {"forward": tr.stages["forward"], "extract": 0.5},
+                 "audio_seconds": 10.0, "n_chips": 1}
+    assert 0.01 <= d["stages"]["forward"] < 1.0
+    assert tracing.spans() == []
+    before = tr.stages["forward"]
+    tracing.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tr.stage("forward"):
+            time.sleep(0.01)
+        with tr.stage("forward"):
+            pass
+    spans = tracing.spans()
+    tracing.clear()
+    assert [s.name for s in spans] == ["forward", "forward"]
+    assert all(s.parent is None and s.request is None for s in spans)
+    took = sum(s.end - s.start for s in spans)
+    assert took >= 0.01
+    assert tr.stages["forward"] - before == pytest.approx(took, abs=1e-3)
